@@ -1,0 +1,25 @@
+"""Kernel dispatch (counterpart of ``repro.kernels.ops``).
+
+The device of the tensor decides: a CUDA tensor goes to the hand-written
+kernel, a CPU tensor to its plain PyTorch version.  There is no switch and
+no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ina_matmul import ina_matmul
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x``: [..., K] @ ``w``: [K, N] -> [..., N] through the INA matmul."""
+    lead = x.shape[:-1]
+    y = ina_matmul(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*lead, w.shape[1])
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """q: [BH, Sq, D]; k/v: [BH, Sk, D] through the flash kernel."""
+    return flash_attention(q, k, v, causal=causal, q_offset=q_offset)

@@ -1,0 +1,252 @@
+"""Shared layer library (counterpart of ``repro.models.layers``).
+
+Plain functions on tensors and nested-dict parameters, with the JAX
+package's layouts at every public function.  Projections go through
+:mod:`repro_torch.parallel.tp`, and so through the INA matmul kernel.
+Causal attention over more than one query goes through the flash kernel;
+single-token decode attention (:func:`attn_full`) stays plain PyTorch, as it
+is plain JAX in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------- #
+# init helpers
+# --------------------------------------------------------------------------- #
+def dense_init(generator: torch.Generator, shape, in_dim: Optional[int] = None,
+               device=None) -> torch.Tensor:
+    """Normal(0, 1/in_dim) in float32, as ``repro.models.layers.dense_init``."""
+    in_dim = in_dim if in_dim is not None else shape[0]
+    scale = 1.0 / math.sqrt(max(in_dim, 1))
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=device) * scale
+
+
+# --------------------------------------------------------------------------- #
+# norms
+# --------------------------------------------------------------------------- #
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    var = x32.square().mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, unbiased=False)
+    out = (x32 - mu) * torch.rsqrt(var + eps)
+    return (out * w.float() + b.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# RoPE
+# --------------------------------------------------------------------------- #
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions [S] -> (cos, sin) each [S, head_dim/2], float32."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=positions.device) / head_dim))
+    ang = positions.float()[:, None] * inv[None, :]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [B, S, H, D]; cos/sin: [S, D/2], or [B, S, D/2] for a position
+    per row (llama-style rotate-half pairs)."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    c = cos[None, :, None, :] if cos.dim() == 2 else cos[:, :, None, :]
+    s = sin[None, :, None, :] if sin.dim() == 2 else sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# attention cores
+# --------------------------------------------------------------------------- #
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """GQA: repeat KV heads to match query heads. k: [B, S, K, D]."""
+    kv_heads = k.shape[2]
+    if kv_heads == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // kv_heads, dim=2)
+
+
+def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool, q_offset=0) -> torch.Tensor:
+    """Exact attention. q: [B,Sq,H,D], k/v: [B,Sk,K,D] -> [B,Sq,H,D].
+
+    GQA is grouped: query head ``h`` reads KV head ``h // (H/K)`` without
+    the cache being repeated.  ``q_offset`` is an int or a per-row [B]
+    tensor (the paged decode step, where every slot has its own position).
+    Scores and the PV product are sums of f32 products, rounded to q's
+    dtype where the reference's einsum rounds.
+    """
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qg = q.reshape(b, sq, kv, g, d).permute(0, 2, 3, 1, 4).float()  # b,k,g,q,d
+    kt = k.permute(0, 2, 1, 3).float()                              # b,k,s,d
+    scores = (qg[:, :, :, :, None, :] * kt[:, :, None, None, :, :]).sum(-1)
+    scores = scores.to(q.dtype).float() * scale                     # b,k,g,q,s
+    if causal:
+        qp = torch.arange(sq, device=q.device)
+        if torch.is_tensor(q_offset) and q_offset.dim() == 1:
+            qp = qp[None, :] + q_offset.to(q.device)[:, None]           # [B, Sq]
+        else:
+            qp = qp[None, :] + int(q_offset)                             # [1, Sq]
+        mask = qp[:, :, None] >= torch.arange(sk, device=q.device)[None, None, :]
+        scores = torch.where(mask[:, None, None], scores,
+                             torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    vt = v.permute(0, 2, 1, 3).float()                              # b,k,s,dv
+    out = (p.float()[..., None] * vt[:, :, None, None, :, :]).sum(-2)
+    out = out.to(q.dtype)                                           # b,k,g,q,dv
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, v.shape[-1])
+
+
+def attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """Causal attention over several queries runs the flash kernel, with KV
+    GQA-expanded as the TPU kernel takes it; the rest is :func:`attn_full`."""
+    b, sq, h, d = q.shape
+    if not causal or sq == 1:
+        return attn_full(q, k, v, causal=causal, q_offset=q_offset)
+
+    def bh(t):
+        return t.transpose(1, 2).reshape(b * h, t.shape[1], t.shape[3]) \
+            .contiguous()
+
+    o = ops.attention(bh(q), bh(_expand_kv(k, h)), bh(_expand_kv(v, h)),
+                      causal=True, q_offset=int(q_offset))
+    return o.reshape(b, h, sq, v.shape[3]).transpose(1, 2)
+
+
+# --------------------------------------------------------------------------- #
+# GQA attention block
+# --------------------------------------------------------------------------- #
+def init_attn(generator, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+              qk_norm: bool = False, qkv_bias: bool = False,
+              device=None) -> dict:
+    p = {
+        "wq": dense_init(generator, (d_model, n_heads * head_dim), device=device),
+        "wk": dense_init(generator, (d_model, n_kv * head_dim), device=device),
+        "wv": dense_init(generator, (d_model, n_kv * head_dim), device=device),
+        "wo": dense_init(generator, (n_heads * head_dim, d_model), device=device),
+    }
+    if qkv_bias:
+        p["bq"] = torch.zeros(n_heads * head_dim, device=device)
+        p["bk"] = torch.zeros(n_kv * head_dim, device=device)
+        p["bv"] = torch.zeros(n_kv * head_dim, device=device)
+    if qk_norm:
+        p["q_norm"] = torch.ones(head_dim, device=device)
+        p["k_norm"] = torch.ones(head_dim, device=device)
+    return p
+
+
+def attn_qkv(p: dict, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
+             cos, sin, eps: float, pctx: Optional[ParallelCtx] = None):
+    """Project to q/k/v heads (+qk-norm, +rope). Returns q,k,v [B,S,H,D]."""
+    b, s, _ = x.shape
+    q = col_linear(x, p["wq"], pctx, p.get("bq")).reshape(b, s, n_heads, head_dim)
+    k = col_linear(x, p["wk"], pctx, p.get("bk")).reshape(b, s, n_kv, head_dim)
+    v = col_linear(x, p["wv"], pctx, p.get("bv")).reshape(b, s, n_kv, head_dim)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], eps)
+        k = rms_norm(k, p["k_norm"], eps)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def attn_block(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
+               head_dim: int, cos, sin, causal: bool = True, eps: float = 1e-5,
+               pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    b, s, _ = x.shape
+    q, k, v = attn_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, eps, pctx)
+    o = attention(q, k, v, causal=causal)
+    return row_linear(o.reshape(b, s, n_heads * head_dim), p["wo"], pctx)
+
+
+def attn_block_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
+                      cache_v: torch.Tensor, pos, *, n_heads: int, n_kv: int,
+                      head_dim: int, cos, sin, eps: float = 1e-5,
+                      pctx: Optional[ParallelCtx] = None):
+    """Single-token decode with a KV cache [B, S, K, D]; returns (y, k, v).
+
+    The new K/V column is written into ``cache_k``/``cache_v`` in place (at
+    ``pos``, an int or a per-row [B] tensor), and attention is masked to
+    cache positions ``<= pos``.
+    """
+    b = x.shape[0]
+    q, k, v = attn_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, eps, pctx)
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        rows = torch.arange(b, device=cache_k.device)
+        cache_k[rows, pos] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, pos] = v[:, 0].to(cache_v.dtype)
+    else:
+        cache_k[:, int(pos)] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, int(pos)] = v[:, 0].to(cache_v.dtype)
+    o = attn_full(q, cache_k.to(q.dtype), cache_v.to(q.dtype), causal=True,
+                  q_offset=pos)
+    y = row_linear(o.reshape(b, 1, n_heads * head_dim), p["wo"], pctx)
+    return y, cache_k, cache_v
+
+
+# --------------------------------------------------------------------------- #
+# SwiGLU / GeLU MLP
+# --------------------------------------------------------------------------- #
+def init_mlp(generator, d_model: int, d_ff: int, gated: bool = True,
+             device=None) -> dict:
+    p = {"w_up": dense_init(generator, (d_model, d_ff), device=device),
+         "w_down": dense_init(generator, (d_ff, d_model), device=device)}
+    if gated:
+        p["w_gate"] = dense_init(generator, (d_model, d_ff), device=device)
+    return p
+
+
+def mlp_block(p: dict, x: torch.Tensor,
+              pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    up = col_linear(x, p["w_up"], pctx)
+    if "w_gate" in p:
+        h = F.silu(col_linear(x, p["w_gate"], pctx)) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return row_linear(h, p["w_down"], pctx)
+
+
+# --------------------------------------------------------------------------- #
+# embedding / logits / loss
+# --------------------------------------------------------------------------- #
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    return table.to(dtype)[tokens]
+
+
+def logits_head(x: torch.Tensor, w: torch.Tensor,
+                pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    return col_linear(x, w, pctx)
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
+              z_coef: float = 0.0) -> torch.Tensor:
+    """Mean next-token cross-entropy; logits [B,S,V], labels [B,S]."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = (lse - gold).mean()
+    if z_coef:
+        loss = loss + z_coef * lse.square().mean()
+    return loss

@@ -1,0 +1,208 @@
+"""Dense decoder-only transformer (counterpart of ``repro.models.transformer``).
+
+Parameters are a nested dict with the reference's names and layouts; layer
+weights are stacked ``[L, ...]`` and a Python loop over the layers takes the
+place of ``lax.scan``.  Matrices are stored in the compute dtype
+(``cfg.dtype``) and vectors (norm weights, biases) in float32: the reference
+keeps float32 masters and casts each matrix to the compute dtype at every
+call, which gives the same numbers, so the port casts once.
+
+``prefill`` and ``decode_step`` write the new K/V into ``cache`` in place
+and return it.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.parallel.tp import ParallelCtx
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def layer(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` tree."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+def _stack(trees: list) -> dict:
+    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+            else torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+# --------------------------------------------------------------------------- #
+# params
+# --------------------------------------------------------------------------- #
+def init_layer(generator, cfg: ModelConfig, device) -> dict:
+    hd = cfg.resolved_head_dim
+    p = {
+        "ln1": torch.ones(cfg.d_model, device=device),
+        "attn": L.init_attn(generator, cfg.d_model, cfg.n_heads,
+                            cfg.n_kv_heads, hd, cfg.qk_norm, cfg.qkv_bias,
+                            device=device),
+        "ln2": torch.ones(cfg.d_model, device=device),
+        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, device=device),
+    }
+    dt = _dtype(cfg)
+    for block in ("attn", "mlp"):
+        p[block] = {k: v.to(dt) if v.dim() >= 2 else v
+                    for k, v in p[block].items()}
+    return p
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """Random weights with the distributions of ``repro``'s ``dense_init``
+    (the draws themselves differ: torch and JAX generators differ)."""
+    dt = _dtype(cfg)
+    stacked = _stack([init_layer(generator, cfg, device)
+                      for _ in range(cfg.n_layers)])
+    params = {
+        "embed": L.dense_init(generator, (cfg.vocab, cfg.d_model),
+                              device=device).to(dt),
+        "layers": stacked,
+        "ln_f": torch.ones(cfg.d_model, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(generator, (cfg.d_model, cfg.vocab),
+                                         in_dim=cfg.d_model,
+                                         device=device).to(dt)
+    return params
+
+
+def _head(params: dict) -> torch.Tensor:
+    """The untied head, or the embedding table read in place as [D, V]."""
+    head = params.get("lm_head")
+    return params["embed"].T if head is None else head
+
+
+# --------------------------------------------------------------------------- #
+# forward (train / prefill)
+# --------------------------------------------------------------------------- #
+def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
+              pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    hd = cfg.resolved_head_dim
+    x = x + L.attn_block(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
+                         cos=cos, sin=sin, causal=True, eps=cfg.norm_eps,
+                         pctx=pctx)
+    return x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                           pctx)
+
+
+def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x = layer_fwd(layer(params["layers"], i), x, cfg, cos, sin, pctx)
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict,
+            pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    x = hidden_states(params, cfg, batch["tokens"], pctx)
+    return L.logits_head(x, _head(params), pctx)
+
+
+def loss(params: dict, cfg: ModelConfig, batch: dict,
+         pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    return L.xent_loss(forward(params, cfg, batch, pctx), batch["labels"])
+
+
+# --------------------------------------------------------------------------- #
+# prefill: batched forward that also populates the KV cache
+# --------------------------------------------------------------------------- #
+def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
+            pctx: Optional[ParallelCtx] = None, pos_offset: int = 0):
+    """Causal forward over a token chunk that writes K/V into the cache.
+
+    ``batch["tokens"]``: [B, C] chunk starting at absolute position
+    ``pos_offset``.  Each layer's attention runs the flash kernel over the
+    cache prefix ``[0, pos_offset + C)`` with query row ``i`` at position
+    ``pos_offset + i``: the reference attends over the whole cache with the
+    mask anchored at ``pos_offset``, and every position past the prefix is
+    masked for every row, so the two agree.  Returns (logits [B, C, V],
+    cache).
+    """
+    tokens = batch["tokens"]
+    b, c = tokens.shape
+    pos_offset = int(pos_offset)
+    end = pos_offset + c
+    if end > cache["k"].shape[2]:
+        raise ValueError(f"chunk [{pos_offset}, {end}) past the cache length "
+                         f"{cache['k'].shape[2]}")
+    hd = cfg.resolved_head_dim
+    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    pos = torch.arange(c, device=tokens.device) + pos_offset
+    cos, sin = L.rope_cos_sin(pos, hd, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        ck, cv = cache["k"][i], cache["v"][i]
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = L.attn_qkv(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads, hd,
+                             cos, sin, cfg.norm_eps, pctx)
+        ck[:, pos_offset:end] = k.to(ck.dtype)
+        cv[:, pos_offset:end] = v.to(cv.dtype)
+        o = L.attention(q, ck[:, :end].to(q.dtype), cv[:, :end].to(q.dtype),
+                        causal=True, q_offset=pos_offset)
+        x = x + L.row_linear(o.reshape(b, c, cfg.n_heads * hd),
+                             lp["attn"]["wo"], pctx)
+        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                            pctx)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return L.logits_head(x, _head(params), pctx), cache
+
+
+# --------------------------------------------------------------------------- #
+# decode
+# --------------------------------------------------------------------------- #
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": shape, "v": shape}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
+    return {name: torch.zeros(shape, dtype=_dtype(cfg), device=device)
+            for name, shape in cache_shapes(cfg, batch, max_seq).items()}
+
+
+def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
+                pctx: Optional[ParallelCtx] = None):
+    """One-token decode.  batch: {tokens: [B, 1], pos: int or [B] tensor};
+    returns (logits [B, 1, V], cache).
+
+    A [B] ``pos`` gives every row its own position (RoPE angle, cache column
+    and mask): row ``i`` computes what a B=1 decode at ``pos[i]`` would,
+    which is the reference's vmap over cache slots written out as a batch.
+    """
+    tokens, pos = batch["tokens"], batch["pos"]
+    hd = cfg.resolved_head_dim
+    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        pos = pos.to(tokens.device)
+        cos, sin = L.rope_cos_sin(pos, hd, cfg.rope_theta)
+        cos, sin = cos[:, None, :], sin[:, None, :]
+    else:
+        pos = int(pos)
+        cos, sin = L.rope_cos_sin(torch.tensor([pos], device=tokens.device),
+                                  hd, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        y, _, _ = L.attn_block_decode(
+            lp["attn"], h, cache["k"][i], cache["v"][i], pos,
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd, cos=cos,
+            sin=sin, eps=cfg.norm_eps, pctx=pctx)
+        x = x + y
+        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                            pctx)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return L.logits_head(x, _head(params), pctx), cache

@@ -1,0 +1,241 @@
+"""ServingEngine: continuous batching + paged KV (counterpart of
+``repro.serve.engine``).
+
+Per iteration it
+
+1. admits queued requests into free cache slots (token boundary only),
+2. prefills each admitted prompt (chunked batched prefill through
+   :func:`~repro_torch.parallel.steps.build_prefill_step`, or a per-token
+   decode loop), writing the prompt's K/V into the paged pool and emitting
+   the first token,
+3. runs one per-slot-position decode step over the whole slot batch,
+   appends one token per active request, and pages out the newly written
+   cache column,
+4. retires finished requests, releasing their blocks and slot.
+
+Each slot computes exactly what the request would compute running alone
+(every row of the decode step has its own position and mask, and the
+matmul kernel sums each row in the same order whatever the batch), so
+joining or leaving the batch cannot change a request's tokens.
+
+The engine takes ``params`` (or a ``param_seed`` for a seeded
+``torch.Generator``) and a ``device``; the reference builds its own
+weights from a JAX key.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch import _device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.api import get_model
+from repro_torch.parallel.steps import (build_paged_serve_step,
+                                        build_prefill_step, build_serve_step)
+from repro_torch.parallel.tp import ParallelCtx
+from repro_torch.serve.batching import Request, RequestState, Scheduler
+from repro_torch.serve.kvcache import PagedKVCache
+
+_NO_ENGINE_FAMILIES = ("encdec", "vlm")
+
+
+@dataclasses.dataclass
+class EngineReport:
+    """What one :meth:`ServingEngine.run` did."""
+
+    requests: list                 # per-request dicts, finish order
+    iterations: int
+    prefill_chunks: int
+    decode_steps: int
+    checks: int                    # paged==monolithic verifications passed
+    prefill_ms: float              # host clock, each phase ends on a sync
+    decode_ms: float
+
+    def tokens(self) -> dict:
+        return {r["rid"]: r["tokens"] for r in self.requests}
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, *, params: Optional[dict] = None,
+                 param_seed: int = 0, device="cuda", slots: int = 4,
+                 max_seq: Optional[int] = None, block_size: int = 16,
+                 num_blocks: Optional[int] = None, prefill_chunk: int = 8,
+                 psum_mode: str = "ina", batched_prefill: bool = True,
+                 policy: str = "fcfs", check: bool = False) -> None:
+        if cfg.family in _NO_ENGINE_FAMILIES:
+            raise ValueError(
+                f"family {cfg.family!r} needs per-request media plumbing; "
+                "use launch/serve.py --legacy-loop")
+        pctx = ParallelCtx(psum_mode=psum_mode)
+        self.device = _device.resolve(device)
+        self.cfg = cfg
+        self.model = get_model(cfg)
+        self.slots = slots
+        self.max_seq = max_seq or cfg.max_seq
+        self.prefill_chunk = prefill_chunk
+        self.check = check
+        if num_blocks is None:
+            # enough for every slot to hold a full-length request
+            num_blocks = slots * math.ceil(self.max_seq / block_size)
+        self.kv = PagedKVCache(cfg, self.max_seq, block_size, num_blocks,
+                               device=self.device)
+        self.sched = Scheduler(slots, self.kv, policy)
+
+        self.step = build_paged_serve_step(self.model, pctx)
+        self.baxis = self.step.cache_batch_axes
+        self.prefill_step = None
+        if batched_prefill and self.model.has_prefill:
+            self.prefill_step = build_prefill_step(self.model, prefill_chunk,
+                                                   pctx)
+            # room for the padded tail of the last chunk
+            plen = math.ceil(self.max_seq / prefill_chunk) * prefill_chunk
+            self._pcache = self.model.init_cache(1, plen, device=self.device)
+        else:
+            # per-token fallback: a B=1 decode loop doubles as prefill
+            self._loop_step = build_serve_step(self.model, pctx)
+
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(param_seed)
+            params = self.model.init(gen, device=self.device)
+        self.params = params
+        self.working = self.model.init_cache(slots, self.max_seq,
+                                             device=self.device)
+
+    # ------------------------------------------------------------------ #
+    def _row(self, cache: dict, slot: int) -> dict:
+        """One slot's cache row: views, batch axis removed."""
+        return {name: leaf.select(self.baxis[name], slot)
+                for name, leaf in cache.items()}
+
+    def _seat(self, st: RequestState) -> None:
+        """Copy the request's pooled row into its working-cache slot (zeros
+        past its length, masked by decode attention)."""
+        row = self.kv.gather_row(st.req.rid, st.req.prompt_len)
+        for name, dst in self._row(self.working, st.slot).items():
+            dst.copy_(row[name])
+
+    def _prefill(self, st: RequestState):
+        """Run the prompt, write its K/V into the pool; return (first
+        generated token, chunk/step count, first-token logits)."""
+        req = st.req
+        prompt = torch.tensor(req.prompt, dtype=torch.long)
+        plen = req.prompt_len
+        steps = 0
+        if self.prefill_step is not None:
+            chunk = self.prefill_chunk
+            for c0 in range(0, plen, chunk):
+                part = prompt[c0:c0 + chunk]
+                toks = torch.zeros((1, chunk), dtype=torch.long)
+                toks[0, :len(part)] = part     # pad tail: causally masked
+                logits, self._pcache = self.prefill_step.fn(
+                    self.params, {"tokens": toks.to(self.device), "pos0": c0},
+                    self._pcache)
+                steps += 1
+            last = logits[0, (plen - 1) % chunk]
+            row = self._row(self._pcache, 0)
+        else:
+            cache = self.model.init_cache(1, self.max_seq, device=self.device)
+            for pos in range(plen):
+                _, cache, lg = self._loop_step.fn(
+                    self.params,
+                    {"tokens": prompt[None, pos:pos + 1].to(self.device),
+                     "pos": pos}, cache)
+                steps += 1
+            last = lg[0]
+            row = self._row(cache, 0)
+        self.kv.write_range(req.rid, 0, row, plen)
+        return int(torch.argmax(last)), steps, last
+
+    # ------------------------------------------------------------------ #
+    def run(self, requests: list[Request], max_iters: int = 100_000,
+            ) -> EngineReport:
+        for req in requests:
+            if req.prompt is None:
+                raise ValueError(f"{req.rid}: engine requests need tokens")
+            if req.total_positions > self.max_seq:
+                raise ValueError(f"{req.rid}: prompt+max_new "
+                                 f"{req.total_positions} > max_seq "
+                                 f"{self.max_seq}")
+            self.sched.submit(req)
+
+        finished, it, pf_chunks, dsteps, checks = [], 0, 0, 0, 0
+        prefill_s = decode_s = 0.0
+        first_logits = {}
+        while self.sched.has_work:
+            if it >= max_iters:
+                raise RuntimeError(f"engine exceeded {max_iters} iterations")
+            admitted = self.sched.admit(now=it)
+            for st in admitted:
+                t0 = time.perf_counter()
+                first, steps, first_logits[st.req.rid] = self._prefill(st)
+                self._seat(st)
+                prefill_s += time.perf_counter() - t0
+                pf_chunks += steps
+                st.generated.append(first)
+                st.first_token_time = it
+            if not self.sched.active:
+                if len(self.sched.queue):
+                    head = self.sched.queue.peek()
+                    raise RuntimeError(
+                        f"request {head.rid!r} can never be admitted "
+                        f"(needs {self.kv.blocks_for(head.total_positions)} "
+                        f"blocks of {self.kv.allocator.num_blocks})")
+                break
+            checks += self._retire(it, finished, first_logits)
+            if not self.sched.active:
+                it += 1
+                continue
+
+            t0 = time.perf_counter()
+            toks = torch.zeros((self.slots, 1), dtype=torch.long)
+            pos = torch.zeros((self.slots,), dtype=torch.long)
+            for slot, st in self.sched.active.items():
+                toks[slot, 0] = st.generated[-1]
+                pos[slot] = st.pos - 1           # feed token at its position
+            nxt, self.working = self.step.fn(
+                self.params, {"tokens": toks.to(self.device),
+                              "pos": pos.to(self.device)}, self.working)
+            nxt = nxt.tolist()
+            dsteps += 1
+            for slot, st in list(self.sched.active.items()):
+                self.kv.write_range(st.req.rid, st.pos - 1,
+                                    self._row(self.working, slot), 1)
+                st.generated.append(nxt[slot])
+            decode_s += time.perf_counter() - t0
+            it += 1
+            checks += self._retire(it, finished, first_logits)
+        self.kv.check()
+        return EngineReport(requests=finished, iterations=it,
+                            prefill_chunks=pf_chunks, decode_steps=dsteps,
+                            checks=checks, prefill_ms=prefill_s * 1e3,
+                            decode_ms=decode_s * 1e3)
+
+    def _retire(self, it: int, finished: list, first_logits: dict) -> int:
+        checks = 0
+        for slot in sorted(self.sched.active):
+            st = self.sched.active[slot]
+            if not st.done:
+                continue
+            if self.check:
+                # every position actually fed is pooled bit-identically
+                covered = st.req.prompt_len + len(st.generated) - 1
+                self.kv.assert_matches(st.req.rid,
+                                       self._row(self.working, slot),
+                                       min(covered, self.max_seq))
+                self.kv.check()
+                checks += 1
+            self.sched.finish(slot, now=it)
+            finished.append({
+                "rid": st.req.rid, "slot": slot,
+                "prompt_len": st.req.prompt_len,
+                "tokens": list(st.generated),
+                "first_logits": first_logits.pop(st.req.rid),
+                "admit_iter": int(st.admit_time),
+                "first_token_iter": int(st.first_token_time),
+                "finish_iter": it,
+            })
+        return checks

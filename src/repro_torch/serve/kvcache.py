@@ -1,0 +1,262 @@
+"""Paged KV cache (counterpart of ``repro.serve.kvcache``).
+
+The serving engine keeps two views of decode state:
+
+* a **monolithic working cache** (``model.init_cache(slots, max_seq)``)
+  that the decode and prefill steps read and write;
+* this **paged pool**, the authoritative per-request store.  Every leaf
+  of the dense family's cache has a sequence axis and is chopped into
+  fixed-size position blocks owned by a free-list :class:`BlockAllocator`.
+  Leaves without one (SSM states, conv tails) come with those families.
+
+The pool is torch tensors on the model's device.  :meth:`PagedKVCache.
+write_range` copies only the positions asked for, device to device; the
+reference copies the whole slot row to the host at every decode step.  A
+request's row round-trips bit-identically: :meth:`PagedKVCache.gather_row`
+reassembles exactly the row the monolithic cache held (zeros past the
+request's length, which decode attention masks out).
+
+Admission reserves a request's worst-case length (prompt + max_new) up
+front, as in the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from collections import Counter
+
+import torch
+
+from repro_torch import _device
+
+
+class BlockAllocator:
+    """Free-list allocator over ``num_blocks`` fixed-size blocks.
+
+    Invariants (checked by :meth:`check`): every block is either free or
+    owned by exactly one request (no aliasing), and ``free + live ==
+    total`` (no leaks).  Allocation order is deterministic (lowest block
+    id first).
+    """
+
+    def __init__(self, num_blocks: int) -> None:
+        if num_blocks <= 0:
+            raise ValueError(f"num_blocks must be positive, got {num_blocks}")
+        self.num_blocks = num_blocks
+        self._free = list(range(num_blocks - 1, -1, -1))   # pop() -> lowest id
+        self.tables: dict[object, list[int]] = {}
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def live_blocks(self) -> int:
+        return sum(len(t) for t in self.tables.values())
+
+    def can_alloc(self, n: int) -> bool:
+        return len(self._free) >= n
+
+    def alloc(self, rid, n: int) -> list[int]:
+        """Reserve ``n`` blocks for ``rid`` (must not already own any)."""
+        if rid in self.tables:
+            raise KeyError(f"request {rid!r} already has a block table")
+        if n < 0 or not self.can_alloc(n):
+            raise MemoryError(
+                f"need {n} blocks, {len(self._free)} free "
+                f"(of {self.num_blocks})")
+        blocks = [self._free.pop() for _ in range(n)]
+        self.tables[rid] = blocks
+        return blocks
+
+    def extend(self, rid, n: int) -> list[int]:
+        """Append ``n`` more blocks to an existing table."""
+        if rid not in self.tables:
+            raise KeyError(f"request {rid!r} has no block table to extend")
+        if n < 0 or not self.can_alloc(n):
+            raise MemoryError(f"need {n} more blocks, {len(self._free)} free")
+        new = [self._free.pop() for _ in range(n)]
+        self.tables[rid].extend(new)
+        return new
+
+    def free(self, rid) -> int:
+        """Release every block ``rid`` owns; returns how many."""
+        blocks = self.tables.pop(rid)
+        self._free.extend(reversed(blocks))
+        self._free.sort(reverse=True)    # keep pop() order deterministic
+        return len(blocks)
+
+    def findings(self) -> list[str]:
+        """Every no-alias / no-leak violation, as text."""
+        out = []
+        nb = self.num_blocks
+        out += [f"free block id {b!r} out of range 0..{nb - 1}"
+                for b in self._free if not (isinstance(b, int) and 0 <= b < nb)]
+        out += [f"block {b} appears {k} times in the free list"
+                for b, k in sorted(Counter(self._free).items()) if k > 1]
+        owner: dict[int, object] = {}
+        n_live = 0
+        for rid in sorted(self.tables, key=repr):
+            for b in self.tables[rid]:
+                n_live += 1
+                if not (isinstance(b, int) and 0 <= b < nb):
+                    out.append(f"table {rid!r}: block id {b!r} out of range")
+                    continue
+                if b in owner:
+                    out.append(f"table {rid!r}: block {b} aliased (also "
+                               f"owned by {owner[b]!r})")
+                owner[b] = rid
+        out += [f"block {b} is both free and mapped to {owner[b]!r}"
+                for b in sorted(set(self._free) & set(owner))]
+        if n_live + len(self._free) != nb:
+            out.append(f"leak: {n_live} live + {len(self._free)} free != "
+                       f"{nb} total")
+        return out
+
+    def check(self) -> None:
+        """Raise ``AssertionError`` on any violation (explicitly, so the
+        check survives ``python -O``)."""
+        findings = self.findings()
+        if findings:
+            raise AssertionError("; ".join(findings))
+
+
+@dataclasses.dataclass(frozen=True)
+class _LeafMeta:
+    """Layout of one cache leaf, batch axis removed (a 'row')."""
+
+    name: str
+    batch_axis: int        # axis index in the *batched* leaf; the max_seq
+                           # axis sits there once the batch axis is removed
+    row_shape: tuple       # shape with the batch axis removed
+    dtype: torch.dtype
+
+
+class PagedKVCache:
+    """Paged store for one engine's decode state.
+
+    ``row`` dicts below always mean a single request's cache with the batch
+    axis removed (what ``leaf.select(batch_axis, slot)`` yields); paged
+    leaves keep their native axis order, with the sequence axis sitting
+    where the batch axis used to be.
+    """
+
+    def __init__(self, cfg, max_seq: int, block_size: int, num_blocks: int,
+                 *, device="cuda") -> None:
+        from repro_torch.models.api import cache_batch_axes, get_model
+        if max_seq % block_size:
+            raise ValueError(f"block_size {block_size} must divide "
+                             f"max_seq {max_seq}")
+        self.cfg = cfg
+        self.device = _device.resolve(device)
+        self.max_seq = max_seq
+        self.block_size = block_size
+        self.allocator = BlockAllocator(num_blocks)
+
+        shapes = get_model(cfg).cache_shapes(1, max_seq)
+        baxes = cache_batch_axes(cfg)
+        dtype = getattr(torch, cfg.dtype)
+        self.leaves: list[_LeafMeta] = []
+        self._pools: dict[str, torch.Tensor] = {}
+        for name, shape in shapes.items():
+            a = baxes[name]
+            row = shape[:a] + shape[a + 1:]
+            if not (a < len(row) and row[a] == max_seq):
+                raise NotImplementedError(
+                    f"cache leaf {name!r} has no sequence axis; unpaged "
+                    "leaves come with the ssm/hybrid families")
+            self.leaves.append(_LeafMeta(name, a, row, dtype))
+            self._pools[name] = torch.zeros(
+                (num_blocks, block_size) + row[:a] + row[a + 1:],
+                dtype=dtype, device=self.device)
+        self._length: dict[object, int] = {}
+
+    # ------------------------------------------------------------------ #
+    def blocks_for(self, positions: int) -> int:
+        return math.ceil(positions / self.block_size)
+
+    def can_admit(self, positions: int) -> bool:
+        return self.allocator.can_alloc(self.blocks_for(positions))
+
+    def admit(self, rid, positions: int) -> None:
+        """Reserve blocks for ``positions`` cache slots (prompt + max new
+        tokens: worst case up front)."""
+        self.allocator.alloc(rid, self.blocks_for(positions))
+        self._length[rid] = 0
+
+    def release(self, rid) -> int:
+        self._length.pop(rid)
+        return self.allocator.free(rid)
+
+    def length(self, rid) -> int:
+        return self._length[rid]
+
+    # ------------------------------------------------------------------ #
+    def _slots(self, rid, pos0: int, length: int):
+        """(block ids, offsets) of positions ``[pos0, pos0+length)``."""
+        table = torch.tensor(self.allocator.tables[rid], dtype=torch.long,
+                             device=self.device)
+        pos = torch.arange(pos0, pos0 + length, device=self.device)
+        return table[pos // self.block_size], pos % self.block_size
+
+    def write_range(self, rid, pos0: int, row: dict, length: int) -> None:
+        """Store positions ``[pos0, pos0+length)`` of ``row`` (whose leaves
+        carry >= pos0+length positions).  Only those positions are copied."""
+        blk, off = self._slots(rid, pos0, length)
+        for meta in self.leaves:
+            seq_front = row[meta.name].movedim(meta.batch_axis, 0)
+            self._pools[meta.name][blk, off] = \
+                seq_front[pos0:pos0 + length].to(meta.dtype)
+        self._length[rid] = max(self._length[rid], pos0 + length)
+
+    def gather_row(self, rid, length: int | None = None) -> dict:
+        """Reassemble ``rid``'s row (native layout): block contents for
+        positions < length, zeros beyond (exactly the monolithic slot)."""
+        length = self._length[rid] if length is None else length
+        blk, off = self._slots(rid, 0, length)
+        out = {}
+        for meta in self.leaves:
+            pool = self._pools[meta.name]
+            seq_front = torch.zeros((self.max_seq,) + pool.shape[2:],
+                                    dtype=meta.dtype, device=self.device)
+            seq_front[:length] = pool[blk, off]
+            out[meta.name] = seq_front.movedim(0, meta.batch_axis)
+        return out
+
+    def assert_matches(self, rid, row: dict, length: int) -> None:
+        """Bitwise: pooled content == ``row`` on positions < length (the
+        paged==monolithic invariant)."""
+        mine = self.gather_row(rid, length)
+        for meta in self.leaves:
+            theirs = row[meta.name].narrow(meta.batch_axis, 0, length)
+            ours = mine[meta.name].narrow(meta.batch_axis, 0, length)
+            if not torch.equal(theirs.to(ours.device), ours):
+                raise AssertionError(
+                    f"paged/monolithic mismatch on leaf {meta.name} "
+                    f"for request {rid!r}")
+
+    def findings(self) -> list[str]:
+        """Allocator invariants plus the paged bookkeeping: length keys
+        match block tables, and every length is covered by blocks."""
+        out = self.allocator.findings()
+        tables, keys = set(self.allocator.tables), set(self._length)
+        if keys != tables:
+            out.append(f"length keys disagree with block tables "
+                       f"(difference: {sorted(keys ^ tables, key=repr)})")
+        for rid in sorted(self._length, key=repr):
+            length = self._length[rid]
+            if length < 0 or length > self.max_seq:
+                out.append(f"request {rid!r}: length {length} outside "
+                           f"0..{self.max_seq}")
+                continue
+            table = self.allocator.tables.get(rid, ())
+            need = self.blocks_for(length)
+            if need > len(table):
+                out.append(f"request {rid!r}: length {length} needs {need} "
+                           f"blocks but the table holds {len(table)}")
+        return out
+
+    def check(self) -> None:
+        findings = self.findings()
+        if findings:
+            raise AssertionError("; ".join(findings))

@@ -1,0 +1,103 @@
+"""The port stands alone: no JAX, nothing of ``repro``, and no quiet CPU.
+
+* every ``repro_torch`` module, and ``chip_smoke.py``'s imports, load in a
+  process where ``import jax`` fails;
+* an AST scan finds no ``import jax`` and no import of ``repro`` (other than
+  ``repro_torch``) in ``src/repro_torch/`` or ``chip_smoke.py``;
+* entry points default to CUDA and raise where no GPU is present, instead
+  of running on the CPU.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+    .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+            f"for m in {MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "bad = sorted(m for m in sys.modules if m == 'repro' or "
+            "m.startswith(('repro.', 'jax.')))\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def _banned(tree: ast.AST) -> list[str]:
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "repro"):
+                found.append(f"line {node.lineno}: {name}")
+    return found
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    assert not _banned(ast.parse(path.read_text())), path
+
+
+def test_scan_catches_banned_imports():
+    src = ("import jax.numpy as jnp\nfrom repro.configs import ARCHS\n"
+           "import repro\nfrom repro_torch import convert\nimport torch\n")
+    assert len(_banned(ast.parse(src))) == 3
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CUDA default is valid here")
+
+
+def _cfg():
+    from repro_torch.configs import ARCHS
+    return ARCHS["qwen2-1.5b"].reduced()
+
+
+@pytest.mark.parametrize("entry", ["init", "init_cache", "engine", "kvcache",
+                                   "convert", "launcher"])
+def test_entry_points_default_to_cuda(no_gpu, entry):
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch import serve
+    from repro_torch.models.api import get_model
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.kvcache import PagedKVCache
+
+    cfg = _cfg()
+    calls = {
+        "init": lambda: get_model(cfg).init(),
+        "init_cache": lambda: get_model(cfg).init_cache(1, 8),
+        "engine": lambda: ServingEngine(cfg, slots=1, max_seq=8,
+                                        block_size=4),
+        "kvcache": lambda: PagedKVCache(cfg, 8, 4, 2),
+        "convert": lambda: params_from_jax({"ln_f": [1.0]}, cfg),
+        "launcher": lambda: serve.main(["--arch", "qwen2-1.5b", "--reduced"]),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()

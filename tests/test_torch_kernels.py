@@ -1,0 +1,222 @@
+"""The port's kernels against the JAX package's Pallas kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; the JAX side runs
+the Pallas kernels in interpret mode, as tests/test_kernels.py does.  Shapes
+and tolerances are those of tests/test_kernels.py.  Inputs come from numpy
+with a fixed seed and go to both.  The ``gpu`` tests hold the CUDA kernels
+against the plain versions and run only where a GPU is present.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as jflash
+from repro.kernels.ina_matmul import ina_matmul as jina
+from repro.models.layers import attn_full as jattn_full
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.ina_matmul import ina_matmul, ina_matmul_plain
+
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _normal(seed, *shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _pair(arr, dtype):
+    """The same values as a JAX array and a CPU torch tensor of ``dtype``."""
+    return (jnp.asarray(arr, _JAX[dtype]),
+            torch.from_numpy(arr).to(_TORCH[dtype]))
+
+
+def _np(t):
+    return np.asarray(t, np.float32) if not torch.is_tensor(t) \
+        else t.float().numpy()
+
+
+# --------------------------------------------------------------------------- #
+# ina_matmul
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 512, 128),
+                                   (128, 1024, 256), (384, 256, 384)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ina_matmul_matches_pallas(m, k, n, dtype):
+    jx, tx = _pair(_normal(1, m, k), dtype)
+    jw, tw = _pair(_normal(2, k, n), dtype)
+    want = jina(jx, jw, bm=128, bn=128, bk=128, interpret=True)
+    got = ina_matmul(tx, tw)
+    assert got.dtype == _TORCH[dtype] and got.shape == (m, n)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol * 10)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ina_matmul_tied_head_strided(dtype):
+    """w = table.T is read in place (unit stride along K)."""
+    jt, tt = _pair(_normal(3, 384, 128), dtype)
+    jx, tx = _pair(_normal(4, 128, 128), dtype)
+    want = jina(jx, jt.T, bm=128, bn=128, bk=128, interpret=True)
+    assert tt.T.stride() == (1, 128)
+    got = ina_matmul(tx, tt.T)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol * 10)
+
+
+@pytest.mark.parametrize("m,k,n", [(3, 100, 200), (2, 1536, 40), (1, 7, 1)])
+def test_ina_matmul_ragged_matches_ref(m, k, n):
+    """Any M, N, K: the Pallas kernel asserts divisibility, the port masks
+    the edges; both equal the plain product."""
+    jx, tx = _pair(_normal(5, m, k), "float32")
+    jw, tw = _pair(_normal(6, k, n), "float32")
+    want = _np(jref.matmul_ref(jx, jw))
+    np.testing.assert_allclose(_np(ina_matmul(tx, tw)), want,
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(_np(ref.matmul_ref(tx, tw)), want,
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_ina_matmul_equals_eject_inject():
+    """Both accumulation strategies are numerically identical (fp32), in
+    the port and against the reference's eject/inject baseline."""
+    jx, tx = _pair(_normal(7, 128, 512), "float32")
+    jw, tw = _pair(_normal(8, 512, 128), "float32")
+    a = ina_matmul(tx, tw)
+    b = ref.matmul_eject_inject(tx, tw, bk=128)
+    c = jref.matmul_eject_inject(jx, jw, bk=128)
+    np.testing.assert_allclose(_np(a), _np(b), rtol=2e-6, atol=1e-4)
+    np.testing.assert_allclose(_np(b), _np(c), rtol=2e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("bad,err", [
+    (lambda: ina_matmul(torch.ones(2, 3), torch.ones(4, 5)), ValueError),
+    (lambda: ina_matmul(torch.ones(2, 3), torch.ones(3, 5,
+                                                     dtype=torch.bfloat16)),
+     TypeError),
+    (lambda: ina_matmul(torch.ones(2, 3, dtype=torch.float64),
+                        torch.ones(3, 5, dtype=torch.float64)), TypeError),
+    (lambda: ina_matmul(torch.ones(3, 2).T, torch.ones(3, 5)), ValueError),
+    (lambda: ina_matmul(torch.ones(2, 3), torch.ones(3, 10)[:, ::2]),
+     ValueError),
+    (lambda: ina_matmul(torch.ones(0, 3), torch.ones(3, 5)), ValueError),
+    (lambda: flash_attention(torch.ones(2, 4, 8), torch.ones(2, 5, 8),
+                             torch.ones(2, 6, 8)), ValueError),
+    (lambda: flash_attention(torch.ones(2, 4, 256), torch.ones(2, 4, 256),
+                             torch.ones(2, 4, 256)), ValueError),
+    (lambda: flash_attention(torch.ones(2, 4, 8), torch.ones(2, 4, 8),
+                             torch.ones(2, 4, 8), q_offset=-1), ValueError),
+    (lambda: flash_attention(torch.ones(2, 4, 8),
+                             torch.ones(2, 4, 8, dtype=torch.bfloat16),
+                             torch.ones(2, 4, 8)), TypeError),
+    (lambda: flash_attention(torch.ones(2, 8, 4).transpose(1, 2),
+                             torch.ones(2, 4, 8), torch.ones(2, 4, 8)),
+     ValueError),
+], ids=["k-mismatch", "mixed-dtype", "float64", "strided-x", "strided-w",
+        "empty", "kv-shape", "head-dim", "neg-offset", "attn-mixed-dtype",
+        "strided-q"])
+def test_wrappers_reject_what_the_kernels_do_not_take(bad, err):
+    with pytest.raises(err):
+        bad()
+
+
+# --------------------------------------------------------------------------- #
+# flash attention
+# --------------------------------------------------------------------------- #
+def _qkv(seed, bh, sq, sk, d, dtype):
+    return [_pair(_normal(seed + i, bh, s, d), dtype)
+            for i, s in enumerate((sq, sk, sk))]
+
+
+@pytest.mark.parametrize("s,d,causal", [(256, 64, True), (256, 64, False),
+                                        (512, 128, True), (1024, 64, True)])
+def test_flash_attention_matches_pallas(s, d, causal):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(10, 4, s, s, d, "float32")
+    want = jflash(jq, jk, jv, bq=128, bkv=128, causal=causal, interpret=True)
+    got = flash_attention(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_bf16_matches_pallas():
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(20, 2, 256, 256, 64, "bfloat16")
+    want = jflash(jq, jk, jv, bq=128, bkv=128, interpret=True)
+    got = flash_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("sq,sk", [(128, 256), (384, 128), (256, 512)])
+def test_flash_attention_rectangular_matches_pallas(sq, sk):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(30, 2, sq, sk, 64, "float32")
+    want = jflash(jq, jk, jv, bq=128, bkv=128, causal=False, interpret=True)
+    got = flash_attention(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def _to_bshd(x, b, h):
+    """[B*H, S, D] -> [B, S, H, D] (numpy)."""
+    bh, s, d = x.shape
+    return x.reshape(b, h, s, d).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("sq,sk,off,d", [(64, 192, 128, 64), (50, 77, 27, 16),
+                                         (1, 40, 39, 16), (16, 16, 0, 64),
+                                         (8, 40, 5, 16)])
+def test_q_offset_matches_attn_full(sq, sk, off, d):
+    """attention_ref(q_offset=) and the plain flash version against the
+    reference's attn_full(q_offset=): query row i at position off + i."""
+    b, h = 2, 3
+    q, k, v = (_normal(40 + i, b * h, s, d) for i, s in enumerate((sq, sk, sk)))
+    want = jattn_full(*(jnp.asarray(_to_bshd(t, b, h)) for t in (q, k, v)),
+                      causal=True, q_offset=off)
+    want = np.asarray(want).transpose(0, 2, 1, 3).reshape(b * h, sq, d)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    np.testing.assert_allclose(
+        ref.attention_ref(tq, tk, tv, q_offset=off).numpy(), want,
+        rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        flash_attention(tq, tk, tv, q_offset=off).numpy(), want,
+        rtol=2e-5, atol=2e-5)
+
+
+# --------------------------------------------------------------------------- #
+# CUDA kernels against their plain versions (only where a GPU is present)
+# --------------------------------------------------------------------------- #
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,dtype", [(64, 1536, 256, "bfloat16"),
+                                         (2, 8960, 1536, "bfloat16"),
+                                         (3, 100, 200, "bfloat16"),
+                                         (5, 1001, 201, "bfloat16"),
+                                         (70, 1536, 130, "float32")])
+def test_ina_matmul_kernel_matches_plain(cuda, m, k, n, dtype):
+    x = torch.from_numpy(_normal(50, m, k)).to(cuda, _TORCH[dtype])
+    w = torch.from_numpy(_normal(51, k, n)).to(cuda, _TORCH[dtype])
+    got, want = ina_matmul(x, w), ina_matmul_plain(x, w)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,off,d,dtype", [(256, 256, 0, 128, "bfloat16"),
+                                               (64, 192, 128, 128, "bfloat16"),
+                                               (50, 77, 27, 16, "float32")])
+def test_flash_attention_kernel_matches_plain(cuda, sq, sk, off, d, dtype):
+    q, k, v = (torch.from_numpy(_normal(60 + i, 12, s, d)).to(cuda, _TORCH[dtype])
+               for i, s in enumerate((sq, sk, sk)))
+    got = flash_attention(q, k, v, q_offset=off)
+    want = flash_attention_plain(q, k, v, q_offset=off)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -1,0 +1,185 @@
+"""The port's dense model against the JAX package's, on reduced configs.
+
+Weights come from the reference (``Model.init(jax.random.PRNGKey(s))``) and
+reach the port through ``params_from_jax``; token inputs come from numpy.
+Both run in float32 on the CPU (the port's plain kernel versions), held to
+rtol/atol 1e-4.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCHS as JARCHS
+from repro.models.api import get_model as jget_model
+
+from repro_torch.configs import ARCHS
+from repro_torch.convert import params_from_jax
+from repro_torch.models.api import cache_batch_axes, get_model
+
+ARCH_NAMES = ["qwen2-1.5b", "llama3-8b"]
+TOL = dict(rtol=1e-4, atol=1e-4)
+B, S = 2, 40
+
+
+@pytest.fixture(scope="module", params=ARCH_NAMES)
+def pair(request):
+    """(reference model, its params, port model, port params)."""
+    name = request.param
+    jm = jget_model(JARCHS[name].reduced())
+    jp = jm.init(jax.random.PRNGKey(3))
+    cfg = ARCHS[name].reduced()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(JARCHS[name].reduced())
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    return jm, jp, get_model(cfg), tp
+
+
+def _tokens(seed, b, s, vocab):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(np.int32)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **TOL)
+
+
+def test_params_keep_names_and_shapes(pair):
+    jm, jp, m, tp = pair
+    jl = jax.tree_util.tree_leaves_with_path(jp)
+    tl = {jax.tree_util.keystr(p): v for p, v in
+          jax.tree_util.tree_leaves_with_path(tp)}
+    assert len(jl) == len(tl)
+    for path, leaf in jl:
+        assert tuple(tl[jax.tree_util.keystr(path)].shape) == leaf.shape
+
+
+@pytest.mark.parametrize("seq", [S, 64])
+def test_forward_matches(pair, seq):
+    """64 tokens take the reference's chunked attention (attn_chunk 32),
+    40 its full attention; the port runs the flash kernel for both."""
+    jm, jp, m, tp = pair
+    toks = _tokens(1, B, seq, m.cfg.vocab)
+    want = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    got = m.forward(tp, {"tokens": torch.from_numpy(toks).long()})
+    assert got.shape == (B, seq, m.cfg.vocab)
+    _close(got, want)
+
+
+def test_loss_matches(pair):
+    jm, jp, m, tp = pair
+    toks = _tokens(2, B, S, m.cfg.vocab)
+    labels = _tokens(3, B, S, m.cfg.vocab)
+    want = jm.loss(jp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)})
+    got = m.loss(tp, {"tokens": torch.from_numpy(toks).long(),
+                      "labels": torch.from_numpy(labels).long()})
+    np.testing.assert_allclose(float(got), float(want), **TOL)
+
+
+@pytest.mark.parametrize("chunks", [(0, 12), (0, 8, 20), (5, 13)],
+                         ids=["one-chunk", "three-chunks", "offset-start"])
+def test_prefill_matches(pair, chunks):
+    """Chunked prefill: logits and cache after every chunk, with
+    pos_offset 0 and > 0."""
+    jm, jp, m, tp = pair
+    max_seq = 32
+    toks = _tokens(4, B, max_seq, m.cfg.vocab)
+    jc = jm.init_cache(B, max_seq)
+    tc = m.init_cache(B, max_seq, device="cpu")
+    bounds = list(chunks) + [chunks[-1] + 7]
+    for p0, p1 in zip(bounds[:-1], bounds[1:]):
+        jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, p0:p1])}, jc,
+                            pos_offset=p0)
+        tl, tc = m.prefill(tp, {"tokens": torch.from_numpy(toks[:, p0:p1]).long()},
+                           tc, pos_offset=p0)
+        _close(tl, jl)
+        for leaf in ("k", "v"):
+            _close(tc[leaf], jc[leaf])
+
+
+def test_prefill_rejects_chunk_past_cache(pair):
+    jm, jp, m, tp = pair
+    tc = m.init_cache(1, 8, device="cpu")
+    with pytest.raises(ValueError, match="past the cache"):
+        m.prefill(tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, tc,
+                  pos_offset=6)
+
+
+def test_decode_step_matches(pair):
+    """Prefill 9 tokens, then decode 5 steps at a shared scalar position."""
+    jm, jp, m, tp = pair
+    max_seq = 16
+    toks = _tokens(5, B, 14, m.cfg.vocab)
+    jc = jm.init_cache(B, max_seq)
+    tc = m.init_cache(B, max_seq, device="cpu")
+    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :9])}, jc)
+    _, tc = m.prefill(tp, {"tokens": torch.from_numpy(toks[:, :9]).long()}, tc)
+    for pos in range(9, 14):
+        jl, jc = jm.decode_step(jp, {"tokens": jnp.asarray(toks[:, pos:pos + 1]),
+                                     "pos": jnp.asarray(pos, jnp.int32)}, jc)
+        tl, tc = m.decode_step(tp, {"tokens": torch.from_numpy(
+            toks[:, pos:pos + 1]).long(), "pos": pos}, tc)
+        _close(tl, jl)
+        _close(tc["k"], jc["k"])
+        _close(tc["v"], jc["v"])
+
+
+def test_per_row_decode_matches_b1_reference(pair):
+    """A [B] ``pos`` (the paged step) equals a B=1 reference decode per row
+    at its own position: the reference's vmap, written out as a batch."""
+    jm, jp, m, tp = pair
+    max_seq = 16
+    lens = [3, 9, 6]
+    toks = _tokens(6, len(lens), 10, m.cfg.vocab)
+    tc = m.init_cache(len(lens), max_seq, device="cpu")
+    jcaches = []
+    for r, n in enumerate(lens):
+        jc = jm.init_cache(1, max_seq)
+        _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[r:r + 1, :n])}, jc)
+        jcaches.append(jc)
+        tc1 = m.init_cache(1, max_seq, device="cpu")
+        _, tc1 = m.prefill(tp, {"tokens": torch.from_numpy(toks[r:r + 1, :n]).long()},
+                           tc1)
+        for leaf in ("k", "v"):
+            tc[leaf][:, r] = tc1[leaf][:, 0]
+    pos = torch.tensor(lens)
+    feed = torch.from_numpy(np.stack([toks[r, n] for r, n in enumerate(lens)]))
+    tl, tc = m.decode_step(tp, {"tokens": feed[:, None].long(), "pos": pos}, tc)
+    for r, n in enumerate(lens):
+        jl, jc = jm.decode_step(jp, {"tokens": jnp.asarray(toks[r:r + 1, n:n + 1]),
+                                     "pos": jnp.asarray(n, jnp.int32)}, jcaches[r])
+        _close(tl[r:r + 1], jl)
+        _close(tc["k"][:, r:r + 1], jc["k"])
+
+
+def test_cache_layout(pair):
+    jm, jp, m, tp = pair
+    jc = jm.init_cache(3, 8)
+    tc = m.init_cache(3, 8, device="cpu")
+    assert {k: tuple(v.shape) for k, v in tc.items()} == \
+        {k: v.shape for k, v in jc.items()}
+    assert cache_batch_axes(m.cfg) == {"k": 1, "v": 1}
+
+
+@pytest.mark.parametrize("norm", ["rms_norm", "layer_norm"])
+def test_norms_match(norm):
+    from repro.models import layers as jlayers
+
+    from repro_torch.models import layers
+    rng = np.random.default_rng(8)
+    x, w, b = (rng.standard_normal(s).astype(np.float32)
+               for s in ((3, 5, 64), (64,), (64,)))
+    args = (x, w, b) if norm == "layer_norm" else (x, w)
+    want = getattr(jlayers, norm)(*(jnp.asarray(a) for a in args), eps=1e-5)
+    got = getattr(layers, norm)(*(torch.from_numpy(a) for a in args), eps=1e-5)
+    _close(got, want)
+
+
+def test_other_families_not_ported():
+    from repro_torch.configs.base import ModelConfig
+    cfg = ModelConfig(name="x", family="moe", n_layers=1, d_model=8,
+                      n_heads=1, n_kv_heads=1, d_ff=8, vocab=8)
+    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+        get_model(cfg)
