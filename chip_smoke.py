@@ -6,10 +6,11 @@
 Phases; any failure raises and the process exits non-zero:
 
 1. device check: a CUDA device, its name and power limit, TF32 off;
-2. both hand-written CUDA kernels built from ``src/repro_torch/kernels/csrc``
+2. the three hand-written CUDA kernels built from
+   ``src/repro_torch/kernels/csrc`` (one nvcc each, all started together)
    and held against their plain PyTorch versions at the shapes and dtypes
-   that phases 3 (bf16) and 4 (float32) give them, each timed beside its
-   bound, its plain version and one library call;
+   that phases 3-6 give them, each timed beside its bound, its plain
+   version and one library call where one computes the same function;
 3. qwen2-1.5b at its published widths (bf16, seeded random weights) served
    through the port's ``ServingEngine``: 4 requests on 2 slots, prompt 128,
    32 generated tokens, prefill chunk 64.  The kernels' launch counters must
@@ -17,7 +18,15 @@ Phases; any failure raises and the process exits non-zero:
    per-token loop on the same weights;
 4. the same at 2 layers in float32: the engine's tokens must equal the
    legacy loop's, token for token;
-5. a ``kernels`` JSON line, then the device JSON line, last.
+5. rwkv6-7b at its published widths and depth (bf16, seeded random
+   weights): one forward pass through ``build_prefill`` at B 2, S 2048
+   (32 wkv6 and 257 ina_matmul launches), profiled; the forward against the
+   decode loop (which runs no wkv6) on a 300-token prefix; then served
+   through the engine, 4 requests on 2 slots, prompt 64, 16 generated, with
+   prompts seated token by token (no wkv6), against the legacy loop;
+6. the same widths at 2 layers in float32: forward against the decode loop
+   within rtol = atol = 1e-4, and engine tokens equal the legacy loop's;
+7. a ``kernels`` JSON line, then the device JSON line, last.
 
 It needs the checkout's ``src/`` beside it and exits non-zero without a GPU.
 """
@@ -42,18 +51,28 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ina_matmul as im  # noqa: E402
+from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
-from repro_torch.parallel.steps import build_paged_serve_step  # noqa: E402
+from repro_torch.parallel.steps import (build_paged_serve_step,  # noqa: E402
+                                        build_prefill, build_serve_step)
 
 # H100 SXM, dense, at the full 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # f32: no TF32
 
 ARCH = "qwen2-1.5b"
-SERVE_ARGV = ["--arch", ARCH, "--batch", "4", "--slots", "2",
-              "--prompt-len", "128", "--gen", "32", "--prefill-chunk", "64"]
-MATMULS_PER_PASS = 7    # wq wk wv wo w_up w_gate w_down, per layer
+RWKV = "rwkv6-7b"
+SERVE_ARGV = {
+    ARCH: ["--arch", ARCH, "--batch", "4", "--slots", "2", "--prompt-len",
+           "128", "--gen", "32", "--prefill-chunk", "64"],
+    RWKV: ["--arch", RWKV, "--batch", "4", "--slots", "2", "--prompt-len",
+           "64", "--gen", "16"]}
+# per layer and pass: dense wq wk wv wo w_up w_gate w_down; ssm the time
+# mix's wr wk wv wg wo and the channel mix's wk wv wr (the decay's LoRA is
+# torch.matmul).  Plus one for the head.
+MATMULS_PER_PASS = {"dense": 7, "ssm": 8}
+RWKV_FWD_B, RWKV_FWD_S, RWKV_PREFIX = 2, 2048, 300
 L2_FLUSH_BYTES = 128 << 20
 
 
@@ -125,8 +144,8 @@ def bound(nbytes: int, ops: float, dtype) -> tuple[float, str]:
 TOL = {torch.bfloat16: (2.0 ** -7, 2.0 ** -8), torch.float32: (1e-5, 1e-5)}
 
 
-def compare(got, want, dtype) -> dict:
-    rtol, atol = TOL[dtype]
+def compare(got, want, dtype, tol=None) -> dict:
+    rtol, atol = tol or TOL[dtype]
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     ok = bool((diff <= atol + rtol * want.abs()).all())
@@ -151,6 +170,18 @@ def matmul_cases():
               # K and N off the 8-element grid: element-by-element loads
               ("odd K=1001 N=201", 3, 1001, 201, "row", torch.bfloat16),
               ("odd tied K=1001", 3, 1001, 77, "tied", torch.bfloat16)]
+    # rwkv6-7b: the forward (M = B*S), the paged decode (M = 2 slots), and
+    # the exact-f32 phase's forward (M = 300) and decode
+    r = ARCHS[RWKV]
+    d, f = r.d_model, r.d_ff
+    for m, dt, tag in ((RWKV_FWD_B * RWKV_FWD_S, torch.bfloat16, "fwd"),
+                       (2, torch.bfloat16, "decode"),
+                       (RWKV_PREFIX, torch.float32, "f32 fwd"),
+                       (2, torch.float32, "f32 decode")):
+        cases += [(f"rwkv {tag} r/k/v/g/o M={m}", m, d, d, "row", dt),
+                  (f"rwkv {tag} cmix wk M={m}", m, d, f, "row", dt),
+                  (f"rwkv {tag} cmix wv M={m}", m, f, d, "row", dt),
+                  (f"rwkv {tag} head M={m}", m, d, r.vocab, "row", dt)]
     return cases
 
 
@@ -173,7 +204,7 @@ def check_matmul(timer, gen) -> list:
         row["ms"] = timer(lambda: im.ina_matmul(x, w))
         row["plain_ms"] = timer(lambda: im.ina_matmul_plain(x, w))
         row["library_ms"] = timer(lambda: torch.matmul(x, w))
-        log(f"[kernels] ina_matmul {name:22s} {row['shape']:24s} "
+        log(f"[kernels] ina_matmul {name:28s} {row['shape']:26s} "
             f"{row['dtype']:8s} max_abs_err {row['max_abs_err']:.3g} "
             f"max_rel_err {row['max_rel_err']:.3g} (rtol {row['rtol']:.3g}, "
             f"atol {row['atol']:.3g}) {row['ms']:.4f} ms, bound "
@@ -242,53 +273,134 @@ def check_attention(timer, gen) -> list:
     return rows
 
 
+WKV_CASES = [  # (name, B, S, decay, dtype): H 64, hd 64, the model's layout
+    # the forward phase's shape, at the model's initial decay (w0 = -6:
+    # ~0.0025 nats a step, so the state keeps ~400 steps)
+    ("forward", RWKV_FWD_B, RWKV_FWD_S, "init", torch.bfloat16),
+    ("prefix 300", RWKV_FWD_B, RWKV_PREFIX, "test", torch.bfloat16),
+    ("ragged S=1000", RWKV_FWD_B, 1000, "test", torch.bfloat16),
+    # the model's clip floor: logw = -exp(2) every step, with nonzero u
+    ("clip-floor decay", RWKV_FWD_B, RWKV_FWD_S, "floor", torch.bfloat16),
+    ("exact-f32 forward", 1, RWKV_PREFIX, "test", torch.float32)]
+# |kernel - plain| <= atol + rtol |plain|: float32 outputs at
+# tests/test_kernels.py's 1e-4 (sum order over hd and over S differs); bf16
+# outputs one bf16 ulp on top, since each side rounds its f32 y once.
+WKV_TOL = {torch.float32: (1e-4, 1e-4),
+           torch.bfloat16: (1e-4 + 2.0 ** -7, 1e-4 + 2.0 ** -8)}
+
+
+def wkv_inputs(gen, b, s, h, hd, decay, dt):
+    """r, k ~ 0.5 N and v ~ N in ``dt``, logw in f32, [B, S, H, hd]; u ~
+    0.3 N [H, hd] (nonzero, so the bonus term runs)."""
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    r, k = (0.5 * normal(b, s, h, hd)).to(dt), (0.5 * normal(b, s, h, hd)).to(dt)
+    v = normal(b, s, h, hd).to(dt)
+    if decay == "init":
+        logw = -torch.exp(-6.0 + 0.1 * normal(b, s, h, hd))
+    elif decay == "floor":
+        logw = torch.full((b, s, h, hd), -math.exp(2.0), device="cuda")
+    else:   # tests/test_kernels.py's: -exp(0.5 N - 1)
+        logw = -torch.exp(0.5 * normal(b, s, h, hd) - 1.0)
+    return r, k, v, logw, 0.3 * normal(h, hd)
+
+
+def check_wkv6(timer, gen) -> list:
+    cfg = ARCHS[RWKV]
+    h, hd = cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
+    rows = []
+    for name, b, s, decay, dt in WKV_CASES:
+        r, k, v, logw, u = wkv_inputs(gen, b, s, h, hd, decay, dt)
+        got = wk.wkv6_heads(r, k, v, logw, u)
+        torch.cuda.synchronize()
+        flat = [x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+                for x in (r, k, v, logw)]
+        ub = u.repeat(b, 1)
+        want = wk.wkv6_plain(*flat, ub).reshape(b, h, s, hd).transpose(1, 2)
+        row = {"case": name, "shape": f"B={b} S={s} H={h} hd={hd} "
+                                      f"decay={decay}",
+               "dtype": str(dt).removeprefix("torch."),
+               **compare(got, want, dt, WKV_TOL[dt])}
+        elt = r.element_size()
+        row["bound_ms"], row["bound_by"] = bound(
+            b * s * h * hd * (3 * elt + 4 + elt), 4.0 * b * s * h * hd * hd,
+            torch.float32)
+        row["ms"] = timer(lambda: wk.wkv6_heads(r, k, v, logw, u))
+        row["plain_ms"] = timer(lambda: wk.wkv6_plain(*flat, ub), iters=3)
+        row["library_ms"] = None      # no single PyTorch call computes WKV6
+        log(f"[kernels] wkv6 {name:18s} {row['shape']:40s} {row['dtype']:8s} "
+            f"max_abs_err {row['max_abs_err']:.3g} max_rel_err "
+            f"{row['max_rel_err']:.3g} (rtol {row['rtol']:.3g}, atol "
+            f"{row['atol']:.3g}) {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.2f} ms, library none")
+        if not row["ok"]:
+            raise AssertionError(f"wkv6 {name} disagrees with its plain "
+                                 f"version: {row}")
+        rows.append(row)
+    return rows
+
+
 # --------------------------------------------------------------------------- #
-# phases 3 and 4
+# phases 3-6
 # --------------------------------------------------------------------------- #
 def reset_launches() -> None:
     im.launches = 0
     fa.launches = 0
+    wk.launches = 0
 
 
-def serve(cfg, params, phase: str):
-    """Engine run (launches counted) and legacy loop on the same weights."""
-    args = launch_serve.build_parser().parse_args(SERVE_ARGV)
+def read_launches() -> dict:
+    return {"ina_matmul": im.launches, "flash_attention": fa.launches,
+            "wkv6": wk.launches}
+
+
+def check_launches(launches: dict, expect: dict, on_path) -> None:
+    """Counts equal to the expected ones, and every kernel of the path
+    launched at least once."""
+    if launches != expect or any(launches[k] <= 0 for k in on_path):
+        raise AssertionError(f"launch counts {launches} != expected {expect}"
+                             f" (on the path: {on_path})")
+
+
+def serve(cfg, params, phase: str, argv):
+    """Engine run (launches counted) and legacy loop on the same weights.
+
+    A dense prompt runs as batched prefill chunks, one flash attention per
+    layer each; an ssm prompt is seated token by token through decode
+    steps (``prefill_chunks`` counts those), which run no wkv6."""
+    args = launch_serve.build_parser().parse_args(argv)
     reset_launches()
     report = launch_serve.run_engine(args, cfg, params)
     torch.cuda.synchronize()
-    launches = {"ina_matmul": im.launches, "flash_attention": fa.launches}
+    launches = read_launches()
     passes = report.prefill_chunks + report.decode_steps
-    expect = {"ina_matmul": (MATMULS_PER_PASS * cfg.n_layers + 1) * passes,
-              "flash_attention": cfg.n_layers * report.prefill_chunks}
+    dense = cfg.family == "dense"
+    expect = {"ina_matmul": (MATMULS_PER_PASS[cfg.family] * cfg.n_layers + 1)
+              * passes,
+              "flash_attention": cfg.n_layers * report.prefill_chunks
+              if dense else 0,
+              "wkv6": 0}
     total = sum(len(r["tokens"]) for r in report.requests)
     secs = (report.prefill_ms + report.decode_ms) / 1e3
     log(f"[{phase}] {total} tokens, {total / secs:.1f} tok/s; prefill "
-        f"{report.prefill_ms:.1f} ms ({report.prefill_chunks} chunks), decode "
+        f"{report.prefill_ms:.1f} ms ({report.prefill_chunks} "
+        f"{'chunks' if dense else 'per-token steps'}), decode "
         f"{report.decode_ms:.1f} ms ({report.decode_steps} steps); launches "
         f"{launches}, expected {expect}")
-    if launches != expect or min(launches.values()) <= 0:
-        raise AssertionError(f"launch counts {launches} != expected {expect}")
+    check_launches(launches, expect,
+                   ("ina_matmul", "flash_attention") if dense
+                   else ("ina_matmul",))
     legacy = launch_serve.run_legacy(args, cfg, params)
     return report, legacy, launches
 
 
-def phase_serve_bf16() -> dict:
-    cfg = ARCHS[ARCH]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = get_model(cfg).init(gen, device="cuda")
-    nparams = sum(t.numel() for t in _leaves(params))
-    log(f"[serve] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{nparams / 1e9:.3f} B parameters in {cfg.dtype}")
-    report, legacy, launches = serve(cfg, params, "serve")
-    phase_profile(cfg, params)
-    # Tolerance for the bf16 comparison with the legacy loop: the two paths
-    # differ in attention arithmetic (flash kernel with bf16 p over the
-    # prefix, against grouped plain attention per token), each rounding to
-    # bf16 once per op, and the difference runs through 28 residual layers.
-    # 2^-5 of the largest logit is 4 to 8 bf16 ulps there; a wrong kernel
-    # moves logits by the order of the logits themselves.
+def compare_with_legacy(report, legacy, phase: str, n_layers: int,
+                        bits: int) -> None:
+    """The bf16 engine against the legacy loop on the same weights, within
+    ``2^-bits`` of the largest logit (the reason is at each call)."""
     scale = float(legacy["first_logits"].float().abs().max())
-    tol = 2.0 ** -5 * scale
+    tol = 2.0 ** -bits * scale
     worst, near_ties = 0.0, 0
     for r in report.requests:
         i = int(r["rid"].removeprefix("req"))
@@ -309,10 +421,27 @@ def phase_serve_bf16() -> dict:
                     f"with the loop's top-2 margin {margin} >= {tol}")
             near_ties += 1
             break          # the continuations now condition on other tokens
-    log(f"[serve] engine vs legacy loop: first-token logits max |diff| "
-        f"{worst:.4g} <= tol {tol:.4g} (2^-5 x max|logit| {scale:.4g}); "
-        f"greedy tokens equal except {near_ties} step(s) where the loop's "
-        f"top-2 margin < tol")
+    log(f"[{phase}] engine vs legacy loop ({n_layers} layers): first-token "
+        f"logits max |diff| {worst:.4g} <= tol {tol:.4g} (2^-{bits} x "
+        f"max|logit| {scale:.4g}); greedy tokens equal except {near_ties} "
+        f"step(s) where the loop's top-2 margin < tol")
+
+
+def phase_serve_bf16() -> dict:
+    cfg = ARCHS[ARCH]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = get_model(cfg).init(gen, device="cuda")
+    nparams = sum(t.numel() for t in _leaves(params))
+    log(f"[serve] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{nparams / 1e9:.3f} B parameters in {cfg.dtype}")
+    report, legacy, launches = serve(cfg, params, "serve", SERVE_ARGV[ARCH])
+    phase_profile(cfg, params)
+    # The two paths differ in attention arithmetic (the flash kernel with
+    # bf16 p over the prefix, against grouped plain attention per token),
+    # each rounding to bf16 once per op, and the difference runs through 28
+    # residual layers.  2^-5 of the largest logit is 4 to 8 bf16 ulps there;
+    # a wrong kernel moves logits by the order of the logits themselves.
+    compare_with_legacy(report, legacy, "serve", cfg.n_layers, bits=5)
     del params
     torch.cuda.empty_cache()
     return launches
@@ -340,19 +469,18 @@ def profile_step(label: str, fn, steps: int = 5) -> dict:
     prof.export_chrome_trace(str(trace))
     kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
                if e.get("cat") == "kernel"]
-    dev = {"ina_matmul": 0.0, "flash_attention": 0.0, "other": 0.0}
+    names = ("ina_matmul", "flash_attention", "wkv6")
+    dev = dict.fromkeys(names + ("other",), 0.0)
     for e in kernels:
-        key = next((k for k in ("ina_matmul", "flash_attention")
-                    if k in e["name"]), "other")
+        key = next((k for k in names if k in e["name"]), "other")
         dev[key] += e["dur"] / 1e3 / steps
     busy = sum(dev.values())
     out = {"wall_ms": wall, "device_ms": busy, "kernels_per_step":
            len(kernels) / steps, **{f"{k}_ms": v for k, v in dev.items()}}
     log(f"[profile] {label}: wall {wall:.2f} ms/step (host clock), device "
-        f"kernels {busy:.2f} ms/step = busy share {busy / wall:.3f} "
-        f"(ina_matmul {dev['ina_matmul']:.2f}, flash_attention "
-        f"{dev['flash_attention']:.2f}, other {dev['other']:.2f} ms; "
-        f"{len(kernels) / steps:.0f} kernels/step)")
+        f"kernels {busy:.2f} ms/step = busy share {busy / wall:.3f} ("
+        + ", ".join(f"{k} {v:.2f}" for k, v in dev.items())
+        + f" ms; {len(kernels) / steps:.0f} kernels/step)")
     return out
 
 
@@ -375,7 +503,7 @@ def phase_exact_f32() -> None:
     cfg = dataclasses.replace(ARCHS[ARCH], n_layers=2, dtype="float32")
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = get_model(cfg).init(gen, device="cuda")
-    report, legacy, _ = serve(cfg, params, "exact-f32")
+    report, legacy, _ = serve(cfg, params, "exact-f32", SERVE_ARGV[ARCH])
     for r in report.requests:
         i = int(r["rid"].removeprefix("req"))
         if r["tokens"] != legacy["tokens"][i].tolist():
@@ -385,16 +513,152 @@ def phase_exact_f32() -> None:
         f"legacy loop's for all {len(report.requests)} requests")
 
 
+def forward_against_decode(model, params, tokens, label: str,
+                           rtol: float = 0.0):
+    """Logits of the forward pass over ``tokens`` [B, S] (wkv6) against
+    those of the per-token decode loop (no wkv6) over the same tokens, at
+    every position.  Returns (max |diff|, max (|diff| - rtol |forward|),
+    max |forward logit|)."""
+    fwd = build_prefill(model).fn(params, {"tokens": tokens}).float()
+    if not bool(torch.isfinite(fwd).all()):
+        raise AssertionError(f"{label}: non-finite forward logits")
+    step = build_serve_step(model)
+    cache = model.init_cache(tokens.shape[0], tokens.shape[1], device="cuda")
+    worst = torch.zeros((), device="cuda")
+    over = torch.full((), -math.inf, device="cuda")
+    for pos in range(tokens.shape[1]):
+        _, cache, logits = step.fn(
+            params, {"tokens": tokens[:, pos:pos + 1], "pos": pos}, cache)
+        diff = (logits.float() - fwd[:, pos]).abs()
+        worst = torch.maximum(worst, diff.max())
+        over = torch.maximum(over, (diff - rtol * fwd[:, pos].abs()).max())
+    return float(worst), float(over), float(fwd.abs().max())
+
+
+def phase_rwkv_bf16() -> dict:
+    cfg = ARCHS[RWKV]
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, device="cuda")
+    nparams = sum(t.numel() for t in _leaves(params))
+    log(f"[rwkv] {RWKV}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{nparams / 1e9:.3f} B parameters in {cfg.dtype}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    tokens = torch.randint(3, cfg.vocab, (RWKV_FWD_B, RWKV_FWD_S),
+                           generator=torch.Generator().manual_seed(11)
+                           ).to("cuda")
+    fwd = build_prefill(model)
+    batch = {"tokens": tokens}
+
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = fwd.fn(params, batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    expect = {"ina_matmul": MATMULS_PER_PASS["ssm"] * cfg.n_layers + 1,
+              "flash_attention": 0, "wkv6": cfg.n_layers}
+    log(f"[rwkv] forward B={RWKV_FWD_B} S={RWKV_FWD_S}: logits "
+        f"{tuple(logits.shape)} {logits.dtype}, first call {first_ms:.1f} ms; "
+        f"launches {launches}, expected {expect}")
+    check_launches(launches, expect, ("ina_matmul", "wkv6"))
+    if logits.shape != (RWKV_FWD_B, RWKV_FWD_S, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"rwkv forward: bad logits {logits.shape}")
+    del logits
+    prof = profile_step("rwkv_forward", lambda: fwd.fn(params, batch), steps=3)
+    fwd_tokens_s = RWKV_FWD_B * RWKV_FWD_S / (prof["wall_ms"] / 1e3)
+    log(f"[rwkv] forward {fwd_tokens_s:.0f} tokens/s (host clock)")
+    # one paged decode step of 2 slots, the serve phase's decode shape
+    step = build_paged_serve_step(model)
+    cache = model.init_cache(2, 1, device="cuda")
+    dbatch = {"tokens": torch.full((2, 1), 11, device="cuda"),
+              "pos": torch.tensor([64, 70], device="cuda")}
+    profile_step("rwkv_decode",
+                 lambda: step.fn(params, dbatch, cache)[0].tolist())
+    del cache
+
+    # The decode loop runs no wkv6 (single-step update in plain PyTorch),
+    # so it checks the kernel path independently.  300 tokens cross the
+    # reference's 256-token chunk and end ragged.  Tolerance: the paths
+    # differ in the WKV's f32 summation order (the kernel's recurrence
+    # against per-step sums) and in the LoRA product's cuBLAS kernel
+    # (M = 600 against M = 2), so a few bf16 values round to a neighbour.
+    # The recurrent state carries each such difference to every later
+    # position and 32 residual layers amplify it, so at a few hundred
+    # positions the logits part by a few hundredths of their largest value.
+    # The bound is 2^-3 of the largest logit, 32 bf16 ulps of it.  The
+    # exact-f32 phase below holds the same two paths to 1e-4, so what is
+    # left here is rounding; a wrong layout or wiring moves logits by their
+    # own order, and check_wkv6 holds the kernel itself to one bf16 ulp.
+    worst, _, scale = forward_against_decode(
+        model, params, tokens[:, :RWKV_PREFIX], "rwkv prefix")
+    tol = 2.0 ** -3 * scale
+    log(f"[rwkv] forward vs decode loop, {RWKV_PREFIX}-token prefix x "
+        f"{RWKV_FWD_B}: max |diff| over every position {worst:.4g} <= tol "
+        f"{tol:.4g} (2^-3 x max|logit| {scale:.4g})")
+    if not worst <= tol:
+        raise AssertionError(f"rwkv forward vs decode: {worst} > {tol}")
+
+    report, legacy, serve_launches = serve(cfg, params, "rwkv-serve",
+                                           SERVE_ARGV[RWKV])
+    # Both sides decode (the engine seats each prompt at B 1 and decodes 2
+    # slots, the loop decodes 4 rows), so they differ only where the LoRA
+    # product's cuBLAS kernel or a reduction depends on the batch; the
+    # state carries each difference through the 64-token prompt and 32
+    # layers, as in the forward check above: the same 2^-3 bound.
+    compare_with_legacy(report, legacy, "rwkv-serve", cfg.n_layers, bits=3)
+    del params
+    torch.cuda.empty_cache()
+    return {"forward": launches, "serve": serve_launches}
+
+
+def phase_rwkv_exact_f32() -> None:
+    cfg = dataclasses.replace(ARCHS[RWKV], n_layers=2, dtype="float32")
+    model = get_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = model.init(gen, device="cuda")
+    tokens = torch.randint(3, cfg.vocab, (1, RWKV_PREFIX),
+                           generator=torch.Generator().manual_seed(12)
+                           ).to("cuda")
+    # elementwise |diff| <= atol + rtol |forward|, rtol = atol = 1e-4: in
+    # float32 the two paths differ only in sum order
+    reset_launches()
+    worst, over, scale = forward_against_decode(model, params, tokens,
+                                                "rwkv f32", rtol=1e-4)
+    if read_launches()["wkv6"] != cfg.n_layers:
+        raise AssertionError(f"f32 forward launched {read_launches()}")
+    log(f"[rwkv-exact-f32] 2 layers, full width, float32: forward vs decode "
+        f"loop over {RWKV_PREFIX} positions, max |diff| {worst:.3g} (max "
+        f"|logit| {scale:.3g}); max(|diff| - 1e-4 |logit|) {over:.3g} <= "
+        f"atol 1e-4")
+    if not over <= 1e-4:
+        raise AssertionError(f"rwkv f32 forward vs decode: {over} > 1e-4 "
+                             f"beyond rtol 1e-4")
+    report, legacy, _ = serve(cfg, params, "rwkv-exact-f32", SERVE_ARGV[RWKV])
+    for r in report.requests:
+        i = int(r["rid"].removeprefix("req"))
+        if r["tokens"] != legacy["tokens"][i].tolist():
+            raise AssertionError(f"{r['rid']}: f32 engine tokens {r['tokens']}"
+                                 f" != legacy {legacy['tokens'][i].tolist()}")
+    log(f"[rwkv-exact-f32] engine tokens equal the legacy loop's for all "
+        f"{len(report.requests)} requests")
+    del params
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
 
 
 # --------------------------------------------------------------------------- #
-def kernel_entry(name, source, replaces, rows, case, launches, smi) -> dict:
+def kernel_entry(name, source, replaces, rows, case, launches, smi,
+                 by_path) -> dict:
     row = next(r for r in rows if r["case"] == case)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
+            "launches_by_path": by_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -403,7 +667,7 @@ def kernel_entry(name, source, replaces, rows, case, launches, smi) -> dict:
 
 def main() -> int:
     info = device_check()
-    logs = _build.build(["ina_matmul", "flash_attention"])
+    logs = _build.build(["ina_matmul", "flash_attention", "wkv6"])
     for name, text in logs.items():
         used = [ln.strip() for ln in text.splitlines()
                 if "registers" in ln or "spill" in ln]
@@ -412,18 +676,30 @@ def main() -> int:
     timer = Timer()
     mm_rows = check_matmul(timer, gen)
     at_rows = check_attention(timer, gen)
+    wkv_rows = check_wkv6(timer, gen)
     del timer
     launches = phase_serve_bf16()
     phase_exact_f32()
+    rwkv = phase_rwkv_bf16()
+    phase_rwkv_exact_f32()
+    paths = {"qwen2-1.5b serve": launches, "rwkv6-7b forward": rwkv["forward"],
+             "rwkv6-7b serve": rwkv["serve"]}
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items()}
     kernels = [
         kernel_entry("ina_matmul", "src/repro_torch/kernels/csrc/ina_matmul.cu",
                      "src/repro/kernels/ina_matmul.py:57", mm_rows,
-                     "w_up/w_gate M=2", launches["ina_matmul"], info["smi"]),
+                     "w_up/w_gate M=2", launches["ina_matmul"], info["smi"],
+                     by_path("ina_matmul")),
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:78", at_rows,
                      "prefill chunk 2", launches["flash_attention"],
-                     info["smi"]),
+                     info["smi"], by_path("flash_attention")),
+        kernel_entry("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
+                     "src/repro/kernels/wkv6.py:70", wkv_rows, "forward",
+                     rwkv["forward"]["wkv6"], info["smi"], by_path("wkv6")),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": info["device"]}), flush=True)

@@ -2,9 +2,9 @@
 
 The tree is the one ``repro.models.api.Model.init`` returns, with its
 leaves already turned into numpy arrays by the caller; this module never
-imports JAX.  Names and layouts are kept; matrices go to the config's
-compute dtype and vectors to float32, the port's storage rule
-(:mod:`repro_torch.models.transformer`).
+imports JAX.  Names and layouts are kept, and dtypes follow the port's
+storage rule (:func:`repro_torch.models.layers.to_storage`): matrices in the
+config's compute dtype, vectors and the RWKV6 bonus ``u`` in float32.
 """
 from __future__ import annotations
 
@@ -13,21 +13,16 @@ import torch
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
-
-_STACKED = ("layers",)
+from repro_torch.models.layers import to_storage
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     dev = _device.resolve(device)
-    matrix_dtype = getattr(torch, cfg.dtype)
 
-    def convert(node, stacked: bool):
+    def convert(node):
         if isinstance(node, dict):
-            return {k: convert(v, stacked or k in _STACKED)
-                    for k, v in node.items()}
+            return {k: convert(v) for k, v in node.items()}
         arr = np.array(node, dtype=np.float32)   # a writable copy
-        per_layer_ndim = arr.ndim - (1 if stacked else 0)
-        dt = matrix_dtype if per_layer_ndim >= 2 else torch.float32
-        return torch.from_numpy(arr).to(device=dev, dtype=dt)
+        return torch.from_numpy(arr).to(dev)
 
-    return convert(tree, False)
+    return to_storage(convert(tree), getattr(torch, cfg.dtype))

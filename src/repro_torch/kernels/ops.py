@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ina_matmul import ina_matmul
+from repro_torch.kernels.wkv6 import wkv6_heads
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -23,3 +24,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """q: [BH, Sq, D]; k/v: [BH, Sk, D] through the flash kernel."""
     return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
+        u: torch.Tensor) -> torch.Tensor:
+    """RWKV6 WKV through the wkv6 kernel: r/k/v/logw [B, S, H, hd] (the
+    model's layout, read in place), u [H, hd]; returns [B, S, H, hd].
+
+    The reference's ``wkv`` also takes the TPU kernel's chunk, which only
+    sets where its factorised decay is clamped; the port computes the
+    recurrence exactly, so there is no chunk to pass."""
+    return wkv6_heads(r, k, v, logw, u)

@@ -39,3 +39,23 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask[None], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Step-by-step WKV6 recurrence (the ground-truth semantics).
+
+    r/k/v/logw: [BH, S, hd]; u: [BH, hd].
+    """
+    rf, kf, vf = (t.float() for t in (r, k, v))
+    wf = torch.exp(logw.float())
+    uf = u.float()
+    bh, s, hd = r.shape
+    state = torch.zeros(bh, hd, hd, dtype=torch.float32, device=r.device)
+    ys = []
+    for t in range(s):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]
+        ys.append(torch.einsum("bc,bcd->bd", rt, state)
+                  + torch.einsum("bc,bc,bc,bd->bd", rt, uf, kt, vt))
+        state = state * wt[:, :, None] + kt[:, :, None] * vt[:, None, :]
+    return torch.stack(ys, dim=1).to(r.dtype)

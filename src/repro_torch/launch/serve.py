@@ -6,9 +6,11 @@ paged decode.  ``--legacy-loop`` keeps the pre-engine behaviour (one batch,
 one decode step per prompt token) as the reference the engine's tokens are
 held against.  Both run on the GPU unless ``--device cpu`` is given.
 
-Example (one H100, qwen2-1.5b at its published widths):
+Examples (one H100, at the published widths):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --batch 4 --slots 2 --prompt-len 128 --gen 32 --prefill-chunk 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --batch 4 --slots 2 --prompt-len 64 --gen 16
 """
 from __future__ import annotations
 
@@ -39,7 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--slots", type=int, default=None,
                     help="continuous-batching slots (default: --batch)")
     ap.add_argument("--block-size", type=int, default=16)
-    ap.add_argument("--prefill-chunk", type=int, default=8)
+    ap.add_argument("--prefill-chunk", type=int, default=8,
+                    help="tokens per batched prefill chunk; no effect for a "
+                         "family without a batched prefill (ssm), whose "
+                         "prompts are seated token by token")
     ap.add_argument("--no-batched-prefill", action="store_true",
                     help="prefill via the per-token decode loop")
     ap.add_argument("--check", action="store_true",

@@ -1,4 +1,5 @@
-"""Uniform model API (counterpart of ``repro.models.api``), dense family.
+"""Uniform model API (counterpart of ``repro.models.api``): the dense and
+ssm (RWKV6) families.
 
 Entry points default to ``device="cuda"`` and raise when no GPU is present;
 the CPU runs only for a caller that passes ``device="cpu"``.
@@ -13,9 +14,9 @@ import torch
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv, transformer
 
-_FAMILIES: dict[str, ModuleType] = {"dense": transformer}
+_FAMILIES: dict[str, ModuleType] = {"dense": transformer, "ssm": rwkv}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,9 +38,6 @@ class Model:
 
     def loss(self, params, batch, pctx=None):
         return self.mod.loss(params, self.cfg, batch, pctx)
-
-    def cache_shapes(self, batch: int, max_seq: int) -> dict:
-        return self.mod.cache_shapes(self.cfg, batch, max_seq)
 
     def init_cache(self, batch: int, max_seq: int, *, device="cuda") -> dict:
         return self.mod.init_cache(self.cfg, batch, max_seq,
@@ -68,6 +66,14 @@ def get_model(cfg: ModelConfig) -> Model:
 
 
 def cache_batch_axes(cfg: ModelConfig) -> dict:
-    """Each decode-cache leaf's batch-axis index (``[L, B, S, K, hd]``)."""
-    get_model(cfg)
-    return {"k": 1, "v": 1}
+    """Each decode-cache leaf's batch-axis index, as the family states it
+    (dense ``k``/``v`` ``[L, B, S, K, hd]``; ssm ``state`` ``[L, B, H, hd,
+    hd]``, ``tprev``/``cprev`` ``[L, B, 1, D]``)."""
+    return dict(get_model(cfg).mod.CACHE_BATCH_AXES)
+
+
+def paged_cache_leaves(cfg: ModelConfig) -> tuple:
+    """The decode-cache leaves with a sequence axis, which the serving pool
+    pages by position; every other leaf (a recurrent state) is stored whole
+    per request.  Stated by the family, never guessed from extents."""
+    return tuple(get_model(cfg).mod.PAGED_CACHE_LEAVES)

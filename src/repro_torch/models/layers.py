@@ -33,6 +33,29 @@ def dense_init(generator: torch.Generator, shape, in_dim: Optional[int] = None,
                        device=device) * scale
 
 
+# Leaves kept in float32 whatever their rank: the reference reads them as
+# float32 at every call (the RWKV6 bonus ``u``, ``repro.models.ssm``:231), so
+# storing them in the compute dtype would round them.
+FLOAT32_LEAVES = ("u",)
+STACKED = ("layers",)
+
+
+def to_storage(tree: dict, dtype: torch.dtype) -> dict:
+    """The port's storage rule: each matrix (rank >= 2 per layer) in the
+    compute ``dtype``, vectors and :data:`FLOAT32_LEAVES` in float32.  The
+    reference keeps float32 masters and casts each matrix to the compute
+    dtype at every call, which gives the same numbers, so the port casts
+    once.  Leaves under :data:`STACKED` keys carry a leading layer axis."""
+    def cast(name, node, stacked):
+        if isinstance(node, dict):
+            return {k: cast(k, v, stacked or k in STACKED)
+                    for k, v in node.items()}
+        per_layer_ndim = node.dim() - (1 if stacked else 0)
+        keep = per_layer_ndim < 2 or name in FLOAT32_LEAVES
+        return node.float() if keep else node.to(dtype)
+    return cast("", tree, False)
+
+
 # --------------------------------------------------------------------------- #
 # norms
 # --------------------------------------------------------------------------- #

@@ -1,0 +1,128 @@
+"""RWKV6 (Finch) language model: time-mix + channel-mix stacks (counterpart
+of ``repro.models.rwkv``).
+
+Parameters follow the reference's names and layouts, stacked ``[L, ...]``
+and stored by :func:`repro_torch.models.layers.to_storage` (the bonus ``u``
+stays float32).  The full-sequence forward runs the wkv6 kernel in every
+layer; decode is a single-step state update that runs none.  There is no
+``prefill``, as in the reference: the serving engine seats prompts through
+the per-token decode loop.
+
+The decode cache is the recurrent state ``[L, B, H, hd, hd]`` in float32
+and the token-shift rows ``tprev``/``cprev`` ``[L, B, 1, D]`` in the compute
+dtype.  None has a sequence axis, so the serving pool stores each whole per
+request; ``decode_step`` writes them in place and returns the cache.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models.transformer import _dtype, _stack, layer
+from repro_torch.parallel.tp import ParallelCtx
+
+CACHE_BATCH_AXES = {"state": 1, "tprev": 1, "cprev": 1}
+PAGED_CACHE_LEAVES = ()
+
+
+def init_layer(generator, cfg: ModelConfig, device) -> dict:
+    return L.to_storage({
+        "ln1": torch.ones(cfg.d_model, device=device),
+        "tmix": S.init_rwkv_tmix(generator, cfg, device),
+        "ln2": torch.ones(cfg.d_model, device=device),
+        "cmix": S.init_rwkv_cmix(generator, cfg, device),
+    }, _dtype(cfg))
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """Random weights with the distributions of ``repro.models.rwkv.init``
+    (the draws themselves differ: torch and JAX generators differ)."""
+    stacked = _stack([init_layer(generator, cfg, device)
+                      for _ in range(cfg.n_layers)])
+    return L.to_storage({
+        "embed": L.dense_init(generator, (cfg.vocab, cfg.d_model),
+                              device=device),
+        "ln_in": torch.ones(cfg.d_model, device=device),
+        "layers": stacked,
+        "ln_f": torch.ones(cfg.d_model, device=device),
+        "lm_head": L.dense_init(generator, (cfg.d_model, cfg.vocab),
+                                in_dim=cfg.d_model, device=device),
+    }, _dtype(cfg))
+
+
+def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+              pctx: Optional[ParallelCtx], caches: Optional[dict] = None):
+    """caches: None (full sequence from a zero state) or the layer's decode
+    caches; returns (x, new caches or None)."""
+    if caches is None:
+        y, _, _ = S.rwkv_tmix(lp["tmix"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                              cfg, pctx)
+        x = x + y
+        y, _ = S.rwkv_cmix(lp["cmix"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                           cfg, pctx)
+        return x + y, None
+    y, state, tprev = S.rwkv_tmix(
+        lp["tmix"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, pctx,
+        state=caches["state"], prev=caches["tprev"], single_step=True)
+    x = x + y
+    y, cprev = S.rwkv_cmix(lp["cmix"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                           cfg, pctx, prev=caches["cprev"])
+    return x + y, {"state": state, "tprev": tprev, "cprev": cprev}
+
+
+def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.rms_norm(x, params["ln_in"], cfg.norm_eps)
+    for i in range(cfg.n_layers):
+        x, _ = layer_fwd(layer(params["layers"], i), x, cfg, pctx)
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict,
+            pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    return L.logits_head(hidden_states(params, cfg, batch["tokens"], pctx),
+                         params["lm_head"], pctx)
+
+
+def loss(params: dict, cfg: ModelConfig, batch: dict,
+         pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    return L.xent_loss(forward(params, cfg, batch, pctx), batch["labels"])
+
+
+# --------------------------------------------------------------------------- #
+# decode
+# --------------------------------------------------------------------------- #
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """``max_seq`` is not used: no leaf has a sequence axis."""
+    h, hd = S.rwkv_dims(cfg)
+    row = (cfg.n_layers, batch, 1, cfg.d_model)
+    return {"state": (cfg.n_layers, batch, h, hd, hd), "tprev": row,
+            "cprev": row}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
+    dtypes = {"state": torch.float32, "tprev": _dtype(cfg),
+              "cprev": _dtype(cfg)}
+    return {name: torch.zeros(shape, dtype=dtypes[name], device=device)
+            for name, shape in cache_shapes(cfg, batch, max_seq).items()}
+
+
+def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
+                pctx: Optional[ParallelCtx] = None):
+    """One-token decode.  batch: {tokens: [B, 1], pos: ignored (the state
+    carries the position)}; returns (logits [B, 1, V], cache), the cache
+    updated in place."""
+    x = L.embed(params["embed"], batch["tokens"], _dtype(cfg))
+    x = L.rms_norm(x, params["ln_in"], cfg.norm_eps)
+    for i in range(cfg.n_layers):
+        x, new = layer_fwd(layer(params["layers"], i), x, cfg, pctx,
+                           caches={name: leaf[i] for name, leaf in cache.items()})
+        for name, leaf in cache.items():
+            leaf[i] = new[name]
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return L.logits_head(x, params["lm_head"], pctx), cache

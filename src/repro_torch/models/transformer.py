@@ -3,9 +3,8 @@
 Parameters are a nested dict with the reference's names and layouts; layer
 weights are stacked ``[L, ...]`` and a Python loop over the layers takes the
 place of ``lax.scan``.  Matrices are stored in the compute dtype
-(``cfg.dtype``) and vectors (norm weights, biases) in float32: the reference
-keeps float32 masters and casts each matrix to the compute dtype at every
-call, which gives the same numbers, so the port casts once.
+(``cfg.dtype``) and vectors (norm weights, biases) in float32
+(:func:`repro_torch.models.layers.to_storage`).
 
 ``prefill`` and ``decode_step`` write the new K/V into ``cache`` in place
 and return it.
@@ -19,6 +18,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.parallel.tp import ParallelCtx
+
+
+# Decode-cache layout (read by ``models.api``): each leaf's batch axis, and
+# the leaves with a sequence axis, which the serving pool pages by position.
+CACHE_BATCH_AXES = {"k": 1, "v": 1}
+PAGED_CACHE_LEAVES = ("k", "v")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -49,11 +54,7 @@ def init_layer(generator, cfg: ModelConfig, device) -> dict:
         "ln2": torch.ones(cfg.d_model, device=device),
         "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, device=device),
     }
-    dt = _dtype(cfg)
-    for block in ("attn", "mlp"):
-        p[block] = {k: v.to(dt) if v.dim() >= 2 else v
-                    for k, v in p[block].items()}
-    return p
+    return L.to_storage(p, _dtype(cfg))
 
 
 def init(cfg: ModelConfig, generator: torch.Generator, device) -> dict:

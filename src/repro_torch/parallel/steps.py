@@ -1,4 +1,4 @@
-"""Serve and prefill steps (counterpart of ``repro.parallel.steps``).
+"""Serve, prefill and forward steps (counterpart of ``repro.parallel.steps``).
 
 The reference builds jitted, sharded artifacts; PyTorch runs eagerly on one
 chip, so each builder here returns the plain callable in the same kind of
@@ -71,3 +71,17 @@ def build_prefill_step(model: Model, chunk: int,
         return model.prefill(params, {"tokens": batch["tokens"]}, cache,
                              pctx, pos_offset=batch["pos0"])
     return PrefillStep(fn=step, chunk=chunk)
+
+
+@dataclasses.dataclass
+class Prefill:
+    """Forward-only full-sequence pass (the ``prefill_32k`` cells):
+    ``fn(params, batch) -> logits [B, S, V]`` with ``batch = {"tokens":
+    [B, S]}``.  For the ssm family it runs the wkv6 kernel in every layer."""
+    fn: Callable
+
+
+def build_prefill(model: Model, pctx: Optional[ParallelCtx] = None) -> Prefill:
+    def fwd(params, batch):
+        return model.forward(params, batch, pctx)
+    return Prefill(fn=fwd)

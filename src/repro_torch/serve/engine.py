@@ -6,8 +6,9 @@ Per iteration it
 1. admits queued requests into free cache slots (token boundary only),
 2. prefills each admitted prompt (chunked batched prefill through
    :func:`~repro_torch.parallel.steps.build_prefill_step`, or a per-token
-   decode loop), writing the prompt's K/V into the paged pool and emitting
-   the first token,
+   decode loop for a family without a batched prefill, such as ssm),
+   writing the prompt's cache into the paged pool and emitting the first
+   token,
 3. runs one per-slot-position decode step over the whole slot batch,
    appends one token per active request, and pages out the newly written
    cache column,
@@ -112,8 +113,9 @@ class ServingEngine:
                 for name, leaf in cache.items()}
 
     def _seat(self, st: RequestState) -> None:
-        """Copy the request's pooled row into its working-cache slot (zeros
-        past its length, masked by decode attention)."""
+        """Copy the request's pooled row into its working-cache slot: paged
+        leaves with zeros past its length (masked by decode attention),
+        unpaged leaves (recurrent state) whole."""
         row = self.kv.gather_row(st.req.rid, st.req.prompt_len)
         for name, dst in self._row(self.working, st.slot).items():
             dst.copy_(row[name])

@@ -4,17 +4,21 @@ The serving engine keeps two views of decode state:
 
 * a **monolithic working cache** (``model.init_cache(slots, max_seq)``)
   that the decode and prefill steps read and write;
-* this **paged pool**, the authoritative per-request store.  Every leaf
-  of the dense family's cache has a sequence axis and is chopped into
-  fixed-size position blocks owned by a free-list :class:`BlockAllocator`.
-  Leaves without one (SSM states, conv tails) come with those families.
+* this **paged pool**, the authoritative per-request store.  The leaves the
+  model API names as paged (:func:`repro_torch.models.api.
+  paged_cache_leaves`: those with a sequence axis, the dense family's K/V)
+  are chopped into fixed-size position blocks owned by a free-list
+  :class:`BlockAllocator`.  Every other leaf (the ssm family's recurrent
+  state and token-shift rows) is stored whole per request, its latest value.
 
+Each leaf keeps its own dtype (the ssm state is float32 in a bf16 model).
 The pool is torch tensors on the model's device.  :meth:`PagedKVCache.
-write_range` copies only the positions asked for, device to device; the
-reference copies the whole slot row to the host at every decode step.  A
-request's row round-trips bit-identically: :meth:`PagedKVCache.gather_row`
-reassembles exactly the row the monolithic cache held (zeros past the
-request's length, which decode attention masks out).
+write_range` copies only the positions asked for of a paged leaf, and the
+whole row of an unpaged one, device to device; the reference copies the
+whole slot row to the host at every decode step.  A request's row
+round-trips bit-identically: :meth:`PagedKVCache.gather_row` reassembles
+exactly the row the monolithic cache held (zeros past the request's length,
+which decode attention masks out).
 
 Admission reserves a request's worst-case length (prompt + max_new) up
 front, as in the reference.
@@ -126,8 +130,10 @@ class _LeafMeta:
     """Layout of one cache leaf, batch axis removed (a 'row')."""
 
     name: str
-    batch_axis: int        # axis index in the *batched* leaf; the max_seq
-                           # axis sits there once the batch axis is removed
+    batch_axis: int        # axis index in the *batched* leaf; a paged
+                           # leaf's max_seq axis sits there once the batch
+                           # axis is removed
+    paged: bool            # stored by position in blocks, else whole
     row_shape: tuple       # shape with the batch axis removed
     dtype: torch.dtype
 
@@ -143,7 +149,8 @@ class PagedKVCache:
 
     def __init__(self, cfg, max_seq: int, block_size: int, num_blocks: int,
                  *, device="cuda") -> None:
-        from repro_torch.models.api import cache_batch_axes, get_model
+        from repro_torch.models.api import (cache_batch_axes, get_model,
+                                            paged_cache_leaves)
         if max_seq % block_size:
             raise ValueError(f"block_size {block_size} must divide "
                              f"max_seq {max_seq}")
@@ -153,22 +160,27 @@ class PagedKVCache:
         self.block_size = block_size
         self.allocator = BlockAllocator(num_blocks)
 
-        shapes = get_model(cfg).cache_shapes(1, max_seq)
+        # shapes and dtypes without allocating (``jax.eval_shape`` there)
+        proto = get_model(cfg).init_cache(1, max_seq, device="meta")
         baxes = cache_batch_axes(cfg)
-        dtype = getattr(torch, cfg.dtype)
+        paged = paged_cache_leaves(cfg)
         self.leaves: list[_LeafMeta] = []
         self._pools: dict[str, torch.Tensor] = {}
-        for name, shape in shapes.items():
+        for name, leaf in proto.items():
             a = baxes[name]
-            row = shape[:a] + shape[a + 1:]
-            if not (a < len(row) and row[a] == max_seq):
-                raise NotImplementedError(
-                    f"cache leaf {name!r} has no sequence axis; unpaged "
-                    "leaves come with the ssm/hybrid families")
-            self.leaves.append(_LeafMeta(name, a, row, dtype))
-            self._pools[name] = torch.zeros(
-                (num_blocks, block_size) + row[:a] + row[a + 1:],
-                dtype=dtype, device=self.device)
+            row = tuple(leaf.shape[:a]) + tuple(leaf.shape[a + 1:])
+            if name in paged:
+                if not (a < len(row) and row[a] == max_seq):
+                    raise ValueError(
+                        f"paged cache leaf {name!r} {tuple(leaf.shape)} has "
+                        f"no max_seq {max_seq} axis after its batch axis {a}")
+                self._pools[name] = torch.zeros(
+                    (num_blocks, block_size) + row[:a] + row[a + 1:],
+                    dtype=leaf.dtype, device=self.device)
+            self.leaves.append(_LeafMeta(name, a, name in paged, row,
+                                         leaf.dtype))
+        # unpaged leaves: each request's whole row, its latest value
+        self._state: dict[object, dict[str, torch.Tensor]] = {}
         self._length: dict[object, int] = {}
 
     # ------------------------------------------------------------------ #
@@ -182,9 +194,11 @@ class PagedKVCache:
         """Reserve blocks for ``positions`` cache slots (prompt + max new
         tokens: worst case up front)."""
         self.allocator.alloc(rid, self.blocks_for(positions))
+        self._state[rid] = {}
         self._length[rid] = 0
 
     def release(self, rid) -> int:
+        self._state.pop(rid)
         self._length.pop(rid)
         return self.allocator.free(rid)
 
@@ -200,10 +214,15 @@ class PagedKVCache:
         return table[pos // self.block_size], pos % self.block_size
 
     def write_range(self, rid, pos0: int, row: dict, length: int) -> None:
-        """Store positions ``[pos0, pos0+length)`` of ``row`` (whose leaves
-        carry >= pos0+length positions).  Only those positions are copied."""
+        """Store positions ``[pos0, pos0+length)`` of ``row``'s paged leaves
+        (which carry >= pos0+length positions; only those positions are
+        copied) and the whole of its unpaged leaves."""
         blk, off = self._slots(rid, pos0, length)
         for meta in self.leaves:
+            if not meta.paged:
+                self._state[rid][meta.name] = row[meta.name].to(
+                    self.device, meta.dtype, copy=True)
+                continue
             seq_front = row[meta.name].movedim(meta.batch_axis, 0)
             self._pools[meta.name][blk, off] = \
                 seq_front[pos0:pos0 + length].to(meta.dtype)
@@ -211,11 +230,17 @@ class PagedKVCache:
 
     def gather_row(self, rid, length: int | None = None) -> dict:
         """Reassemble ``rid``'s row (native layout): block contents for
-        positions < length, zeros beyond (exactly the monolithic slot)."""
+        positions < length, zeros beyond (exactly the monolithic slot); an
+        unpaged leaf's latest value, zeros before its first write."""
         length = self._length[rid] if length is None else length
         blk, off = self._slots(rid, 0, length)
         out = {}
         for meta in self.leaves:
+            if not meta.paged:
+                st = self._state[rid].get(meta.name)
+                out[meta.name] = st.clone() if st is not None else torch.zeros(
+                    meta.row_shape, dtype=meta.dtype, device=self.device)
+                continue
             pool = self._pools[meta.name]
             seq_front = torch.zeros((self.max_seq,) + pool.shape[2:],
                                     dtype=meta.dtype, device=self.device)
@@ -224,25 +249,31 @@ class PagedKVCache:
         return out
 
     def assert_matches(self, rid, row: dict, length: int) -> None:
-        """Bitwise: pooled content == ``row`` on positions < length (the
-        paged==monolithic invariant)."""
+        """Bitwise: pooled content == ``row`` on positions < length of the
+        paged leaves, and whole on the others (the paged==monolithic
+        invariant)."""
         mine = self.gather_row(rid, length)
         for meta in self.leaves:
-            theirs = row[meta.name].narrow(meta.batch_axis, 0, length)
-            ours = mine[meta.name].narrow(meta.batch_axis, 0, length)
+            theirs, ours = row[meta.name], mine[meta.name]
+            if meta.paged:
+                theirs = theirs.narrow(meta.batch_axis, 0, length)
+                ours = ours.narrow(meta.batch_axis, 0, length)
             if not torch.equal(theirs.to(ours.device), ours):
                 raise AssertionError(
                     f"paged/monolithic mismatch on leaf {meta.name} "
                     f"for request {rid!r}")
 
     def findings(self) -> list[str]:
-        """Allocator invariants plus the paged bookkeeping: length keys
-        match block tables, and every length is covered by blocks."""
+        """Allocator invariants plus the paged bookkeeping: length and
+        state keys match block tables, and every length is covered by
+        blocks."""
         out = self.allocator.findings()
-        tables, keys = set(self.allocator.tables), set(self._length)
-        if keys != tables:
-            out.append(f"length keys disagree with block tables "
-                       f"(difference: {sorted(keys ^ tables, key=repr)})")
+        tables = set(self.allocator.tables)
+        for what, keys in (("length", set(self._length)),
+                           ("state", set(self._state))):
+            if keys != tables:
+                out.append(f"{what} keys disagree with block tables "
+                           f"(difference: {sorted(keys ^ tables, key=repr)})")
         for rid in sorted(self._length, key=repr):
             length = self._length[rid]
             if length < 0 or length > self.max_seq:

@@ -75,21 +75,24 @@ def no_gpu():
         pytest.skip("a GPU is present: the CUDA default is valid here")
 
 
-def _cfg():
+def _cfg(name="qwen2-1.5b"):
     from repro_torch.configs import ARCHS
-    return ARCHS["qwen2-1.5b"].reduced()
+    return ARCHS[name].reduced()
 
 
 @pytest.mark.parametrize("entry", ["init", "init_cache", "engine", "kvcache",
-                                   "convert", "launcher"])
+                                   "convert", "launcher", "rwkv_init",
+                                   "rwkv_init_cache", "rwkv_engine",
+                                   "rwkv_launcher", "build_prefill"])
 def test_entry_points_default_to_cuda(no_gpu, entry):
     from repro_torch.convert import params_from_jax
     from repro_torch.launch import serve
     from repro_torch.models.api import get_model
+    from repro_torch.parallel.steps import build_prefill
     from repro_torch.serve.engine import ServingEngine
     from repro_torch.serve.kvcache import PagedKVCache
 
-    cfg = _cfg()
+    cfg, rwkv = _cfg(), _cfg("rwkv6-7b")
     calls = {
         "init": lambda: get_model(cfg).init(),
         "init_cache": lambda: get_model(cfg).init_cache(1, 8),
@@ -98,6 +101,15 @@ def test_entry_points_default_to_cuda(no_gpu, entry):
         "kvcache": lambda: PagedKVCache(cfg, 8, 4, 2),
         "convert": lambda: params_from_jax({"ln_f": [1.0]}, cfg),
         "launcher": lambda: serve.main(["--arch", "qwen2-1.5b", "--reduced"]),
+        "rwkv_init": lambda: get_model(rwkv).init(),
+        "rwkv_init_cache": lambda: get_model(rwkv).init_cache(1, 8),
+        "rwkv_engine": lambda: ServingEngine(rwkv, slots=1, max_seq=8,
+                                             block_size=4),
+        "rwkv_launcher": lambda: serve.main(["--arch", "rwkv6-7b", "--reduced",
+                                             "--legacy-loop"]),
+        # the forward pass's caller: weights and tokens on the default device
+        "build_prefill": lambda: build_prefill(get_model(rwkv)).fn(
+            get_model(rwkv).init(), {"tokens": torch.zeros(1, 4, dtype=torch.long)}),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -14,12 +14,15 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.ina_matmul import ina_matmul as jina
+from repro.kernels.wkv6 import wkv6 as jwkv6
 from repro.models.layers import attn_full as jattn_full
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import wkv6 as wkv6_mod
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.ina_matmul import ina_matmul, ina_matmul_plain
+from repro_torch.kernels.wkv6 import wkv6, wkv6_heads, wkv6_plain
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -116,9 +119,22 @@ def test_ina_matmul_equals_eject_inject():
     (lambda: flash_attention(torch.ones(2, 8, 4).transpose(1, 2),
                              torch.ones(2, 4, 8), torch.ones(2, 4, 8)),
      ValueError),
+    (lambda: wkv6(*[torch.ones(2, 5, 16)] * 3,
+                  torch.ones(2, 5, 16, dtype=torch.bfloat16),
+                  torch.ones(2, 16)), TypeError),
+    (lambda: wkv6(*[torch.ones(2, 5, 48)] * 4, torch.ones(2, 48)),
+     ValueError),
+    (lambda: wkv6(*[torch.ones(2, 5, 16)] * 4, torch.ones(3, 16)),
+     ValueError),
+    (lambda: wkv6(*[torch.ones(2, 5, 16)] * 3,
+                  torch.ones(2, 16, 5).transpose(1, 2), torch.ones(2, 16)),
+     ValueError),
+    (lambda: wkv6_heads(*[torch.ones(2, 5, 4, 16)] * 4, torch.ones(2, 16)),
+     ValueError),
 ], ids=["k-mismatch", "mixed-dtype", "float64", "strided-x", "strided-w",
         "empty", "kv-shape", "head-dim", "neg-offset", "attn-mixed-dtype",
-        "strided-q"])
+        "strided-q", "wkv-bf16-logw", "wkv-head-dim", "wkv-u-shape",
+        "wkv-strides", "wkv-heads-u-shape"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad, err):
     with pytest.raises(err):
         bad()
@@ -184,6 +200,118 @@ def test_q_offset_matches_attn_full(sq, sk, off, d):
 
 
 # --------------------------------------------------------------------------- #
+# wkv6
+# --------------------------------------------------------------------------- #
+def _wkv_inputs(seed, bh, s, hd):
+    """tests/test_kernels.py's distributions: r, k ~ 0.5 N, v ~ N,
+    logw = -exp(0.5 N - 1), u ~ 0.3 N (numpy, float32)."""
+    rng = np.random.default_rng(seed)
+    r = rng.standard_normal((bh, s, hd)).astype(np.float32) * 0.5
+    k = rng.standard_normal((bh, s, hd)).astype(np.float32) * 0.5
+    v = rng.standard_normal((bh, s, hd)).astype(np.float32)
+    logw = -np.exp(rng.standard_normal((bh, s, hd)) * 0.5 - 1.0
+                   ).astype(np.float32)
+    u = rng.standard_normal((bh, hd)).astype(np.float32) * 0.3
+    return r, k, v, logw, u
+
+
+def _wkv_against_jax(arrays, chunk):
+    """The port's plain version, its wrapper and its ``wkv6_ref`` against
+    the Pallas kernel (interpret mode) and the reference's ``wkv6_ref``, at
+    tests/test_kernels.py's tolerance (rtol = atol = 1e-4)."""
+    j = [jnp.asarray(a) for a in arrays]
+    t = [torch.from_numpy(a) for a in arrays]
+    want_ref = _np(jref.wkv6_ref(*j))
+    if chunk is not None:
+        np.testing.assert_allclose(
+            _np(jwkv6(*j, chunk=chunk, interpret=True)), want_ref,
+            rtol=1e-4, atol=1e-4)
+    for got in (wkv6_plain(*t), wkv6(*t), ref.wkv6_ref(*t)):
+        assert got.dtype == torch.float32 and got.shape == arrays[0].shape
+        np.testing.assert_allclose(_np(got), want_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("s,hd,chunk", [(128, 64, 32), (256, 64, 64),
+                                        (256, 128, 128)])
+def test_wkv6_matches_pallas(s, hd, chunk):
+    _wkv_against_jax(_wkv_inputs(70, 3, s, hd), chunk)
+
+
+@pytest.mark.parametrize("logw_val,chunk", [(-8.0, 8), (-1e-3, 32),
+                                            (-0.5, 32)])
+def test_wkv6_decay_extremes_match_pallas(logw_val, chunk):
+    """tests/test_kernels.py's extremes, each inside the regime where the
+    chunked Pallas form is exact (chunk * |logw| <= 80 nats); the port's
+    step-by-step recurrence is exact at every decay."""
+    bh, s, hd = 1, 64, 64
+    rng = np.random.default_rng(71)
+    r = np.full((bh, s, hd), 0.1, np.float32)
+    k = rng.standard_normal((bh, s, hd)).astype(np.float32) * 0.3
+    v = rng.standard_normal((bh, s, hd)).astype(np.float32)
+    logw = np.full((bh, s, hd), logw_val, np.float32)
+    _wkv_against_jax((r, k, v, logw, np.zeros((bh, hd), np.float32)), chunk)
+
+
+@pytest.mark.parametrize("s", [1, 37, 100])
+def test_wkv6_ragged_matches_ref(s):
+    """Any S: the Pallas kernel asserts S % chunk == 0, the port does not;
+    both hold to the reference's step-by-step wkv6_ref."""
+    _wkv_against_jax(_wkv_inputs(72, 2, s, 16), None)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "interleaved"])
+def test_wkv6_heads_reads_model_layout(layout):
+    """wkv6_heads reads [B, S, H, hd] in place (the model's projections,
+    or views into one interleaved buffer) with u [H, hd] shared by the
+    batch; it equals the Pallas kernel on the [BH, S, hd] transpose."""
+    b, s, h, hd = 2, 64, 3, 16
+    r, k, v, logw = (a.reshape(b, h, s, hd).transpose(0, 2, 1, 3)
+                     for a in _wkv_inputs(73, b * h, s, hd)[:4])
+    u = np.random.default_rng(74).standard_normal((h, hd)).astype(np.float32)
+    if layout == "contiguous":
+        t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (r, k, v, logw)]
+    else:
+        buf = torch.from_numpy(np.ascontiguousarray(np.stack(
+            [r, k, v, logw], axis=3)))                 # [B, S, H, 4, hd]
+        t = [buf[:, :, :, i] for i in range(4)]
+        assert t[0].stride() == (s * h * 4 * hd, h * 4 * hd, 4 * hd, 1)
+    got = wkv6_heads(*t, torch.from_numpy(u))
+    assert got.shape == (b, s, h, hd) and got.is_contiguous()
+    assert torch.equal(got, ops.wkv(*t, torch.from_numpy(u)))
+
+    def bh(a):
+        return jnp.asarray(a.transpose(0, 2, 1, 3).reshape(b * h, s, hd))
+    want = jwkv6(bh(r), bh(k), bh(v), bh(logw), jnp.asarray(np.tile(u, (b, 1))),
+                 chunk=32, interpret=True)
+    want = np.asarray(want).reshape(b, h, s, hd).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np(got), want, rtol=1e-4, atol=1e-4)
+
+
+def test_wkv6_bf16_output_dtype():
+    """bf16 r/k/v: f32 arithmetic, one rounding to bf16 at the end."""
+    arrays = _wkv_inputs(75, 2, 40, 64)
+    t = [torch.from_numpy(a) for a in arrays]
+    low = [x.to(torch.bfloat16) for x in t[:3]]
+    got = wkv6(*low, t[3], t[4])
+    assert got.dtype == torch.bfloat16
+    want = wkv6(*(x.float() for x in low), t[3], t[4])
+    torch.testing.assert_close(got, want.to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_wkv6_dispatches_by_device(monkeypatch):
+    """A CPU tensor runs the plain version and never reaches the build or
+    the launch counter."""
+    def no_build(*a, **kw):
+        raise AssertionError("a CPU tensor reached the CUDA build")
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    before = wkv6_mod.launches
+    t = [torch.from_numpy(a) for a in _wkv_inputs(76, 2, 9, 16)]
+    torch.testing.assert_close(wkv6(*t), wkv6_plain(*t), rtol=0, atol=0)
+    assert wkv6_mod.launches == before
+
+
+# --------------------------------------------------------------------------- #
 # CUDA kernels against their plain versions (only where a GPU is present)
 # --------------------------------------------------------------------------- #
 @pytest.fixture
@@ -220,3 +348,24 @@ def test_flash_attention_kernel_matches_plain(cuda, sq, sk, off, d, dtype):
     want = flash_attention_plain(q, k, v, q_offset=off)
     tol = 2e-5 if dtype == "float32" else 5e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,dtype", [(2, 2048, 64, "bfloat16"),
+                                         (1, 300, 64, "float32"),
+                                         (2, 1000, 64, "bfloat16")])
+def test_wkv6_kernel_matches_plain(cuda, b, s, h, dtype):
+    """The model's layout at the rwkv6-7b widths (hd 64); f32 at
+    rtol = atol = 1e-4, bf16 one bf16 ulp on top."""
+    hd = 64
+    r, k, v, logw = (torch.from_numpy(a.reshape(b, h, s, hd)).to(cuda)
+                     .transpose(1, 2).contiguous()
+                     for a in _wkv_inputs(77, b * h, s, hd)[:4])
+    u = torch.from_numpy(_normal(78, h, hd) * 0.3).to(cuda)
+    r, k, v = (x.to(_TORCH[dtype]) for x in (r, k, v))
+    got = wkv6_heads(r, k, v, logw, u)
+    bh = [x.transpose(1, 2).reshape(b * h, s, hd) for x in (r, k, v, logw)]
+    want = wkv6_plain(*bh, u.repeat(b, 1)).reshape(b, h, s, hd).transpose(1, 2)
+    extra = 0.0 if dtype == "float32" else 2.0 ** -7
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-4 + extra,
+                               atol=1e-4 + extra / 2)

@@ -1,10 +1,14 @@
-"""The port's dense model against the JAX package's, on reduced configs.
+"""The port's dense and ssm (RWKV6) models against the JAX package's, on
+reduced configs.
 
 Weights come from the reference (``Model.init(jax.random.PRNGKey(s))``) and
 reach the port through ``params_from_jax``; token inputs come from numpy.
 Both run in float32 on the CPU (the port's plain kernel versions), held to
-rtol/atol 1e-4.
+rtol/atol 1e-4.  The reference's chunked WKV equals the recurrence while a
+chunk's cumulative decay stays under 80 nats; every rwkv case here stays
+inside that regime.
 """
+import functools
 import dataclasses
 
 import jax
@@ -14,27 +18,40 @@ import pytest
 import torch
 
 from repro.configs import ARCHS as JARCHS
+from repro.models.api import cache_specs as jcache_specs
 from repro.models.api import get_model as jget_model
 
 from repro_torch.configs import ARCHS
 from repro_torch.convert import params_from_jax
-from repro_torch.models.api import cache_batch_axes, get_model
+from repro_torch.models.api import (cache_batch_axes, get_model,
+                                    paged_cache_leaves)
 
-ARCH_NAMES = ["qwen2-1.5b", "llama3-8b"]
+DENSE = ["qwen2-1.5b", "llama3-8b"]
+ARCH_NAMES = DENSE + ["rwkv6-7b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S = 2, 40
 
 
-@pytest.fixture(scope="module", params=ARCH_NAMES)
-def pair(request):
-    """(reference model, its params, port model, port params)."""
-    name = request.param
+@functools.cache
+def _make_pair(name: str):
     jm = jget_model(JARCHS[name].reduced())
     jp = jm.init(jax.random.PRNGKey(3))
     cfg = ARCHS[name].reduced()
     assert dataclasses.asdict(cfg) == dataclasses.asdict(JARCHS[name].reduced())
     tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
     return jm, jp, get_model(cfg), tp
+
+
+@pytest.fixture(scope="module", params=ARCH_NAMES)
+def pair(request):
+    """(reference model, its params, port model, port params)."""
+    return _make_pair(request.param)
+
+
+@pytest.fixture(scope="module", params=DENSE)
+def dense_pair(request):
+    """``pair`` for the families with a batched prefill and a K/V cache."""
+    return _make_pair(request.param)
 
 
 def _tokens(seed, b, s, vocab):
@@ -58,8 +75,10 @@ def test_params_keep_names_and_shapes(pair):
 
 @pytest.mark.parametrize("seq", [S, 64])
 def test_forward_matches(pair, seq):
-    """64 tokens take the reference's chunked attention (attn_chunk 32),
-    40 its full attention; the port runs the flash kernel for both."""
+    """Dense: 64 tokens take the reference's chunked attention (attn_chunk
+    32), 40 its full attention; the port runs the flash kernel for both.
+    RWKV6: the reference's WKV chunk is 32, so 40 is ragged (padded there)
+    and 64 two whole chunks; the port runs the exact recurrence for both."""
     jm, jp, m, tp = pair
     toks = _tokens(1, B, seq, m.cfg.vocab)
     want = jm.forward(jp, {"tokens": jnp.asarray(toks)})
@@ -80,10 +99,10 @@ def test_loss_matches(pair):
 
 @pytest.mark.parametrize("chunks", [(0, 12), (0, 8, 20), (5, 13)],
                          ids=["one-chunk", "three-chunks", "offset-start"])
-def test_prefill_matches(pair, chunks):
+def test_prefill_matches(dense_pair, chunks):
     """Chunked prefill: logits and cache after every chunk, with
     pos_offset 0 and > 0."""
-    jm, jp, m, tp = pair
+    jm, jp, m, tp = dense_pair
     max_seq = 32
     toks = _tokens(4, B, max_seq, m.cfg.vocab)
     jc = jm.init_cache(B, max_seq)
@@ -99,17 +118,17 @@ def test_prefill_matches(pair, chunks):
             _close(tc[leaf], jc[leaf])
 
 
-def test_prefill_rejects_chunk_past_cache(pair):
-    jm, jp, m, tp = pair
+def test_prefill_rejects_chunk_past_cache(dense_pair):
+    jm, jp, m, tp = dense_pair
     tc = m.init_cache(1, 8, device="cpu")
     with pytest.raises(ValueError, match="past the cache"):
         m.prefill(tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, tc,
                   pos_offset=6)
 
 
-def test_decode_step_matches(pair):
+def test_decode_step_matches(dense_pair):
     """Prefill 9 tokens, then decode 5 steps at a shared scalar position."""
-    jm, jp, m, tp = pair
+    jm, jp, m, tp = dense_pair
     max_seq = 16
     toks = _tokens(5, B, 14, m.cfg.vocab)
     jc = jm.init_cache(B, max_seq)
@@ -126,10 +145,10 @@ def test_decode_step_matches(pair):
         _close(tc["v"], jc["v"])
 
 
-def test_per_row_decode_matches_b1_reference(pair):
+def test_per_row_decode_matches_b1_reference(dense_pair):
     """A [B] ``pos`` (the paged step) equals a B=1 reference decode per row
     at its own position: the reference's vmap, written out as a batch."""
-    jm, jp, m, tp = pair
+    jm, jp, m, tp = dense_pair
     max_seq = 16
     lens = [3, 9, 6]
     toks = _tokens(6, len(lens), 10, m.cfg.vocab)
@@ -155,12 +174,21 @@ def test_per_row_decode_matches_b1_reference(pair):
 
 
 def test_cache_layout(pair):
+    """Leaves, shapes and dtypes as the reference's ``init_cache``; batch
+    axes where the reference's ``cache_specs`` puts the batch (read with a
+    string marker, which jax 0.9 keeps); paged leaves are those with a
+    sequence axis."""
     jm, jp, m, tp = pair
     jc = jm.init_cache(3, 8)
     tc = m.init_cache(3, 8, device="cpu")
-    assert {k: tuple(v.shape) for k, v in tc.items()} == \
-        {k: v.shape for k, v in jc.items()}
-    assert cache_batch_axes(m.cfg) == {"k": 1, "v": 1}
+    assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+            for k, v in tc.items()} == \
+        {k: (v.shape, str(v.dtype)) for k, v in jc.items()}
+    specs = jcache_specs(JARCHS[m.cfg.name], batch_axes="__batch__")
+    assert cache_batch_axes(m.cfg) == {k: list(spec).index("__batch__")
+                                       for k, spec in specs.items()}
+    assert paged_cache_leaves(m.cfg) == (
+        ("k", "v") if m.cfg.family == "dense" else ())
 
 
 @pytest.mark.parametrize("norm", ["rms_norm", "layer_norm"])
@@ -183,3 +211,78 @@ def test_other_families_not_ported():
                       n_heads=1, n_kv_heads=1, d_ff=8, vocab=8)
     with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
         get_model(cfg)
+
+
+# --------------------------------------------------------------------------- #
+# RWKV6
+# --------------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def rwkv():
+    return _make_pair("rwkv6-7b")
+
+
+def _decode_sequence(jm, jp, m, tp, toks):
+    """Decode every token of ``toks`` from empty caches in both packages,
+    holding the logits and all three cache leaves after every step."""
+    jc = jm.init_cache(toks.shape[0], 8)
+    tc = m.init_cache(toks.shape[0], 8, device="cpu")
+    for pos in range(toks.shape[1]):
+        jl, jc = jm.decode_step(jp, {"tokens": jnp.asarray(toks[:, pos:pos + 1]),
+                                     "pos": jnp.asarray(pos, jnp.int32)}, jc)
+        tl, tc = m.decode_step(tp, {"tokens": torch.from_numpy(
+            toks[:, pos:pos + 1]).long(), "pos": pos}, tc)
+        _close(tl, jl)
+        for leaf in ("state", "tprev", "cprev"):
+            _close(tc[leaf], jc[leaf])
+    return tl
+
+
+def test_rwkv_decode_steps_match(rwkv):
+    """Six single-step decodes: logits and state/tprev/cprev after each;
+    the last step's logits equal the full-sequence forward's last row."""
+    jm, jp, m, tp = rwkv
+    toks = _tokens(7, B, 6, m.cfg.vocab)
+    last = _decode_sequence(jm, jp, m, tp, toks)
+    fwd = m.forward(tp, {"tokens": torch.from_numpy(toks).long()})
+    _close(last[:, 0], fwd[:, -1].numpy())
+
+
+def _perturbed(jp, seed):
+    """The reference tree with a nonzero bonus ``u`` and a real decay:
+    w0 in [-3, 0] gives at most exp(0.5) = 1.65 nats per step with the
+    LoRA term, 53 per 32-token chunk, inside the exact regime (<= 80)."""
+    rng = np.random.default_rng(seed)
+    tree = jax.tree.map(np.array, jp)
+    tmix = tree["layers"]["tmix"]
+    tmix["u"] = (rng.standard_normal(tmix["u"].shape) * 0.3).astype(np.float32)
+    tmix["w0"] = rng.uniform(-3.0, 0.0, tmix["w0"].shape).astype(np.float32)
+    return tree
+
+
+@pytest.mark.parametrize("seq", [S, 64])
+def test_rwkv_bonus_and_decay_match(rwkv, seq):
+    """With u and w0 perturbed before conversion, the bonus term and real
+    decay run: forward (ragged 40 and chunked 64) and six decode steps."""
+    jm, _, m, _ = rwkv
+    tree = _perturbed(_make_pair("rwkv6-7b")[1], 8)
+    jp = jax.tree.map(jnp.asarray, tree)
+    tp = params_from_jax(tree, m.cfg, device="cpu")
+    toks = _tokens(9, B, seq, m.cfg.vocab)
+    want = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    _close(m.forward(tp, {"tokens": torch.from_numpy(toks).long()}), want)
+    _decode_sequence(jm, jp, m, tp, toks[:, :6])
+
+
+def test_params_from_jax_keeps_u_float32(rwkv):
+    """In a bf16 config matrices go to bf16, but the bonus ``u`` [H, hd]
+    stays float32, as the reference reads it (ssm.py:231); so do vectors."""
+    _, jp, m, _ = rwkv
+    cfg = dataclasses.replace(m.cfg, dtype="bfloat16")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    tmix = tp["layers"]["tmix"]
+    assert tmix["u"].dtype == torch.float32
+    assert tmix["w0"].dtype == torch.float32
+    assert tmix["wr"].dtype == tmix["mu"].dtype == torch.bfloat16
+    assert tp["embed"].dtype == torch.bfloat16
+    own = get_model(cfg).init(device="cpu")["layers"]["tmix"]
+    assert own["u"].dtype == torch.float32 and own["wr"].dtype == torch.bfloat16
