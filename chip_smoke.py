@@ -8,14 +8,17 @@ Phases; any failure raises and the process exits non-zero:
 1. device check: a CUDA device, its name and power limit, TF32 off;
 2. the three hand-written CUDA kernels built from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all started together)
-   and held against their plain PyTorch versions at the shapes and dtypes
-   that phases 3-6 give them, each timed beside its bound, its plain
-   version and one library call where one computes the same function;
+   and held against their plain PyTorch versions: first ``ina_matmul`` on
+   one small case per regime, tile, layout and cluster size (1 and 2), then
+   every kernel at the shapes and dtypes that phases 3-6 give it, each timed
+   beside its bound, its plain version and one library call where one
+   computes the same function;
 3. qwen2-1.5b at its published widths (bf16, seeded random weights) served
    through the port's ``ServingEngine``: 4 requests on 2 slots, prompt 128,
    32 generated tokens, prefill chunk 64.  The kernels' launch counters must
-   equal the expected counts, and the engine must agree with the legacy
-   per-token loop on the same weights;
+   equal the expected counts, no matmul may take the generic (non-TMA)
+   path, and the engine must agree with the legacy per-token loop on the
+   same weights;
 4. the same at 2 layers in float32: the engine's tokens must equal the
    legacy loop's, token for token;
 5. rwkv6-7b at its published widths and depth (bf16, seeded random
@@ -35,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import statistics
+import re
 import subprocess
 import sys
 import time
@@ -53,6 +56,9 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ina_matmul as im  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch.kernel_times import (Timer,  # noqa: E402
+                                             matmul_operands,
+                                             matmul_projections)
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.parallel.steps import (build_paged_serve_step,  # noqa: E402
                                         build_prefill, build_serve_step)
@@ -73,7 +79,6 @@ SERVE_ARGV = {
 # torch.matmul).  Plus one for the head.
 MATMULS_PER_PASS = {"dense": 7, "ssm": 8}
 RWKV_FWD_B, RWKV_FWD_S, RWKV_PREFIX = 2, 2048, 300
-L2_FLUSH_BYTES = 128 << 20
 
 
 def log(msg: str) -> None:
@@ -107,30 +112,6 @@ def device_check() -> dict:
 # --------------------------------------------------------------------------- #
 # phase 2
 # --------------------------------------------------------------------------- #
-class Timer:
-    """Median time of ``fn`` over launches that each find the L2 cold,
-    as a decode step finds the weights."""
-
-    def __init__(self):
-        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
-                                 device="cuda")
-
-    def __call__(self, fn, iters: int = 10) -> float:
-        fn()
-        torch.cuda.synchronize()
-        events = []
-        for _ in range(iters):
-            self.flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            events.append((s, e))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in events)
-
-
 def bound(nbytes: int, ops: float, dtype) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -155,48 +136,70 @@ def compare(got, want, dtype, tol=None) -> dict:
 
 
 def matmul_cases():
-    cfg = ARCHS[ARCH]
-    d, f, kv = cfg.d_model, cfg.d_ff, cfg.n_kv_heads * cfg.resolved_head_dim
+    proj = matmul_projections()
     cases = []
-    # bf16: the serve phase; f32: the exact-f32 phase (same widths, same M)
+    # qwen2-1.5b, bf16: the serve phase (prefill chunk 64, 2 decode slots,
+    # M = 1 and 4 beside them); f32: the exact-f32 phase (same widths, same M)
     for dt, tag in ((torch.bfloat16, ""), (torch.float32, " f32")):
-        for m in (64, 2):
-            cases += [(f"wq/wo{tag} M={m}", m, d, d, "row", dt),
-                      (f"wk/wv{tag} M={m}", m, d, kv, "row", dt),
-                      (f"w_up/w_gate{tag} M={m}", m, d, f, "row", dt),
-                      (f"w_down{tag} M={m}", m, f, d, "row", dt),
-                      (f"tied head{tag} M={m}", m, d, cfg.vocab, "tied", dt)]
+        for m in ((64, 4, 2, 1) if dt == torch.bfloat16 else (64, 2)):
+            cases += [(f"{name}{tag} M={m}", m, k, n, kind, dt)
+                      for model, name, k, n, kind in proj if model == ARCH]
+    d = ARCHS[ARCH].d_model
     cases += [("ragged M=3 N=200", 3, d, 200, "row", torch.bfloat16),
               # K and N off the 8-element grid: element-by-element loads
               ("odd K=1001 N=201", 3, 1001, 201, "row", torch.bfloat16),
               ("odd tied K=1001", 3, 1001, 77, "tied", torch.bfloat16)]
     # rwkv6-7b: the forward (M = B*S), the paged decode (M = 2 slots), and
     # the exact-f32 phase's forward (M = 300) and decode
-    r = ARCHS[RWKV]
-    d, f = r.d_model, r.d_ff
     for m, dt, tag in ((RWKV_FWD_B * RWKV_FWD_S, torch.bfloat16, "fwd"),
+                       (4, torch.bfloat16, "decode"),
                        (2, torch.bfloat16, "decode"),
+                       (1, torch.bfloat16, "decode"),
                        (RWKV_PREFIX, torch.float32, "f32 fwd"),
                        (2, torch.float32, "f32 decode")):
-        cases += [(f"rwkv {tag} r/k/v/g/o M={m}", m, d, d, "row", dt),
-                  (f"rwkv {tag} cmix wk M={m}", m, d, f, "row", dt),
-                  (f"rwkv {tag} cmix wv M={m}", m, f, d, "row", dt),
-                  (f"rwkv {tag} head M={m}", m, d, r.vocab, "row", dt)]
+        cases += [(f"rwkv {tag} {name} M={m}", m, k, n, kind, dt)
+                  for model, name, k, n, kind in proj if model == RWKV]
     return cases
+
+
+# One small case per regime, tile, w layout and cluster size, run before
+# the full shapes so that a wrong shared-memory descriptor, swizzle or
+# cluster reduction fails here, fast and by name: (m, k, n, tile_m, tile_n).
+SMALL_TILES = [(64, 128, 64, 64, 128), (128, 128, 256, 128, 128),
+               (128, 128, 256, 128, 256), (2, 128, 64, 8, 64),
+               (16, 128, 64, 16, 64)]
+
+
+def check_matmul_small(gen) -> None:
+    for m, k, n, tm, tn in SMALL_TILES:
+        for kind in ("row", "tied"):
+            for c in (1, 2):
+                x, w = matmul_operands(gen, m, k, n, kind, torch.bfloat16)
+                plan = im.plan_for(x, w)._replace(tile_m=tm, tile_n=tn,
+                                                  cluster=c)
+                got = im.ina_matmul(x, w, plan)
+                torch.cuda.synchronize()
+                res = compare(got, im.ina_matmul_plain(x, w, plan),
+                              torch.bfloat16)
+                log(f"[kernels] ina_matmul small [{m},{k}]x[{k},{n}] {kind} "
+                    f"{plan.regime} {tm}x{tn} c={c}: max_abs_err "
+                    f"{res['max_abs_err']:.3g}")
+                if not res["ok"]:
+                    raise AssertionError(f"ina_matmul small case [{m},{k}]x"
+                                         f"[{k},{n}] {kind} {plan}: {res}")
 
 
 def check_matmul(timer, gen) -> list:
     rows = []
     for name, m, k, n, kind, dt in matmul_cases():
-        x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
-        w = (torch.randn(k, n, generator=gen, device="cuda")
-             / math.sqrt(k)).to(dt) if kind == "row" else \
-            (torch.randn(n, k, generator=gen, device="cuda")
-             / math.sqrt(k)).to(dt).T                  # embed.T, in place
+        x, w = matmul_operands(gen, m, k, n, kind, dt)
+        plan = im.plan_for(x, w)
         got = im.ina_matmul(x, w)
         torch.cuda.synchronize()
         row = {"case": name, "shape": f"[{m},{k}]x[{k},{n}]",
                "dtype": str(dt).removeprefix("torch."),
+               "regime": plan.regime, "tile": f"{plan.tile_m}x{plan.tile_n}",
+               "cluster": plan.cluster,
                **compare(got, im.ina_matmul_plain(x, w), dt)}
         elt = x.element_size()
         row["bound_ms"], row["bound_by"] = bound(
@@ -205,11 +208,14 @@ def check_matmul(timer, gen) -> list:
         row["plain_ms"] = timer(lambda: im.ina_matmul_plain(x, w))
         row["library_ms"] = timer(lambda: torch.matmul(x, w))
         log(f"[kernels] ina_matmul {name:28s} {row['shape']:26s} "
-            f"{row['dtype']:8s} max_abs_err {row['max_abs_err']:.3g} "
+            f"{row['dtype']:8s} {plan.regime} {row['tile']} c={plan.cluster} "
+            f"max_abs_err {row['max_abs_err']:.3g} "
             f"max_rel_err {row['max_rel_err']:.3g} (rtol {row['rtol']:.3g}, "
             f"atol {row['atol']:.3g}) {row['ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
-            f"{row['plain_ms']:.4f} ms, torch.matmul {row['library_ms']:.4f} ms")
+            f"{row['plain_ms']:.4f} ms, torch.matmul {row['library_ms']:.4f} ms"
+            f" ({row['ms'] / row['library_ms']:.2f}x, "
+            f"{row['bound_ms'] / row['ms']:.1%} of the bound)")
         if not row["ok"]:
             raise AssertionError(f"ina_matmul {name} disagrees with its plain "
                                  f"version: {row}")
@@ -346,6 +352,7 @@ def check_wkv6(timer, gen) -> list:
 # --------------------------------------------------------------------------- #
 def reset_launches() -> None:
     im.launches = 0
+    im.launches_by_regime.update(dict.fromkeys(im.launches_by_regime, 0))
     fa.launches = 0
     wk.launches = 0
 
@@ -356,11 +363,15 @@ def read_launches() -> dict:
 
 
 def check_launches(launches: dict, expect: dict, on_path) -> None:
-    """Counts equal to the expected ones, and every kernel of the path
-    launched at least once."""
+    """Counts equal to the expected ones, every kernel of the path
+    launched at least once, and no matmul on the generic (non-TMA) path:
+    every operand the model hands the kernel must be one TMA describes."""
     if launches != expect or any(launches[k] <= 0 for k in on_path):
         raise AssertionError(f"launch counts {launches} != expected {expect}"
                              f" (on the path: {on_path})")
+    if im.launches_by_regime["generic"] != 0:
+        raise AssertionError(f"ina_matmul took the generic path on the main "
+                             f"path: {im.launches_by_regime}")
 
 
 def serve(cfg, params, phase: str, argv):
@@ -387,7 +398,8 @@ def serve(cfg, params, phase: str, argv):
         f"{report.prefill_ms:.1f} ms ({report.prefill_chunks} "
         f"{'chunks' if dense else 'per-token steps'}), decode "
         f"{report.decode_ms:.1f} ms ({report.decode_steps} steps); launches "
-        f"{launches}, expected {expect}")
+        f"{launches}, expected {expect}; ina_matmul by regime "
+        f"{im.launches_by_regime}")
     check_launches(launches, expect,
                    ("ina_matmul", "flash_attention") if dense
                    else ("ina_matmul",))
@@ -560,7 +572,8 @@ def phase_rwkv_bf16() -> dict:
               "flash_attention": 0, "wkv6": cfg.n_layers}
     log(f"[rwkv] forward B={RWKV_FWD_B} S={RWKV_FWD_S}: logits "
         f"{tuple(logits.shape)} {logits.dtype}, first call {first_ms:.1f} ms; "
-        f"launches {launches}, expected {expect}")
+        f"launches {launches}, expected {expect}; ina_matmul by regime "
+        f"{im.launches_by_regime}")
     check_launches(launches, expect, ("ina_matmul", "wkv6"))
     if logits.shape != (RWKV_FWD_B, RWKV_FWD_S, cfg.vocab) \
             or not bool(torch.isfinite(logits).all()):
@@ -665,14 +678,40 @@ def kernel_entry(name, source, replaces, rows, case, launches, smi,
             "shape": row["shape"], "device": smi, "cases": rows}
 
 
+def ptxas_report(text: str, source: str) -> list:
+    """(kernel, "registers, shared memory | spills") for each entry
+    function in nvcc's ``-Xptxas -v`` output for ``<source>.cu``, whose
+    kernels are named ``<source>..._kernel``; a template's arguments are
+    shown as <...> (dynamic shared memory is the ring, set at launch)."""
+    out, kernel, used = [], None, []
+    for ln in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            if kernel:
+                out.append((kernel, " | ".join(used)))
+            mangled = entry.group(1)
+            # the last "<source>..._kernel" in the name: the namespace
+            # before it (an anonymous one) also holds the source's name
+            name = re.search(rf"{source}(?:(?!{source})\w)*?_kernel", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            kernel = (name.group() if name else mangled) + \
+                (f"<{','.join(args)}>" if args else "")
+            used = []
+        elif kernel and ("registers" in ln or "spill" in ln):
+            used.append(ln.split(":", 1)[-1].strip())
+    if kernel:
+        out.append((kernel, " | ".join(used)))
+    return out
+
+
 def main() -> int:
     info = device_check()
     logs = _build.build(["ina_matmul", "flash_attention", "wkv6"])
     for name, text in logs.items():
-        used = [ln.strip() for ln in text.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}.cu: " + " | ".join(used))
+        for kernel, used in ptxas_report(text, name):
+            log(f"[build] {name}.cu {kernel}: {used}")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    check_matmul_small(gen)
     timer = Timer()
     mm_rows = check_matmul(timer, gen)
     at_rows = check_attention(timer, gen)

@@ -1,75 +1,211 @@
-"""INA matmul: ``[M, K] @ [K, N]`` with the f32 partial sum kept on chip.
+"""INA matmul: ``[M, K] @ [K, N]`` with every partial sum kept on chip.
 
 Counterpart of ``repro.kernels.ina_matmul`` (the Pallas kernel whose
-accumulator stays in VMEM across the K grid axis).  The CUDA kernel is
-``csrc/ina_matmul.cu``; its source says what bounds it and how.  Beside it,
-:func:`ina_matmul_plain` is the same K-blocked function in plain PyTorch.
+accumulator stays in VMEM across the K grid axis).  The CUDA kernels are in
+``csrc/ina_matmul.cu``; its header says what bounds each regime and how the
+design answers it.
 
-:func:`ina_matmul` launches the kernel for a CUDA tensor and runs the plain
-version only for a CPU tensor.  ``w`` may be a strided view whose rows or
-columns are contiguous, so the tied head reads ``embed.T`` in place.
+:func:`plan_matmul` is a pure function of the shape and layout: it picks
+the bf16 regime (``wide`` for M > 16, ``narrow`` for M <= 16 with A and B
+swapped, ``generic`` where TMA cannot describe the operands), the output
+tile and the cluster size ``c``.  When the output tiles are fewer than the
+SMs, the c CTAs of a thread block cluster share one tile, each summing one
+contiguous slice of whole K tiles in registers; the slices are then summed
+in rank order over distributed shared memory, SM to SM, and each output
+element is stored once.  That is the reduce-scatter of the INA ring inside
+one cluster: no partial sum goes to device memory, there are no atomics
+and no second pass, and every run gives the same bits.
+
+:func:`ina_matmul_plain` is the same blocked function in plain PyTorch:
+per K slice an f32 sum over K tiles in order, then the slices in rank
+order, cast once.  :func:`ina_matmul` launches a kernel for a CUDA tensor
+and runs the plain version only for a CPU tensor.  ``w`` may be a strided
+view whose rows or columns are contiguous, so the tied head reads
+``embed.T`` in place.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-BK = {torch.bfloat16: 128, torch.float32: 16}   # the kernel's K tile
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+BK = 64            # K tile of the TMA regimes (64 bf16: one 128-byte row)
+GENERIC_BK = 128   # K tile of the generic bf16 kernel
+SMS = 132          # streaming multiprocessors of an H100 SXM
+MAX_CLUSTER = 8    # the portable thread block cluster size
+
+_REGIME_CODE = {"generic": 0, "wide": 1, "narrow": 2, "f32": 3}
+# x, w, y, M, N, K, ldx, w_sk, w_sn, the packed plan, the stream
 _SIGNATURES = {"ina_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]}
 
 launches = 0   # kernel launches since the last reset (read by chip_smoke.py)
+# the same launches by kernel path; "generic" must stay 0 on the main paths
+launches_by_regime = {"wide": 0, "narrow": 0, "generic": 0, "f32": 0}
 
 
-def ina_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """K-blocked product: an f32 sum over the kernel's K tiles in order,
-    cast to ``x.dtype`` once at the end."""
-    bk = BK[x.dtype]
-    acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float32,
-                      device=x.device)
-    for k0 in range(0, x.shape[1], bk):
-        acc += x[:, k0:k0 + bk].float() @ w[k0:k0 + bk].float()
-    return acc.to(x.dtype)
+class MatmulPlan(NamedTuple):
+    """One launch: the regime, the output tile (``tile_m`` x ``tile_n``),
+    the cluster size (CTAs sharing one output tile) and the K tile."""
+    regime: str
+    tile_m: int
+    tile_n: int
+    cluster: int
+    bk: int
+
+    def code(self, w_kmajor: bool) -> int:
+        """The plan as the C entry's one int argument (a decode step makes
+        hundreds of calls, and each ctypes argument costs host time): bits
+        0-1 regime, 2-9 tile_m, 10-19 tile_n, 20-23 cluster, 24 w k-major."""
+        return (_REGIME_CODE[self.regime] | self.tile_m << 2
+                | self.tile_n << 10 | self.cluster << 20 | int(w_kmajor) << 24)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor) -> None:
+# the float32 kernel sums one fused multiply-add per k, in ascending order
+F32_PLAN = MatmulPlan("f32", 64, 64, 1, 1)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_matmul(m: int, n: int, k: int, aligned: bool) -> MatmulPlan:
+    """The bf16 launch for ``[m, k] @ [k, n]``.
+
+    ``aligned``: both bases are 16-byte aligned and every row stride that
+    is stepped is a multiple of 8 elements, so TMA can describe x and w.
+    Both layouts of w take the same plan; a k-major w (the tied head's
+    ``embed.T``) changes only the kernel's operand layout, which the
+    wrapper passes beside the plan (:meth:`MatmulPlan.code`).
+
+    - generic (not aligned): 64 x 64 tiles, K tiles of 128, no split.
+    - narrow (m <= 16): 64 output columns a CTA, x padded to 8 or 16 rows.
+    - wide (m > 16): 64 x 128 tiles up to m = 64; above, 128 x 256 where
+      that still gives a tile to every SM, else 128 x 128.
+
+    Cluster: the largest power of two c <= 8 that keeps one CTA per SM
+    (tiles x c <= SMS) and leaves every CTA two or more K tiles.  Splitting
+    further, to two CTAs on an SM or a second wave, measured slower on the
+    H100 (``python -m repro_torch.launch.kernel_times``).
+    """
+    if not aligned:
+        return MatmulPlan("generic", 64, 64, 1, GENERIC_BK)
+    if m <= 16:
+        regime, tile_m, tile_n = "narrow", (8 if m <= 8 else 16), 64
+    elif m <= 64:
+        regime, tile_m, tile_n = "wide", 64, 128
+    else:
+        regime, tile_m = "wide", 128
+        tile_n = 256 if _cdiv(m, 128) * _cdiv(n, 256) >= SMS else 128
+    tiles = _cdiv(m, tile_m) * _cdiv(n, tile_n)
+    k_tiles = _cdiv(k, BK)
+    c = 1
+    while c < MAX_CLUSTER and tiles * 2 * c <= SMS and k_tiles >= 4 * c:
+        c *= 2
+    return MatmulPlan(regime, tile_m, tile_n, c, BK)
+
+
+def k_slices(plan: MatmulPlan, k: int) -> list[tuple[int, int]]:
+    """``[k0, k1)`` of each cluster rank: whole K tiles, rank r taking
+    tiles ``[r T / c, (r + 1) T / c)`` of the T tiles, as the kernel does."""
+    tiles, c = _cdiv(k, plan.bk), plan.cluster
+    return [(r * tiles // c * plan.bk, min(k, (r + 1) * tiles // c * plan.bk))
+            for r in range(c)]
+
+
+def _operands(x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """Checks what the kernels take; returns (m, k, n, x's row stride,
+    w's two strides), read once."""
     if x.device != w.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
-    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+    if x.dtype not in (torch.float32, torch.bfloat16) or w.dtype != x.dtype:
         raise TypeError(f"ina_matmul takes float32 or bfloat16 of one dtype, "
                         f"got {x.dtype} and {w.dtype}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w.shape)}")
-    if min(*x.shape, w.shape[1]) == 0:
+    (m, k), n = x.shape, w.shape[1]
+    if min(m, k, n) == 0:
         raise ValueError(f"empty product {tuple(x.shape)} @ {tuple(w.shape)}")
-    if x.stride(1) != 1:
+    xs0, xs1 = x.stride()
+    ws0, ws1 = w.stride()
+    if xs1 != 1:
         raise ValueError("x needs contiguous rows")
-    if w.stride(0) != 1 and w.stride(1) != 1:
+    if ws0 != 1 and ws1 != 1:
         raise ValueError(f"w needs contiguous rows or columns, strides "
                          f"{w.stride()}")
+    return m, k, n, xs0, ws0, ws1
 
 
-def ina_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with ``x``: [M, K], ``w``: [K, N], output in ``x.dtype``."""
-    _check(x, w)
+def _plan(x, w, m, k, n, xs0, ws0, ws1) -> MatmulPlan:
+    if x.dtype == torch.float32:
+        return F32_PLAN
+    kmajor = ws1 != 1
+    w_rows, w_step = (n, ws1) if kmajor else (k, ws0)
+    # what TMA needs: 16-byte aligned bases, and row strides of a multiple
+    # of 8 elements wherever there is more than one row to step over
+    aligned = (x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+               and (m == 1 or xs0 % 8 == 0) and (w_rows == 1 or w_step % 8 == 0))
+    return plan_matmul(m, n, k, aligned)
+
+
+def plan_for(x: torch.Tensor, w: torch.Tensor) -> MatmulPlan:
+    """The plan :func:`ina_matmul` uses for these operands."""
+    return _plan(x, w, *_operands(x, w))
+
+
+def ina_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                     plan: MatmulPlan | None = None) -> torch.Tensor:
+    """Blocked like the kernel: for each cluster rank an f32 sum over its
+    K slice's tiles in order, then the slices summed in rank order, cast to
+    ``x.dtype`` once.  float32 repeats the f32 kernel's arithmetic exactly:
+    one fused multiply-add per k, k ascending (at K = 14336 two f32 sum
+    orders part by up to ~3e-5, more than the checks' 1e-5)."""
+    plan = plan or plan_for(x, w)
+    if plan.regime == "f32":
+        acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float32,
+                          device=x.device)
+        for t in range(x.shape[1]):
+            acc.addcmul_(x[:, t, None], w[t])
+        return acc
+    total = None
+    for k0, k1 in k_slices(plan, x.shape[1]):
+        acc = torch.zeros(x.shape[0], w.shape[1], dtype=torch.float32,
+                          device=x.device)
+        for t in range(k0, k1, plan.bk):
+            acc += x[:, t:min(t + plan.bk, k1)].float() \
+                @ w[t:min(t + plan.bk, k1)].float()
+        total = acc if total is None else total + acc
+    return total.to(x.dtype)
+
+
+def ina_matmul(x: torch.Tensor, w: torch.Tensor,
+               plan: MatmulPlan | None = None) -> torch.Tensor:
+    """``x @ w`` with ``x``: [M, K], ``w``: [K, N], output in ``x.dtype``.
+
+    ``plan`` replaces :func:`plan_for`'s choice (the checks use it to
+    force a cluster size on small shapes); the model never passes one."""
+    m, k, n, xs0, ws0, ws1 = _operands(x, w)
+    plan = plan or _plan(x, w, m, k, n, xs0, ws0, ws1)
+    if (plan.regime == "f32") != (x.dtype == torch.float32):
+        raise ValueError(f"plan {plan} does not fit {x.dtype}")
     if x.device.type == "cpu":
-        return ina_matmul_plain(x, w)
+        return ina_matmul_plain(x, w, plan)
     if x.device.type != "cuda":
         raise ValueError(f"ina_matmul runs on cuda or cpu, not {x.device}")
     global launches
     lib = _build.load("ina_matmul", _SIGNATURES)
-    m, k = x.shape
-    n = w.shape[1]
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)
     err = lib.ina_matmul(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, n, k,
-                         x.stride(0), w.stride(0), w.stride(1),
-                         _DTYPE_CODE[x.dtype],
+                         xs0, ws0, ws1, plan.code(ws1 != 1),
                          torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"ina_matmul launch failed: cudaError_t {err}")
+        raise RuntimeError(f"ina_matmul launch failed: cudaError_t {err} "
+                           f"({plan})")
     launches += 1
+    launches_by_regime[plan.regime] += 1
     return y

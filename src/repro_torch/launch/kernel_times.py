@@ -1,0 +1,147 @@
+"""Device times of the port's kernels on one GPU.
+
+    python -m repro_torch.launch.kernel_times [sweep | shapes]
+
+:class:`Timer` is the timer ``chip_smoke.py`` uses, and
+:func:`matmul_projections` / :func:`matmul_operands` are the products it
+checks.  ``sweep`` (the default) times ``ina_matmul`` at every cluster size
+the kernel takes, at the decode (M = 1, 2, 4) and prefill-chunk (M = 64)
+shapes of qwen2-1.5b and rwkv6-7b, beside the size ``plan_matmul`` picks
+and ``torch.matmul``'s time.  ``shapes`` times ``ina_matmul`` as the model
+calls it, and ``torch.matmul``, at the 18 main-path bf16 shapes; it calls
+nothing but ``ina_matmul(x, w)``, so it also times an older tree's kernel
+with this timer when the module is copied into that tree.  Needs a CUDA GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import statistics
+import subprocess
+
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.kernels import ina_matmul as im
+
+L2_FLUSH_BYTES = 128 << 20
+HOST_HEAD_START_CYCLES = 200_000   # ~0.1 ms of the card's clock
+# M of the main paths' bf16 products: qwen2 serving's prefill chunk and its
+# 2 decode slots; the rwkv forward's B 2 x S 2048 and rwkv serving's decode
+MAIN_PATH_M = {"qwen2-1.5b": (64, 2), "rwkv6-7b": (4096, 2)}
+
+
+class Timer:
+    """Median time of ``fn`` over launches that each find the L2 cold,
+    as a decode step finds the weights.  Before each, the card sleeps
+    ~0.1 ms, so the host has queued ``fn``'s launch before the start event
+    runs: the time is the card's, not the host's cost of launching (a
+    step's wall time carries that)."""
+
+    def __init__(self):
+        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                 device="cuda")
+
+    def __call__(self, fn, iters: int = 10) -> float:
+        fn()
+        torch.cuda.synchronize()
+        events = []
+        for _ in range(iters):
+            self.flush.zero_()
+            torch.cuda._sleep(HOST_HEAD_START_CYCLES)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def matmul_projections() -> list[tuple[str, str, int, int, str]]:
+    """(model, name, K, N, w layout) of every ``ina_matmul`` product of the
+    two served models; layout "row" is a [K, N] weight, "tied" the tied
+    head's ``embed.T`` view (contiguous along K)."""
+    q, r = ARCHS["qwen2-1.5b"], ARCHS["rwkv6-7b"]
+    kv = q.n_kv_heads * q.resolved_head_dim
+    return [("qwen2-1.5b", "wq/wo", q.d_model, q.d_model, "row"),
+            ("qwen2-1.5b", "wk/wv", q.d_model, kv, "row"),
+            ("qwen2-1.5b", "w_up/w_gate", q.d_model, q.d_ff, "row"),
+            ("qwen2-1.5b", "w_down", q.d_ff, q.d_model, "row"),
+            ("qwen2-1.5b", "tied head", q.d_model, q.vocab, "tied"),
+            ("rwkv6-7b", "r/k/v/g/o", r.d_model, r.d_model, "row"),
+            ("rwkv6-7b", "cmix wk", r.d_model, r.d_ff, "row"),
+            ("rwkv6-7b", "cmix wv", r.d_ff, r.d_model, "row"),
+            ("rwkv6-7b", "head", r.d_model, r.vocab, "row")]
+
+
+def matmul_operands(gen, m, k, n, kind, dt):
+    """x ~ N(0, 1) [m, k]; w ~ N(0, 1/k) [k, n], row-major, or the
+    transposed view of an [n, k] table (the tied head's embed.T)."""
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(k, n, generator=gen, device="cuda")
+         / math.sqrt(k)).to(dt) if kind == "row" else \
+        (torch.randn(n, k, generator=gen, device="cuda")
+         / math.sqrt(k)).to(dt).T                  # embed.T, in place
+    return x, w
+
+
+def sweep_clusters(ms=(1, 2, 4, 64), seed: int = 0) -> list[dict]:
+    timer = Timer()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for _, name, k, n, kind in matmul_projections():
+        for m in ms:
+            x, w = matmul_operands(gen, m, k, n, kind, torch.bfloat16)
+            plan = im.plan_for(x, w)
+            times = {}
+            for c in (1, 2, 4, 8):
+                if -(-k // im.BK) >= 2 * c or c == 1:
+                    forced = plan._replace(cluster=c)
+                    times[c] = timer(lambda: im.ina_matmul(x, w, forced))
+            row = {"case": name, "m": m, "k": k, "n": n,
+                   "regime": plan.regime, "tile": f"{plan.tile_m}x{plan.tile_n}",
+                   "planned_c": plan.cluster, "ms_by_c": times,
+                   "torch_ms": timer(lambda: torch.matmul(x, w))}
+            print(f"[sweep] {name:18s} [{m},{k}]x[{k},{n}] {row['regime']} "
+                  f"{row['tile']} planned c={plan.cluster}: "
+                  + ", ".join(f"c={c} {t * 1e3:.1f} us" for c, t in times.items())
+                  + f"; torch.matmul {row['torch_ms'] * 1e3:.1f} us", flush=True)
+            rows.append(row)
+    return rows
+
+
+def time_main_shapes(seed: int = 0) -> list[dict]:
+    timer = Timer()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for model, name, k, n, kind in matmul_projections():
+        for m in MAIN_PATH_M[model]:
+            x, w = matmul_operands(gen, m, k, n, kind, torch.bfloat16)
+            row = {"case": f"{model} {name} M={m}",
+                   "ms": timer(lambda: im.ina_matmul(x, w)),
+                   "torch_ms": timer(lambda: torch.matmul(x, w))}
+            print(f"[shapes] {row['case']:30s} [{m},{k}]x[{k},{n}] "
+                  f"ina_matmul {row['ms']:.4f} ms, torch.matmul "
+                  f"{row['torch_ms']:.4f} ms", flush=True)
+            rows.append(row)
+    return rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("mode", nargs="?", choices=("sweep", "shapes"),
+                    default="sweep")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_times needs a CUDA GPU")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    (sweep_clusters if args.mode == "sweep" else time_main_shapes)()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

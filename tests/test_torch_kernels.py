@@ -18,11 +18,15 @@ from repro.kernels.wkv6 import wkv6 as jwkv6
 from repro.models.layers import attn_full as jattn_full
 
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import ina_matmul as ina_mod
 from repro_torch.kernels import wkv6 as wkv6_mod
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.ina_matmul import ina_matmul, ina_matmul_plain
+from repro_torch.kernels.ina_matmul import (BK, MatmulPlan, ina_matmul,
+                                            ina_matmul_plain, k_slices,
+                                            plan_for, plan_matmul)
 from repro_torch.kernels.wkv6 import wkv6, wkv6_heads, wkv6_plain
+from repro_torch.launch.kernel_times import matmul_projections
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -94,6 +98,151 @@ def test_ina_matmul_equals_eject_inject():
     c = jref.matmul_eject_inject(jx, jw, bk=128)
     np.testing.assert_allclose(_np(a), _np(b), rtol=2e-6, atol=1e-4)
     np.testing.assert_allclose(_np(b), _np(c), rtol=2e-6, atol=1e-4)
+
+
+# Every projection of the two served models, as (name, K, N): qwen2-1.5b
+# (d 1536, kv 256, d_ff 8960, tied head over vocab 151936) and rwkv6-7b
+# (d 4096, d_ff 14336, head over vocab 65536).  Both w layouts take one
+# plan, so the tied head's k-major layout does not enter.
+_PROJECTIONS = [(name, k, n) for _, name, k, n, _ in matmul_projections()]
+# (regime, tile_m, tile_n, cluster) for M = 1 and 2 (decode), 64 (the
+# prefill chunk) and 4096 (the rwkv forward), worked out by hand from the
+# rule: the largest power of two c <= 8 with tiles x c <= 132 SMs that
+# leaves every CTA at least two 64-deep K tiles.
+_PLANS = {
+    "wq/wo": {1: ("narrow", 8, 64, 4), 64: ("wide", 64, 128, 8),
+              4096: ("wide", 128, 256, 1)},
+    "wk/wv": {1: ("narrow", 8, 64, 8), 64: ("wide", 64, 128, 8),
+              4096: ("wide", 128, 128, 2)},
+    "w_up/w_gate": {1: ("narrow", 8, 64, 1), 64: ("wide", 64, 128, 1),
+                    4096: ("wide", 128, 256, 1)},
+    "w_down": {1: ("narrow", 8, 64, 4), 64: ("wide", 64, 128, 8),
+               4096: ("wide", 128, 256, 1)},
+    "tied head": {1: ("narrow", 8, 64, 1), 64: ("wide", 64, 128, 1),
+                  4096: ("wide", 128, 256, 1)},
+    "r/k/v/g/o": {1: ("narrow", 8, 64, 2), 64: ("wide", 64, 128, 4),
+                  4096: ("wide", 128, 256, 1)},
+    "cmix wk": {1: ("narrow", 8, 64, 1), 64: ("wide", 64, 128, 1),
+                4096: ("wide", 128, 256, 1)},
+    "cmix wv": {1: ("narrow", 8, 64, 2), 64: ("wide", 64, 128, 4),
+                4096: ("wide", 128, 256, 1)},
+    "head": {1: ("narrow", 8, 64, 1), 64: ("wide", 64, 128, 1),
+             4096: ("wide", 128, 256, 1)},
+}
+
+
+@pytest.mark.parametrize("m", [1, 2, 64, 4096])
+@pytest.mark.parametrize("name,k,n", _PROJECTIONS,
+                         ids=[s[0] for s in _PROJECTIONS])
+def test_plan_matmul_main_path_shapes(name, k, n, m):
+    """The regime, tile and cluster of every main-path product; none of
+    them may take the generic path, and every K slice is whole BK tiles
+    (at least two of them when the K range is split)."""
+    plan = plan_matmul(m, n, k, aligned=True)
+    want = _PLANS[name][1 if m == 2 else m]
+    assert (plan.regime, plan.tile_m, plan.tile_n, plan.cluster) == want
+    assert plan.regime != "generic" and plan.bk == BK
+    slices = k_slices(plan, k)
+    assert len(slices) == plan.cluster
+    assert slices[0][0] == 0 and slices[-1][1] == k
+    for (lo, hi), (nxt, _) in zip(slices, slices[1:] + [(k, k)]):
+        assert lo % BK == 0 and hi == nxt
+        assert hi - lo >= (2 * BK if plan.cluster > 1 else 1)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+@pytest.mark.parametrize("k", [512, 1000, 1088])
+def test_k_slices_are_whole_tiles(c, k):
+    """Rank r takes tiles [r T / c, (r + 1) T / c): contiguous, in rank
+    order, whole BK tiles except where the last one ends at K."""
+    plan = MatmulPlan("wide", 64, 128, c, BK)
+    slices = k_slices(plan, k)
+    assert [lo for lo, _ in slices] == [r * (-(-k // BK)) // c * BK
+                                        for r in range(c)]
+    assert all(lo % BK == 0 and (hi % BK == 0 or hi == k) and lo < hi
+               for lo, hi in slices)
+    assert [hi for _, hi in slices[:-1]] == [lo for lo, _ in slices[1:]]
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cluster_split_plain_matches_pallas(c, dtype):
+    """The plain version blocked as a cluster of c CTAs (c K slices of
+    whole tiles, summed in rank order) equals the Pallas kernel (interpret
+    mode) and matmul_ref: f32 at 1e-5, bf16 at the tolerance above."""
+    m, k, n = 128, 1024, 256
+    jx, tx = _pair(_normal(80, m, k), dtype)
+    jw, tw = _pair(_normal(81, k, n), dtype)
+    plan = MatmulPlan("wide", 128, 128, c, BK)
+    got = ina_matmul_plain(tx, tw, plan)
+    assert got.dtype == _TORCH[dtype] and got.shape == (m, n)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for want in (jina(jx, jw, bm=128, bn=128, bk=128, interpret=True),
+                 jref.matmul_ref(jx, jw)):
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol,
+                                   atol=tol * 10)
+
+
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+@pytest.mark.parametrize("kmajor", [False, True], ids=["row", "k-major"])
+def test_cluster_split_plain_ragged_matches_ref(c, kmajor):
+    """Ragged M, N and a K that is no multiple of c x BK, both w layouts,
+    in float32 against matmul_ref at 1e-5 (w ~ N(0, 1/K), so |y| ~ 1 and
+    the sum order's f32 noise stays near 1e-6)."""
+    m, k, n = 3, 2 * c * BK + 40, 200
+    jx, tx = _pair(_normal(82, m, k), "float32")
+    w = (_normal(83, n, k).T if kmajor else _normal(83, k, n)) / np.sqrt(k)
+    jw, tw = jnp.asarray(w), torch.from_numpy(w)
+    assert (tw.stride(0) == 1) == kmajor
+    plan = MatmulPlan("narrow", 8, 64, c, BK)
+    np.testing.assert_allclose(_np(ina_matmul_plain(tx, tw, plan)),
+                               _np(jref.matmul_ref(jx, jw)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_plan_for_takes_generic_only_where_tma_cannot():
+    """TMA needs 16-byte aligned bases and row strides of a multiple of 8
+    elements; the generic kernel takes the rest, such as K = 1001."""
+    def regime(x, w):
+        return plan_for(x, w).regime
+    bf = torch.bfloat16
+    x, w = torch.ones(2, 1024, dtype=bf), torch.ones(1024, 200, dtype=bf)
+    assert regime(x, w) == "narrow"
+    assert regime(torch.ones(64, 1024, dtype=bf), w) == "wide"
+    # K = 1001 itself is no obstacle (TMA zero-fills the last K tile) ...
+    assert regime(torch.ones(2, 1008, dtype=bf)[:, :1001],
+                  torch.ones(1001, 200, dtype=bf)) == "narrow"
+    # ... a stride of 1001 elements is
+    assert regime(torch.ones(2, 1008, dtype=bf)[:, :1001],
+                  torch.ones(200, 1001, dtype=bf).T) == "generic"
+    assert regime(torch.ones(2, 1001, dtype=bf),
+                  torch.ones(1001, 201, dtype=bf)) == "generic"
+    assert regime(torch.ones(3, 1001, dtype=bf),
+                  torch.ones(1001, 200, dtype=bf)) == "generic"
+    # one row: its stride is never stepped
+    assert regime(torch.ones(3, 1001, dtype=bf)[:1], w[:1001]) == "narrow"
+    # a base off the 16-byte grid
+    assert regime(torch.ones(2, 1032, dtype=bf)[:, 1:1025], w) == "generic"
+    assert plan_for(x.float(), w.float()).regime == "f32"
+    # both w layouts take one plan
+    assert plan_for(x, torch.ones(200, 1024, dtype=bf).T) == plan_for(x, w)
+
+
+def test_ina_matmul_dispatches_by_device(monkeypatch):
+    """A CPU tensor runs the plain version and never reaches the build or
+    the launch counters."""
+    def no_build(*a, **kw):
+        raise AssertionError("a CPU tensor reached the CUDA build")
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    before = (ina_mod.launches, dict(ina_mod.launches_by_regime))
+    tx = torch.from_numpy(_normal(84, 2, 300)).to(torch.bfloat16)
+    tw = torch.from_numpy(_normal(85, 300, 70)).to(torch.bfloat16)
+    torch.testing.assert_close(ina_matmul(tx, tw), ina_matmul_plain(tx, tw),
+                               rtol=0, atol=0)
+    assert (ina_mod.launches, ina_mod.launches_by_regime) == before
+    with pytest.raises(ValueError):
+        ina_matmul(tx.float(), tw.float(), plan=plan_for(tx, tw))
 
 
 @pytest.mark.parametrize("bad,err", [
@@ -329,12 +478,43 @@ def cuda():
                                          (5, 1001, 201, "bfloat16"),
                                          (70, 1536, 130, "float32")])
 def test_ina_matmul_kernel_matches_plain(cuda, m, k, n, dtype):
+    """In float32, w ~ N(0, 1/K), as chip_smoke.py draws it, so |y| ~ 1
+    whatever K: then f32 sum-order noise stays near K eps max|x w| ~ 1e-6,
+    inside atol 1e-4.  (With w ~ N(0, 1) at K = 1536, |y| ~ 39 and the
+    order of the f32 sums alone moved one element by 1.2e-4.)  bf16 keeps
+    w ~ N(0, 1): |y| ~ 10-95, where atol 0.2 is 0.2-2% of a typical value."""
+    w = _normal(51, k, n)
+    if dtype == "float32":
+        w = w / np.sqrt(k)
     x = torch.from_numpy(_normal(50, m, k)).to(cuda, _TORCH[dtype])
-    w = torch.from_numpy(_normal(51, k, n)).to(cuda, _TORCH[dtype])
+    w = torch.from_numpy(w).to(cuda, _TORCH[dtype])
     got, want = ina_matmul(x, w), ina_matmul_plain(x, w)
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                atol=tol * 10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [1, 2, 4, 8])
+@pytest.mark.parametrize("kmajor", [False, True], ids=["row", "k-major"])
+@pytest.mark.parametrize("m", [1, 2, 4, 16, 64, 128])
+def test_ina_matmul_regimes_on_card(cuda, m, kmajor, c):
+    """Each TMA regime and w layout at cluster sizes 1-8, with a ragged N
+    and a K that is no multiple of c x BK, against the plain version
+    blocked the same way: one bf16 ulp (rtol 2^-7, atol 2^-8)."""
+    k, n = 2 * c * BK + 40, 200
+    x = torch.from_numpy(_normal(52, m, k)).to(cuda, torch.bfloat16)
+    w = _normal(53, n, k).T if kmajor else _normal(53, k, n)
+    w = torch.from_numpy(w / np.sqrt(k)).to(cuda, torch.bfloat16)
+    plan = plan_for(x, w)._replace(cluster=c)
+    assert plan.regime == ("narrow" if m <= 16 else "wide")
+    before = ina_mod.launches_by_regime[plan.regime]
+    got = ina_matmul(x, w, plan)
+    torch.cuda.synchronize()
+    assert ina_mod.launches_by_regime[plan.regime] == before + 1
+    torch.testing.assert_close(got.float(),
+                               ina_matmul_plain(x, w, plan).float(),
+                               rtol=2.0 ** -7, atol=2.0 ** -8)
 
 
 @pytest.mark.gpu
