@@ -9,10 +9,12 @@ Phases; any failure raises and the process exits non-zero:
 2. the three hand-written CUDA kernels built from
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all started together)
    and held against their plain PyTorch versions: first ``ina_matmul`` on
-   one small case per regime, tile, layout and cluster size (1 and 2), then
-   every kernel at the shapes and dtypes that phases 3-6 give it, each timed
-   beside its bound, its plain version and one library call where one
-   computes the same function;
+   one small case per regime, tile, layout and cluster size (1 and 2) and
+   ``flash_attention`` on one small case per dtype, head dim and tile, then
+   every kernel at the shapes and dtypes that phases 3-6 give it (for
+   ``flash_attention`` also in the model's layout, GQA read in place from
+   a KV cache slice), each timed beside its bound, its plain version and
+   one library call where one computes the same function;
 3. qwen2-1.5b at its published widths (bf16, seeded random weights) served
    through the port's ``ServingEngine``: 4 requests on 2 slots, prompt 128,
    32 generated tokens, prefill chunk 64.  The kernels' launch counters must
@@ -57,6 +59,8 @@ from repro_torch.kernels import ina_matmul as im  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.kernel_times import (Timer,  # noqa: E402
+                                             attention_cases,
+                                             attention_operands,
                                              matmul_operands,
                                              matmul_projections)
 from repro_torch.models.api import get_model  # noqa: E402
@@ -234,48 +238,115 @@ ATTN_CASES = [  # (name, Sq, Sk, q_offset, dtype): BH = 12 heads, D = 128
     ("prefill chunk 2 f32", 64, 128, 64, torch.float32)]
 
 
+def check_attention_small(gen) -> None:
+    """One small case per dtype and head dim, GQA 2:1, ragged Sq and Sk,
+    k/v read from a cache view, run before the timed shapes so that a wrong
+    fragment layout, load or mask fails here, fast and by name."""
+    cases = [(torch.bfloat16, d, True) for d in (16, 64, 128)] \
+        + [(torch.bfloat16, 64, False)] \
+        + [(torch.float32, d, True) for d in (16, 128)]
+    for dt, d, causal in cases:
+        q, k, v, off = attention_operands(gen, 2, 19, 83, 4, 2, d, dt, 100)
+        got = fa.flash_attention_heads(q, k, v, causal=causal, q_offset=off)
+        torch.cuda.synchronize()
+        res = compare(got, fa.flash_attention_heads_plain(
+            q, k, v, causal=causal, q_offset=off), dt)
+        log(f"[kernels] flash_attention small B=2 Sq=19 Sk=83 H=4 KVH=2 "
+            f"D={d} {str(dt).removeprefix('torch.')} causal={causal}: "
+            f"max_abs_err {res['max_abs_err']:.3g}")
+        if not res["ok"]:
+            raise AssertionError(f"flash_attention small case D={d} {dt} "
+                                 f"causal={causal}: {res}")
+
+
+def attention_row(timer, name, q, k, v, off) -> dict:
+    """The kernel on q [B, Sq, H, D], k/v [B, Sk, KVH, D] (the model's
+    layout) against its plain version, timed beside its bound, the plain
+    version and sdpa.  sdpa gets [B, H, S, D] copies made outside the
+    timer, GQA through ``enable_gqa``; its ``is_causal`` is anchored top
+    left, the same function only where q_offset is 0 and Sq == Sk, so
+    elsewhere it takes the mask.  sdpa is a yardstick only, never on the
+    port's path."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    dt = q.dtype
+    got = fa.flash_attention_heads(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    plan = fa.plan_attention(b, sq, h, kvh, dt)
+    row = {"case": name, "shape": f"B={b} Sq={sq} Sk={sk} H={h} KVH={kvh} "
+                                  f"D={d} q_offset={off}",
+           "dtype": str(dt).removeprefix("torch."),
+           "ctas": plan.ctas,
+           "strides_kv": list(k.stride()),
+           **compare(got, fa.flash_attention_heads_plain(q, k, v,
+                                                         q_offset=off), dt)}
+    pairs = sum(min(sk, off + i + 1) for i in range(sq))
+    row["bound_ms"], row["bound_by"] = bound(
+        (2 * b * sq * h + 2 * b * sk * kvh) * d * q.element_size(),
+        4.0 * b * h * d * pairs, dt)
+    row["ms"] = timer(lambda: fa.flash_attention_heads(q, k, v, q_offset=off))
+    row["plain_ms"] = timer(
+        lambda: fa.flash_attention_heads_plain(q, k, v, q_offset=off))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    gqa = {"enable_gqa": True} if h != kvh else {}
+    mask = (torch.arange(sq, device="cuda")[:, None] + off
+            >= torch.arange(sk, device="cuda")[None, :])
+    row["library_masked_ms"] = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, **gqa))
+    row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, **gqa)) \
+        if off == 0 and sq == sk else row["library_masked_ms"]
+    if h == kvh == 1:
+        # the earlier yardstick of the [BH, S, D] cases: sdpa on the 3-d
+        # tensors themselves, which it runs more slowly than [B, H, S, D]
+        q3, k3, v3 = q[:, :, 0], k[:, :, 0], v[:, :, 0]
+        row["library_3d_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            q3, k3, v3, is_causal=True)) if off == 0 and sq == sk else \
+            timer(lambda: F.scaled_dot_product_attention(q3, k3, v3,
+                                                         attn_mask=mask))
+    log(f"[kernels] flash_attention {name:19s} {row['shape']:44s} "
+        f"{row['dtype']:8s} {plan.ctas} CTAs max_abs_err "
+        f"{row['max_abs_err']:.3g} max_rel_err {row['max_rel_err']:.3g} "
+        f"(rtol {row['rtol']:.3g}, atol {row['atol']:.3g}) {row['ms']:.4f} "
+        f"ms, bound {row['bound_ms']:.5f} ms ({row['bound_by']}), plain "
+        f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms (with "
+        f"the mask {row['library_masked_ms']:.4f} ms; kernel "
+        f"{row['ms'] / row['library_ms']:.2f}x sdpa)"
+        + (f"; sdpa on [BH, S, D] {row['library_3d_ms']:.4f} ms"
+           if "library_3d_ms" in row else ""))
+    if not row["ok"]:
+        raise AssertionError(f"flash_attention {name} disagrees with its "
+                             f"plain version: {row}")
+    return row
+
+
 def check_attention(timer, gen) -> list:
+    """The JAX signature's cases ([BH, S, D], one KV head per query head,
+    as ``flash_attention`` takes them), then the model's layout."""
     cfg = ARCHS[ARCH]
     bh, d = cfg.n_heads, cfg.resolved_head_dim
+    floor = timer(lambda: torch.cuda._sleep(1))
+    log(f"[kernels] the timer's floor, one empty launch: "
+        f"{floor * 1e3:.2f} us")
     rows = []
     for name, sq, sk, off, dt in ATTN_CASES:
-        q = torch.randn(bh, sq, d, generator=gen, device="cuda").to(dt)
-        k = torch.randn(bh, sk, d, generator=gen, device="cuda").to(dt)
-        v = torch.randn(bh, sk, d, generator=gen, device="cuda").to(dt)
-        got = fa.flash_attention(q, k, v, q_offset=off)
+        q, k, v = (torch.randn(bh, s, d, generator=gen, device="cuda").to(dt)
+                   for s in (sq, sk, sk))
+        res = fa.flash_attention(q, k, v, q_offset=off)
         torch.cuda.synchronize()
-        row = {"case": name, "shape": f"BH={bh} Sq={sq} Sk={sk} D={d} "
-                                      f"q_offset={off}",
-               "dtype": str(dt).removeprefix("torch."),
-               **compare(got, fa.flash_attention_plain(q, k, v, q_offset=off),
-                         dt)}
-        pairs = sum(min(sk, off + i + 1) for i in range(sq))
-        row["bound_ms"], row["bound_by"] = bound(
-            bh * (2 * sq + 2 * sk) * d * q.element_size(),
-            4.0 * bh * d * pairs, dt)
-        mask = (torch.arange(sq, device="cuda")[:, None] + off
-                >= torch.arange(sk, device="cuda")[None, :])
-        row["ms"] = timer(lambda: fa.flash_attention(q, k, v, q_offset=off))
-        row["plain_ms"] = timer(
-            lambda: fa.flash_attention_plain(q, k, v, q_offset=off))
-        # sdpa's is_causal is anchored top-left, the same function only
-        # where q_offset is 0 and Sq == Sk; elsewhere it takes the mask
-        row["library_masked_ms"] = timer(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-        row["library_ms"] = timer(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)) \
-            if off == 0 and sq == sk else row["library_masked_ms"]
-        log(f"[kernels] flash_attention {name:19s} {row['shape']:40s} "
-            f"{row['dtype']:8s} max_abs_err {row['max_abs_err']:.3g} "
-            f"max_rel_err {row['max_rel_err']:.3g} (rtol {row['rtol']:.3g}, "
-            f"atol {row['atol']:.3g}) {row['ms']:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
-            f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms "
-            f"(with the mask {row['library_masked_ms']:.4f} ms)")
-        if not row["ok"]:
-            raise AssertionError(f"flash_attention {name} disagrees with its "
-                                 f"plain version: {row}")
-        rows.append(row)
+        if not torch.equal(res, fa.flash_attention_heads(
+                q[:, :, None], k[:, :, None], v[:, :, None],
+                q_offset=off)[:, :, 0]):
+            raise AssertionError(f"flash_attention {name}: the two fronts "
+                                 f"differ")
+        rows.append(attention_row(timer, name, q[:, :, None], k[:, :, None],
+                                  v[:, :, None], off))
+    for name, arch, sq, sk, dt, cache in attention_cases():
+        c = ARCHS[arch]
+        q, k, v, off = attention_operands(gen, 1, sq, sk, c.n_heads,
+                                          c.n_kv_heads, c.resolved_head_dim,
+                                          dt, cache)
+        rows.append(attention_row(timer, name, q, k, v, off))
     return rows
 
 
@@ -706,12 +777,16 @@ def ptxas_report(text: str, source: str) -> list:
 
 def main() -> int:
     info = device_check()
+    t0 = time.perf_counter()
     logs = _build.build(["ina_matmul", "flash_attention", "wkv6"])
+    log(f"[build] {len(logs)} sources built in parallel in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for kernel, used in ptxas_report(text, name):
             log(f"[build] {name}.cu {kernel}: {used}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_matmul_small(gen)
+    check_attention_small(gen)
     timer = Timer()
     mm_rows = check_matmul(timer, gen)
     at_rows = check_attention(timer, gen)
@@ -734,7 +809,7 @@ def main() -> int:
         kernel_entry("flash_attention",
                      "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:78", at_rows,
-                     "prefill chunk 2", launches["flash_attention"],
+                     "qwen2 chunk 2", launches["flash_attention"],
                      info["smi"], by_path("flash_attention")),
         kernel_entry("wkv6", "src/repro_torch/kernels/csrc/wkv6.cu",
                      "src/repro/kernels/wkv6.py:70", wkv_rows, "forward",

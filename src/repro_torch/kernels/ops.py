@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention_heads
 from repro_torch.kernels.ina_matmul import ina_matmul
 from repro_torch.kernels.wkv6 import wkv6_heads
 
@@ -20,10 +20,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*lead, w.shape[1])
 
 
-def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, q_offset: int = 0) -> torch.Tensor:
-    """q: [BH, Sq, D]; k/v: [BH, Sk, D] through the flash kernel."""
-    return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """The model's layout through the flash kernel: q [B, Sq, H, D], k/v
+    [B, Sk, KVH, D] with GQA unexpanded, each read in place (a KV cache
+    slice included); returns a contiguous [B, Sq, H, D]."""
+    return flash_attention_heads(q, k, v, causal=causal, q_offset=q_offset)
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,

@@ -2,15 +2,17 @@
 
     python -m repro_torch.launch.kernel_times [sweep | shapes]
 
-:class:`Timer` is the timer ``chip_smoke.py`` uses, and
+:class:`Timer` is the timer ``chip_smoke.py`` uses;
 :func:`matmul_projections` / :func:`matmul_operands` are the products it
-checks.  ``sweep`` (the default) times ``ina_matmul`` at every cluster size
-the kernel takes, at the decode (M = 1, 2, 4) and prefill-chunk (M = 64)
-shapes of qwen2-1.5b and rwkv6-7b, beside the size ``plan_matmul`` picks
-and ``torch.matmul``'s time.  ``shapes`` times ``ina_matmul`` as the model
-calls it, and ``torch.matmul``, at the 18 main-path bf16 shapes; it calls
-nothing but ``ina_matmul(x, w)``, so it also times an older tree's kernel
-with this timer when the module is copied into that tree.  Needs a CUDA GPU.
+checks, and :func:`attention_cases` / :func:`attention_operands` its flash
+attention cases in the model's layout.  ``sweep`` (the default) times
+``ina_matmul`` at every cluster size the kernel takes, at the decode (M =
+1, 2, 4) and prefill-chunk (M = 64) shapes of qwen2-1.5b and rwkv6-7b,
+beside the size ``plan_matmul`` picks and ``torch.matmul``'s time.
+``shapes`` times ``ina_matmul`` as the model calls it, and
+``torch.matmul``, at the 18 main-path bf16 shapes; it calls nothing but
+``ina_matmul(x, w)``, so it also times an older tree's kernel with this
+timer when the module is copied into that tree.  Needs a CUDA GPU.
 """
 from __future__ import annotations
 
@@ -127,6 +129,30 @@ def time_main_shapes(seed: int = 0) -> list[dict]:
                   f"{row['torch_ms']:.4f} ms", flush=True)
             rows.append(row)
     return rows
+
+
+def attention_cases() -> list[tuple[str, str, int, int, torch.dtype, int]]:
+    """(name, model, Sq, Sk, dtype, cache rows) of the dense prefill's
+    flash attention, B 1: a chunk of Sq at q_offset Sk - Sq, k/v the
+    [:, :Sk] slice of a cache of that many rows (the profiled prefill
+    step's)."""
+    q, ll = "qwen2-1.5b", "llama3-8b"
+    return [("qwen2 chunk 1", q, 64, 64, torch.bfloat16, 192),
+            ("qwen2 chunk 2", q, 64, 128, torch.bfloat16, 192),
+            ("qwen2 chunk 1 f32", q, 64, 64, torch.float32, 192),
+            ("qwen2 chunk 2 f32", q, 64, 128, torch.float32, 192),
+            ("llama3-8b chunk 2", ll, 64, 128, torch.bfloat16, 192)]
+
+
+def attention_operands(gen, b, sq, sk, h, kvh, d, dt, cache):
+    """q ~ N [b, sq, h, d]; k, v ~ N, the [:, :sk] slice of a [b, cache,
+    kvh, d] cache (so the batch stride is cache * kvh * d); q_offset sk -
+    sq."""
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+    q = normal(b, sq, h, d)
+    ck, cv = normal(b, cache, kvh, d), normal(b, cache, kvh, d)
+    return q, ck[:, :sk], cv[:, :sk], sk - sq
 
 
 def main(argv=None) -> int:

@@ -98,14 +98,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # --------------------------------------------------------------------------- #
 # attention cores
 # --------------------------------------------------------------------------- #
-def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """GQA: repeat KV heads to match query heads. k: [B, S, K, D]."""
-    kv_heads = k.shape[2]
-    if kv_heads == n_heads:
-        return k
-    return k.repeat_interleave(n_heads // kv_heads, dim=2)
-
-
 def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, q_offset=0) -> torch.Tensor:
     """Exact attention. q: [B,Sq,H,D], k/v: [B,Sk,K,D] -> [B,Sq,H,D].
@@ -142,19 +134,14 @@ def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
-    """Causal attention over several queries runs the flash kernel, with KV
-    GQA-expanded as the TPU kernel takes it; the rest is :func:`attn_full`."""
-    b, sq, h, d = q.shape
-    if not causal or sq == 1:
+    """Causal attention over several queries runs the flash kernel on the
+    model's layout: q [B, Sq, H, D] and k/v [B, Sk, KVH, D] with GQA
+    unexpanded, each read in place (k/v may be a slice of the KV cache);
+    the output is a contiguous [B, Sq, H, D].  The rest is
+    :func:`attn_full`."""
+    if not causal or q.shape[1] == 1:
         return attn_full(q, k, v, causal=causal, q_offset=q_offset)
-
-    def bh(t):
-        return t.transpose(1, 2).reshape(b * h, t.shape[1], t.shape[3]) \
-            .contiguous()
-
-    o = ops.attention(bh(q), bh(_expand_kv(k, h)), bh(_expand_kv(v, h)),
-                      causal=True, q_offset=int(q_offset))
-    return o.reshape(b, h, sq, v.shape[3]).transpose(1, 2)
+    return ops.attention_heads(q, k, v, causal=True, q_offset=int(q_offset))
 
 
 # --------------------------------------------------------------------------- #

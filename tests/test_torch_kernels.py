@@ -18,10 +18,13 @@ from repro.kernels.wkv6 import wkv6 as jwkv6
 from repro.models.layers import attn_full as jattn_full
 
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ina_matmul as ina_mod
 from repro_torch.kernels import wkv6 as wkv6_mod
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    AttentionPlan, flash_attention, flash_attention_heads,
+    flash_attention_heads_plain, flash_attention_plain, kernel_strides,
+    plan_attention)
 from repro_torch.kernels.ina_matmul import (BK, MatmulPlan, ina_matmul,
                                             ina_matmul_plain, k_slices,
                                             plan_for, plan_matmul)
@@ -268,6 +271,14 @@ def test_ina_matmul_dispatches_by_device(monkeypatch):
     (lambda: flash_attention(torch.ones(2, 8, 4).transpose(1, 2),
                              torch.ones(2, 4, 8), torch.ones(2, 4, 8)),
      ValueError),
+    (lambda: flash_attention_heads(torch.ones(1, 4, 3, 16),
+                                   torch.ones(1, 4, 2, 16),
+                                   torch.ones(1, 4, 2, 16)), ValueError),
+    (lambda: flash_attention_heads(torch.ones(1, 4, 4, 16),
+                                   torch.ones(1, 4, 2, 32)[..., ::2],
+                                   torch.ones(1, 4, 2, 16)), ValueError),
+    (lambda: flash_attention_heads(torch.ones(4, 4, 16), torch.ones(4, 4, 16),
+                                   torch.ones(4, 4, 16)), ValueError),
     (lambda: wkv6(*[torch.ones(2, 5, 16)] * 3,
                   torch.ones(2, 5, 16, dtype=torch.bfloat16),
                   torch.ones(2, 16)), TypeError),
@@ -282,7 +293,8 @@ def test_ina_matmul_dispatches_by_device(monkeypatch):
      ValueError),
 ], ids=["k-mismatch", "mixed-dtype", "float64", "strided-x", "strided-w",
         "empty", "kv-shape", "head-dim", "neg-offset", "attn-mixed-dtype",
-        "strided-q", "wkv-bf16-logw", "wkv-head-dim", "wkv-u-shape",
+        "strided-q", "heads-group", "heads-strided-d", "heads-rank",
+        "wkv-bf16-logw", "wkv-head-dim", "wkv-u-shape",
         "wkv-strides", "wkv-heads-u-shape"])
 def test_wrappers_reject_what_the_kernels_do_not_take(bad, err):
     with pytest.raises(err):
@@ -300,10 +312,15 @@ def _qkv(seed, bh, sq, sk, d, dtype):
 @pytest.mark.parametrize("s,d,causal", [(256, 64, True), (256, 64, False),
                                         (512, 128, True), (1024, 64, True)])
 def test_flash_attention_matches_pallas(s, d, causal):
+    """The JAX signature's front, which is the one-head case of the
+    model-layout front bit for bit, against the Pallas kernel."""
     (jq, tq), (jk, tk), (jv, tv) = _qkv(10, 4, s, s, d, "float32")
     want = jflash(jq, jk, jv, bq=128, bkv=128, causal=causal, interpret=True)
     got = flash_attention(tq, tk, tv, causal=causal)
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+    heads = flash_attention_heads(tq[:, :, None], tk[:, :, None],
+                                  tv[:, :, None], causal=causal)
+    torch.testing.assert_close(got, heads[:, :, 0], rtol=0, atol=0)
 
 
 def test_flash_attention_bf16_matches_pallas():
@@ -346,6 +363,104 @@ def test_q_offset_matches_attn_full(sq, sk, off, d):
     np.testing.assert_allclose(
         flash_attention(tq, tk, tv, q_offset=off).numpy(), want,
         rtol=2e-5, atol=2e-5)
+
+
+def _cache_view(seed, b, sk, kvh, d, extra, dtype):
+    """The same values as a JAX array [b, sk, kvh, d] and a CPU tensor that
+    is the [:, :sk] slice of a [b, sk + extra, kvh, d] cache, so its batch
+    stride is (sk + extra) kvh d, not contiguous over the batch."""
+    full = _normal(seed, b, sk + extra, kvh, d)
+    j, t = _pair(full, dtype)
+    return j[:, :sk], t[:, :sk]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,off", [
+    (1, 16, 40, 12, 2, 16, 24),     # GQA 6:1 (qwen2's), q_offset > 0
+    (2, 8, 8, 8, 2, 64, 0),         # GQA 4:1 (llama3-8b's), q_offset 0
+    (2, 19, 83, 6, 1, 16, 64),      # ragged Sq and Sk, one KV head
+    (1, 33, 97, 4, 2, 64, 64),      # ragged, D 64, three KV tiles
+    (2, 5, 50, 12, 2, 16, 37),      # a chunk that ends short of Sk
+], ids=["gqa6-offset", "gqa4", "ragged-kvh1", "ragged-d64", "short-chunk"])
+def test_flash_attention_heads_matches_attn_full(b, sq, sk, h, kvh, d, off):
+    """The model-layout front (its plain version on the CPU) against the
+    reference's grouped attn_full(q_offset=), k/v read from a slice of a
+    longer cache, float32 at 2e-5."""
+    jq, tq = _pair(_normal(90, b, sq, h, d), "float32")
+    jk, tk = _cache_view(91, b, sk, kvh, d, 9, "float32")
+    jv, tv = _cache_view(92, b, sk, kvh, d, 9, "float32")
+    assert tk.stride(0) == (sk + 9) * kvh * d
+    assert tk.is_contiguous() == (b == 1)
+    want = jattn_full(jq, jk, jv, causal=True, q_offset=off)
+    got = flash_attention_heads(tq, tk, tv, q_offset=off)
+    assert got.shape == (b, sq, h, d) and got.is_contiguous()
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_attention_heads_bf16_matches_attn_full():
+    """bf16 GQA 6:1 from a cache view: the plain version rounds p to bf16
+    before P V, the reference rounds scores and p where its einsums do;
+    the same 5e-2 as the one-head bf16 test."""
+    jq, tq = _pair(_normal(93, 1, 24, 12, 64), "bfloat16")
+    jk, tk = _cache_view(94, 1, 88, 2, 64, 40, "bfloat16")
+    jv, tv = _cache_view(95, 1, 88, 2, 64, 40, "bfloat16")
+    want = jattn_full(jq, jk, jv, causal=True, q_offset=64)
+    got = flash_attention_heads(tq, tk, tv, q_offset=64)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("b,sq,h,kvh,dtype,ctas", [
+    (1, 64, 12, 2, "bfloat16", 24),      # qwen2 prefill chunk: 384 rows
+    (1, 64, 32, 8, "bfloat16", 64),      # llama3-8b
+    (12, 256, 1, 1, "bfloat16", 96),     # the JAX front's square case
+    (2, 8, 1, 1, "bfloat16", 2),         # 8 rows a KV head: one CTA each
+    (1, 2048, 32, 8, "bfloat16", 2048),  # more CTAs than SMs
+    (1, 64, 12, 2, "float32", 48),
+    (1, 3, 4, 2, "float32", 2),
+])
+def test_plan_attention(b, sq, h, kvh, dtype, ctas):
+    """A CTA takes one (sequence, KV head, tile of packed rows); the row
+    tile (32 rows in bf16, 16 in float32) and the KV tile (64, 32) are
+    fixed per dtype."""
+    dt = _TORCH[dtype]
+    plan = plan_attention(b, sq, h, kvh, dt)
+    bq, bkv = (32, 64) if dtype == "bfloat16" else (16, 32)
+    assert plan == AttentionPlan(bq, bkv, ctas)
+    assert plan_attention(b, sq, h, kvh, dt) is plan   # pure, cached
+
+
+def test_kernel_strides_takes_cache_views_and_rejects_the_rest():
+    """D a multiple of 16 (the mma depth; the kernels' instantiations),
+    and for the 16-byte loads every stepped stride a multiple of 16 bytes
+    and a 16-byte aligned base.  A dimension of size 1 is never stepped,
+    so its stride is passed as 0."""
+    bf = torch.bfloat16
+    cache = torch.zeros(2, 192, 2, 128, dtype=bf)
+    assert kernel_strides(cache[:, :64]) == (192 * 2 * 128, 2 * 128, 128)
+    assert kernel_strides(torch.zeros(12, 64, 1, 128)) == (64 * 128, 128, 0)
+    for bad in (torch.zeros(1, 4, 2, 24, dtype=bf),          # D % 16
+                torch.zeros(1, 4, 2, 20),                    # f32 D % 16
+                torch.zeros(1, 4, 3, 18)[..., :16],          # f32 stride 18
+                torch.zeros(1, 4, 3, 20, dtype=bf)[..., :16],  # stride 20
+                torch.zeros(1, 4, 2, 24, dtype=bf)[..., 1:17]):  # base + 2 B
+        with pytest.raises(ValueError):
+            kernel_strides(bad)
+
+
+def test_flash_attention_dispatches_by_device(monkeypatch):
+    """A CPU tensor runs the plain version and never reaches the build or
+    the launch counter."""
+    def no_build(*a, **kw):
+        raise AssertionError("a CPU tensor reached the CUDA build")
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    before = fa_mod.launches
+    q = torch.from_numpy(_normal(97, 1, 10, 6, 16))
+    k, v = (torch.from_numpy(_normal(98 + i, 1, 30, 2, 16)) for i in range(2))
+    torch.testing.assert_close(
+        ops.attention_heads(q, k, v, q_offset=20),
+        flash_attention_heads_plain(q, k, v, q_offset=20), rtol=0, atol=0)
+    assert fa_mod.launches == before
 
 
 # --------------------------------------------------------------------------- #
@@ -528,6 +643,34 @@ def test_flash_attention_kernel_matches_plain(cuda, sq, sk, off, d, dtype):
     want = flash_attention_plain(q, k, v, q_offset=off)
     tol = 2e-5 if dtype == "float32" else 5e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,cache,dtype", [
+    (1, 64, 128, 12, 2, 128, 192, "bfloat16"),    # qwen2 prefill chunk 2
+    (1, 64, 128, 32, 8, 128, 192, "bfloat16"),    # llama3-8b
+    (2, 64, 192, 12, 2, 64, 256, "bfloat16"),
+    (2, 50, 77, 12, 2, 16, 100, "float32"),       # ragged
+    (1, 64, 128, 12, 2, 128, 192, "float32"),
+], ids=["qwen2-bf16", "llama3-bf16", "d64-bf16", "ragged-f32", "qwen2-f32"])
+def test_flash_attention_heads_kernel_matches_plain(cuda, b, sq, sk, h, kvh,
+                                                    d, cache, dtype):
+    """The model-layout kernel, k/v read from a [:, :Sk] view of a longer
+    cache, against its plain version: one bf16 ulp in bf16 (both round an
+    f32 sum of the same terms once), 1e-5 in float32 (sum order only)."""
+    dt = _TORCH[dtype]
+    q = torch.from_numpy(_normal(61, b, sq, h, d)).to(cuda, dt)
+    ck, cv = (torch.from_numpy(_normal(62 + i, b, cache, kvh, d)).to(cuda, dt)
+              for i in range(2))
+    k, v, off = ck[:, :sk], cv[:, :sk], sk - sq
+    before = fa_mod.launches
+    got = flash_attention_heads(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa_mod.launches == before + 1
+    rtol, atol = (1e-5, 1e-5) if dtype == "float32" else (2.0 ** -7, 2.0 ** -8)
+    want = flash_attention_heads_plain(q, k, v, q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.gpu

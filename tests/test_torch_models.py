@@ -118,6 +118,44 @@ def test_prefill_matches(dense_pair, chunks):
             _close(tc[leaf], jc[leaf])
 
 
+def test_prefill_reads_the_cache_in_place(dense_pair, monkeypatch):
+    """Each layer's attention gets q as projected and k/v as the layer's
+    cache slice [:, :end], unexpanded and uncopied (batch stride max_seq x
+    KVH x D), and returns a contiguous [B, C, H, D]; the logits still
+    match the reference."""
+    from repro_torch.kernels import ops
+    jm, jp, m, tp = dense_pair
+    cfg, max_seq = m.cfg, 32
+    calls = []
+    real = ops.attention_heads
+
+    def spy(q, k, v, **kw):
+        calls.append((q, k, v, kw))
+        o = real(q, k, v, **kw)
+        assert o.is_contiguous() and o.shape == q.shape
+        return o
+    monkeypatch.setattr(ops, "attention_heads", spy)
+    toks = _tokens(6, B, 20, cfg.vocab)
+    tc = m.init_cache(B, max_seq, device="cpu")
+    tl, tc = m.prefill(tp, {"tokens": torch.from_numpy(toks[:, 8:]).long()},
+                       m.prefill(tp, {"tokens": torch.from_numpy(
+                           toks[:, :8]).long()}, tc)[1], pos_offset=8)
+    assert len(calls) == 2 * cfg.n_layers
+    hd = cfg.resolved_head_dim
+    for i, (q, k, v, kw) in enumerate(calls[cfg.n_layers:]):
+        assert q.shape == (B, 12, cfg.n_heads, hd) and q.is_contiguous()
+        assert k.shape == v.shape == (B, 20, cfg.n_kv_heads, hd)
+        assert k.data_ptr() == tc["k"][i].data_ptr()
+        assert v.data_ptr() == tc["v"][i].data_ptr()
+        assert k.stride(0) == max_seq * cfg.n_kv_heads * hd
+        assert kw == {"causal": True, "q_offset": 8}
+    jc = jm.init_cache(B, max_seq)
+    _, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, :8])}, jc)
+    jl, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks[:, 8:])}, jc,
+                       pos_offset=8)
+    _close(tl, jl)
+
+
 def test_prefill_rejects_chunk_past_cache(dense_pair):
     jm, jp, m, tp = dense_pair
     tc = m.init_cache(1, 8, device="cpu")
