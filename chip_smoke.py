@@ -13,8 +13,10 @@ Phases; any failure raises and the process exits non-zero:
    ``flash_attention`` on one small case per dtype, head dim and tile, then
    every kernel at the shapes and dtypes that phases 3-6 give it (for
    ``flash_attention`` also in the model's layout, GQA read in place from
-   a KV cache slice), each timed beside its bound, its plain version and
-   one library call where one computes the same function;
+   a KV cache slice; for ``wkv6`` also at decays past the model's clip
+   floor, one of them held to the step-by-step ``wkv6_ref`` as well), each
+   timed beside its bound, its plain version and one library call where
+   one computes the same function;
 3. qwen2-1.5b at its published widths (bf16, seeded random weights) served
    through the port's ``ServingEngine``: 4 requests on 2 slots, prompt 128,
    32 generated tokens, prefill chunk 64.  The kernels' launch counters must
@@ -56,13 +58,15 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ina_matmul as im  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.kernel_times import (Timer,  # noqa: E402
                                              attention_cases,
                                              attention_operands,
                                              matmul_operands,
-                                             matmul_projections)
+                                             matmul_projections, wkv_cases,
+                                             wkv_operands)
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.parallel.steps import (build_paged_serve_step,  # noqa: E402
                                         build_prefill, build_serve_step)
@@ -350,54 +354,41 @@ def check_attention(timer, gen) -> list:
     return rows
 
 
-WKV_CASES = [  # (name, B, S, decay, dtype): H 64, hd 64, the model's layout
-    # the forward phase's shape, at the model's initial decay (w0 = -6:
-    # ~0.0025 nats a step, so the state keeps ~400 steps)
-    ("forward", RWKV_FWD_B, RWKV_FWD_S, "init", torch.bfloat16),
-    ("prefix 300", RWKV_FWD_B, RWKV_PREFIX, "test", torch.bfloat16),
-    ("ragged S=1000", RWKV_FWD_B, 1000, "test", torch.bfloat16),
-    # the model's clip floor: logw = -exp(2) every step, with nonzero u
-    ("clip-floor decay", RWKV_FWD_B, RWKV_FWD_S, "floor", torch.bfloat16),
-    ("exact-f32 forward", 1, RWKV_PREFIX, "test", torch.float32)]
 # |kernel - plain| <= atol + rtol |plain|: float32 outputs at
 # tests/test_kernels.py's 1e-4 (sum order over hd and over S differs); bf16
 # outputs one bf16 ulp on top, since each side rounds its f32 y once.
 WKV_TOL = {torch.float32: (1e-4, 1e-4),
            torch.bfloat16: (1e-4 + 2.0 ** -7, 1e-4 + 2.0 ** -8)}
-
-
-def wkv_inputs(gen, b, s, h, hd, decay, dt):
-    """r, k ~ 0.5 N and v ~ N in ``dt``, logw in f32, [B, S, H, hd]; u ~
-    0.3 N [H, hd] (nonzero, so the bonus term runs)."""
-    def normal(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda")
-    r, k = (0.5 * normal(b, s, h, hd)).to(dt), (0.5 * normal(b, s, h, hd)).to(dt)
-    v = normal(b, s, h, hd).to(dt)
-    if decay == "init":
-        logw = -torch.exp(-6.0 + 0.1 * normal(b, s, h, hd))
-    elif decay == "floor":
-        logw = torch.full((b, s, h, hd), -math.exp(2.0), device="cuda")
-    else:   # tests/test_kernels.py's: -exp(0.5 N - 1)
-        logw = -torch.exp(0.5 * normal(b, s, h, hd) - 1.0)
-    return r, k, v, logw, 0.3 * normal(h, hd)
+# the case also held to the step-by-step wkv6_ref, so that a fault the
+# kernel and its chunked plain version share cannot hide
+WKV_REF_CASE = "steep decay -20"
 
 
 def check_wkv6(timer, gen) -> list:
     cfg = ARCHS[RWKV]
     h, hd = cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
     rows = []
-    for name, b, s, decay, dt in WKV_CASES:
-        r, k, v, logw, u = wkv_inputs(gen, b, s, h, hd, decay, dt)
+    for name, b, s, decay, dt in wkv_cases():
+        r, k, v, logw, u = wkv_operands(gen, b, s, h, hd, decay, dt)
         got = wk.wkv6_heads(r, k, v, logw, u)
         torch.cuda.synchronize()
         flat = [x.transpose(1, 2).reshape(b * h, s, hd).contiguous()
                 for x in (r, k, v, logw)]
         ub = u.repeat(b, 1)
-        want = wk.wkv6_plain(*flat, ub).reshape(b, h, s, hd).transpose(1, 2)
+
+        def heads(y):
+            return y.reshape(b, h, s, hd).transpose(1, 2)
+        plan = wk.plan_wkv6(b, h, hd)
         row = {"case": name, "shape": f"B={b} S={s} H={h} hd={hd} "
                                       f"decay={decay}",
                "dtype": str(dt).removeprefix("torch."),
-               **compare(got, want, dt, WKV_TOL[dt])}
+               "tiles": f"C={plan.chunk} sub={plan.sub} warps={plan.warps}",
+               "ctas": plan.ctas,
+               **compare(got, heads(wk.wkv6_plain(*flat, ub)), dt,
+                         WKV_TOL[dt])}
+        if name == WKV_REF_CASE:
+            row["vs_ref"] = compare(got, heads(ref.wkv6_ref(*flat, ub)), dt,
+                                    WKV_TOL[dt])
         elt = r.element_size()
         row["bound_ms"], row["bound_by"] = bound(
             b * s * h * hd * (3 * elt + 4 + elt), 4.0 * b * s * h * hd * hd,
@@ -406,14 +397,21 @@ def check_wkv6(timer, gen) -> list:
         row["plain_ms"] = timer(lambda: wk.wkv6_plain(*flat, ub), iters=3)
         row["library_ms"] = None      # no single PyTorch call computes WKV6
         log(f"[kernels] wkv6 {name:18s} {row['shape']:40s} {row['dtype']:8s} "
-            f"max_abs_err {row['max_abs_err']:.3g} max_rel_err "
+            f"{row['tiles']}, {plan.ctas} CTAs: max_abs_err "
+            f"{row['max_abs_err']:.3g} max_rel_err "
             f"{row['max_rel_err']:.3g} (rtol {row['rtol']:.3g}, atol "
             f"{row['atol']:.3g}) {row['ms']:.4f} ms, bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
-            f"{row['plain_ms']:.2f} ms, library none")
+            f"{row['plain_ms']:.2f} ms, library none"
+            + (f"; against wkv6_ref max_abs_err "
+               f"{row['vs_ref']['max_abs_err']:.3g}" if "vs_ref" in row
+               else ""))
         if not row["ok"]:
             raise AssertionError(f"wkv6 {name} disagrees with its plain "
                                  f"version: {row}")
+        if not row.get("vs_ref", {"ok": True})["ok"]:
+            raise AssertionError(f"wkv6 {name} disagrees with wkv6_ref: "
+                                 f"{row['vs_ref']}")
         rows.append(row)
     return rows
 

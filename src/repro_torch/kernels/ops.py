@@ -34,6 +34,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     model's layout, read in place), u [H, hd]; returns [B, S, H, hd].
 
     The reference's ``wkv`` also takes the TPU kernel's chunk, which only
-    sets where its factorised decay is clamped; the port computes the
-    recurrence exactly, so there is no chunk to pass."""
+    sets where its factorised decay is clamped; the port's chunk is fixed by
+    the kernel and anchors every decay at or below zero, exact at any
+    decay, so there is no chunk to pass."""
     return wkv6_heads(r, k, v, logw, u)

@@ -3,12 +3,22 @@
 Counterpart of ``repro.kernels.wkv6`` (the Pallas kernel that carries the
 state in VMEM across sequence chunks).  The CUDA kernel is
 ``csrc/wkv6.cu``; its source says what bounds it and how.  Beside it,
-:func:`wkv6_plain` is the same recurrence, step by step, in plain PyTorch.
+:func:`wkv6_plain` is the same chunked arithmetic in plain PyTorch, blocked
+like the kernel (chunk and sub-block from :func:`plan_wkv6`).
 
-The TPU kernel factorises the decay inside a chunk and clamps it at 80 nats,
-so it equals the recurrence only while a chunk's cumulative decay stays
-under 80 nats; the port computes the recurrence itself, exactly, for any
-decay and any ``S >= 1``.
+Both evaluate the recurrence in chunks of C positions: y is the carried
+state read through each query's decay from the chunk start, plus the
+causal scores inside the chunk times v, plus the u-bonus diagonal; the
+state then steps a whole chunk at once.  The TPU kernel factorises the
+decay inside a chunk and clamps it at 80 nats, so it equals the recurrence
+only while a chunk's cumulative decay stays under 80 nats.  Here every
+exponent is a sum of logw over a span that ends where it starts or later,
+so it is <= 0 for any logw <= 0: nothing is clamped, nothing overflows,
+and a factor that underflows stands for a term below float32's range.
+Scores inside the chunk go through sub-blocks of ``sub`` positions: a
+query anchors at its sub-block's start, a key at its sub-block's end, and
+a per-channel decay joins the two sub-blocks; pairs inside one sub-block
+take their decay directly.
 
 Two fronts over one launch: :func:`wkv6` takes the JAX kernel's
 ``[BH, S, hd]`` with ``u`` ``[BH, hd]``; :func:`wkv6_heads` takes the
@@ -19,36 +29,120 @@ plain version only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import kernel_strides
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations (one thread each)
+HEAD_DIMS = (16, 32, 64, 128)   # the kernel's instantiations
+SUB = 8                         # positions of a sub-block
+WARPS = 16                      # warps a CTA
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {"wkv6": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-               + [ctypes.c_longlong] * 5 + [ctypes.c_int, ctypes.c_void_p]}
+               + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 4
+               + [ctypes.c_void_p]}
 
 launches = 0   # kernel launches since the last reset (read by chip_smoke.py)
 
 
+class Wkv6Plan(NamedTuple):
+    chunk: int    # positions a CTA takes per step of its loop
+    sub: int      # positions of a sub-block of the intra-chunk scores
+    warps: int    # warps a CTA
+    ctas: int     # one per (batch, head)
+
+
+def chunk_size(hd: int) -> int:
+    """C: 64 positions, 16 at hd 128, where the state's two copies take 128
+    KB of the CTA's shared memory.  The same for both dtypes, so that bf16
+    and float32 inputs of equal values give equal bits.  Compiled into
+    ``csrc/wkv6.cu`` likewise."""
+    return 16 if hd == 128 else 64
+
+
+@functools.lru_cache(maxsize=256)
+def plan_wkv6(b: int, h: int, hd: int) -> Wkv6Plan:
+    """The launch for ``b`` sequences of ``h`` heads of ``hd``: one CTA of
+    ``WARPS`` warps per (sequence, head) walks the chunks in order."""
+    return Wkv6Plan(chunk_size(hd), SUB, WARPS, b * h)
+
+
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                logw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """r/k/v/logw: [BH, S, hd]; u: [BH, hd].  The recurrence step by step
-    in f32 from a zero state, vectorised over BH and the state; the output
-    in ``r.dtype``."""
+    """r/k/v/logw: [BH, S, hd]; u: [BH, hd].  The kernel's chunked form in
+    f32 from a zero state (chunk and sub-block as :func:`plan_wkv6` gives
+    them), vectorised over BH and the chunks; only the
+    state's step from chunk to chunk is a loop.  The output in
+    ``r.dtype``."""
     bh, s, hd = r.shape
-    rf, kf, vf = r.float(), k.float(), v.float()
-    w = torch.exp(logw.float())
-    uf = u.float()
-    state = torch.zeros(bh, hd, hd, dtype=torch.float32, device=r.device)
-    y = torch.empty(bh, s, hd, dtype=torch.float32, device=r.device)
-    for t in range(s):
-        rt, kt, vt = rf[:, t], kf[:, t], vf[:, t]
-        bonus = (rt * uf * kt).sum(-1, keepdim=True)
-        y[:, t] = (rt[:, :, None] * state).sum(1) + bonus * vt
-        state = state * w[:, t, :, None] + kt[:, :, None] * vt[:, None, :]
-    return y.to(r.dtype)
+    c, t = chunk_size(hd), SUB
+    n = c // t
+    nc = -(-s // c)
+
+    def blocks(x):   # [BH, S, hd] -> [BH, chunks, sub-blocks, SUB, hd]
+        return F.pad(x.float(), (0, 0, 0, nc * c - s)).reshape(
+            bh, nc, n, t, hd)
+    # padded positions: k = v = 0 adds nothing, logw = 0 decays nothing
+    rf, kf, vf, lw = (blocks(x) for x in (r, k, v, logw))
+
+    # Within each sub-block, added in order so that both fall with i:
+    # cum[i] = logw summed from the sub-block's start to i, and
+    # cum_prev[i] = cum[i - 1] (0 at the start).
+    cum, cum_prev = torch.empty_like(lw), torch.empty_like(lw)
+    run = torch.zeros_like(lw[..., 0, :])
+    for m in range(t):
+        cum_prev[..., m, :] = run
+        run = run + lw[..., m, :]
+        cum[..., m, :] = run
+    # G[b] = logw summed from the chunk's start to the end of sub-block
+    # b - 1 (G[0] = 0, G[n] the whole chunk), again in order.
+    g = [torch.zeros_like(run[:, :, 0])]
+    for b in range(n):
+        g.append(g[-1] + run[:, :, b])
+    G = torch.stack(g, 2)                                # [BH, nc, n+1, hd]
+
+    # queries anchored at their sub-block's start, keys at its end
+    q_sub = rf * torch.exp(cum_prev)                     # cum_prev <= 0
+    k_sub = kf * torch.exp(run[..., None, :] - cum)      # run <= cum
+    # ... and at the chunk's start (for the carried state) and end (for
+    # the state's step)
+    q_chunk = q_sub * torch.exp(G[:, :, :n, None])       # G <= 0
+    k_chunk = k_sub * torch.exp(G[:, :, n:, None] - G[:, :, 1:, None])
+    decay = torch.exp(G[:, :, n])                        # [BH, nc, hd]
+
+    scores = rf.new_zeros(bh, nc, n, t, n, t)
+    for qb in range(n):
+        for kb in range(qb):
+            # decay from the end of key sub-block kb to the start of qb
+            d = torch.exp(G[:, :, qb] - G[:, :, kb + 1])
+            scores[:, :, qb, :, kb] = torch.einsum(
+                "bnic,bnjc->bnij", q_sub[:, :, qb] * d[:, :, None],
+                k_sub[:, :, kb])
+    # pairs inside a sub-block: key j < query i, decay cum_prev[i] - cum[j]
+    # (<= 0: cum falls with i); the diagonal is the u bonus
+    qi, kj = torch.tril_indices(t, t, -1)
+    inner = (rf[..., qi, :] * kf[..., kj, :]
+             * torch.exp(cum_prev[..., qi, :] - cum[..., kj, :])).sum(-1)
+    diag = rf.new_zeros(bh, nc, n, t, t)
+    diag[..., qi, kj] = inner
+    ii = torch.arange(t)
+    diag[..., ii, ii] = (rf * u.float()[:, None, None, None] * kf).sum(-1)
+    for b in range(n):
+        scores[:, :, b, :, b] = diag[:, :, b]
+
+    y = scores.reshape(bh, nc, c, c) @ vf.reshape(bh, nc, c, hd)
+    q_chunk, k_chunk, vc = (x.reshape(bh, nc, c, hd)
+                            for x in (q_chunk, k_chunk, vf))
+    state = rf.new_zeros(bh, hd, hd)
+    for i in range(nc):
+        y[:, i] += q_chunk[:, i] @ state
+        state = decay[:, i, :, None] * state \
+            + k_chunk[:, i].transpose(1, 2) @ vc[:, i]
+    return y.reshape(bh, nc * c, hd)[:, :s].to(r.dtype)
 
 
 def _check(r, k, v, logw, u) -> None:
@@ -91,12 +185,17 @@ def _wkv(r, k, v, logw, u) -> torch.Tensor:
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
     global launches
+    # the kernel's 16-byte copies: each base and stepped stride on the grid
+    sb, st, sh = kernel_strides(r)
+    for x in (k, v, logw):
+        kernel_strides(x)
+    plan = plan_wkv6(b, h, hd)
     lib = _build.load("wkv6", _SIGNATURES)
     y = torch.empty(b, s, h, hd, dtype=r.dtype, device=r.device)
     err = lib.wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-                   u.data_ptr(), y.data_ptr(), b, s, h, hd, r.stride(0),
-                   r.stride(1), r.stride(2), u.stride(0), u.stride(1),
-                   _DTYPE_CODE[r.dtype],
+                   u.data_ptr(), y.data_ptr(), b, s, h, hd, sb, st, sh,
+                   u.stride(0), u.stride(1), _DTYPE_CODE[r.dtype], plan.chunk,
+                   plan.sub, plan.warps,
                    torch.cuda.current_stream(r.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wkv6 launch failed: cudaError_t {err}")
@@ -107,8 +206,8 @@ def _wkv(r, k, v, logw, u) -> torch.Tensor:
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """r/k/v/logw: [BH, S, hd]; u: [BH, hd].  Returns [BH, S, hd] in
-    ``r.dtype`` (the JAX kernel's signature, without its chunk: the result
-    does not depend on one)."""
+    ``r.dtype`` (the JAX kernel's signature, without its chunk: the port's
+    is fixed by :func:`plan_wkv6`)."""
     if r.dim() != 3 or u.dim() != 2:
         raise ValueError(f"wkv6 takes r [BH, S, hd] and u [BH, hd], got "
                          f"{tuple(r.shape)} and {tuple(u.shape)}")

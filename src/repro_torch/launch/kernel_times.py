@@ -1,18 +1,21 @@
 """Device times of the port's kernels on one GPU.
 
-    python -m repro_torch.launch.kernel_times [sweep | shapes]
+    python -m repro_torch.launch.kernel_times [sweep | shapes | wkv6]
 
 :class:`Timer` is the timer ``chip_smoke.py`` uses;
 :func:`matmul_projections` / :func:`matmul_operands` are the products it
-checks, and :func:`attention_cases` / :func:`attention_operands` its flash
-attention cases in the model's layout.  ``sweep`` (the default) times
+checks, :func:`attention_cases` / :func:`attention_operands` its flash
+attention cases in the model's layout, and :func:`wkv_cases` /
+:func:`wkv_operands` its wkv6 cases.  ``sweep`` (the default) times
 ``ina_matmul`` at every cluster size the kernel takes, at the decode (M =
 1, 2, 4) and prefill-chunk (M = 64) shapes of qwen2-1.5b and rwkv6-7b,
 beside the size ``plan_matmul`` picks and ``torch.matmul``'s time.
 ``shapes`` times ``ina_matmul`` as the model calls it, and
 ``torch.matmul``, at the 18 main-path bf16 shapes; it calls nothing but
 ``ina_matmul(x, w)``, so it also times an older tree's kernel with this
-timer when the module is copied into that tree.  Needs a CUDA GPU.
+timer when the module is copied into that tree.  ``wkv6`` times
+``wkv6_heads`` at the wkv6 cases, likewise through that front alone.
+Needs a CUDA GPU.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 
 from repro_torch.configs import ARCHS
 from repro_torch.kernels import ina_matmul as im
+from repro_torch.kernels.wkv6 import wkv6_heads
 
 L2_FLUSH_BYTES = 128 << 20
 HOST_HEAD_START_CYCLES = 200_000   # ~0.1 ms of the card's clock
@@ -155,9 +159,67 @@ def attention_operands(gen, b, sq, sk, h, kvh, d, dt, cache):
     return q, ck[:, :sk], cv[:, :sk], sk - sq
 
 
+def wkv_cases() -> list[tuple[str, int, int, str, torch.dtype]]:
+    """(name, B, S, decay, dtype) of the wkv6 cases, at rwkv6-7b's H 64 and
+    hd 64 in the model's layout: the forward's B 2 x S 2048, the decode
+    check's 300-token prefix, a ragged S, the exact-f32 phase's B 1, and
+    decays at and past the model's clip floor (where the TPU kernel's
+    80-nat clamp is wrong: -20 a step is 160 nats over 8 positions)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [("forward", 2, 2048, "init", bf16),
+            ("prefix 300", 2, 300, "test", bf16),
+            ("ragged S=1000", 2, 1000, "test", bf16),
+            ("clip-floor decay", 2, 2048, "floor", bf16),
+            ("steep decay -20", 2, 2048, "steep", bf16),
+            ("mixed decay", 2, 2048, "mixed", bf16),
+            ("exact-f32 forward", 1, 300, "test", f32)]
+
+
+def wkv_operands(gen, b, s, h, hd, decay, dt):
+    """r, k ~ 0.5 N and v ~ N in ``dt``, logw in f32, [B, S, H, hd]; u ~
+    0.3 N [H, hd] (nonzero, so the bonus term runs).  logw: "init" the
+    model's initial decay (w0 = -6: ~0.0025 nats a step, so the state
+    keeps ~400 steps), "test" tests/test_kernels.py's -exp(0.5 N - 1),
+    "floor" the model's clip floor -e^2 every step, "steep" -20 every
+    step, "mixed" channels alternating -1e-3 and -8."""
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    r, k = (0.5 * normal(b, s, h, hd)).to(dt), (0.5 * normal(b, s, h, hd)).to(dt)
+    v = normal(b, s, h, hd).to(dt)
+    shape = (b, s, h, hd)
+    if decay == "init":
+        logw = -torch.exp(-6.0 + 0.1 * normal(*shape))
+    elif decay == "floor":
+        logw = torch.full(shape, -math.exp(2.0), device="cuda")
+    elif decay == "steep":
+        logw = torch.full(shape, -20.0, device="cuda")
+    elif decay == "mixed":
+        slow = torch.arange(hd, device="cuda") % 2 == 0
+        logw = torch.where(slow, -1e-3, -8.0).expand(shape).contiguous()
+    else:
+        logw = -torch.exp(0.5 * normal(*shape) - 1.0)
+    return r, k, v, logw, 0.3 * normal(h, hd)
+
+
+def time_wkv(seed: int = 0) -> list[dict]:
+    timer = Timer()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cfg = ARCHS["rwkv6-7b"]
+    h, hd = cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
+    rows = []
+    for name, b, s, decay, dt in wkv_cases():
+        r, k, v, logw, u = wkv_operands(gen, b, s, h, hd, decay, dt)
+        row = {"case": name, "ms": timer(lambda: wkv6_heads(r, k, v, logw, u))}
+        print(f"[wkv6] {name:18s} B={b} S={s} H={h} hd={hd} "
+              f"{str(dt).removeprefix('torch.'):8s} {row['ms']:.4f} ms",
+              flush=True)
+        rows.append(row)
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", nargs="?", choices=("sweep", "shapes"),
+    ap.add_argument("mode", nargs="?", choices=("sweep", "shapes", "wkv6"),
                     default="sweep")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -165,7 +227,8 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    (sweep_clusters if args.mode == "sweep" else time_main_shapes)()
+    {"sweep": sweep_clusters, "shapes": time_main_shapes,
+     "wkv6": time_wkv}[args.mode]()
     return 0
 
 

@@ -28,7 +28,8 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.ina_matmul import (BK, MatmulPlan, ina_matmul,
                                             ina_matmul_plain, k_slices,
                                             plan_for, plan_matmul)
-from repro_torch.kernels.wkv6 import wkv6, wkv6_heads, wkv6_plain
+from repro_torch.kernels.wkv6 import (Wkv6Plan, chunk_size, plan_wkv6, wkv6,
+                                     wkv6_heads, wkv6_plain)
 from repro_torch.launch.kernel_times import matmul_projections
 
 _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -506,7 +507,8 @@ def test_wkv6_matches_pallas(s, hd, chunk):
 def test_wkv6_decay_extremes_match_pallas(logw_val, chunk):
     """tests/test_kernels.py's extremes, each inside the regime where the
     chunked Pallas form is exact (chunk * |logw| <= 80 nats); the port's
-    step-by-step recurrence is exact at every decay."""
+    chunked form, every decay anchored at or below zero, is exact at every
+    decay (test_wkv6_exact_where_pallas_clamps)."""
     bh, s, hd = 1, 64, 64
     rng = np.random.default_rng(71)
     r = np.full((bh, s, hd), 0.1, np.float32)
@@ -521,6 +523,83 @@ def test_wkv6_ragged_matches_ref(s):
     """Any S: the Pallas kernel asserts S % chunk == 0, the port does not;
     both hold to the reference's step-by-step wkv6_ref."""
     _wkv_against_jax(_wkv_inputs(72, 2, s, 16), None)
+
+
+def _decay(name, bh, s, hd):
+    if name == "mixed":    # a head whose channels mix -1e-3 and -8
+        row = np.where(np.arange(hd) % 2 == 0, -1e-3, -8.0)
+        return np.broadcast_to(row, (bh, s, hd)).astype(np.float32)
+    return np.full((bh, s, hd), name, np.float32)
+
+
+@pytest.mark.parametrize("decay", [-8.0, -20.0, -float(np.exp(2.0)), "mixed"],
+                         ids=["-8", "-20", "clip-floor", "mixed"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wkv6_exact_where_pallas_clamps(decay, dtype):
+    """Decays where the Pallas form's 80-nat clamp is wrong over a chunk of
+    64 (-8: 512 nats; -20; the model's floor -e^2: 473; channels mixing
+    -1e-3 with -8): the chunked plain version and the wrapper hold to the
+    reference's step-by-step wkv6_ref at tests/test_kernels.py's 1e-4,
+    while the Pallas kernel does not.  bf16 keeps the f32 arithmetic: the
+    tolerance holds on y before its rounding (plain and wrapper equal bit
+    for bit)."""
+    bh, s, hd = 2, 130, 64
+    r, k, v, _, u = _wkv_inputs(79, bh, s, hd)
+    logw = _decay(decay, bh, s, hd)
+    j = [jnp.asarray(a) for a in (r, k, v, logw, u)]
+    want = _np(jref.wkv6_ref(*j))
+    clamped = _np(jwkv6(*(x[:, :128] for x in j[:4]), j[4], chunk=64,
+                        interpret=True))
+    assert not np.allclose(clamped, want[:, :128], rtol=1e-4, atol=1e-4)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (r, k, v, logw, u)]
+    t[:3] = [x.to(_TORCH[dtype]) for x in t[:3]]
+    plain = wkv6_plain(*t)
+    assert torch.equal(wkv6(*t), plain)
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(plain), want, rtol=1e-4, atol=1e-4)
+    else:
+        exact = _np(ref.wkv6_ref(*(x.float() for x in t[:3]), t[3], t[4]))
+        np.testing.assert_allclose(_np(wkv6_plain(*(x.float() for x in t[:3]),
+                                                  t[3], t[4])),
+                                   exact, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(plain, torch.from_numpy(exact).to(
+            torch.bfloat16), rtol=2.0 ** -7, atol=2.0 ** -8)
+
+
+@pytest.mark.parametrize("extra", [-1, 1, 3], ids=["C-1", "C+1", "2C+3"])
+@pytest.mark.parametrize("hd", [16, 64, 128])
+def test_wkv6_ragged_around_the_chunk(hd, extra):
+    """S = C - 1, C + 1 and 2C + 3 for the chunk the kernel takes at this
+    head dim (S = 1 is test_wkv6_ragged_matches_ref's): the last chunk is
+    zero-padded and must add nothing."""
+    c = chunk_size(hd)
+    s = c + extra if extra != 3 else 2 * c + 3
+    _wkv_against_jax(_wkv_inputs(80, 2, s, hd), None)
+
+
+def test_plan_wkv6():
+    """One CTA per (sequence, head); the chunk by head dim, as
+    csrc/wkv6.cu compiles it; sub-blocks of 8; 16 warps."""
+    assert plan_wkv6(2, 64, 64) == Wkv6Plan(64, 8, 16, 128)
+    assert plan_wkv6(1, 64, 64) == Wkv6Plan(64, 8, 16, 64)
+    assert plan_wkv6(3, 2, 128) == Wkv6Plan(16, 8, 16, 6)
+    assert plan_wkv6(1, 1, 16).chunk == plan_wkv6(1, 1, 32).chunk == 64
+
+
+def test_wkv6_tiles_match_the_kernel_source():
+    """The tiles the wrapper passes are the ones csrc/wkv6.cu compiles (its
+    C entry refuses any other): SUB, WARPS and chunk_for's table."""
+    import re
+    src = (_build.CSRC / "wkv6.cu").read_text()
+    assert int(re.search(r"constexpr int SUB = (\d+);", src)[1]) \
+        == wkv6_mod.SUB
+    assert int(re.search(r"constexpr int WARPS = (\d+);", src)[1]) \
+        == wkv6_mod.WARPS
+    c128, c_else = map(int, re.search(
+        r"int chunk_for\(int hd\) \{ return hd == 128 \? (\d+) : (\d+); \}",
+        src).groups())
+    for hd in wkv6_mod.HEAD_DIMS:
+        assert chunk_size(hd) == (c128 if hd == 128 else c_else)
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "interleaved"])
@@ -674,21 +753,62 @@ def test_flash_attention_heads_kernel_matches_plain(cuda, b, sq, sk, h, kvh,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,dtype", [(2, 2048, 64, "bfloat16"),
-                                         (1, 300, 64, "float32"),
-                                         (2, 1000, 64, "bfloat16")])
-def test_wkv6_kernel_matches_plain(cuda, b, s, h, dtype):
+@pytest.mark.parametrize("b,s,h,dtype,decay", [
+    pytest.param(2, 2048, 64, "bfloat16", None, id="2-2048-64-bfloat16"),
+    pytest.param(1, 300, 64, "float32", None, id="1-300-64-float32"),
+    pytest.param(2, 1000, 64, "bfloat16", None, id="2-1000-64-bfloat16"),
+    pytest.param(1, 300, 64, "float32", -20.0, id="steep-float32"),
+    pytest.param(2, 500, 64, "bfloat16", "mixed", id="mixed-bfloat16")])
+def test_wkv6_kernel_matches_plain(cuda, b, s, h, dtype, decay):
     """The model's layout at the rwkv6-7b widths (hd 64); f32 at
-    rtol = atol = 1e-4, bf16 one bf16 ulp on top."""
+    rtol = atol = 1e-4, bf16 one bf16 ulp on top.  At an extreme decay
+    (where the TPU kernel's clamp is wrong) the kernel is also held to the
+    step-by-step ``wkv6_ref``, so that a fault both chunked forms share
+    cannot hide."""
     hd = 64
-    r, k, v, logw = (torch.from_numpy(a.reshape(b, h, s, hd)).to(cuda)
-                     .transpose(1, 2).contiguous()
-                     for a in _wkv_inputs(77, b * h, s, hd)[:4])
+    arrays = list(_wkv_inputs(77, b * h, s, hd)[:4])
+    if decay is not None:
+        arrays[3] = _decay(decay, b * h, s, hd)
+    r, k, v, logw = (torch.from_numpy(np.ascontiguousarray(
+        a.reshape(b, h, s, hd))).to(cuda).transpose(1, 2).contiguous()
+        for a in arrays)
     u = torch.from_numpy(_normal(78, h, hd) * 0.3).to(cuda)
     r, k, v = (x.to(_TORCH[dtype]) for x in (r, k, v))
+    before = wkv6_mod.launches
     got = wkv6_heads(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    assert wkv6_mod.launches == before + 1
     bh = [x.transpose(1, 2).reshape(b * h, s, hd) for x in (r, k, v, logw)]
-    want = wkv6_plain(*bh, u.repeat(b, 1)).reshape(b, h, s, hd).transpose(1, 2)
     extra = 0.0 if dtype == "float32" else 2.0 ** -7
-    torch.testing.assert_close(got.float(), want.float(), rtol=1e-4 + extra,
-                               atol=1e-4 + extra / 2)
+    wants = [wkv6_plain] + ([ref.wkv6_ref] if decay is not None else [])
+    for fn in wants:
+        want = fn(*bh, u.repeat(b, 1)).reshape(b, h, s, hd).transpose(1, 2)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=1e-4 + extra, atol=1e-4 + extra / 2)
+
+
+@pytest.mark.gpu
+def test_wkv6_entry_refuses_other_tiles(cuda):
+    """The C entry takes only the tiles it was compiled for: the wrapper's
+    plan launches (cudaSuccess), any other chunk, sub-block or warp count
+    returns cudaErrorInvalidValue and launches nothing."""
+    b, s, h, hd = 1, 40, 2, 64
+    x = torch.zeros(b, s, h, hd, device=cuda)
+    u = torch.zeros(b, h, hd, device=cuda)
+    y = torch.empty_like(x)
+    lib = _build.load("wkv6", wkv6_mod._SIGNATURES)
+    plan = plan_wkv6(b, h, hd)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(chunk, sub, warps):
+        return lib.wkv6(x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                        x.data_ptr(), u.data_ptr(), y.data_ptr(), b, s, h,
+                        hd, *kernel_strides(x),
+                        u.stride(0), u.stride(1), 0, chunk, sub, warps,
+                        stream)
+    assert call(plan.chunk, plan.sub, plan.warps) == 0
+    torch.cuda.synchronize()
+    for bad in ((2 * plan.chunk, plan.sub, plan.warps),
+                (plan.chunk, 2 * plan.sub, plan.warps),
+                (plan.chunk, plan.sub, plan.warps // 2)):
+        assert call(*bad) == 1   # cudaErrorInvalidValue
