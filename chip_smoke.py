@@ -11,7 +11,7 @@ Phases; any failure raises and the process exits non-zero:
    and held against their plain PyTorch versions: first ``ina_matmul`` on
    one small case per regime, tile, layout and cluster size (1 and 2) and
    ``flash_attention`` on one small case per dtype, head dim and tile, then
-   every kernel at the shapes and dtypes that phases 3-6 give it (for
+   every kernel at the shapes and dtypes that phases 3-7 give it (for
    ``flash_attention`` also in the model's layout, GQA read in place from
    a KV cache slice; for ``wkv6`` also at decays past the model's clip
    floor, one of them held to the step-by-step ``wkv6_ref`` as well), each
@@ -23,29 +23,44 @@ Phases; any failure raises and the process exits non-zero:
    equal the expected counts, no matmul may take the generic (non-TMA)
    path, and the engine must agree with the legacy per-token loop on the
    same weights;
-4. the same at 2 layers in float32: the engine's tokens must equal the
+4. ``[tp]``: qwen2-1.5b served again at full width and depth through
+   tensor parallelism, a ``torch.distributed`` NCCL group of W = min(card
+   count, 4) ranks, one process each, under every ``--psum-mode``.  At
+   W = 1 the tokens must equal phase 3's bit for bit and the decode step and
+   prefill chunk under ``ina`` and ``auto`` (at one rank every mode runs the
+   same code) must launch as many kernels as phase 3's; each ``auto``
+   site's resolution is printed, with a decode step's host time under
+   ``auto`` beside ``ina`` and a cold cost-model resolution's host time at
+   2, 4 and 8 ranks.  At W >= 2 every mode is profiled, every collective is
+   held against the rank sum on CUDA tensors, one psum a mode is timed at
+   the decode and prefill row-linear payloads beside its bytes a link, and
+   the tokens must match phase 3's within its engine-against-loop margin;
+5. the same at 2 layers in float32: the engine's tokens must equal the
    legacy loop's, token for token;
-5. rwkv6-7b at its published widths and depth (bf16, seeded random
+6. rwkv6-7b at its published widths and depth (bf16, seeded random
    weights): one forward pass through ``build_prefill`` at B 2, S 2048
    (32 wkv6 and 257 ina_matmul launches), profiled; the forward against the
    decode loop (which runs no wkv6) on a 300-token prefix; then served
    through the engine, 4 requests on 2 slots, prompt 64, 16 generated, with
    prompts seated token by token (no wkv6), against the legacy loop;
-6. the same widths at 2 layers in float32: forward against the decode loop
+7. the same widths at 2 layers in float32: forward against the decode loop
    within rtol = atol = 1e-4, and engine tokens equal the legacy loop's;
-7. a ``kernels`` JSON line, then the device JSON line, last.
+8. a ``kernels`` JSON line, then the device JSON line, last.
 
 It needs the checkout's ``src/`` beside it and exits non-zero without a GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
@@ -55,11 +70,15 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.core import collectives as C  # noqa: E402
+from repro_torch.core.noc import fresh_sim_cache  # noqa: E402
+from repro_torch.core.noc.collective import cost as noc_cost  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ina_matmul as im  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
+from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch.kernel_times import (Timer,  # noqa: E402
                                              attention_cases,
@@ -68,8 +87,10 @@ from repro_torch.launch.kernel_times import (Timer,  # noqa: E402
                                              matmul_projections, wkv_cases,
                                              wkv_operands)
 from repro_torch.models.api import get_model  # noqa: E402
+from repro_torch.parallel.sharding import shard_params  # noqa: E402
 from repro_torch.parallel.steps import (build_paged_serve_step,  # noqa: E402
                                         build_prefill, build_serve_step)
+from repro_torch.parallel.tp import ParallelCtx  # noqa: E402
 
 # H100 SXM, dense, at the full 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -516,7 +537,7 @@ def phase_serve_bf16() -> dict:
     log(f"[serve] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{nparams / 1e9:.3f} B parameters in {cfg.dtype}")
     report, legacy, launches = serve(cfg, params, "serve", SERVE_ARGV[ARCH])
-    phase_profile(cfg, params)
+    profile = phase_profile(cfg, params)
     # The two paths differ in attention arithmetic (the flash kernel with
     # bf16 p over the prefix, against grouped plain attention per token),
     # each rounding to bf16 once per op, and the difference runs through 28
@@ -525,14 +546,20 @@ def phase_serve_bf16() -> dict:
     compare_with_legacy(report, legacy, "serve", cfg.n_layers, bits=5)
     del params
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "tokens": report.tokens(), "legacy": legacy,
+            "profile": profile}
 
 
 def profile_step(label: str, fn, steps: int = 5) -> dict:
     """Where one step's time goes: its wall time on the host clock (no
-    profiler), and its kernels' device time by name from a torch.profiler
-    trace of the same steps.  The busy share is device time over wall."""
-    from torch.profiler import ProfilerActivity, profile
+    profiler), and the device time by name of the kernels each step
+    launched (:func:`step_kernels`), from a torch.profiler trace of the
+    same steps after one profiled warm-up step (the profiler's schedule).
+    A trace now and then lacks some records of a step, which can only lower
+    its count, so a step's kernel count is the largest over the steps, and
+    the device time is averaged over the steps that reached it.  The busy
+    share is device time over wall."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -541,43 +568,305 @@ def profile_step(label: str, fn, steps: int = 5) -> dict:
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
     trace = _build.BUILD_DIR.parent / f"trace_{label}.json"
-    prof.export_chrome_trace(str(trace))
-    kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
-               if e.get("cat") == "kernel"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps, repeat=1),
+                 on_trace_ready=lambda p: p.export_chrome_trace(str(trace))
+                 ) as prof:
+        for i in range(steps + 1):
+            fn()
+            if i == steps:
+                torch.cuda.synchronize()
+            prof.step()
+    by_step = step_kernels(json.loads(trace.read_text())["traceEvents"])
+    per_step = [len(kernels) for kernels in by_step]
+    whole = [k for k in by_step if len(k) == max(per_step)]
     names = ("ina_matmul", "flash_attention", "wkv6")
     dev = dict.fromkeys(names + ("other",), 0.0)
-    for e in kernels:
+    for e in (e for kernels in whole for e in kernels):
         key = next((k for k in names if k in e["name"]), "other")
-        dev[key] += e["dur"] / 1e3 / steps
+        dev[key] += e["dur"] / 1e3 / len(whole)
     busy = sum(dev.values())
     out = {"wall_ms": wall, "device_ms": busy, "kernels_per_step":
-           len(kernels) / steps, **{f"{k}_ms": v for k, v in dev.items()}}
+           max(per_step), "kernels_by_step": per_step,
+           **{f"{k}_ms": v for k, v in dev.items()}}
     log(f"[profile] {label}: wall {wall:.2f} ms/step (host clock), device "
         f"kernels {busy:.2f} ms/step = busy share {busy / wall:.3f} ("
         + ", ".join(f"{k} {v:.2f}" for k, v in dev.items())
-        + f" ms; {len(kernels) / steps:.0f} kernels/step)")
+        + f" ms; {out['kernels_per_step']} kernels/step, the most of the "
+        f"steps' {per_step}; device ms over the {len(whole)} steps at it)")
     return out
 
 
-def phase_profile(cfg, params) -> None:
+def step_kernels(events: list) -> list:
+    """The kernel records of each profiled step: each kernel joined to its
+    launch call (the same ``correlation``) and given to the step whose
+    host range holds the launch.  (A kernel's device time does not place
+    it: the device runs behind the host, so a step's last kernels, or the
+    warm-up step's, run inside the next step's range.)  A trace now and
+    then lacks some records of one step (10-50 of a few thousand)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if str(e.get("name", "")).startswith("ProfilerStep#")
+                   and e.get("cat") != "gpu_user_annotation")
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = [[] for _ in spans]
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        for i, (lo, hi) in enumerate(spans):
+            if ts is not None and lo <= ts <= hi:
+                out[i].append(e)
+                break
+    return out
+
+
+def phase_profile(cfg, params, pctx=None, tag: str = "",
+                  device="cuda") -> dict:
     """One paged decode step of 2 slots, and one 64-token prefill chunk at
-    position 64, at the serve phase's shapes."""
+    position 64, at the serve phase's shapes (on this rank's shard of a
+    ``pctx`` group)."""
     model = get_model(cfg)
-    step = build_paged_serve_step(model)
-    cache = model.init_cache(2, 161, device="cuda")
-    batch = {"tokens": torch.full((2, 1), 11, device="cuda"),
-             "pos": torch.tensor([128, 140], device="cuda")}
-    profile_step("decode", lambda: step.fn(params, batch, cache)[0].tolist())
-    pcache = model.init_cache(1, 192, device="cuda")
-    toks = torch.full((1, 64), 11, device="cuda")
-    profile_step("prefill", lambda: model.prefill(
-        params, {"tokens": toks}, pcache, pos_offset=64)[0])
+    world = 1 if pctx is None else pctx.world
+    step = build_paged_serve_step(model, pctx)
+    cache = model.init_cache(2, 161, device=device, world=world)
+    batch = {"tokens": torch.full((2, 1), 11, device=device),
+             "pos": torch.tensor([128, 140], device=device)}
+    out = {"decode": profile_step(f"decode{tag}", lambda: step.fn(
+        params, batch, cache)[0].tolist())}
+    pcache = model.init_cache(1, 192, device=device, world=world)
+    toks = torch.full((1, 64), 11, device=device)
+    out["prefill"] = profile_step(f"prefill{tag}", lambda: model.prefill(
+        params, {"tokens": toks}, pcache, pctx, pos_offset=64)[0])
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 4: tensor parallelism
+# --------------------------------------------------------------------------- #
+# the row-parallel payloads of the serve phase: a decode step of 2 slots and
+# a 64-token prefill chunk, qwen2-1.5b's d_model, bf16
+TP_PAYLOADS = (((2, 1, 1536), torch.bfloat16), ((1, 64, 1536), torch.bfloat16))
+PSUM_MODES = ("ina", "ina_ring", "eject_inject", "xla", "auto")
+
+
+def tp_collectives(rank: int, world: int, group, device) -> list:
+    """Every collective on this rank's tensor of each payload, held against
+    the float64 sum of every rank's (each rank draws them all from seeds),
+    then one psum a mode timed (host clock over 20, ending on a sync).
+
+    Bound for a sum: each of the P-1 partial sums a reduction rounds to the
+    dtype is off by at most one ulp of it (a faithful rounding: gloo's bf16
+    sums are not always rounded to nearest), 2^-8 (bf16) or 2^-23 (f32) of
+    ``sum_i |x_i|``; the bound takes P of them."""
+    dev = torch.device(device)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rows = []
+    for shape, dt in TP_PAYLOADS:
+        xs = [torch.randn(shape, generator=torch.Generator().manual_seed(
+            100 + r)).to(dt).to(dev) for r in range(world)]
+        x = xs[rank]
+        total = sum(v.double() for v in xs)
+        bound = world * (2.0 ** -8 if dt == torch.bfloat16 else 2.0 ** -23) \
+            * sum(v.double().abs() for v in xs)
+        axis = x.dim() - 1
+        c = shape[axis] // world
+        worst = 0.0
+        for mode in PSUM_MODES:
+            for name, got, want, lim in (
+                    ("psum", C.psum_with_mode(x, group, mode, axis), total,
+                     bound),
+                    ("reduce_scatter",
+                     C.reduce_scatter_with_mode(x, group, mode, axis),
+                     total.narrow(axis, rank * c, c),
+                     bound.narrow(axis, rank * c, c))):
+                err = (got.double() - want).abs()
+                if got.shape != want.shape or not bool((err <= lim).all()):
+                    raise AssertionError(
+                        f"[tp] {name} {mode} {shape} rank {rank}: max error "
+                        f"{float(err.max())} beyond the rounding bound")
+                worst = max(worst, float(err.max()))
+        gathered = C.ring_all_gather(x, group, axis)
+        if not torch.equal(gathered, torch.cat(xs, axis)):
+            raise AssertionError(f"[tp] ring_all_gather {shape} rank {rank}")
+        nbytes = x.numel() * x.element_size()
+        for mode in PSUM_MODES:
+            for _ in range(3):
+                C.psum_with_mode(x, group, mode, axis)
+            sync()
+            torch.distributed.barrier(group)
+            t0 = time.perf_counter()
+            for _ in range(20):
+                C.psum_with_mode(x, group, mode, axis)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3 / 20
+            rows.append({"shape": list(shape), "dtype": str(dt), "mode": mode,
+                         "nbytes": nbytes, "ms": ms, "per_link_bytes":
+                         C.per_link_bytes(mode, world, nbytes),
+                         "max_abs_err": worst})
+    return rows
+
+
+def tp_rank(rank, world, group, device, argv):
+    """One rank of phase 4: the serve phase's weights (the same seeded
+    draw) cut to this rank's shard, served under every psum mode, then
+    profiled, its auto sites resolved, and at W >= 2 its collectives held
+    against the rank sum and timed.  Rank 0 prints; the others' output is
+    dropped.  Returns numpy and plain data only."""
+    quiet = contextlib.nullcontext() if rank == 0 else \
+        contextlib.redirect_stdout(io.StringIO())
+    with quiet:
+        return _tp_rank(rank, world, group, device, argv)
+
+
+def _tp_rank(rank, world, group, device, argv):
+    cfg = ARCHS[ARCH]
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device=device)
+    out = {"modes": {}, "profile": {}}
+    # one uncounted run first: a new process's first serve pays its start
+    # (the kernels' libraries loaded, the first collective)
+    launch_serve.run_engine(launch_serve.build_parser().parse_args(
+        argv + ["--device", str(device)]), cfg, params, group=group)
+    for mode in C.CLI_PSUM_MODES:
+        args = launch_serve.build_parser().parse_args(
+            argv + ["--psum-mode", mode])
+        reset_launches()
+        args.device = str(device)
+        report = launch_serve.run_engine(args, cfg, params, group=group)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        passes = report.prefill_chunks + report.decode_steps
+        expect = {"ina_matmul": (MATMULS_PER_PASS["dense"] * cfg.n_layers + 1)
+                  * passes, "flash_attention": cfg.n_layers
+                  * report.prefill_chunks, "wkv6": 0}
+        total = sum(len(r["tokens"]) for r in report.requests)
+        secs = (report.prefill_ms + report.decode_ms) / 1e3
+        log(f"[tp] W={world} {mode}: {total} tokens, {total / secs:.1f} tok/s; "
+            f"prefill {report.prefill_ms:.1f} ms, decode {report.decode_ms:.1f}"
+            f" ms; launches {launches}, expected {expect}")
+        check_launches(launches, expect, ("ina_matmul", "flash_attention"))
+        out["modes"][mode] = {
+            "tokens": report.tokens(), "launches": launches,
+            "tok_s": total / secs,
+            "first_logits": {r["rid"]: r["first_logits"].float().cpu().numpy()
+                             for r in report.requests}}
+    shard = shard_params(params, cfg, rank, world)
+    del params
+    # the control: this process, no group (only where the shard is whole).
+    # At one rank every mode runs the same code (each collective returns its
+    # input), so ina and auto stand for them; at W >= 2 every mode runs.
+    if world == 1:
+        out["control"] = phase_profile(cfg, shard, tag=f"_tp_none_r{rank}",
+                                       device=device)
+    for mode in C.CLI_PSUM_MODES if world > 1 else ("ina", "auto"):
+        out["profile"][mode] = phase_profile(
+            cfg, shard, ParallelCtx(group=group, psum_mode=mode),
+            tag=f"_tp_{mode}_r{rank}", device=device)
+    # every auto site of a decode step and a prefill chunk, then resolved
+    pctx = ParallelCtx(group=group, psum_mode="auto")
+    with C.record_psum_sites() as sites:
+        build_paged_serve_step(model, pctx).fn(
+            shard, {"tokens": torch.full((2, 1), 11, device=device),
+                    "pos": torch.tensor([128, 140], device=device)},
+            model.init_cache(2, 161, device=device, world=world))
+        model.prefill(shard, {"tokens": torch.full((1, 64), 11,
+                                                   device=device)},
+                      model.init_cache(1, 192, device=device, world=world),
+                      pctx, pos_offset=64)
+    out["sites"] = {"count": len(sites), "distinct": [
+        (s.op, s.p, s.nbytes, C.resolve_auto_mode(s.op, s.p, s.nbytes))
+        for s in dict.fromkeys(sites)]}
+    # what one resolution costs once its shape is known (host clock; the
+    # decode step's site)
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        C.resolve_auto_mode("psum", world, 2 * cfg.d_model * 2)
+    out["sites"]["us"] = (time.perf_counter() - t0) / 10000 * 1e6
+    # and what the first resolution of a shape costs: the cost model's
+    # event-driven simulation on an empty store and memo (host clock)
+    out["sites"]["cold"] = []
+    for p in (2, 4, 8):
+        for shape, dt in TP_PAYLOADS:
+            nbytes = math.prod(shape) * dt.itemsize
+            noc_cost._simulate.cache_clear()
+            with fresh_sim_cache():
+                t0 = time.perf_counter()
+                mode = C.choose_psum_mode(p, nbytes)
+                ms = (time.perf_counter() - t0) * 1e3
+            out["sites"]["cold"].append((p, nbytes, mode, ms))
+    noc_cost._simulate.cache_clear()
+    if world >= 2:
+        out["collectives"] = tp_collectives(rank, world, group, device)
+    return out
+
+
+def phase_tp(served: dict) -> dict:
+    """Phase 4 (see the module docstring).  Returns each mode's launch
+    counts on rank 0, for the kernels line."""
+    cfg = ARCHS[ARCH]
+    world = min(torch.cuda.device_count(), 4)
+    log(f"[tp] world {world}: {ARCH} at full width and depth on an NCCL group"
+        f" of {world} rank(s), one process each, under every psum mode")
+    if world == 1:
+        log("[tp] the multi-rank checks (collectives against the rank sum, "
+            "psum times, tokens across ranks) need two or more devices; this "
+            "machine has one, so they were not run")
+    ranks = mesh.spawn(tp_rank, world, "cuda", args=(SERVE_ARGV[ARCH],))
+    r0 = ranks[0]
+    for mode, run in r0["modes"].items():
+        for rank, other in enumerate(ranks):
+            if other["modes"][mode]["tokens"] != run["tokens"]:
+                raise AssertionError(f"[tp] {mode}: rank {rank}'s tokens differ"
+                                     f" from rank 0's")
+        if world == 1:
+            if run["tokens"] != served["tokens"]:
+                raise AssertionError(f"[tp] {mode}: tokens differ from the "
+                                     f"serve phase's")
+            continue
+        report = types.SimpleNamespace(requests=[
+            {"rid": rid, "tokens": toks,
+             "first_logits": torch.from_numpy(run["first_logits"][rid])}
+            for rid, toks in run["tokens"].items()])
+        compare_with_legacy(report, served["legacy"], f"tp {mode}",
+                            cfg.n_layers, bits=5)
+    if world == 1:
+        log(f"[tp] W=1: tokens of all {len(r0['modes'])} modes equal the serve "
+            f"phase's bit for bit")
+    for mode, prof in r0["profile"].items():
+        counts = {k: v["kernels_per_step"] for k, v in prof.items()}
+        want = {k: v["kernels_per_step"] for k, v in served["profile"].items()}
+        log(f"[tp] W={world} {mode}: kernels a step {counts} (no group: "
+            f"{want}; each the most of its steps' counts: a record the trace "
+            f"drops only lowers a step's)")
+        if world == 1 and counts != want:
+            raise AssertionError(f"[tp] {mode}: kernels a step {counts} != "
+                                 f"the no-group run's {want}")
+    if "control" in r0:
+        log(f"[tp] control, the rank's process without a group: decode "
+            f"{r0['control']['decode']['wall_ms']:.2f}, prefill "
+            f"{r0['control']['prefill']['wall_ms']:.2f} host ms a step (the "
+            f"serve phase's process: {served['profile']['decode']['wall_ms']:.2f}"
+            f", {served['profile']['prefill']['wall_ms']:.2f})")
+    for op, p, nbytes, mode in r0["sites"]["distinct"]:
+        log(f"[tp] auto site: op {op}, p {p}, nbytes {nbytes} -> {mode}")
+    log(f"[tp] {r0['sites']['count']} auto sites a decode step and prefill "
+        f"chunk, {len(r0['sites']['distinct'])} distinct; a known site "
+        f"resolves in {r0['sites']['us']:.2f} us (host clock, memo lookup); "
+        f"decode step host ms: auto "
+        f"{r0['profile']['auto']['decode']['wall_ms']:.2f}, ina "
+        f"{r0['profile']['ina']['decode']['wall_ms']:.2f} (one call)")
+    for p, nbytes, mode, ms in r0["sites"]["cold"]:
+        log(f"[tp] cold resolution: p {p}, nbytes {nbytes} -> {mode} in "
+            f"{ms:.3f} ms (host clock, empty store and memo)")
+    for row in r0.get("collectives", []):
+        log(f"[tp] psum W={world} {row['mode']:12s} {row['shape']} "
+            f"{row['dtype']}: {row['ms']:.4f} ms (host clock, 20 in a row), "
+            f"{row['per_link_bytes']:.0f} bytes a link")
+    return {mode: run["launches"] for mode, run in r0["modes"].items()}
 
 
 def phase_exact_f32() -> None:
@@ -790,11 +1079,17 @@ def main() -> int:
     at_rows = check_attention(timer, gen)
     wkv_rows = check_wkv6(timer, gen)
     del timer
-    launches = phase_serve_bf16()
+    served = phase_serve_bf16()
+    tp = phase_tp(served)
     phase_exact_f32()
     rwkv = phase_rwkv_bf16()
     phase_rwkv_exact_f32()
-    paths = {"qwen2-1.5b serve": launches, "rwkv6-7b forward": rwkv["forward"],
+    launches = served["launches"]
+    world = min(torch.cuda.device_count(), 4)
+    paths = {"qwen2-1.5b serve": launches,
+             **{f"qwen2-1.5b tp serve W={world} {mode}": counts
+                for mode, counts in tp.items()},
+             "rwkv6-7b forward": rwkv["forward"],
              "rwkv6-7b serve": rwkv["serve"]}
 
     def by_path(name):

@@ -1,0 +1,306 @@
+"""INA across ranks: accumulate-while-routing against eject/inject
+(counterpart of ``repro.core.collectives``).
+
+The paper's dichotomy (Fig. 4) on a ring of ranks of a ``torch.distributed``
+process group:
+
+* :func:`ring_psum_eject_inject` — Fig. 4(a).  The *full* partial-sum
+  tensor is relayed around the ring; at every stop it is "ejected" into the
+  rank (added to the local accumulator) and the received tensor is
+  "re-injected" for the next hop.  P-1 hops of ``|x|`` bytes a link.
+* :func:`ring_reduce_scatter_ina` — Fig. 4(b).  The tensor is chunked 1/P;
+  each hop adds the local contribution into the moving chunk and forwards
+  it.  P-1 hops of ``|x|/P``: a ~P x cut in bytes a link.
+* :func:`psum_ina` — reduce-scatter then all-gather, when every rank needs
+  the whole sum.
+
+``*_xla`` are the native collectives (``dist.all_reduce`` and
+``dist.reduce_scatter_tensor``: NCCL on the card, gloo on the CPU), as the
+reference's are XLA's ``psum`` and ``psum_scatter``.
+
+Where the reference binds an ``axis_name`` inside ``shard_map``, these take
+a ``group``: a ``ProcessGroup``, or ``None`` for one rank without a group.
+``jax.lax.ppermute`` to the ring successor becomes one
+``batch_isend_irecv``: send to ``(i+1) % p``, receive from ``(i-1) % p``.
+The ring functions add in the reference's order, so float32 results match
+its bit for bit.  At ``p == 1`` every function returns ``x`` itself, the
+native ones too: a one-rank step launches nothing more than a step without
+a group.  The reference's CPU upcast around bf16 collectives
+(``_needs_f32_workaround``, an XLA fault) has no counterpart: gloo and NCCL
+reduce bf16 as it is.
+"""
+from __future__ import annotations
+
+import functools
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Literal, Optional
+
+import torch
+import torch.distributed as dist
+
+PsumMode = Literal["ina", "ina_ring", "eject_inject", "xla", "auto"]
+
+#: The ``--psum-mode`` choices every launch CLI offers.
+CLI_PSUM_MODES = ("xla_spmd", "ina", "ina_ring", "eject_inject", "auto")
+
+
+def axis_size(group) -> int:
+    """Ranks in ``group`` (1 for ``None``: one rank, no group)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def axis_index(group) -> int:
+    """This rank's index in ``group`` (0 for ``None``)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def ppermute_next(x: torch.Tensor, group) -> torch.Tensor:
+    """Send ``x`` to the ring successor and return what the predecessor
+    sent: ``jax.lax.ppermute`` with ``perm = [(i, (i+1) % p)]``."""
+    p, i = axis_size(group), axis_index(group)
+    send = x.contiguous()
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (i + 1) % p),
+                      group),
+           dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (i - 1) % p),
+                      group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv
+
+
+def _chunk(x: torch.Tensor, k: int, c: int, axis: int) -> torch.Tensor:
+    return x.narrow(axis, k * c, c)
+
+
+# --------------------------------------------------------------------------- #
+# Fig. 4(a): eject -> local add -> inject, hop by hop (full tensor each hop).
+# --------------------------------------------------------------------------- #
+def ring_psum_eject_inject(x: torch.Tensor, group) -> torch.Tensor:
+    """Unchunked ring all-reduce: P-1 full-tensor hops with endpoint adds."""
+    p = axis_size(group)
+    if p == 1:
+        return x
+    acc = x
+    send = x
+    for _ in range(p - 1):
+        send = ppermute_next(send, group)       # inject -> next hop
+        acc = acc + send                        # eject -> local add
+    return acc
+
+
+# --------------------------------------------------------------------------- #
+# Fig. 4(b): chunked ring reduce-scatter with in-flight accumulation.
+# --------------------------------------------------------------------------- #
+def ring_reduce_scatter_ina(x: torch.Tensor, group,
+                            scatter_axis: int = 0) -> torch.Tensor:
+    """In-network accumulation: each hop adds its contribution to the moving
+    1/P chunk and forwards it.  Rank ``i`` returns fully-reduced chunk ``i``.
+    """
+    p = axis_size(group)
+    if p == 1:
+        return x
+    scatter_axis %= x.dim()
+    if x.shape[scatter_axis] % p != 0:
+        raise ValueError(
+            f"scatter axis {scatter_axis} ({x.shape[scatter_axis]}) "
+            f"not divisible by axis size {p}")
+    i = axis_index(group)
+    c = x.shape[scatter_axis] // p
+    # Seeded with chunk (i-1) so that after p-1 hops rank i holds chunk i
+    # summed over every rank (the moving chunk's index falls by one a hop).
+    carry = _chunk(x, (i - 1) % p, c, scatter_axis)
+    for s in range(p - 1):
+        carry = ppermute_next(carry, group)
+        carry = carry + _chunk(x, (i - 2 - s) % p, c, scatter_axis)
+    return carry
+
+
+def ring_all_gather(x: torch.Tensor, group, gather_axis: int = 0,
+                    ) -> torch.Tensor:
+    """Ring all-gather (P-1 hops of |x| each); inverse of the scatter."""
+    p = axis_size(group)
+    if p == 1:
+        return x
+    gather_axis %= x.dim()
+    i = axis_index(group)
+    c = x.shape[gather_axis]
+    shape = list(x.shape)
+    shape[gather_axis] = c * p
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    send = x
+    _chunk(out, i, c, gather_axis).copy_(send)
+    for s in range(p - 1):
+        send = ppermute_next(send, group)
+        # after s+1 forwards we hold the chunk owned by (i - s - 1)
+        _chunk(out, (i - s - 1) % p, c, gather_axis).copy_(send)
+    return out
+
+
+def psum_ina(x: torch.Tensor, group, scatter_axis: int = 0) -> torch.Tensor:
+    """Full all-reduce via INA: reduce-scatter (in-flight adds) + all-gather."""
+    rs = ring_reduce_scatter_ina(x, group, scatter_axis)
+    return ring_all_gather(rs, group, scatter_axis)
+
+
+# --------------------------------------------------------------------------- #
+# Native collectives (NCCL / gloo schedule the reduction themselves).
+# --------------------------------------------------------------------------- #
+def psum_scatter_xla(x: torch.Tensor, group, scatter_axis: int = 0,
+                     ) -> torch.Tensor:
+    """``dist.reduce_scatter_tensor`` on ``scatter_axis`` (tiled: rank i
+    keeps the i-th 1/P slab of the sum)."""
+    p = axis_size(group)
+    if p == 1:
+        return x
+    scatter_axis %= x.dim()
+    front = x.movedim(scatter_axis, 0).contiguous()
+    out = torch.empty((front.shape[0] // p,) + tuple(front.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, front, group=group)
+    return out.movedim(0, scatter_axis)
+
+
+def psum_xla(x: torch.Tensor, group) -> torch.Tensor:
+    """``dist.all_reduce`` into a copy (``x`` is left as it was)."""
+    if axis_size(group) == 1:
+        return x
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Simulated-mesh cost bridge (the port's copy of the NoC cost model).
+# --------------------------------------------------------------------------- #
+def mesh_psum_costs(p: int, nbytes: int):
+    """Simulated mesh allreduce cost per PsumMode (latency cycles, pJ)."""
+    from repro_torch.core.noc.collective.cost import psum_mode_costs
+    return psum_mode_costs(p, nbytes)
+
+
+def choose_psum_mode(p: int, nbytes: int,
+                     objective: str = "latency") -> PsumMode:
+    """Best PsumMode for a ``p``-rank group by simulated mesh cost."""
+    from repro_torch.core.noc.collective.cost import choose_psum_mode as _choose
+    return _choose(p, nbytes, objective=objective)
+
+
+# --------------------------------------------------------------------------- #
+# How ``mode="auto"`` sites resolve, in priority order: recording inside
+# :func:`record_psum_sites`; else the NoC cost model behind a process-wide
+# memo, so one site shape costs one resolution a process.  The port runs
+# eagerly, so every call resolves, and after the first a resolution is a memo
+# lookup.  The reference's middle regime, a ``plan``'s precomputed table, is
+# not carried: nothing in the port builds a plan yet (ROADMAP.md Queue 1).
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class PsumSite:
+    """One ``mode="auto"`` call site."""
+
+    op: str                 # "psum" | "reduce_scatter"
+    p: int                  # group span
+    nbytes: int             # per-rank partial-sum payload
+
+
+_TRACE_SITES: Optional[list] = None
+
+
+@contextmanager
+def record_psum_sites():
+    """Collect ``mode="auto"`` sites instead of resolving them.
+
+    Inside the context every auto site appends a :class:`PsumSite` to the
+    yielded list and runs under a fixed stand-in strategy (``"ina"``; every
+    strategy gives the same shapes).  Reentrant.
+    """
+    global _TRACE_SITES
+    prev, sites = _TRACE_SITES, []
+    _TRACE_SITES = sites
+    try:
+        yield sites
+    finally:
+        _TRACE_SITES = prev
+
+
+@functools.lru_cache(maxsize=None)
+def _fallback_choice(p: int, nbytes: int,
+                     objective: str = "latency") -> str:
+    """Per-process memo of the cost model's resolution."""
+    return choose_psum_mode(p, nbytes, objective=objective)
+
+
+def resolve_auto_mode(op: str, p: int, nbytes: int) -> str:
+    """Resolve one ``mode="auto"`` site (see the regimes above)."""
+    if _TRACE_SITES is not None:
+        _TRACE_SITES.append(PsumSite(op=op, p=p, nbytes=int(nbytes)))
+        return "ina"
+    return _fallback_choice(p, int(nbytes))
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+# --------------------------------------------------------------------------- #
+# Mode dispatch used by the tensor-parallel layers.
+# --------------------------------------------------------------------------- #
+def psum_with_mode(x: torch.Tensor, group, mode: PsumMode,
+                   scatter_axis: int = 0) -> torch.Tensor:
+    """Fully-reduced psum under the selected accumulation strategy.
+
+    ``mode="auto"`` resolves from the NoC cost model for this tensor size
+    and group span (:func:`resolve_auto_mode`).
+    """
+    if mode == "auto":
+        p = axis_size(group)
+        mode = resolve_auto_mode("psum", p, _nbytes(x))
+        if mode == "ina_ring" and x.shape[scatter_axis] % p != 0:
+            # The chunked ring needs the scatter axis to divide; fall back
+            # to the native in-network reduce, which does not.
+            mode = "ina"
+    if mode == "eject_inject":
+        return ring_psum_eject_inject(x, group)
+    if mode == "ina_ring":
+        return psum_ina(x, group, scatter_axis)
+    if mode in ("ina", "xla"):
+        return psum_xla(x, group)
+    raise ValueError(f"unknown psum mode: {mode}")
+
+
+def reduce_scatter_with_mode(x: torch.Tensor, group, mode: PsumMode,
+                             scatter_axis: int = 0) -> torch.Tensor:
+    """Reduce-scattered psum (output stays sharded on ``scatter_axis``)."""
+    p = axis_size(group)
+    if mode == "auto":
+        mode = resolve_auto_mode("reduce_scatter", p, _nbytes(x))
+    if p == 1 and mode in ("eject_inject", "ina_ring", "ina", "xla"):
+        return x
+    if mode == "eject_inject":
+        # The baseline has no in-network reduction: full all-reduce, then the
+        # caller's shard is sliced out locally (the ejected copy).
+        full = ring_psum_eject_inject(x, group)
+        c = x.shape[scatter_axis] // p
+        return _chunk(full, axis_index(group), c, scatter_axis)
+    if mode == "ina_ring":
+        return ring_reduce_scatter_ina(x, group, scatter_axis)
+    if mode in ("ina", "xla"):
+        return psum_scatter_xla(x, group, scatter_axis)
+    raise ValueError(f"unknown psum mode: {mode}")
+
+
+# --------------------------------------------------------------------------- #
+# Analytic per-link traffic (bytes).
+# --------------------------------------------------------------------------- #
+def per_link_bytes(mode: PsumMode, p: int, nbytes: int,
+                   need_full: bool = True) -> float:
+    """Bytes crossing each ring link per psum of an ``nbytes`` tensor."""
+    if p == 1:
+        return 0.0
+    if mode == "eject_inject":
+        return (p - 1) * nbytes
+    if mode in ("ina", "ina_ring", "xla", "auto"):
+        rs = (p - 1) / p * nbytes
+        return rs * 2 if need_full else rs
+    raise ValueError(mode)

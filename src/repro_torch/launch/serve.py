@@ -6,24 +6,39 @@ paged decode.  ``--legacy-loop`` keeps the pre-engine behaviour (one batch,
 one decode step per prompt token) as the reference the engine's tokens are
 held against.  Both run on the GPU unless ``--device cpu`` is given.
 
+``--model-parallel N`` serves through tensor parallelism over N ranks, one
+process each (NCCL on N cards, or gloo with ``--device cpu``); every rank
+runs the same schedule on its shard and rank 0 prints the report.
+``--psum-mode`` picks how the row-parallel partial sums are accumulated
+(:data:`repro_torch.core.collectives.CLI_PSUM_MODES`).
+
 Examples (one H100, at the published widths):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --batch 4 --slots 2 --prompt-len 128 --gen 32 --prefill-chunk 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --batch 4 --slots 2 --prompt-len 64 --gen 16
+and on the CPU, two gloo ranks of the reduced qwen2:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+      --reduced --device cpu --model-parallel 2 --psum-mode ina_ring --check
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import sys
 import time
 
 import torch
 
 from repro_torch import _device
 from repro_torch.configs import ARCHS
+from repro_torch.core.collectives import CLI_PSUM_MODES
+from repro_torch.launch import mesh
 from repro_torch.models.api import get_model
+from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.steps import build_serve_step
-from repro_torch.parallel.tp import PSUM_MODES, ParallelCtx
+from repro_torch.parallel.tp import ParallelCtx
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -35,8 +50,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="number of requests (legacy: batch rows)")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--psum-mode", default="ina", choices=PSUM_MODES,
-                    help="one rank: only 'ina' until the multi-rank slice")
+    ap.add_argument("--psum-mode", default="ina", choices=CLI_PSUM_MODES,
+                    help="how the row-parallel partial sums are accumulated")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor-parallel ranks, one process each")
     # engine path
     ap.add_argument("--slots", type=int, default=None,
                     help="continuous-batching slots (default: --batch)")
@@ -67,8 +84,9 @@ def _params(args, cfg, params):
     return get_model(cfg).init(device=_device.resolve(args.device))
 
 
-def run_engine(args, cfg, params=None):
-    """Serve ``--batch`` requests through the engine; returns its report."""
+def run_engine(args, cfg, params=None, group=None):
+    """Serve ``--batch`` requests through the engine on this rank of
+    ``group`` (``None``: one rank); returns its report."""
     from repro_torch.serve.batching import Request
     from repro_torch.serve.engine import ServingEngine
 
@@ -84,7 +102,8 @@ def run_engine(args, cfg, params=None):
         cfg, params=_params(args, cfg, params), device=args.device,
         slots=slots, max_seq=max_seq, block_size=block,
         prefill_chunk=args.prefill_chunk, psum_mode=args.psum_mode,
-        batched_prefill=not args.no_batched_prefill, check=args.check)
+        batched_prefill=not args.no_batched_prefill, check=args.check,
+        group=group)
 
     prompts = make_prompts(cfg, args.batch, args.prompt_len)
     requests = [
@@ -109,18 +128,22 @@ def run_engine(args, cfg, params=None):
     return report
 
 
-def run_legacy(args, cfg, params=None) -> dict:
-    """The pre-engine loop: one fixed batch, per-token prefill steps.
+def run_legacy(args, cfg, params=None, group=None) -> dict:
+    """The pre-engine loop: one fixed batch, per-token prefill steps, on
+    this rank of ``group`` (``None``: one rank).
 
     Returns the tokens [B, gen+1] (the first generated token, then ``gen``
     greedy continuations), each step's top-2 logit margin [B, gen+1], and
     the first-token logits [B, V]."""
     model = get_model(cfg)
     dev = _device.resolve(args.device)
-    params = _params(args, cfg, params)
-    step = build_serve_step(model, ParallelCtx(psum_mode=args.psum_mode))
+    pctx = ParallelCtx(group=group, psum_mode=args.psum_mode)
+    params = shard_params(_params(args, cfg, params), cfg, pctx.rank,
+                          pctx.world)
+    step = build_serve_step(model, pctx)
     max_seq = args.prompt_len + args.gen
-    cache = model.init_cache(args.batch, max_seq, device=dev)
+    cache = model.init_cache(args.batch, max_seq, device=dev,
+                             world=pctx.world)
     prompts = make_prompts(cfg, args.batch, args.prompt_len).to(dev)
 
     def margin(logits):
@@ -157,15 +180,48 @@ def run_legacy(args, cfg, params=None) -> dict:
             "decode_ms": dt * 1e3}
 
 
-def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+def _config(args):
     cfg = ARCHS[args.arch]
-    if args.reduced:
-        cfg = cfg.reduced()
+    return cfg.reduced() if args.reduced else cfg
+
+
+def _serve(args, cfg, group=None):
+    """Run the path ``args`` asks for; its tokens, one row a request."""
     if args.legacy_loop:
-        run_legacy(args, cfg)
-    else:
-        run_engine(args, cfg)
+        return run_legacy(args, cfg, group=group)["tokens"].tolist()
+    tokens = run_engine(args, cfg, group=group).tokens()
+    return [tokens[f"req{i}"] for i in range(args.batch)]
+
+
+def serve_rank(rank, world, group, device, argv):
+    """One rank of ``--model-parallel``: the same requests on its shard.
+    Rank 0 prints; the others' prints are dropped."""
+    args = build_parser().parse_args(argv)
+    args.device = str(device)
+    quiet = contextlib.nullcontext() if rank == 0 else \
+        contextlib.redirect_stdout(io.StringIO())
+    with quiet:
+        return _serve(args, _config(args), group)
+
+
+def main(argv=None) -> list:
+    """Serve as ``argv`` asks; returns the tokens, one row a request (the
+    same on every rank)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_parser().parse_args(argv)
+    cfg = _config(args)
+    world = args.model_parallel
+    if world == 1:
+        return _serve(args, cfg)
+    dev = _device.resolve(args.device)
+    if dev.type == "cuda" and world > torch.cuda.device_count():
+        raise RuntimeError(f"--model-parallel {world} needs {world} CUDA "
+                           f"devices; {torch.cuda.device_count()} present")
+    tokens = mesh.spawn(serve_rank, world, dev.type, args=(argv,))
+    if any(t != tokens[0] for t in tokens):
+        raise AssertionError(f"ranks disagree on the tokens: {tokens}")
+    print(f"[serve] {world} ranks ({args.psum_mode}) agree on every token")
+    return tokens[0]
 
 
 if __name__ == "__main__":

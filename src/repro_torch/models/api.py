@@ -39,9 +39,12 @@ class Model:
     def loss(self, params, batch, pctx=None):
         return self.mod.loss(params, self.cfg, batch, pctx)
 
-    def init_cache(self, batch: int, max_seq: int, *, device="cuda") -> dict:
+    def init_cache(self, batch: int, max_seq: int, *, device="cuda",
+                   world: int = 1) -> dict:
+        """The decode cache of one rank of ``world`` (the dense family's
+        K/V hold that rank's KV heads)."""
         return self.mod.init_cache(self.cfg, batch, max_seq,
-                                   _device.resolve(device))
+                                   _device.resolve(device), world)
 
     def decode_step(self, params, batch, cache, pctx=None):
         return self.mod.decode_step(params, self.cfg, batch, cache, pctx)

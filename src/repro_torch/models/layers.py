@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel import tp
 from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
 
 NEG_INF = -1e30
@@ -241,13 +242,22 @@ def mlp_block(p: dict, x: torch.Tensor,
 # --------------------------------------------------------------------------- #
 # embedding / logits / loss
 # --------------------------------------------------------------------------- #
-def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return table.to(dtype)[tokens]
+def embed(table: torch.Tensor, tokens: torch.Tensor, dtype,
+          pctx: Optional[ParallelCtx] = None,
+          vocab: Optional[int] = None) -> torch.Tensor:
+    """Row lookup; with ``vocab``, a table of fewer rows is this rank's
+    vocab-parallel slice (:func:`repro_torch.parallel.tp.vocab_embed`)."""
+    if vocab is None:
+        return table.to(dtype)[tokens]
+    return tp.vocab_embed(table.to(dtype), tokens, vocab, pctx)
 
 
 def logits_head(x: torch.Tensor, w: torch.Tensor,
-                pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    return col_linear(x, w, pctx)
+                pctx: Optional[ParallelCtx] = None,
+                vocab: Optional[int] = None) -> torch.Tensor:
+    """Vocab-sharded logits; with ``vocab``, gathered whole on every rank."""
+    out = col_linear(x, w, pctx)
+    return out if vocab is None else tp.vocab_gather(out, vocab, pctx)
 
 
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor,

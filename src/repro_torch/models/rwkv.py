@@ -12,6 +12,9 @@ The decode cache is the recurrent state ``[L, B, H, hd, hd]`` in float32
 and the token-shift rows ``tprev``/``cprev`` ``[L, B, 1, D]`` in the compute
 dtype.  None has a sequence axis, so the serving pool stores each whole per
 request; ``decode_step`` writes them in place and returns the cache.
+
+The family runs on one rank in this port: a group of more than one rank
+raises (its heads would shard as the dense family's do, ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import _dtype, _stack, layer
-from repro_torch.parallel.tp import ParallelCtx
+from repro_torch.parallel.tp import ParallelCtx, single_rank
 
 CACHE_BATCH_AXES = {"state": 1, "tprev": 1, "cprev": 1}
 PAGED_CACHE_LEAVES = ()
@@ -76,6 +79,7 @@ def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    single_rank(pctx.world if pctx else 1, cfg.family)
     x = L.embed(params["embed"], tokens, _dtype(cfg))
     x = L.rms_norm(x, params["ln_in"], cfg.norm_eps)
     for i in range(cfg.n_layers):
@@ -105,7 +109,9 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
             "cprev": row}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
+               world: int = 1) -> dict:
+    single_rank(world, cfg.family)
     dtypes = {"state": torch.float32, "tprev": _dtype(cfg),
               "cprev": _dtype(cfg)}
     return {name: torch.zeros(shape, dtype=dtypes[name], device=device)
@@ -117,6 +123,7 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     """One-token decode.  batch: {tokens: [B, 1], pos: ignored (the state
     carries the position)}; returns (logits [B, 1, V], cache), the cache
     updated in place."""
+    single_rank(pctx.world if pctx else 1, cfg.family)
     x = L.embed(params["embed"], batch["tokens"], _dtype(cfg))
     x = L.rms_norm(x, params["ln_in"], cfg.norm_eps)
     for i in range(cfg.n_layers):

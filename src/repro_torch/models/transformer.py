@@ -8,6 +8,14 @@ place of ``lax.scan``.  Matrices are stored in the compute dtype
 
 ``prefill`` and ``decode_step`` write the new K/V into ``cache`` in place
 and return it.
+
+Under tensor parallelism the parameters are a rank's shards
+(:func:`repro_torch.parallel.sharding.shard_params`): the head counts are
+read from the shards, the cache holds the rank's KV heads, the embedding
+and the head are vocab-parallel, and under ``pctx.rs_seq`` the residual
+stream between layers holds the rank's slice of the sequence, gathered back
+before each column-parallel projection (:func:`repro_torch.parallel.tp.
+gather_seq`).
 """
 from __future__ import annotations
 
@@ -17,6 +25,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import tp
+from repro_torch.parallel.sharding import local_heads
 from repro_torch.parallel.tp import ParallelCtx
 
 
@@ -82,34 +92,54 @@ def _head(params: dict) -> torch.Tensor:
     return params["embed"].T if head is None else head
 
 
+def _heads(ap: dict, hd: int) -> tuple[int, int]:
+    """(query heads, KV heads) this rank's attention shard holds."""
+    return ap["wq"].shape[-1] // hd, ap["wk"].shape[-1] // hd
+
+
+def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+           pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """Embedded tokens, this rank's slice of the sequence under rs_seq."""
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
+    return tp.scatter_seq(x, pctx)
+
+
+def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, seq: int,
+            pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    x = tp.gather_seq(L.rms_norm(x, params["ln_f"], cfg.norm_eps), pctx, seq)
+    return L.logits_head(x, _head(params), pctx, cfg.vocab)
+
+
 # --------------------------------------------------------------------------- #
 # forward (train / prefill)
 # --------------------------------------------------------------------------- #
+def _norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, seq: int,
+          pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """A column-parallel block's input: normed, the whole sequence."""
+    return tp.gather_seq(L.rms_norm(x, w, cfg.norm_eps), pctx, seq)
+
+
 def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
-              pctx: Optional[ParallelCtx]) -> torch.Tensor:
+              pctx: Optional[ParallelCtx], seq: int) -> torch.Tensor:
     hd = cfg.resolved_head_dim
-    x = x + L.attn_block(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
-                         cos=cos, sin=sin, causal=True, eps=cfg.norm_eps,
-                         pctx=pctx)
-    return x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+    nh, nkv = _heads(lp["attn"], hd)
+    x = x + L.attn_block(lp["attn"], _norm(x, lp["ln1"], cfg, seq, pctx),
+                         n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos, sin=sin,
+                         causal=True, eps=cfg.norm_eps, pctx=pctx)
+    return x + L.mlp_block(lp["mlp"], _norm(x, lp["ln2"], cfg, seq, pctx),
                            pctx)
-
-
-def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                  pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
-    pos = torch.arange(tokens.shape[1], device=tokens.device)
-    cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        x = layer_fwd(layer(params["layers"], i), x, cfg, cos, sin, pctx)
-    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    x = hidden_states(params, cfg, batch["tokens"], pctx)
-    return L.logits_head(x, _head(params), pctx)
+    tokens = batch["tokens"]
+    seq = tokens.shape[1]
+    x = _embed(params, cfg, tokens, pctx)
+    pos = torch.arange(seq, device=tokens.device)
+    cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x = layer_fwd(layer(params["layers"], i), x, cfg, cos, sin, pctx, seq)
+    return _logits(params, cfg, x, seq, pctx)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -140,39 +170,42 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
         raise ValueError(f"chunk [{pos_offset}, {end}) past the cache length "
                          f"{cache['k'].shape[2]}")
     hd = cfg.resolved_head_dim
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = _embed(params, cfg, tokens, pctx)
     pos = torch.arange(c, device=tokens.device) + pos_offset
     cos, sin = L.rope_cos_sin(pos, hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
+        nh, nkv = _heads(lp["attn"], hd)
         ck, cv = cache["k"][i], cache["v"][i]
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = L.attn_qkv(lp["attn"], h, cfg.n_heads, cfg.n_kv_heads, hd,
-                             cos, sin, cfg.norm_eps, pctx)
+        h = _norm(x, lp["ln1"], cfg, c, pctx)
+        q, k, v = L.attn_qkv(lp["attn"], h, nh, nkv, hd, cos, sin,
+                             cfg.norm_eps, pctx)
         ck[:, pos_offset:end] = k.to(ck.dtype)
         cv[:, pos_offset:end] = v.to(cv.dtype)
         o = L.attention(q, ck[:, :end].to(q.dtype), cv[:, :end].to(q.dtype),
                         causal=True, q_offset=pos_offset)
-        x = x + L.row_linear(o.reshape(b, c, cfg.n_heads * hd),
-                             lp["attn"]["wo"], pctx)
-        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+        x = x + L.row_linear(o.reshape(b, c, nh * hd), lp["attn"]["wo"], pctx)
+        x = x + L.mlp_block(lp["mlp"], _norm(x, lp["ln2"], cfg, c, pctx),
                             pctx)
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, _head(params), pctx), cache
+    return _logits(params, cfg, x, c, pctx), cache
 
 
 # --------------------------------------------------------------------------- #
 # decode
 # --------------------------------------------------------------------------- #
-def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
+                 world: int = 1) -> dict:
+    """K/V of the KV heads one rank of ``world`` holds."""
+    shape = (cfg.n_layers, batch, max_seq, local_heads(cfg, world)[1],
              cfg.resolved_head_dim)
     return {"k": shape, "v": shape}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
+               world: int = 1) -> dict:
     return {name: torch.zeros(shape, dtype=_dtype(cfg), device=device)
-            for name, shape in cache_shapes(cfg, batch, max_seq).items()}
+            for name, shape in cache_shapes(cfg, batch, max_seq,
+                                            world).items()}
 
 
 def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
@@ -186,7 +219,7 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     """
     tokens, pos = batch["tokens"], batch["pos"]
     hd = cfg.resolved_head_dim
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = _embed(params, cfg, tokens, pctx)
     if torch.is_tensor(pos) and pos.dim() == 1:
         pos = pos.to(tokens.device)
         cos, sin = L.rope_cos_sin(pos, hd, cfg.rope_theta)
@@ -195,15 +228,15 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
         pos = int(pos)
         cos, sin = L.rope_cos_sin(torch.tensor([pos], device=tokens.device),
                                   hd, cfg.rope_theta)
+    seq = tokens.shape[1]
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        nh, nkv = _heads(lp["attn"], hd)
         y, _, _ = L.attn_block_decode(
-            lp["attn"], h, cache["k"][i], cache["v"][i], pos,
-            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd, cos=cos,
+            lp["attn"], _norm(x, lp["ln1"], cfg, seq, pctx), cache["k"][i],
+            cache["v"][i], pos, n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos,
             sin=sin, eps=cfg.norm_eps, pctx=pctx)
         x = x + y
-        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+        x = x + L.mlp_block(lp["mlp"], _norm(x, lp["ln2"], cfg, seq, pctx),
                             pctx)
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, _head(params), pctx), cache
+    return _logits(params, cfg, x, seq, pctx), cache

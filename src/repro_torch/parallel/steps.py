@@ -1,8 +1,11 @@
 """Serve, prefill and forward steps (counterpart of ``repro.parallel.steps``).
 
-The reference builds jitted, sharded artifacts; PyTorch runs eagerly on one
-chip, so each builder here returns the plain callable in the same kind of
-record.  Greedy decoding takes the first maximal logit, as ``jnp.argmax``.
+The reference builds jitted, sharded artifacts; PyTorch runs eagerly, so
+each builder here returns the plain callable in the same kind of record.
+Tensor parallelism reaches the model through ``pctx``: its process group
+and psum mode (:class:`repro_torch.parallel.tp.ParallelCtx`), with the
+parameters a rank's shards.  Greedy decoding takes the first maximal
+logit, as ``jnp.argmax``.
 """
 from __future__ import annotations
 

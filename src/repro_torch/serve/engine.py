@@ -22,6 +22,13 @@ joining or leaving the batch cannot change a request's tokens.
 The engine takes ``params`` (or a ``param_seed`` for a seeded
 ``torch.Generator``) and a ``device``; the reference builds its own
 weights from a JAX key.
+
+With a ``group`` of several ranks (tensor parallelism) every rank runs an
+engine on the same requests: it cuts the full ``params`` to its shard
+(:func:`repro_torch.parallel.sharding.shard_params`), pools its own KV
+heads, and runs the same deterministic schedule, so every rank calls each
+collective at the same point.  The logits are gathered whole on every rank,
+so every rank picks the same tokens; ``check`` asserts that at each retire.
 """
 from __future__ import annotations
 
@@ -31,10 +38,12 @@ import time
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import get_model
+from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.steps import (build_paged_serve_step,
                                         build_prefill_step, build_serve_step)
 from repro_torch.parallel.tp import ParallelCtx
@@ -66,12 +75,14 @@ class ServingEngine:
                  max_seq: Optional[int] = None, block_size: int = 16,
                  num_blocks: Optional[int] = None, prefill_chunk: int = 8,
                  psum_mode: str = "ina", batched_prefill: bool = True,
-                 policy: str = "fcfs", check: bool = False) -> None:
+                 policy: str = "fcfs", check: bool = False,
+                 group=None) -> None:
         if cfg.family in _NO_ENGINE_FAMILIES:
             raise ValueError(
                 f"family {cfg.family!r} needs per-request media plumbing; "
                 "use launch/serve.py --legacy-loop")
-        pctx = ParallelCtx(psum_mode=psum_mode)
+        pctx = ParallelCtx(group=group, psum_mode=psum_mode)
+        self.pctx = pctx
         self.device = _device.resolve(device)
         self.cfg = cfg
         self.model = get_model(cfg)
@@ -83,7 +94,7 @@ class ServingEngine:
             # enough for every slot to hold a full-length request
             num_blocks = slots * math.ceil(self.max_seq / block_size)
         self.kv = PagedKVCache(cfg, self.max_seq, block_size, num_blocks,
-                               device=self.device)
+                               device=self.device, world=pctx.world)
         self.sched = Scheduler(slots, self.kv, policy)
 
         self.step = build_paged_serve_step(self.model, pctx)
@@ -94,7 +105,7 @@ class ServingEngine:
                                                    pctx)
             # room for the padded tail of the last chunk
             plen = math.ceil(self.max_seq / prefill_chunk) * prefill_chunk
-            self._pcache = self.model.init_cache(1, plen, device=self.device)
+            self._pcache = self._cache(1, plen)
         else:
             # per-token fallback: a B=1 decode loop doubles as prefill
             self._loop_step = build_serve_step(self.model, pctx)
@@ -102,9 +113,12 @@ class ServingEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(param_seed)
             params = self.model.init(gen, device=self.device)
-        self.params = params
-        self.working = self.model.init_cache(slots, self.max_seq,
-                                             device=self.device)
+        self.params = shard_params(params, cfg, pctx.rank, pctx.world)
+        self.working = self._cache(slots, self.max_seq)
+
+    def _cache(self, batch: int, max_seq: int) -> dict:
+        return self.model.init_cache(batch, max_seq, device=self.device,
+                                     world=self.pctx.world)
 
     # ------------------------------------------------------------------ #
     def _row(self, cache: dict, slot: int) -> dict:
@@ -140,7 +154,7 @@ class ServingEngine:
             last = logits[0, (plen - 1) % chunk]
             row = self._row(self._pcache, 0)
         else:
-            cache = self.model.init_cache(1, self.max_seq, device=self.device)
+            cache = self._cache(1, self.max_seq)
             for pos in range(plen):
                 _, cache, lg = self._loop_step.fn(
                     self.params,
@@ -216,6 +230,19 @@ class ServingEngine:
                             checks=checks, prefill_ms=prefill_s * 1e3,
                             decode_ms=decode_s * 1e3)
 
+    def _assert_ranks_agree(self, st: RequestState) -> None:
+        """Every rank of the group generated the same tokens."""
+        if not self.pctx.manual:
+            return
+        mine = torch.tensor(st.generated, dtype=torch.long, device=self.device)
+        every = [torch.empty_like(mine) for _ in range(self.pctx.world)]
+        dist.all_gather(every, mine, group=self.pctx.group)
+        for rank, theirs in enumerate(every):
+            if not torch.equal(theirs, mine):
+                raise AssertionError(
+                    f"{st.req.rid}: rank {self.pctx.rank} generated "
+                    f"{mine.tolist()}, rank {rank} {theirs.tolist()}")
+
     def _retire(self, it: int, finished: list, first_logits: dict) -> int:
         checks = 0
         for slot in sorted(self.sched.active):
@@ -229,6 +256,7 @@ class ServingEngine:
                                        self._row(self.working, slot),
                                        min(covered, self.max_seq))
                 self.kv.check()
+                self._assert_ranks_agree(st)
                 checks += 1
             self.sched.finish(slot, now=it)
             finished.append({

@@ -148,7 +148,9 @@ class PagedKVCache:
     """
 
     def __init__(self, cfg, max_seq: int, block_size: int, num_blocks: int,
-                 *, device="cuda") -> None:
+                 *, device="cuda", world: int = 1) -> None:
+        """The pool of one rank of ``world``: the dense family's pages hold
+        that rank's KV heads."""
         from repro_torch.models.api import (cache_batch_axes, get_model,
                                             paged_cache_leaves)
         if max_seq % block_size:
@@ -161,7 +163,8 @@ class PagedKVCache:
         self.allocator = BlockAllocator(num_blocks)
 
         # shapes and dtypes without allocating (``jax.eval_shape`` there)
-        proto = get_model(cfg).init_cache(1, max_seq, device="meta")
+        proto = get_model(cfg).init_cache(1, max_seq, device="meta",
+                                          world=world)
         baxes = cache_batch_axes(cfg)
         paged = paged_cache_leaves(cfg)
         self.leaves: list[_LeafMeta] = []

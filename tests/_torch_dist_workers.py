@@ -1,0 +1,132 @@
+"""Rank functions for the port's multi-rank tests (gloo on the CPU).
+
+``repro_torch.launch.mesh.spawn`` starts each rank in a fresh interpreter
+that imports this module by name, so it imports torch and the port only
+(no JAX: a rank needs none, and it would only slow the start).  Every
+function returns numpy arrays and lists, never tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs import ARCHS
+from repro_torch.convert import params_from_jax
+from repro_torch.core import collectives as C
+from repro_torch.models.api import get_model
+from repro_torch.parallel.sharding import shard_params
+from repro_torch.parallel.tp import ParallelCtx, combine_experts
+from repro_torch.serve.batching import Request
+from repro_torch.serve.engine import ServingEngine
+
+MODES = ("ina", "ina_ring", "eject_inject", "xla", "auto")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def collective_fns(group) -> dict:
+    """Name -> function of this rank's [16, 32] input, the same table the
+    reference's side runs (``tests/test_torch_collectives.py``)."""
+    fns = {"eject_inject": lambda x: C.ring_psum_eject_inject(x, group)}
+    for a in (0, 1):
+        fns[f"rs_ina_ax{a}"] = \
+            lambda x, a=a: C.ring_reduce_scatter_ina(x, group, a)
+        fns[f"all_gather_ax{a}"] = \
+            lambda x, a=a: C.ring_all_gather(x, group, a)
+        fns[f"psum_ina_ax{a}"] = lambda x, a=a: C.psum_ina(x, group, a)
+        for m in MODES:
+            fns[f"psum_with_mode_{m}_ax{a}"] = \
+                lambda x, a=a, m=m: C.psum_with_mode(x, group, m, a)
+            fns[f"rs_with_mode_{m}_ax{a}"] = \
+                lambda x, a=a, m=m: C.reduce_scatter_with_mode(x, group, m, a)
+    return fns
+
+
+def collectives_rank(rank, world, group, device, x_all):
+    """Every function of :func:`collective_fns` on ``x_all[rank]`` in each
+    dtype (outputs as float32 numpy), and the ``auto`` sites the reduced
+    qwen2's forward and decode step record."""
+    out = {}
+    for dname, dt in DTYPES.items():
+        x = torch.from_numpy(x_all[rank]).to(dt)
+        for name, fn in collective_fns(group).items():
+            y = fn(x)
+            assert y.dtype == dt, (name, y.dtype)
+            out[f"{dname}/{name}"] = y.float().numpy()
+        assert torch.equal(x, torch.from_numpy(x_all[rank]).to(dt)), \
+            "a collective wrote into its input"
+    if ARCHS["qwen2-1.5b"].reduced().n_heads % world == 0:
+        out["sites"] = model_sites(group, world, rank)
+    return out
+
+
+def model_sites(group, world, rank) -> dict:
+    """(op, p, nbytes) of each auto site, by (phase, rs_seq)."""
+    cfg = ARCHS["qwen2-1.5b"].reduced()
+    model = get_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = shard_params(model.init(gen, device="cpu"), cfg, rank, world)
+    sites = {}
+    for rs in (False, True):
+        pctx = ParallelCtx(group=group, psum_mode="auto", rs_seq=rs)
+        with C.record_psum_sites() as fwd:
+            model.forward(params, {"tokens": torch.zeros(2, 8, dtype=torch.long)},
+                          pctx)
+        cache = model.init_cache(2, 16, device="cpu", world=world)
+        with C.record_psum_sites() as dec:
+            model.decode_step(params, {"tokens": torch.zeros(2, 1,
+                                                             dtype=torch.long),
+                                       "pos": 3}, cache, pctx)
+        sites[f"forward/{rs}"] = [(s.op, s.p, s.nbytes) for s in fwd]
+        sites[f"decode/{rs}"] = [(s.op, s.p, s.nbytes) for s in dec]
+    return sites
+
+
+def tp_rank(rank, world, group, device, spec):
+    """The reduced model on this rank's shard, for each case of ``spec``:
+    the forward logits, each prefill chunk's logits and each decode step's,
+    then the engine's greedy tokens under each mode, and ``combine_experts``
+    on this rank's experts."""
+    cfg = ARCHS[spec["arch"]].reduced()
+    model = get_model(cfg)
+    full = params_from_jax(spec["params"], cfg, device="cpu")
+    params = shard_params(full, cfg, rank, world)
+    toks = torch.from_numpy(spec["tokens"]).long()
+    b, s = toks.shape
+    out = {}
+    for name, kw in spec["cases"].items():
+        pctx = ParallelCtx(group=group, **kw)
+        res = {"forward": model.forward(params, {"tokens": toks}, pctx).numpy()}
+        cache = model.init_cache(b, spec["max_seq"], device="cpu", world=world)
+        chunks = []
+        for p0, p1 in spec["chunks"]:
+            logits, cache = model.prefill(params, {"tokens": toks[:, p0:p1]},
+                                          cache, pctx, pos_offset=p0)
+            chunks.append(logits.numpy())
+        res["prefill"] = chunks
+        steps = []
+        for pos, tok in enumerate(spec["decode_tokens"], start=s):
+            logits, cache = model.decode_step(
+                params, {"tokens": torch.from_numpy(tok[:, None]).long(),
+                         "pos": pos}, cache, pctx)
+            steps.append(logits.numpy())
+        res["decode"] = steps
+        out[name] = res
+    out["engine"] = {}
+    for mode in spec["engine_modes"]:
+        engine = ServingEngine(cfg, params=full, device="cpu", slots=2,
+                               max_seq=spec["max_seq"], block_size=4,
+                               prefill_chunk=4, psum_mode=mode, check=True,
+                               group=group)
+        report = engine.run([Request(rid=f"r{i}", prompt_len=len(p),
+                                     max_new=spec["gen"], prompt=tuple(p))
+                             for i, p in enumerate(spec["prompts"])])
+        out["engine"][mode] = report.tokens()
+    if "combine" in spec:
+        comb, experts = (torch.from_numpy(a) for a in spec["combine"])
+        e = experts.shape[0] // world
+        out["combine"] = {
+            mode: combine_experts(
+                comb[:, :, rank * e:(rank + 1) * e],
+                experts[rank * e:(rank + 1) * e],
+                ParallelCtx(group=group, psum_mode=mode)).numpy()
+            for mode in C.CLI_PSUM_MODES}
+    return out

@@ -14,12 +14,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs import ARCHS as JARCHS
 from repro.models.api import get_model as jget_model
 
 from repro_torch.configs import ARCHS
 from repro_torch.convert import params_from_jax
+from repro_torch.launch import mesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.serve.batching import Request, Scheduler
 from repro_torch.serve.engine import ServingEngine
@@ -170,15 +172,27 @@ def test_rwkv_engine_matches_reference_loop():
 
 @pytest.mark.parametrize("mode",
                          ["xla_spmd", "ina_ring", "eject_inject", "auto"])
-def test_multi_rank_psum_modes_raise(mode):
-    """One rank takes only 'ina': the launcher refuses the other modes, and
-    the engine raises rather than silently running the INA path."""
-    with pytest.raises(SystemExit):
-        launch_serve.build_parser().parse_args(
-            ["--arch", "qwen2-1.5b", "--psum-mode", mode])
-    with pytest.raises(ValueError, match="Queue 1, item 3"):
-        ServingEngine(ARCH, param_seed=0, device="cpu", slots=1,
-                      max_seq=MAX_SEQ, block_size=4, psum_mode=mode)
+def test_multi_rank_psum_modes_raise(mode, tmp_path):
+    """Every psum mode parses in the launcher and, through a gloo group of
+    one rank, serves the same tokens as 'ina'.  (Until the port had
+    collectives, these modes raised; the name is kept.)  At one rank every
+    collective returns its input, so the modes cannot differ."""
+    argv = ["--arch", "qwen2-1.5b", "--reduced", "--device", "cpu",
+            "--batch", "2", "--slots", "2", "--prompt-len", "6", "--gen", "3",
+            "--prefill-chunk", "4", "--block-size", "4", "--check"]
+    parse = launch_serve.build_parser().parse_args
+    args, ina = parse(argv + ["--psum-mode", mode]), parse(argv)
+    assert args.psum_mode == mode and ina.psum_mode == "ina"
+    params = launch_serve._params(args, ARCH, None)
+    group, _ = mesh.init_group(1, 0, "cpu", str(tmp_path / "store"))
+    try:
+        got = launch_serve.run_engine(args, ARCH, params, group=group)
+        want = launch_serve.run_engine(ina, ARCH, params, group=group)
+    finally:
+        dist.destroy_process_group()
+    assert got.tokens() == want.tokens()
+    assert launch_serve.main(argv + ["--psum-mode", mode]) == \
+        [want.tokens()[f"req{i}"] for i in range(2)]
 
 
 # --------------------------------------------------------------------------- #
