@@ -11,12 +11,14 @@ Phases; any failure raises and the process exits non-zero:
    and held against their plain PyTorch versions: first ``ina_matmul`` on
    one small case per regime, tile, layout and cluster size (1 and 2) and
    ``flash_attention`` on one small case per dtype, head dim and tile, then
-   every kernel at the shapes and dtypes that phases 3-7 give it (for
+   every kernel at the shapes and dtypes that phases 3-9 give it (for
    ``flash_attention`` also in the model's layout, GQA read in place from
    a KV cache slice; for ``wkv6`` also at decays past the model's clip
-   floor, one of them held to the step-by-step ``wkv6_ref`` as well), each
-   timed beside its bound, its plain version and one library call where
-   one computes the same function;
+   floor, one of them held to the step-by-step ``wkv6_ref`` as well; for
+   ``ina_matmul`` also the train step's products: forward at M = 4096, dX
+   with w^T read in place, dW with K = 4096), each timed beside its bound,
+   its plain version and one library call where one computes the same
+   function;
 3. qwen2-1.5b at its published widths (bf16, seeded random weights) served
    through the port's ``ServingEngine``: 4 requests on 2 slots, prompt 128,
    32 generated tokens, prefill chunk 64.  The kernels' launch counters must
@@ -45,7 +47,20 @@ Phases; any failure raises and the process exits non-zero:
    prompts seated token by token (no wkv6), against the legacy loop;
 7. the same widths at 2 layers in float32: forward against the decode loop
    within rtol = atol = 1e-4, and engine tokens equal the legacy loop's;
-8. a ``kernels`` JSON line, then the device JSON line, last.
+8. ``[train]``: qwen2-1.5b at its published widths and depth trained
+   through ``launch.train`` (float32 masters, bf16 compute, seeded
+   weights, the port's token pipeline): 8 AdamW steps at B 4 x S 1024,
+   warmup 2, a checkpoint at step 4 into a temporary directory, then a
+   second run into it.  Every step must launch the derived 787
+   ``ina_matmul`` (none generic) and 56 ``flash_attention``, every loss
+   be finite and the last below the first, and the second run resume at
+   step 5 with step 5's loss equal to the first run's; one step is
+   profiled (device time by kernel, inside the attention backward and
+   AdamW, tokens/s, peak memory);
+9. ``[train-f32]``: the same widths at 2 layers in float32, one step's
+   loss and every gradient leaf through the kernels against the same step
+   through their plain versions on the card;
+10. a ``kernels`` JSON line, then the device JSON line, last.
 
 It needs the checkout's ``src/`` beside it and exits non-zero without a GPU.
 """
@@ -57,8 +72,10 @@ import io
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -69,10 +86,13 @@ sys.path.insert(0, str(SRC))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint.ckpt import latest_step  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import collectives as C  # noqa: E402
 from repro_torch.core.noc import fresh_sim_cache  # noqa: E402
 from repro_torch.core.noc.collective import cost as noc_cost  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ina_matmul as im  # noqa: E402
@@ -80,16 +100,20 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.kernel_times import (Timer,  # noqa: E402
                                              attention_cases,
                                              attention_operands,
                                              matmul_operands,
-                                             matmul_projections, wkv_cases,
+                                             matmul_projections,
+                                             train_products, wkv_cases,
                                              wkv_operands)
 from repro_torch.models.api import get_model  # noqa: E402
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.parallel.sharding import shard_params  # noqa: E402
 from repro_torch.parallel.steps import (build_paged_serve_step,  # noqa: E402
-                                        build_prefill, build_serve_step)
+                                        build_prefill, build_serve_step,
+                                        build_train_step, loss_and_grads)
 from repro_torch.parallel.tp import ParallelCtx  # noqa: E402
 
 # H100 SXM, dense, at the full 700 W (NVIDIA data sheet)
@@ -218,9 +242,16 @@ def check_matmul_small(gen) -> None:
                                          f"[{k},{n}] {kind} {plan}: {res}")
 
 
-def check_matmul(timer, gen) -> list:
+def train_matmul_cases():
+    """The train step's distinct products (forward, dX with w^T read in
+    place, dW with K = the step's tokens), bf16."""
+    return [(f"train {name} M={m}", m, k, n, kind, torch.bfloat16)
+            for name, m, k, n, kind in train_products()]
+
+
+def check_matmul(timer, gen, cases) -> list:
     rows = []
-    for name, m, k, n, kind, dt in matmul_cases():
+    for name, m, k, n, kind, dt in cases:
         x, w = matmul_operands(gen, m, k, n, kind, dt)
         plan = im.plan_for(x, w)
         got = im.ina_matmul(x, w)
@@ -236,7 +267,7 @@ def check_matmul(timer, gen) -> list:
         row["ms"] = timer(lambda: im.ina_matmul(x, w))
         row["plain_ms"] = timer(lambda: im.ina_matmul_plain(x, w))
         row["library_ms"] = timer(lambda: torch.matmul(x, w))
-        log(f"[kernels] ina_matmul {name:28s} {row['shape']:26s} "
+        log(f"[kernels] ina_matmul {name:28s} {row['shape']:28s} "
             f"{row['dtype']:8s} {plan.regime} {row['tile']} c={plan.cluster} "
             f"max_abs_err {row['max_abs_err']:.3g} "
             f"max_rel_err {row['max_rel_err']:.3g} (rtol {row['rtol']:.3g}, "
@@ -347,7 +378,8 @@ def attention_row(timer, name, q, k, v, off) -> dict:
 
 def check_attention(timer, gen) -> list:
     """The JAX signature's cases ([BH, S, D], one KV head per query head,
-    as ``flash_attention`` takes them), then the model's layout."""
+    as ``flash_attention`` takes them), then the model's layout: the
+    prefill chunks' and the train step's."""
     cfg = ARCHS[ARCH]
     bh, d = cfg.n_heads, cfg.resolved_head_dim
     floor = timer(lambda: torch.cuda._sleep(1))
@@ -371,6 +403,14 @@ def check_attention(timer, gen) -> list:
         q, k, v, off = attention_operands(gen, 1, sq, sk, c.n_heads,
                                           c.n_kv_heads, c.resolved_head_dim,
                                           dt, cache)
+        rows.append(attention_row(timer, name, q, k, v, off))
+    # the train phases' layer attention: q, k and v whole from the
+    # projections, [train] B 4 x S 1024 in bf16, [train-f32] in float32
+    for name, b, s, dt in (("qwen2 train", 4, 1024, torch.bfloat16),
+                           ("qwen2 train f32", TRAIN_F32_B, TRAIN_F32_S,
+                            torch.float32)):
+        q, k, v, off = attention_operands(gen, b, s, s, cfg.n_heads,
+                                          cfg.n_kv_heads, d, dt, s)
         rows.append(attention_row(timer, name, q, k, v, off))
     return rows
 
@@ -550,7 +590,7 @@ def phase_serve_bf16() -> dict:
             "profile": profile}
 
 
-def profile_step(label: str, fn, steps: int = 5) -> dict:
+def profile_step(label: str, fn, steps: int = 5, spans=()) -> dict:
     """Where one step's time goes: its wall time on the host clock (no
     profiler), and the device time by name of the kernels each step
     launched (:func:`step_kernels`), from a torch.profiler trace of the
@@ -558,7 +598,9 @@ def profile_step(label: str, fn, steps: int = 5) -> dict:
     A trace now and then lacks some records of a step, which can only lower
     its count, so a step's kernel count is the largest over the steps, and
     the device time is averaged over the steps that reached it.  The busy
-    share is device time over wall."""
+    share is device time over wall.  For each name in ``spans`` (a
+    ``torch.profiler.record_function`` range of the step), the device time
+    of the kernels launched inside it (``span_ms``)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(2):
         fn()
@@ -578,7 +620,8 @@ def profile_step(label: str, fn, steps: int = 5) -> dict:
             if i == steps:
                 torch.cuda.synchronize()
             prof.step()
-    by_step = step_kernels(json.loads(trace.read_text())["traceEvents"])
+    events = json.loads(trace.read_text())["traceEvents"]
+    by_step = step_kernels(events)
     per_step = [len(kernels) for kernels in by_step]
     whole = [k for k in by_step if len(k) == max(per_step)]
     names = ("ina_matmul", "flash_attention", "wkv6")
@@ -587,14 +630,24 @@ def profile_step(label: str, fn, steps: int = 5) -> dict:
         key = next((k for k in names if k in e["name"]), "other")
         dev[key] += e["dur"] / 1e3 / len(whole)
     busy = sum(dev.values())
+    span_ms = {}
+    for name in spans:
+        ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") == "user_annotation"
+                  and e.get("name") == name]
+        span_ms[name] = sum(
+            e["dur"] for kernels in whole for e in kernels
+            if any(lo <= e["launch_ts"] <= hi for lo, hi in ranges)
+        ) / 1e3 / len(whole)
     out = {"wall_ms": wall, "device_ms": busy, "kernels_per_step":
-           max(per_step), "kernels_by_step": per_step,
+           max(per_step), "kernels_by_step": per_step, "span_ms": span_ms,
            **{f"{k}_ms": v for k, v in dev.items()}}
     log(f"[profile] {label}: wall {wall:.2f} ms/step (host clock), device "
         f"kernels {busy:.2f} ms/step = busy share {busy / wall:.3f} ("
         + ", ".join(f"{k} {v:.2f}" for k, v in dev.items())
         + f" ms; {out['kernels_per_step']} kernels/step, the most of the "
-        f"steps' {per_step}; device ms over the {len(whole)} steps at it)")
+        f"steps' {per_step}; device ms over the {len(whole)} steps at it)"
+        + "".join(f"; inside {k}: {v:.2f} ms" for k, v in span_ms.items()))
     return out
 
 
@@ -618,6 +671,7 @@ def step_kernels(events: list) -> list:
         ts = launched.get(e.get("args", {}).get("correlation"))
         for i, (lo, hi) in enumerate(spans):
             if ts is not None and lo <= ts <= hi:
+                e["launch_ts"] = ts
                 out[i].append(e)
                 break
     return out
@@ -1018,6 +1072,204 @@ def phase_rwkv_exact_f32() -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------- #
+# phases 8-9: training
+# --------------------------------------------------------------------------- #
+TRAIN_ARGV = ["--arch", ARCH, "--steps", "8", "--batch", "4", "--seq", "1024",
+              "--lr", "3e-4", "--ckpt-every", "4"]
+TRAIN_SAVED = 4          # the newest checkpoint of 8 steps saved every 4
+TRAIN_SPANS = ("flash_attention_backward", "adamw_update")
+TRAIN_F32_B, TRAIN_F32_S = 2, 128
+
+
+def train_launches(n_layers: int) -> dict:
+    """A train step's launches, derived from the code: each of the 7 L + 1
+    products (the head outside the checkpointed layers) runs once forward
+    and twice backward (dX and dW), and the layers' 7 L once more in
+    their recompute; flash attention runs forward and recomputed, and its
+    backward launches no kernel."""
+    per_pass = MATMULS_PER_PASS["dense"] * n_layers
+    return {"ina_matmul": 3 * (per_pass + 1) + per_pass,
+            "flash_attention": 2 * n_layers, "wkv6": 0}
+
+
+def train_run(ck: str, label: str, device: str):
+    """One run of the training launcher into ``ck``; each step's launches
+    are read and the counters set to 0 after it."""
+    steps = []
+
+    def on_step(step, metrics, dt):
+        steps.append({"step": step, "loss": float(metrics["loss"]),
+                      "seconds": dt, "launches": read_launches(),
+                      "generic": im.launches_by_regime["generic"]})
+        reset_launches()
+    args = launch_train.build_parser().parse_args(
+        TRAIN_ARGV + ["--ckpt-dir", ck, "--device", device])
+    reset_launches()
+    t0 = time.perf_counter()
+    out = launch_train.run(args, on_step)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    in_steps = sum(s["seconds"] for s in steps)
+    log(f"[train] {label}: steps {out['steps']}, {secs:.1f} s, of which "
+        f"{in_steps:.1f} s in the steps and {secs - in_steps:.1f} s outside "
+        f"them (initial state, checkpoint save or restore); step seconds "
+        + ", ".join(f"{s['seconds']:.3f}" for s in steps))
+    expect = train_launches(ARCHS[args.arch].n_layers)
+    for s in steps:
+        log(f"[train] step {s['step']}: loss {s['loss']:.6f}, launches "
+            f"{s['launches']}, expected {expect}, generic {s['generic']}")
+        if s["launches"] != expect or s["generic"] != 0:
+            raise AssertionError(f"train step {s['step']}: launches "
+                                 f"{s['launches']} (generic {s['generic']})"
+                                 f" != expected {expect}")
+        if not math.isfinite(s["loss"]):
+            raise AssertionError(f"train step {s['step']}: loss {s['loss']}")
+    return out, steps
+
+
+def phase_train(device: str = "cuda") -> dict:
+    """qwen2-1.5b at full width and depth through ``launch.train``: 8 steps
+    at B 4 x S 1024, warmup 2, a checkpoint at step 4, then a second run
+    into the same directory, which must resume at step 5 with step 5's
+    loss bit-equal to the first run's (the same restored state and batch,
+    and a forward that sums in a fixed order).  Then one step profiled."""
+    args = launch_train.build_parser().parse_args(TRAIN_ARGV
+                                                  + ["--ckpt-dir", "-"])
+    cfg = ARCHS[args.arch]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ck:
+        log(f"[train] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"float32 masters, {cfg.dtype} compute, B {args.batch} x S "
+            f"{args.seq}; checkpoints in a temporary directory with "
+            f"{shutil.disk_usage(ck).free / 2 ** 30:.0f} GiB free")
+        first, steps = train_run(ck, "run 1", device)
+        peak = torch.cuda.max_memory_allocated()
+        path = {k: sum(s["launches"][k] for s in steps)
+                for k in steps[0]["launches"]}
+        losses = first["losses"]
+        log(f"[train] run 1: loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+            f"device memory {peak / 2 ** 30:.2f} GiB "
+            f"(torch.cuda.max_memory_allocated); launches over the run "
+            f"{path}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train loss did not fall: {losses}")
+        first_losses = dict(zip(first["steps"], losses))
+        del first
+        torch.cuda.empty_cache()
+        saved = latest_step(ck)
+        second, _ = train_run(ck, "run 2 (resume)", device)
+    if saved != TRAIN_SAVED or second["steps"][0] != saved + 1:
+        raise AssertionError(f"resume: newest checkpoint {saved}, resumed at "
+                             f"{second['steps'][0]}")
+    diffs = {s: second_loss - first_losses[s] for s, second_loss
+             in zip(second["steps"], second["losses"])}
+    log(f"[train] resume: newest checkpoint at step {saved}, resumed at step "
+        f"{second['steps'][0]}; loss against run 1's at the same step "
+        + ", ".join(f"step {s} {d:+.3g}" for s, d in diffs.items()))
+    if diffs[saved + 1] != 0.0:
+        raise AssertionError(f"resumed step {saved + 1}'s loss differs from "
+                             f"run 1's by {diffs[saved + 1]}")
+
+    params, opt = second.pop("state")
+    model = get_model(cfg)
+    ts = build_train_step(model, ShapeConfig("cli", args.seq, args.batch,
+                                             "train"),
+                          base_lr=args.lr, warmup=2, total_steps=args.steps)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch))
+    batch = {k: v.to(device) for k, v in pipe.batch(0).items()}
+    prof = profile_step("train", lambda: ts.fn(params, opt, batch), steps=2,
+                        spans=TRAIN_SPANS)
+    tokens = args.batch * args.seq
+    log(f"[train] profiled step: wall {prof['wall_ms']:.1f} ms, device "
+        f"{prof['device_ms']:.1f} ms, busy share "
+        f"{prof['device_ms'] / prof['wall_ms']:.3f}, "
+        f"{prof['kernels_per_step']} kernels a step; ina_matmul "
+        f"{prof['ina_matmul_ms']:.1f} ms, flash_attention "
+        f"{prof['flash_attention_ms']:.2f} ms, attention backward "
+        f"{prof['span_ms']['flash_attention_backward']:.1f} ms, AdamW "
+        f"{prof['span_ms']['adamw_update']:.1f} ms, other "
+        f"{prof['other_ms']:.1f} ms; {tokens / prof['wall_ms'] * 1e3:.0f} "
+        f"tokens/s (host clock); peak device memory {peak / 2 ** 30:.2f} GiB")
+    del params, opt, ts, batch, second
+    torch.cuda.empty_cache()
+    return {"launches": path, "profile": prof, "peak_bytes": peak}
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The train step's two kernels replaced by their plain versions (the
+    wrappers' CPU path) on CUDA tensors; the autograd Functions around
+    them stay."""
+    mm, att = im.ina_matmul, fa._attention
+    im.ina_matmul = lambda x, w, plan=None: im.ina_matmul_plain(x, w, plan)
+    fa._attention = lambda q, k, v, causal, q_offset: \
+        fa.flash_attention_heads_plain(q, k, v, causal=causal,
+                                       q_offset=int(q_offset))
+    try:
+        yield
+    finally:
+        im.ina_matmul, fa._attention = mm, att
+
+
+def phase_train_f32(device: str = "cuda") -> None:
+    """One step's loss and gradients at the full widths, 2 layers, float32,
+    through the kernels and through their plain versions on the card.
+
+    Tolerance: the f32 ``ina_matmul`` repeats its plain version's
+    arithmetic (one FMA a k, in order), and the attention backward is the
+    same code on both sides, so the two differ only where the flash
+    kernel's f32 sums run in another order than its plain version's, and
+    in the embedding gradient's atomic adds; ~1e-6 relative.  Loss within
+    1e-5 of itself; each gradient element within 1e-4 of itself plus 1e-5
+    of its leaf's largest, the bound tests/test_torch_train.py holds the
+    port to against jax.grad.  A wrong or missing term moves a leaf by
+    its own order."""
+    cfg = dataclasses.replace(ARCHS[ARCH], n_layers=2, dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(2),
+                        device=device, masters=True)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_F32_S,
+                                    global_batch=TRAIN_F32_B, seed=3))
+    batch = {k: v.to(device) for k, v in pipe.batch(0).items()}
+    reset_launches()
+    loss, grads = loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches(launches, train_launches(cfg.n_layers),
+                   ("ina_matmul", "flash_attention"))
+    t0 = time.perf_counter()
+    with plain_kernels():
+        ploss, pgrads = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if read_launches() != launches:
+        raise AssertionError("the plain step launched a kernel")
+    worst, names = 0.0, 0
+    for got, want in zip(tree_leaves(grads), tree_leaves(pgrads)):
+        scale = float(want.abs().max())
+        over = float(((got - want).abs() - 1e-4 * want.abs()).max())
+        worst = max(worst, float((got - want).abs().max()) / max(scale,
+                                                                1e-30))
+        names += 1
+        if not over <= 1e-5 * scale or scale == 0.0:
+            raise AssertionError(f"train-f32: a gradient leaf differs: "
+                                 f"{over} > 1e-5 x {scale}")
+    dloss = abs(float(loss) - float(ploss))
+    log(f"[train-f32] 2 layers, full width, float32, B {TRAIN_F32_B} x S "
+        f"{TRAIN_F32_S}: launches {launches}; loss {float(loss):.6f}, plain "
+        f"{float(ploss):.6f} (|diff| {dloss:.3g}); {names} gradient leaves, "
+        f"largest |diff| over the leaf's largest |gradient| {worst:.3g} "
+        f"(bound 1e-5 beyond rtol 1e-4); the plain step {plain_s:.1f} s")
+    if not dloss <= 1e-5 * abs(float(ploss)):
+        raise AssertionError(f"train-f32 loss {float(loss)} != plain "
+                             f"{float(ploss)}")
+    del params, grads, pgrads
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -1075,7 +1327,8 @@ def main() -> int:
     check_matmul_small(gen)
     check_attention_small(gen)
     timer = Timer()
-    mm_rows = check_matmul(timer, gen)
+    mm_rows = check_matmul(timer, gen, matmul_cases())
+    mm_rows += check_matmul(timer, gen, train_matmul_cases())
     at_rows = check_attention(timer, gen)
     wkv_rows = check_wkv6(timer, gen)
     del timer
@@ -1084,13 +1337,16 @@ def main() -> int:
     phase_exact_f32()
     rwkv = phase_rwkv_bf16()
     phase_rwkv_exact_f32()
+    trained = phase_train()
+    phase_train_f32()
     launches = served["launches"]
     world = min(torch.cuda.device_count(), 4)
     paths = {"qwen2-1.5b serve": launches,
              **{f"qwen2-1.5b tp serve W={world} {mode}": counts
                 for mode, counts in tp.items()},
              "rwkv6-7b forward": rwkv["forward"],
-             "rwkv6-7b serve": rwkv["serve"]}
+             "rwkv6-7b serve": rwkv["serve"],
+             "qwen2-1.5b train": trained["launches"]}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

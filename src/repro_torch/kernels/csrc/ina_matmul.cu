@@ -542,6 +542,16 @@ int tensor_map(CUtensorMap* out, const void* ptr, uint64_t inner,
     *out = hit->second;
     return 0;
   }
+  // cuTensorMapEncodeTiled needs a current context.  A host
+  // thread that has made no runtime call yet may have none: PyTorch's
+  // autograd worker runs a backward whose first CUDA work is this
+  // product's, and there the encode failed.  cudaFree(nullptr) makes the
+  // runtime bind the device's primary context, once a thread.
+  static thread_local bool bound = false;
+  if (!bound) {
+    cudaFree(nullptr);
+    bound = true;
+  }
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {inner, outer};

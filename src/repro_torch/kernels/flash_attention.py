@@ -22,6 +22,14 @@ position ``i``), so each K/V tile is read once for the whole group.
 versions run the kernel's online softmax over the same KV tiles.  Each
 front launches the kernel for CUDA tensors and runs the plain version only
 for CPU tensors.
+
+:class:`FlashAttention` gives the model-layout front a gradient.  The JAX
+package has no attention backward kernel (its models differentiate plain
+``jnp`` attention, and the Pallas kernel has no VJP), so the backward here
+is the VJP of :func:`gqa_attention_f32`, a plain differentiable GQA causal
+attention in f32 math over the same layout: the counterpart of XLA's
+autodiff of the reference's plain attention.  A hand-written backward
+kernel is queued in ROADMAP.md as kernel work.
 """
 from __future__ import annotations
 
@@ -208,6 +216,49 @@ def flash_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     read in place through its strides (unit stride along D).  Returns a
     contiguous [B, Sq, H, D] in q's dtype."""
     return _attention(q, k, v, causal, q_offset)
+
+
+def gqa_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """q: [B, Sq, H, D]; k/v: [B, Sk, KVH, D] -> [B, Sq, H, D] in float32:
+    scores, softmax and the PV product in f32, the G query heads of a KV
+    head grouped by reshape.  Differentiable; it materialises the scores,
+    so it serves the backward, never the forward."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (1.0 / math.sqrt(d))
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        mask = qpos[:, None] >= torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v.float()).reshape(b, sq, h, d)
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention_heads` with a gradient: the forward is the
+    kernel on CUDA tensors (the plain version on CPU tensors), and saves q,
+    k and v; the backward recomputes :func:`gqa_attention_f32` from them
+    and takes its VJP, cast to the inputs' dtype.  No kernel launches in
+    the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.q_offset = causal, int(q_offset)
+        return _attention(q, k, v, causal, q_offset)
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad(), \
+                torch.profiler.record_function("flash_attention_backward"):
+            qf, kf, vf = (t.detach().float().requires_grad_()
+                          for t in (q, k, v))
+            o = gqa_attention_f32(qf, kf, vf, ctx.causal, ctx.q_offset)
+            dq, dk, dv = torch.autograd.grad(o, (qf, kf, vf), do.float())
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

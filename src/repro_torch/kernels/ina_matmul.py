@@ -22,6 +22,13 @@ order, cast once.  :func:`ina_matmul` launches a kernel for a CUDA tensor
 and runs the plain version only for a CPU tensor.  ``w`` may be a strided
 view whose rows or columns are contiguous, so the tied head reads
 ``embed.T`` in place.
+
+:class:`InaMatmul` gives the product its gradient, on both devices through
+:func:`ina_matmul` itself: ``dX = dY @ w^T`` and ``dW = x^T @ dY``.  The
+Pallas kernel has no backward of its own (JAX differentiates the plain
+product around it); both backward products are the K-reducing product
+the kernel computes in its body, and ``dW``'s K is the batch's tokens, the
+longest reduction of a training step.
 """
 from __future__ import annotations
 
@@ -209,3 +216,28 @@ def ina_matmul(x: torch.Tensor, w: torch.Tensor,
     launches += 1
     launches_by_regime[plan.regime] += 1
     return y
+
+
+class InaMatmul(torch.autograd.Function):
+    """``x @ w`` (x: [M, K], w: [K, N]) with a gradient through the INA
+    matmul: ``dX = ina_matmul(dY, w^T)``, with ``w^T`` read in place (a
+    row-major w gives a k-major ``w^T`` and the tied head's k-major
+    ``embed.T`` a row-major one), and ``dW = ina_matmul(x^T, dY)``, with
+    ``x^T`` copied to row-major (a layout of x the kernel reads in place
+    is ROADMAP.md work).  On CUDA tensors every product launches the
+    kernel and is counted; on CPU tensors each runs the plain version, so
+    the CPU tests exercise this backward and not PyTorch's."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return ina_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = ina_matmul(dy, w.T) if ctx.needs_input_grad[0] else None
+        dw = ina_matmul(x.T.contiguous(), dy) \
+            if ctx.needs_input_grad[1] else None
+        return dx, dw

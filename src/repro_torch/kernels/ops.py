@@ -2,22 +2,32 @@
 
 The device of the tensor decides: a CUDA tensor goes to the hand-written
 kernel, a CPU tensor to its plain PyTorch version.  There is no switch and
-no fallback from one to the other.
+no fallback from one to the other.  Where autograd needs a gradient, the
+call goes through the kernel's ``autograd.Function`` (the same forward
+launch); elsewhere, as in serving, straight to the wrapper.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention_heads
-from repro_torch.kernels.ina_matmul import ina_matmul
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_heads)
+from repro_torch.kernels.ina_matmul import InaMatmul, ina_matmul
 from repro_torch.kernels.wkv6 import wkv6_heads
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x``: [..., K] @ ``w``: [K, N] -> [..., N] through the INA matmul."""
     lead = x.shape[:-1]
-    y = ina_matmul(x.reshape(-1, x.shape[-1]), w)
+    x2 = x.reshape(-1, x.shape[-1])
+    y = InaMatmul.apply(x2, w) if needs_grad(x2, w) else ina_matmul(x2, w)
     return y.reshape(*lead, w.shape[1])
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``tensors``: grad mode is on and
+    one of them requires a gradient (serving passes none that does)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -25,6 +35,8 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The model's layout through the flash kernel: q [B, Sq, H, D], k/v
     [B, Sk, KVH, D] with GQA unexpanded, each read in place (a KV cache
     slice included); returns a contiguous [B, Sq, H, D]."""
+    if needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, q_offset)
     return flash_attention_heads(q, k, v, causal=causal, q_offset=q_offset)
 
 

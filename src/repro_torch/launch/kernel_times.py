@@ -10,6 +10,8 @@ attention cases in the model's layout, and :func:`wkv_cases` /
 ``ina_matmul`` at every cluster size the kernel takes, at the decode (M =
 1, 2, 4) and prefill-chunk (M = 64) shapes of qwen2-1.5b and rwkv6-7b,
 beside the size ``plan_matmul`` picks and ``torch.matmul``'s time.
+:func:`train_products` lists the train step's products, which
+``chip_smoke.py`` checks and times.
 ``shapes`` times ``ina_matmul`` as the model calls it, and
 ``torch.matmul``, at the 18 main-path bf16 shapes; it calls nothing but
 ``ina_matmul(x, w)``, so it also times an older tree's kernel with this
@@ -91,6 +93,29 @@ def matmul_operands(gen, m, k, n, kind, dt):
         (torch.randn(n, k, generator=gen, device="cuda")
          / math.sqrt(k)).to(dt).T                  # embed.T, in place
     return x, w
+
+
+# the train step's tokens: chip_smoke.py's [train] phase, B 4 x S 1024
+TRAIN_TOKENS = 4 * 1024
+
+
+def train_products(tokens: int = TRAIN_TOKENS
+                   ) -> list[tuple[str, int, int, int, str]]:
+    """(name, M, K, N, w layout) of each distinct ``ina_matmul`` product of
+    qwen2-1.5b's train step at ``tokens`` tokens: every projection's
+    forward ``x @ w`` (recomputed alike), its ``dX = dY @ w^T`` with
+    ``w^T`` read in place (k-major for a row-major w; row-major for the
+    tied head's k-major ``embed.T``), and its ``dW = x^T @ dY``, whose K
+    is the tokens."""
+    out = []
+    for model, name, k, n, kind in matmul_projections():
+        if model != "qwen2-1.5b":
+            continue
+        out += [(f"{name} fwd", tokens, k, n, kind),
+                (f"{name} dX", tokens, n, k,
+                 "row" if kind == "tied" else "tied"),
+                (f"{name} dW", k, tokens, n, "row")]
+    return out
 
 
 def sweep_clusters(ms=(1, 2, 4, 64), seed: int = 0) -> list[dict]:

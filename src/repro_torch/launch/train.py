@@ -1,0 +1,131 @@
+"""Training entry point (counterpart of ``repro.launch.train``).
+
+Trains a dense model on one rank: float32 masters, compute in the config's
+dtype, every layer checkpointed, the projections and their gradients on
+the INA matmul, AdamW with a cosine schedule, the synthetic token
+pipeline, and the preemption-safe loop with retries and keep-k
+checkpoints (``runtime.fault_tolerance.run_training``).  A second run
+into the same ``--ckpt-dir`` resumes after the newest checkpoint.  It
+runs on the GPU unless ``--device cpu`` is given, and exits non-zero when
+the loss did not fall.
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --steps 8 --batch 4 --seq 1024 --ckpt-dir /tmp/ck --ckpt-every 4
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --reduced --device cpu --steps 6 --batch 2 --seq 32 --ckpt-dir /tmp/ck
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import _device
+from repro_torch.configs import ARCHS
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.core.collectives import CLI_PSUM_MODES
+from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.models.api import get_model
+from repro_torch.optim.adamw import adamw_init, tree_leaves
+from repro_torch.parallel.steps import build_train_step
+from repro_torch.parallel.tp import ParallelCtx
+from repro_torch.runtime.fault_tolerance import FTConfig, run_training
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (CPU-runnable)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", required=True)
+    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--psum-mode", default="ina", choices=CLI_PSUM_MODES)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    return ap
+
+
+def run(args, on_step: Optional[Callable] = None) -> dict:
+    """Train as ``args`` say; ``on_step(step, metrics, seconds)`` is called
+    after each step.  Returns the final ``state`` (params, opt), the
+    ``steps`` run and their ``losses``, and the straggler events."""
+    if args.model_parallel > 1:
+        raise NotImplementedError(
+            "--model-parallel > 1: tensor-parallel training needs autograd "
+            "through core/collectives.py's rings (ROADMAP.md Queue 1, "
+            "item 4)")
+    dev = _device.resolve(args.device)
+    cfg = ARCHS[args.arch]
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = get_model(cfg)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    pctx = ParallelCtx(psum_mode=args.psum_mode)
+    ts = build_train_step(model, shape, pctx, base_lr=args.lr,
+                          warmup=min(20, args.steps // 5 + 1),
+                          total_steps=args.steps)
+    print(f"[train] {cfg.name} ({'reduced' if args.reduced else 'full'}) "
+          f"world=1 psum={args.psum_mode} device={dev}", flush=True)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch))
+
+    def step_fn(state, batch):
+        params, opt = state
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        params, opt, stats = ts.fn(params, opt, batch)
+        return (params, opt), stats
+
+    steps, losses = [], []
+
+    def on_metrics(step, metrics, dt):
+        loss = float(metrics["loss"])
+        steps.append(step)
+        losses.append(loss)
+        if step % 5 == 0 or step == args.steps - 1:
+            print(f"  step {step:4d} loss {loss:7.4f} "
+                  f"gnorm {float(metrics['grad_norm']):8.3f} "
+                  f"lr {float(metrics['lr']):.2e}  {dt * 1e3:6.0f} ms",
+                  flush=True)
+        if on_step:
+            on_step(step, metrics, dt)
+
+    ft = FTConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    # run_training holds the only reference to the initial state, so a
+    # restored one replaces it in device memory instead of joining it
+    state, last, stragglers = run_training(
+        step_fn, initial_state(model, dev), pipe.batch, ft=ft,
+        num_steps=args.steps, on_metrics=on_metrics)
+    if not losses:
+        print(f"[train] nothing to do: the checkpoint under {args.ckpt_dir} "
+              f"is at step {last - 1} of {args.steps}", flush=True)
+    else:
+        print(f"[train] done at step {last}; loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; stragglers={len(stragglers)}", flush=True)
+        if len(losses) > 1 and not losses[-1] < losses[0]:
+            raise RuntimeError(f"loss did not improve: {losses[0]} -> "
+                               f"{losses[-1]}")
+    return {"state": state, "steps": steps, "losses": losses,
+            "last": last, "stragglers": stragglers}
+
+
+def initial_state(model, dev) -> tuple:
+    """(float32 masters seeded with 0, zero AdamW state) on ``dev``."""
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev, masters=True)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"[train] {n_params / 1e6:.1f}M params", flush=True)
+    return params, adamw_init(params)
+
+
+def main(argv=None) -> dict:
+    return run(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

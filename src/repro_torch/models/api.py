@@ -25,13 +25,17 @@ class Model:
     mod: ModuleType
 
     def init(self, generator: Optional[torch.Generator] = None, *,
-             device="cuda") -> dict:
+             device="cuda", masters: bool = False) -> dict:
         """Random weights on ``device``; ``generator`` (on that device)
-        defaults to one seeded with 0."""
+        defaults to one seeded with 0.  Stored for serving (matrices in the
+        compute dtype, :func:`~repro_torch.models.layers.to_storage`), or,
+        with ``masters``, as the reference's ``Model.init`` stores them for
+        training: rank >= 2 leaves in ``cfg.param_dtype`` (float32 by
+        default), the rest float32.  The draws are the same."""
         dev = _device.resolve(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        return self.mod.init(self.cfg, generator, dev)
+        return self.mod.init(self.cfg, generator, dev, masters=masters)
 
     def forward(self, params, batch, pctx=None):
         return self.mod.forward(params, self.cfg, batch, pctx)

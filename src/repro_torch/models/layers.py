@@ -57,6 +57,19 @@ def to_storage(tree: dict, dtype: torch.dtype) -> dict:
     return cast("", tree, False)
 
 
+def to_masters(tree: dict, param_dtype: str) -> dict:
+    """The reference's ``Model.init`` rule for training masters: a leaf of
+    rank >= 2, counted on the leaf as stored (a stacked leaf's layer axis
+    included), in ``param_dtype``; every other leaf in float32."""
+    pd = getattr(torch, param_dtype)
+
+    def cast(node):
+        if isinstance(node, dict):
+            return {k: cast(v) for k, v in node.items()}
+        return node.to(pd) if node.dim() >= 2 else node.float()
+    return cast(tree)
+
+
 # --------------------------------------------------------------------------- #
 # norms
 # --------------------------------------------------------------------------- #

@@ -33,20 +33,25 @@ PAGED_CACHE_LEAVES = ()
 
 
 def init_layer(generator, cfg: ModelConfig, device) -> dict:
-    return L.to_storage({
+    """One layer's weights in float32."""
+    return {
         "ln1": torch.ones(cfg.d_model, device=device),
         "tmix": S.init_rwkv_tmix(generator, cfg, device),
         "ln2": torch.ones(cfg.d_model, device=device),
         "cmix": S.init_rwkv_cmix(generator, cfg, device),
-    }, _dtype(cfg))
+    }
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+def init(cfg: ModelConfig, generator: torch.Generator, device,
+         masters: bool = False) -> dict:
     """Random weights with the distributions of ``repro.models.rwkv.init``
-    (the draws themselves differ: torch and JAX generators differ)."""
-    stacked = _stack([init_layer(generator, cfg, device)
+    (the draws themselves differ: torch and JAX generators differ); stored
+    as :func:`repro_torch.models.transformer.init` stores them."""
+    dt = _dtype(cfg)
+    per_layer = (lambda t: t) if masters else (lambda t: L.to_storage(t, dt))
+    stacked = _stack([per_layer(init_layer(generator, cfg, device))
                       for _ in range(cfg.n_layers)])
-    return L.to_storage({
+    params = {
         "embed": L.dense_init(generator, (cfg.vocab, cfg.d_model),
                               device=device),
         "ln_in": torch.ones(cfg.d_model, device=device),
@@ -54,7 +59,9 @@ def init(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
         "ln_f": torch.ones(cfg.d_model, device=device),
         "lm_head": L.dense_init(generator, (cfg.d_model, cfg.vocab),
                                 in_dim=cfg.d_model, device=device),
-    }, _dtype(cfg))
+    }
+    return L.to_masters(params, cfg.param_dtype) if masters \
+        else L.to_storage(params, dt)
 
 
 def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,

@@ -2,9 +2,11 @@
 
 Parameters are a nested dict with the reference's names and layouts; layer
 weights are stacked ``[L, ...]`` and a Python loop over the layers takes the
-place of ``lax.scan``.  Matrices are stored in the compute dtype
-(``cfg.dtype``) and vectors (norm weights, biases) in float32
-(:func:`repro_torch.models.layers.to_storage`).
+place of ``lax.scan``.  For serving, matrices are stored in the compute
+dtype (``cfg.dtype``) and vectors (norm weights, biases) in float32
+(:func:`repro_torch.models.layers.to_storage`); for training they are the
+float32 masters of ``cfg.param_dtype``, cast to the compute dtype at every
+call, as the reference does.
 
 ``prefill`` and ``decode_step`` write the new K/V into ``cache`` in place
 and return it.
@@ -22,8 +24,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import local_heads
@@ -41,7 +45,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def layer(stacked: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` tree."""
+    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` tree
+    (or item ``i`` of each leaf's list of per-layer tensors, the form the
+    train step differentiates)."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
 
@@ -55,8 +61,9 @@ def _stack(trees: list) -> dict:
 # params
 # --------------------------------------------------------------------------- #
 def init_layer(generator, cfg: ModelConfig, device) -> dict:
+    """One layer's weights in float32."""
     hd = cfg.resolved_head_dim
-    p = {
+    return {
         "ln1": torch.ones(cfg.d_model, device=device),
         "attn": L.init_attn(generator, cfg.d_model, cfg.n_heads,
                             cfg.n_kv_heads, hd, cfg.qk_norm, cfg.qkv_bias,
@@ -64,26 +71,32 @@ def init_layer(generator, cfg: ModelConfig, device) -> dict:
         "ln2": torch.ones(cfg.d_model, device=device),
         "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, device=device),
     }
-    return L.to_storage(p, _dtype(cfg))
 
 
-def init(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+def init(cfg: ModelConfig, generator: torch.Generator, device,
+         masters: bool = False) -> dict:
     """Random weights with the distributions of ``repro``'s ``dense_init``
-    (the draws themselves differ: torch and JAX generators differ)."""
+    (the draws themselves differ: torch and JAX generators differ).
+
+    Stored by :func:`~repro_torch.models.layers.to_storage` (each layer as
+    it is drawn), or with ``masters`` by the reference's ``Model.init`` rule
+    (:func:`~repro_torch.models.layers.to_masters`): float32 masters for
+    training, the same draws."""
     dt = _dtype(cfg)
-    stacked = _stack([init_layer(generator, cfg, device)
+    per_layer = (lambda t: t) if masters else (lambda t: L.to_storage(t, dt))
+    stacked = _stack([per_layer(init_layer(generator, cfg, device))
                       for _ in range(cfg.n_layers)])
     params = {
         "embed": L.dense_init(generator, (cfg.vocab, cfg.d_model),
-                              device=device).to(dt),
+                              device=device),
         "layers": stacked,
         "ln_f": torch.ones(cfg.d_model, device=device),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(generator, (cfg.d_model, cfg.vocab),
-                                         in_dim=cfg.d_model,
-                                         device=device).to(dt)
-    return params
+                                         in_dim=cfg.d_model, device=device)
+    return L.to_masters(params, cfg.param_dtype) if masters \
+        else L.to_storage(params, dt)
 
 
 def _head(params: dict) -> torch.Tensor:
@@ -130,15 +143,40 @@ def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
                            pctx)
 
 
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def check_remat(cfg: ModelConfig) -> None:
+    """The reference's ``remat_policy``: the port checkpoints each layer
+    whole (``nothing_saveable``); the policies that keep the products'
+    outputs are ROADMAP.md Queue 1, item 4 (what is left of training)."""
+    if cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r}: the port has 'nothing' only "
+            f"('dots' and 'dots_nb' are in ROADMAP.md Queue 1, item 4)")
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    """Logits [B, S, V].  Where autograd records the layers, each is
+    checkpointed (``use_reentrant=False``): its activations are dropped and
+    recomputed in the backward, as the reference's ``jax.checkpoint(body,
+    policy=nothing_saveable)`` does.  The head stays outside."""
     tokens = batch["tokens"]
     seq = tokens.shape[1]
     x = _embed(params, cfg, tokens, pctx)
     pos = torch.arange(seq, device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x = layer_fwd(layer(params["layers"], i), x, cfg, cos, sin, pctx, seq)
+        lp = layer(params["layers"], i)
+        if ops.needs_grad(x, *_leaves(lp)):
+            check_remat(cfg)
+            x = checkpoint(layer_fwd, lp, x, cfg, cos, sin, pctx, seq,
+                           use_reentrant=False)
+        else:
+            x = layer_fwd(lp, x, cfg, cos, sin, pctx, seq)
     return _logits(params, cfg, x, seq, pctx)
 
 

@@ -1,7 +1,11 @@
-"""Serve, prefill and forward steps (counterpart of ``repro.parallel.steps``).
+"""Train, serve, prefill and forward steps (counterpart of
+``repro.parallel.steps``).
 
 The reference builds jitted, sharded artifacts; PyTorch runs eagerly, so
 each builder here returns the plain callable in the same kind of record.
+The train step differentiates the loss with ``torch.autograd.grad``: the
+projections' gradients run on the INA matmul (``kernels.ina_matmul.
+InaMatmul``), and each layer is checkpointed and recomputed.
 Tensor parallelism reaches the model through ``pctx``: its process group
 and psum mode (:class:`repro_torch.parallel.tp.ParallelCtx`), with the
 parameters a rank's shards.  Greedy decoding takes the first maximal
@@ -14,8 +18,104 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.models.api import Model, cache_batch_axes
+from repro_torch.models.layers import STACKED
+from repro_torch.optim.adamw import adamw_update, cosine_schedule, tree_map
 from repro_torch.parallel.tp import ParallelCtx
+
+
+@dataclasses.dataclass
+class TrainStep:
+    """``fn(params, opt, batch) -> (params, opt, stats)`` with ``batch =
+    {"tokens", "labels"}`` of ``shape`` and ``stats = {"loss",
+    "grad_norm", "lr"}`` (float32 scalars on the device).  ``params``
+    (float32 masters, ``Model.init(masters=True)``) and ``opt`` are
+    updated in place and returned."""
+    fn: Callable
+    shape: ShapeConfig
+
+
+def _grad_leaves(params: dict) -> tuple[dict, list]:
+    """(a tree the loss is differentiated through, its leaves in order).
+    Each leaf is a detached alias of the master that requires a gradient;
+    a stacked ``[L, ...]`` leaf becomes its L layer slices, so autograd
+    gives each layer its own gradient, not L full-size ``select``
+    gradients summed into one."""
+    leaves = []
+
+    def leaf(p):
+        leaves.append(p.detach().requires_grad_())
+        return leaves[-1]
+
+    def per_layer(p):
+        return [leaf(p[i]) for i in range(p.shape[0])]
+
+    work = {k: tree_map(per_layer if k in STACKED else leaf, v)
+            for k, v in params.items()}
+    return work, leaves
+
+
+def loss_and_grads(model: Model, params: dict, batch: dict,
+                   pctx: Optional[ParallelCtx] = None):
+    """(loss, grads): ``model.loss`` and ``torch.autograd.grad`` of it, the
+    gradients in ``params``' structure (a stacked leaf's restacked) and
+    dtypes."""
+    work, leaves = _grad_leaves(params)
+    loss = model.loss(work, batch, pctx)
+    grads = list(torch.autograd.grad(loss, leaves))
+    grads.reverse()
+
+    def take(p):
+        return grads.pop()
+
+    def restack(p):
+        return torch.stack([grads.pop() for _ in range(p.shape[0])])
+
+    out = {k: tree_map(restack if k in STACKED else take, v)
+           for k, v in params.items()}
+    return loss.detach(), out
+
+
+def build_train_step(model: Model, shape: ShapeConfig,
+                     pctx: Optional[ParallelCtx] = None,
+                     base_lr: float = 3e-4, warmup: int = 200,
+                     total_steps: int = 10_000) -> TrainStep:
+    """loss -> gradients -> AdamW with the reference's cosine schedule.
+
+    The dense family at one rank.  The ssm family raises: its loss is
+    differentiable on the CPU through the plain wkv6 but gets no gradient
+    through the CUDA kernel, which has no backward yet.  A group of more
+    than one rank raises: tensor-parallel training needs autograd through
+    the rings of ``core/collectives.py``.  Both are ROADMAP.md Queue 1."""
+    if model.cfg.family != "dense":
+        raise NotImplementedError(
+            f"training family {model.cfg.family!r}: the wkv6 kernel has no "
+            f"gradient yet (ROADMAP.md Queue 1, item 4); the port trains "
+            f"the dense family")
+    if pctx is not None and pctx.world > 1:
+        raise NotImplementedError(
+            f"training at world {pctx.world}: tensor-parallel training "
+            f"needs autograd through core/collectives.py's rings "
+            f"(ROADMAP.md Queue 1, item 4)")
+    lr = cosine_schedule(base_lr, warmup, total_steps)
+    want = (shape.global_batch, shape.seq_len)
+
+    def step(params, opt, batch):
+        if tuple(batch["tokens"].shape) != want:
+            raise ValueError(f"batch {tuple(batch['tokens'].shape)}, the "
+                             f"step was built for {want}")
+        loss, grads = loss_and_grads(model, params, batch, pctx)
+        with torch.profiler.record_function("adamw_update"):
+            try:
+                params, opt, stats = adamw_update(params, grads, opt, lr)
+            except torch.cuda.OutOfMemoryError as e:
+                # the update is in place: a retry would apply it twice
+                raise RuntimeError("AdamW ran out of memory part way "
+                                   "through its in-place update") from e
+        stats["loss"] = loss
+        return params, opt, stats
+    return TrainStep(fn=step, shape=shape)
 
 
 @dataclasses.dataclass
