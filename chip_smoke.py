@@ -11,7 +11,7 @@ Phases; any failure raises and the process exits non-zero:
    and held against their plain PyTorch versions: first ``ina_matmul`` on
    one small case per regime, tile, layout and cluster size (1 and 2) and
    ``flash_attention`` on one small case per dtype, head dim and tile, then
-   every kernel at the shapes and dtypes that phases 3-9 give it (for
+   every kernel at the shapes and dtypes that phases 3-12 give it (for
    ``flash_attention`` also in the model's layout, GQA read in place from
    a KV cache slice; for ``wkv6`` also at decays past the model's clip
    floor, one of them held to the step-by-step ``wkv6_ref`` as well; for
@@ -60,12 +60,35 @@ Phases; any failure raises and the process exits non-zero:
 9. ``[train-f32]``: the same widths at 2 layers in float32, one step's
    loss and every gradient leaf through the kernels against the same step
    through their plain versions on the card;
-10. a ``kernels`` JSON line, then the device JSON line, last.
+10. ``[mla]``: deepseek-v2-lite-16b as published (27 layers, MLA, 64
+    routed top-6 + 2 shared experts, one dense layer; bf16, seeded random
+    weights, nothing cut) served through the engine, 4 requests on 2
+    slots, prompt 64, 16 generated, prompts seated token by token, against
+    the legacy loop of 4 rows within 2^-3 of the largest logit, then
+    against the loop run alone, one request at B 1 on the engine's cache
+    length: first-token logits and every token equal to the bit, with the
+    (position, layer) pairs whose top-6 experts differ at 4 rows counted;
+    launches equal the derived 217 ``ina_matmul`` a pass
+    (none generic); one paged decode step profiled beside its bound (the
+    weights it reads), with the expert products' device time; one B 1 x S
+    2048 forward through ``build_prefill`` (MLA's ``attn_chunked`` past its
+    chunk of 1024), profiled, with its dropped share of expert assignments;
+11. ``[mla-f32]``: the same widths at 2 layers in float32: the S 2048
+    forward through the kernels against their plain versions on the card
+    within rtol = atol = 1e-4, the forward against the decode loop on an
+    8-token prefix (capacity 8: no drop), engine tokens equal the legacy
+    loop's;
+12. ``[moe]``: llama4-scout-17b-16e at its published widths, depth cut to
+    4 of 48 layers: one B 1 x S 2048 forward (``flash_attention`` at GQA
+    40:8, D 128, once a layer), a decode step profiled, and 2 requests on 2
+    slots, prompt 16, 8 generated, against the legacy loop;
+13. a ``kernels`` JSON line, then the device JSON line, last.
 
 It needs the checkout's ``src/`` beside it and exits non-zero without a GPU.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -96,6 +119,7 @@ from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ina_matmul as im  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
@@ -106,8 +130,10 @@ from repro_torch.launch.kernel_times import (Timer,  # noqa: E402
                                              attention_operands,
                                              matmul_operands,
                                              matmul_projections,
+                                             moe_projections,
                                              train_products, wkv_cases,
                                              wkv_operands)
+from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.parallel.sharding import shard_params  # noqa: E402
@@ -122,16 +148,41 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # f32: no TF32
 
 ARCH = "qwen2-1.5b"
 RWKV = "rwkv6-7b"
+MLA = "deepseek-v2-lite-16b"
+MOE = "llama4-scout-17b-16e"
 SERVE_ARGV = {
     ARCH: ["--arch", ARCH, "--batch", "4", "--slots", "2", "--prompt-len",
            "128", "--gen", "32", "--prefill-chunk", "64"],
     RWKV: ["--arch", RWKV, "--batch", "4", "--slots", "2", "--prompt-len",
-           "64", "--gen", "16"]}
+           "64", "--gen", "16"],
+    MLA: ["--arch", MLA, "--batch", "4", "--slots", "2", "--prompt-len",
+          "64", "--gen", "16"],
+    MOE: ["--arch", MOE, "--batch", "2", "--slots", "2", "--prompt-len",
+          "16", "--gen", "8"]}
 # per layer and pass: dense wq wk wv wo w_up w_gate w_down; ssm the time
 # mix's wr wk wv wg wo and the channel mix's wk wv wr (the decay's LoRA is
 # torch.matmul).  Plus one for the head.
 MATMULS_PER_PASS = {"dense": 7, "ssm": 8}
+
+
+def matmuls_per_pass(cfg) -> int:
+    """``ina_matmul`` launches of one pass (a decode step or a forward),
+    derived from the code.  dense and ssm: :data:`MATMULS_PER_PASS` a
+    layer.  moe and mla_moe: the attention's projections (GQA wq wk wv wo;
+    MLA wq w_dkv w_uk w_uv wo), then a dense layer's SwiGLU (w_up w_gate
+    w_down), or an MoE layer's shared experts, one SwiGLU of 3 products
+    where the config has any: the router is torch.matmul and the routed
+    experts torch.bmm.  Plus one for the head."""
+    if cfg.family in MATMULS_PER_PASS:
+        return MATMULS_PER_PASS[cfg.family] * cfg.n_layers + 1
+    attn = 5 if cfg.family == "mla_moe" else 4
+    nd = cfg.moe.first_dense_layers
+    shared = 3 if cfg.moe.num_shared else 0
+    return nd * (attn + 3) + (cfg.n_layers - nd) * (attn + shared) + 1
 RWKV_FWD_B, RWKV_FWD_S, RWKV_PREFIX = 2, 2048, 300
+# the MoE families' forward (B 1 x S 2048: MLA's attn_chunked runs past its
+# attn_chunk 1024); llama4-scout's depth, cut from 48 to fit one card
+MOE_FWD_S, MOE_DEPTH = 2048, 4
 
 
 def log(msg: str) -> None:
@@ -188,8 +239,15 @@ def compare(got, want, dtype, tol=None) -> dict:
             "rtol": rtol, "atol": atol, "ok": ok}
 
 
+def serve_cache(argv) -> int:
+    """Positions of the engine's working cache for a serve phase's
+    ``argv``: the prompt, the generated tokens and one more."""
+    args = launch_serve.build_parser().parse_args(argv)
+    return args.prompt_len + args.gen + 1
+
+
 def matmul_cases():
-    proj = matmul_projections()
+    proj = matmul_projections() + moe_projections()
     cases = []
     # qwen2-1.5b, bf16: the serve phase (prefill chunk 64, 2 decode slots,
     # M = 1 and 4 beside them); f32: the exact-f32 phase (same widths, same M)
@@ -212,6 +270,27 @@ def matmul_cases():
                        (2, torch.float32, "f32 decode")):
         cases += [(f"rwkv {tag} {name} M={m}", m, k, n, kind, dt)
                   for model, name, k, n, kind in proj if model == RWKV]
+    # deepseek-v2-lite and llama4-scout: the forward (M = 2048), a prompt
+    # seated token by token at B 1 (M = 1, most of a serve's passes) and
+    # the paged decode of 2 slots.  MLA's decode expands the whole cached
+    # latent through w_uk/w_uv: M = 1 x the cache seating, 2 x the cache
+    # decoding.  [mla-f32] serves the same widths in f32 at the same M (its
+    # S 2048 forward is held to the plain versions whole).
+    cache = serve_cache(SERVE_ARGV[MLA])
+    for model, tag, dt, ms in (
+            (MLA, "mla", torch.bfloat16, (MOE_FWD_S, 1, 2)),
+            (MOE, "moe", torch.bfloat16, (MOE_FWD_S, 1, 2)),
+            (MLA, "mla f32", torch.float32, (1, 2))):
+        for m in ms:
+            what = {MOE_FWD_S: "fwd", 1: "seat", 2: "decode"}[m]
+            cases += [(f"{tag} {what} {name} M={m}", m, k, n, kind, dt)
+                      for mod, name, k, n, kind in proj if mod == model
+                      and (what == "fwd" or name != "w_uk/w_uv")]
+        if model == MLA:
+            cases += [(f"{tag} {what} {name} M={m}", m, k, n, kind, dt)
+                      for what, m in (("seat", cache), ("decode", 2 * cache))
+                      for mod, name, k, n, kind in proj
+                      if mod == MLA and name == "w_uk/w_uv"]
     return cases
 
 
@@ -298,16 +377,17 @@ def check_attention_small(gen) -> None:
     """One small case per dtype and head dim, GQA 2:1, ragged Sq and Sk,
     k/v read from a cache view, run before the timed shapes so that a wrong
     fragment layout, load or mask fails here, fast and by name."""
-    cases = [(torch.bfloat16, d, True) for d in (16, 64, 128)] \
-        + [(torch.bfloat16, 64, False)] \
-        + [(torch.float32, d, True) for d in (16, 128)]
-    for dt, d, causal in cases:
-        q, k, v, off = attention_operands(gen, 2, 19, 83, 4, 2, d, dt, 100)
+    cases = [(torch.bfloat16, d, True, 4) for d in (16, 64, 128)] \
+        + [(torch.bfloat16, 64, False, 4)] \
+        + [(torch.float32, d, True, 4) for d in (16, 128)] \
+        + [(dt, 128, True, 10) for dt in (torch.bfloat16, torch.float32)]
+    for dt, d, causal, h in cases:      # h = 10: GQA 5:1, llama4-scout's
+        q, k, v, off = attention_operands(gen, 2, 19, 83, h, 2, d, dt, 100)
         got = fa.flash_attention_heads(q, k, v, causal=causal, q_offset=off)
         torch.cuda.synchronize()
         res = compare(got, fa.flash_attention_heads_plain(
             q, k, v, causal=causal, q_offset=off), dt)
-        log(f"[kernels] flash_attention small B=2 Sq=19 Sk=83 H=4 KVH=2 "
+        log(f"[kernels] flash_attention small B=2 Sq=19 Sk=83 H={h} KVH=2 "
             f"D={d} {str(dt).removeprefix('torch.')} causal={causal}: "
             f"max_abs_err {res['max_abs_err']:.3g}")
         if not res["ok"]:
@@ -508,8 +588,9 @@ def serve(cfg, params, phase: str, argv):
     """Engine run (launches counted) and legacy loop on the same weights.
 
     A dense prompt runs as batched prefill chunks, one flash attention per
-    layer each; an ssm prompt is seated token by token through decode
-    steps (``prefill_chunks`` counts those), which run no wkv6."""
+    layer each; an ssm, moe or mla_moe prompt is seated token by token
+    through decode steps (``prefill_chunks`` counts those), which run no
+    wkv6 and no flash attention."""
     args = launch_serve.build_parser().parse_args(argv)
     reset_launches()
     report = launch_serve.run_engine(args, cfg, params)
@@ -517,8 +598,7 @@ def serve(cfg, params, phase: str, argv):
     launches = read_launches()
     passes = report.prefill_chunks + report.decode_steps
     dense = cfg.family == "dense"
-    expect = {"ina_matmul": (MATMULS_PER_PASS[cfg.family] * cfg.n_layers + 1)
-              * passes,
+    expect = {"ina_matmul": matmuls_per_pass(cfg) * passes,
               "flash_attention": cfg.n_layers * report.prefill_chunks
               if dense else 0,
               "wkv6": 0}
@@ -626,9 +706,12 @@ def profile_step(label: str, fn, steps: int = 5, spans=()) -> dict:
     whole = [k for k in by_step if len(k) == max(per_step)]
     names = ("ina_matmul", "flash_attention", "wkv6")
     dev = dict.fromkeys(names + ("other",), 0.0)
+    other = collections.Counter()
     for e in (e for kernels in whole for e in kernels):
         key = next((k for k in names if k in e["name"]), "other")
         dev[key] += e["dur"] / 1e3 / len(whole)
+        if key == "other":
+            other[kernel_family(e["name"])] += e["dur"] / 1e3 / len(whole)
     busy = sum(dev.values())
     span_ms = {}
     for name in spans:
@@ -641,14 +724,24 @@ def profile_step(label: str, fn, steps: int = 5, spans=()) -> dict:
         ) / 1e3 / len(whole)
     out = {"wall_ms": wall, "device_ms": busy, "kernels_per_step":
            max(per_step), "kernels_by_step": per_step, "span_ms": span_ms,
+           "other_top": other.most_common(4),
            **{f"{k}_ms": v for k, v in dev.items()}}
     log(f"[profile] {label}: wall {wall:.2f} ms/step (host clock), device "
         f"kernels {busy:.2f} ms/step = busy share {busy / wall:.3f} ("
         + ", ".join(f"{k} {v:.2f}" for k, v in dev.items())
         + f" ms; {out['kernels_per_step']} kernels/step, the most of the "
         f"steps' {per_step}; device ms over the {len(whole)} steps at it)"
-        + "".join(f"; inside {k}: {v:.2f} ms" for k, v in span_ms.items()))
+        + "".join(f"; inside {k}: {v:.2f} ms" for k, v in span_ms.items())
+        + "; other's largest: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in out["other_top"]))
     return out
+
+
+def kernel_family(name: str) -> str:
+    """A kernel's name without its template arguments and parameters
+    (``void at::native::elementwise_kernel<128, 2, ...>(...)`` ->
+    ``at::native::elementwise_kernel``), cut to 60 characters."""
+    return re.split(r"[<(]", name.removeprefix("void "), maxsplit=1)[0][:60]
 
 
 def step_kernels(events: list) -> list:
@@ -1200,18 +1293,20 @@ def phase_train(device: str = "cuda") -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The train step's two kernels replaced by their plain versions (the
-    wrappers' CPU path) on CUDA tensors; the autograd Functions around
-    them stay."""
+    """The two kernels of the dense and MoE paths replaced by their plain
+    versions (the wrappers' CPU path) on CUDA tensors, in the forward's
+    direct calls and inside the autograd Functions, which stay."""
     mm, att = im.ina_matmul, fa._attention
-    im.ina_matmul = lambda x, w, plan=None: im.ina_matmul_plain(x, w, plan)
+    plain = lambda x, w, plan=None: im.ina_matmul_plain(x, w, plan)  # noqa: E731
+    im.ina_matmul = ops.ina_matmul = plain
     fa._attention = lambda q, k, v, causal, q_offset: \
         fa.flash_attention_heads_plain(q, k, v, causal=causal,
                                        q_offset=int(q_offset))
     try:
         yield
     finally:
-        im.ina_matmul, fa._attention = mm, att
+        im.ina_matmul = ops.ina_matmul = mm
+        fa._attention = att
 
 
 def phase_train_f32(device: str = "cuda") -> None:
@@ -1268,6 +1363,302 @@ def phase_train_f32(device: str = "cuda") -> None:
                              f"{float(ploss)}")
     del params, grads, pgrads
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# phases 10-12: the MoE families
+# --------------------------------------------------------------------------- #
+EXPERTS_SPAN = "moe_experts"
+
+
+def gib(nbytes: float) -> str:
+    return f"{nbytes / 2 ** 30:.2f} GiB"
+
+
+def fresh_phase() -> None:
+    """Free what earlier phases left in the allocator's cache and start the
+    peak-memory count anew."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def moe_forward(model, params, tokens, label: str) -> dict:
+    """One forward through ``build_prefill`` at ``tokens`` [B, S]: launches
+    counted and held to the derived counts (flash attention once a layer
+    for the GQA family, never for MLA), logits finite and of their shape;
+    the dropped share of (token, expert) assignments printed."""
+    cfg = model.cfg
+    fwd = build_prefill(model)
+    reset_launches()
+    t0 = time.perf_counter()
+    with moe_model.record_routing() as calls:
+        logits = fwd.fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    expect = {"ina_matmul": matmuls_per_pass(cfg),
+              "flash_attention": cfg.n_layers if cfg.family == "moe" else 0,
+              "wkv6": 0}
+    b, sq = tokens.shape
+    share = moe_model.dropped_share(calls)
+    log(f"[{label}] forward B={b} S={sq}: logits {tuple(logits.shape)} "
+        f"{logits.dtype}, first call {first_ms:.1f} ms; launches {launches}, "
+        f"expected {expect}; ina_matmul by regime {im.launches_by_regime}; "
+        f"capacity {moe_model.capacity(b * sq, cfg.moe)} slots an expert for "
+        f"{b * sq} tokens x top-{cfg.moe.top_k} over {cfg.moe.num_experts} "
+        f"experts: {share:.4%} of the assignments dropped")
+    check_launches(launches, expect, [k for k, v in expect.items() if v])
+    if logits.shape != (b, sq, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label} forward: bad logits {logits.shape}")
+    return {"launches": launches, "logits": logits}
+
+
+def weight_bytes(params: dict) -> int:
+    """Bytes a decode step reads of the weights: every leaf but the
+    embedding table, of which it reads a row a token."""
+    return sum(t.numel() * t.element_size() for name, v in params.items()
+               if name != "embed" for t in _leaves({name: v}))
+
+
+def expert_bytes(params: dict) -> int:
+    return sum(params["layers"]["mlp"][k].numel()
+               * params["layers"]["mlp"][k].element_size()
+               for k in ("w_gate", "w_up", "w_down"))
+
+
+def profile_moe_decode(model, params, label: str, argv) -> None:
+    """One paged decode step of 2 slots, one at the end of the prompt and
+    one a few tokens further, on the serve phase's cache (``argv``'s prompt
+    + generated + 1 positions), profiled; its bound: the weights it reads
+    once (:func:`weight_bytes`) over the card's HBM rate."""
+    args = launch_serve.build_parser().parse_args(argv)
+    step = build_paged_serve_step(model)
+    cache = model.init_cache(2, serve_cache(argv), device="cuda")
+    pos = [args.prompt_len, args.prompt_len + args.gen // 2]
+    batch = {"tokens": torch.full((2, 1), 11, device="cuda"),
+             "pos": torch.tensor(pos, device="cuda")}
+    prof = profile_step(label, lambda: step.fn(params, batch,
+                                               cache)[0].tolist(),
+                        spans=(EXPERTS_SPAN,))
+    nbytes = weight_bytes(params)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    experts = prof["span_ms"][EXPERTS_SPAN]
+    log(f"[{label}] decode step, 2 slots at {pos} of {serve_cache(argv)}: "
+        f"wall {prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms, "
+        f"busy share {prof['device_ms'] / prof['wall_ms']:.3f}, "
+        f"{prof['kernels_per_step']} kernels; ina_matmul "
+        f"{prof['ina_matmul_ms']:.2f} ms, expert products (torch.bmm) "
+        f"{experts:.2f} ms, the rest {prof['other_ms'] - experts:.2f} ms; "
+        f"bound {bound_ms:.2f} ms ({nbytes / 1e9:.2f} GB of weights, "
+        f"{expert_bytes(params) / 1e9:.2f} GB of them the routed experts, at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): wall "
+        f"{prof['wall_ms'] / bound_ms:.2f}x the bound, device "
+        f"{prof['device_ms'] / bound_ms:.2f}x")
+
+
+def batch_witness(cfg, params, report, argv, label: str) -> None:
+    """Where the bf16 engine and the legacy loop of 4 rows part: the loop
+    run again at the engine's seating batch, one request a run, and at 4
+    rows, both on a cache of the engine's length.
+
+    A request run alone goes through the same ``build_serve_step`` at the
+    same batch and cache length as the engine's seating, and the engine's
+    paged decode treats each slot as a B 1 decode (its own routing group,
+    rows summed independently), so its first-token logits must equal the
+    engine's to the bit and its tokens the engine's, token for token.
+    Against the loop of 4 rows it then differs by the batch alone: each
+    prompt position and MoE layer whose top-k set of experts differs
+    between the two is counted (the first printed), beside the first-token
+    logits' gap."""
+    args = launch_serve.build_parser().parse_args(argv)
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    seated = args.prompt_len * n_moe              # the prompt's MoE calls
+    cache = serve_cache(argv)
+
+    def experts(calls, rows):
+        """[positions x layers, rows, k] of the prompt, each set sorted."""
+        return torch.stack([c.experts for c in calls[:seated]])[:, rows] \
+            .sort(-1).values
+
+    with moe_model.record_routing() as wide_calls:
+        wide = launch_serve.run_legacy(args, cfg, params, max_seq=cache)
+    for r in report.requests:
+        i = int(r["rid"].removeprefix("req"))
+        with moe_model.record_routing() as calls:
+            one = launch_serve.run_legacy(args, cfg, params, rows=[i],
+                                          max_seq=cache)
+        if not torch.equal(r["first_logits"], one["first_logits"][0]):
+            diff = float((r["first_logits"].float()
+                          - one["first_logits"][0].float()).abs().max())
+            raise AssertionError(f"{r['rid']}: the engine's first-token "
+                                 f"logits differ from the same seating run "
+                                 f"alone by {diff}")
+        if r["tokens"] != one["tokens"][0].tolist():
+            raise AssertionError(f"{r['rid']}: engine tokens {r['tokens']} "
+                                 f"!= the loop's alone "
+                                 f"{one['tokens'][0].tolist()}")
+        flips = (experts(wide_calls, i) != experts(calls, 0)).any(-1) \
+            .nonzero().flatten().tolist()
+        gap = float((wide["first_logits"][i].float()
+                     - one["first_logits"][0].float()).abs().max())
+        first = (f"the first at position {flips[0] // n_moe}, MoE layer "
+                 f"{flips[0] % n_moe}" if flips else "none")
+        log(f"[{label}] {r['rid']} alone (B 1, cache {cache}): first-token "
+            f"logits equal the engine's to the bit, and all "
+            f"{len(r['tokens'])} tokens the engine's; against the loop of "
+            f"{args.batch} rows on the same cache: first-token logits max "
+            f"|diff| {gap:.4g}, top-{cfg.moe.top_k} expert sets differ at "
+            f"{len(flips)} of {seated} (prompt position, MoE layer) pairs, "
+            f"{first}")
+
+
+def phase_mla() -> dict:
+    """deepseek-v2-lite-16b as published (see the module docstring)."""
+    fresh_phase()
+    cfg = ARCHS[MLA]
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    nparams = sum(t.numel() for t in _leaves(params))
+    log(f"[mla] {MLA}: {cfg.n_layers} layers ({cfg.moe.first_dense_layers} "
+        f"dense), d_model {cfg.d_model}, {cfg.n_heads} heads (q/k "
+        f"{cfg.mla.qk_nope_head_dim}+{cfg.mla.qk_rope_head_dim}, v "
+        f"{cfg.mla.v_head_dim}), {cfg.moe.num_experts} routed top-"
+        f"{cfg.moe.top_k} + {cfg.moe.num_shared} shared experts, vocab "
+        f"{cfg.vocab}; {nparams / 1e9:.3f} B parameters in {cfg.dtype}, "
+        f"nothing cut; {matmuls_per_pass(cfg)} ina_matmul a pass (derived); "
+        f"peak {gib(torch.cuda.max_memory_allocated())}")
+    report, legacy, serve_launches = serve(cfg, params, "mla-serve",
+                                           SERVE_ARGV[MLA])
+    # The engine seats each prompt at B 1 and decodes 2 slots routed one a
+    # group; the loop decodes 4 rows routed as one group.  The witness
+    # below runs the loop at B 1: its logits and tokens equal the engine's
+    # to the bit, and its top-6 expert sets differ from the loop of 4
+    # rows' at hundreds of the prompt's 1664 (position, layer) pairs,
+    # from the first positions on: cuBLAS rounds the router's and the
+    # experts' bf16 products otherwise at 4 rows, and random router
+    # weights leave the 6th and 7th experts' probabilities within that
+    # rounding.  Each swap trades one 1/6-weighted expert output for
+    # another's, and the latent cache carries it through 27 layers: the
+    # rwkv phase's 2^-3 of the largest logit.
+    compare_with_legacy(report, legacy, "mla-serve", cfg.n_layers, bits=3)
+    batch_witness(cfg, params, report, SERVE_ARGV[MLA], "mla-serve")
+    profile_moe_decode(model, params, "mla", SERVE_ARGV[MLA])
+    tokens = torch.randint(3, cfg.vocab, (1, MOE_FWD_S),
+                           generator=torch.Generator().manual_seed(13)
+                           ).to("cuda")
+    fwd = moe_forward(model, params, tokens, "mla")
+    del fwd["logits"]
+    forward = profile_step("mla_forward", lambda: build_prefill(model).fn(
+        params, {"tokens": tokens}), steps=3, spans=(EXPERTS_SPAN,))
+    log(f"[mla] forward {MOE_FWD_S / (forward['wall_ms'] / 1e3):.0f} tokens/s "
+        f"(host clock); expert products "
+        f"{forward['span_ms'][EXPERTS_SPAN]:.2f} device ms; peak "
+        f"{gib(torch.cuda.max_memory_allocated())} "
+        f"(torch.cuda.max_memory_allocated)")
+    del params
+    fresh_phase()
+    return {"serve": serve_launches, "forward": fwd["launches"]}
+
+
+def phase_mla_f32() -> None:
+    """The same widths at 2 layers (1 dense, 1 MoE) in float32."""
+    fresh_phase()
+    cfg = dataclasses.replace(ARCHS[MLA], n_layers=2, dtype="float32")
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1),
+                        device="cuda")
+    tokens = torch.randint(3, cfg.vocab, (1, MOE_FWD_S),
+                           generator=torch.Generator().manual_seed(14)
+                           ).to("cuda")
+    got = moe_forward(model, params, tokens, "mla-f32")
+    launches = read_launches()
+    t0 = time.perf_counter()
+    with plain_kernels():
+        want = build_prefill(model).fn(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if read_launches() != launches:
+        raise AssertionError("the plain forward launched a kernel")
+    # elementwise |diff| <= atol + rtol |plain|, rtol = atol = 1e-4: the f32
+    # ina_matmul repeats its plain version's arithmetic, so the two differ
+    # where cuBLAS's f32 products (router, experts, attention) see other
+    # rounding upstream; a routing flip would show far beyond
+    diff = (got["logits"] - want).abs()
+    over = float((diff - 1e-4 * want.abs()).max())
+    log(f"[mla-f32] 2 layers, full width, float32, B 1 x S {MOE_FWD_S}: "
+        f"kernels against their plain versions on the card, max |diff| "
+        f"{float(diff.max()):.3g} (max |logit| {float(want.abs().max()):.3g}); "
+        f"max(|diff| - 1e-4 |plain|) {over:.3g} <= atol 1e-4; the plain "
+        f"forward {plain_s:.1f} s")
+    if not over <= 1e-4:
+        raise AssertionError(f"mla f32 forward: {over} > 1e-4 beyond rtol")
+    del got, want, diff
+    # 8 tokens: the forward's capacity is min(max(8, .), 8) = 8, no drop,
+    # so it equals the per-token decode loop (capacity 1, no drop)
+    worst, over, scale = forward_against_decode(model, params, tokens[:, :8],
+                                                "mla f32", rtol=1e-4)
+    log(f"[mla-f32] forward vs decode loop over 8 positions: max |diff| "
+        f"{worst:.3g} (max |logit| {scale:.3g}); max(|diff| - 1e-4 |logit|) "
+        f"{over:.3g} <= atol 1e-4")
+    if not over <= 1e-4:
+        raise AssertionError(f"mla f32 forward vs decode: {over} > 1e-4")
+    report, legacy, _ = serve(cfg, params, "mla-f32", SERVE_ARGV[MLA])
+    for r in report.requests:
+        i = int(r["rid"].removeprefix("req"))
+        if r["tokens"] != legacy["tokens"][i].tolist():
+            raise AssertionError(f"{r['rid']}: f32 engine tokens {r['tokens']}"
+                                 f" != legacy {legacy['tokens'][i].tolist()}")
+    log(f"[mla-f32] engine tokens equal the legacy loop's for all "
+        f"{len(report.requests)} requests; peak "
+        f"{gib(torch.cuda.max_memory_allocated())}")
+    del params
+    fresh_phase()
+
+
+def phase_moe() -> dict:
+    """llama4-scout-17b-16e at its published widths, depth cut."""
+    fresh_phase()
+    full = ARCHS[MOE]
+    cfg = dataclasses.replace(full, n_layers=MOE_DEPTH)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    nparams = sum(t.numel() for t in _leaves(params))
+    per_layer = sum(t.numel() for t in _leaves(params["layers"])) / MOE_DEPTH
+    whole = nparams + per_layer * (full.n_layers - MOE_DEPTH)
+    log(f"[moe] {MOE}: depth cut to {MOE_DEPTH} of {full.n_layers} layers "
+        f"(the whole model is {whole / 1e9:.1f} B parameters, "
+        f"{whole * 2 / 1e9:.0f} GB in bf16, past one card's 80 GB); "
+        f"d_model {cfg.d_model}, GQA {cfg.n_heads}:{cfg.n_kv_heads}, "
+        f"{cfg.moe.num_experts} routed top-{cfg.moe.top_k} + "
+        f"{cfg.moe.num_shared} shared experts of {cfg.moe.d_ff_expert}, vocab "
+        f"{cfg.vocab}; {nparams / 1e9:.3f} B parameters here; "
+        f"{matmuls_per_pass(cfg)} ina_matmul a pass (derived); peak "
+        f"{gib(torch.cuda.max_memory_allocated())}")
+    tokens = torch.randint(3, cfg.vocab, (1, MOE_FWD_S),
+                           generator=torch.Generator().manual_seed(15)
+                           ).to("cuda")
+    fwd = moe_forward(model, params, tokens, "moe")
+    del fwd["logits"]
+    forward = profile_step("moe_forward", lambda: build_prefill(model).fn(
+        params, {"tokens": tokens}), steps=3, spans=(EXPERTS_SPAN,))
+    log(f"[moe] forward {MOE_FWD_S / (forward['wall_ms'] / 1e3):.0f} tokens/s "
+        f"(host clock); expert products "
+        f"{forward['span_ms'][EXPERTS_SPAN]:.2f} device ms")
+    profile_moe_decode(model, params, "moe", SERVE_ARGV[MOE])
+    report, legacy, serve_launches = serve(cfg, params, "moe-serve",
+                                           SERVE_ARGV[MOE])
+    # As [mla]'s, through 4 layers; the top-1 choice can swap a whole
+    # expert's output where two router probabilities lie within rounding,
+    # in a prompt of 16: the same 2^-3 of the largest logit.
+    compare_with_legacy(report, legacy, "moe-serve", cfg.n_layers, bits=3)
+    log(f"[moe] peak {gib(torch.cuda.max_memory_allocated())}")
+    del params
+    fresh_phase()
+    return {"serve": serve_launches, "forward": fwd["launches"]}
 
 
 def _leaves(tree):
@@ -1339,6 +1730,9 @@ def main() -> int:
     phase_rwkv_exact_f32()
     trained = phase_train()
     phase_train_f32()
+    mla = phase_mla()
+    phase_mla_f32()
+    moe = phase_moe()
     launches = served["launches"]
     world = min(torch.cuda.device_count(), 4)
     paths = {"qwen2-1.5b serve": launches,
@@ -1346,7 +1740,11 @@ def main() -> int:
                 for mode, counts in tp.items()},
              "rwkv6-7b forward": rwkv["forward"],
              "rwkv6-7b serve": rwkv["serve"],
-             "qwen2-1.5b train": trained["launches"]}
+             "qwen2-1.5b train": trained["launches"],
+             f"{MLA} forward": mla["forward"],
+             f"{MLA} serve": mla["serve"],
+             f"{MOE} ({MOE_DEPTH} layers) forward": moe["forward"],
+             f"{MOE} ({MOE_DEPTH} layers) serve": moe["serve"]}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

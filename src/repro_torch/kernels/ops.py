@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import (FlashAttention,
+from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, FlashAttention,
                                                  flash_attention_heads)
 from repro_torch.kernels.ina_matmul import InaMatmul, ina_matmul
 from repro_torch.kernels.wkv6 import wkv6_heads
@@ -34,7 +34,14 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """The model's layout through the flash kernel: q [B, Sq, H, D], k/v
     [B, Sk, KVH, D] with GQA unexpanded, each read in place (a KV cache
-    slice included); returns a contiguous [B, Sq, H, D]."""
+    slice included); returns a contiguous [B, Sq, H, D].  A shape the
+    kernel cannot take (v's head dim not q's, as in MLA, or D > 128)
+    raises: it is never rerouted."""
+    if v.shape[-1] != q.shape[-1] or q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention takes one head dim <= {MAX_HEAD_DIM} for q, k "
+            f"and v, got q {q.shape[-1]}, k {k.shape[-1]}, v {v.shape[-1]} "
+            f"(MLA runs models.layers.attention_by_chunk)")
     if needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, q_offset)
     return flash_attention_heads(q, k, v, causal=causal, q_offset=q_offset)

@@ -3,17 +3,17 @@
     python -m repro_torch.launch.kernel_times [sweep | shapes | wkv6]
 
 :class:`Timer` is the timer ``chip_smoke.py`` uses;
-:func:`matmul_projections` / :func:`matmul_operands` are the products it
-checks, :func:`attention_cases` / :func:`attention_operands` its flash
+:func:`matmul_projections`, :func:`moe_projections` /
+:func:`matmul_operands` are the products it checks, :func:`attention_cases` / :func:`attention_operands` its flash
 attention cases in the model's layout, and :func:`wkv_cases` /
 :func:`wkv_operands` its wkv6 cases.  ``sweep`` (the default) times
 ``ina_matmul`` at every cluster size the kernel takes, at the decode (M =
-1, 2, 4) and prefill-chunk (M = 64) shapes of qwen2-1.5b and rwkv6-7b,
+1, 2, 4) and prefill-chunk (M = 64) shapes of every served model's products,
 beside the size ``plan_matmul`` picks and ``torch.matmul``'s time.
 :func:`train_products` lists the train step's products, which
 ``chip_smoke.py`` checks and times.
 ``shapes`` times ``ina_matmul`` as the model calls it, and
-``torch.matmul``, at the 18 main-path bf16 shapes; it calls nothing but
+``torch.matmul``, at the main-path bf16 shapes; it calls nothing but
 ``ina_matmul(x, w)``, so it also times an older tree's kernel with this
 timer when the module is copied into that tree.  ``wkv6`` times
 ``wkv6_heads`` at the wkv6 cases, likewise through that front alone.
@@ -35,8 +35,11 @@ from repro_torch.kernels.wkv6 import wkv6_heads
 L2_FLUSH_BYTES = 128 << 20
 HOST_HEAD_START_CYCLES = 200_000   # ~0.1 ms of the card's clock
 # M of the main paths' bf16 products: qwen2 serving's prefill chunk and its
-# 2 decode slots; the rwkv forward's B 2 x S 2048 and rwkv serving's decode
-MAIN_PATH_M = {"qwen2-1.5b": (64, 2), "rwkv6-7b": (4096, 2)}
+# 2 decode slots; the rwkv forward's B 2 x S 2048 and rwkv serving's decode;
+# the deepseek and llama4 forwards' B 1 x S 2048 and their 2 decode slots
+MAIN_PATH_M = {"qwen2-1.5b": (64, 2), "rwkv6-7b": (4096, 2),
+               "deepseek-v2-lite-16b": (2048, 2),
+               "llama4-scout-17b-16e": (2048, 2)}
 
 
 class Timer:
@@ -69,8 +72,8 @@ class Timer:
 
 def matmul_projections() -> list[tuple[str, str, int, int, str]]:
     """(model, name, K, N, w layout) of every ``ina_matmul`` product of the
-    two served models; layout "row" is a [K, N] weight, "tied" the tied
-    head's ``embed.T`` view (contiguous along K)."""
+    dense and ssm models served; layout "row" is a [K, N] weight, "tied"
+    the tied head's ``embed.T`` view (contiguous along K)."""
     q, r = ARCHS["qwen2-1.5b"], ARCHS["rwkv6-7b"]
     kv = q.n_kv_heads * q.resolved_head_dim
     return [("qwen2-1.5b", "wq/wo", q.d_model, q.d_model, "row"),
@@ -82,6 +85,35 @@ def matmul_projections() -> list[tuple[str, str, int, int, str]]:
             ("rwkv6-7b", "cmix wk", r.d_model, r.d_ff, "row"),
             ("rwkv6-7b", "cmix wv", r.d_ff, r.d_model, "row"),
             ("rwkv6-7b", "head", r.d_model, r.vocab, "row")]
+
+
+def moe_projections() -> list[tuple[str, str, int, int, str]]:
+    """The same for the MoE families' models (deepseek-v2-lite-16b,
+    llama4-scout-17b-16e): attention, the shared experts, the dense
+    layer, the head.  Their routed experts and router are torch.bmm and
+    torch.matmul, not the INA matmul."""
+    ds, ll = ARCHS["deepseek-v2-lite-16b"], ARCHS["llama4-scout-17b-16e"]
+    a, h = ds.mla, ds.n_heads
+    shared = ds.moe.d_ff_expert * ds.moe.num_shared
+    dsn, lln = ds.name, ll.name
+    llkv = ll.n_kv_heads * ll.resolved_head_dim
+    llsh = ll.moe.d_ff_expert * ll.moe.num_shared
+    return [(dsn, "wq", ds.d_model,
+             h * (a.qk_nope_head_dim + a.qk_rope_head_dim), "row"),
+            (dsn, "w_dkv", ds.d_model, a.kv_lora_rank + a.qk_rope_head_dim,
+             "row"),
+            (dsn, "w_uk/w_uv", a.kv_lora_rank, h * a.v_head_dim, "row"),
+            (dsn, "wo", h * a.v_head_dim, ds.d_model, "row"),
+            (dsn, "shared w_up/w_gate", ds.d_model, shared, "row"),
+            (dsn, "shared w_down", shared, ds.d_model, "row"),
+            (dsn, "dense w_up/w_gate", ds.d_model, ds.d_ff, "row"),
+            (dsn, "dense w_down", ds.d_ff, ds.d_model, "row"),
+            (dsn, "head", ds.d_model, ds.vocab, "row"),
+            (lln, "wq/wo", ll.d_model, ll.d_model, "row"),
+            (lln, "wk/wv", ll.d_model, llkv, "row"),
+            (lln, "shared w_up/w_gate", ll.d_model, llsh, "row"),
+            (lln, "shared w_down", llsh, ll.d_model, "row"),
+            (lln, "head", ll.d_model, ll.vocab, "row")]
 
 
 def matmul_operands(gen, m, k, n, kind, dt):
@@ -122,7 +154,7 @@ def sweep_clusters(ms=(1, 2, 4, 64), seed: int = 0) -> list[dict]:
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for _, name, k, n, kind in matmul_projections():
+    for _, name, k, n, kind in matmul_projections() + moe_projections():
         for m in ms:
             x, w = matmul_operands(gen, m, k, n, kind, torch.bfloat16)
             plan = im.plan_for(x, w)
@@ -147,7 +179,7 @@ def time_main_shapes(seed: int = 0) -> list[dict]:
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for model, name, k, n, kind in matmul_projections():
+    for model, name, k, n, kind in matmul_projections() + moe_projections():
         for m in MAIN_PATH_M[model]:
             x, w = matmul_operands(gen, m, k, n, kind, torch.bfloat16)
             row = {"case": f"{model} {name} M={m}",
@@ -170,7 +202,11 @@ def attention_cases() -> list[tuple[str, str, int, int, torch.dtype, int]]:
             ("qwen2 chunk 2", q, 64, 128, torch.bfloat16, 192),
             ("qwen2 chunk 1 f32", q, 64, 64, torch.float32, 192),
             ("qwen2 chunk 2 f32", q, 64, 128, torch.float32, 192),
-            ("llama3-8b chunk 2", ll, 64, 128, torch.bfloat16, 192)]
+            ("llama3-8b chunk 2", ll, 64, 128, torch.bfloat16, 192),
+            # the [moe] forward: llama4-scout's GQA 40:8 (5 query heads a
+            # KV head, not a power of two), B 1 x S 2048
+            ("llama4 forward", "llama4-scout-17b-16e", 2048, 2048,
+             torch.bfloat16, 2048)]
 
 
 def attention_operands(gen, b, sq, sk, h, kvh, d, dt, cache):

@@ -17,7 +17,10 @@ Examples (one H100, at the published widths):
       --batch 4 --slots 2 --prompt-len 128 --gen 32 --prefill-chunk 64
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --batch 4 --slots 2 --prompt-len 64 --gen 16
-and on the CPU, two gloo ranks of the reduced qwen2:
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --batch 4 --slots 2 --prompt-len 64 --gen 16
+(the ssm, moe and mla_moe families seat prompts token by token), and on
+the CPU, two gloo ranks of the reduced qwen2:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --reduced --device cpu --model-parallel 2 --psum-mode ina_ring --check
 """
@@ -60,8 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--prefill-chunk", type=int, default=8,
                     help="tokens per batched prefill chunk; no effect for a "
-                         "family without a batched prefill (ssm), whose "
-                         "prompts are seated token by token")
+                         "family without a batched prefill (ssm, moe, "
+                         "mla_moe), whose prompts are seated token by token")
     ap.add_argument("--no-batched-prefill", action="store_true",
                     help="prefill via the per-token decode loop")
     ap.add_argument("--check", action="store_true",
@@ -128,9 +131,12 @@ def run_engine(args, cfg, params=None, group=None):
     return report
 
 
-def run_legacy(args, cfg, params=None, group=None) -> dict:
+def run_legacy(args, cfg, params=None, group=None, *, rows=None,
+               max_seq=None) -> dict:
     """The pre-engine loop: one fixed batch, per-token prefill steps, on
-    this rank of ``group`` (``None``: one rank).
+    this rank of ``group`` (``None``: one rank).  ``rows`` picks the
+    requests (rows of the prompt block) that form the batch, all of them by
+    default; ``max_seq`` the cache's positions, prompt + gen by default.
 
     Returns the tokens [B, gen+1] (the first generated token, then ``gen``
     greedy continuations), each step's top-2 logit margin [B, gen+1], and
@@ -141,10 +147,13 @@ def run_legacy(args, cfg, params=None, group=None) -> dict:
     params = shard_params(_params(args, cfg, params), cfg, pctx.rank,
                           pctx.world)
     step = build_serve_step(model, pctx)
-    max_seq = args.prompt_len + args.gen
-    cache = model.init_cache(args.batch, max_seq, device=dev,
-                             world=pctx.world)
-    prompts = make_prompts(cfg, args.batch, args.prompt_len).to(dev)
+    prompts = make_prompts(cfg, args.batch, args.prompt_len)
+    if rows is not None:
+        prompts = prompts[list(rows)]
+    prompts = prompts.to(dev)
+    batch = prompts.shape[0]
+    cache = model.init_cache(batch, max_seq or args.prompt_len + args.gen,
+                             device=dev, world=pctx.world)
 
     def margin(logits):
         top2 = torch.topk(logits.float(), 2, dim=-1).values
@@ -169,10 +178,10 @@ def run_legacy(args, cfg, params=None, group=None) -> dict:
         margins.append(margin(logits))
     out = torch.stack(tokens, dim=1).cpu()
     dt = time.perf_counter() - t0
-    print(f"[serve] generated {args.gen} x {args.batch} tokens in "
-          f"{dt * 1e3:.1f} ms ({args.gen * args.batch / dt:.1f} tok/s)")
+    print(f"[serve] generated {args.gen} x {batch} tokens in "
+          f"{dt * 1e3:.1f} ms ({args.gen * batch / dt:.1f} tok/s)")
     print(f"[serve] sample row: {out[0].tolist()}")
-    if out.shape != (args.batch, args.gen + 1) or not (
+    if out.shape != (batch, args.gen + 1) or not (
             bool((out >= 0).all()) and bool((out < cfg.vocab).all())):
         raise RuntimeError(f"bad legacy output {tuple(out.shape)}")
     return {"tokens": out, "margins": torch.stack(margins, dim=1).cpu(),

@@ -1,5 +1,5 @@
-"""Uniform model API (counterpart of ``repro.models.api``): the dense and
-ssm (RWKV6) families.
+"""Uniform model API (counterpart of ``repro.models.api``): the dense, ssm
+(RWKV6), moe and mla_moe families.
 
 Entry points default to ``device="cuda"`` and raise when no GPU is present;
 the CPU runs only for a caller that passes ``device="cpu"``.
@@ -14,9 +14,10 @@ import torch
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import rwkv, transformer
+from repro_torch.models import mla, moe, rwkv, transformer
 
-_FAMILIES: dict[str, ModuleType] = {"dense": transformer, "ssm": rwkv}
+_FAMILIES: dict[str, ModuleType] = {"dense": transformer, "ssm": rwkv,
+                                    "moe": moe, "mla_moe": mla}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,19 +69,38 @@ def get_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1, "
-            f"item 8); the port has {sorted(_FAMILIES)}")
+            f"item 5); the port has {sorted(_FAMILIES)}")
     return Model(cfg, _FAMILIES[cfg.family])
 
 
+def cache_leaves(tree: dict, prefix: str = "") -> dict:
+    """The leaves of a nested decode cache (or of a tree mirroring one) by
+    path: ``"moe/latent"`` for ``cache["moe"]["latent"]``, the name alone
+    for a top-level leaf."""
+    out = {}
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            out.update(cache_leaves(node, f"{prefix}{name}/"))
+        else:
+            out[prefix + name] = node
+    return out
+
+
 def cache_batch_axes(cfg: ModelConfig) -> dict:
-    """Each decode-cache leaf's batch-axis index, as the family states it
-    (dense ``k``/``v`` ``[L, B, S, K, hd]``; ssm ``state`` ``[L, B, H, hd,
-    hd]``, ``tprev``/``cprev`` ``[L, B, 1, D]``)."""
-    return dict(get_model(cfg).mod.CACHE_BATCH_AXES)
+    """Each leaf of the config's decode cache, by path, to its batch-axis
+    index, as the family states it (dense ``k``/``v`` ``[L, B, S, K,
+    hd]``; ssm ``state`` ``[L, B, H, hd, hd]``, ``tprev``/``cprev`` ``[L,
+    B, 1, D]``; moe ``k``/``v`` (and ``dk``/``dv``); mla_moe
+    ``moe/latent``, ``moe/k_rope`` (and ``dense/...``) ``[L, B, S, R]``)."""
+    mod = get_model(cfg).mod
+    tree = mod.init_cache(cfg, 1, 1, torch.device("meta"))
+    return {path: mod.CACHE_BATCH_AXES[path] for path in cache_leaves(tree)}
 
 
 def paged_cache_leaves(cfg: ModelConfig) -> tuple:
-    """The decode-cache leaves with a sequence axis, which the serving pool
-    pages by position; every other leaf (a recurrent state) is stored whole
-    per request.  Stated by the family, never guessed from extents."""
-    return tuple(get_model(cfg).mod.PAGED_CACHE_LEAVES)
+    """The paths of the decode-cache leaves with a sequence axis, which the
+    serving pool pages by position; every other leaf (a recurrent state) is
+    stored whole per request.  Stated by the family, never guessed from
+    extents."""
+    paged = get_model(cfg).mod.PAGED_CACHE_LEAVES
+    return tuple(path for path in cache_batch_axes(cfg) if path in paged)

@@ -5,7 +5,9 @@ package's layouts at every public function.  Projections go through
 :mod:`repro_torch.parallel.tp`, and so through the INA matmul kernel.
 Causal attention over more than one query goes through the flash kernel;
 single-token decode attention (:func:`attn_full`) stays plain PyTorch, as it
-is plain JAX in the reference.
+is plain JAX in the reference.  MLA, whose q/k and v head dims differ, runs
+the reference's own rule (:func:`attention_by_chunk`: :func:`attn_chunked`
+or :func:`attn_full`), in plain PyTorch as it is plain JAX there.
 """
 from __future__ import annotations
 
@@ -38,7 +40,7 @@ def dense_init(generator: torch.Generator, shape, in_dim: Optional[int] = None,
 # float32 at every call (the RWKV6 bonus ``u``, ``repro.models.ssm``:231), so
 # storing them in the compute dtype would round them.
 FLOAT32_LEAVES = ("u",)
-STACKED = ("layers",)
+STACKED = ("layers", "dense_layers")
 
 
 def to_storage(tree: dict, dtype: torch.dtype) -> dict:
@@ -147,6 +149,62 @@ def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, v.shape[-1])
 
 
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """GQA: repeat KV heads to match query heads. k: [B, S, K, D]."""
+    if k.shape[2] == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // k.shape[2], dim=2)
+
+
+def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 chunk: int, causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """Online softmax over KV chunks of ``chunk`` (the reference's
+    ``attn_chunked``); q, k: [B, S, ., D], v: [B, Sk, K, Dv] with Dv free
+    (MLA: 128 against a q/k head dim of 192).  Each chunk's scores and PV
+    product are einsums in q's dtype, as the reference's; m, l and acc are
+    f32.  A KV length that ``chunk`` does not divide runs
+    :func:`attn_full`, as in the reference."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if sk % chunk != 0:
+        return attn_full(q, k, v, causal=causal, q_offset=q_offset)
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    dv = v.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    qp = torch.arange(sq, device=q.device) + int(q_offset)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, chunk):
+        kb, vb = k[:, k0:k0 + chunk], v[:, k0:k0 + chunk]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kb).float() * scale
+        if causal:
+            kp = torch.arange(k0, k0 + chunk, device=q.device)
+            s = torch.where((qp[:, None] >= kp[None, :])[None, None], s,
+                            torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(q.dtype), vb).float()
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def attention_by_chunk(q, k, v, *, causal: bool, chunk: int = 0,
+                       q_offset: int = 0) -> torch.Tensor:
+    """The reference's ``attention`` rule: :func:`attn_chunked` where the KV
+    length passes ``chunk`` and there is more than one query, else
+    :func:`attn_full`.  MLA's path: the flash kernel takes one head dim for
+    q, k and v."""
+    if chunk and k.shape[1] > chunk and q.shape[1] > 1:
+        return attn_chunked(q, k, v, chunk=chunk, causal=causal,
+                            q_offset=q_offset)
+    return attn_full(q, k, v, causal=causal, q_offset=q_offset)
+
+
 def attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
     """Causal attention over several queries runs the flash kernel on the
     model's layout: q [B, Sq, H, D] and k/v [B, Sk, KVH, D] with GQA
@@ -205,6 +263,30 @@ def attn_block(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     return row_linear(o.reshape(b, s, n_heads * head_dim), p["wo"], pctx)
 
 
+def decode_positions(pos, device, head_dim: int, theta: float):
+    """A decode step's positions and RoPE tables: ``pos`` an int, with
+    (cos, sin) [1, head_dim/2], or a [B] tensor, one position a row, with
+    (cos, sin) [B, 1, head_dim/2] (what :func:`apply_rope` takes)."""
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        pos = pos.to(device)
+        cos, sin = rope_cos_sin(pos, head_dim, theta)
+        return pos, cos[:, None, :], sin[:, None, :]
+    pos = int(pos)
+    cos, sin = rope_cos_sin(torch.tensor([pos], device=device), head_dim,
+                            theta)
+    return pos, cos, sin
+
+
+def write_at(cache: torch.Tensor, pos, value: torch.Tensor) -> None:
+    """``cache`` [B, S, ...] at position ``pos`` (an int, or a [B] tensor,
+    one a row) := ``value`` [B, ...], in place."""
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, pos] = value.to(cache.dtype)
+    else:
+        cache[:, int(pos)] = value.to(cache.dtype)
+
+
 def attn_block_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                       cache_v: torch.Tensor, pos, *, n_heads: int, n_kv: int,
                       head_dim: int, cos, sin, eps: float = 1e-5,
@@ -217,13 +299,8 @@ def attn_block_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     """
     b = x.shape[0]
     q, k, v = attn_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, eps, pctx)
-    if torch.is_tensor(pos) and pos.dim() == 1:
-        rows = torch.arange(b, device=cache_k.device)
-        cache_k[rows, pos] = k[:, 0].to(cache_k.dtype)
-        cache_v[rows, pos] = v[:, 0].to(cache_v.dtype)
-    else:
-        cache_k[:, int(pos)] = k[:, 0].to(cache_k.dtype)
-        cache_v[:, int(pos)] = v[:, 0].to(cache_v.dtype)
+    write_at(cache_k, pos, k[:, 0])
+    write_at(cache_v, pos, v[:, 0])
     o = attn_full(q, cache_k.to(q.dtype), cache_v.to(q.dtype), causal=True,
                   q_offset=pos)
     y = row_linear(o.reshape(b, 1, n_heads * head_dim), p["wo"], pctx)

@@ -258,14 +258,7 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     tokens, pos = batch["tokens"], batch["pos"]
     hd = cfg.resolved_head_dim
     x = _embed(params, cfg, tokens, pctx)
-    if torch.is_tensor(pos) and pos.dim() == 1:
-        pos = pos.to(tokens.device)
-        cos, sin = L.rope_cos_sin(pos, hd, cfg.rope_theta)
-        cos, sin = cos[:, None, :], sin[:, None, :]
-    else:
-        pos = int(pos)
-        cos, sin = L.rope_cos_sin(torch.tensor([pos], device=tokens.device),
-                                  hd, cfg.rope_theta)
+    pos, cos, sin = L.decode_positions(pos, tokens.device, hd, cfg.rope_theta)
     seq = tokens.shape[1]
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)

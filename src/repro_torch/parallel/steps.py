@@ -77,6 +77,14 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
     return loss.detach(), out
 
 
+# why build_train_step refuses a family the port serves
+_UNTRAINED = {
+    "ssm": "the wkv6 kernel has no gradient yet (ROADMAP.md Queue 1, "
+           "item 4.3)",
+    "moe": "its training is not ported (ROADMAP.md Queue 1, item 5.2)",
+    "mla_moe": "its training is not ported (ROADMAP.md Queue 1, item 5.2)"}
+
+
 def build_train_step(model: Model, shape: ShapeConfig,
                      pctx: Optional[ParallelCtx] = None,
                      base_lr: float = 3e-4, warmup: int = 200,
@@ -85,19 +93,20 @@ def build_train_step(model: Model, shape: ShapeConfig,
 
     The dense family at one rank.  The ssm family raises: its loss is
     differentiable on the CPU through the plain wkv6 but gets no gradient
-    through the CUDA kernel, which has no backward yet.  A group of more
+    through the CUDA kernel, which has no backward yet.  The moe and
+    mla_moe families raise: their training is not ported.  A group of more
     than one rank raises: tensor-parallel training needs autograd through
-    the rings of ``core/collectives.py``.  Both are ROADMAP.md Queue 1."""
-    if model.cfg.family != "dense":
+    the rings of ``core/collectives.py``.  All are ROADMAP.md Queue 1."""
+    family = model.cfg.family
+    if family != "dense":
         raise NotImplementedError(
-            f"training family {model.cfg.family!r}: the wkv6 kernel has no "
-            f"gradient yet (ROADMAP.md Queue 1, item 4); the port trains "
-            f"the dense family")
+            f"training family {family!r}: {_UNTRAINED[family]}; the port "
+            f"trains the dense family")
     if pctx is not None and pctx.world > 1:
         raise NotImplementedError(
             f"training at world {pctx.world}: tensor-parallel training "
             f"needs autograd through core/collectives.py's rings "
-            f"(ROADMAP.md Queue 1, item 4)")
+            f"(ROADMAP.md Queue 1, item 4.1)")
     lr = cosine_schedule(base_lr, warmup, total_steps)
     want = (shape.global_batch, shape.seq_len)
 
@@ -141,7 +150,9 @@ class PagedServeStep:
     """Continuous-batching decode: ``fn(params, batch, cache) -> (next_tok
     [B], cache)`` with ``batch = {"tokens": [B, 1], "pos": [B]}``.  Slot
     ``i`` computes what a B=1 decode at ``pos[i]`` would: RoPE, cache write
-    and mask are per row, and every projection treats rows independently."""
+    and mask are per row, an MoE layer routes each row as its own group
+    (its capacity that of one token, never pooled over the slots), and
+    every projection treats rows independently."""
     fn: Callable
     cache_batch_axes: dict
 

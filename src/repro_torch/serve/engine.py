@@ -6,7 +6,7 @@ Per iteration it
 1. admits queued requests into free cache slots (token boundary only),
 2. prefills each admitted prompt (chunked batched prefill through
    :func:`~repro_torch.parallel.steps.build_prefill_step`, or a per-token
-   decode loop for a family without a batched prefill, such as ssm),
+   decode loop for a family without a batched prefill: ssm, moe, mla_moe),
    writing the prompt's cache into the paged pool and emitting the first
    token,
 3. runs one per-slot-position decode step over the whole slot batch,
@@ -14,10 +14,11 @@ Per iteration it
    cache column,
 4. retires finished requests, releasing their blocks and slot.
 
-Each slot computes exactly what the request would compute running alone
-(every row of the decode step has its own position and mask, and the
-matmul kernel sums each row in the same order whatever the batch), so
-joining or leaving the batch cannot change a request's tokens.
+Each slot computes what the request would compute running alone (every
+row of the decode step has its own position and mask, an MoE layer routes
+each row as its own group, and the matmul kernel sums each row in the
+same order whatever the batch), so joining or leaving the batch cannot
+change a request's tokens.
 
 The engine takes ``params`` (or a ``param_seed`` for a seeded
 ``torch.Generator``) and a ``device``; the reference builds its own
@@ -42,7 +43,7 @@ import torch.distributed as dist
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.api import get_model
+from repro_torch.models.api import cache_leaves, get_model
 from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.steps import (build_paged_serve_step,
                                         build_prefill_step, build_serve_step)
@@ -122,9 +123,9 @@ class ServingEngine:
 
     # ------------------------------------------------------------------ #
     def _row(self, cache: dict, slot: int) -> dict:
-        """One slot's cache row: views, batch axis removed."""
+        """One slot's cache row by leaf path: views, batch axis removed."""
         return {name: leaf.select(self.baxis[name], slot)
-                for name, leaf in cache.items()}
+                for name, leaf in cache_leaves(cache).items()}
 
     def _seat(self, st: RequestState) -> None:
         """Copy the request's pooled row into its working-cache slot: paged

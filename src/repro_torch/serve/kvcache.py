@@ -6,10 +6,15 @@ The serving engine keeps two views of decode state:
   that the decode and prefill steps read and write;
 * this **paged pool**, the authoritative per-request store.  The leaves the
   model API names as paged (:func:`repro_torch.models.api.
-  paged_cache_leaves`: those with a sequence axis, the dense family's K/V)
-  are chopped into fixed-size position blocks owned by a free-list
-  :class:`BlockAllocator`.  Every other leaf (the ssm family's recurrent
-  state and token-shift rows) is stored whole per request, its latest value.
+  paged_cache_leaves`: those with a sequence axis, the dense and moe
+  families' K/V, MLA's latents and rope keys) are chopped into fixed-size
+  position blocks owned by a free-list :class:`BlockAllocator`.  Every
+  other leaf (the ssm family's recurrent state and token-shift rows) is
+  stored whole per request, its latest value.
+
+A leaf is named by its path in the cache tree (``"moe/latent"`` for MLA's
+nested ``cache["moe"]["latent"]``, :func:`repro_torch.models.api.
+cache_leaves`), and a ``row`` is a flat dict by those paths.
 
 Each leaf keeps its own dtype (the ssm state is float32 in a bf16 model).
 The pool is torch tensors on the model's device.  :meth:`PagedKVCache.
@@ -151,8 +156,8 @@ class PagedKVCache:
                  *, device="cuda", world: int = 1) -> None:
         """The pool of one rank of ``world``: the dense family's pages hold
         that rank's KV heads."""
-        from repro_torch.models.api import (cache_batch_axes, get_model,
-                                            paged_cache_leaves)
+        from repro_torch.models.api import (cache_batch_axes, cache_leaves,
+                                            get_model, paged_cache_leaves)
         if max_seq % block_size:
             raise ValueError(f"block_size {block_size} must divide "
                              f"max_seq {max_seq}")
@@ -163,8 +168,8 @@ class PagedKVCache:
         self.allocator = BlockAllocator(num_blocks)
 
         # shapes and dtypes without allocating (``jax.eval_shape`` there)
-        proto = get_model(cfg).init_cache(1, max_seq, device="meta",
-                                          world=world)
+        proto = cache_leaves(get_model(cfg).init_cache(
+            1, max_seq, device="meta", world=world))
         baxes = cache_batch_axes(cfg)
         paged = paged_cache_leaves(cfg)
         self.leaves: list[_LeafMeta] = []

@@ -245,9 +245,9 @@ def test_norms_match(norm):
 
 def test_other_families_not_ported():
     from repro_torch.configs.base import ModelConfig
-    cfg = ModelConfig(name="x", family="moe", n_layers=1, d_model=8,
+    cfg = ModelConfig(name="x", family="hybrid", n_layers=1, d_model=8,
                       n_heads=1, n_kv_heads=1, d_ff=8, vocab=8)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
         get_model(cfg)
 
 
