@@ -11,7 +11,8 @@ Phases; any failure raises and the process exits non-zero:
    and held against their plain PyTorch versions: first ``ina_matmul`` on
    one small case per regime, tile, layout and cluster size (1 and 2) and
    ``flash_attention`` on one small case per dtype, head dim and tile, then
-   every kernel at the shapes and dtypes that phases 3-12 give it (for
+   every kernel at the shapes and dtypes that phases 3-12 give it, and
+   ``ina_matmul`` at each tile of phase 4b's decode plan, forced (for
    ``flash_attention`` also in the model's layout, GQA read in place from
    a KV cache slice; for ``wkv6`` also at decays past the model's clip
    floor, one of them held to the step-by-step ``wkv6_ref`` as well; for
@@ -37,8 +38,24 @@ Phases; any failure raises and the process exits non-zero:
    held against the rank sum on CUDA tensors, one psum a mode is timed at
    the decode and prefill row-linear payloads beside its bytes a link, and
    the tokens must match phase 3's within its engine-against-loop margin;
-5. the same at 2 layers in float32: the engine's tokens must equal the
-   legacy loop's, token for token;
+4b. ``[plan]``: qwen2-1.5b's decode and prefill ExecutionPlans for phase
+    3's shapes at the mesh ``(("model", 1),)``, built cold into a fresh
+    store under ``build/``, then loaded warm (no collective simulation),
+    each free of ``verify_plan`` findings, with its key, build seconds,
+    collective simulations, tiles and mapper verdicts printed; phase 3's
+    requests served again under ``--psum-mode auto`` through those plans:
+    tokens equal to phase 3's bit for bit, ``ina_matmul`` launches by
+    regime equal to phase 3's, and the plan's tile hits and misses counted
+    for one decode step, one prefill chunk and the whole run; a decode
+    step's host wall planless and planned in 20 alternating turns (median
+    and quartiles of each, and whether every planned turn read no worse
+    than the planless turn beside it); then the
+    three phase plans at the reference's ``(("data", 16), ("model", 16))``
+    mesh on the host, cold and warm, their psum decisions equal to
+    :data:`PLAN_16X16` (the reference's, held on the CPU by
+    ``tests/test_torch_plan.py``);
+5. phase 3's serve at 2 layers in float32: the engine's tokens must equal
+   the legacy loop's, token for token;
 6. rwkv6-7b at its published widths and depth (bf16, seeded random
    weights): one forward pass through ``build_prefill`` at B 2, S 2048
    (32 wkv6 and 257 ina_matmul launches), profiled; the forward against the
@@ -96,6 +113,7 @@ import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -112,8 +130,9 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.checkpoint.ckpt import latest_step  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.analysis import verify_plan  # noqa: E402
 from repro_torch.core import collectives as C  # noqa: E402
-from repro_torch.core.noc import fresh_sim_cache  # noqa: E402
+from repro_torch.core.noc import SIM_CACHE, fresh_sim_cache  # noqa: E402
 from repro_torch.core.noc.collective import cost as noc_cost  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -141,6 +160,7 @@ from repro_torch.parallel.steps import (build_paged_serve_step,  # noqa: E402
                                         build_prefill, build_serve_step,
                                         build_train_step, loss_and_grads)
 from repro_torch.parallel.tp import ParallelCtx  # noqa: E402
+from repro_torch.plan import PHASES, PlanStore, tile_choices  # noqa: E402
 
 # H100 SXM, dense, at the full 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -183,6 +203,22 @@ RWKV_FWD_B, RWKV_FWD_S, RWKV_PREFIX = 2, 2048, 300
 # the MoE families' forward (B 1 x S 2048: MLA's attn_chunked runs past its
 # attn_chunk 1024); llama4-scout's depth, cut from 48 to fit one card
 MOE_FWD_S, MOE_DEPTH = 2048, 4
+# The reference's mesh for qwen2-1.5b's plans, and the psum decisions of
+# each phase there: (p, nbytes, mode, ops, count, ((mode, latency cycles,
+# energy pJ), ...)).  The reference's resolve_sites gives these on the CPU
+# (tests/test_torch_plan.py holds them to it), with count 2, one a row
+# linear of its scanned layer body; the port's loop records each of the 28
+# layers', so 56.
+MESH_16 = (("data", 16), ("model", 16))
+_PREFILL_COSTS = (("ina", 402653350, 57901528110.8),
+                  ("ina_ring", 377487472, 60085925889.600006),
+                  ("eject_inject", 6039798067, 196897408335.0))
+PLAN_16X16 = {
+    "train": ((16, 3221225472, "ina_ring", ("psum",), 56, _PREFILL_COSTS),),
+    "prefill": ((16, 3221225472, "ina_ring", ("psum",), 56, _PREFILL_COSTS),),
+    "decode": ((16, 393216, "ina_ring", ("psum",), 56,
+                (("ina", 49318, 7068309.2), ("ina_ring", 46192, 7339214.4),
+                 ("eject_inject", 737587, 24036687.0))),)}
 
 
 def log(msg: str) -> None:
@@ -358,6 +394,50 @@ def check_matmul(timer, gen, cases) -> list:
         if not row["ok"]:
             raise AssertionError(f"ina_matmul {name} disagrees with its plain "
                                  f"version: {row}")
+        rows.append(row)
+    return rows
+
+
+def plan_serve_args(store: Path):
+    """Phase 3's serve under ``--psum-mode auto`` with plans in ``store``."""
+    return launch_serve.build_parser().parse_args(
+        SERVE_ARGV[ARCH] + ["--psum-mode", "auto", "--plan-dir", str(store)])
+
+
+def check_planned_tiles(timer, gen) -> list:
+    """``ina_matmul`` at each tile of phase 4b's decode plan (the Hopper tile
+    policy over qwen2-1.5b's decoder GEMMs at the slots' M), the planned
+    launch forced, against its plain version blocked the same way."""
+    cfg = ARCHS[ARCH]
+    args = launch_serve.build_parser().parse_args(SERVE_ARGV[ARCH])
+    rows = []
+    for t in tile_choices(cfg, args.slots or args.batch, cfg.dtype):
+        x, w = matmul_operands(gen, t.m, t.k, t.n, "row", torch.bfloat16)
+        plan = t.matmul_plan
+        got = im.ina_matmul(x, w, plan)
+        torch.cuda.synchronize()
+        row = {"case": f"planned [{t.m},{t.k}]x[{t.k},{t.n}]",
+               "shape": f"[{t.m},{t.k}]x[{t.k},{t.n}]", "dtype": t.dtype,
+               "regime": t.regime, "tile": f"{t.tile_m}x{t.tile_n}",
+               "cluster": t.cluster,
+               **compare(got, im.ina_matmul_plain(x, w, plan),
+                         torch.bfloat16)}
+        row["bound_ms"], row["bound_by"] = bound(
+            (t.m * t.k + t.k * t.n + t.m * t.n) * 2, 2.0 * t.m * t.n * t.k,
+            torch.bfloat16)
+        row["ms"] = timer(lambda: im.ina_matmul(x, w, plan))
+        row["plain_ms"] = timer(lambda: im.ina_matmul_plain(x, w, plan))
+        row["library_ms"] = timer(lambda: torch.matmul(x, w))
+        log(f"[kernels] ina_matmul {row['case']:34s} planned {t.regime} "
+            f"{row['tile']} c={t.cluster}: max_abs_err "
+            f"{row['max_abs_err']:.3g} (rtol {row['rtol']:.3g}, atol "
+            f"{row['atol']:.3g}) {row['ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+            f"{row['plain_ms']:.4f} ms, torch.matmul {row['library_ms']:.4f}"
+            f" ms")
+        if not row["ok"]:
+            raise AssertionError(f"ina_matmul at the planned tile {t} "
+                                 f"disagrees with its plain version: {row}")
         rows.append(row)
     return rows
 
@@ -585,7 +665,8 @@ def check_launches(launches: dict, expect: dict, on_path) -> None:
 
 
 def serve(cfg, params, phase: str, argv):
-    """Engine run (launches counted) and legacy loop on the same weights.
+    """Engine run (launches counted) and legacy loop on the same weights;
+    returns (report, legacy, launches, ``ina_matmul`` launches by regime).
 
     A dense prompt runs as batched prefill chunks, one flash attention per
     layer each; an ssm, moe or mla_moe prompt is seated token by token
@@ -613,8 +694,9 @@ def serve(cfg, params, phase: str, argv):
     check_launches(launches, expect,
                    ("ina_matmul", "flash_attention") if dense
                    else ("ina_matmul",))
+    by_regime = dict(im.launches_by_regime)
     legacy = launch_serve.run_legacy(args, cfg, params)
-    return report, legacy, launches
+    return report, legacy, launches, by_regime
 
 
 def compare_with_legacy(report, legacy, phase: str, n_layers: int,
@@ -656,7 +738,8 @@ def phase_serve_bf16() -> dict:
     nparams = sum(t.numel() for t in _leaves(params))
     log(f"[serve] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{nparams / 1e9:.3f} B parameters in {cfg.dtype}")
-    report, legacy, launches = serve(cfg, params, "serve", SERVE_ARGV[ARCH])
+    report, legacy, launches, by_regime = serve(cfg, params, "serve",
+                                                   SERVE_ARGV[ARCH])
     profile = phase_profile(cfg, params)
     # The two paths differ in attention arithmetic (the flash kernel with
     # bf16 p over the prefix, against grouped plain attention per token),
@@ -666,8 +749,8 @@ def phase_serve_bf16() -> dict:
     compare_with_legacy(report, legacy, "serve", cfg.n_layers, bits=5)
     del params
     torch.cuda.empty_cache()
-    return {"launches": launches, "tokens": report.tokens(), "legacy": legacy,
-            "profile": profile}
+    return {"launches": launches, "by_regime": by_regime,
+            "tokens": report.tokens(), "legacy": legacy, "profile": profile}
 
 
 def profile_step(label: str, fn, steps: int = 5, spans=()) -> dict:
@@ -1016,11 +1099,179 @@ def phase_tp(served: dict) -> dict:
     return {mode: run["launches"] for mode, run in r0["modes"].items()}
 
 
+# --------------------------------------------------------------------------- #
+# phase 4b: the plan layer
+# --------------------------------------------------------------------------- #
+def plan_tile_counts(fn) -> dict:
+    """The plan's tile hits and misses of one call of ``fn``."""
+    im.plan_tiles.update(hit=0, miss=0)
+    fn()
+    torch.cuda.synchronize()
+    return dict(im.plan_tiles)
+
+
+#: Turns of each of the planned and planless decode step walls.
+WALL_TURNS = 10
+
+
+def quartiles(values) -> tuple:
+    """(first quartile, median, third quartile) of ``values``."""
+    q1, q2, q3 = statistics.quantiles(values, n=4)
+    return q1, q2, q3
+
+
+def host_ms(fn, steps: int = 20) -> float:
+    """Host-clock ms a call of ``fn``, over ``steps`` calls ending on a
+    sync, after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def log_plan(plan, info, label: str) -> None:
+    log(f"[plan] {label} {plan.key}: {'warm' if info['from_store'] else 'cold'}"
+        f" in {info['plan_s']:.4f} s (host clock), {info['collective_sims']} "
+        f"collective simulations, psum {info['psum']}")
+    for t in plan.tiles:
+        log(f"[plan]   tile [{t.m},{t.k}]x[{t.k},{t.n}] {t.dtype}: {t.regime} "
+            f"{t.tile_m}x{t.tile_n} c={t.cluster} bk={t.bk}")
+    for g in plan.gemms:
+        log(f"[plan]   verdict {g.layer} [{g.M},{g.K}]x[{g.K},{g.N}] -> "
+            f"{g.mapping}: {g.latency_cycles} cycles, {g.energy_pj} pJ "
+            f"(paper's mapping {g.baseline_latency_cycles} cycles, "
+            f"{g.baseline_energy_pj} pJ; {g.latency_x:.4f}x, "
+            f"{g.energy_x:.4f}x)")
+
+
+def phase_plan(served: dict) -> dict:
+    """Phase 4b (see the module docstring).  Returns the planned serve's
+    launch counts, for the kernels line."""
+    cfg = ARCHS[ARCH]
+    model = get_model(cfg)
+    root = _build.BUILD_DIR.parent
+    store, sims = root / "plans", root / "plan_sims"
+    for d in (store, sims):
+        shutil.rmtree(d, ignore_errors=True)
+    SIM_CACHE.persist(sims)          # an empty sim store: the builds are cold
+    args = plan_serve_args(store)
+    cold = launch_serve.launch_plans(args, cfg)
+    warm = launch_serve.launch_plans(args, cfg)
+    for kind in ("decode", "prefill"):
+        (plan, info), (again, winfo) = cold[kind], warm[kind]
+        log_plan(plan, info, kind)
+        log_plan(again, winfo, kind)
+        findings = verify_plan(plan, check_layers=True)
+        if info["from_store"] or not winfo["from_store"] or again != plan \
+                or winfo["collective_sims"] != 0 or findings:
+            raise AssertionError(f"[plan] {kind}: cold {info}, warm {winfo},"
+                                 f" findings {findings}")
+    decode_plan, prefill_plan = cold["decode"][0], cold["prefill"][0]
+
+    # phase 3's requests through the plans (the same seeded weights)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    reset_launches()
+    im.plan_tiles.update(hit=0, miss=0)
+    report = launch_serve.run_engine(args, cfg, params)
+    torch.cuda.synchronize()
+    launches, by_regime = read_launches(), dict(im.launches_by_regime)
+    run_tiles = dict(im.plan_tiles)
+    per_pass = MATMULS_PER_PASS["dense"] * cfg.n_layers
+    want_tiles = {"hit": per_pass * report.decode_steps,
+                  "miss": report.decode_steps
+                  + (per_pass + 1) * report.prefill_chunks}
+    log(f"[plan] serve under auto through the plans: launches {launches}, "
+        f"by regime {by_regime} (phase 3: {served['launches']}, "
+        f"{served['by_regime']}); plan tiles over the run {run_tiles} "
+        f"(derived {want_tiles}: {report.decode_steps} decode steps, "
+        f"{report.prefill_chunks} prefill chunks)")
+    if report.tokens() != served["tokens"]:
+        raise AssertionError("[plan] tokens differ from the serve phase's")
+    if launches != served["launches"] or by_regime != served["by_regime"]:
+        raise AssertionError(f"[plan] launches {launches} {by_regime} != the "
+                             f"serve phase's")
+    if run_tiles != want_tiles:
+        raise AssertionError(f"[plan] tile hits and misses {run_tiles} != "
+                             f"{want_tiles}")
+    log(f"[plan] tokens of all {len(report.requests)} requests equal the "
+        f"serve phase's bit for bit")
+
+    # hits and misses of one pass of each phase, at the serve's shapes
+    cache = model.init_cache(2, serve_cache(SERVE_ARGV[ARCH]), device="cuda")
+    batch = {"tokens": torch.full((2, 1), 11, device="cuda"),
+             "pos": torch.tensor([128, 140], device="cuda")}
+    step = build_paged_serve_step(model, plan=decode_plan)
+    pcache = model.init_cache(1, 192, device="cuda")
+    toks = torch.full((1, args.prefill_chunk), 11, device="cuda")
+    per_phase = {
+        "decode": plan_tile_counts(lambda: step.fn(params, batch, cache)),
+        "prefill": plan_tile_counts(lambda: model.prefill(
+            params, {"tokens": toks}, pcache,
+            ParallelCtx(plan=prefill_plan), pos_offset=64))}
+    for kind, counts in per_phase.items():
+        log(f"[plan] {kind} pass: plan tile hits {counts['hit']}, misses "
+            f"{counts['miss']} (plan tokens "
+            f"{cold[kind][0].tokens})")
+    if per_phase["decode"] != {"hit": per_pass, "miss": 1} or \
+            per_phase["prefill"] != {"hit": 0, "miss": per_pass + 1}:
+        raise AssertionError(f"[plan] hits and misses a pass {per_phase}")
+    # what reading the plan costs the host: a decode step's wall planless
+    # and planned (the same launches), in pairs of turns whose order
+    # alternates (planless first, then planned first)
+    steps = {"planless": build_paged_serve_step(model), "planned": step}
+    walls = {"planless": [], "planned": []}
+    for turn in range(WALL_TURNS):
+        order = ("planless", "planned")[::1 if turn % 2 == 0 else -1]
+        for label in order:
+            walls[label].append(host_ms(
+                lambda: steps[label].fn(params, batch, cache)))
+    stats = {label: [round(q, 4) for q in quartiles(ms)]
+             for label, ms in walls.items()}
+    no_worse = all(p <= q for p, q in zip(walls["planned"],
+                                          walls["planless"]))
+    log(f"[plan] decode step wall, host clock, 20 steps a turn, "
+        f"{WALL_TURNS} turns each in alternating order: planless "
+        f"{walls['planless']} ms, planned {walls['planned']} ms; "
+        f"(q1, median, q3) planless {stats['planless']}, planned "
+        f"{stats['planned']}; every planned turn no worse than its pair's "
+        f"planless turn: {no_worse}")
+    del params, cache, pcache
+    fresh_phase()
+
+    # the three phase plans at the reference's mesh, on the host
+    for phase in PHASES:
+        built = []
+        for _ in range(2):
+            runs = noc_cost.COST_STATS["engine_runs"]
+            t0 = time.perf_counter()
+            plan, cold_build = PlanStore(store).get_or_build(cfg, MESH_16,
+                                                             phase)
+            built.append((cold_build, time.perf_counter() - t0,
+                          noc_cost.COST_STATS["engine_runs"] - runs))
+        got = tuple((d.p, d.nbytes, d.mode, d.ops, d.count, d.costs)
+                    for d in plan.psum)
+        log(f"[plan] {plan.key}: cold {built[0][1]:.4f} s, "
+            f"{built[0][2]} collective simulations; warm {built[1][1]:.4f} s,"
+            f" {built[1][2]}; psum {got}")
+        if got != PLAN_16X16[phase] or not built[0][0] or built[1][0] \
+                or built[1][2] != 0 or verify_plan(plan):
+            raise AssertionError(f"[plan] {phase} at {MESH_16}: {got}, "
+                                 f"builds {built}")
+    log(f"[plan] the {len(PHASES)} phase plans at {MESH_16} equal the "
+        f"reference's decisions")
+    return launches
+
+
 def phase_exact_f32() -> None:
     cfg = dataclasses.replace(ARCHS[ARCH], n_layers=2, dtype="float32")
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = get_model(cfg).init(gen, device="cuda")
-    report, legacy, _ = serve(cfg, params, "exact-f32", SERVE_ARGV[ARCH])
+    report, legacy, _, _ = serve(cfg, params, "exact-f32", SERVE_ARGV[ARCH])
     for r in report.requests:
         i = int(r["rid"].removeprefix("req"))
         if r["tokens"] != legacy["tokens"][i].tolist():
@@ -1118,7 +1369,7 @@ def phase_rwkv_bf16() -> dict:
     if not worst <= tol:
         raise AssertionError(f"rwkv forward vs decode: {worst} > {tol}")
 
-    report, legacy, serve_launches = serve(cfg, params, "rwkv-serve",
+    report, legacy, serve_launches, _ = serve(cfg, params, "rwkv-serve",
                                            SERVE_ARGV[RWKV])
     # Both sides decode (the engine seats each prompt at B 1 and decodes 2
     # slots, the loop decodes 4 rows), so they differ only where the LoRA
@@ -1153,7 +1404,7 @@ def phase_rwkv_exact_f32() -> None:
     if not over <= 1e-4:
         raise AssertionError(f"rwkv f32 forward vs decode: {over} > 1e-4 "
                              f"beyond rtol 1e-4")
-    report, legacy, _ = serve(cfg, params, "rwkv-exact-f32", SERVE_ARGV[RWKV])
+    report, legacy, _, _ = serve(cfg, params, "rwkv-exact-f32", SERVE_ARGV[RWKV])
     for r in report.requests:
         i = int(r["rid"].removeprefix("req"))
         if r["tokens"] != legacy["tokens"][i].tolist():
@@ -1297,7 +1548,8 @@ def plain_kernels():
     versions (the wrappers' CPU path) on CUDA tensors, in the forward's
     direct calls and inside the autograd Functions, which stay."""
     mm, att = im.ina_matmul, fa._attention
-    plain = lambda x, w, plan=None: im.ina_matmul_plain(x, w, plan)  # noqa: E731
+    plain = lambda x, w, plan=None, tiles=None: \
+        im.ina_matmul_plain(x, w, plan)  # noqa: E731
     im.ina_matmul = ops.ina_matmul = plain
     fa._attention = lambda q, k, v, causal, q_offset: \
         fa.flash_attention_heads_plain(q, k, v, causal=causal,
@@ -1530,7 +1782,7 @@ def phase_mla() -> dict:
         f"{cfg.vocab}; {nparams / 1e9:.3f} B parameters in {cfg.dtype}, "
         f"nothing cut; {matmuls_per_pass(cfg)} ina_matmul a pass (derived); "
         f"peak {gib(torch.cuda.max_memory_allocated())}")
-    report, legacy, serve_launches = serve(cfg, params, "mla-serve",
+    report, legacy, serve_launches, _ = serve(cfg, params, "mla-serve",
                                            SERVE_ARGV[MLA])
     # The engine seats each prompt at B 1 and decodes 2 slots routed one a
     # group; the loop decodes 4 rows routed as one group.  The witness
@@ -1605,7 +1857,7 @@ def phase_mla_f32() -> None:
         f"{over:.3g} <= atol 1e-4")
     if not over <= 1e-4:
         raise AssertionError(f"mla f32 forward vs decode: {over} > 1e-4")
-    report, legacy, _ = serve(cfg, params, "mla-f32", SERVE_ARGV[MLA])
+    report, legacy, _, _ = serve(cfg, params, "mla-f32", SERVE_ARGV[MLA])
     for r in report.requests:
         i = int(r["rid"].removeprefix("req"))
         if r["tokens"] != legacy["tokens"][i].tolist():
@@ -1649,7 +1901,7 @@ def phase_moe() -> dict:
         f"(host clock); expert products "
         f"{forward['span_ms'][EXPERTS_SPAN]:.2f} device ms")
     profile_moe_decode(model, params, "moe", SERVE_ARGV[MOE])
-    report, legacy, serve_launches = serve(cfg, params, "moe-serve",
+    report, legacy, serve_launches, _ = serve(cfg, params, "moe-serve",
                                            SERVE_ARGV[MOE])
     # As [mla]'s, through 4 layers; the top-1 choice can swap a whole
     # expert's output where two router probabilities lie within rounding,
@@ -1720,11 +1972,13 @@ def main() -> int:
     timer = Timer()
     mm_rows = check_matmul(timer, gen, matmul_cases())
     mm_rows += check_matmul(timer, gen, train_matmul_cases())
+    mm_rows += check_planned_tiles(timer, gen)
     at_rows = check_attention(timer, gen)
     wkv_rows = check_wkv6(timer, gen)
     del timer
     served = phase_serve_bf16()
     tp = phase_tp(served)
+    planned = phase_plan(served)
     phase_exact_f32()
     rwkv = phase_rwkv_bf16()
     phase_rwkv_exact_f32()
@@ -1738,6 +1992,7 @@ def main() -> int:
     paths = {"qwen2-1.5b serve": launches,
              **{f"qwen2-1.5b tp serve W={world} {mode}": counts
                 for mode, counts in tp.items()},
+             "qwen2-1.5b planned serve (auto)": planned,
              "rwkv6-7b forward": rwkv["forward"],
              "rwkv6-7b serve": rwkv["serve"],
              "qwen2-1.5b train": trained["launches"],

@@ -45,14 +45,37 @@ PsumMode = Literal["ina", "ina_ring", "eject_inject", "xla", "auto"]
 CLI_PSUM_MODES = ("xla_spmd", "ina", "ina_ring", "eject_inject", "auto")
 
 
+@dataclass(frozen=True)
+class AxisSpan:
+    """A group of ``p`` ranks that has no processes: what the plan builder
+    traces a ``p``-way model axis with (the reference's ``AbstractMesh``).
+    It stands at rank 0; :func:`psum_with_mode` and
+    :func:`reduce_scatter_with_mode` record the site and return a ``meta``
+    tensor of the result's shape without communicating, and a tensor on
+    any other device raises (:func:`_span_only`)."""
+    p: int
+
+
+def _span_only(x: torch.Tensor, group: AxisSpan, op: str) -> None:
+    if x.device.type != "meta":
+        raise ValueError(f"{op} over {group}: a span without processes "
+                         f"carries meta tensors only, not {x.device}")
+
+
 def axis_size(group) -> int:
     """Ranks in ``group`` (1 for ``None``: one rank, no group)."""
-    return 1 if group is None else dist.get_world_size(group)
+    if group is None:
+        return 1
+    return group.p if isinstance(group, AxisSpan) \
+        else dist.get_world_size(group)
 
 
 def axis_index(group) -> int:
-    """This rank's index in ``group`` (0 for ``None``)."""
-    return 0 if group is None else dist.get_rank(group)
+    """This rank's index in ``group`` (0 for ``None`` or an
+    :class:`AxisSpan`)."""
+    if group is None or isinstance(group, AxisSpan):
+        return 0
+    return dist.get_rank(group)
 
 
 def ppermute_next(x: torch.Tensor, group) -> torch.Tensor:
@@ -188,12 +211,19 @@ def choose_psum_mode(p: int, nbytes: int,
 
 
 # --------------------------------------------------------------------------- #
-# How ``mode="auto"`` sites resolve, in priority order: recording inside
-# :func:`record_psum_sites`; else the NoC cost model behind a process-wide
-# memo, so one site shape costs one resolution a process.  The port runs
-# eagerly, so every call resolves, and after the first a resolution is a memo
-# lookup.  The reference's middle regime, a ``plan``'s precomputed table, is
-# not carried: nothing in the port builds a plan yet (ROADMAP.md Queue 1).
+# ExecutionPlan bridge: how ``mode="auto"`` call sites resolve.
+#
+# Three regimes, in priority order (as the reference's):
+#   1. *Recording*: inside :func:`record_psum_sites` the site's shape is
+#      appended to the active list and the stand-in mode ``"ina"`` returned
+#      without touching the simulator; the plan builder resolves the
+#      deduplicated sites afterwards, once each.
+#   2. *Plan-driven*: a :class:`repro_torch.plan.ExecutionPlan` handed down
+#      from ``ParallelCtx`` answers from its precomputed per-site table.
+#   3. *Planless*: the NoC cost model simulates the candidate strategies for
+#      this (span, payload), behind a process-wide memo, so one site shape
+#      costs one resolution a process.  The port runs eagerly, so every call
+#      resolves, and after the first a resolution is a memo lookup.
 # --------------------------------------------------------------------------- #
 @dataclass(frozen=True)
 class PsumSite:
@@ -231,11 +261,25 @@ def _fallback_choice(p: int, nbytes: int,
     return choose_psum_mode(p, nbytes, objective=objective)
 
 
-def resolve_auto_mode(op: str, p: int, nbytes: int) -> str:
-    """Resolve one ``mode="auto"`` site (see the regimes above)."""
+def resolve_auto_mode(op: str, p: int, nbytes: int,
+                      plan: Optional[object] = None) -> str:
+    """Resolve one ``mode="auto"`` site (see the regimes above).
+
+    ``plan`` is duck-typed: anything with a ``psum_mode(p, nbytes) ->
+    Optional[str]`` method (a :class:`repro_torch.plan.ExecutionPlan`).  A
+    plan miss, a site the plan never saw (a prefill chunk is not the
+    planned phase's whole sequence), resolves through the cost model under
+    the plan's objective, so one run never mixes criteria.  As in the
+    reference, a miss costs under the default ``NocConfig``."""
     if _TRACE_SITES is not None:
         _TRACE_SITES.append(PsumSite(op=op, p=p, nbytes=int(nbytes)))
         return "ina"
+    if plan is not None:
+        mode = plan.psum_mode(p, int(nbytes))
+        if mode is not None:
+            return mode
+        return _fallback_choice(p, int(nbytes),
+                                getattr(plan, "objective", "latency"))
     return _fallback_choice(p, int(nbytes))
 
 
@@ -247,19 +291,24 @@ def _nbytes(x: torch.Tensor) -> int:
 # Mode dispatch used by the tensor-parallel layers.
 # --------------------------------------------------------------------------- #
 def psum_with_mode(x: torch.Tensor, group, mode: PsumMode,
-                   scatter_axis: int = 0) -> torch.Tensor:
+                   scatter_axis: int = 0,
+                   plan: Optional[object] = None) -> torch.Tensor:
     """Fully-reduced psum under the selected accumulation strategy.
 
-    ``mode="auto"`` resolves from the NoC cost model for this tensor size
-    and group span (:func:`resolve_auto_mode`).
+    ``mode="auto"`` resolves for this tensor size and group span from
+    ``plan`` where it holds the site, else from the NoC cost model
+    (:func:`resolve_auto_mode`).
     """
     if mode == "auto":
         p = axis_size(group)
-        mode = resolve_auto_mode("psum", p, _nbytes(x))
+        mode = resolve_auto_mode("psum", p, _nbytes(x), plan)
         if mode == "ina_ring" and x.shape[scatter_axis] % p != 0:
             # The chunked ring needs the scatter axis to divide; fall back
             # to the native in-network reduce, which does not.
             mode = "ina"
+    if isinstance(group, AxisSpan):
+        _span_only(x, group, "psum")
+        return x
     if mode == "eject_inject":
         return ring_psum_eject_inject(x, group)
     if mode == "ina_ring":
@@ -270,11 +319,15 @@ def psum_with_mode(x: torch.Tensor, group, mode: PsumMode,
 
 
 def reduce_scatter_with_mode(x: torch.Tensor, group, mode: PsumMode,
-                             scatter_axis: int = 0) -> torch.Tensor:
+                             scatter_axis: int = 0,
+                             plan: Optional[object] = None) -> torch.Tensor:
     """Reduce-scattered psum (output stays sharded on ``scatter_axis``)."""
     p = axis_size(group)
     if mode == "auto":
-        mode = resolve_auto_mode("reduce_scatter", p, _nbytes(x))
+        mode = resolve_auto_mode("reduce_scatter", p, _nbytes(x), plan)
+    if isinstance(group, AxisSpan):
+        _span_only(x, group, "reduce_scatter")
+        return x.narrow(scatter_axis % x.dim(), 0, x.shape[scatter_axis] // p)
     if p == 1 and mode in ("eject_inject", "ina_ring", "ina", "xla"):
         return x
     if mode == "eject_inject":

@@ -1,22 +1,26 @@
-"""The port's copy of the NoC cost model that ``mode="auto"`` consults.
+"""The port's copy of the NoC model: the cost of ``mode="auto"``'s psum
+strategies, and the per-layer WS/OS traffic that the mapper searches.
 
 ``repro_torch.core.collectives.choose_psum_mode`` asks the event-driven mesh
-simulator of ``repro.core.noc`` which psum strategy is cheapest for a
-(span, payload).  The port imports nothing of ``repro``, so it keeps its own
-copy of what that question reaches: the router and energy model, the
-topology, the heap simulator, an in-memory result store, and
-``collective/`` (trees, schedule, engine, cost).  The logic is the
-reference's; the differences are stated where they are: one executor, the
-heap engine (``collective.engine``), a store that persists nothing
-(``simcache``), and no fault layer or static verifier
-(``collective.schedule``, ``.cost``, ``.engine``).  The reference's
-compiled and vectorized executors, workload traffic, power model, faults
-and hierarchy are not copied: ``auto`` never needs them.
+simulator which psum strategy is cheapest for a (span, payload), and the
+plan builder's mapper (:mod:`repro_torch.mapper`) scores each decoder GEMM's
+placements through :mod:`.traffic`.  The port imports nothing of ``repro``,
+so it keeps its own copy of what those questions reach: the router and
+energy model, the topology, the heap simulator, the result store
+(``simcache``, persisted under the port's own directory), the WS/OS
+traffic (``traffic``) and ``collective/`` (trees, schedule, engine, cost).
+The logic is the reference's; the differences are stated where they are:
+one executor, the heap engine (``collective.engine``, ``traffic``), and no
+fault layer or static verifier (``collective.schedule``, ``.cost``,
+``.engine``).  The reference's compiled and vectorized executors, power
+model, faults and hierarchy are not copied (``ROADMAP.md``).
 """
 from .router import EnergyLedger, NocConfig
 from .simcache import SIM_CACHE, SimCache, fresh_sim_cache
 from .simulator import NocSim
 from .topology import Mesh, route, xy_route, yx_route
+from .traffic import LayerResult, layer_plan, simulate_layer
 
 __all__ = ["NocConfig", "EnergyLedger", "Mesh", "route", "xy_route",
-           "yx_route", "NocSim", "SIM_CACHE", "SimCache", "fresh_sim_cache"]
+           "yx_route", "NocSim", "SIM_CACHE", "SimCache", "fresh_sim_cache",
+           "LayerResult", "layer_plan", "simulate_layer"]

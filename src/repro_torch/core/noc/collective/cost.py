@@ -49,7 +49,8 @@ AUTO_CANDIDATES = ("ina", "ina_ring", "eject_inject")
 #: Observable simulation effort, in the style of ``topology.ROUTE_STATS``:
 #: ``engine_runs`` counts actual event-driven program executions (the
 #: expensive part), ``store_hits`` counts runs avoided by the
-#: :data:`~repro_torch.core.noc.simcache.SIM_CACHE` store, ``memo_hits`` counts per-process ``lru_cache`` returns
+#: :data:`~repro_torch.core.noc.simcache.SIM_CACHE` store (in memory or
+#: persisted), ``memo_hits`` counts per-process ``lru_cache`` returns
 #: (tracked by :func:`collective_cost` — the lru layer never re-enters
 #: ``_simulate``'s body).  Regression tests assert on deltas of these.
 COST_STATS = {"engine_runs": 0, "store_hits": 0, "memo_hits": 0}
@@ -92,9 +93,9 @@ def _simulate(op: str, parts: tuple[Coord, ...], payload_bits: float,
                            algorithm=algorithm, semantics=semantics,
                            order=order)
     packets = sum(1 for o in prog if o.flits)
-    # The event-driven run (the expensive part) rides the in-memory
-    # store: collective signatures key ``SIM_CACHE`` under a
-    # ``"collective"`` tag, so the process replays nothing the store
+    # The event-driven run (the expensive part) rides the store, persisted
+    # by a launch's plan build: collective signatures key ``SIM_CACHE``
+    # under a ``"collective"`` tag, so a process replays nothing the store
     # already holds, past the lru above too.  Latency and energy
     # reconstruct exactly from the stored (latency, ledger) pair — energy is
     # a pure function of ledger counts and ``cfg`` constants.

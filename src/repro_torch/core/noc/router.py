@@ -109,8 +109,10 @@ def cached_field_hash(self):
     ``NocConfig`` is a member of every window-cache key, so the generated
     dataclass ``__hash__`` (re-hashing 20+ fields per lookup) showed up in
     sweep profiles.  The cache lives outside the field set: invisible to
-    ``repr``/``asdict``/``replace``/``__eq__``, and consistent within a
-    process family (fork workers inherit the parent's hash seed).
+    ``repr``/``asdict``/``replace``/``__eq__``, and valid in one process
+    only: a string's hash differs between processes, so a pickled copy
+    (a spawned pool worker's key, :mod:`repro_torch.exec.pool`) leaves the
+    cache behind (:func:`state_without_hash`).
     """
     h = self.__dict__.get("_hash_cache")
     if h is None:
@@ -119,7 +121,14 @@ def cached_field_hash(self):
     return h
 
 
+def state_without_hash(self) -> dict:
+    """Pickled state of a :func:`cached_field_hash` instance: its fields,
+    never the cached hash, which the receiving process computes anew."""
+    return {k: v for k, v in self.__dict__.items() if k != "_hash_cache"}
+
+
 NocConfig.__hash__ = cached_field_hash
+NocConfig.__getstate__ = state_without_hash
 
 
 @dataclass
@@ -155,3 +164,17 @@ class EnergyLedger:
     def copy(self) -> "EnergyLedger":
         """Cheap exact copy."""
         return EnergyLedger(**self.__dict__)
+
+    def as_tuple(self) -> tuple:
+        """Field values in declaration order (persistent-store payload)."""
+        return tuple(self.__dict__[f] for f in self.__dataclass_fields__)
+
+    @classmethod
+    def from_tuple(cls, values) -> "EnergyLedger":
+        return cls(**dict(zip(cls.__dataclass_fields__, values)))
+
+    def scaled(self, k: float) -> "EnergyLedger":
+        out = EnergyLedger()
+        for f in self.__dataclass_fields__:
+            setattr(out, f, getattr(self, f) * k)
+        return out

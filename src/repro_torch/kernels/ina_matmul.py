@@ -53,6 +53,13 @@ _SIGNATURES = {"ina_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
 launches = 0   # kernel launches since the last reset (read by chip_smoke.py)
 # the same launches by kernel path; "generic" must stay 0 on the main paths
 launches_by_regime = {"wide": 0, "narrow": 0, "generic": 0, "f32": 0}
+# Products run under an ExecutionPlan since the last reset (read by
+# chip_smoke.py): "hit", the plan holds the launch that ran; "miss", it
+# holds no tile for the shape, or the operands' layout keeps them off the
+# planned regime.
+plan_tiles = {"hit": 0, "miss": 0}
+
+_DTYPE_NAME = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
 
 
 class MatmulPlan(NamedTuple):
@@ -74,6 +81,15 @@ class MatmulPlan(NamedTuple):
 
 # the float32 kernel sums one fused multiply-add per k, in ascending order
 F32_PLAN = MatmulPlan("f32", 64, 64, 1, 1)
+
+# The TMA instantiations ``launch_planned`` in csrc/ina_matmul.cu has, by
+# (regime, tile_m, tile_n): (consumer warpgroups NWG, wgmma's N (WN), ring
+# stages).  The plan verifier (``repro_torch.analysis.verify_plan``) reckons
+# a launch's shared memory from them as the kernel's ``Ring<NWG, WN,
+# STAGES>::SMEM`` does.
+TMA_TILES = {("narrow", 8, 64): (1, 8, 8), ("narrow", 16, 64): (1, 16, 8),
+             ("wide", 128, 256): (2, 256, 4), ("wide", 128, 128): (2, 128, 6),
+             ("wide", 64, 128): (1, 128, 8)}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -191,13 +207,23 @@ def ina_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def ina_matmul(x: torch.Tensor, w: torch.Tensor,
-               plan: MatmulPlan | None = None) -> torch.Tensor:
+               plan: MatmulPlan | None = None, tiles=None) -> torch.Tensor:
     """``x @ w`` with ``x``: [M, K], ``w``: [K, N], output in ``x.dtype``.
 
-    ``plan`` replaces :func:`plan_for`'s choice (the checks use it to
-    force a cluster size on small shapes); the model never passes one."""
+    ``plan`` replaces :func:`plan_for`'s choice: the checks force a
+    cluster size on small shapes with it.  ``tiles`` is the
+    :class:`~repro_torch.plan.ExecutionPlan` a model runs under: its
+    ``tile_for`` is asked once whether it holds this product's launch, and
+    :data:`plan_tiles` counts the answer.  Its tile policy is
+    :func:`plan_matmul` itself, so a tile it holds is the launch reckoned
+    here for TMA-aligned operands, and operands TMA cannot describe keep
+    the ``generic`` launch: a planned product costs the host one dict
+    probe more than a planless one, and gives the same bits."""
     m, k, n, xs0, ws0, ws1 = _operands(x, w)
     plan = plan or _plan(x, w, m, k, n, xs0, ws0, ws1)
+    if tiles is not None:
+        held = tiles.tile_for(m, k, n, _DTYPE_NAME[x.dtype])
+        plan_tiles["hit" if held == plan else "miss"] += 1
     if (plan.regime == "f32") != (x.dtype == torch.float32):
         raise ValueError(f"plan {plan} does not fit {x.dtype}")
     if x.device.type == "cpu":
@@ -219,7 +245,9 @@ def ina_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 class InaMatmul(torch.autograd.Function):
-    """``x @ w`` (x: [M, K], w: [K, N]) with a gradient through the INA
+    """``x @ w`` (x: [M, K], w: [K, N], and optionally the forward's
+    ``plan`` and ``tiles``, as :func:`ina_matmul` takes them) with a
+    gradient through the INA
     matmul: ``dX = ina_matmul(dY, w^T)``, with ``w^T`` read in place (a
     row-major w gives a k-major ``w^T`` and the tied head's k-major
     ``embed.T`` a row-major one), and ``dW = ina_matmul(x^T, dY)``, with
@@ -229,9 +257,11 @@ class InaMatmul(torch.autograd.Function):
     the CPU tests exercise this backward and not PyTorch's."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor,
+                plan: MatmulPlan | None = None, tiles=None) -> torch.Tensor:
         ctx.save_for_backward(x, w)
-        return ina_matmul(x, w)
+        return ina_matmul(x, w, plan) if tiles is None \
+            else ina_matmul(x, w, plan, tiles)
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
@@ -240,4 +270,4 @@ class InaMatmul(torch.autograd.Function):
         dx = ina_matmul(dy, w.T) if ctx.needs_input_grad[0] else None
         dw = ina_matmul(x.T.contiguous(), dy) \
             if ctx.needs_input_grad[1] else None
-        return dx, dw
+        return dx, dw, None, None

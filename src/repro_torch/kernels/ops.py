@@ -5,6 +5,12 @@ kernel, a CPU tensor to its plain PyTorch version.  There is no switch and
 no fallback from one to the other.  Where autograd needs a gradient, the
 call goes through the kernel's ``autograd.Function`` (the same forward
 launch); elsewhere, as in serving, straight to the wrapper.
+
+A ``meta`` tensor computes nothing: the plan builder runs the model on the
+``meta`` device to record its psum sites (:mod:`repro_torch.plan.builder`),
+and each dispatcher here answers it with an empty tensor of the output's
+shape and dtype (:func:`_shape_only`).  No CUDA or CPU tensor reaches that
+path, and the kernel wrappers still raise on any device but those two.
 """
 from __future__ import annotations
 
@@ -16,11 +22,29 @@ from repro_torch.kernels.ina_matmul import InaMatmul, ina_matmul
 from repro_torch.kernels.wkv6 import wkv6_heads
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x``: [..., K] @ ``w``: [K, N] -> [..., N] through the INA matmul."""
+def _shape_only(x: torch.Tensor, shape) -> torch.Tensor:
+    """The output of a ``meta`` call: its shape and dtype, no data."""
+    return torch.empty(shape, dtype=x.dtype, device="meta")
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, plan=None) -> torch.Tensor:
+    """``x``: [..., K] @ ``w``: [K, N] -> [..., N] through the INA matmul.
+
+    ``plan`` (an :class:`~repro_torch.plan.ExecutionPlan`) is asked for
+    the launch of this problem shape and counted in
+    :data:`~repro_torch.kernels.ina_matmul.plan_tiles`; the Hopper tile
+    policy is :func:`~repro_torch.kernels.ina_matmul.plan_matmul` itself,
+    so a planned launch is the one the planless call makes, and the output
+    the same bits (:func:`~repro_torch.kernels.ina_matmul.ina_matmul`)."""
     lead = x.shape[:-1]
+    if x.device.type == "meta":
+        return _shape_only(x, (*lead, w.shape[1]))
     x2 = x.reshape(-1, x.shape[-1])
-    y = InaMatmul.apply(x2, w) if needs_grad(x2, w) else ina_matmul(x2, w)
+    if needs_grad(x2, w):
+        y = InaMatmul.apply(x2, w, None, plan)
+    else:
+        y = ina_matmul(x2, w) if plan is None \
+            else ina_matmul(x2, w, tiles=plan)
     return y.reshape(*lead, w.shape[1])
 
 
@@ -42,6 +66,8 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention takes one head dim <= {MAX_HEAD_DIM} for q, k "
             f"and v, got q {q.shape[-1]}, k {k.shape[-1]}, v {v.shape[-1]} "
             f"(MLA runs models.layers.attention_by_chunk)")
+    if q.device.type == "meta":
+        return _shape_only(q, q.shape)
     if needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, q_offset)
     return flash_attention_heads(q, k, v, causal=causal, q_offset=q_offset)
@@ -56,4 +82,6 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     sets where its factorised decay is clamped; the port's chunk is fixed by
     the kernel and anchors every decay at or below zero, exact at any
     decay, so there is no chunk to pass."""
+    if r.device.type == "meta":
+        return _shape_only(r, r.shape)
     return wkv6_heads(r, k, v, logw, u)

@@ -10,11 +10,19 @@ held against.  Both run on the GPU unless ``--device cpu`` is given.
 process each (NCCL on N cards, or gloo with ``--device cpu``); every rank
 runs the same schedule on its shard and rank 0 prints the report.
 ``--psum-mode`` picks how the row-parallel partial sums are accumulated
-(:data:`repro_torch.core.collectives.CLI_PSUM_MODES`).
+(:data:`repro_torch.core.collectives.CLI_PSUM_MODES`).  Under ``auto`` the
+engine carries one :class:`~repro_torch.plan.ExecutionPlan` a phase
+(prefill and decode, from :func:`~repro_torch.plan.plan_for_launch`, kept
+in ``--plan-dir``): its psum table answers the ``auto`` sites and its
+tiles are the projections' ``ina_matmul`` launches.  ``--no-plan`` keeps
+``auto`` planless (each site resolved by the cost model as it runs).
 
 Examples (one H100, at the published widths):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --batch 4 --slots 2 --prompt-len 128 --gen 32 --prefill-chunk 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+      --batch 4 --slots 2 --prompt-len 128 --gen 32 --prefill-chunk 64 \\
+      --psum-mode auto --plan-dir build/plans
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --batch 4 --slots 2 --prompt-len 64 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
@@ -36,12 +44,15 @@ import torch
 
 from repro_torch import _device
 from repro_torch.configs import ARCHS
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.collectives import CLI_PSUM_MODES
 from repro_torch.launch import mesh
 from repro_torch.models.api import get_model
 from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.steps import build_serve_step
 from repro_torch.parallel.tp import ParallelCtx
+from repro_torch.plan import add_plan_cli_args, plan_for_launch
+from repro_torch.plan.builder import MODEL_AXIS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,6 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--psum-mode", default="ina", choices=CLI_PSUM_MODES,
                     help="how the row-parallel partial sums are accumulated")
+    add_plan_cli_args(ap)
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="tensor-parallel ranks, one process each")
     # engine path
@@ -87,6 +99,24 @@ def _params(args, cfg, params):
     return get_model(cfg).init(device=_device.resolve(args.device))
 
 
+def launch_plans(args, cfg, world: int = 1) -> dict:
+    """The plans of an engine launch over ``world`` ranks, one a phase, at
+    the mesh ``(("model", world),)``: ``{"decode": (plan, info),
+    "prefill": (plan, info)}`` as :func:`~repro_torch.plan.plan_for_launch`
+    returns them, each ``(None, None)`` unless ``--psum-mode auto`` without
+    ``--no-plan``.  The decode plan's tiles are at the slots' M; the
+    prefill plan's at the reference's 256 tokens (a prefill chunk's M is
+    not planned)."""
+    max_seq = args.prompt_len + args.gen + 1
+    slots = args.slots or args.batch
+    mesh = ((MODEL_AXIS, world),)
+    return {kind: plan_for_launch(cfg, mesh, ShapeConfig("cli", max_seq,
+                                                         slots, kind),
+                                  args.psum_mode, plan_dir=args.plan_dir,
+                                  enabled=not args.no_plan)
+            for kind in ("decode", "prefill")}
+
+
 def run_engine(args, cfg, params=None, group=None):
     """Serve ``--batch`` requests through the engine on this rank of
     ``group`` (``None``: one rank); returns its report."""
@@ -95,6 +125,7 @@ def run_engine(args, cfg, params=None, group=None):
 
     max_seq = args.prompt_len + args.gen + 1
     slots = args.slots or args.batch
+    plans = launch_plans(args, cfg, ParallelCtx(group=group).world)
     block = args.block_size
     if max_seq % block:
         block = 1 << max(0, (max_seq & -max_seq).bit_length() - 1)
@@ -105,6 +136,7 @@ def run_engine(args, cfg, params=None, group=None):
         cfg, params=_params(args, cfg, params), device=args.device,
         slots=slots, max_seq=max_seq, block_size=block,
         prefill_chunk=args.prefill_chunk, psum_mode=args.psum_mode,
+        prefill_plan=plans["prefill"][0], decode_plan=plans["decode"][0],
         batched_prefill=not args.no_batched_prefill, check=args.check,
         group=group)
 
@@ -143,13 +175,19 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     the first-token logits [B, V]."""
     model = get_model(cfg)
     dev = _device.resolve(args.device)
-    pctx = ParallelCtx(group=group, psum_mode=args.psum_mode)
-    params = shard_params(_params(args, cfg, params), cfg, pctx.rank,
-                          pctx.world)
-    step = build_serve_step(model, pctx)
     prompts = make_prompts(cfg, args.batch, args.prompt_len)
     if rows is not None:
         prompts = prompts[list(rows)]
+    world = ParallelCtx(group=group).world
+    plan, _ = plan_for_launch(
+        cfg, ((MODEL_AXIS, world),),
+        ShapeConfig("cli", max_seq or args.prompt_len + args.gen,
+                    prompts.shape[0], "decode"),
+        args.psum_mode, plan_dir=args.plan_dir, enabled=not args.no_plan)
+    pctx = ParallelCtx(group=group, psum_mode=args.psum_mode, plan=plan)
+    params = shard_params(_params(args, cfg, params), cfg, pctx.rank,
+                          pctx.world)
+    step = build_serve_step(model, pctx)
     prompts = prompts.to(dev)
     batch = prompts.shape[0]
     cache = model.init_cache(batch, max_seq or args.prompt_len + args.gen,
@@ -226,6 +264,8 @@ def main(argv=None) -> list:
     if dev.type == "cuda" and world > torch.cuda.device_count():
         raise RuntimeError(f"--model-parallel {world} needs {world} CUDA "
                            f"devices; {torch.cuda.device_count()} present")
+    # build the plans once, so that every rank loads them warm
+    launch_plans(args, cfg, world)
     tokens = mesh.spawn(serve_rank, world, dev.type, args=(argv,))
     if any(t != tokens[0] for t in tokens):
         raise AssertionError(f"ranks disagree on the tokens: {tokens}")

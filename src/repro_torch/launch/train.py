@@ -5,7 +5,10 @@ dtype, every layer checkpointed, the projections and their gradients on
 the INA matmul, AdamW with a cosine schedule, the synthetic token
 pipeline, and the preemption-safe loop with retries and keep-k
 checkpoints (``runtime.fault_tolerance.run_training``).  A second run
-into the same ``--ckpt-dir`` resumes after the newest checkpoint.  It
+into the same ``--ckpt-dir`` resumes after the newest checkpoint.  Under
+``--psum-mode auto`` the step carries the train-phase
+:class:`~repro_torch.plan.ExecutionPlan` (``--plan-dir``, ``--no-plan``),
+as the reference's does.  It
 runs on the GPU unless ``--device cpu`` is given, and exits non-zero when
 the loss did not fall.
 
@@ -31,6 +34,8 @@ from repro_torch.models.api import get_model
 from repro_torch.optim.adamw import adamw_init, tree_leaves
 from repro_torch.parallel.steps import build_train_step
 from repro_torch.parallel.tp import ParallelCtx
+from repro_torch.plan import add_plan_cli_args, plan_for_launch
+from repro_torch.plan.builder import MODEL_AXIS
 from repro_torch.runtime.fault_tolerance import FTConfig, run_training
 
 
@@ -47,6 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", required=True)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--psum-mode", default="ina", choices=CLI_PSUM_MODES)
+    add_plan_cli_args(ap)
     ap.add_argument("--model-parallel", type=int, default=1)
     return ap
 
@@ -66,7 +72,10 @@ def run(args, on_step: Optional[Callable] = None) -> dict:
         cfg = cfg.reduced()
     model = get_model(cfg)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
-    pctx = ParallelCtx(psum_mode=args.psum_mode)
+    plan, _ = plan_for_launch(cfg, ((MODEL_AXIS, 1),), shape, args.psum_mode,
+                              plan_dir=args.plan_dir,
+                              enabled=not args.no_plan)
+    pctx = ParallelCtx(psum_mode=args.psum_mode, plan=plan)
     ts = build_train_step(model, shape, pctx, base_lr=args.lr,
                           warmup=min(20, args.steps // 5 + 1),
                           total_steps=args.steps)

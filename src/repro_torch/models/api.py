@@ -2,7 +2,12 @@
 (RWKV6), moe and mla_moe families.
 
 Entry points default to ``device="cuda"`` and raise when no GPU is present;
-the CPU runs only for a caller that passes ``device="cpu"``.
+the CPU runs only for a caller that passes ``device="cpu"``.  On
+``device="meta"`` a model has shapes and no data: the plan builder traces
+it there (:mod:`repro_torch.plan.builder`).
+
+The reference's ``batch_specs`` (the inputs' ``PartitionSpec``s over the
+data axes) has no counterpart: the port hands no sharding to a compiler.
 """
 from __future__ import annotations
 
@@ -13,7 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch import _device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import mla, moe, rwkv, transformer
 
 _FAMILIES: dict[str, ModuleType] = {"dense": transformer, "ssm": rwkv,
@@ -35,7 +40,9 @@ class Model:
         default), the rest float32.  The draws are the same."""
         dev = _device.resolve(device)
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+            # a meta tensor draws nothing: any generator serves its shapes
+            gdev = "cpu" if dev.type == "meta" else dev
+            generator = torch.Generator(device=gdev).manual_seed(0)
         return self.mod.init(self.cfg, generator, dev, masters=masters)
 
     def forward(self, params, batch, pctx=None):
@@ -63,6 +70,32 @@ class Model:
         positions ``pos_offset..pos_offset+C-1``; returns (logits, cache)."""
         return self.mod.prefill(params, self.cfg, batch, cache, pctx,
                                 pos_offset)
+
+    def gemm_layers(self, tokens: int = 256):
+        """One decoder block's GEMMs (:func:`repro_torch.core.ops.
+        transformer_gemms`): the unit the plan builder's mapper search and
+        tile planning run over.  Whole-model totals scale linearly in depth,
+        so per-block verdicts do not depend on it."""
+        from repro_torch.core.ops import transformer_gemms
+        return transformer_gemms(self.cfg, tokens)
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """``meta`` tensors of one (arch x shape) cell's inputs, as the
+        reference's ``ShapeDtypeStruct`` stand-ins: ``tokens`` [B, S] (and
+        ``labels`` for train), or for decode one new token [B, 1] and
+        ``pos``.  The port's decode takes a position a row, ``pos`` [B]
+        (the paged step's form); the reference's scalar ``pos`` has no meta
+        form, since a 0-d tensor is read with ``int()``."""
+        b, s = shape.global_batch, shape.seq_len
+        meta = dict(dtype=torch.int32, device="meta")
+        if shape.kind in ("train", "prefill"):
+            specs = {"tokens": torch.empty((b, s), **meta)}
+            if shape.kind == "train":
+                specs["labels"] = torch.empty((b, s), **meta)
+        else:
+            specs = {"tokens": torch.empty((b, 1), **meta),
+                     "pos": torch.empty((b,), **meta)}
+        return specs
 
 
 def get_model(cfg: ModelConfig) -> Model:

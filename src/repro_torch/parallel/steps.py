@@ -10,6 +10,10 @@ Tensor parallelism reaches the model through ``pctx``: its process group
 and psum mode (:class:`repro_torch.parallel.tp.ParallelCtx`), with the
 parameters a rank's shards.  Greedy decoding takes the first maximal
 logit, as ``jnp.argmax``.
+
+Every builder accepts ``plan`` (a :class:`repro_torch.plan.ExecutionPlan`):
+it rides the step's ``ParallelCtx`` (:func:`_with_plan`), so ``auto`` psum
+sites resolve from its table and the projections launch its tiles.
 """
 from __future__ import annotations
 
@@ -23,6 +27,19 @@ from repro_torch.models.api import Model, cache_batch_axes
 from repro_torch.models.layers import STACKED
 from repro_torch.optim.adamw import adamw_update, cosine_schedule, tree_map
 from repro_torch.parallel.tp import ParallelCtx
+
+
+def _with_plan(pctx: Optional[ParallelCtx], plan) -> Optional[ParallelCtx]:
+    """The step's ParallelCtx, carrying ``plan`` when one was supplied.
+
+    An explicit ``pctx.plan`` wins (the caller already decided); otherwise
+    the plan is attached so auto psum sites and projections read it."""
+    if plan is None:
+        return pctx
+    pctx = pctx if pctx is not None else ParallelCtx()
+    if pctx.plan is None:
+        pctx = dataclasses.replace(pctx, plan=plan)
+    return pctx
 
 
 @dataclasses.dataclass
@@ -88,7 +105,7 @@ _UNTRAINED = {
 def build_train_step(model: Model, shape: ShapeConfig,
                      pctx: Optional[ParallelCtx] = None,
                      base_lr: float = 3e-4, warmup: int = 200,
-                     total_steps: int = 10_000) -> TrainStep:
+                     total_steps: int = 10_000, plan=None) -> TrainStep:
     """loss -> gradients -> AdamW with the reference's cosine schedule.
 
     The dense family at one rank.  The ssm family raises: its loss is
@@ -107,6 +124,7 @@ def build_train_step(model: Model, shape: ShapeConfig,
             f"training at world {pctx.world}: tensor-parallel training "
             f"needs autograd through core/collectives.py's rings "
             f"(ROADMAP.md Queue 1, item 4.1)")
+    pctx = _with_plan(pctx, plan)
     lr = cosine_schedule(base_lr, warmup, total_steps)
     want = (shape.global_batch, shape.seq_len)
 
@@ -136,8 +154,10 @@ class ServeStep:
     fn: Callable
 
 
-def build_serve_step(model: Model,
-                     pctx: Optional[ParallelCtx] = None) -> ServeStep:
+def build_serve_step(model: Model, pctx: Optional[ParallelCtx] = None,
+                     plan=None) -> ServeStep:
+    pctx = _with_plan(pctx, plan)
+
     def step(params, batch, cache):
         logits, cache = model.decode_step(params, batch, cache, pctx)
         last = logits[:, -1, :]
@@ -158,8 +178,10 @@ class PagedServeStep:
 
 
 def build_paged_serve_step(model: Model,
-                           pctx: Optional[ParallelCtx] = None
-                           ) -> PagedServeStep:
+                           pctx: Optional[ParallelCtx] = None,
+                           plan=None) -> PagedServeStep:
+    pctx = _with_plan(pctx, plan)
+
     def step(params, batch, cache):
         logits, cache = model.decode_step(params, batch, cache, pctx)
         return torch.argmax(logits[:, -1, :], dim=-1), cache
@@ -176,10 +198,12 @@ class PrefillStep:
 
 
 def build_prefill_step(model: Model, chunk: int,
-                       pctx: Optional[ParallelCtx] = None) -> PrefillStep:
+                       pctx: Optional[ParallelCtx] = None,
+                       plan=None) -> PrefillStep:
     if not model.has_prefill:
         raise NotImplementedError(
             f"family {model.cfg.family!r} has no batched prefill")
+    pctx = _with_plan(pctx, plan)
 
     def step(params, batch, cache):
         return model.prefill(params, {"tokens": batch["tokens"]}, cache,
@@ -195,7 +219,10 @@ class Prefill:
     fn: Callable
 
 
-def build_prefill(model: Model, pctx: Optional[ParallelCtx] = None) -> Prefill:
+def build_prefill(model: Model, pctx: Optional[ParallelCtx] = None,
+                  plan=None) -> Prefill:
+    pctx = _with_plan(pctx, plan)
+
     def fwd(params, batch):
         return model.forward(params, batch, pctx)
     return Prefill(fn=fwd)

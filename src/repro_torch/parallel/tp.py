@@ -13,8 +13,12 @@ it under ``psum_mode``:
                          (the paper's algorithm, hop by hop);
   * ``"eject_inject"`` — the full-tensor relay ring with endpoint adds
                          (the paper's Fig. 4(a) baseline);
-  * ``"auto"``         — resolved per call site by the NoC cost model (a
-                         memo lookup after each site shape's first call);
+  * ``"auto"``         — resolved per call site: from the attached
+                         ``plan`` (a ``repro_torch.plan.ExecutionPlan``,
+                         decided once per (config, mesh, phase, dtype) and
+                         persisted) when it holds the site, else by the NoC
+                         cost model (a memo lookup after each site shape's
+                         first call);
   * ``"xla_spmd"``     — in the reference, no ``shard_map``: GSPMD chooses.
                          Eager PyTorch has no compiler to choose, and the
                          weights here are already cut, so it runs the
@@ -44,14 +48,18 @@ class ParallelCtx:
     no collectives at all).  ``rs_seq`` turns the row-parallel psum into a
     reduce-scatter over the sequence, so the residual stream between
     layers stays sequence-sharded (Megatron SP); ``sp_entry`` takes the
-    explicit INA ring for it.  The reference's ``seq_shard`` (a GSPMD
-    constraint; eager PyTorch has none to set) and ``plan`` (a precomputed
-    ``auto`` table, whose builder is ROADMAP.md Queue 1) are not carried.
+    explicit INA ring for it.  ``plan`` (a
+    :class:`repro_torch.plan.ExecutionPlan`) answers the ``auto`` sites from
+    its table and gives every projection its planned ``ina_matmul`` launch
+    (:func:`repro_torch.kernels.ops.matmul`).  The reference's
+    ``seq_shard`` (a GSPMD constraint; eager PyTorch has none to set) is not
+    carried.
     """
     group: Optional[object] = None
     psum_mode: str = "ina"
     rs_seq: bool = False
     sp_entry: bool = False
+    plan: Optional[object] = None
 
     def __post_init__(self):
         if self.psum_mode not in C.CLI_PSUM_MODES:
@@ -81,6 +89,10 @@ class ParallelCtx:
 
 def _grouped(pctx: Optional[ParallelCtx]) -> bool:
     return pctx is not None and pctx.group is not None
+
+
+def _plan(pctx: Optional[ParallelCtx]):
+    return None if pctx is None else pctx.plan
 
 
 def seq_sharded(pctx: Optional[ParallelCtx], seq: int) -> bool:
@@ -114,7 +126,7 @@ def col_linear(x: torch.Tensor, w: torch.Tensor,
                pctx: Optional[ParallelCtx] = None,
                b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Column-parallel matmul: w sharded on its last dim; no communication."""
-    out = ops.matmul(x, w.to(x.dtype))
+    out = ops.matmul(x, w.to(x.dtype), _plan(pctx))
     if b is not None:
         out = out + b.to(x.dtype)
     return out
@@ -132,7 +144,7 @@ def row_linear(x: torch.Tensor, w: torch.Tensor,
     over the sequence (each rank keeps [B, S/P, D]).  The bias is added
     once, after the reduction.
     """
-    out = ops.matmul(x, w.to(x.dtype))
+    out = ops.matmul(x, w.to(x.dtype), _plan(pctx))
     if _grouped(pctx):
         if x.dim() == 3 and seq_sharded(pctx, x.shape[1]):
             if pctx.sp_entry:
@@ -140,10 +152,12 @@ def row_linear(x: torch.Tensor, w: torch.Tensor,
                                                 scatter_axis=1)
             else:
                 out = C.reduce_scatter_with_mode(out, pctx.group, pctx.mode,
-                                                 scatter_axis=1)
+                                                 scatter_axis=1,
+                                                 plan=pctx.plan)
         else:
             out = C.psum_with_mode(out, pctx.group, pctx.mode,
-                                   scatter_axis=out.dim() - 1)
+                                   scatter_axis=out.dim() - 1,
+                                   plan=pctx.plan)
     if b is not None:
         out = out + b.to(x.dtype)
     return out
@@ -161,7 +175,7 @@ def combine_experts(combine: torch.Tensor, expert_out: torch.Tensor,
                        expert_out.to(combine.dtype))
     if _grouped(pctx):
         out = C.psum_with_mode(out, pctx.group, pctx.mode,
-                               scatter_axis=out.dim() - 1)
+                               scatter_axis=out.dim() - 1, plan=pctx.plan)
     return out
 
 

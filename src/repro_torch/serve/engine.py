@@ -24,6 +24,13 @@ The engine takes ``params`` (or a ``param_seed`` for a seeded
 ``torch.Generator``) and a ``device``; the reference builds its own
 weights from a JAX key.
 
+Prefill and decode are disaggregated: each phase carries its own
+``ParallelCtx`` and, under ``--psum-mode auto``, its own
+:class:`~repro_torch.plan.ExecutionPlan` (``prefill_plan``,
+``decode_plan``; see ``launch/serve.py``).  The per-token prompt loop of a
+family without a batched prefill runs under the prefill plan, as the
+reference's does.
+
 With a ``group`` of several ranks (tensor parallelism) every rank runs an
 engine on the same requests: it cuts the full ``params`` to its shard
 (:func:`repro_torch.parallel.sharding.shard_params`), pools its own KV
@@ -75,7 +82,8 @@ class ServingEngine:
                  param_seed: int = 0, device="cuda", slots: int = 4,
                  max_seq: Optional[int] = None, block_size: int = 16,
                  num_blocks: Optional[int] = None, prefill_chunk: int = 8,
-                 psum_mode: str = "ina", batched_prefill: bool = True,
+                 psum_mode: str = "ina", prefill_plan=None,
+                 decode_plan=None, batched_prefill: bool = True,
                  policy: str = "fcfs", check: bool = False,
                  group=None) -> None:
         if cfg.family in _NO_ENGINE_FAMILIES:
@@ -98,18 +106,19 @@ class ServingEngine:
                                device=self.device, world=pctx.world)
         self.sched = Scheduler(slots, self.kv, policy)
 
-        self.step = build_paged_serve_step(self.model, pctx)
+        self.step = build_paged_serve_step(self.model, pctx, plan=decode_plan)
         self.baxis = self.step.cache_batch_axes
         self.prefill_step = None
         if batched_prefill and self.model.has_prefill:
             self.prefill_step = build_prefill_step(self.model, prefill_chunk,
-                                                   pctx)
+                                                   pctx, plan=prefill_plan)
             # room for the padded tail of the last chunk
             plen = math.ceil(self.max_seq / prefill_chunk) * prefill_chunk
             self._pcache = self._cache(1, plen)
         else:
             # per-token fallback: a B=1 decode loop doubles as prefill
-            self._loop_step = build_serve_step(self.model, pctx)
+            self._loop_step = build_serve_step(self.model, pctx,
+                                               plan=prefill_plan)
 
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(param_seed)

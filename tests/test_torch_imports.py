@@ -63,6 +63,23 @@ def test_no_jax_or_repro_import(path):
     assert not _banned(ast.parse(path.read_text())), path
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.plan", "repro_torch.plan.builder", "repro_torch.plan.plan",
+    "repro_torch.plan.store", "repro_torch.plan.tiles", "repro_torch.mapper",
+    "repro_torch.mapper.search", "repro_torch.mapper.space",
+    "repro_torch.mapper.schedule", "repro_torch.analysis",
+    "repro_torch.analysis.verify", "repro_torch.analysis.findings",
+    "repro_torch.exec.pool", "repro_torch.core.noc.traffic",
+    "repro_torch.core.ops", "repro_torch.core.ina_model"])
+def test_plan_layer_is_covered(module):
+    """The plan layer's modules are among those imported with JAX blocked
+    and scanned for banned imports."""
+    assert module in MODULES
+    path = ROOT / "src" / Path(*module.split("."))
+    assert (path / "__init__.py" if path.is_dir()
+            else path.with_suffix(".py")) in FILES
+
+
 def test_scan_catches_banned_imports():
     src = ("import jax.numpy as jnp\nfrom repro.configs import ARCHS\n"
            "import repro\nfrom repro_torch import convert\nimport torch\n")

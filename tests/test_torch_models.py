@@ -26,7 +26,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.models.api import (cache_batch_axes, get_model,
                                     paged_cache_leaves)
 
-DENSE = ["qwen2-1.5b", "llama3-8b"]
+DENSE = ["qwen2-1.5b", "llama3-8b", "phi3-mini-3.8b", "qwen3-14b"]
 ARCH_NAMES = DENSE + ["rwkv6-7b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S = 2, 40

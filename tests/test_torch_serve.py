@@ -170,9 +170,20 @@ def test_rwkv_engine_matches_reference_loop():
         assert r["tokens"] == legacy["tokens"][int(r["rid"][3:])].tolist()
 
 
+@pytest.fixture
+def plan_dirs(tmp_path, monkeypatch):
+    """Plans and the sim store an ``auto`` launch persists go under
+    ``tmp_path``, and the process's sim store is left as it was."""
+    from repro_torch.core.noc.simcache import SIM_CACHE
+    monkeypatch.setenv("REPRO_TORCH_PLAN_DIR", str(tmp_path / "plans"))
+    monkeypatch.setenv("REPRO_TORCH_SIMCACHE_DIR", str(tmp_path / "sims"))
+    monkeypatch.setattr(SIM_CACHE, "_persist_dir", None)
+    return tmp_path
+
+
 @pytest.mark.parametrize("mode",
                          ["xla_spmd", "ina_ring", "eject_inject", "auto"])
-def test_multi_rank_psum_modes_raise(mode, tmp_path):
+def test_multi_rank_psum_modes_raise(mode, plan_dirs):
     """Every psum mode parses in the launcher and, through a gloo group of
     one rank, serves the same tokens as 'ina'.  (Until the port had
     collectives, these modes raised; the name is kept.)  At one rank every
@@ -184,7 +195,7 @@ def test_multi_rank_psum_modes_raise(mode, tmp_path):
     args, ina = parse(argv + ["--psum-mode", mode]), parse(argv)
     assert args.psum_mode == mode and ina.psum_mode == "ina"
     params = launch_serve._params(args, ARCH, None)
-    group, _ = mesh.init_group(1, 0, "cpu", str(tmp_path / "store"))
+    group, _ = mesh.init_group(1, 0, "cpu", str(plan_dirs / "store"))
     try:
         got = launch_serve.run_engine(args, ARCH, params, group=group)
         want = launch_serve.run_engine(ina, ARCH, params, group=group)
