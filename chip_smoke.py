@@ -74,6 +74,16 @@ Phases; any failure raises and the process exits non-zero:
    step 5 with step 5's loss equal to the first run's; one step is
    profiled (device time by kernel, inside the attention backward and
    AdamW, tokens/s, peak memory);
+8b. ``[tp-train]``: the same model through the tensor-parallel train step
+    on a one-rank NCCL group (the card count bounds the group), under
+    every ``--psum-mode``: 2 steps from ``[train]``'s seed on its first
+    batches, each bit-equal to the step without a group (losses, grad
+    norms, every param leaf), with 787 ``ina_matmul`` (none generic) and
+    56 ``flash_attention`` launches a step and no collective call; then
+    ``[train]``'s step-4 checkpoint restored through ``elastic_restore``
+    at world 1, bit-equal to the ``CheckpointManager`` restore, and cut
+    for every rank of worlds 2 and 4, which ``unshard_state`` rejoins
+    bit for bit; each check timed, the peak memory printed;
 9. ``[train-f32]``: the same widths at 2 layers in float32, one step's
    loss and every gradient leaf through the kernels against the same step
    through their plain versions on the card;
@@ -111,6 +121,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -125,9 +136,11 @@ SRC = Path(__file__).resolve().parent / "src"
 sys.path.insert(0, str(SRC))
 
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.checkpoint.ckpt import latest_step  # noqa: E402
+from repro_torch.checkpoint.ckpt import (CheckpointManager,  # noqa: E402
+                                         latest_step)
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.analysis import verify_plan  # noqa: E402
@@ -154,13 +167,16 @@ from repro_torch.launch.kernel_times import (Timer,  # noqa: E402
                                              wkv_operands)
 from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
-from repro_torch.optim.adamw import tree_leaves  # noqa: E402
-from repro_torch.parallel.sharding import shard_params  # noqa: E402
+from repro_torch.optim.adamw import AdamWState, tree_leaves  # noqa: E402
+from repro_torch.parallel.sharding import (kv_groups,  # noqa: E402
+                                           shard_params, shard_state,
+                                           unshard_state)
 from repro_torch.parallel.steps import (build_paged_serve_step,  # noqa: E402
                                         build_prefill, build_serve_step,
                                         build_train_step, loss_and_grads)
 from repro_torch.parallel.tp import ParallelCtx  # noqa: E402
 from repro_torch.plan import PHASES, PlanStore, tile_choices  # noqa: E402
+from repro_torch.runtime.fault_tolerance import elastic_restore  # noqa: E402
 
 # H100 SXM, dense, at the full 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -1472,38 +1488,38 @@ def train_run(ck: str, label: str, device: str):
     return out, steps
 
 
-def phase_train(device: str = "cuda") -> dict:
+def phase_train(ck: str, device: str = "cuda") -> dict:
     """qwen2-1.5b at full width and depth through ``launch.train``: 8 steps
-    at B 4 x S 1024, warmup 2, a checkpoint at step 4, then a second run
-    into the same directory, which must resume at step 5 with step 5's
-    loss bit-equal to the first run's (the same restored state and batch,
-    and a forward that sums in a fixed order).  Then one step profiled."""
+    at B 4 x S 1024, warmup 2, a checkpoint at step 4 into the empty
+    directory ``ck``, then a second run into it, which must resume at step
+    5 with step 5's loss bit-equal to the first run's (the same restored
+    state and batch, and a forward that sums in a fixed order).  Then one
+    step profiled.  The checkpoints stay in ``ck`` for ``[tp-train]``."""
     args = launch_train.build_parser().parse_args(TRAIN_ARGV
                                                   + ["--ckpt-dir", "-"])
     cfg = ARCHS[args.arch]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ck:
-        log(f"[train] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-            f"float32 masters, {cfg.dtype} compute, B {args.batch} x S "
-            f"{args.seq}; checkpoints in a temporary directory with "
-            f"{shutil.disk_usage(ck).free / 2 ** 30:.0f} GiB free")
-        first, steps = train_run(ck, "run 1", device)
-        peak = torch.cuda.max_memory_allocated()
-        path = {k: sum(s["launches"][k] for s in steps)
-                for k in steps[0]["launches"]}
-        losses = first["losses"]
-        log(f"[train] run 1: loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
-            f"device memory {peak / 2 ** 30:.2f} GiB "
-            f"(torch.cuda.max_memory_allocated); launches over the run "
-            f"{path}")
-        if not losses[-1] < losses[0]:
-            raise AssertionError(f"train loss did not fall: {losses}")
-        first_losses = dict(zip(first["steps"], losses))
-        del first
-        torch.cuda.empty_cache()
-        saved = latest_step(ck)
-        second, _ = train_run(ck, "run 2 (resume)", device)
+    log(f"[train] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"float32 masters, {cfg.dtype} compute, B {args.batch} x S "
+        f"{args.seq}; checkpoints in a temporary directory with "
+        f"{shutil.disk_usage(ck).free / 2 ** 30:.0f} GiB free")
+    first, steps = train_run(ck, "run 1", device)
+    peak = torch.cuda.max_memory_allocated()
+    path = {k: sum(s["launches"][k] for s in steps)
+            for k in steps[0]["launches"]}
+    losses = first["losses"]
+    log(f"[train] run 1: loss {losses[0]:.4f} -> {losses[-1]:.4f}; peak "
+        f"device memory {peak / 2 ** 30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); launches over the run "
+        f"{path}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    first_losses = dict(zip(first["steps"], losses))
+    del first
+    torch.cuda.empty_cache()
+    saved = latest_step(ck)
+    second, _ = train_run(ck, "run 2 (resume)", device)
     if saved != TRAIN_SAVED or second["steps"][0] != saved + 1:
         raise AssertionError(f"resume: newest checkpoint {saved}, resumed at "
                              f"{second['steps'][0]}")
@@ -1540,6 +1556,164 @@ def phase_train(device: str = "cuda") -> dict:
     del params, opt, ts, batch, second
     torch.cuda.empty_cache()
     return {"launches": path, "profile": prof, "peak_bytes": peak}
+
+
+# --------------------------------------------------------------------------- #
+# phase 8b: tensor-parallel training at one rank, and the elastic checkpoint
+# --------------------------------------------------------------------------- #
+TP_TRAIN_STEPS = 2
+
+
+def tp_train_steps(model, shape, pctx, batches, args) -> tuple:
+    """[train]'s seeded masters and zero AdamW state, and ``batches`` run
+    through ``build_train_step`` with ``pctx``: (params, each step's loss,
+    grad_norm, launches, generic launches and collective calls)."""
+    params, opt = launch_train.initial_state(model, args.device)
+    ts = build_train_step(model, shape, pctx, base_lr=args.lr,
+                          warmup=min(20, args.steps // 5 + 1),
+                          total_steps=args.steps)   # the launcher's schedule
+    steps = []
+    for batch in batches:
+        reset_launches()
+        C.CALLS.clear()
+        t0 = time.perf_counter()
+        params, opt, st = ts.fn(params, opt, batch)
+        torch.cuda.synchronize()
+        steps.append({"loss": float(st["loss"]),
+                      "grad_norm": float(st["grad_norm"]),
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "launches": read_launches(),
+                      "generic": im.launches_by_regime["generic"],
+                      "calls": dict(C.CALLS)})
+    del opt
+    return params, steps
+
+
+def _timed(label: str, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    log(f"[tp-train] {label}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def _same_state(a, b, label: str) -> int:
+    """Assert every tensor of two train states equal to the bit; returns
+    the leaves compared."""
+    pairs = list(zip(_state_leaves(a), _state_leaves(b)))
+    for i, (x, y) in enumerate(pairs):
+        if x.shape != y.shape or not torch.equal(x, y):
+            raise AssertionError(f"[tp-train] {label}: leaf {i} differs")
+    return len(pairs)
+
+
+def _state_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _state_leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _state_leaves(v)
+    else:
+        yield tree
+
+
+def phase_tp_train(ck: str, smi: str, device: str = "cuda") -> dict:
+    """``[tp-train]``: qwen2-1.5b at its published widths and depth trained
+    through the tensor-parallel step on a one-rank NCCL group, under every
+    CLI psum mode: 2 steps at B 4 x S 1024 from ``[train]``'s seed on its
+    first batches, each mode's losses, grad norms and params bit-equal to
+    the step without a group, with the derived 787 ``ina_matmul`` (none
+    generic) and 56 ``flash_attention`` launches a step and no collective
+    call.  Then ``[train]``'s step-4 checkpoint in ``ck`` restored through
+    ``elastic_restore`` at world 1, bit-equal to the ``CheckpointManager``
+    restore, and cut for every rank of world 2, then of world 4 (one world
+    at a time: the float32 state is 18.5 GB): ``unshard_state`` of each
+    world's cuts gives the state back bit for bit."""
+    args = launch_train.build_parser().parse_args(
+        TRAIN_ARGV + ["--ckpt-dir", ck, "--device", device])
+    cfg = launch_train._config(args)
+    model = get_model(cfg)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch))
+    batches = [{k: v.to(device) for k, v in pipe.batch(i).items()}
+               for i in range(TP_TRAIN_STEPS)]
+    expect = train_launches(cfg.n_layers)
+    fresh_phase()
+    log(f"[tp-train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"B {args.batch} x S {args.seq}, {TP_TRAIN_STEPS} steps a mode; "
+        f"{smi}")
+    base, base_steps = _timed("groupless steps", lambda: tp_train_steps(
+        model, shape, None, batches, args))
+    paths = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_group_") as tmp:
+        group, _ = mesh.init_group(1, 0, device, os.path.join(tmp, "store"))
+        try:
+            for mode in C.CLI_PSUM_MODES:
+                pctx = ParallelCtx(group=group, psum_mode=mode)
+                params, steps = _timed(f"{mode} steps", lambda: tp_train_steps(
+                    model, shape, pctx, batches, args))
+                for s, b in zip(steps, base_steps):
+                    log(f"[tp-train] {mode}: loss {s['loss']:.6f} (groupless "
+                        f"{b['loss']:.6f}), grad_norm {s['grad_norm']:.6f} "
+                        f"({b['grad_norm']:.6f}), {s['ms']:.1f} ms "
+                        f"(groupless {b['ms']:.1f}), launches "
+                        f"{s['launches']}, generic {s['generic']}, "
+                        f"collective calls {s['calls']}")
+                    if (s["loss"], s["grad_norm"]) != (b["loss"],
+                                                       b["grad_norm"]):
+                        raise AssertionError(f"[tp-train] {mode}: the step "
+                                             f"differs from the groupless one")
+                    if s["launches"] != expect or s["generic"] != 0:
+                        raise AssertionError(f"[tp-train] {mode}: launches "
+                                             f"{s['launches']} != {expect}")
+                    if s["calls"]:
+                        raise AssertionError(f"[tp-train] {mode}: collective "
+                                             f"calls {s['calls']} at one rank")
+                n = _same_state(params, base, f"{mode} params")
+                log(f"[tp-train] {mode}: {n} param leaves bit-equal to the "
+                    f"groupless step's after {TP_TRAIN_STEPS} steps")
+                paths[mode] = {k: sum(s["launches"][k] for s in steps)
+                               for k in expect}
+                del params
+        finally:
+            dist.destroy_process_group()
+    step = latest_step(ck)
+    like = (base, AdamWState(step=torch.zeros((), dtype=torch.int32,
+                                              device=device),
+                             m=base, v=base))
+    managed, at = _timed("CheckpointManager restore", lambda: CheckpointManager(
+        ck).restore_or_none(like))
+    elastic, at_e = _timed("elastic_restore at world 1", lambda: elastic_restore(
+        like, ck, cfg, 0, 1))
+    if (at, at_e) != (TRAIN_SAVED, TRAIN_SAVED) or step != TRAIN_SAVED:
+        raise AssertionError(f"[tp-train] restored steps {at}, {at_e}")
+    n = _timed("compare", lambda: _same_state(elastic, managed,
+                                               "elastic_restore"))
+    log(f"[tp-train] elastic_restore at world 1: {n} leaves bit-equal to the "
+        f"CheckpointManager restore of step {at}")
+    del managed, like, base
+    torch.cuda.empty_cache()
+    for world in (2, 4):
+        cuts = _timed(f"cut for the {world} ranks", lambda: [
+            shard_state(elastic, cfg, r, world) for r in range(world)])
+        back = _timed(f"unshard_state of the {world} cuts",
+                      lambda: unshard_state(cuts, cfg, world))
+        n = _timed("compare", lambda: _same_state(back, elastic,
+                                                   f"world {world}"))
+        kv = [cuts[r][0]["layers"]["attn"]["wk"].shape[-1]
+              for r in range(world)]
+        log(f"[tp-train] world {world}: every rank's cut rejoined, {n} leaves "
+            f"bit-equal (wk columns a rank {kv}; ranks sharing a KV head "
+            f"{kv_groups(cfg, world)})")
+        del cuts, back
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[tp-train] peak device memory {gib(peak)}; {smi}")
+    del elastic
+    fresh_phase()
+    return paths
 
 
 @contextlib.contextmanager
@@ -1982,7 +2156,9 @@ def main() -> int:
     phase_exact_f32()
     rwkv = phase_rwkv_bf16()
     phase_rwkv_exact_f32()
-    trained = phase_train()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ck:
+        trained = phase_train(ck)
+        tp_trained = phase_tp_train(ck, info["smi"])
     phase_train_f32()
     mla = phase_mla()
     phase_mla_f32()
@@ -1996,6 +2172,8 @@ def main() -> int:
              "rwkv6-7b forward": rwkv["forward"],
              "rwkv6-7b serve": rwkv["serve"],
              "qwen2-1.5b train": trained["launches"],
+             **{f"qwen2-1.5b tp train W=1 {mode} ({TP_TRAIN_STEPS} steps)":
+                counts for mode, counts in tp_trained.items()},
              f"{MLA} forward": mla["forward"],
              f"{MLA} serve": mla["serve"],
              f"{MOE} ({MOE_DEPTH} layers) forward": moe["forward"],

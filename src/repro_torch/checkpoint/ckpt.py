@@ -163,6 +163,10 @@ class CheckpointManager:
             return None
         return restore_pytree(tree_like, self.directory)
 
+    def agree(self, flag: bool) -> bool:
+        """Whether any process of the job asks to stop: here, the one."""
+        return flag
+
     def _gc(self):
         steps = sorted(int(m.group(1)) for d in os.listdir(self.directory)
                        if (m := _STEP_RE.match(d)))

@@ -25,16 +25,20 @@ a ``group``: a ``ProcessGroup``, or ``None`` for one rank without a group.
 The ring functions add in the reference's order, so float32 results match
 its bit for bit.  At ``p == 1`` every function returns ``x`` itself, the
 native ones too: a one-rank step launches nothing more than a step without
-a group.  The reference's CPU upcast around bf16 collectives
+a group.  Each of them is one autograd node at ``p > 1`` (see
+"Gradients" below): JAX transposes ``psum``, ``ppermute`` and
+``psum_scatter`` itself, and autograd sees through neither
+``batch_isend_irecv`` nor a copy into a fresh tensor.  The reference's CPU upcast around bf16 collectives
 (``_needs_f32_workaround``, an XLA fault) has no counterpart: gloo and NCCL
 reduce bf16 as it is.
 """
 from __future__ import annotations
 
+import collections
 import functools
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Literal, Optional
+from typing import Callable, Literal, Optional
 
 import torch
 import torch.distributed as dist
@@ -43,6 +47,9 @@ PsumMode = Literal["ina", "ina_ring", "eject_inject", "xla", "auto"]
 
 #: The ``--psum-mode`` choices every launch CLI offers.
 CLI_PSUM_MODES = ("xla_spmd", "ina", "ina_ring", "eject_inject", "auto")
+
+#: The strategies whose gathers run hop by hop on the ring.
+RING_MODES = ("eject_inject", "ina_ring")
 
 
 @dataclass(frozen=True)
@@ -98,38 +105,72 @@ def _chunk(x: torch.Tensor, k: int, c: int, axis: int) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# Fig. 4(a): eject -> local add -> inject, hop by hop (full tensor each hop).
+# Gradients.  Every collective of a group of more than one rank runs inside
+# one autograd node whose backward is given with its forward, so a site's
+# backward runs the strategy its forward resolved.  The convention: a
+# tensor every rank holds whole (replicated) gets its whole gradient on
+# every rank; a rank's slice or partial sum gets its own.  So a psum's
+# backward is the identity, a reduce-scatter's an all-gather, and an
+# all-gather's this rank's slice.  ``CALLS`` counts the group operations
+# run, forward and backward, by kind.
 # --------------------------------------------------------------------------- #
-def ring_psum_eject_inject(x: torch.Tensor, group) -> torch.Tensor:
-    """Unchunked ring all-reduce: P-1 full-tensor hops with endpoint adds."""
-    p = axis_size(group)
-    if p == 1:
-        return x
+CALLS: collections.Counter = collections.Counter()
+
+
+class _Collective(torch.autograd.Function):
+    """``fwd(x)``; the backward ``bwd[1](dy)``.  ``op`` and ``bwd[0]`` name
+    the group operation each side runs for :data:`CALLS` (``None``: no
+    communication)."""
+
+    @staticmethod
+    def forward(ctx, x, op, fwd, bwd):
+        ctx.bwd = bwd
+        if op is not None:
+            CALLS[op] += 1
+        return fwd(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        op, fn = ctx.bwd
+        if op is not None:
+            CALLS[op] += 1
+        return fn(dy), None, None, None
+
+
+def collective(x: torch.Tensor, op: Optional[str], fwd: Callable,
+               bwd: tuple) -> torch.Tensor:
+    """``fwd(x)`` as one autograd node whose backward is ``bwd = (name,
+    fn)``: ``fn(dy)`` gives ``x``'s gradient."""
+    return _Collective.apply(x, op, fwd, bwd)
+
+
+def _whole(dy: torch.Tensor) -> torch.Tensor:
+    return dy
+
+
+WHOLE = (None, _whole)          # the backward of a replicated result
+
+
+def _own_chunk(group, axis: int) -> tuple:
+    """The backward of a gather whose result every rank uses whole: this
+    rank's slice of the (whole) gradient."""
+    def fn(dy):
+        c = dy.shape[axis] // axis_size(group)
+        return _chunk(dy, axis_index(group), c, axis)
+    return None, fn
+
+
+def _eject_inject(x: torch.Tensor, group) -> torch.Tensor:
     acc = x
     send = x
-    for _ in range(p - 1):
+    for _ in range(axis_size(group) - 1):
         send = ppermute_next(send, group)       # inject -> next hop
         acc = acc + send                        # eject -> local add
     return acc
 
 
-# --------------------------------------------------------------------------- #
-# Fig. 4(b): chunked ring reduce-scatter with in-flight accumulation.
-# --------------------------------------------------------------------------- #
-def ring_reduce_scatter_ina(x: torch.Tensor, group,
-                            scatter_axis: int = 0) -> torch.Tensor:
-    """In-network accumulation: each hop adds its contribution to the moving
-    1/P chunk and forwards it.  Rank ``i`` returns fully-reduced chunk ``i``.
-    """
-    p = axis_size(group)
-    if p == 1:
-        return x
-    scatter_axis %= x.dim()
-    if x.shape[scatter_axis] % p != 0:
-        raise ValueError(
-            f"scatter axis {scatter_axis} ({x.shape[scatter_axis]}) "
-            f"not divisible by axis size {p}")
-    i = axis_index(group)
+def _rs_ina(x: torch.Tensor, group, scatter_axis: int) -> torch.Tensor:
+    p, i = axis_size(group), axis_index(group)
     c = x.shape[scatter_axis] // p
     # Seeded with chunk (i-1) so that after p-1 hops rank i holds chunk i
     # summed over every rank (the moving chunk's index falls by one a hop).
@@ -140,14 +181,8 @@ def ring_reduce_scatter_ina(x: torch.Tensor, group,
     return carry
 
 
-def ring_all_gather(x: torch.Tensor, group, gather_axis: int = 0,
-                    ) -> torch.Tensor:
-    """Ring all-gather (P-1 hops of |x| each); inverse of the scatter."""
-    p = axis_size(group)
-    if p == 1:
-        return x
-    gather_axis %= x.dim()
-    i = axis_index(group)
+def _ring_gather(x: torch.Tensor, group, gather_axis: int) -> torch.Tensor:
+    p, i = axis_size(group), axis_index(group)
     c = x.shape[gather_axis]
     shape = list(x.shape)
     shape[gather_axis] = c * p
@@ -161,10 +196,110 @@ def ring_all_gather(x: torch.Tensor, group, gather_axis: int = 0,
     return out
 
 
+def _native_gather(x: torch.Tensor, group, gather_axis: int) -> torch.Tensor:
+    """``dist.all_gather_into_tensor`` on ``gather_axis``."""
+    p = axis_size(group)
+    front = x.movedim(gather_axis, 0).contiguous()
+    out = torch.empty((front.shape[0] * p,) + tuple(front.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, front, group=group)
+    return out.movedim(0, gather_axis)
+
+
+def _native_scatter(x: torch.Tensor, group, scatter_axis: int) -> torch.Tensor:
+    p = axis_size(group)
+    front = x.movedim(scatter_axis, 0).contiguous()
+    out = torch.empty((front.shape[0] // p,) + tuple(front.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, front, group=group)
+    return out.movedim(0, scatter_axis)
+
+
+def _native_sum(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def gather_back(group, axis: int, ring: bool) -> tuple:
+    """The backward of a reduce-scatter: the gradient's shards gathered
+    whole, by the ring (``ring``) or the native all-gather."""
+    if ring:
+        return "all_gather", lambda dy: _ring_gather(dy, group, axis)
+    return "all_gather", lambda dy: _native_gather(dy, group, axis)
+
+
+def scatter_back(group, axis: int, mode: str) -> tuple:
+    """The backward of a gather whose result feeds column-cut work (each
+    rank's gradient a partial sum): the partials reduce-scattered under
+    ``mode``, a resolved strategy."""
+    return "reduce_scatter", lambda dy: _reduce_scatter(dy, group, mode, axis)
+
+
+def sum_back(group) -> tuple:
+    """The backward of a replicated input to column-cut work (Megatron's
+    ``f``): the partial gradients summed by the native all-reduce."""
+    return "all_reduce", lambda dy: _native_sum(dy, group)
+
+
+# --------------------------------------------------------------------------- #
+# Fig. 4(a): eject -> local add -> inject, hop by hop (full tensor each hop).
+# --------------------------------------------------------------------------- #
+def ring_psum_eject_inject(x: torch.Tensor, group) -> torch.Tensor:
+    """Unchunked ring all-reduce: P-1 full-tensor hops with endpoint adds."""
+    if axis_size(group) == 1:
+        return x
+    return collective(x, "psum", lambda t: _eject_inject(t, group), WHOLE)
+
+
+# --------------------------------------------------------------------------- #
+# Fig. 4(b): chunked ring reduce-scatter with in-flight accumulation.
+# --------------------------------------------------------------------------- #
+def _divides(x: torch.Tensor, p: int, axis: int) -> None:
+    if x.shape[axis] % p != 0:
+        raise ValueError(f"scatter axis {axis} ({x.shape[axis]}) "
+                         f"not divisible by axis size {p}")
+
+
+def ring_reduce_scatter_ina(x: torch.Tensor, group,
+                            scatter_axis: int = 0) -> torch.Tensor:
+    """In-network accumulation: each hop adds its contribution to the moving
+    1/P chunk and forwards it.  Rank ``i`` returns fully-reduced chunk ``i``.
+    The backward gathers the gradient's chunks by the ring.
+    """
+    p = axis_size(group)
+    if p == 1:
+        return x
+    scatter_axis %= x.dim()
+    _divides(x, p, scatter_axis)
+    return collective(x, "reduce_scatter",
+                      lambda t: _rs_ina(t, group, scatter_axis),
+                      gather_back(group, scatter_axis, ring=True))
+
+
+def ring_all_gather(x: torch.Tensor, group, gather_axis: int = 0,
+                    back: Optional[tuple] = None) -> torch.Tensor:
+    """Ring all-gather (P-1 hops of |x| each); inverse of the scatter.  Its
+    backward is this rank's slice of the gradient, where every rank uses
+    the gathered tensor whole; ``back`` gives another (a ``(name, fn)``
+    pair such as :func:`scatter_back`'s)."""
+    if axis_size(group) == 1:
+        return x
+    gather_axis %= x.dim()
+    return collective(x, "all_gather",
+                      lambda t: _ring_gather(t, group, gather_axis),
+                      back or _own_chunk(group, gather_axis))
+
+
 def psum_ina(x: torch.Tensor, group, scatter_axis: int = 0) -> torch.Tensor:
     """Full all-reduce via INA: reduce-scatter (in-flight adds) + all-gather."""
-    rs = ring_reduce_scatter_ina(x, group, scatter_axis)
-    return ring_all_gather(rs, group, scatter_axis)
+    p = axis_size(group)
+    if p == 1:
+        return x
+    scatter_axis %= x.dim()
+    _divides(x, p, scatter_axis)
+    return collective(x, "psum", lambda t: _ring_gather(
+        _rs_ina(t, group, scatter_axis), group, scatter_axis), WHOLE)
 
 
 # --------------------------------------------------------------------------- #
@@ -173,25 +308,29 @@ def psum_ina(x: torch.Tensor, group, scatter_axis: int = 0) -> torch.Tensor:
 def psum_scatter_xla(x: torch.Tensor, group, scatter_axis: int = 0,
                      ) -> torch.Tensor:
     """``dist.reduce_scatter_tensor`` on ``scatter_axis`` (tiled: rank i
-    keeps the i-th 1/P slab of the sum)."""
-    p = axis_size(group)
-    if p == 1:
+    keeps the i-th 1/P slab of the sum); the backward is the native
+    all-gather."""
+    if axis_size(group) == 1:
         return x
     scatter_axis %= x.dim()
-    front = x.movedim(scatter_axis, 0).contiguous()
-    out = torch.empty((front.shape[0] // p,) + tuple(front.shape[1:]),
-                      dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, front, group=group)
-    return out.movedim(0, scatter_axis)
+    return collective(x, "reduce_scatter",
+                      lambda t: _native_scatter(t, group, scatter_axis),
+                      gather_back(group, scatter_axis, ring=False))
 
 
 def psum_xla(x: torch.Tensor, group) -> torch.Tensor:
     """``dist.all_reduce`` into a copy (``x`` is left as it was)."""
     if axis_size(group) == 1:
         return x
-    out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
-    return out
+    return collective(x, "psum", lambda t: _native_sum(t, group), WHOLE)
+
+
+def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
+    """The native all-reduce of ``t`` in place (no autograd), counted in
+    :data:`CALLS`: the gradient reductions of a sharded train step."""
+    CALLS["all_reduce"] += 1
+    dist.all_reduce(t, group=group)
+    return t
 
 
 # --------------------------------------------------------------------------- #
@@ -283,7 +422,7 @@ def resolve_auto_mode(op: str, p: int, nbytes: int,
     return _fallback_choice(p, int(nbytes))
 
 
-def _nbytes(x: torch.Tensor) -> int:
+def nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
@@ -301,7 +440,7 @@ def psum_with_mode(x: torch.Tensor, group, mode: PsumMode,
     """
     if mode == "auto":
         p = axis_size(group)
-        mode = resolve_auto_mode("psum", p, _nbytes(x), plan)
+        mode = resolve_auto_mode("psum", p, nbytes(x), plan)
         if mode == "ina_ring" and x.shape[scatter_axis] % p != 0:
             # The chunked ring needs the scatter axis to divide; fall back
             # to the native in-network reduce, which does not.
@@ -318,29 +457,45 @@ def psum_with_mode(x: torch.Tensor, group, mode: PsumMode,
     raise ValueError(f"unknown psum mode: {mode}")
 
 
-def reduce_scatter_with_mode(x: torch.Tensor, group, mode: PsumMode,
-                             scatter_axis: int = 0,
-                             plan: Optional[object] = None) -> torch.Tensor:
-    """Reduce-scattered psum (output stays sharded on ``scatter_axis``)."""
+def _reduce_scatter(x: torch.Tensor, group, mode: str,
+                    scatter_axis: int) -> torch.Tensor:
+    """The reduce-scatter of a resolved ``mode`` on ``p > 1`` ranks."""
     p = axis_size(group)
-    if mode == "auto":
-        mode = resolve_auto_mode("reduce_scatter", p, _nbytes(x), plan)
-    if isinstance(group, AxisSpan):
-        _span_only(x, group, "reduce_scatter")
-        return x.narrow(scatter_axis % x.dim(), 0, x.shape[scatter_axis] // p)
-    if p == 1 and mode in ("eject_inject", "ina_ring", "ina", "xla"):
-        return x
     if mode == "eject_inject":
         # The baseline has no in-network reduction: full all-reduce, then the
         # caller's shard is sliced out locally (the ejected copy).
-        full = ring_psum_eject_inject(x, group)
         c = x.shape[scatter_axis] // p
-        return _chunk(full, axis_index(group), c, scatter_axis)
+        return _chunk(_eject_inject(x, group), axis_index(group), c,
+                      scatter_axis)
     if mode == "ina_ring":
-        return ring_reduce_scatter_ina(x, group, scatter_axis)
+        _divides(x, p, scatter_axis)
+        return _rs_ina(x, group, scatter_axis)
     if mode in ("ina", "xla"):
-        return psum_scatter_xla(x, group, scatter_axis)
+        return _native_scatter(x, group, scatter_axis)
     raise ValueError(f"unknown psum mode: {mode}")
+
+
+def reduce_scatter_with_mode(x: torch.Tensor, group, mode: PsumMode,
+                             scatter_axis: int = 0,
+                             plan: Optional[object] = None) -> torch.Tensor:
+    """Reduce-scattered psum (output stays sharded on ``scatter_axis``).
+    The backward gathers the gradient's shards: by the ring under the ring
+    modes, by the native all-gather under ``ina`` and ``xla``."""
+    p = axis_size(group)
+    if mode == "auto":
+        mode = resolve_auto_mode("reduce_scatter", p, nbytes(x), plan)
+    if isinstance(group, AxisSpan):
+        _span_only(x, group, "reduce_scatter")
+        return x.narrow(scatter_axis % x.dim(), 0, x.shape[scatter_axis] // p)
+    if mode not in ("eject_inject", "ina_ring", "ina", "xla"):
+        raise ValueError(f"unknown psum mode: {mode}")
+    if p == 1:
+        return x
+    scatter_axis %= x.dim()
+    return collective(
+        x, "reduce_scatter",
+        lambda t: _reduce_scatter(t, group, mode, scatter_axis),
+        gather_back(group, scatter_axis, ring=mode in RING_MODES))
 
 
 # --------------------------------------------------------------------------- #

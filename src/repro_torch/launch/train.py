@@ -1,6 +1,6 @@
 """Training entry point (counterpart of ``repro.launch.train``).
 
-Trains a dense model on one rank: float32 masters, compute in the config's
+Trains a dense model: float32 masters, compute in the config's
 dtype, every layer checkpointed, the projections and their gradients on
 the INA matmul, AdamW with a cosine schedule, the synthetic token
 pipeline, and the preemption-safe loop with retries and keep-k
@@ -12,15 +12,27 @@ as the reference's does.  It
 runs on the GPU unless ``--device cpu`` is given, and exits non-zero when
 the loss did not fall.
 
+``--model-parallel N`` trains tensor-parallel on N ranks, one process
+each (NCCL on N cards; gloo on the CPU under ``--device cpu``; more ranks
+than cards raises): each rank cuts the seeded masters, builds its own
+AdamW state and loads the train-phase plan at ``(("model", N),)``, built
+once before the ranks start.  The checkpoints hold the full logical
+state, so a run resumes at any N that divides the heads.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --steps 8 --batch 4 --seq 1024 --ckpt-dir /tmp/ck --ckpt-every 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --reduced --device cpu --steps 6 --batch 2 --seq 32 --ckpt-dir /tmp/ck
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
+      --reduced --device cpu --steps 3 --batch 2 --seq 32 --lr 1e-2 \\
+      --ckpt-dir /tmp/tp --ckpt-every 2 --model-parallel 2
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 from typing import Callable, Optional
 
 import torch
@@ -28,15 +40,20 @@ import torch
 from repro_torch import _device
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core.collectives import CLI_PSUM_MODES
+from repro_torch.core.collectives import (CLI_PSUM_MODES, axis_index,
+                                          axis_size)
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
+from repro_torch.launch import mesh
 from repro_torch.models.api import get_model
 from repro_torch.optim.adamw import adamw_init, tree_leaves
-from repro_torch.parallel.steps import build_train_step
+from repro_torch.parallel.sharding import head_split, shard_params
+from repro_torch.parallel.steps import build_train_step, check_trainable
 from repro_torch.parallel.tp import ParallelCtx
 from repro_torch.plan import add_plan_cli_args, plan_for_launch
 from repro_torch.plan.builder import MODEL_AXIS
-from repro_torch.runtime.fault_tolerance import FTConfig, run_training
+from repro_torch.runtime.fault_tolerance import (FTConfig,
+                                                 ShardedCheckpointManager,
+                                                 run_training)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,27 +77,75 @@ def build_parser() -> argparse.ArgumentParser:
 def run(args, on_step: Optional[Callable] = None) -> dict:
     """Train as ``args`` say; ``on_step(step, metrics, seconds)`` is called
     after each step.  Returns the final ``state`` (params, opt), the
-    ``steps`` run and their ``losses``, and the straggler events."""
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1: tensor-parallel training needs autograd "
-            "through core/collectives.py's rings (ROADMAP.md Queue 1, "
-            "item 4)")
+    ``steps`` run and their ``losses``, and the straggler events.
+
+    ``--model-parallel N`` > 1 spawns N ranks (``launch.mesh.spawn``: NCCL
+    on N cards, gloo where ``--device cpu`` asks for the CPU), each
+    training its shard; it returns rank 0's steps and losses, without a
+    state (each rank's lived in its own process), and takes no
+    ``on_step``."""
+    cfg = _config(args)
+    world = args.model_parallel
+    if world == 1:
+        return _train(args, cfg, on_step=on_step)
+    if on_step is not None:
+        raise ValueError("on_step is called at one rank only: at "
+                         "--model-parallel > 1 the steps run in the ranks' "
+                         "processes")
     dev = _device.resolve(args.device)
+    if dev.type == "cuda" and world > torch.cuda.device_count():
+        raise RuntimeError(f"--model-parallel {world} needs {world} CUDA "
+                           f"devices; {torch.cuda.device_count()} present "
+                           f"(no gloo fallback on the card)")
+    # refuse what the ranks would, before any starts
+    check_trainable(cfg)
+    head_split(cfg, 0, world)
+    # build the plan once, so that every rank loads it warm
+    _plan(args, cfg, world)
+    return mesh.spawn(train_rank, world, dev.type, args=(args,))[0]
+
+
+def train_rank(rank, world, group, device, args) -> dict:
+    """One rank of ``--model-parallel``: its shard of the seeded masters,
+    its own AdamW state, and the ranks' shared checkpoints.  Rank 0
+    prints; the others' prints are dropped."""
+    args = argparse.Namespace(**{**vars(args), "device": str(device)})
+    quiet = contextlib.nullcontext() if rank == 0 else \
+        contextlib.redirect_stdout(io.StringIO())
+    with quiet:
+        out = _train(args, _config(args), group=group)
+    del out["state"]
+    return out
+
+
+def _config(args):
     cfg = ARCHS[args.arch]
-    if args.reduced:
-        cfg = cfg.reduced()
-    model = get_model(cfg)
-    shape = ShapeConfig("cli", args.seq, args.batch, "train")
-    plan, _ = plan_for_launch(cfg, ((MODEL_AXIS, 1),), shape, args.psum_mode,
-                              plan_dir=args.plan_dir,
+    return cfg.reduced() if args.reduced else cfg
+
+
+def _shape(args) -> ShapeConfig:
+    return ShapeConfig("cli", args.seq, args.batch, "train")
+
+
+def _plan(args, cfg, world: int):
+    plan, _ = plan_for_launch(cfg, ((MODEL_AXIS, world),), _shape(args),
+                              args.psum_mode, plan_dir=args.plan_dir,
                               enabled=not args.no_plan)
-    pctx = ParallelCtx(psum_mode=args.psum_mode, plan=plan)
-    ts = build_train_step(model, shape, pctx, base_lr=args.lr,
+    return plan
+
+
+def _train(args, cfg, group=None, on_step: Optional[Callable] = None
+           ) -> dict:
+    dev = _device.resolve(args.device)
+    rank, world = axis_index(group), axis_size(group)
+    model = get_model(cfg)
+    pctx = ParallelCtx(group=group, psum_mode=args.psum_mode,
+                       plan=_plan(args, cfg, world))
+    ts = build_train_step(model, _shape(args), pctx, base_lr=args.lr,
                           warmup=min(20, args.steps // 5 + 1),
                           total_steps=args.steps)
     print(f"[train] {cfg.name} ({'reduced' if args.reduced else 'full'}) "
-          f"world=1 psum={args.psum_mode} device={dev}", flush=True)
+          f"world={world} psum={args.psum_mode} device={dev}", flush=True)
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                     global_batch=args.batch))
 
@@ -104,12 +169,16 @@ def run(args, on_step: Optional[Callable] = None) -> dict:
         if on_step:
             on_step(step, metrics, dt)
 
-    ft = FTConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    # a rank cannot retry a step alone: the others' collectives moved on
+    ft = FTConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                  **({"max_step_retries": 0} if world > 1 else {}))
+    mgr = None if world == 1 else ShardedCheckpointManager(
+        args.ckpt_dir, cfg, group, dev, keep=ft.keep, every=ft.ckpt_every)
     # run_training holds the only reference to the initial state, so a
     # restored one replaces it in device memory instead of joining it
     state, last, stragglers = run_training(
-        step_fn, initial_state(model, dev), pipe.batch, ft=ft,
-        num_steps=args.steps, on_metrics=on_metrics)
+        step_fn, initial_state(model, dev, rank, world), pipe.batch, ft=ft,
+        num_steps=args.steps, on_metrics=on_metrics, mgr=mgr)
     if not losses:
         print(f"[train] nothing to do: the checkpoint under {args.ckpt_dir} "
               f"is at step {last - 1} of {args.steps}", flush=True)
@@ -123,12 +192,14 @@ def run(args, on_step: Optional[Callable] = None) -> dict:
             "last": last, "stragglers": stragglers}
 
 
-def initial_state(model, dev) -> tuple:
-    """(float32 masters seeded with 0, zero AdamW state) on ``dev``."""
+def initial_state(model, dev, rank: int = 0, world: int = 1) -> tuple:
+    """(float32 masters seeded with 0, zero AdamW state) on ``dev``: at
+    ``world`` > 1, ``rank``'s shard of the masters and its own state."""
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev, masters=True)
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"[train] {n_params / 1e6:.1f}M params", flush=True)
+    params = shard_params(params, model.cfg, rank, world)
     return params, adamw_init(params)
 
 

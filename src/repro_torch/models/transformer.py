@@ -119,8 +119,10 @@ def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, seq: int,
             pctx: Optional[ParallelCtx]) -> torch.Tensor:
-    x = tp.gather_seq(L.rms_norm(x, params["ln_f"], cfg.norm_eps), pctx, seq)
-    return L.logits_head(x, _head(params), pctx, cfg.vocab)
+    head = _head(params)
+    x = tp.gather_seq(L.rms_norm(x, params["ln_f"], cfg.norm_eps), pctx, seq,
+                      cut=head.shape[-1] != cfg.vocab)
+    return L.logits_head(x, head, pctx, cfg.vocab)
 
 
 # --------------------------------------------------------------------------- #
@@ -151,11 +153,11 @@ def _leaves(tree: dict):
 def check_remat(cfg: ModelConfig) -> None:
     """The reference's ``remat_policy``: the port checkpoints each layer
     whole (``nothing_saveable``); the policies that keep the products'
-    outputs are ROADMAP.md Queue 1, item 4 (what is left of training)."""
+    outputs are ROADMAP.md Queue 1, item 4.6."""
     if cfg.remat_policy != "nothing":
         raise NotImplementedError(
             f"remat_policy {cfg.remat_policy!r}: the port has 'nothing' only "
-            f"('dots' and 'dots_nb' are in ROADMAP.md Queue 1, item 4)")
+            f"('dots' and 'dots_nb' are in ROADMAP.md Queue 1, item 4.6)")
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,

@@ -14,9 +14,11 @@ does not).
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
+
+from repro_torch.core.collectives import all_reduce_, axis_size
 
 
 class AdamWState(NamedTuple):
@@ -63,11 +65,28 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
     return lr
 
 
-def _clip_scale(grads: dict, max_norm: float):
+def _clip_scale(grads: dict, max_norm: float, group=None,
+                holding: Optional[dict] = None):
     """(the factor that brings the global norm to at most ``max_norm``, the
-    norm): the norm is float32, over every leaf."""
-    gnorm = torch.sqrt(sum(g.float().square().sum()
-                           for g in tree_leaves(grads)))
+    norm): the norm is float32, over every leaf.
+
+    At more than one rank ``grads`` are this rank's shards and ``holding``
+    (:func:`repro_torch.parallel.sharding.leaf_holding`) says how each is
+    held: the sums of squares of the ``"cut"`` leaves are all-reduced over
+    ``group``, a ``"whole"`` leaf (the same on every rank) is counted once
+    and a ``"copy"`` (a KV head that another rank of its group counts) not
+    at all, so the norm is the one over the logical arrays, and the same
+    on every rank."""
+    leaves = tree_leaves(grads)
+    if holding is None or axis_size(group) == 1:
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    else:
+        squares = {"cut": [], "whole": [], "copy": []}
+        for g, kind in zip(leaves, tree_leaves(holding)):
+            squares[kind].append(g.float().square().sum())
+        cut = torch.stack(squares["cut"]).sum()
+        all_reduce_(cut, group)
+        gnorm = torch.sqrt(cut + sum(squares["whole"]))
     return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0), \
         gnorm
 
@@ -83,13 +102,16 @@ def clip_by_global_norm(grads: dict, max_norm: float):
 def adamw_update(params: dict, grads: dict, state: AdamWState,
                  lr: Union[Callable, float], *, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1, max_norm: float = 1.0):
+                 weight_decay: float = 0.1, max_norm: float = 1.0,
+                 group=None, holding: Optional[dict] = None):
     """One AdamW step, in place: ``params`` and ``state``'s moments are
     updated and returned, with ``{"grad_norm", "lr"}`` (float32 scalars).
     ``lr`` is a schedule (step -> lr) or a float.  ``grads`` are clipped
     to ``max_norm`` first, as the reference does (each leaf scaled as it
-    is used, not copied whole); they are not changed."""
-    scale, gnorm = _clip_scale(grads, max_norm)
+    is used, not copied whole); they are not changed.  A rank's shards
+    are clipped by the norm over the logical arrays (``group`` and
+    ``holding``: :func:`_clip_scale`)."""
+    scale, gnorm = _clip_scale(grads, max_norm, group, holding)
     step = state.step + 1
     stepf = step.float()
     lr_t = lr(step) if callable(lr) else torch.tensor(

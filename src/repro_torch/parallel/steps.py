@@ -8,7 +8,10 @@ projections' gradients run on the INA matmul (``kernels.ina_matmul.
 InaMatmul``), and each layer is checkpointed and recomputed.
 Tensor parallelism reaches the model through ``pctx``: its process group
 and psum mode (:class:`repro_torch.parallel.tp.ParallelCtx`), with the
-parameters a rank's shards.  Greedy decoding takes the first maximal
+parameters a rank's shards; in training the collectives' backwards run
+through autograd, each layer's forward collectives run again in its
+recompute (in the same order on every rank), and :class:`GradSync` sums
+the gradients of leaves that several ranks hold.  Greedy decoding takes the first maximal
 logit, as ``jnp.argmax``.
 
 Every builder accepts ``plan`` (a :class:`repro_torch.plan.ExecutionPlan`):
@@ -21,12 +24,15 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.core import collectives as C
 from repro_torch.models.api import Model, cache_batch_axes
 from repro_torch.models.layers import STACKED
 from repro_torch.optim.adamw import adamw_update, cosine_schedule, tree_map
-from repro_torch.parallel.tp import ParallelCtx
+from repro_torch.parallel import sharding
+from repro_torch.parallel.tp import ParallelCtx, seq_sharded
 
 
 def _with_plan(pctx: Optional[ParallelCtx], plan) -> Optional[ParallelCtx]:
@@ -73,11 +79,74 @@ def _grad_leaves(params: dict) -> tuple[dict, list]:
     return work, leaves
 
 
+#: per-head norm weights: each rank's gradient covers its own heads only
+_HEAD_NORMS = ("q_norm", "k_norm")
+#: norm weights on the residual stream, sequence-sharded under rs_seq
+_STREAM_NORMS = ("ln1", "ln2", "ln_f")
+_KV = ("wk", "bk", "wv", "bv")
+
+
+@dataclasses.dataclass
+class GradSync:
+    """The reductions a rank's gradients need after the backward, beyond
+    the collectives' own backwards: a KV head that ``kv_group``'s ranks
+    share gets each one's share of its gradient summed over them, and the
+    norm weights whose gradient is partial (per-head norms always, the
+    stream's under ``rs_seq``) are summed over ``group``.  Every other
+    replicated leaf's gradient comes out whole, and bit-equal, on every
+    rank."""
+    group: object
+    kv_group: Optional[object]
+
+    def reduce(self, grads: dict, seq_sharded: bool) -> None:
+        kv, partial = [], []
+        for names, g in _named_leaves(grads):
+            if names[-1] in _KV and names[-2:-1] == ("attn",):
+                kv.append(g)
+            elif names[-1] in _HEAD_NORMS or \
+                    (seq_sharded and names[-1] in _STREAM_NORMS):
+                partial.append(g)
+        for leaves, group in ((kv, self.kv_group), (partial, self.group)):
+            if leaves and group is not None:
+                flat = C.all_reduce_(torch.cat([g.reshape(-1)
+                                                for g in leaves]), group)
+                for g, part in zip(leaves, flat.split([g.numel()
+                                                       for g in leaves])):
+                    g.copy_(part.view_as(g))
+
+
+def _named_leaves(tree: dict, names: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, names + (k,))
+        else:
+            yield names + (k,), v
+
+
+def grad_sync(cfg, pctx: Optional[ParallelCtx]) -> Optional[GradSync]:
+    """The :class:`GradSync` of a rank of ``pctx.group`` (``None`` at one
+    rank).  Where ranks share a KV head it makes one ``dist.new_group``
+    for each KV head, in KV-head order, which every rank of the default
+    group must call alike."""
+    if pctx is None or not pctx.manual:
+        return None
+    kv = None
+    for ranks in sharding.kv_groups(cfg, pctx.world):
+        pg = dist.new_group([dist.get_global_rank(pctx.group, r)
+                             for r in ranks])
+        if pctx.rank in ranks:
+            kv = pg
+    return GradSync(group=pctx.group, kv_group=kv)
+
+
 def loss_and_grads(model: Model, params: dict, batch: dict,
-                   pctx: Optional[ParallelCtx] = None):
+                   pctx: Optional[ParallelCtx] = None,
+                   sync: Optional[GradSync] = None):
     """(loss, grads): ``model.loss`` and ``torch.autograd.grad`` of it, the
     gradients in ``params``' structure (a stacked leaf's restacked) and
-    dtypes."""
+    dtypes.  At more than one rank ``params`` are this rank's shards, and
+    the gradients, after ``sync``'s reductions (:func:`grad_sync`'s where
+    none is given), are the shards of the logical gradient."""
     work, leaves = _grad_leaves(params)
     loss = model.loss(work, batch, pctx)
     grads = list(torch.autograd.grad(loss, leaves))
@@ -91,6 +160,9 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
 
     out = {k: tree_map(restack if k in STACKED else take, v)
            for k, v in params.items()}
+    if pctx is not None and pctx.manual:
+        sync = sync or grad_sync(model.cfg, pctx)
+        sync.reduce(out, seq_sharded(pctx, batch["tokens"].shape[1]))
     return loss.detach(), out
 
 
@@ -102,29 +174,36 @@ _UNTRAINED = {
     "mla_moe": "its training is not ported (ROADMAP.md Queue 1, item 5.2)"}
 
 
+def check_trainable(cfg) -> None:
+    """Raise for a family whose training the port lacks."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training family {cfg.family!r}: {_UNTRAINED[cfg.family]}; "
+            f"the port trains the dense family")
+
+
 def build_train_step(model: Model, shape: ShapeConfig,
                      pctx: Optional[ParallelCtx] = None,
                      base_lr: float = 3e-4, warmup: int = 200,
                      total_steps: int = 10_000, plan=None) -> TrainStep:
     """loss -> gradients -> AdamW with the reference's cosine schedule.
 
-    The dense family at one rank.  The ssm family raises: its loss is
+    The dense family, at one rank or tensor-parallel over ``pctx.group``
+    (``params`` and ``opt`` then this rank's shards, as
+    :func:`repro_torch.parallel.sharding.shard_params` cuts them): the
+    collectives' backwards, :class:`GradSync`'s reductions and AdamW's
+    norm over the logical arrays give every rank its shard of the
+    unsharded step's update.  A world that does not divide the heads
+    raises ValueError.  The ssm family raises: its loss is
     differentiable on the CPU through the plain wkv6 but gets no gradient
     through the CUDA kernel, which has no backward yet.  The moe and
-    mla_moe families raise: their training is not ported.  A group of more
-    than one rank raises: tensor-parallel training needs autograd through
-    the rings of ``core/collectives.py``.  All are ROADMAP.md Queue 1."""
-    family = model.cfg.family
-    if family != "dense":
-        raise NotImplementedError(
-            f"training family {family!r}: {_UNTRAINED[family]}; the port "
-            f"trains the dense family")
-    if pctx is not None and pctx.world > 1:
-        raise NotImplementedError(
-            f"training at world {pctx.world}: tensor-parallel training "
-            f"needs autograd through core/collectives.py's rings "
-            f"(ROADMAP.md Queue 1, item 4.1)")
+    mla_moe families raise: their training is not ported.  Both are
+    ROADMAP.md Queue 1."""
+    cfg = model.cfg
+    check_trainable(cfg)
     pctx = _with_plan(pctx, plan)
+    sync = grad_sync(cfg, pctx)
+    group = None if sync is None else pctx.group
     lr = cosine_schedule(base_lr, warmup, total_steps)
     want = (shape.global_batch, shape.seq_len)
 
@@ -132,10 +211,14 @@ def build_train_step(model: Model, shape: ShapeConfig,
         if tuple(batch["tokens"].shape) != want:
             raise ValueError(f"batch {tuple(batch['tokens'].shape)}, the "
                              f"step was built for {want}")
-        loss, grads = loss_and_grads(model, params, batch, pctx)
+        loss, grads = loss_and_grads(model, params, batch, pctx, sync)
+        holding = None if group is None else sharding.leaf_holding(
+            params, cfg, pctx.rank, pctx.world)
         with torch.profiler.record_function("adamw_update"):
             try:
-                params, opt, stats = adamw_update(params, grads, opt, lr)
+                params, opt, stats = adamw_update(params, grads, opt, lr,
+                                                  group=group,
+                                                  holding=holding)
             except torch.cuda.OutOfMemoryError as e:
                 # the update is in place: a retry would apply it twice
                 raise RuntimeError("AdamW ran out of memory part way "

@@ -28,6 +28,11 @@ The weights arrive cut (:func:`repro_torch.parallel.sharding.shard_params`),
 so every projection runs the INA matmul kernel on the rank's shard and the
 reduction follows it.  With a group of one rank every collective returns
 its input: the step launches what a step without a group launches.
+
+In training each collective's backward runs through autograd: the row
+sites' (:func:`row_linear`), the column-parallel block's entry
+(:func:`gather_seq`, Megatron's ``f`` or, under ``rs_seq``, the
+backward's reduce-scatter), the sequence scatter's and the vocabulary's.
 """
 from __future__ import annotations
 
@@ -102,30 +107,75 @@ def seq_sharded(pctx: Optional[ParallelCtx], seq: int) -> bool:
             and seq >= pctx.world)
 
 
+def _records(x: torch.Tensor) -> bool:
+    """Whether autograd records an operation on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _grad_mode(pctx: ParallelCtx, nbytes: int) -> str:
+    """The strategy of a sequence site's backward: the explicit ring under
+    ``sp_entry``, else ``pctx.mode``, an ``auto`` one resolved here, in the
+    forward, as a reduce-scatter of ``nbytes`` (the plan builder traces
+    the forward without gradients, so it records no such site)."""
+    if pctx.sp_entry:
+        return "ina_ring"
+    if pctx.mode == "auto":
+        return C.resolve_auto_mode("reduce_scatter", pctx.world, nbytes,
+                                   pctx.plan)
+    return pctx.mode
+
+
 def scatter_seq(x: torch.Tensor, pctx: Optional[ParallelCtx]) -> torch.Tensor:
     """This rank's slice of a replicated [B, S, D] where the residual
-    stream is sequence-sharded (no communication)."""
+    stream is sequence-sharded (no communication).  Its backward gathers
+    the slices' gradients whole, as the replicated input needs: by the ring
+    under the ring modes, natively under ``ina`` and ``xla``."""
     if not seq_sharded(pctx, x.shape[1]):
         return x
     c = x.shape[1] // pctx.world
-    return x.narrow(1, pctx.rank * c, c)
+    if not _records(x):
+        return x.narrow(1, pctx.rank * c, c)
+    ring = _grad_mode(pctx, C.nbytes(x)) in C.RING_MODES
+    return C.collective(x, None, lambda t: t.narrow(1, pctx.rank * c, c),
+                        C.gather_back(pctx.group, 1, ring))
 
 
-def gather_seq(x: torch.Tensor, pctx: Optional[ParallelCtx],
-               seq: int) -> torch.Tensor:
-    """The whole sequence back from its shards, before a column-parallel
-    projection.  The reference leaves this gather to GSPMD; the port runs
-    it explicitly, with :func:`~repro_torch.core.collectives.ring_all_gather`
-    over the sequence."""
-    if not seq_sharded(pctx, seq):
-        return x
-    return C.ring_all_gather(x, pctx.group, gather_axis=1)
+def gather_seq(x: torch.Tensor, pctx: Optional[ParallelCtx], seq: int,
+               cut: bool = True) -> torch.Tensor:
+    """The input of a column-parallel block, whole on every rank.
+
+    Under ``rs_seq`` the whole sequence comes back from its shards by
+    :func:`~repro_torch.core.collectives.ring_all_gather` over S (the
+    reference leaves this gather to GSPMD).  Its backward is the
+    backward's INA site: the ranks' partial input gradients (``cut``: the
+    block's weights are column-cut, so each rank's covers its columns
+    only) are reduce-scattered over S under ``pctx.mode``, resolved in the
+    forward (the ring under ``sp_entry``).  Without ``rs_seq``, at more
+    than one rank and where autograd records, it is Megatron's ``f``:
+    the identity, whose backward sums the partial gradients with the
+    native all-reduce, once for the block's projections (``col_linear``
+    leaves its input's gradient partial).  A block whose weights every
+    rank holds whole (``cut=False``: a head the world does not divide)
+    has whole input gradients: the gather's backward is then this rank's
+    slice, and there is no ``f``."""
+    if seq_sharded(pctx, seq):
+        back = None
+        if cut and _records(x):
+            mode = _grad_mode(pctx, C.nbytes(x) * pctx.world)
+            back = C.scatter_back(pctx.group, 1, mode)
+        return C.ring_all_gather(x, pctx.group, gather_axis=1, back=back)
+    if cut and _grouped(pctx) and pctx.manual and _records(x):
+        return C.collective(x, None, lambda t: t, C.sum_back(pctx.group))
+    return x
 
 
 def col_linear(x: torch.Tensor, w: torch.Tensor,
                pctx: Optional[ParallelCtx] = None,
                b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Column-parallel matmul: w sharded on its last dim; no communication."""
+    """Column-parallel matmul: w sharded on its last dim; no communication.
+    The gradient of ``x`` it gives is this rank's columns' share only;
+    the block's entry (:func:`gather_seq`) sums the shares, once for all
+    of the block's projections."""
     out = ops.matmul(x, w.to(x.dtype), _plan(pctx))
     if b is not None:
         out = out + b.to(x.dtype)
@@ -143,6 +193,14 @@ def row_linear(x: torch.Tensor, w: torch.Tensor,
     ``rs_seq`` on a [B, S, F/P] input whose S the group divides, scattered
     over the sequence (each rank keeps [B, S/P, D]).  The bias is added
     once, after the reduction.
+
+    In training, the psum's backward is the identity on dOut: the output
+    is replicated and every rank uses it whole, so each rank's dOut is
+    already the whole gradient (the reference's transpose sums P copies
+    of dOut / P, the same value up to rounding).  Under ``rs_seq`` the
+    backward gathers the dOut shards whole: by ``ring_all_gather`` under
+    the ring modes (and ``sp_entry``), natively under ``ina`` and ``xla``.
+    Each backward runs the strategy its forward resolved.
     """
     out = ops.matmul(x, w.to(x.dtype), _plan(pctx))
     if _grouped(pctx):
@@ -183,7 +241,8 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, vocab: int,
                 pctx: Optional[ParallelCtx]) -> torch.Tensor:
     """Embedding lookup; a table of ``vocab / world`` rows is this rank's
     slice (vocab-parallel): rows outside it read zero, and the native
-    all-reduce sums the one rank that holds each token's row."""
+    all-reduce sums the one rank that holds each token's row.  Its
+    backward is the identity: every rank uses the sum whole."""
     if table.shape[0] == vocab:
         return table[tokens]
     lo = pctx.rank * table.shape[0]
@@ -197,7 +256,9 @@ def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, vocab: int,
 def vocab_gather(logits: torch.Tensor, vocab: int,
                  pctx: Optional[ParallelCtx]) -> torch.Tensor:
     """The whole vocabulary's logits from each rank's slice, so every rank
-    takes the same argmax."""
+    takes the same argmax.  In training the loss runs on every rank
+    redundantly, so the backward is this rank's slice of dLogits, not a
+    reduce-scatter (which would scale the head's gradient by P)."""
     if logits.shape[-1] == vocab:
         return logits
     return C.ring_all_gather(logits, pctx.group, gather_axis=-1)

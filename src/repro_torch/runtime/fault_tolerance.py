@@ -12,9 +12,13 @@ The transient error retried is :data:`TRANSIENT`,
 ``torch.cuda.OutOfMemoryError`` (the reference retries
 ``jax.errors.JaxRuntimeError``).  An out-of-memory error in the forward
 or backward leaves the state as it was, so the step runs again; any other
-error ends the loop at once.  Restoring onto a different number of ranks
-(the reference's ``elastic_restore``) waits for tensor-parallel training
-(ROADMAP.md).
+error ends the loop at once.
+
+Tensor-parallel training keeps the reference's elastic checkpoints: the
+checkpoint holds the full logical train state, gathered from the ranks'
+shards and written by rank 0 (:class:`ShardedCheckpointManager`), so a
+job resumes at another number of ranks (:func:`elastic_restore`), and a
+stop that one rank is asked for is agreed by all before the step ends.
 """
 from __future__ import annotations
 
@@ -24,9 +28,14 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.checkpoint.ckpt import CheckpointManager
+from repro_torch.checkpoint.ckpt import (CheckpointManager, latest_step,
+                                         restore_pytree)
+from repro_torch.core.collectives import axis_index, axis_size
 from repro_torch.exec.timing import Stopwatch
+from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.parallel import sharding
 
 TRANSIENT = torch.cuda.OutOfMemoryError
 
@@ -93,15 +102,18 @@ class StragglerWatch:
 def run_training(step_fn: Callable, state, batch_fn: Callable, *,
                  ft: FTConfig, num_steps: int,
                  on_metrics: Optional[Callable] = None,
-                 on_straggler: Optional[Callable] = None) -> tuple:
+                 on_straggler: Optional[Callable] = None,
+                 mgr: Optional[CheckpointManager] = None) -> tuple:
     """Preemption-safe training loop.
 
     ``step_fn(state, batch) -> (state, metrics)``; ``state`` is a tree of
     tensors (nested dicts, tuples, ``AdamWState``).  Resumes from the
     newest checkpoint under ``ft.ckpt_dir`` if there is one, each leaf on
-    the device of ``state``'s.  Returns (state, last_step,
-    straggler_events)."""
-    mgr = CheckpointManager(ft.ckpt_dir, keep=ft.keep, every=ft.ckpt_every)
+    the device of ``state``'s.  ``mgr`` replaces the checkpoint manager
+    (a :class:`ShardedCheckpointManager` for a rank of a tensor-parallel
+    job).  Returns (state, last_step, straggler_events)."""
+    mgr = mgr or CheckpointManager(ft.ckpt_dir, keep=ft.keep,
+                                   every=ft.ckpt_every)
     start = 0
     restored = mgr.restore_or_none(state)
     if restored is not None:
@@ -129,7 +141,7 @@ def run_training(step_fn: Callable, state, batch_fn: Callable, *,
                 if on_metrics:
                     on_metrics(step, metrics, dt)
                 mgr.maybe_save(state, step)
-                if guard.requested:
+                if mgr.agree(guard.requested):
                     mgr.maybe_save(state, step, force=True)
                     break
                 step += 1
@@ -139,3 +151,107 @@ def run_training(step_fn: Callable, state, batch_fn: Callable, *,
             mgr.maybe_save(state, step, force=True)
             raise
     return state, step, watch.events
+
+
+# --------------------------------------------------------------------------- #
+# elastic checkpoints of a tensor-parallel state
+# --------------------------------------------------------------------------- #
+def elastic_restore(tree_like, ckpt_dir: str, cfg, rank: int, world: int,
+                    step: Optional[int] = None, device=None):
+    """(``rank``'s shard of ``world`` of the checkpointed train state, its
+    step): the counterpart of the reference's ``elastic_restore``.
+
+    The checkpoint stores the full logical arrays, so a job restarted at
+    another number of ranks reshards as it restores: the full tree is read
+    in ``tree_like``'s structure (its leaves give the logical shapes; they
+    may lie on the ``meta`` device) onto ``device`` (default: where
+    ``tree_like``'s leaves lie, the CPU for ``meta``), and cut by
+    :func:`~repro_torch.parallel.sharding.shard_state`, the port's
+    ``fit_specs`` plus ``NamedSharding``.  At ``world == 1`` the full tree
+    is returned."""
+    if device is None:
+        device = _first_leaf(tree_like).device
+        device = "cpu" if device.type == "meta" else device
+    full, step = restore_pytree(tree_like, ckpt_dir, step, device=device)
+    return sharding.shard_state(full, cfg, rank, world), step
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    while isinstance(tree, (dict, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) \
+            else tree[0]
+    return tree
+
+
+def _meta(tree):
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+
+
+def gather_state(state, cfg, group):
+    """The full logical train state on rank 0 of ``group``, on the CPU,
+    and ``None`` on the other ranks: each cut leaf of every parameter tree
+    gathered to rank 0 (``dist.gather``, one leaf at a time) and rebuilt
+    by :func:`~repro_torch.parallel.sharding.unshard_params`; a leaf every
+    rank holds whole is rank 0's.  Every rank of ``group`` calls it."""
+    rank, world = axis_index(group), axis_size(group)
+    dst = dist.get_global_rank(group, 0)
+
+    def gather(tree, _):
+        pieces = [[] for _ in range(world)]
+        for leaf, kind in zip(tree_leaves(tree), tree_leaves(
+                sharding.leaf_holding(tree, cfg, rank, world))):
+            if kind == "whole":
+                got = [leaf.cpu()] * world if rank == 0 else None
+            else:
+                got = [torch.empty_like(leaf) for _ in range(world)] \
+                    if rank == 0 else None
+                dist.gather(leaf.contiguous(), got, dst=dst, group=group)
+            if rank == 0:
+                for r in range(world):
+                    pieces[r].append(got[r].cpu())
+        if rank != 0:
+            return None
+        trees = [tree_map(lambda _, it=iter(p): next(it), tree)
+                 for p in pieces]
+        return sharding.unshard_params(trees, cfg, world)
+    full = sharding.map_state(gather, state)
+    return full if rank == 0 else None
+
+
+class ShardedCheckpointManager(CheckpointManager):
+    """keep-k checkpoints of a rank's shard of a tensor-parallel train
+    state, held as the full logical tree, the format both packages read:
+    a save gathers it to rank 0 (:func:`gather_state`), which writes it,
+    and every rank waits at a barrier; a restore reads it whole and cuts
+    this rank's shard (:func:`elastic_restore`), whatever number of ranks
+    wrote it.  ``device`` is where the ranks' agreement on a stop runs
+    (the group's: the card under NCCL)."""
+
+    def __init__(self, directory: str, cfg, group, device, keep: int = 3,
+                 every: int = 100):
+        super().__init__(directory, keep=keep, every=every)
+        self.cfg, self.group, self.device = cfg, group, device
+
+    def maybe_save(self, tree, step: int, force: bool = False) -> bool:
+        if not force and (step == 0 or step % self.every != 0):
+            return False
+        full = gather_state(tree, self.cfg, self.group)
+        if full is not None:
+            super().maybe_save(full, step, force=True)
+        dist.barrier(group=self.group)
+        return True
+
+    def restore_or_none(self, tree_like):
+        if latest_step(self.directory) is None:
+            return None
+        world = axis_size(self.group)
+        logical = sharding.unshard_state([sharding.map_state(
+            lambda t, _: _meta(t), tree_like)] * world, self.cfg, world)
+        return elastic_restore(logical, self.directory, self.cfg,
+                               axis_index(self.group), world,
+                               device=_first_leaf(tree_like).device)
+
+    def agree(self, flag: bool) -> bool:
+        t = torch.tensor([int(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return bool(t.item())

@@ -7,6 +7,8 @@ function returns numpy arrays and lists, never tensors.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.configs import ARCHS
@@ -129,4 +131,103 @@ def tp_rank(rank, world, group, device, spec):
                 experts[rank * e:(rank + 1) * e],
                 ParallelCtx(group=group, psum_mode=mode)).numpy()
             for mode in C.CLI_PSUM_MODES}
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# tensor-parallel training (tests/test_torch_tp_train.py)
+# --------------------------------------------------------------------------- #
+def _numpy(tree):
+    return {k: _numpy(v) if isinstance(v, dict) else v.detach().numpy().copy()
+            for k, v in tree.items()}
+
+
+def _batch(pair):
+    return {"tokens": torch.from_numpy(pair[0]).long(),
+            "labels": torch.from_numpy(pair[1]).long()}
+
+
+def tp_train_rank(rank, world, group, device, spec):
+    """The reduced model's train step on this rank's shard, for each case
+    of ``spec``: the loss and this rank's gradient shards on
+    ``spec["grad_batch"]``, then two AdamW steps from the same weights,
+    each step's loss, grad_norm, lr and collective calls by kind, and the
+    params and AdamW moments after them.  At world 1 the case
+    ``"groupless"`` runs with no group at all.  ``spec["config"]``
+    replaces fields of the reduced config."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.adamw import adamw_init, tree_map
+    from repro_torch.parallel.steps import (build_train_step, grad_sync,
+                                            loss_and_grads)
+    cfg = dataclasses.replace(ARCHS[spec["arch"]].reduced(),
+                              **spec.get("config", {}))
+    model = get_model(cfg)
+    full = params_from_jax(spec["params"], cfg, device="cpu", masters=True)
+    grad_batch = _batch(spec["grad_batch"])
+    b, s = grad_batch["tokens"].shape
+    shape = ShapeConfig("t", s, b, "train")
+    sync = grad_sync(cfg, ParallelCtx(group=group))
+    cases = dict(spec["cases"])
+    if world == 1:
+        cases["groupless"] = None
+    out = {}
+    for name, kw in cases.items():
+        pctx = None if kw is None else ParallelCtx(group=group, **kw)
+        # AdamW updates in place, and a whole leaf is ``full``'s own
+        params = tree_map(torch.clone, shard_params(full, cfg, rank, world))
+        C.CALLS.clear()
+        loss, grads = loss_and_grads(model, params, grad_batch, pctx, sync)
+        res = {"loss": float(loss), "grads": _numpy(grads),
+               "grad_calls": dict(C.CALLS), "steps": []}
+        ts = build_train_step(model, shape, pctx, **spec["schedule"])
+        opt = adamw_init(params)
+        for pair in spec["step_batches"]:
+            C.CALLS.clear()
+            params, opt, st = ts.fn(params, opt, _batch(pair))
+            res["steps"].append({"loss": float(st["loss"]),
+                                 "grad_norm": float(st["grad_norm"]),
+                                 "lr": float(st["lr"]),
+                                 "calls": dict(C.CALLS)})
+        res["params"] = _numpy(params)
+        res["m"], res["v"] = _numpy(opt.m), _numpy(opt.v)
+        out[name] = res
+    return out
+
+
+def elastic_rank(rank, world, group, device, spec):
+    """``spec["steps"]`` steps of the launcher's loop under ``ina`` on this
+    rank's shard of the seeded masters, with the ranks' logical
+    checkpoints every 2 steps in ``spec["ckpt_dir"]``: a run into an
+    empty directory, or one that resumes from what another world wrote.
+    Returns the steps run, their losses, and this rank's params (numpy)
+    after each step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch.train import initial_state
+    from repro_torch.parallel.steps import build_train_step
+    from repro_torch.runtime.fault_tolerance import (
+        FTConfig, ShardedCheckpointManager, run_training)
+    cfg = ARCHS[spec["arch"]].reduced()
+    model = get_model(cfg)
+    b, s = spec["shape"]
+    ts = build_train_step(model, ShapeConfig("t", s, b, "train"),
+                          ParallelCtx(group=group), **spec["schedule"])
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=s,
+                                    global_batch=b))
+    ft = FTConfig(ckpt_dir=spec["ckpt_dir"], ckpt_every=2, max_step_retries=0)
+    mgr = ShardedCheckpointManager(ft.ckpt_dir, cfg, group, device,
+                                   every=ft.ckpt_every)
+    out = {"steps": [], "losses": [], "params": []}
+
+    def step_fn(state, batch):
+        params, opt, st = ts.fn(*state, batch)
+        out["params"].append(_numpy(params))
+        return (params, opt), st
+
+    def on_metrics(step, metrics, dt):
+        out["steps"].append(step)
+        out["losses"].append(float(metrics["loss"]))
+    run_training(step_fn, initial_state(model, device, rank, world),
+                 pipe.batch, ft=ft, num_steps=spec["steps"],
+                 on_metrics=on_metrics, mgr=mgr)
     return out

@@ -407,11 +407,20 @@ def test_build_train_step_raises_for_ssm():
 
 
 def test_build_train_step_raises_past_one_rank():
+    """Past one rank the dense family trains (tests/test_torch_tp_train.py)
+    where the world divides its heads: 3 ranks for the reduced qwen2's 4
+    query heads raise, and so do 2 for a family without training."""
+    class ThreeRanks(ParallelCtx):
+        world = property(lambda self: 3)
+    m = get_model(ARCHS["qwen2-1.5b"].reduced())
+    with pytest.raises(ValueError, match="do not divide"):
+        build_train_step(m, ShapeConfig("t", 8, 1, "train"), ThreeRanks())
+
     class TwoRanks(ParallelCtx):
         world = property(lambda self: 2)
-    m = get_model(ARCHS["qwen2-1.5b"].reduced())
-    with pytest.raises(NotImplementedError, match="world 2"):
-        build_train_step(m, ShapeConfig("t", 8, 1, "train"), TwoRanks())
+    moe = get_model(ARCHS["llama4-scout-17b-16e"].reduced())
+    with pytest.raises(NotImplementedError, match="5.2"):
+        build_train_step(moe, ShapeConfig("t", 8, 1, "train"), TwoRanks())
 
 
 def test_train_step_rejects_other_shapes():
