@@ -84,6 +84,17 @@ Phases; any failure raises and the process exits non-zero:
     at world 1, bit-equal to the ``CheckpointManager`` restore, and cut
     for every rank of worlds 2 and 4, which ``unshard_state`` rejoins
     bit for bit; each check timed, the peak memory printed;
+8c. ``[dp-train]``: the same model through the train step on the rank
+    mesh at ``(data 1, model 1)`` (``launch.mesh.make_host_mesh`` over the
+    one card), a one-rank NCCL group standing for the model, data and pod
+    axes: 2 steps from ``[train]``'s seed on its first batches, losses,
+    grad norms and every param leaf bit-equal to the step without a group,
+    787 ``ina_matmul`` (none generic) and 56 ``flash_attention`` launches
+    a step, no collective call; ``compressed_psum`` of the step's whole
+    gradient tree over the group under ``none``, ``int8`` and ``topk``,
+    each timed with its peak memory and its largest error against the
+    gradient, one leaf bit-equal to the same function on the CPU; and the
+    launcher's ``--production-mesh`` refused short of 256 ranks;
 9. ``[train-f32]``: the same widths at 2 layers in float32, one step's
    loss and every gradient leaf through the kernels against the same step
    through their plain versions on the card;
@@ -174,6 +185,7 @@ from repro_torch.parallel.sharding import (kv_groups,  # noqa: E402
 from repro_torch.parallel.steps import (build_paged_serve_step,  # noqa: E402
                                         build_prefill, build_serve_step,
                                         build_train_step, loss_and_grads)
+from repro_torch.runtime import compression  # noqa: E402
 from repro_torch.parallel.tp import ParallelCtx  # noqa: E402
 from repro_torch.plan import PHASES, PlanStore, tile_choices  # noqa: E402
 from repro_torch.runtime.fault_tolerance import elastic_restore  # noqa: E402
@@ -1589,11 +1601,11 @@ def tp_train_steps(model, shape, pctx, batches, args) -> tuple:
     return params, steps
 
 
-def _timed(label: str, fn):
+def _timed(label: str, fn, phase: str = "tp-train"):
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    log(f"[tp-train] {label}: {time.perf_counter() - t0:.2f} s")
+    log(f"[{phase}] {label}: {time.perf_counter() - t0:.2f} s")
     return out
 
 
@@ -1714,6 +1726,161 @@ def phase_tp_train(ck: str, smi: str, device: str = "cuda") -> dict:
     del elastic
     fresh_phase()
     return paths
+
+
+# --------------------------------------------------------------------------- #
+# phase 8c: the train step on the rank mesh, and the compressed psum
+# --------------------------------------------------------------------------- #
+#: the leaf held against the CPU's compressed psum (11 M elements)
+COMPRESSED_LEAF = ("layers", "attn", "wk")
+
+
+def _leaf(tree, names):
+    for k in names:
+        tree = tree[k]
+    return tree
+
+
+def check_compressed_psum(grads, group, smi: str) -> dict:
+    """``compressed_psum`` of the whole gradient tree over the one-rank
+    ``group`` under each codec: seconds, peak memory above the gradients,
+    the largest error against the gradient itself (the mean of one rank),
+    and :data:`COMPRESSED_LEAF` bit-equal to the same function on the CPU
+    (no group: one rank)."""
+    out = {}
+    cpu = {"w": _leaf(grads, COMPRESSED_LEAF).cpu()}
+    for codec in ("none", "int8", "topk"):
+        fresh_phase()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        state = compression.CompressionState.init(grads)
+        reduced, state = compression.compressed_psum(grads, state, group,
+                                                     codec)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        err = max(float((r.float() - g.float()).abs().max()) for r, g in
+                  zip(tree_leaves(reduced), tree_leaves(grads)))
+        largest = max(float(g.abs().max()) for g in tree_leaves(grads))
+        want, want_state = compression.compressed_psum(
+            cpu, compression.CompressionState.init(cpu), None, codec)
+        got = _leaf(reduced, COMPRESSED_LEAF).cpu()
+        got_err = _leaf(state.err, COMPRESSED_LEAF).cpu()
+        same = torch.equal(got, want["w"]) and \
+            torch.equal(got_err, want_state.err["w"])
+        log(f"[dp-train] compressed_psum {codec}: {secs:.3f} s over "
+            f"{len(tree_leaves(grads))} leaves "
+            f"({sum(g.numel() for g in tree_leaves(grads)) / 1e6:.1f} M "
+            f"elements), peak {gib(peak)} above the gradients, largest "
+            f"error against the gradient {err:.3g} (largest gradient "
+            f"{largest:.3g}); {'/'.join(COMPRESSED_LEAF)} and its residual "
+            f"{'bit-equal' if same else 'DIFFER'} on the CPU; {smi}")
+        if not same:
+            raise AssertionError(f"[dp-train] compressed_psum {codec}: "
+                                 f"{'/'.join(COMPRESSED_LEAF)} differs from "
+                                 f"the CPU's")
+        out[codec] = {"seconds": secs, "peak_bytes": peak, "max_err": err}
+        del reduced, state
+    # the largest top-k: the embedding's, k = 5% of its elements
+    embed = grads["embed"]
+    fresh_phase()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sparse, err = compression.topk_encode(embed, torch.zeros_like(
+        embed, dtype=torch.float32))
+    torch.cuda.synchronize()
+    log(f"[dp-train] topk_encode of the embedding gradient "
+        f"{tuple(embed.shape)} ({embed.numel() / 1e6:.1f} M elements, k "
+        f"{int(embed.numel() * 0.05) / 1e6:.2f} M, its zero residual "
+        f"included): {time.perf_counter() - t0:.3f} s, peak "
+        f"{gib(torch.cuda.max_memory_allocated() - base)} above the "
+        f"gradients; {smi}")
+    del sparse, err
+    return out
+
+
+def phase_dp_train(smi: str, device: str = "cuda") -> dict:
+    """``[dp-train]``: qwen2-1.5b at its published widths and depth trained
+    through the train step on the rank mesh ``make_host_mesh(cards, 1)``
+    at ``(data 1, model 1)``, a one-rank NCCL group as its model, data and
+    pod groups (so every gather and reduction of the data axis takes its
+    one-rank exit): 2 steps at B 4 x S 1024 from ``[train]``'s seed on its
+    first batches (the step given its rows of them, ``TrainStep.rows``),
+    losses, grad norms and params bit-equal to the step without a group,
+    with 787 ``ina_matmul`` (none generic) and 56 ``flash_attention``
+    launches a step and no collective call.  Then the compressed psum of
+    one step's gradient tree (:func:`check_compressed_psum`) and the
+    launcher's refusal of ``--production-mesh`` on fewer than 256
+    ranks."""
+    args = launch_train.build_parser().parse_args(
+        TRAIN_ARGV + ["--ckpt-dir", "-", "--device", device])
+    cfg = launch_train._config(args)
+    model = get_model(cfg)
+    ranks = launch_train.rank_mesh(args)
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch))
+    batches = [{k: v.to(device) for k, v in pipe.batch(i).items()}
+               for i in range(TP_TRAIN_STEPS)]
+    expect = train_launches(cfg.n_layers)
+    fresh_phase()
+    log(f"[dp-train] {cfg.name}: the launcher's rank mesh on "
+        f"{torch.cuda.device_count()} card(s) is {ranks.pairs}; this phase "
+        f"runs (data 1, model 1), B {args.batch} x S {args.seq}, "
+        f"{TP_TRAIN_STEPS} steps; {smi}")
+    base, base_steps = _timed("groupless steps", lambda: tp_train_steps(
+        model, shape, None, batches, args), "dp-train")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_group_") as tmp:
+        group, _ = mesh.init_group(1, 0, device, os.path.join(tmp, "store"))
+        try:
+            pctx = ParallelCtx(group=group, data_group=group,
+                               pod_group=group)
+            ts = build_train_step(model, shape, pctx)
+            if (ts.host, ts.hosts) != (0, 1):
+                raise AssertionError(f"[dp-train] host {ts.host} of "
+                                     f"{ts.hosts}")
+            params, steps = _timed("rank-mesh steps", lambda: tp_train_steps(
+                model, shape, pctx, [ts.rows(b) for b in batches], args),
+                "dp-train")
+            for s, b in zip(steps, base_steps):
+                log(f"[dp-train] loss {s['loss']:.6f} (groupless "
+                    f"{b['loss']:.6f}), grad_norm {s['grad_norm']:.6f} "
+                    f"({b['grad_norm']:.6f}), {s['ms']:.1f} ms (groupless "
+                    f"{b['ms']:.1f}), launches {s['launches']}, generic "
+                    f"{s['generic']}, collective calls {s['calls']}")
+                if (s["loss"], s["grad_norm"]) != (b["loss"], b["grad_norm"]):
+                    raise AssertionError("[dp-train] the step differs from "
+                                         "the groupless one")
+                if s["launches"] != expect or s["generic"] != 0:
+                    raise AssertionError(f"[dp-train] launches "
+                                         f"{s['launches']} != {expect}")
+                if s["calls"]:
+                    raise AssertionError(f"[dp-train] collective calls "
+                                         f"{s['calls']} at one rank")
+            n = _same_state(params, base, "rank-mesh params")
+            log(f"[dp-train] {n} param leaves bit-equal to the groupless "
+                f"step's after {TP_TRAIN_STEPS} steps")
+            path = {k: sum(s["launches"][k] for s in steps) for k in expect}
+            del base
+            _, grads = loss_and_grads(model, params, batches[0])
+            del params
+            codecs = check_compressed_psum(grads, group, smi)
+            del grads
+        finally:
+            dist.destroy_process_group()
+    argv = TRAIN_ARGV + ["--ckpt-dir", "-", "--device", device,
+                         "--production-mesh"]
+    try:
+        launch_train.main(argv)
+    except RuntimeError as e:
+        if "256 ranks" not in str(e):
+            raise
+        log(f"[dp-train] --production-mesh refused: {e}")
+    else:
+        raise AssertionError("[dp-train] --production-mesh ran on "
+                             f"{torch.cuda.device_count()} card(s)")
+    fresh_phase()
+    return {"launches": path, "compressed": codecs}
 
 
 @contextlib.contextmanager
@@ -2159,6 +2326,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ck:
         trained = phase_train(ck)
         tp_trained = phase_tp_train(ck, info["smi"])
+    dp_trained = phase_dp_train(info["smi"])
     phase_train_f32()
     mla = phase_mla()
     phase_mla_f32()
@@ -2174,6 +2342,8 @@ def main() -> int:
              "qwen2-1.5b train": trained["launches"],
              **{f"qwen2-1.5b tp train W=1 {mode} ({TP_TRAIN_STEPS} steps)":
                 counts for mode, counts in tp_trained.items()},
+             f"qwen2-1.5b dp train (data 1, model 1) ({TP_TRAIN_STEPS} "
+             f"steps)": dp_trained["launches"],
              f"{MLA} forward": mla["forward"],
              f"{MLA} serve": mla["serve"],
              f"{MOE} ({MOE_DEPTH} layers) forward": moe["forward"],

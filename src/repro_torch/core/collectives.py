@@ -333,6 +333,26 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     return t
 
 
+def all_gather_into_(out: torch.Tensor, x: torch.Tensor,
+                     group) -> torch.Tensor:
+    """``dist.all_gather_into_tensor``: the ranks' ``x`` into ``out``, rank
+    after rank (no autograd), counted in :data:`CALLS`: the FSDP gather of
+    a train step on the rank mesh."""
+    CALLS["all_gather"] += 1
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out
+
+
+def reduce_scatter_(out: torch.Tensor, x: torch.Tensor,
+                    group) -> torch.Tensor:
+    """``dist.reduce_scatter_tensor``: ``out`` is this rank's chunk of the
+    ranks' summed ``x`` (no autograd), counted in :data:`CALLS`: the FSDP
+    gradient reduction of a train step on the rank mesh."""
+    CALLS["reduce_scatter"] += 1
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # Simulated-mesh cost bridge (the port's copy of the NoC cost model).
 # --------------------------------------------------------------------------- #

@@ -1,26 +1,130 @@
-"""Process groups for tensor parallelism (counterpart of
-``repro.launch.mesh``).
+"""Rank meshes and process groups (counterpart of ``repro.launch.mesh``).
 
-The reference builds a device mesh whose ``model`` axis the TP collectives
-run over.  Here each rank of that axis is a process: :func:`init_group`
-joins one, and :func:`spawn` starts ``world`` of them and returns what each
-one's function returned.  NCCL runs on the card (rank ``r`` on
-``cuda:r``); gloo runs only where the caller asks for the CPU.  A group
-wider than the card count raises: there is no gloo or CPU fallback.
+The reference builds a device mesh over ``("data", "model")`` or
+``("pod", "data", "model")``: GSPMD cuts the batch and the FSDP shards
+over the first axes, and the TP collectives run over ``model``.  Here each
+device is a process: :class:`RankMesh` lays the global ranks out as
+``jax.make_mesh`` lays out host devices (row-major) and makes one process
+group for each line along each axis (:meth:`RankMesh.groups`);
+:func:`make_host_mesh` and :func:`make_production_mesh` are the
+reference's shapes.  :func:`init_group` joins the default group, and
+:func:`spawn` starts ``world`` ranks and returns what each one's function
+returned.  NCCL runs on the card (rank ``r`` on ``cuda:r``); gloo runs
+only where the caller asks for the CPU.  A group wider than the card
+count raises: there is no gloo or CPU fallback.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import os
 import queue as queue_mod
 import tempfile
 import traceback
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
 TIMEOUT_S = 600
+
+#: the reference's mesh axes, outermost first
+AXES = ("pod", "data", "model")
+#: ``make_production_mesh``'s shapes: one pod of 16 x 16, or two
+PRODUCTION = {False: ((16, 16), ("data", "model")),
+              True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+@dataclasses.dataclass(frozen=True)
+class RankMesh:
+    """Global ranks laid out on named axes: rank ``r`` sits at
+    ``np.unravel_index(r, shape)``, the row-major order in which
+    ``jax.make_mesh`` places host devices.  ``axes`` is a subsequence of
+    :data:`AXES` (``model`` innermost); an axis left out has span 1."""
+    shape: tuple
+    axes: tuple
+
+    def __post_init__(self):
+        shape, axes = tuple(self.shape), tuple(self.axes)
+        object.__setattr__(self, "shape", shape)
+        object.__setattr__(self, "axes", axes)
+        if len(shape) != len(axes) or any(n < 1 for n in shape):
+            raise ValueError(f"mesh shape {shape} for axes {axes}")
+        if list(axes) != [a for a in AXES if a in axes]:
+            raise ValueError(f"mesh axes {axes}: a subsequence of {AXES}")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def pairs(self) -> tuple:
+        """``((axis, span), ...)``: the form the plan builder keys on."""
+        return tuple(zip(self.axes, self.shape))
+
+    def span(self, axis: str) -> int:
+        return dict(self.pairs).get(axis, 1)
+
+    def devices(self) -> np.ndarray:
+        """The global rank at each mesh position."""
+        return np.arange(self.size).reshape(self.shape)
+
+    def coords(self, rank: int) -> dict:
+        """``{axis: index}`` of global ``rank``, every axis of
+        :data:`AXES` (0 on one the mesh leaves out)."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        at = dict(zip(self.axes, np.unravel_index(rank, self.shape)))
+        return {a: int(at.get(a, 0)) for a in AXES}
+
+    def lines(self, axis: str) -> list:
+        """Every line of global ranks along ``axis``, in row-major order of
+        the other axes' positions (each rank alone along an axis the mesh
+        leaves out)."""
+        ranks = self.devices()
+        if axis not in self.axes:
+            return [[int(r)] for r in ranks.reshape(-1)]
+        moved = np.moveaxis(ranks, self.axes.index(axis), -1)
+        return [[int(r) for r in line]
+                for line in moved.reshape(-1, self.span(axis))]
+
+    def groups(self, rank: int) -> dict:
+        """``{axis: group}`` for ``pod``, ``data`` and ``model``: the
+        process group of the line through global ``rank`` along each axis,
+        ``None`` where the axis has span 1.  Every rank of the default
+        group calls it alike: it makes one ``dist.new_group`` for each
+        line of each axis wider than one rank, in one order, keeping the
+        ones ``rank`` is in.  A line that is the whole world is the
+        default group itself."""
+        out = {a: None for a in AXES}
+        for axis in self.axes:
+            if self.span(axis) == 1:
+                continue
+            for line in self.lines(axis):
+                pg = dist.group.WORLD if len(line) == self.size \
+                    else dist.new_group(line)
+                if rank in line:
+                    out[axis] = pg
+        return out
+
+
+def make_host_mesh(ranks: int, model_parallel: int = 1) -> RankMesh:
+    """``(ranks // mp, mp)`` over ``("data", "model")``, ``mp`` the model
+    span clipped to ``[1, ranks]``: the reference's ``make_host_mesh``
+    over ``ranks`` devices.  ``ranks`` must be a multiple of ``mp``."""
+    mp = max(1, min(model_parallel, ranks))
+    if ranks % mp:
+        raise ValueError(f"{ranks} ranks do not divide into a model axis of "
+                         f"{mp}")
+    return RankMesh((ranks // mp, mp), ("data", "model"))
+
+
+def make_production_mesh(multi_pod: bool = False) -> RankMesh:
+    """The reference's production mesh: 16 x 16 over ``("data",
+    "model")``, or 2 x 16 x 16 over ``("pod", "data", "model")``."""
+    return RankMesh(*PRODUCTION[multi_pod])
 
 
 def init_group(world: int, rank: int, device, store_path: str,

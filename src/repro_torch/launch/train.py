@@ -12,12 +12,19 @@ as the reference's does.  It
 runs on the GPU unless ``--device cpu`` is given, and exits non-zero when
 the loss did not fall.
 
-``--model-parallel N`` trains tensor-parallel on N ranks, one process
-each (NCCL on N cards; gloo on the CPU under ``--device cpu``; more ranks
-than cards raises): each rank cuts the seeded masters, builds its own
-AdamW state and loads the train-phase plan at ``(("model", N),)``, built
-once before the ranks start.  The checkpoints hold the full logical
-state, so a run resumes at any N that divides the heads.
+The ranks form the reference's host mesh, ``(ranks // mp, mp)`` over
+``("data", "model")`` (``launch.mesh.make_host_mesh``), one process each
+(NCCL on the cards; gloo on the CPU under ``--device cpu``): on the card
+``ranks`` is the card count, on the CPU ``--ranks N`` (the counterpart of
+XLA's forced host device count; default ``--model-parallel``, so
+``--model-parallel N`` alone trains tensor-parallel on N ranks).  Each rank
+cuts the seeded masters to its piece (its model shard, cut again over
+``data``: FSDP), builds its own AdamW state, trains on its rows of the
+global batch and loads the train-phase plan at the mesh's ``(axis, span)``
+pairs, built once before the ranks start.  ``--production-mesh`` takes the
+reference's 16 x 16 mesh, and raises before any rank starts where fewer
+than its 256 ranks exist.  The checkpoints hold the full logical state,
+so a run resumes at any mesh whose model span divides the heads.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
@@ -25,8 +32,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --reduced --device cpu --steps 6 --batch 2 --seq 32 --ckpt-dir /tmp/ck
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
-      --reduced --device cpu --steps 3 --batch 2 --seq 32 --lr 1e-2 \\
-      --ckpt-dir /tmp/tp --ckpt-every 2 --model-parallel 2
+      --reduced --device cpu --steps 3 --batch 4 --seq 32 --lr 1e-2 \\
+      --ckpt-dir /tmp/dp --ckpt-every 2 --ranks 4 --model-parallel 2
 """
 from __future__ import annotations
 
@@ -36,12 +43,12 @@ import io
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import _device
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.core.collectives import (CLI_PSUM_MODES, axis_index,
-                                          axis_size)
+from repro_torch.core.collectives import CLI_PSUM_MODES
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch import mesh
 from repro_torch.models.api import get_model
@@ -50,7 +57,6 @@ from repro_torch.parallel.sharding import head_split, shard_params
 from repro_torch.parallel.steps import build_train_step, check_trainable
 from repro_torch.parallel.tp import ParallelCtx
 from repro_torch.plan import add_plan_cli_args, plan_for_launch
-from repro_torch.plan.builder import MODEL_AXIS
 from repro_torch.runtime.fault_tolerance import (FTConfig,
                                                  ShardedCheckpointManager,
                                                  run_training)
@@ -71,6 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--psum-mode", default="ina", choices=CLI_PSUM_MODES)
     add_plan_cli_args(ap)
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks under --device cpu (default: "
+                         "--model-parallel); on the card, the card count")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's 16x16 mesh (needs 256 ranks)")
     return ap
 
 
@@ -79,41 +90,71 @@ def run(args, on_step: Optional[Callable] = None) -> dict:
     after each step.  Returns the final ``state`` (params, opt), the
     ``steps`` run and their ``losses``, and the straggler events.
 
-    ``--model-parallel N`` > 1 spawns N ranks (``launch.mesh.spawn``: NCCL
-    on N cards, gloo where ``--device cpu`` asks for the CPU), each
-    training its shard; it returns rank 0's steps and losses, without a
-    state (each rank's lived in its own process), and takes no
-    ``on_step``."""
+    A mesh of more than one rank (:func:`rank_mesh`) spawns its ranks
+    (``launch.mesh.spawn``: NCCL on the cards, gloo where ``--device cpu``
+    asks for the CPU), each training its piece; it returns rank 0's steps
+    and losses, without a state (each rank's lived in its own process),
+    and takes no ``on_step``."""
     cfg = _config(args)
-    world = args.model_parallel
-    if world == 1:
-        return _train(args, cfg, on_step=on_step)
+    ranks = rank_mesh(args)
+    if ranks.size == 1:
+        return _train(args, cfg, ranks, on_step=on_step)
     if on_step is not None:
-        raise ValueError("on_step is called at one rank only: at "
-                         "--model-parallel > 1 the steps run in the ranks' "
-                         "processes")
-    dev = _device.resolve(args.device)
-    if dev.type == "cuda" and world > torch.cuda.device_count():
-        raise RuntimeError(f"--model-parallel {world} needs {world} CUDA "
-                           f"devices; {torch.cuda.device_count()} present "
-                           f"(no gloo fallback on the card)")
+        raise ValueError("on_step is called at one rank only: on a mesh of "
+                         "more ranks the steps run in the ranks' processes")
     # refuse what the ranks would, before any starts
     check_trainable(cfg)
-    head_split(cfg, 0, world)
+    head_split(cfg, 0, ranks.span("model"))
+    hosts = ranks.span("pod") * ranks.span("data")
+    if args.batch % hosts:
+        raise ValueError(f"--batch {args.batch} does not divide over the "
+                         f"{hosts} data-parallel ranks of {ranks.pairs}")
     # build the plan once, so that every rank loads it warm
-    _plan(args, cfg, world)
-    return mesh.spawn(train_rank, world, dev.type, args=(args,))[0]
+    _plan(args, cfg, ranks)
+    dev = _device.resolve(args.device)
+    return mesh.spawn(train_rank, ranks.size, dev.type,
+                      args=(args, ranks))[0]
 
 
-def train_rank(rank, world, group, device, args) -> dict:
-    """One rank of ``--model-parallel``: its shard of the seeded masters,
-    its own AdamW state, and the ranks' shared checkpoints.  Rank 0
-    prints; the others' prints are dropped."""
+def rank_mesh(args) -> mesh.RankMesh:
+    """The launch's rank mesh: ``make_host_mesh(ranks, --model-parallel)``
+    with ``ranks`` the card count on the card and ``--ranks`` (default
+    ``--model-parallel``) on the CPU, or ``make_production_mesh()`` under
+    ``--production-mesh``.  Raises where the ranks are too few."""
+    dev = _device.resolve(args.device)
+    if dev.type == "cuda":
+        if args.ranks is not None:
+            raise ValueError("--ranks sets the CPU's rank count; on the card "
+                             "it is the card count")
+        ranks, what = torch.cuda.device_count(), "CUDA devices"
+    else:
+        ranks = args.model_parallel if args.ranks is None else args.ranks
+        what = "ranks (--ranks)"
+    if args.production_mesh:
+        prod = mesh.make_production_mesh()
+        if ranks < prod.size:
+            raise RuntimeError(f"--production-mesh is the reference's "
+                               f"{' x '.join(map(str, prod.shape))} mesh over "
+                               f"{prod.axes}: it needs {prod.size} ranks; "
+                               f"{ranks} {what} present")
+        return prod
+    if args.model_parallel > ranks:
+        raise RuntimeError(f"--model-parallel {args.model_parallel} needs "
+                           f"{args.model_parallel} {what}; {ranks} present"
+                           + (" (no gloo fallback on the card)"
+                              if dev.type == "cuda" else ""))
+    return mesh.make_host_mesh(ranks, args.model_parallel)
+
+
+def train_rank(rank, world, group, device, args, ranks) -> dict:
+    """One rank of the mesh ``ranks``: its piece of the seeded masters,
+    its own AdamW state, its rows of each batch, and the ranks' shared
+    checkpoints.  Rank 0 prints; the others' prints are dropped."""
     args = argparse.Namespace(**{**vars(args), "device": str(device)})
     quiet = contextlib.nullcontext() if rank == 0 else \
         contextlib.redirect_stdout(io.StringIO())
     with quiet:
-        out = _train(args, _config(args), group=group)
+        out = _train(args, _config(args), ranks, groups=ranks.groups(rank))
     del out["state"]
     return out
 
@@ -127,25 +168,31 @@ def _shape(args) -> ShapeConfig:
     return ShapeConfig("cli", args.seq, args.batch, "train")
 
 
-def _plan(args, cfg, world: int):
-    plan, _ = plan_for_launch(cfg, ((MODEL_AXIS, world),), _shape(args),
+def _plan(args, cfg, ranks: mesh.RankMesh):
+    plan, _ = plan_for_launch(cfg, ranks.pairs, _shape(args),
                               args.psum_mode, plan_dir=args.plan_dir,
                               enabled=not args.no_plan)
     return plan
 
 
-def _train(args, cfg, group=None, on_step: Optional[Callable] = None
-           ) -> dict:
+def _train(args, cfg, ranks: mesh.RankMesh, groups: Optional[dict] = None,
+           on_step: Optional[Callable] = None) -> dict:
     dev = _device.resolve(args.device)
-    rank, world = axis_index(group), axis_size(group)
+    groups = groups or {}
+    at = ranks.coords(dist.get_rank() if groups else 0)
+    world = ranks.size
+    shards = (ranks.span("data"), ranks.span("model"))
     model = get_model(cfg)
-    pctx = ParallelCtx(group=group, psum_mode=args.psum_mode,
-                       plan=_plan(args, cfg, world))
+    pctx = ParallelCtx(group=groups.get("model"), psum_mode=args.psum_mode,
+                       plan=_plan(args, cfg, ranks),
+                       data_group=groups.get("data"),
+                       pod_group=groups.get("pod"))
     ts = build_train_step(model, _shape(args), pctx, base_lr=args.lr,
                           warmup=min(20, args.steps // 5 + 1),
                           total_steps=args.steps)
     print(f"[train] {cfg.name} ({'reduced' if args.reduced else 'full'}) "
-          f"world={world} psum={args.psum_mode} device={dev}", flush=True)
+          f"mesh={dict(ranks.pairs)} psum={args.psum_mode} device={dev}",
+          flush=True)
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                     global_batch=args.batch))
 
@@ -173,11 +220,13 @@ def _train(args, cfg, group=None, on_step: Optional[Callable] = None
     ft = FTConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
                   **({"max_step_retries": 0} if world > 1 else {}))
     mgr = None if world == 1 else ShardedCheckpointManager(
-        args.ckpt_dir, cfg, group, dev, keep=ft.keep, every=ft.ckpt_every)
+        args.ckpt_dir, cfg, dist.group.WORLD, dev, keep=ft.keep,
+        every=ft.ckpt_every, world=shards)
     # run_training holds the only reference to the initial state, so a
     # restored one replaces it in device memory instead of joining it
     state, last, stragglers = run_training(
-        step_fn, initial_state(model, dev, rank, world), pipe.batch, ft=ft,
+        step_fn, initial_state(model, dev, (at["data"], at["model"]), shards),
+        lambda step: pipe.host_batch(step, ts.host, ts.hosts), ft=ft,
         num_steps=args.steps, on_metrics=on_metrics, mgr=mgr)
     if not losses:
         print(f"[train] nothing to do: the checkpoint under {args.ckpt_dir} "
@@ -192,9 +241,11 @@ def _train(args, cfg, group=None, on_step: Optional[Callable] = None
             "last": last, "stragglers": stragglers}
 
 
-def initial_state(model, dev, rank: int = 0, world: int = 1) -> tuple:
-    """(float32 masters seeded with 0, zero AdamW state) on ``dev``: at
-    ``world`` > 1, ``rank``'s shard of the masters and its own state."""
+def initial_state(model, dev, rank=0, world=1) -> tuple:
+    """(float32 masters seeded with 0, zero AdamW state) on ``dev``: on more
+    than one rank, ``rank``'s piece of the masters of ``world`` (as
+    ``shard_params`` takes them: the model axis, or ``(data, model)``)
+    and its own state."""
     params = model.init(torch.Generator(device=dev).manual_seed(0),
                         device=dev, masters=True)
     n_params = sum(p.numel() for p in tree_leaves(params))

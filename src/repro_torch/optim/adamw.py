@@ -73,19 +73,23 @@ def _clip_scale(grads: dict, max_norm: float, group=None,
     At more than one rank ``grads`` are this rank's shards and ``holding``
     (:func:`repro_torch.parallel.sharding.leaf_holding`) says how each is
     held: the sums of squares of the ``"cut"`` leaves are all-reduced over
-    ``group``, a ``"whole"`` leaf (the same on every rank) is counted once
-    and a ``"copy"`` (a KV head that another rank of its group counts) not
-    at all, so the norm is the one over the logical arrays, and the same
-    on every rank."""
+    ``group`` (a group, or a tuple of groups whose product is the ranks
+    that hold distinct pieces: the rank mesh's data and model lines), a
+    ``"whole"`` leaf (the same on every rank) is counted once and a
+    ``"copy"`` (a piece that another rank counts) not at all, so the norm
+    is the one over the logical arrays, and the same on every rank."""
     leaves = tree_leaves(grads)
-    if holding is None or axis_size(group) == 1:
+    groups = [g for g in (group if isinstance(group, tuple) else (group,))
+              if axis_size(g) > 1]
+    if holding is None or not groups:
         gnorm = torch.sqrt(sum(g.float().square().sum() for g in leaves))
     else:
         squares = {"cut": [], "whole": [], "copy": []}
         for g, kind in zip(leaves, tree_leaves(holding)):
             squares[kind].append(g.float().square().sum())
         cut = torch.stack(squares["cut"]).sum()
-        all_reduce_(cut, group)
+        for g in groups:
+            all_reduce_(cut, g)
         gnorm = torch.sqrt(cut + sum(squares["whole"]))
     return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0), \
         gnorm

@@ -14,13 +14,24 @@ reference hands its specs to GSPMD; the port cuts each rank's slice itself
   its query heads share (:func:`head_split`);
 * the biases of column-parallel weights are cut with their output dim (the
   reference keeps every vector replicated and lets GSPMD slice the sum);
-* the ``data`` (FSDP) axis is span 1: serving and training cut the
-  weights over the ``model`` axis only (data parallelism and FSDP are
-  ROADMAP.md Queue 1).
+* serving cuts the weights over the ``model`` axis only.
 
 The tied embedding follows the rule, ``model`` on V: each rank holds V/world
 rows (a vocab-parallel lookup), and the head read from it gives the rank's
 V/world logits.
+
+Training adds the ``data`` axis (FSDP).  A rank at ``(data d, model m)`` of
+``(D, M)`` holds its model shard cut once more into D equal pieces, piece
+d, on the dim where the reference places ``data``
+(:func:`data_cut`: ``fit_spec`` of the name rule on the logical shape,
+as ``build_train_step`` fits ``param_specs(shapes, mesh)``): ``wq``,
+``w_up``, ``lm_head`` on their input dim, ``wo``, ``w_down``, ``embed`` on
+d_model, a stacked ``[L, ...]`` leaf never on L.  A leaf the rule gives no
+``data`` entry (norms, biases), or whose model shard D does not divide,
+is held whole over ``data``.  ``pod`` cuts no parameter.  Every function
+here takes a rank and world of the ``model`` axis alone (an int), or the
+pair ``(data, model)`` of the rank mesh, whose flat rank is
+``d * M + m``; data span 1 is the model axis alone.
 
 Training also needs the way back: :func:`unshard_params` rebuilds the
 logical tree from the ranks' shards (a checkpoint holds it, so a job
@@ -31,6 +42,7 @@ global gradient norm sums over the ranks and which it counts once, and
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -47,16 +59,17 @@ _STACKED = ("layers", "dense_layers", "enc_layers", "dec_layers", "xlayers")
 # --------------------------------------------------------------------------- #
 # the reference's rule
 # --------------------------------------------------------------------------- #
+def _lead(names: tuple) -> int:
+    """The stacked leading dims of the leaf at ``names``."""
+    return sum(1 if n in _STACKED else 2 if n == "groups" else 0
+               for n in names)
+
+
 def leaf_spec(names: tuple, shape: tuple, mesh_shape: dict | None) -> tuple:
     """Spec of one leaf from its key path ``names`` (``_leaf_spec``)."""
     name = names[-1] if names else ""
     parent = names[-2] if len(names) > 1 else ""
-    lead = 0
-    for n in names:
-        if n in _STACKED:
-            lead += 1
-        elif n == "groups":
-            lead += 2
+    lead = _lead(names)
     pre = (None,) * lead
     nd = len(shape) - lead
 
@@ -160,35 +173,96 @@ def _dense_only(cfg: ModelConfig) -> None:
             f"tensor-parallel shards are ROADMAP.md Queue 1")
 
 
-def shard_params(params: dict, cfg: ModelConfig, rank: int,
-                 world: int) -> dict:
-    """Cut each full leaf of ``params`` to ``rank``'s slice.
+def _coord(rank, world) -> tuple[int, int, int, int]:
+    """``(d, m, D, M)``: data and model rank and span of ``rank`` of
+    ``world``.  An int ``world`` is the model axis alone (``D = 1``); a
+    pair ``(D, M)`` is the rank mesh, with ``rank`` the pair ``(d, m)`` or
+    the flat rank ``d * M + m``."""
+    if isinstance(world, (tuple, list)):
+        dd, mm = world
+        d, m = rank if isinstance(rank, (tuple, list)) else divmod(rank, mm)
+        return d, m, dd, mm
+    if isinstance(rank, (tuple, list)):
+        raise ValueError(f"rank {rank} of a model axis of {world}")
+    return 0, rank, 1, world
 
-    Column-parallel weights and their biases are cut on the output dim,
-    row-parallel weights on the contraction dim, attention by whole heads
-    (:func:`head_split`), the embedding (and a tied head) on V.  Each cut
-    leaf is a contiguous copy, so the full tree can be freed; every other
-    leaf is the same tensor on every rank.  ``world == 1`` returns
-    ``params``.  :func:`unshard_params` is the inverse.
+
+@functools.cache
+def _logical_shapes(cfg: ModelConfig) -> dict:
+    """``{names: shape}`` of the config's parameter tree (on ``meta``)."""
+    from repro_torch.models.api import get_model
+    shapes = {}
+
+    def keep(names, leaf):
+        shapes[names] = tuple(leaf.shape)
+    _walk(keep, get_model(cfg).init(device="meta", masters=True))
+    return shapes
+
+
+@functools.cache
+def data_cut(names: tuple, cfg: ModelConfig, world) -> int | None:
+    """The dim on which the ``data`` axis of ``world = (D, M)`` cuts the
+    leaf at ``names`` (the same dim of the logical leaf and of its model
+    shard), or ``None`` where the leaf is whole over ``data``: the dim
+    where the reference places ``data`` (the name rule, guarded by the
+    mesh, then ``fit_spec``, as its ``build_train_step`` fits
+    ``param_specs(shapes, mesh)``), where D divides the model shard."""
+    _, _, dd, mm = _coord(0, world)
+    if dd == 1:
+        return None
+    shape = _logical_shapes(cfg)[names]
+    mesh = {"data": dd, "model": mm}
+    spec = fit_spec(leaf_spec(names, shape, mesh), shape, mesh)
+    dim = next((i for i, e in enumerate(spec) if "data" in _axes_of(e)),
+               None)
+    if dim is None:
+        return None
+    size = shape[dim]
+    how = _cut(names, len(shape), cfg, mm)
+    if how is not None and how[0] == dim:
+        size //= how[1](0)[1]
+    return dim if size % dd == 0 and size >= dd else None
+
+
+def shard_params(params: dict, cfg: ModelConfig, rank, world) -> dict:
+    """Cut each full leaf of ``params`` to ``rank``'s slice of ``world``
+    (an int: the model axis; ``(D, M)``: the rank mesh, see the module
+    docstring).
+
+    Over ``model``: column-parallel weights and their biases are cut on
+    the output dim, row-parallel weights on the contraction dim, attention
+    by whole heads (:func:`head_split`), the embedding (and a tied head)
+    on V.  Over ``data``: the model shard is cut into D pieces on
+    :func:`data_cut`'s dim.  Each cut leaf is a contiguous copy, so the
+    full tree can be freed; every other leaf is the same tensor on every
+    rank.  One rank returns ``params``.  :func:`unshard_params` is the
+    inverse.
     """
-    if world == 1:
+    d, m, dd, mm = _coord(rank, world)
+    if dd * mm == 1:
         return params
     _dense_only(cfg)
 
     def cut(names, leaf):
-        how = _cut(names, leaf.dim(), cfg, world)
-        if how is None:
+        piece = leaf
+        how = _cut(names, leaf.dim(), cfg, mm)
+        if how is not None:
+            dim, at = how
+            index, count = at(m)
+            if leaf.shape[dim] % count or leaf.shape[dim] < count:
+                # any weight the rule cuts must be cut, or the row psum
+                # would sum ``world`` copies
+                raise ValueError(f"{cfg.name}: {mm} ranks do not divide "
+                                 f"{'/'.join(names)} {tuple(leaf.shape)}")
+            n = leaf.shape[dim] // count
+            piece = piece.narrow(dim, index * n, n)
+        dim = data_cut(names, cfg, (dd, mm))
+        if dim is not None:
+            n = piece.shape[dim] // dd
+            piece = piece.narrow(dim, d * n, n)
+        if piece is leaf:
             return leaf
-        dim, piece = how
-        index, count = piece(rank)
-        if leaf.shape[dim] % count or leaf.shape[dim] < count:
-            # any weight the rule cuts must be cut, or the row psum would
-            # sum ``world`` copies
-            raise ValueError(f"{cfg.name}: {world} ranks do not divide "
-                             f"{'/'.join(names)} {tuple(leaf.shape)}")
-        n = leaf.shape[dim] // count
-        return leaf.narrow(dim, index * n, n).clone(
-            memory_format=torch.contiguous_format)
+        return piece.clone(memory_format=torch.contiguous_format)
     return _walk(cut, params)
 
 
@@ -198,30 +272,49 @@ def _concat(parts: list, dim: int):
     return torch.cat(parts, dim)
 
 
-def unshard_params(shards: list, cfg: ModelConfig, world: int) -> dict:
-    """The full tree from every rank's shard (``shards[rank]``), the inverse
-    of :func:`shard_params`: each cut leaf concatenated along its dim, a
-    piece that several ranks share (a KV head) taken from the first rank
-    that holds it, every whole leaf from rank 0.  Leaves are numpy arrays
-    or tensors (a gather to rank 0 can feed it)."""
-    if len(shards) != world:
-        raise ValueError(f"{len(shards)} shards for {world} ranks")
-    if world == 1:
+def _at(tree: dict, names: tuple):
+    for k in names:
+        tree = tree[k]
+    return tree
+
+
+def unshard_params(shards: list, cfg: ModelConfig, world) -> dict:
+    """The full tree from every rank's shard (``shards[r]``, ``r`` the flat
+    rank), the inverse of :func:`shard_params`: the data pieces of each
+    model shard concatenated along :func:`data_cut`'s dim, then each
+    model-cut leaf along its dim, a piece that several ranks share (a KV
+    head) taken from the first rank that holds it, every whole leaf from
+    rank 0.  Leaves are numpy arrays or tensors (a gather to rank 0 can
+    feed it)."""
+    _, _, dd, mm = _coord(0, world)
+    if len(shards) != dd * mm:
+        raise ValueError(f"{len(shards)} shards for {dd * mm} ranks")
+    if dd * mm == 1:
         return shards[0]
     _dense_only(cfg)
+    if dd > 1:
+        def join_data(m):
+            def join(names, leaf):
+                dim = data_cut(names, cfg, (dd, mm))
+                if dim is None:
+                    return leaf
+                return _concat([_at(shards[d * mm + m], names)
+                                for d in range(dd)], dim)
+            return _walk(join, shards[m])
+        shards = [join_data(m) for m in range(mm)]
+    if mm == 1:
+        return shards[0]
 
     def join(names, leaf):
-        how = _cut(names, leaf.ndim, cfg, world)
+        how = _cut(names, leaf.ndim, cfg, mm)
         if how is None:
             return leaf
-        dim, piece = how
+        dim, at = how
         parts = {}
         for rank, tree in enumerate(shards):
-            index, count = piece(rank)
+            index, count = at(rank)
             if index not in parts:
-                for k in names:
-                    tree = tree[k]
-                parts[index] = tree
+                parts[index] = _at(tree, names)
         return _concat([parts[i] for i in range(count)], dim)
     return _walk(join, shards[0])
 
@@ -240,14 +333,14 @@ def map_state(fn, state, path: tuple = ()):
     return state
 
 
-def shard_state(state, cfg: ModelConfig, rank: int, world: int):
+def shard_state(state, cfg: ModelConfig, rank, world):
     """:func:`shard_params` over each parameter tree of ``state`` (params,
     ``AdamWState(step, m, v)``); the step stays whole."""
     return map_state(lambda t, _: shard_params(t, cfg, rank, world), state)
 
 
-def unshard_state(states: list, cfg: ModelConfig, world: int):
-    """The inverse of :func:`shard_state`: ``states[rank]`` each rank's."""
+def unshard_state(states: list, cfg: ModelConfig, world):
+    """The inverse of :func:`shard_state`: ``states[r]`` flat rank r's."""
     def join(_, path):
         trees = []
         for st in states:
@@ -258,32 +351,43 @@ def unshard_state(states: list, cfg: ModelConfig, world: int):
     return map_state(join, states[0])
 
 
-def leaf_holding(params: dict, cfg: ModelConfig, rank: int,
-                 world: int) -> dict:
+def leaf_holding(params: dict, cfg: ModelConfig, rank, world) -> dict:
     """How this rank holds each leaf of its shard ``params``, for a sum over
-    the logical arrays: ``"cut"`` (its piece, summed over the ranks: a KV
-    head's too, on the first rank of those that share it), ``"copy"`` (a
-    piece another rank of its KV group counts) or ``"whole"`` (the same
-    on every rank: counted once)."""
+    the logical arrays: ``"whole"`` (neither axis cuts it: the same on
+    every rank, counted once), ``"cut"`` (its piece, summed over the ranks
+    of both axes: on the first rank, in mesh order, of those that hold the
+    same piece) or ``"copy"`` (a piece another rank counts: a KV head
+    another rank of its KV group holds, a model shard another data rank
+    holds whole, a data piece of a leaf another model rank holds
+    whole)."""
+    d, m, dd, mm = _coord(rank, world)
+
     def kind(names, leaf):
-        how = _cut(names, leaf.ndim, cfg, world)
-        if how is None:
+        how = _cut(names, leaf.ndim, cfg, mm)
+        dim = data_cut(names, cfg, (dd, mm)) if dd > 1 else None
+        if how is None and dim is None:
             return "whole"
-        index, _ = how[1](rank)
-        first = next(r for r in range(world) if how[1](r)[0] == index)
-        return "cut" if first == rank else "copy"
+        first_m = 0
+        if how is not None:
+            index = how[1](m)[0]
+            first_m = next(r for r in range(mm) if how[1](r)[0] == index)
+        first_d = d if dim is not None else 0
+        return "cut" if (first_d, first_m) == (d, m) else "copy"
     return _walk(kind, params)
 
 
-def kv_groups(cfg: ModelConfig, world: int) -> list:
-    """The groups of ranks that share one KV head (each holds a copy), in
-    KV-head order; empty where every rank holds its own KV heads."""
-    if world == 1 or cfg.n_kv_heads % world == 0:
+def kv_groups(cfg: ModelConfig, world) -> list:
+    """The groups of flat ranks that share one KV head (each holds a copy,
+    the same piece over ``data``), in order of data rank, then KV head;
+    empty where every rank holds its own KV heads."""
+    _, _, dd, mm = _coord(0, world)
+    if mm == 1 or cfg.n_kv_heads % mm == 0:
         return []
     groups = {}
-    for rank in range(world):
-        groups.setdefault(_kv_piece(cfg, rank, world)[0], []).append(rank)
-    return [groups[k] for k in sorted(groups)]
+    for rank in range(mm):
+        groups.setdefault(_kv_piece(cfg, rank, mm)[0], []).append(rank)
+    return [[d * mm + r for r in groups[k]] for d in range(dd)
+            for k in sorted(groups)]
 
 
 # --------------------------------------------------------------------------- #

@@ -11,8 +11,10 @@ and psum mode (:class:`repro_torch.parallel.tp.ParallelCtx`), with the
 parameters a rank's shards; in training the collectives' backwards run
 through autograd, each layer's forward collectives run again in its
 recompute (in the same order on every rank), and :class:`GradSync` sums
-the gradients of leaves that several ranks hold.  Greedy decoding takes the first maximal
-logit, as ``jnp.argmax``.
+the gradients of leaves that several ranks hold.  On the rank mesh the
+train step is also data-parallel and FSDP over ``pctx.data_group`` and
+``pctx.pod_group`` (:class:`DataSync`), which the reference leaves to
+GSPMD.  Greedy decoding takes the first maximal logit, as ``jnp.argmax``.
 
 Every builder accepts ``plan`` (a :class:`repro_torch.plan.ExecutionPlan`):
 it rides the step's ``ParallelCtx`` (:func:`_with_plan`), so ``auto`` psum
@@ -51,12 +53,23 @@ def _with_plan(pctx: Optional[ParallelCtx], plan) -> Optional[ParallelCtx]:
 @dataclasses.dataclass
 class TrainStep:
     """``fn(params, opt, batch) -> (params, opt, stats)`` with ``batch =
-    {"tokens", "labels"}`` of ``shape`` and ``stats = {"loss",
-    "grad_norm", "lr"}`` (float32 scalars on the device).  ``params``
-    (float32 masters, ``Model.init(masters=True)``) and ``opt`` are
-    updated in place and returned."""
+    {"tokens", "labels"}`` this rank's rows of a global batch of ``shape``
+    (:meth:`rows`; all of it without a data axis) and ``stats = {"loss",
+    "grad_norm", "lr"}`` (float32 scalars on the device, the loss the
+    global batch's mean).  ``params`` (float32 masters,
+    ``Model.init(masters=True)``) and ``opt`` are updated in place and
+    returned.  The rank is data host ``host`` of ``hosts``
+    (``TokenPipeline.host_batch``'s arguments)."""
     fn: Callable
     shape: ShapeConfig
+    host: int = 0
+    hosts: int = 1
+
+    def rows(self, batch: dict) -> dict:
+        """This rank's rows of the global ``batch``."""
+        n = self.shape.global_batch // self.hosts
+        return {k: v[self.host * n:(self.host + 1) * n]
+                for k, v in batch.items()}
 
 
 def _grad_leaves(params: dict) -> tuple[dict, list]:
@@ -123,31 +136,183 @@ def _named_leaves(tree: dict, names: tuple = ()):
             yield names + (k,), v
 
 
+def _model_lines(pctx: ParallelCtx) -> list:
+    """The global ranks of every model line of the default group.  The
+    model axis is the rank mesh's innermost (``launch.mesh.RankMesh``), so
+    its lines are the blocks of ``pctx.world`` consecutive ranks; one of
+    them is ``pctx.group``'s."""
+    m = pctx.world
+    own = [dist.get_global_rank(pctx.group, r) for r in range(m)]
+    lines = [list(range(b, b + m)) for b in range(0, dist.get_world_size(), m)]
+    if own not in lines:
+        raise ValueError(f"the model group's ranks {own} are not one of the "
+                         f"blocks of {m} consecutive ranks of the rank mesh")
+    return lines
+
+
 def grad_sync(cfg, pctx: Optional[ParallelCtx]) -> Optional[GradSync]:
     """The :class:`GradSync` of a rank of ``pctx.group`` (``None`` at one
     rank).  Where ranks share a KV head it makes one ``dist.new_group``
-    for each KV head, in KV-head order, which every rank of the default
-    group must call alike."""
+    for each KV head of each model line, line after line, in KV-head
+    order, which every rank of the default group must call alike."""
     if pctx is None or not pctx.manual:
         return None
-    kv = None
-    for ranks in sharding.kv_groups(cfg, pctx.world):
-        pg = dist.new_group([dist.get_global_rank(pctx.group, r)
-                             for r in ranks])
-        if pctx.rank in ranks:
-            kv = pg
+    kv, shared = None, sharding.kv_groups(cfg, pctx.world)
+    for line in _model_lines(pctx) if shared else []:
+        for ranks in shared:
+            members = [line[r] for r in ranks]
+            pg = dist.new_group(members)
+            if dist.get_rank() in members:
+                kv = pg
     return GradSync(group=pctx.group, kv_group=kv)
+
+
+@dataclasses.dataclass
+class DataSync:
+    """The data-parallel half of a train step on the rank mesh (the part
+    of the reference's step that GSPMD writes): a rank at ``(pod p, data
+    d)`` of ``(P, D)`` trains on host ``p * D + d``'s rows of the global
+    batch and holds its model shard cut into D pieces
+    (:func:`~repro_torch.parallel.sharding.shard_params` at ``(d, m)`` of
+    ``world = (D, M)``).  :meth:`gather` rebuilds the model shard with one
+    native all-gather over ``data`` (GSPMD's data-axis collectives are
+    native in the reference too: the psum modes are the model axis's);
+    :meth:`reduce` gives each rank its piece of the gradient of the global
+    batch's mean loss, and that loss: a reduce-scatter over ``data`` of the
+    cut leaves, an all-reduce over ``data`` of the leaves held whole there
+    (and of the loss), an all-reduce over ``pod`` of all of them, then a
+    division by ``P * D``.  Each collective runs once for each dtype
+    among the leaves (one bucket each); at span 1 an axis runs none."""
+    cfg: object
+    data_group: Optional[object]
+    pod_group: Optional[object]
+    model_world: int = 1
+
+    @property
+    def world(self) -> tuple:
+        """``(D, M)``: the shards' world."""
+        return (C.axis_size(self.data_group), self.model_world)
+
+    @property
+    def hosts(self) -> int:
+        return C.axis_size(self.pod_group) * C.axis_size(self.data_group)
+
+    @property
+    def host(self) -> int:
+        return (C.axis_index(self.pod_group) * C.axis_size(self.data_group)
+                + C.axis_index(self.data_group))
+
+    def _cuts(self, tree: dict) -> list:
+        """(names, leaf, data dim or None) of every leaf."""
+        return [(names, g, sharding.data_cut(names, self.cfg, self.world))
+                for names, g in _named_leaves(tree)]
+
+    def gather(self, params: dict) -> dict:
+        """The model shard (a new tree) from this rank's pieces."""
+        dd = self.world[0]
+        cut = [(n, p, dim) for n, p, dim in self._cuts(params)
+               if dim is not None]
+        if not cut:                     # span 1: data_cut cuts nothing
+            return params
+        whole = {}
+        for bucket in _by_dtype(cut):
+            flat = torch.cat([p.reshape(-1) for _, p, _ in bucket])
+            rows = C.all_gather_into_(flat.new_empty(dd * flat.numel()), flat,
+                                      self.data_group).view(dd, -1)
+            for (names, p, dim), part in zip(bucket, rows.split(
+                    [p.numel() for _, p, _ in bucket], dim=1)):
+                shape = list(p.shape)
+                shape[dim] *= dd
+                whole[names] = part.reshape(dd, *p.shape).movedim(0, dim) \
+                    .reshape(shape)
+        return _replaced(params, whole)
+
+    def reduce(self, loss: torch.Tensor, grads: dict) -> tuple:
+        """(the global batch's mean loss, this rank's pieces of its
+        gradient) from this rank's loss and model-shard gradients."""
+        dd, pp = self.world[0], C.axis_size(self.pod_group)
+        if dd * pp == 1:
+            return loss, grads
+        leaves = self._cuts(grads) + [((), loss, None)]
+        if dd == 1:
+            out = {names: g for names, g, _ in leaves}
+        else:
+            out = {}
+            for bucket in _by_dtype([x for x in leaves if x[2] is not None]):
+                rows = torch.cat([_rows(g, dim, dd) for _, g, dim in bucket],
+                                 dim=1)
+                mine = C.reduce_scatter_(rows.new_empty(rows.shape[1]),
+                                         rows.reshape(-1), self.data_group)
+                for (names, g, dim), part in zip(bucket, mine.split(
+                        [g.numel() // dd for _, g, _ in bucket])):
+                    shape = list(g.shape)
+                    shape[dim] //= dd
+                    out[names] = part.view(shape)
+            for bucket in _by_dtype([(names, g) for names, g, dim in leaves
+                                     if dim is None]):
+                out.update(_reduced(bucket, self.data_group))
+        for bucket in _by_dtype(list(out.items())) if pp > 1 else []:
+            out.update(_reduced(bucket, self.pod_group))
+        out = {names: g / (dd * pp) for names, g in out.items()}
+        return out.pop(()), _replaced(grads, out)
+
+
+def _rows(g: torch.Tensor, dim: int, dd: int) -> torch.Tensor:
+    """``g`` cut into ``dd`` pieces on ``dim``, piece i flattened in row
+    i: the input of a reduce-scatter that gives rank i piece i."""
+    shape = (*g.shape[:dim], dd, g.shape[dim] // dd, *g.shape[dim + 1:])
+    return g.reshape(shape).movedim(dim, 0).reshape(dd, -1)
+
+
+def data_sync(cfg, pctx: Optional[ParallelCtx]) -> DataSync:
+    """The :class:`DataSync` of a rank of ``pctx``'s mesh (with no data or
+    pod group: one that gathers and reduces nothing)."""
+    if pctx is None:
+        return DataSync(cfg, None, None)
+    return DataSync(cfg, pctx.data_group, pctx.pod_group, pctx.world)
+
+
+def _by_dtype(items: list) -> list:
+    """``items`` (tuples whose second entry is a tensor) in buckets of
+    one dtype each, in order of first appearance."""
+    buckets = {}
+    for item in items:
+        buckets.setdefault(item[1].dtype, []).append(item)
+    return list(buckets.values())
+
+
+def _reduced(bucket: list, group) -> list:
+    """(names, the all-reduced sum) of each ``(names, tensor)`` of one
+    dtype, in one all-reduce over ``group``."""
+    if C.axis_size(group) == 1:
+        return bucket
+    flat = C.all_reduce_(torch.cat([g.reshape(-1) for _, g in bucket]),
+                         group)
+    return [(names, part.view(g.shape)) for (names, g), part in zip(
+        bucket, flat.split([g.numel() for _, g in bucket]))]
+
+
+def _replaced(tree: dict, new: dict, names: tuple = ()) -> dict:
+    """``tree`` with the leaves named in ``new`` replaced."""
+    return {k: _replaced(v, new, names + (k,)) if isinstance(v, dict)
+            else new.get(names + (k,), v) for k, v in tree.items()}
 
 
 def loss_and_grads(model: Model, params: dict, batch: dict,
                    pctx: Optional[ParallelCtx] = None,
-                   sync: Optional[GradSync] = None):
+                   sync: Optional[GradSync] = None,
+                   data: Optional[DataSync] = None):
     """(loss, grads): ``model.loss`` and ``torch.autograd.grad`` of it, the
     gradients in ``params``' structure (a stacked leaf's restacked) and
     dtypes.  At more than one rank ``params`` are this rank's shards, and
     the gradients, after ``sync``'s reductions (:func:`grad_sync`'s where
-    none is given), are the shards of the logical gradient."""
-    work, leaves = _grad_leaves(params)
+    none is given), are the shards of the logical gradient.  With
+    ``data`` (:func:`data_sync`) ``params`` are this rank's pieces and
+    ``batch`` its rows: the model shard is gathered first, and the loss
+    and the gradient's pieces are those of the global batch's mean."""
+    whole = params if data is None else data.gather(params)
+    work, leaves = _grad_leaves(whole)
+    del whole
     loss = model.loss(work, batch, pctx)
     grads = list(torch.autograd.grad(loss, leaves))
     grads.reverse()
@@ -163,6 +328,8 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
     if pctx is not None and pctx.manual:
         sync = sync or grad_sync(model.cfg, pctx)
         sync.reduce(out, seq_sharded(pctx, batch["tokens"].shape[1]))
+    if data is not None:
+        return data.reduce(loss.detach(), out)
     return loss.detach(), out
 
 
@@ -188,13 +355,22 @@ def build_train_step(model: Model, shape: ShapeConfig,
                      total_steps: int = 10_000, plan=None) -> TrainStep:
     """loss -> gradients -> AdamW with the reference's cosine schedule.
 
-    The dense family, at one rank or tensor-parallel over ``pctx.group``
-    (``params`` and ``opt`` then this rank's shards, as
-    :func:`repro_torch.parallel.sharding.shard_params` cuts them): the
-    collectives' backwards, :class:`GradSync`'s reductions and AdamW's
-    norm over the logical arrays give every rank its shard of the
-    unsharded step's update.  A world that does not divide the heads
-    raises ValueError.  The ssm family raises: its loss is
+    The dense family, at one rank, or on the rank mesh: tensor-parallel
+    over ``pctx.group`` and data-parallel with FSDP shards over
+    ``pctx.data_group`` and ``pctx.pod_group`` (``params`` and ``opt`` then
+    this rank's pieces, as :func:`repro_torch.parallel.sharding.
+    shard_params` cuts them at ``(data rank, model rank)``, and ``batch``
+    its rows of the global batch, :meth:`TrainStep.rows`).  The step
+    gathers the model shard over ``data`` (:class:`DataSync`), runs the
+    loss and its gradient as the tensor-parallel step does (the
+    collectives' backwards, :class:`GradSync`), reduces the gradients to
+    this rank's pieces of the global batch's mean, and AdamW updates the
+    pieces, its norm over the logical arrays: every rank gets its piece of
+    the unsharded step's update.  A global batch that the data ranks
+    (pod x data) do not divide raises ValueError (the reference's
+    ``fit_specs`` would move the batch's data axis to the sequence, which
+    the port does not cut over ``data``), as does a model world that does
+    not divide the heads.  The ssm family raises: its loss is
     differentiable on the CPU through the plain wkv6 but gets no gradient
     through the CUDA kernel, which has no backward yet.  The moe and
     mla_moe families raise: their training is not ported.  Both are
@@ -203,21 +379,32 @@ def build_train_step(model: Model, shape: ShapeConfig,
     check_trainable(cfg)
     pctx = _with_plan(pctx, plan)
     sync = grad_sync(cfg, pctx)
-    group = None if sync is None else pctx.group
+    data = data_sync(cfg, pctx)
+    if shape.global_batch % data.hosts or shape.global_batch < data.hosts:
+        raise ValueError(
+            f"a global batch of {shape.global_batch} rows does not divide "
+            f"over {data.hosts} data-parallel ranks (pod x data): the "
+            f"reference's fit_specs would move the batch's data axis to the "
+            f"sequence, which the port does not cut over data")
+    groups = tuple(g for g in (data.data_group,
+                               None if sync is None else pctx.group)
+                   if C.axis_size(g) > 1)
     lr = cosine_schedule(base_lr, warmup, total_steps)
-    want = (shape.global_batch, shape.seq_len)
+    want = (shape.global_batch // data.hosts, shape.seq_len)
+    coord = (C.axis_index(data.data_group), 0 if pctx is None else pctx.rank)
 
     def step(params, opt, batch):
         if tuple(batch["tokens"].shape) != want:
             raise ValueError(f"batch {tuple(batch['tokens'].shape)}, the "
-                             f"step was built for {want}")
-        loss, grads = loss_and_grads(model, params, batch, pctx, sync)
-        holding = None if group is None else sharding.leaf_holding(
-            params, cfg, pctx.rank, pctx.world)
+                             f"step was built for {want} (this rank's rows "
+                             f"of {shape.global_batch})")
+        loss, grads = loss_and_grads(model, params, batch, pctx, sync, data)
+        holding = sharding.leaf_holding(params, cfg, coord, data.world) \
+            if groups else None
         with torch.profiler.record_function("adamw_update"):
             try:
                 params, opt, stats = adamw_update(params, grads, opt, lr,
-                                                  group=group,
+                                                  group=groups,
                                                   holding=holding)
             except torch.cuda.OutOfMemoryError as e:
                 # the update is in place: a retry would apply it twice
@@ -225,7 +412,7 @@ def build_train_step(model: Model, shape: ShapeConfig,
                                    "through its in-place update") from e
         stats["loss"] = loss
         return params, opt, stats
-    return TrainStep(fn=step, shape=shape)
+    return TrainStep(fn=step, shape=shape, host=data.host, hosts=data.hosts)
 
 
 @dataclasses.dataclass

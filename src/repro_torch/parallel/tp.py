@@ -49,8 +49,14 @@ from repro_torch.kernels import ops
 class ParallelCtx:
     """How model-axis parallelism runs inside the forward pass.
 
-    ``group`` is a ``torch.distributed`` process group (``None``: one rank,
-    no collectives at all).  ``rs_seq`` turns the row-parallel psum into a
+    ``group`` is the ``model`` axis's ``torch.distributed`` process group
+    (``None``: one rank, no collectives at all); :attr:`world` and
+    :attr:`rank` are this axis's.  ``data_group`` and ``pod_group`` are the
+    rank's lines along the ``data`` and ``pod`` axes
+    (:meth:`repro_torch.launch.mesh.RankMesh.groups`; ``None`` at span 1),
+    which only the train step reads: it gathers the FSDP shards and
+    reduces the gradients over them (:mod:`repro_torch.parallel.steps`).
+    ``rs_seq`` turns the row-parallel psum into a
     reduce-scatter over the sequence, so the residual stream between
     layers stays sequence-sharded (Megatron SP); ``sp_entry`` takes the
     explicit INA ring for it.  ``plan`` (a
@@ -65,6 +71,8 @@ class ParallelCtx:
     rs_seq: bool = False
     sp_entry: bool = False
     plan: Optional[object] = None
+    data_group: Optional[object] = None
+    pod_group: Optional[object] = None
 
     def __post_init__(self):
         if self.psum_mode not in C.CLI_PSUM_MODES:

@@ -14,11 +14,14 @@ The transient error retried is :data:`TRANSIENT`,
 or backward leaves the state as it was, so the step runs again; any other
 error ends the loop at once.
 
-Tensor-parallel training keeps the reference's elastic checkpoints: the
-checkpoint holds the full logical train state, gathered from the ranks'
-shards and written by rank 0 (:class:`ShardedCheckpointManager`), so a
-job resumes at another number of ranks (:func:`elastic_restore`), and a
+Training on more than one rank keeps the reference's elastic checkpoints:
+the checkpoint holds the full logical train state, gathered from the
+ranks' shards and written by rank 0 (:class:`ShardedCheckpointManager`),
+so a job resumes at another rank mesh (:func:`elastic_restore`), and a
 stop that one rank is asked for is agreed by all before the step ends.
+The ranks are a tensor-parallel group, or the rank mesh's default group
+with the shards' ``world = (D, M)``: rank ``r`` holds flat shard ``r %
+(D * M)`` (``pod`` outermost, its planes copies of one another).
 """
 from __future__ import annotations
 
@@ -156,19 +159,20 @@ def run_training(step_fn: Callable, state, batch_fn: Callable, *,
 # --------------------------------------------------------------------------- #
 # elastic checkpoints of a tensor-parallel state
 # --------------------------------------------------------------------------- #
-def elastic_restore(tree_like, ckpt_dir: str, cfg, rank: int, world: int,
+def elastic_restore(tree_like, ckpt_dir: str, cfg, rank, world,
                     step: Optional[int] = None, device=None):
     """(``rank``'s shard of ``world`` of the checkpointed train state, its
     step): the counterpart of the reference's ``elastic_restore``.
 
     The checkpoint stores the full logical arrays, so a job restarted at
-    another number of ranks reshards as it restores: the full tree is read
-    in ``tree_like``'s structure (its leaves give the logical shapes; they
+    another rank mesh reshards as it restores: the full tree is read in
+    ``tree_like``'s structure (its leaves give the logical shapes; they
     may lie on the ``meta`` device) onto ``device`` (default: where
     ``tree_like``'s leaves lie, the CPU for ``meta``), and cut by
-    :func:`~repro_torch.parallel.sharding.shard_state`, the port's
-    ``fit_specs`` plus ``NamedSharding``.  At ``world == 1`` the full tree
-    is returned."""
+    :func:`~repro_torch.parallel.sharding.shard_state` (``rank`` and
+    ``world`` as it takes them: the model axis's, or ``(data, model)``
+    pairs), the port's ``fit_specs`` plus ``NamedSharding``.  At one rank
+    the full tree is returned."""
     if device is None:
         device = _first_leaf(tree_like).device
         device = "cpu" if device.type == "meta" else device
@@ -187,27 +191,38 @@ def _meta(tree):
     return tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
 
 
-def gather_state(state, cfg, group):
+def _plane(group, world) -> tuple:
+    """(this rank's flat shard index, the shards' world ``(D, M)``)."""
+    world = world if world is not None else (1, axis_size(group))
+    return axis_index(group) % (world[0] * world[1]), tuple(world)
+
+
+def gather_state(state, cfg, group, world=None):
     """The full logical train state on rank 0 of ``group``, on the CPU,
-    and ``None`` on the other ranks: each cut leaf of every parameter tree
-    gathered to rank 0 (``dist.gather``, one leaf at a time) and rebuilt
-    by :func:`~repro_torch.parallel.sharding.unshard_params`; a leaf every
-    rank holds whole is rank 0's.  Every rank of ``group`` calls it."""
-    rank, world = axis_index(group), axis_size(group)
+    and ``None`` on the other ranks: each leaf not held whole gathered to
+    rank 0 (``dist.gather``, one leaf at a time) and the shards of ranks
+    ``0 .. D*M - 1`` rebuilt by :func:`~repro_torch.parallel.sharding.
+    unshard_params`; a leaf every rank holds whole is rank 0's.  ``group``
+    holds every rank, ``world`` is the shards' ``(D, M)`` (default: the
+    model axis, the whole group).  Every rank of ``group`` calls it."""
+    rank = axis_index(group)
+    flat, world = _plane(group, world)
+    shards = world[0] * world[1]
     dst = dist.get_global_rank(group, 0)
 
     def gather(tree, _):
-        pieces = [[] for _ in range(world)]
+        pieces = [[] for _ in range(shards)]
         for leaf, kind in zip(tree_leaves(tree), tree_leaves(
-                sharding.leaf_holding(tree, cfg, rank, world))):
+                sharding.leaf_holding(tree, cfg, flat, world))):
             if kind == "whole":
-                got = [leaf.cpu()] * world if rank == 0 else None
+                got = [leaf.cpu()] * shards if rank == 0 else None
             else:
-                got = [torch.empty_like(leaf) for _ in range(world)] \
+                got = [torch.empty_like(leaf)
+                       for _ in range(axis_size(group))] \
                     if rank == 0 else None
                 dist.gather(leaf.contiguous(), got, dst=dst, group=group)
             if rank == 0:
-                for r in range(world):
+                for r in range(shards):
                     pieces[r].append(got[r].cpu())
         if rank != 0:
             return None
@@ -219,23 +234,25 @@ def gather_state(state, cfg, group):
 
 
 class ShardedCheckpointManager(CheckpointManager):
-    """keep-k checkpoints of a rank's shard of a tensor-parallel train
-    state, held as the full logical tree, the format both packages read:
+    """keep-k checkpoints of a rank's shard of a train state on several
+    ranks, held as the full logical tree, the format both packages read:
     a save gathers it to rank 0 (:func:`gather_state`), which writes it,
     and every rank waits at a barrier; a restore reads it whole and cuts
-    this rank's shard (:func:`elastic_restore`), whatever number of ranks
-    wrote it.  ``device`` is where the ranks' agreement on a stop runs
-    (the group's: the card under NCCL)."""
+    this rank's shard (:func:`elastic_restore`), whatever rank mesh wrote
+    it.  ``group`` holds every rank and ``world`` is the shards' ``(D,
+    M)``, as :func:`gather_state` takes them; ``device`` is where the
+    ranks' agreement on a stop runs (the group's: the card under NCCL)."""
 
     def __init__(self, directory: str, cfg, group, device, keep: int = 3,
-                 every: int = 100):
+                 every: int = 100, world=None):
         super().__init__(directory, keep=keep, every=every)
         self.cfg, self.group, self.device = cfg, group, device
+        self.world = world
 
     def maybe_save(self, tree, step: int, force: bool = False) -> bool:
         if not force and (step == 0 or step % self.every != 0):
             return False
-        full = gather_state(tree, self.cfg, self.group)
+        full = gather_state(tree, self.cfg, self.group, self.world)
         if full is not None:
             super().maybe_save(full, step, force=True)
         dist.barrier(group=self.group)
@@ -244,12 +261,12 @@ class ShardedCheckpointManager(CheckpointManager):
     def restore_or_none(self, tree_like):
         if latest_step(self.directory) is None:
             return None
-        world = axis_size(self.group)
+        flat, world = _plane(self.group, self.world)
         logical = sharding.unshard_state([sharding.map_state(
-            lambda t, _: _meta(t), tree_like)] * world, self.cfg, world)
-        return elastic_restore(logical, self.directory, self.cfg,
-                               axis_index(self.group), world,
-                               device=_first_leaf(tree_like).device)
+            lambda t, _: _meta(t), tree_like)] * (world[0] * world[1]),
+            self.cfg, world)
+        return elastic_restore(logical, self.directory, self.cfg, flat,
+                               world, device=_first_leaf(tree_like).device)
 
     def agree(self, flag: bool) -> bool:
         t = torch.tensor([int(flag)], device=self.device)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS
@@ -230,4 +231,84 @@ def elastic_rank(rank, world, group, device, spec):
     run_training(step_fn, initial_state(model, device, rank, world),
                  pipe.batch, ft=ft, num_steps=spec["steps"],
                  on_metrics=on_metrics, mgr=mgr)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# the compressed psum (tests/test_torch_compression.py)
+# --------------------------------------------------------------------------- #
+def compression_rank(rank, world, group, device, spec):
+    """``compressed_psum`` of this rank's leaves (``spec["leaves"][name]
+    [rank]``, float32 arrays cast to ``spec["dtypes"][name]``) under each
+    codec, ``spec["steps"]`` steps with the residuals carried: each step's
+    reduced leaves (as float32) with their dtypes, and its residuals."""
+    from repro_torch.runtime.compression import (CompressionState,
+                                                 compressed_psum)
+    grads = {name: torch.from_numpy(np.array(a[rank])).to(
+                 DTYPES[spec["dtypes"][name]])
+             for name, a in spec["leaves"].items()}
+    out = {}
+    for codec in spec["codecs"]:
+        state, steps = CompressionState.init(grads), []
+        for _ in range(spec["steps"]):
+            reduced, state = compressed_psum(grads, state, group, codec)
+            steps.append({
+                "reduced": {k: v.float().numpy() for k, v in reduced.items()},
+                "dtypes": {k: str(v.dtype) for k, v in reduced.items()},
+                "err": {k: v.numpy() for k, v in state.err.items()},
+                "err_dtypes": {k: str(v.dtype) for k, v in state.err.items()}})
+        out[codec] = steps
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# data-parallel and FSDP training (tests/test_torch_dp_train.py)
+# --------------------------------------------------------------------------- #
+def dp_train_rank(rank, world, group, device, spec):
+    """The reduced model's train step on this rank of the mesh
+    ``spec["mesh"]`` (shape, axes), for each case of ``spec``: the global
+    batch's loss and this rank's gradient pieces on ``spec["grad_batch"]``
+    (the step fed this rank's rows), then two AdamW steps from the same
+    weights, each step's loss, grad_norm, lr and collective calls by kind,
+    and the params and AdamW moments after them (this rank's pieces); and
+    the rank's mesh coordinates."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.optim.adamw import adamw_init, tree_map
+    from repro_torch.parallel.steps import (build_train_step, data_sync,
+                                            loss_and_grads)
+    ranks = RankMesh(*spec["mesh"])
+    groups, at = ranks.groups(rank), ranks.coords(rank)
+    shards = (ranks.span("data"), ranks.span("model"))
+    cfg = ARCHS[spec["arch"]].reduced()
+    model = get_model(cfg)
+    full = params_from_jax(spec["params"], cfg, device="cpu", masters=True)
+    grad_batch = _batch(spec["grad_batch"])
+    b, s = grad_batch["tokens"].shape
+    shape = ShapeConfig("t", s, b, "train")
+    out = {"coords": at}
+    for name, kw in spec["cases"].items():
+        pctx = ParallelCtx(group=groups["model"], data_group=groups["data"],
+                           pod_group=groups["pod"], **kw)
+        # AdamW updates in place, and a whole leaf is ``full``'s own
+        params = tree_map(torch.clone, shard_params(
+            full, cfg, (at["data"], at["model"]), shards))
+        ts = build_train_step(model, shape, pctx, **spec["schedule"])
+        C.CALLS.clear()
+        loss, grads = loss_and_grads(model, params, ts.rows(grad_batch), pctx,
+                                     data=data_sync(cfg, pctx))
+        res = {"loss": float(loss), "grads": _numpy(grads),
+               "grad_calls": dict(C.CALLS), "steps": [],
+               "host": (ts.host, ts.hosts)}
+        opt = adamw_init(params)
+        for pair in spec["step_batches"]:
+            C.CALLS.clear()
+            params, opt, st = ts.fn(params, opt, ts.rows(_batch(pair)))
+            res["steps"].append({"loss": float(st["loss"]),
+                                 "grad_norm": float(st["grad_norm"]),
+                                 "lr": float(st["lr"]),
+                                 "calls": dict(C.CALLS)})
+        res["params"] = _numpy(params)
+        res["m"], res["v"] = _numpy(opt.m), _numpy(opt.v)
+        out[name] = res
     return out

@@ -598,8 +598,8 @@ def test_train_launcher_plans_under_auto(plan_env):
         "--ckpt-dir", str(plan_env / "a"), "--psum-mode", "auto",
         "--plan-dir", str(plan_env / "p")])
     keys = [p.name for p in (plan_env / "p").glob("*.json")]
-    assert keys == [plan_key(QWEN2, (("model", 1),), "train-cli-16x2",
-                             "float32") + ".json"]
+    assert keys == [plan_key(QWEN2, (("data", 1), ("model", 1)),
+                             "train-cli-16x2", "float32") + ".json"]
     planless = launch_train.main(argv + [
         "--ckpt-dir", str(plan_env / "b"), "--psum-mode", "auto",
         "--no-plan", "--plan-dir", str(plan_env / "q")])
