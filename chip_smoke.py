@@ -10,8 +10,9 @@ Phases; any failure raises and the process exits non-zero:
    ``src/repro_torch/kernels/csrc`` (one nvcc each, all started together)
    and held against their plain PyTorch versions: first ``ina_matmul`` on
    one small case per regime, tile, layout and cluster size (1 and 2) and
-   ``flash_attention`` on one small case per dtype, head dim and tile, then
-   every kernel at the shapes and dtypes that phases 3-12 give it, and
+   ``flash_attention`` on one small case per dtype, head dim (16 to 160)
+   and tile, causal and not, then every kernel at the shapes and dtypes
+   that phases 3-16 give it, and
    ``ina_matmul`` at each tile of phase 4b's decode plan, forced (for
    ``flash_attention`` also in the model's layout, GQA read in place from
    a KV cache slice; for ``wkv6`` also at decays past the model's clip
@@ -120,7 +121,32 @@ Phases; any failure raises and the process exits non-zero:
     4 of 48 layers: one B 1 x S 2048 forward (``flash_attention`` at GQA
     40:8, D 128, once a layer), a decode step profiled, and 2 requests on 2
     slots, prompt 16, 8 generated, against the legacy loop;
-13. a ``kernels`` JSON line, then the device JSON line, last.
+13. ``[hybrid]``: zamba2-2.7b as published (54 Mamba2 layers, the shared
+    attention block 9 times at head dim 160; bf16, seeded random weights,
+    nothing cut): one B 1 x S 2048 forward (190 ``ina_matmul``, 9
+    ``flash_attention``), 4 requests on 2 slots, prompt 32, 15 generated,
+    prompts seated token by token, against the legacy loop within 2^-3 of
+    the largest logit; the forward and a paged decode step profiled;
+14. ``[hybrid-f32]``: the same widths at 2 groups (12 Mamba2 layers) in
+    float32: the S 300 forward through the kernels against their plain
+    versions on the card within rtol = atol = 1e-4, and against the decode
+    loop at every position within the same bound, greedy tokens equal;
+15. ``[vlm]``: llama-3.2-vision-11b as published (32 self and 8 gated
+    cross-attention layers; the gates set to 0.5, since the reference's 0
+    would cut the media off): one B 1 x S 2048 forward over 1601 media
+    rows (281 ``ina_matmul``, 40 ``flash_attention``, the cross layers'
+    non-causal at GQA 32:8), the legacy loop (2 rows, prompt 16, 8
+    generated; ``prefill_media_kv`` first) with its launches derived, its
+    logits after the prompt against the forward's over the same prompts
+    within 2^-3 of the largest;
+16. ``[encdec]``: whisper-medium as published (24 encoder layers over 1500
+    frames, 24 decoder layers, the tied head over 51865 tokens): one
+    forward of 448 tokens (385 ``ina_matmul``, 72 ``flash_attention``),
+    the legacy loop (2 rows, prompt 8, 8 generated, the encoder again at
+    every step) checked as ``[vlm]``'s.  Phases 13-16 also check that each
+    shape they launched a kernel at was held against its plain version in
+    phase 2, and print their peak memory;
+17. a ``kernels`` JSON line, then the device JSON line, last.
 
 It needs the checkout's ``src/`` beside it and exits non-zero without a GPU.
 """
@@ -171,12 +197,14 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.kernel_times import (Timer,  # noqa: E402
                                              attention_cases,
                                              attention_operands,
+                                             family_projections,
                                              matmul_operands,
                                              matmul_projections,
                                              moe_projections,
                                              train_products, wkv_cases,
                                              wkv_operands)
 from repro_torch.models import moe as moe_model  # noqa: E402
+from repro_torch.models import vision  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.optim.adamw import AdamWState, tree_leaves  # noqa: E402
 from repro_torch.parallel.sharding import (kv_groups,  # noqa: E402
@@ -198,6 +226,9 @@ ARCH = "qwen2-1.5b"
 RWKV = "rwkv6-7b"
 MLA = "deepseek-v2-lite-16b"
 MOE = "llama4-scout-17b-16e"
+HYBRID = "zamba2-2.7b"
+VLM = "llama-3.2-vision-11b"
+ENCDEC = "whisper-medium"
 SERVE_ARGV = {
     ARCH: ["--arch", ARCH, "--batch", "4", "--slots", "2", "--prompt-len",
            "128", "--gen", "32", "--prefill-chunk", "64"],
@@ -206,31 +237,75 @@ SERVE_ARGV = {
     MLA: ["--arch", MLA, "--batch", "4", "--slots", "2", "--prompt-len",
           "64", "--gen", "16"],
     MOE: ["--arch", MOE, "--batch", "2", "--slots", "2", "--prompt-len",
-          "16", "--gen", "8"]}
+          "16", "--gen", "8"],
+    HYBRID: ["--arch", HYBRID, "--batch", "4", "--slots", "2",
+             "--prompt-len", "32", "--gen", "15"],
+    # the media families serve through the legacy loop (one batch)
+    VLM: ["--arch", VLM, "--batch", "2", "--prompt-len", "16", "--gen", "8"],
+    ENCDEC: ["--arch", ENCDEC, "--batch", "2", "--prompt-len", "8", "--gen",
+             "8"]}
 # per layer and pass: dense wq wk wv wo w_up w_gate w_down; ssm the time
 # mix's wr wk wv wg wo and the channel mix's wk wv wr (the decay's LoRA is
 # torch.matmul).  Plus one for the head.
 MATMULS_PER_PASS = {"dense": 7, "ssm": 8}
 
 
-def matmuls_per_pass(cfg) -> int:
+def matmuls_per_pass(cfg, media_cached: bool = False) -> int:
     """``ina_matmul`` launches of one pass (a decode step or a forward),
     derived from the code.  dense and ssm: :data:`MATMULS_PER_PASS` a
     layer.  moe and mla_moe: the attention's projections (GQA wq wk wv wo;
     MLA wq w_dkv w_uk w_uv wo), then a dense layer's SwiGLU (w_up w_gate
     w_down), or an MoE layer's shared experts, one SwiGLU of 3 products
     where the config has any: the router is torch.matmul and the routed
-    experts torch.bmm.  Plus one for the head."""
+    experts torch.bmm.  hybrid: a Mamba2 layer's w_in and w_out, and for
+    each group the shared block's wq wk wv wo, wo_down, w_up w_gate w_down
+    and mlp_down.  vlm: 7 a self layer as dense; a cross layer's wq wo and
+    SwiGLU, and its wk wv over the media unless ``media_cached`` (a decode
+    step reads their K/V from the cache).  encdec: an encoder layer's wq
+    wk wv wo w_up w_down, a decoder layer's self and cross wq wk wv wo and
+    w_up w_down (a decode step encodes the media again).  Plus one for the
+    head."""
     if cfg.family in MATMULS_PER_PASS:
         return MATMULS_PER_PASS[cfg.family] * cfg.n_layers + 1
+    if cfg.family == "hybrid":
+        return 9 * (cfg.n_layers // cfg.shared_attn_every) \
+            + 2 * cfg.n_layers + 1
+    if cfg.family == "vlm":
+        g = cfg.n_layers // cfg.cross_attn_every
+        return 7 * (cfg.n_layers - g) + (5 if media_cached else 7) * g + 1
+    if cfg.family == "encdec":
+        return 6 * cfg.encoder_layers + 10 * cfg.n_layers + 1
     attn = 5 if cfg.family == "mla_moe" else 4
     nd = cfg.moe.first_dense_layers
     shared = 3 if cfg.moe.num_shared else 0
     return nd * (attn + 3) + (cfg.n_layers - nd) * (attn + shared) + 1
+
+
+def flash_per_pass(cfg, decode: bool = False) -> int:
+    """``flash_attention`` launches of one pass, derived from the code:
+    attention over more than one query.  A forward: once a layer (dense,
+    moe, vlm's self and cross layers), once a group's shared block
+    (hybrid), the encoder's, the decoder's and its cross-attention's
+    (encdec), never for MLA.  A decode step (one query): none, but the
+    encoder's over the frames (encdec)."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + (0 if decode else 2 * cfg.n_layers)
+    if decode or cfg.family == "mla_moe":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
+
+
 RWKV_FWD_B, RWKV_FWD_S, RWKV_PREFIX = 2, 2048, 300
 # the MoE families' forward (B 1 x S 2048: MLA's attn_chunked runs past its
 # attn_chunk 1024); llama4-scout's depth, cut from 48 to fit one card
 MOE_FWD_S, MOE_DEPTH = 2048, 4
+# zamba2 and llama-3.2-vision's forwards, B 1 x S 2048; whisper's at its
+# decoder context, 448 tokens, over its 1500 frames; [hybrid-f32]: 2 groups
+# (12 Mamba2 layers) over 300 tokens, past the SSD's chunk of 256
+FAMILY_FWD_S = {HYBRID: 2048, VLM: 2048, ENCDEC: 448}
+HYBRID_F32_S, HYBRID_F32_GROUPS = 300, 2
 # The reference's mesh for qwen2-1.5b's plans, and the psum decisions of
 # each phase there: (p, nbytes, mode, ops, count, ((mode, latency cycles,
 # energy pJ), ...)).  The reference's resolve_sites gives these on the CPU
@@ -355,7 +430,42 @@ def matmul_cases():
                       for what, m in (("seat", cache), ("decode", 2 * cache))
                       for mod, name, k, n, kind in proj
                       if mod == MLA and name == "w_uk/w_uv"]
-    return cases
+    # the hybrid, vlm and encdec phases, each M the path gives a product:
+    # zamba2's forward (M 2048), engine seating (1) and decode (2), legacy
+    # loop (4 rows), [hybrid-f32]'s forward (300) and decode loop (1);
+    # llama-3.2-vision's forward (2048; wk/wv over the 1601 media rows),
+    # legacy decode (2 rows; prefill_media_kv over 2 x 1601) and the
+    # prompts' forward (2 x 16); whisper's forward (the encoder at 1500
+    # frames, the decoder at 448), legacy decode (2 rows, the encoder
+    # again at 2 x 1500) and the prompts' forward (2 x 8)
+    hb = legacy_rows(SERVE_ARGV[HYBRID])[0]
+    vb, vp = legacy_rows(SERVE_ARGV[VLM])
+    wb, wp = legacy_rows(SERVE_ARGV[ENCDEC])
+    vm, wf = ARCHS[VLM].num_media_tokens, ARCHS[ENCDEC].num_media_tokens
+    bf16, f32 = torch.bfloat16, torch.float32
+    enc_names = ("wq/wk/wv/wo", "w_up", "w_down")
+    family = {}     # one case a shape (zamba2's w_out is wo_down's)
+    for model, tag, dt, ms, names in (
+            (HYBRID, "zamba2", bf16, (FAMILY_FWD_S[HYBRID], hb, 2, 1), None),
+            (HYBRID, "zamba2 f32", f32, (HYBRID_F32_S, 1), None),
+            (VLM, "vlm", bf16, (FAMILY_FWD_S[VLM], vb, vb * vp), None),
+            (VLM, "vlm media", bf16, (vm, vb * vm), ("wk/wv",)),
+            (ENCDEC, "whisper", bf16,
+             (wf, wb * wf, FAMILY_FWD_S[ENCDEC], wb, wb * wp), enc_names),
+            (ENCDEC, "whisper", bf16, (FAMILY_FWD_S[ENCDEC], wb, wb * wp),
+             ("tied head",))):
+        for mod, name, k, n, kind in family_projections():
+            if mod == model and (names is None or name in names):
+                for m in ms:
+                    family.setdefault((m, k, n, kind, dt),
+                                      f"{tag} {name} M={m}")
+    return cases + [(name, *key) for key, name in family.items()]
+
+
+def legacy_rows(argv) -> tuple[int, int]:
+    """(rows, prompt length) of a legacy serve phase's ``argv``."""
+    args = launch_serve.build_parser().parse_args(argv)
+    return args.batch, args.prompt_len
 
 
 # One small case per regime, tile, w layout and cluster size, run before
@@ -392,10 +502,65 @@ def train_matmul_cases():
             for name, m, k, n, kind in train_products()]
 
 
+# What phase 2 held against the plain versions, by launch shape
+# (:func:`matmul_key`, :func:`attention_key`); the hybrid, vlm and encdec
+# phases check that every launch of theirs is among them.
+CHECKED = {"ina_matmul": set(), "flash_attention": set()}
+
+
+def matmul_key(x, w) -> tuple:
+    """(M, K, N, w's layout, dtype) of an ``ina_matmul`` launch."""
+    return (x.shape[0], x.shape[1], w.shape[1],
+            "row" if w.stride(1) == 1 else "tied", x.dtype)
+
+
+def attention_key(q, k, causal, q_offset) -> tuple:
+    """(B, Sq, Sk, H, KVH, D, causal, q_offset, dtype) of a
+    ``flash_attention`` launch."""
+    return (*q.shape[:3], k.shape[1], k.shape[2], q.shape[3], bool(causal),
+            int(q_offset), q.dtype)
+
+
+@contextlib.contextmanager
+def record_shapes():
+    """The launch shapes (:func:`matmul_key`, :func:`attention_key`) of the
+    two kernels' wrappers inside the context, by kernel; the launches
+    themselves go on, counted as ever."""
+    seen = {"ina_matmul": set(), "flash_attention": set()}
+    mm, att = ops.ina_matmul, fa._attention
+
+    def mm_spy(x, w, *args, **kw):
+        seen["ina_matmul"].add(matmul_key(x, w))
+        return mm(x, w, *args, **kw)
+
+    def att_spy(q, k, v, causal, q_offset):
+        seen["flash_attention"].add(attention_key(q, k, causal, q_offset))
+        return att(q, k, v, causal, q_offset)
+    ops.ina_matmul, fa._attention = mm_spy, att_spy
+    try:
+        yield seen
+    finally:
+        ops.ina_matmul, fa._attention = mm, att
+
+
+def check_shapes(seen: dict, label: str) -> None:
+    """Every shape ``seen`` (:func:`record_shapes`) was held against the
+    kernel's plain version in phase 2."""
+    missing = {name: sorted(map(str, keys - CHECKED[name]))
+               for name, keys in seen.items() if keys - CHECKED[name]}
+    if missing:
+        raise AssertionError(f"[{label}] launched at shapes phase 2 did not "
+                             f"check: {missing}")
+    log(f"[{label}] each of the {len(seen['ina_matmul'])} ina_matmul and "
+        f"{len(seen['flash_attention'])} flash_attention launch shapes of "
+        f"the phase was held against its plain version in phase 2")
+
+
 def check_matmul(timer, gen, cases) -> list:
     rows = []
     for name, m, k, n, kind, dt in cases:
         x, w = matmul_operands(gen, m, k, n, kind, dt)
+        CHECKED["ina_matmul"].add(matmul_key(x, w))
         plan = im.plan_for(x, w)
         got = im.ina_matmul(x, w)
         torch.cuda.synchronize()
@@ -485,9 +650,10 @@ def check_attention_small(gen) -> None:
     """One small case per dtype and head dim, GQA 2:1, ragged Sq and Sk,
     k/v read from a cache view, run before the timed shapes so that a wrong
     fragment layout, load or mask fails here, fast and by name."""
-    cases = [(torch.bfloat16, d, True, 4) for d in (16, 64, 128)] \
-        + [(torch.bfloat16, 64, False, 4)] \
-        + [(torch.float32, d, True, 4) for d in (16, 128)] \
+    cases = [(torch.bfloat16, d, True, 4) for d in (16, 64, 128, 144, 160)] \
+        + [(torch.bfloat16, d, False, 4) for d in (64, 160)] \
+        + [(torch.float32, d, True, 4) for d in (16, 128, 160)] \
+        + [(torch.float32, 64, False, 4)] \
         + [(dt, 128, True, 10) for dt in (torch.bfloat16, torch.float32)]
     for dt, d, causal, h in cases:      # h = 10: GQA 5:1, llama4-scout's
         q, k, v, off = attention_operands(gen, 2, 19, 83, h, 2, d, dt, 100)
@@ -503,43 +669,51 @@ def check_attention_small(gen) -> None:
                                  f"causal={causal}: {res}")
 
 
-def attention_row(timer, name, q, k, v, off) -> dict:
+def attention_row(timer, name, q, k, v, off, causal: bool = True) -> dict:
     """The kernel on q [B, Sq, H, D], k/v [B, Sk, KVH, D] (the model's
     layout) against its plain version, timed beside its bound, the plain
     version and sdpa.  sdpa gets [B, H, S, D] copies made outside the
     timer, GQA through ``enable_gqa``; its ``is_causal`` is anchored top
     left, the same function only where q_offset is 0 and Sq == Sk, so
-    elsewhere it takes the mask.  sdpa is a yardstick only, never on the
-    port's path."""
+    elsewhere it takes the mask (a non-causal case takes neither).  sdpa
+    is a yardstick only, never on the port's path."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     dt = q.dtype
-    got = fa.flash_attention_heads(q, k, v, q_offset=off)
+    kw = dict(causal=causal, q_offset=off)
+    got = fa.flash_attention_heads(q, k, v, **kw)
     torch.cuda.synchronize()
+    CHECKED["flash_attention"].add(attention_key(q, k, causal, off))
     plan = fa.plan_attention(b, sq, h, kvh, dt)
     row = {"case": name, "shape": f"B={b} Sq={sq} Sk={sk} H={h} KVH={kvh} "
-                                  f"D={d} q_offset={off}",
+                                  f"D={d} q_offset={off}"
+                                  + ("" if causal else " non-causal"),
            "dtype": str(dt).removeprefix("torch."),
            "ctas": plan.ctas,
            "strides_kv": list(k.stride()),
-           **compare(got, fa.flash_attention_heads_plain(q, k, v,
-                                                         q_offset=off), dt)}
-    pairs = sum(min(sk, off + i + 1) for i in range(sq))
+           **compare(got, fa.flash_attention_heads_plain(q, k, v, **kw), dt)}
+    pairs = sum(min(sk, off + i + 1) for i in range(sq)) if causal \
+        else sq * sk
     row["bound_ms"], row["bound_by"] = bound(
         (2 * b * sq * h + 2 * b * sk * kvh) * d * q.element_size(),
         4.0 * b * h * d * pairs, dt)
-    row["ms"] = timer(lambda: fa.flash_attention_heads(q, k, v, q_offset=off))
+    row["ms"] = timer(lambda: fa.flash_attention_heads(q, k, v, **kw))
     row["plain_ms"] = timer(
-        lambda: fa.flash_attention_heads_plain(q, k, v, q_offset=off))
+        lambda: fa.flash_attention_heads_plain(q, k, v, **kw))
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     gqa = {"enable_gqa": True} if h != kvh else {}
     mask = (torch.arange(sq, device="cuda")[:, None] + off
             >= torch.arange(sk, device="cuda")[None, :])
-    row["library_masked_ms"] = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, **gqa))
-    row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, **gqa)) \
-        if off == 0 and sq == sk else row["library_masked_ms"]
+    if not causal:
+        row["library_ms"] = row["library_masked_ms"] = timer(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, **gqa))
+    else:
+        row["library_masked_ms"] = timer(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=mask, **gqa))
+        row["library_ms"] = timer(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, **gqa)) \
+            if off == 0 and sq == sk else row["library_masked_ms"]
     if h == kvh == 1:
         # the earlier yardstick of the [BH, S, D] cases: sdpa on the 3-d
         # tensors themselves, which it runs more slowly than [B, H, S, D]
@@ -566,8 +740,9 @@ def attention_row(timer, name, q, k, v, off) -> dict:
 
 def check_attention(timer, gen) -> list:
     """The JAX signature's cases ([BH, S, D], one KV head per query head,
-    as ``flash_attention`` takes them), then the model's layout: the
-    prefill chunks' and the train step's."""
+    as ``flash_attention`` takes them), then the model's layout
+    (:func:`~repro_torch.launch.kernel_times.attention_cases`, the train
+    step's)."""
     cfg = ARCHS[ARCH]
     bh, d = cfg.n_heads, cfg.resolved_head_dim
     floor = timer(lambda: torch.cuda._sleep(1))
@@ -586,12 +761,10 @@ def check_attention(timer, gen) -> list:
                                  f"differ")
         rows.append(attention_row(timer, name, q[:, :, None], k[:, :, None],
                                   v[:, :, None], off))
-    for name, arch, sq, sk, dt, cache in attention_cases():
-        c = ARCHS[arch]
-        q, k, v, off = attention_operands(gen, 1, sq, sk, c.n_heads,
-                                          c.n_kv_heads, c.resolved_head_dim,
-                                          dt, cache)
-        rows.append(attention_row(timer, name, q, k, v, off))
+    for name, b, sq, sk, h, kvh, d, dt, cache, causal in attention_cases():
+        q, k, v, off = attention_operands(gen, b, sq, sk, h, kvh, d, dt,
+                                          cache, causal)
+        rows.append(attention_row(timer, name, q, k, v, off, causal))
     # the train phases' layer attention: q, k and v whole from the
     # projections, [train] B 4 x S 1024 in bf16, [train-f32] in float32
     for name, b, s, dt in (("qwen2 train", 4, 1024, torch.bfloat16),
@@ -1311,10 +1484,11 @@ def phase_exact_f32() -> None:
 
 def forward_against_decode(model, params, tokens, label: str,
                            rtol: float = 0.0):
-    """Logits of the forward pass over ``tokens`` [B, S] (wkv6) against
-    those of the per-token decode loop (no wkv6) over the same tokens, at
-    every position.  Returns (max |diff|, max (|diff| - rtol |forward|),
-    max |forward logit|)."""
+    """Logits of the forward pass over ``tokens`` [B, S] (wkv6, flash)
+    against those of the per-token decode loop (neither) over the same
+    tokens, at every position.  Returns (max |diff|, max (|diff| - rtol
+    |forward|), max |forward logit|, positions whose greedy tokens
+    differ)."""
     fwd = build_prefill(model).fn(params, {"tokens": tokens}).float()
     if not bool(torch.isfinite(fwd).all()):
         raise AssertionError(f"{label}: non-finite forward logits")
@@ -1322,13 +1496,15 @@ def forward_against_decode(model, params, tokens, label: str,
     cache = model.init_cache(tokens.shape[0], tokens.shape[1], device="cuda")
     worst = torch.zeros((), device="cuda")
     over = torch.full((), -math.inf, device="cuda")
+    flips = torch.zeros((), dtype=torch.long, device="cuda")
     for pos in range(tokens.shape[1]):
-        _, cache, logits = step.fn(
+        nxt, cache, logits = step.fn(
             params, {"tokens": tokens[:, pos:pos + 1], "pos": pos}, cache)
         diff = (logits.float() - fwd[:, pos]).abs()
         worst = torch.maximum(worst, diff.max())
         over = torch.maximum(over, (diff - rtol * fwd[:, pos].abs()).max())
-    return float(worst), float(over), float(fwd.abs().max())
+        flips += (nxt != torch.argmax(fwd[:, pos], dim=-1)).sum()
+    return float(worst), float(over), float(fwd.abs().max()), int(flips)
 
 
 def phase_rwkv_bf16() -> dict:
@@ -1388,7 +1564,7 @@ def phase_rwkv_bf16() -> dict:
     # exact-f32 phase below holds the same two paths to 1e-4, so what is
     # left here is rounding; a wrong layout or wiring moves logits by their
     # own order, and check_wkv6 holds the kernel itself to one bf16 ulp.
-    worst, _, scale = forward_against_decode(
+    worst, _, scale, _ = forward_against_decode(
         model, params, tokens[:, :RWKV_PREFIX], "rwkv prefix")
     tol = 2.0 ** -3 * scale
     log(f"[rwkv] forward vs decode loop, {RWKV_PREFIX}-token prefix x "
@@ -1421,8 +1597,8 @@ def phase_rwkv_exact_f32() -> None:
     # elementwise |diff| <= atol + rtol |forward|, rtol = atol = 1e-4: in
     # float32 the two paths differ only in sum order
     reset_launches()
-    worst, over, scale = forward_against_decode(model, params, tokens,
-                                                "rwkv f32", rtol=1e-4)
+    worst, over, scale, _ = forward_against_decode(model, params, tokens,
+                                                   "rwkv f32", rtol=1e-4)
     if read_launches()["wkv6"] != cfg.n_layers:
         raise AssertionError(f"f32 forward launched {read_launches()}")
     log(f"[rwkv-exact-f32] 2 layers, full width, float32: forward vs decode "
@@ -1888,7 +2064,7 @@ def plain_kernels():
     """The two kernels of the dense and MoE paths replaced by their plain
     versions (the wrappers' CPU path) on CUDA tensors, in the forward's
     direct calls and inside the autograd Functions, which stay."""
-    mm, att = im.ina_matmul, fa._attention
+    mm, omm, att = im.ina_matmul, ops.ina_matmul, fa._attention
     plain = lambda x, w, plan=None, tiles=None: \
         im.ina_matmul_plain(x, w, plan)  # noqa: E731
     im.ina_matmul = ops.ina_matmul = plain
@@ -1898,8 +2074,7 @@ def plain_kernels():
     try:
         yield
     finally:
-        im.ina_matmul = ops.ina_matmul = mm
-        fa._attention = att
+        im.ina_matmul, ops.ina_matmul, fa._attention = mm, omm, att
 
 
 def phase_train_f32(device: str = "cuda") -> None:
@@ -1991,8 +2166,7 @@ def moe_forward(model, params, tokens, label: str) -> dict:
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = read_launches()
     expect = {"ina_matmul": matmuls_per_pass(cfg),
-              "flash_attention": cfg.n_layers if cfg.family == "moe" else 0,
-              "wkv6": 0}
+              "flash_attention": flash_per_pass(cfg), "wkv6": 0}
     b, sq = tokens.shape
     share = moe_model.dropped_share(calls)
     log(f"[{label}] forward B={b} S={sq}: logits {tuple(logits.shape)} "
@@ -2008,11 +2182,13 @@ def moe_forward(model, params, tokens, label: str) -> dict:
     return {"launches": launches, "logits": logits}
 
 
-def weight_bytes(params: dict) -> int:
+def weight_bytes(params: dict, tied: bool = False) -> int:
     """Bytes a decode step reads of the weights: every leaf but the
-    embedding table, of which it reads a row a token."""
+    embedding table, of which it reads a row a token, unless ``tied``: the
+    tied head reads all of it (encdec's ``pos_dec`` a row a token too)."""
     return sum(t.numel() * t.element_size() for name, v in params.items()
-               if name != "embed" for t in _leaves({name: v}))
+               if (tied or name != "embed") and name != "pos_dec"
+               for t in _leaves({name: v}))
 
 
 def expert_bytes(params: dict) -> int:
@@ -2191,8 +2367,8 @@ def phase_mla_f32() -> None:
     del got, want, diff
     # 8 tokens: the forward's capacity is min(max(8, .), 8) = 8, no drop,
     # so it equals the per-token decode loop (capacity 1, no drop)
-    worst, over, scale = forward_against_decode(model, params, tokens[:, :8],
-                                                "mla f32", rtol=1e-4)
+    worst, over, scale, _ = forward_against_decode(
+        model, params, tokens[:, :8], "mla f32", rtol=1e-4)
     log(f"[mla-f32] forward vs decode loop over 8 positions: max |diff| "
         f"{worst:.3g} (max |logit| {scale:.3g}); max(|diff| - 1e-4 |logit|) "
         f"{over:.3g} <= atol 1e-4")
@@ -2254,6 +2430,341 @@ def phase_moe() -> dict:
     return {"serve": serve_launches, "forward": fwd["launches"]}
 
 
+# --------------------------------------------------------------------------- #
+# phases 13-16: the hybrid, vlm and encdec families
+# --------------------------------------------------------------------------- #
+def family_forward(model, params, batch: dict, label: str) -> dict:
+    """One forward through ``build_prefill`` on ``batch``: launches held
+    to the derived counts (:func:`matmuls_per_pass`,
+    :func:`flash_per_pass`), none generic; logits finite and of their
+    shape."""
+    cfg = model.cfg
+    fwd = build_prefill(model)
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = fwd.fn(params, batch)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    expect = {"ina_matmul": matmuls_per_pass(cfg),
+              "flash_attention": flash_per_pass(cfg), "wkv6": 0}
+    b, sq = batch["tokens"].shape
+    log(f"[{label}] forward B={b} S={sq}"
+        + (f" over {batch['media'].shape[1]} media rows" if "media" in batch
+           else "")
+        + f": logits {tuple(logits.shape)} {logits.dtype}, first call "
+        f"{first_ms:.1f} ms; launches {launches}, expected {expect}; "
+        f"ina_matmul by regime {im.launches_by_regime}")
+    check_launches(launches, expect, ("ina_matmul", "flash_attention"))
+    if logits.shape != (b, sq, cfg.vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{label} forward: bad logits {logits.shape}")
+    return {"launches": launches, "logits": logits}
+
+
+def profile_forward(model, params, batch: dict, label: str) -> dict:
+    """Three forwards on ``batch`` profiled, and their tokens/s."""
+    prof = profile_step(f"{label}_forward", lambda: build_prefill(model).fn(
+        params, batch), steps=3)
+    log(f"[{label}] forward "
+        f"{batch['tokens'].numel() / (prof['wall_ms'] / 1e3):.0f} tokens/s "
+        f"(host clock)")
+    return prof
+
+
+def media(cfg, rows: int, seed: int) -> torch.Tensor:
+    """Seeded N(0, 1) stand-ins for the stub frontend's embeddings."""
+    return torch.randn(rows, cfg.num_media_tokens, cfg.d_model,
+                       generator=torch.Generator().manual_seed(seed)
+                       ).to("cuda", getattr(torch, cfg.dtype))
+
+
+def family_params(cfg, label: str, seed: int = 0) -> dict:
+    """Seeded random weights on the card, their size printed."""
+    params = get_model(cfg).init(torch.Generator(device="cuda")
+                                 .manual_seed(seed), device="cuda")
+    nparams = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[{label}] {cfg.name}: {nparams / 1e9:.3f} B parameters in "
+        f"{cfg.dtype} ({nbytes / 1e9:.2f} GB); "
+        f"{matmuls_per_pass(cfg)} ina_matmul and {flash_per_pass(cfg)} "
+        f"flash_attention a forward (derived); peak "
+        f"{gib(torch.cuda.max_memory_allocated())}")
+    return params
+
+
+def encoder_ops(cfg, rows: int) -> float:
+    """Operations of whisper's encoder over ``rows`` x its frames (which
+    its decode step runs again): each layer's six products, 2 x M x K x N,
+    and its attention, 4 x F^2 x d_model a row."""
+    f, d = cfg.num_media_tokens, cfg.d_model
+    products = 2.0 * rows * f * (4 * d * d + 2 * d * cfg.d_ff)
+    return cfg.encoder_layers * (products + 4.0 * rows * f * f * d)
+
+
+def profile_decode(model, params, label: str, batch: dict, cache: dict,
+                   step) -> dict:
+    """One decode step (``step``: a paged or legacy serve step's ``fn``)
+    profiled; its bound: the weights it reads once (the tied head reads
+    the whole embedding) over the card's HBM rate, or for encdec the
+    encoder's operations over the bf16 peak where that is longer."""
+    prof = profile_step(label, lambda: step(params, batch, cache)[0].tolist())
+    nbytes = weight_bytes(params, tied="lm_head" not in params)
+    ops_ = encoder_ops(model.cfg, batch["tokens"].shape[0]) \
+        if model.cfg.family == "encdec" else 0.0
+    bound_ms, bound_by = bound(nbytes, ops_, torch.bfloat16)
+    log(f"[{label}] decode step, {batch['tokens'].shape[0]} rows: wall "
+        f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']:.2f} ms, busy "
+        f"share {prof['device_ms'] / prof['wall_ms']:.3f}, "
+        f"{prof['kernels_per_step']} kernels; bound {bound_ms:.2f} ms "
+        f"({bound_by}: {nbytes / 1e9:.2f} GB of weights at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s"
+        + (f", {ops_ / 1e12:.2f} T operations of the encoder at "
+           f"{PEAK_OPS[torch.bfloat16] / 1e12:.0f} T/s" if ops_ else "")
+        + f"): device {prof['device_ms'] / bound_ms:.2f}x the bound")
+    prof["bound_ms"], prof["bound_by"] = bound_ms, bound_by
+    return prof
+
+
+def legacy_serve(cfg, params, phase: str, argv) -> dict:
+    """The legacy loop (the only serve path of the media families) with
+    its launches held to the derived counts: vlm's ``prefill_media_kv``
+    (wk, wv a cross layer), then a decode step a position
+    (:func:`matmuls_per_pass` with the media's K/V cached for vlm; the
+    encoder again each step for encdec).  Then the forward over the same
+    prompts and media (flash attention, the cross-attention's over the
+    media included) against the loop's logits after the prompt (plain
+    attention of one query a step): within 2^-3 of the largest logit, the
+    bound of the rwkv and MoE phases (bf16 rounding in other places,
+    carried through every layer); a wrong mask, media row or cache write
+    moves logits by their own order."""
+    args = launch_serve.build_parser().parse_args(argv)
+    model = get_model(cfg)
+    reset_launches()
+    legacy = launch_serve.run_legacy(args, cfg, params)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    steps = args.prompt_len + args.gen
+    media_kv = 2 * (cfg.n_layers // cfg.cross_attn_every) \
+        if cfg.family == "vlm" else 0
+    expect = {"ina_matmul": media_kv + steps
+              * matmuls_per_pass(cfg, media_cached=True),
+              "flash_attention": flash_per_pass(cfg, decode=True) * steps,
+              "wkv6": 0}
+    secs = (legacy["prefill_ms"] + legacy["decode_ms"]) / 1e3
+    total = legacy["tokens"].numel()
+    log(f"[{phase}] legacy loop: {args.batch} rows, prompt "
+        f"{args.prompt_len}, {args.gen} more: {total} tokens, "
+        f"{total / secs:.1f} tok/s; prefill {legacy['prefill_ms']:.1f} ms, "
+        f"decode {legacy['decode_ms']:.1f} ms; launches {launches}, "
+        f"expected {expect}; ina_matmul by regime {im.launches_by_regime}")
+    check_launches(launches, expect,
+                   [k for k, v in expect.items() if v])
+    by_regime = dict(im.launches_by_regime)
+    prompts = launch_serve.make_prompts(cfg, args.batch,
+                                        args.prompt_len).to("cuda")
+    ones = torch.ones(args.batch, cfg.num_media_tokens, cfg.d_model,
+                      dtype=getattr(torch, cfg.dtype), device="cuda")
+    fwd = build_prefill(model).fn(params, {"tokens": prompts, "media": ones})
+    last = fwd[:, -1].float()
+    scale = float(last.abs().max())
+    diff = float((last - legacy["first_logits"].float()).abs().max())
+    same = int((torch.argmax(last, dim=-1).cpu()
+                == legacy["tokens"][:, 0]).sum())
+    log(f"[{phase}] forward over the {args.batch} prompts (flash) against "
+        f"the loop's logits after them: max |diff| {diff:.4g} <= tol "
+        f"{2.0 ** -3 * scale:.4g} (2^-3 x max|logit| {scale:.4g}); first "
+        f"greedy token equal in {same} of {args.batch} rows")
+    if not (diff <= 2.0 ** -3 * scale and bool(torch.isfinite(fwd).all())):
+        raise AssertionError(f"{phase}: forward vs legacy loop {diff}")
+    return {"launches": launches, "by_regime": by_regime, "legacy": legacy}
+
+
+def legacy_decode_profile(model, params, label: str, argv) -> dict:
+    """One step of the legacy loop's serve step at its rows, at the last
+    prompt position, on media of ones (vlm: the media K/V prefilled)."""
+    cfg = model.cfg
+    rows, plen = legacy_rows(argv)
+    cache = model.init_cache(rows, serve_cache(argv), device="cuda")
+    batch = {"tokens": torch.full((rows, 1), 11, device="cuda"),
+             "pos": plen,
+             "media": torch.ones(rows, cfg.num_media_tokens, cfg.d_model,
+                                 dtype=getattr(torch, cfg.dtype),
+                                 device="cuda")}
+    if cfg.family == "vlm":
+        cache = vision.prefill_media_kv(params, cfg, batch["media"], cache)
+    return profile_decode(model, params, label, batch, cache,
+                          build_serve_step(model).fn)
+
+
+def phase_hybrid() -> dict:
+    """zamba2-2.7b as published (bf16, nothing cut)."""
+    fresh_phase()
+    cfg = ARCHS[HYBRID]
+    model = get_model(cfg)
+    g = cfg.n_layers // cfg.shared_attn_every
+    log(f"[hybrid] {HYBRID}: {cfg.n_layers} Mamba2 layers (d_inner "
+        f"{cfg.ssm.expand * cfg.d_model}, {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim}"
+        f" heads of {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, SSD chunk "
+        f"{cfg.ssm.chunk}) and {g} invocations of the shared block "
+        f"({cfg.shared_attn_heads} heads of {2 * cfg.d_model // cfg.shared_attn_heads}"
+        f" over 2 x d_model), d_model {cfg.d_model}, vocab {cfg.vocab}, "
+        f"tied head")
+    params = family_params(cfg, "hybrid")
+    tokens = torch.randint(3, cfg.vocab, (1, FAMILY_FWD_S[HYBRID]),
+                           generator=torch.Generator().manual_seed(16)
+                           ).to("cuda")
+    with record_shapes() as seen:
+        fwd = family_forward(model, params, {"tokens": tokens}, "hybrid")
+        del fwd["logits"]
+        report, legacy, serve_launches, _ = serve(cfg, params,
+                                                  "hybrid-serve",
+                                                  SERVE_ARGV[HYBRID])
+    check_shapes(seen, "hybrid")
+    # As rwkv's: the engine seats each prompt at B 1 and decodes 2 slots,
+    # the loop decodes 4 rows, so they part where cuBLAS's bf16 einsums of
+    # the SSD step depend on the batch; the Mamba2 states carry each
+    # difference through the 32-token prompt and 54 layers: 2^-3.
+    compare_with_legacy(report, legacy, "hybrid-serve", cfg.n_layers, bits=3)
+    fwd["profile"] = profile_forward(model, params, {"tokens": tokens},
+                                     "hybrid")
+    args = launch_serve.build_parser().parse_args(SERVE_ARGV[HYBRID])
+    cache = model.init_cache(2, serve_cache(SERVE_ARGV[HYBRID]),
+                             device="cuda")
+    pos = [args.prompt_len, args.prompt_len + args.gen // 2]
+    decode = profile_decode(
+        model, params, "hybrid_decode",
+        {"tokens": torch.full((2, 1), 11, device="cuda"),
+         "pos": torch.tensor(pos, device="cuda")}, cache,
+        build_paged_serve_step(model).fn)
+    log(f"[hybrid] peak {gib(torch.cuda.max_memory_allocated())}")
+    del params
+    fresh_phase()
+    return {"forward": fwd["launches"], "serve": serve_launches,
+            "profile": {"forward": fwd["profile"], "decode": decode}}
+
+
+def phase_hybrid_f32() -> None:
+    """zamba2-2.7b's widths, 2 groups (12 Mamba2 layers, 2 shared-block
+    invocations), float32."""
+    fresh_phase()
+    cfg = dataclasses.replace(ARCHS[HYBRID], dtype="float32",
+                              n_layers=HYBRID_F32_GROUPS
+                              * ARCHS[HYBRID].shared_attn_every)
+    model = get_model(cfg)
+    params = family_params(cfg, "hybrid-f32", seed=1)
+    tokens = torch.randint(3, cfg.vocab, (1, HYBRID_F32_S),
+                           generator=torch.Generator().manual_seed(17)
+                           ).to("cuda")
+    with record_shapes() as seen:
+        got = family_forward(model, params, {"tokens": tokens}, "hybrid-f32")
+        launches = read_launches()
+        t0 = time.perf_counter()
+        with plain_kernels():
+            want = build_prefill(model).fn(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if read_launches() != launches:
+            raise AssertionError("the plain forward launched a kernel")
+        # elementwise |diff| <= atol + rtol |plain|, rtol = atol = 1e-4:
+        # the f32 ina_matmul repeats its plain version's arithmetic and the
+        # f32 flash kernel sums in another order than its plain version;
+        # cuBLAS's f32 SSD einsums see that rounding upstream
+        diff = (got["logits"] - want).abs()
+        over = float((diff - 1e-4 * want.abs()).max())
+        log(f"[hybrid-f32] {cfg.n_layers} layers, full width, float32, B 1 x "
+            f"S {HYBRID_F32_S}: kernels against their plain versions on the "
+            f"card, max |diff| {float(diff.max()):.3g} (max |logit| "
+            f"{float(want.abs().max()):.3g}); max(|diff| - 1e-4 |plain|) "
+            f"{over:.3g} <= atol 1e-4; the plain forward {plain_s:.1f} s")
+        if not over <= 1e-4:
+            raise AssertionError(f"hybrid f32 forward: {over} > 1e-4 beyond "
+                                 f"rtol")
+        del got, want, diff
+        # the decode loop: single-step SSD updates and plain attention of
+        # one query, against the chunked SSD and flash; in float32 the two
+        # differ in sum order only
+        worst, over, scale, flips = forward_against_decode(
+            model, params, tokens, "hybrid f32", rtol=1e-4)
+    check_shapes(seen, "hybrid-f32")
+    log(f"[hybrid-f32] forward vs decode loop over {HYBRID_F32_S} positions "
+        f"(SSD chunks of {cfg.ssm.chunk}: one carried state): max |diff| "
+        f"{worst:.3g} (max |logit| {scale:.3g}); max(|diff| - 1e-4 |logit|) "
+        f"{over:.3g} <= atol 1e-4; greedy tokens differ at {flips} of "
+        f"{HYBRID_F32_S} positions")
+    if not (over <= 1e-4 and flips == 0):
+        raise AssertionError(f"hybrid f32 forward vs decode: {over} > 1e-4 "
+                             f"or {flips} tokens differ")
+    del params
+    fresh_phase()
+
+
+def phase_vlm() -> dict:
+    """llama-3.2-vision-11b as published (bf16, nothing cut)."""
+    fresh_phase()
+    cfg = ARCHS[VLM]
+    model = get_model(cfg)
+    g = cfg.n_layers // cfg.cross_attn_every
+    log(f"[vlm] {VLM}: {cfg.n_layers - g} self layers and {g} gated "
+        f"cross-attention layers (qk-norm) over {cfg.num_media_tokens} media "
+        f"rows, d_model {cfg.d_model}, GQA {cfg.n_heads}:{cfg.n_kv_heads}, "
+        f"vocab {cfg.vocab}")
+    params = family_params(cfg, "vlm")
+    # the reference initialises both gates at 0, so every cross layer's
+    # output would be multiplied by tanh(0) = 0; at 0.5 (tanh 0.46) the
+    # media reach the logits
+    for name in ("gate_attn", "gate_mlp"):
+        params["xlayers"][name].fill_(0.5)
+    batch = {"tokens": torch.randint(3, cfg.vocab, (1, FAMILY_FWD_S[VLM]),
+                                     generator=torch.Generator()
+                                     .manual_seed(18)).to("cuda"),
+             "media": media(cfg, 1, 19)}
+    with record_shapes() as seen:
+        fwd = family_forward(model, params, batch, "vlm")
+        del fwd["logits"]
+        served = legacy_serve(cfg, params, "vlm-serve", SERVE_ARGV[VLM])
+    check_shapes(seen, "vlm")
+    fwd["profile"] = profile_forward(model, params, batch, "vlm")
+    decode = legacy_decode_profile(model, params, "vlm_decode",
+                                   SERVE_ARGV[VLM])
+    log(f"[vlm] peak {gib(torch.cuda.max_memory_allocated())}")
+    del params
+    fresh_phase()
+    return {"forward": fwd["launches"], "serve": served["launches"],
+            "profile": {"forward": fwd["profile"], "decode": decode}}
+
+
+def phase_encdec() -> dict:
+    """whisper-medium as published (bf16, nothing cut)."""
+    fresh_phase()
+    cfg = ARCHS[ENCDEC]
+    model = get_model(cfg)
+    log(f"[encdec] {ENCDEC}: {cfg.encoder_layers} encoder layers over "
+        f"{cfg.num_media_tokens} frames (non-causal) and {cfg.n_layers} "
+        f"decoder layers (causal + cross-attention), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, vocab {cfg.vocab} (tied head: embed.T read "
+        f"k-major, row stride {cfg.d_model})")
+    params = family_params(cfg, "encdec")
+    batch = {"tokens": torch.randint(3, cfg.vocab, (1, FAMILY_FWD_S[ENCDEC]),
+                                     generator=torch.Generator()
+                                     .manual_seed(20)).to("cuda"),
+             "media": media(cfg, 1, 21)}
+    with record_shapes() as seen:
+        fwd = family_forward(model, params, batch, "encdec")
+        del fwd["logits"]
+        served = legacy_serve(cfg, params, "encdec-serve",
+                              SERVE_ARGV[ENCDEC])
+    check_shapes(seen, "encdec")
+    fwd["profile"] = profile_forward(model, params, batch, "encdec")
+    decode = legacy_decode_profile(model, params, "encdec_decode",
+                                   SERVE_ARGV[ENCDEC])
+    log(f"[encdec] peak {gib(torch.cuda.max_memory_allocated())}")
+    del params
+    fresh_phase()
+    return {"forward": fwd["launches"], "serve": served["launches"],
+            "profile": {"forward": fwd["profile"], "decode": decode}}
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -2307,6 +2818,15 @@ def main() -> int:
     for name, text in logs.items():
         for kernel, used in ptxas_report(text, name):
             log(f"[build] {name}.cu {kernel}: {used}")
+    wide = [(kernel, re.findall(r"(\d+) bytes spill", used))
+            for kernel, used in ptxas_report(logs["flash_attention"],
+                                             "flash_attention")
+            if re.search(r"<(144|160)>", kernel)]
+    log("[build] flash_attention at D 144 and 160 (zamba2's shared "
+        "attention, 160): " + "; ".join(
+            f"{kernel} " + ("no spill" if set(spill) == {"0"} else
+                            f"SPILLS {'/'.join(spill)} bytes (stores/loads)")
+            for kernel, spill in wide))
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_matmul_small(gen)
     check_attention_small(gen)
@@ -2331,6 +2851,10 @@ def main() -> int:
     mla = phase_mla()
     phase_mla_f32()
     moe = phase_moe()
+    hybrid = phase_hybrid()
+    phase_hybrid_f32()
+    vlm = phase_vlm()
+    encdec = phase_encdec()
     launches = served["launches"]
     world = min(torch.cuda.device_count(), 4)
     paths = {"qwen2-1.5b serve": launches,
@@ -2347,7 +2871,13 @@ def main() -> int:
              f"{MLA} forward": mla["forward"],
              f"{MLA} serve": mla["serve"],
              f"{MOE} ({MOE_DEPTH} layers) forward": moe["forward"],
-             f"{MOE} ({MOE_DEPTH} layers) serve": moe["serve"]}
+             f"{MOE} ({MOE_DEPTH} layers) serve": moe["serve"],
+             f"{HYBRID} forward": hybrid["forward"],
+             f"{HYBRID} serve": hybrid["serve"],
+             f"{VLM} forward": vlm["forward"],
+             f"{VLM} legacy serve": vlm["serve"],
+             f"{ENCDEC} forward": encdec["forward"],
+             f"{ENCDEC} legacy serve": encdec["serve"]}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

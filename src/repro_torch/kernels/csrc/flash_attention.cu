@@ -64,6 +64,11 @@
 //   of D/4 FMAs instead of one chain of D), then owns D/32 output columns
 //   for P V.  Its exponent is expf on natural-log scores, as the plain
 //   version's torch.exp, not the approximate exp2 of the bf16 kernel.
+// Head dims 16 to 160 in steps of 16 are compiled in (160: zamba2's shared
+// attention, 2 x 2560 over 32 heads).  At 160 a bf16 thread keeps 80
+// accumulator floats and 40 Q fragment registers across the KV loop; ptxas
+// gives it 215 registers under the 255 that 128 threads a CTA allow, with
+// no spill.  Shared memory at 160: Q 10.5 KB and the K/V ring 84 KB.
 // Why not wgmma: a serving call is ~50 MFLOP, under 0.1 us at the
 // tensor-core rate; mma.sync's 16-row warp tiles keep each CTA's work short
 // and the CTA count up.  A wgmma version for long prompts is later work.
@@ -86,7 +91,7 @@ constexpr int BQ_BF16 = ROW_TILES * ROWS_BF16, BQ_F32 = ROW_TILES * ROWS_F32;
 constexpr int THREADS = ROW_TILES * KSPLIT * 32;
 static_assert(THREADS == BQ_F32 / F32_WARP_ROWS * 32,
               "both kernels launch THREADS threads");
-constexpr int MAXD = 128;
+constexpr int MAXD = 160;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -672,7 +677,7 @@ int launch_d(bool bf16, dim3 grid, size_t smem, cudaStream_t s,
 
 // q: [B, Sq, H, D] and k/v: [B, Sk, KVH, D], each through its (batch, seq,
 // head) strides in elements with unit stride along D; o: contiguous
-// [B, Sq, H, D].  H % KVH == 0; D in 16, 32, ..., 128.  dtype 0 = float32,
+// [B, Sq, H, D].  H % KVH == 0; D in 16, 32, ..., 160.  dtype 0 = float32,
 // 1 = bfloat16.  Bases and strides on the 16-byte grid.  bq (packed rows a
 // CTA) and bkv (KV rows a tile) must be the dtype's: 32 and 64 in bf16, 16
 // and 32 in f32.  Returns the launch's cudaError_t.
@@ -713,6 +718,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     case 80: return launch_d<80>(bf16, grid, smem, s, p);
     case 96: return launch_d<96>(bf16, grid, smem, s, p);
     case 112: return launch_d<112>(bf16, grid, smem, s, p);
-    default: return launch_d<128>(bf16, grid, smem, s, p);
+    case 128: return launch_d<128>(bf16, grid, smem, s, p);
+    case 144: return launch_d<144>(bf16, grid, smem, s, p);
+    default: return launch_d<160>(bf16, grid, smem, s, p);
   }
 }

@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 160   # zamba2's shared attention: 2 x 2560 / 32 heads
 NEG_INF = -1e30
 # packed rows of a CTA (two row tiles: of 16 rows in bf16, one mma.sync
 # tile shared by two warps that split each KV tile's keys; of 8 in float32)
@@ -51,7 +51,7 @@ BQ = {torch.bfloat16: 32, torch.float32: 16}
 BKV = {torch.bfloat16: 64, torch.float32: 32}
 # the kernel's cp.async moves 16 bytes: every stepped stride must be a
 # multiple of this many elements; D must be a multiple of 16 (the mma depth
-# in bf16; the kernels are instantiated for D = 16, 32, ..., 128)
+# in bf16; the kernels are instantiated for D = 16, 32, ..., 160)
 _VEC = {torch.bfloat16: 8, torch.float32: 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # q, k, v, o; B, Sq, Sk, H, KVH, D; the strides (batch, seq, head) of q, k
@@ -139,7 +139,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check(q, k, v, q_offset: int) -> None:
-    """What any device takes: shapes, dtypes, D <= 128 and unit stride
+    """What any device takes: shapes, dtypes, D <= 160 and unit stride
     along D (the fronts read through strides and never copy)."""
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must share a device")

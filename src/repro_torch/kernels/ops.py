@@ -59,7 +59,7 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The model's layout through the flash kernel: q [B, Sq, H, D], k/v
     [B, Sk, KVH, D] with GQA unexpanded, each read in place (a KV cache
     slice included); returns a contiguous [B, Sq, H, D].  A shape the
-    kernel cannot take (v's head dim not q's, as in MLA, or D > 128)
+    kernel cannot take (v's head dim not q's, as in MLA, or D > 160)
     raises: it is never rerouted."""
     if v.shape[-1] != q.shape[-1] or q.shape[-1] > MAX_HEAD_DIM:
         raise ValueError(

@@ -3,8 +3,9 @@
     python -m repro_torch.launch.kernel_times [sweep | shapes | wkv6]
 
 :class:`Timer` is the timer ``chip_smoke.py`` uses;
-:func:`matmul_projections`, :func:`moe_projections` /
-:func:`matmul_operands` are the products it checks, :func:`attention_cases` / :func:`attention_operands` its flash
+:func:`matmul_projections`, :func:`moe_projections`,
+:func:`family_projections` / :func:`matmul_operands` are the products it
+checks, :func:`attention_cases` / :func:`attention_operands` its flash
 attention cases in the model's layout, and :func:`wkv_cases` /
 :func:`wkv_operands` its wkv6 cases.  ``sweep`` (the default) times
 ``ina_matmul`` at every cluster size the kernel takes, at the decode (M =
@@ -36,10 +37,14 @@ L2_FLUSH_BYTES = 128 << 20
 HOST_HEAD_START_CYCLES = 200_000   # ~0.1 ms of the card's clock
 # M of the main paths' bf16 products: qwen2 serving's prefill chunk and its
 # 2 decode slots; the rwkv forward's B 2 x S 2048 and rwkv serving's decode;
-# the deepseek and llama4 forwards' B 1 x S 2048 and their 2 decode slots
+# the deepseek and llama4 forwards' B 1 x S 2048 and their 2 decode slots;
+# the zamba2 and llama-3.2-vision forwards' B 1 x S 2048, whisper's encoder
+# over 1500 frames, and the three families' 2 decode rows
 MAIN_PATH_M = {"qwen2-1.5b": (64, 2), "rwkv6-7b": (4096, 2),
                "deepseek-v2-lite-16b": (2048, 2),
-               "llama4-scout-17b-16e": (2048, 2)}
+               "llama4-scout-17b-16e": (2048, 2),
+               "zamba2-2.7b": (2048, 2), "llama-3.2-vision-11b": (2048, 2),
+               "whisper-medium": (1500, 2)}
 
 
 class Timer:
@@ -116,6 +121,37 @@ def moe_projections() -> list[tuple[str, str, int, int, str]]:
             (lln, "head", ll.d_model, ll.vocab, "row")]
 
 
+def family_projections() -> list[tuple[str, str, int, int, str]]:
+    """The same for the hybrid, vlm and encdec families' models
+    (zamba2-2.7b: Mamba2's ``w_in``/``w_out``, the shared block over 2 x
+    d_model and its ``wo_down``/``mlp_down``; llama-3.2-vision-11b: the
+    self and cross-attention layers' products, the cross layers' ``wk``/
+    ``wv`` over the media; whisper-medium: the encoder's and the decoder's,
+    ungated MLPs, the tied head over its odd vocabulary)."""
+    z, v, w = (ARCHS[n] for n in ("zamba2-2.7b", "llama-3.2-vision-11b",
+                                  "whisper-medium"))
+    d_inner = z.ssm.expand * z.d_model
+    n_in = 2 * d_inner + 2 * z.ssm.d_state + d_inner // z.ssm.head_dim
+    d2 = 2 * z.d_model
+    vkv = v.n_kv_heads * v.resolved_head_dim
+    return [(z.name, "w_in", z.d_model, n_in, "row"),
+            (z.name, "w_out", d_inner, z.d_model, "row"),
+            (z.name, "shared wq/wk/wv/wo", d2, d2, "row"),
+            (z.name, "shared w_up/w_gate", d2, z.shared_attn_d_ff, "row"),
+            (z.name, "shared w_down", z.shared_attn_d_ff, d2, "row"),
+            (z.name, "wo_down/mlp_down", d2, z.d_model, "row"),
+            (z.name, "tied head", z.d_model, z.vocab, "tied"),
+            (v.name, "wq/wo", v.d_model, v.d_model, "row"),
+            (v.name, "wk/wv", v.d_model, vkv, "row"),
+            (v.name, "w_up/w_gate", v.d_model, v.d_ff, "row"),
+            (v.name, "w_down", v.d_ff, v.d_model, "row"),
+            (v.name, "head", v.d_model, v.vocab, "row"),
+            (w.name, "wq/wk/wv/wo", w.d_model, w.d_model, "row"),
+            (w.name, "w_up", w.d_model, w.d_ff, "row"),
+            (w.name, "w_down", w.d_ff, w.d_model, "row"),
+            (w.name, "tied head", w.d_model, w.vocab, "tied")]
+
+
 def matmul_operands(gen, m, k, n, kind, dt):
     """x ~ N(0, 1) [m, k]; w ~ N(0, 1/k) [k, n], row-major, or the
     transposed view of an [n, k] table (the tied head's embed.T)."""
@@ -154,7 +190,8 @@ def sweep_clusters(ms=(1, 2, 4, 64), seed: int = 0) -> list[dict]:
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for _, name, k, n, kind in matmul_projections() + moe_projections():
+    for _, name, k, n, kind in (matmul_projections() + moe_projections()
+                                + family_projections()):
         for m in ms:
             x, w = matmul_operands(gen, m, k, n, kind, torch.bfloat16)
             plan = im.plan_for(x, w)
@@ -179,7 +216,8 @@ def time_main_shapes(seed: int = 0) -> list[dict]:
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for model, name, k, n, kind in matmul_projections() + moe_projections():
+    for model, name, k, n, kind in (matmul_projections() + moe_projections()
+                                    + family_projections()):
         for m in MAIN_PATH_M[model]:
             x, w = matmul_operands(gen, m, k, n, kind, torch.bfloat16)
             row = {"case": f"{model} {name} M={m}",
@@ -192,32 +230,60 @@ def time_main_shapes(seed: int = 0) -> list[dict]:
     return rows
 
 
-def attention_cases() -> list[tuple[str, str, int, int, torch.dtype, int]]:
-    """(name, model, Sq, Sk, dtype, cache rows) of the dense prefill's
-    flash attention, B 1: a chunk of Sq at q_offset Sk - Sq, k/v the
-    [:, :Sk] slice of a cache of that many rows (the profiled prefill
-    step's)."""
-    q, ll = "qwen2-1.5b", "llama3-8b"
-    return [("qwen2 chunk 1", q, 64, 64, torch.bfloat16, 192),
-            ("qwen2 chunk 2", q, 64, 128, torch.bfloat16, 192),
-            ("qwen2 chunk 1 f32", q, 64, 64, torch.float32, 192),
-            ("qwen2 chunk 2 f32", q, 64, 128, torch.float32, 192),
-            ("llama3-8b chunk 2", ll, 64, 128, torch.bfloat16, 192),
-            # the [moe] forward: llama4-scout's GQA 40:8 (5 query heads a
-            # KV head, not a power of two), B 1 x S 2048
-            ("llama4 forward", "llama4-scout-17b-16e", 2048, 2048,
-             torch.bfloat16, 2048)]
+def attention_cases() -> list[tuple]:
+    """(name, B, Sq, Sk, H, KVH, D, dtype, cache rows, causal) of the
+    flash attention cases in the model's layout: q [B, Sq, H, D], k/v the
+    [:, :Sk] slice of a cache of that many rows.  Causal cases sit at
+    q_offset Sk - Sq, non-causal ones at 0.  The dense prefill's chunks
+    (the profiled prefill step's cache); llama4-scout's forward at GQA 40:8
+    (5 query heads a KV head, not a power of two); zamba2's shared
+    attention at head dim 160 (bf16 forward, 2 groups in float32);
+    llama-3.2-vision's self layers and its cross-attention over 1601 media
+    rows (non-causal, GQA 32:8, a ragged Sk); whisper's encoder over 1500
+    frames (non-causal, ragged), its decoder at its context of 448 and the
+    cross-attention over the frames; and each forward the vlm and encdec
+    phases hold against their legacy loops (2 prompts)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    q, ll, l4 = (ARCHS[n] for n in ("qwen2-1.5b", "llama3-8b",
+                                    "llama4-scout-17b-16e"))
+    z, v, w = (ARCHS[n] for n in ("zamba2-2.7b", "llama-3.2-vision-11b",
+                                  "whisper-medium"))
+
+    def gqa(c):
+        return c.n_heads, c.n_kv_heads, c.resolved_head_dim
+    zs = (z.shared_attn_heads, z.shared_attn_heads,
+          2 * z.d_model // z.shared_attn_heads)
+    vm, wf = v.num_media_tokens, w.num_media_tokens
+    return [("qwen2 chunk 1", 1, 64, 64, *gqa(q), bf16, 192, True),
+            ("qwen2 chunk 2", 1, 64, 128, *gqa(q), bf16, 192, True),
+            ("qwen2 chunk 1 f32", 1, 64, 64, *gqa(q), f32, 192, True),
+            ("qwen2 chunk 2 f32", 1, 64, 128, *gqa(q), f32, 192, True),
+            ("llama3-8b chunk 2", 1, 64, 128, *gqa(ll), bf16, 192, True),
+            ("llama4 forward", 1, 2048, 2048, *gqa(l4), bf16, 2048, True),
+            ("zamba2 D=160", 1, 2048, 2048, *zs, bf16, 2048, True),
+            ("zamba2 D=160 f32", 1, 300, 300, *zs, f32, 300, True),
+            ("vlm self", 1, 2048, 2048, *gqa(v), bf16, 2048, True),
+            ("vlm cross", 1, 2048, vm, *gqa(v), bf16, vm, False),
+            ("vlm prompt self", 2, 16, 16, *gqa(v), bf16, 16, True),
+            ("vlm prompt cross", 2, 16, vm, *gqa(v), bf16, vm, False),
+            ("whisper encoder", 1, wf, wf, *gqa(w), bf16, wf, False),
+            ("whisper encoder B=2", 2, wf, wf, *gqa(w), bf16, wf, False),
+            ("whisper decoder", 1, 448, 448, *gqa(w), bf16, 448, True),
+            ("whisper cross", 1, 448, wf, *gqa(w), bf16, wf, False),
+            ("whisper prompt self", 2, 8, 8, *gqa(w), bf16, 8, True),
+            ("whisper prompt cross", 2, 8, wf, *gqa(w), bf16, wf, False)]
 
 
-def attention_operands(gen, b, sq, sk, h, kvh, d, dt, cache):
+def attention_operands(gen, b, sq, sk, h, kvh, d, dt, cache,
+                       causal: bool = True):
     """q ~ N [b, sq, h, d]; k, v ~ N, the [:, :sk] slice of a [b, cache,
     kvh, d] cache (so the batch stride is cache * kvh * d); q_offset sk -
-    sq."""
+    sq where ``causal``, else 0."""
     def normal(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").to(dt)
     q = normal(b, sq, h, d)
     ck, cv = normal(b, cache, kvh, d), normal(b, cache, kvh, d)
-    return q, ck[:, :sk], cv[:, :sk], sk - sq
+    return q, ck[:, :sk], cv[:, :sk], sk - sq if causal else 0
 
 
 def wkv_cases() -> list[tuple[str, int, int, str, torch.dtype]]:

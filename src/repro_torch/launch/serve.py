@@ -27,8 +27,14 @@ Examples (one H100, at the published widths):
       --batch 4 --slots 2 --prompt-len 64 --gen 16
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-lite-16b --batch 4 --slots 2 --prompt-len 64 --gen 16
-(the ssm, moe and mla_moe families seat prompts token by token), and on
-the CPU, two gloo ranks of the reduced qwen2:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --batch 4 --slots 2 --prompt-len 64 --gen 16
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama-3.2-vision-11b --batch 2 --prompt-len 16 --gen 8
+(the ssm, moe, mla_moe and hybrid families seat prompts token by token;
+encdec and vlm take media, which no engine request carries, so they run
+the legacy loop on media of ones, as the reference's launcher does), and
+on the CPU, two gloo ranks of the reduced qwen2:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --reduced --device cpu --model-parallel 2 --psum-mode ina_ring --check
 """
@@ -47,7 +53,8 @@ from repro_torch.configs import ARCHS
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.collectives import CLI_PSUM_MODES
 from repro_torch.launch import mesh
-from repro_torch.models.api import get_model
+from repro_torch.models import vision
+from repro_torch.models.api import MEDIA_FAMILIES, get_model
 from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.steps import build_serve_step
 from repro_torch.parallel.tp import ParallelCtx
@@ -76,7 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prefill-chunk", type=int, default=8,
                     help="tokens per batched prefill chunk; no effect for a "
                          "family without a batched prefill (ssm, moe, "
-                         "mla_moe), whose prompts are seated token by token")
+                         "mla_moe, hybrid), whose prompts are seated token "
+                         "by token")
     ap.add_argument("--no-batched-prefill", action="store_true",
                     help="prefill via the per-token decode loop")
     ap.add_argument("--check", action="store_true",
@@ -170,6 +178,11 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     requests (rows of the prompt block) that form the batch, all of them by
     default; ``max_seq`` the cache's positions, prompt + gen by default.
 
+    The encdec and vlm families get media of ones [B, M, D] in the compute
+    dtype, as the reference's launcher gives them, in every step's batch;
+    vlm's cross-attention K/V over it are written into the cache first
+    (:func:`~repro_torch.models.vision.prefill_media_kv`).
+
     Returns the tokens [B, gen+1] (the first generated token, then ``gen``
     greedy continuations), each step's top-2 logit margin [B, gen+1], and
     the first-token logits [B, V]."""
@@ -192,6 +205,14 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     batch = prompts.shape[0]
     cache = model.init_cache(batch, max_seq or args.prompt_len + args.gen,
                              device=dev, world=pctx.world)
+    extra = {}
+    if cfg.family in MEDIA_FAMILIES and cfg.num_media_tokens:
+        extra["media"] = torch.ones(batch, cfg.num_media_tokens, cfg.d_model,
+                                    dtype=getattr(torch, cfg.dtype),
+                                    device=dev)
+    if cfg.family == "vlm":
+        cache = vision.prefill_media_kv(params, cfg, extra["media"], cache,
+                                        pctx)
 
     def margin(logits):
         top2 = torch.topk(logits.float(), 2, dim=-1).values
@@ -201,7 +222,8 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     t0 = time.perf_counter()
     for pos in range(args.prompt_len):
         nxt, cache, logits = step.fn(
-            params, {"tokens": prompts[:, pos:pos + 1], "pos": pos}, cache)
+            params, {"tokens": prompts[:, pos:pos + 1], "pos": pos, **extra},
+            cache)
     tokens, margins, first_logits = [nxt], [margin(logits)], logits
     nxt.tolist()
     prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -210,8 +232,8 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     t0 = time.perf_counter()
     for i in range(args.gen):
         nxt, cache, logits = step.fn(
-            params, {"tokens": nxt[:, None], "pos": args.prompt_len + i},
-            cache)
+            params, {"tokens": nxt[:, None], "pos": args.prompt_len + i,
+                     **extra}, cache)
         tokens.append(nxt)
         margins.append(margin(logits))
     out = torch.stack(tokens, dim=1).cpu()
@@ -233,8 +255,12 @@ def _config(args):
 
 
 def _serve(args, cfg, group=None):
-    """Run the path ``args`` asks for; its tokens, one row a request."""
-    if args.legacy_loop:
+    """Run the path ``args`` asks for (the legacy loop for the families
+    that take media); its tokens, one row a request."""
+    if args.legacy_loop or cfg.family in MEDIA_FAMILIES:
+        if not args.legacy_loop:
+            print(f"[serve] family {cfg.family!r} needs media plumbing; "
+                  "running the legacy loop")
         return run_legacy(args, cfg, group=group)["tokens"].tolist()
     tokens = run_engine(args, cfg, group=group).tokens()
     return [tokens[f"req{i}"] for i in range(args.batch)]

@@ -1,5 +1,6 @@
-"""Uniform model API (counterpart of ``repro.models.api``): the dense, ssm
-(RWKV6), moe and mla_moe families.
+"""Uniform model API (counterpart of ``repro.models.api``): the reference's
+seven families, dense, ssm (RWKV6), moe, mla_moe, hybrid (zamba2), encdec
+(whisper) and vlm (llama-3.2-vision).
 
 Entry points default to ``device="cuda"`` and raise when no GPU is present;
 the CPU runs only for a caller that passes ``device="cpu"``.  On
@@ -19,10 +20,17 @@ import torch
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import mla, moe, rwkv, transformer
+from repro_torch.models import (encdec, hybrid, mla, moe, rwkv, transformer,
+                                vision)
 
 _FAMILIES: dict[str, ModuleType] = {"dense": transformer, "ssm": rwkv,
-                                    "moe": moe, "mla_moe": mla}
+                                    "moe": moe, "mla_moe": mla,
+                                    "hybrid": hybrid, "encdec": encdec,
+                                    "vlm": vision}
+
+
+# the families whose inputs carry the stub frontend's embeddings
+MEDIA_FAMILIES = ("encdec", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,7 +93,10 @@ class Model:
         ``labels`` for train), or for decode one new token [B, 1] and
         ``pos``.  The port's decode takes a position a row, ``pos`` [B]
         (the paged step's form); the reference's scalar ``pos`` has no meta
-        form, since a 0-d tensor is read with ``int()``."""
+        form, since a 0-d tensor is read with ``int()``.  The encdec and vlm
+        families also take ``media`` [B, num_media_tokens, d_model] in the
+        compute dtype (the frontends' precomputed embeddings)."""
+        cfg = self.cfg
         b, s = shape.global_batch, shape.seq_len
         meta = dict(dtype=torch.int32, device="meta")
         if shape.kind in ("train", "prefill"):
@@ -95,14 +106,17 @@ class Model:
         else:
             specs = {"tokens": torch.empty((b, 1), **meta),
                      "pos": torch.empty((b,), **meta)}
+        if cfg.family in MEDIA_FAMILIES and cfg.num_media_tokens:
+            specs["media"] = torch.empty(
+                (b, cfg.num_media_tokens, cfg.d_model),
+                dtype=getattr(torch, cfg.dtype), device="meta")
         return specs
 
 
 def get_model(cfg: ModelConfig) -> Model:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md Queue 1, "
-            f"item 5); the port has {sorted(_FAMILIES)}")
+        raise KeyError(f"unknown family {cfg.family!r}; "
+                       f"have {sorted(_FAMILIES)}")
     return Model(cfg, _FAMILIES[cfg.family])
 
 
@@ -124,7 +138,11 @@ def cache_batch_axes(cfg: ModelConfig) -> dict:
     index, as the family states it (dense ``k``/``v`` ``[L, B, S, K,
     hd]``; ssm ``state`` ``[L, B, H, hd, hd]``, ``tprev``/``cprev`` ``[L,
     B, 1, D]``; moe ``k``/``v`` (and ``dk``/``dv``); mla_moe
-    ``moe/latent``, ``moe/k_rope`` (and ``dense/...``) ``[L, B, S, R]``)."""
+    ``moe/latent``, ``moe/k_rope`` (and ``dense/...``) ``[L, B, S, R]``;
+    hybrid ``ssm`` ``[G, per, B, H, hd, N]``, ``conv`` ``[G, per, B, K-1,
+    C]``, ``k``/``v`` ``[G, B, S, heads, hd]``; encdec ``k``/``v`` as
+    dense; vlm ``k``/``v`` ``[G, per - 1, B, S, K, hd]``, ``mk``/``mv``
+    ``[G, B, M, K, hd]``)."""
     mod = get_model(cfg).mod
     tree = mod.init_cache(cfg, 1, 1, torch.device("meta"))
     return {path: mod.CACHE_BATCH_AXES[path] for path in cache_leaves(tree)}

@@ -1,0 +1,211 @@
+"""Whisper-style encoder-decoder backbone (counterpart of
+``repro.models.encdec``).
+
+The conv frontend is a stub, as in the reference: ``batch["media"]`` holds
+precomputed frame embeddings [B, n_frames, d_model].  The encoder is a
+non-causal transformer over the frames with an ungated GELU MLP; the
+decoder a causal transformer with a learned position table (``pos_dec``,
+added to the embedded tokens, RoPE in its self-attention as the
+reference's) and cross-attention over the encoder's output.  The head is
+the tied ``embed.T``, read in place by the INA matmul: a k-major operand
+whose row stride is d_model, so the odd vocabulary (51865) keeps the TMA
+launches.
+
+Attention over more than one query runs the flash kernel: non-causal over
+the frames in the encoder (1500 for whisper-medium) and in the decoder's
+cross-attention, causal in its self-attention.  A decode step's single
+query runs :func:`repro_torch.models.layers.attn_full`.  Every projection
+runs the INA matmul.
+
+``decode_step`` encodes ``batch["media"]`` again at every step, as the
+reference does; the decode cache holds the decoder's self-attention K/V
+only, ``k``/``v`` [L, B, S, KVH, hd].  The serving engine takes no media,
+so this family serves through ``launch/serve.py``'s legacy loop, as in the
+reference.
+
+The family runs on one rank: a group of more than one rank raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.moe import stack_drawn
+from repro_torch.models.transformer import _dtype, layer
+from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear, \
+    single_rank
+
+CACHE_BATCH_AXES = {"k": 1, "v": 1}
+PAGED_CACHE_LEAVES = ("k", "v")
+
+
+# --------------------------------------------------------------------------- #
+# params
+# --------------------------------------------------------------------------- #
+def _attn(generator, cfg: ModelConfig, device) -> dict:
+    return L.init_attn(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.resolved_head_dim, device=device)
+
+
+def init_enc_layer(generator, cfg: ModelConfig, device) -> dict:
+    """One encoder layer's weights in float32."""
+    return {
+        "ln1": torch.ones(cfg.d_model, device=device),
+        "attn": _attn(generator, cfg, device),
+        "ln2": torch.ones(cfg.d_model, device=device),
+        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, gated=False,
+                          device=device),
+    }
+
+
+def init_dec_layer(generator, cfg: ModelConfig, device) -> dict:
+    """One decoder layer's weights in float32."""
+    return {
+        "ln1": torch.ones(cfg.d_model, device=device),
+        "attn": _attn(generator, cfg, device),
+        "lnx": torch.ones(cfg.d_model, device=device),
+        "xattn": _attn(generator, cfg, device),
+        "ln2": torch.ones(cfg.d_model, device=device),
+        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, gated=False,
+                          device=device),
+    }
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device,
+         masters: bool = False) -> dict:
+    """Random weights with the distributions of ``repro.models.encdec.init``
+    (the draws themselves differ: torch and JAX generators differ), stored
+    as :func:`repro_torch.models.transformer.init` stores them."""
+    dt = _dtype(cfg)
+    per_layer = (lambda t: t) if masters else (lambda t: L.to_storage(t, dt))
+
+    def stack(draw, n):
+        return stack_drawn(lambda: per_layer(draw(generator, cfg, device)), n)
+    params = {
+        "embed": L.dense_init(generator, (cfg.vocab, cfg.d_model),
+                              device=device),
+        "pos_dec": L.dense_init(generator, (cfg.max_seq, cfg.d_model),
+                                device=device) * 0.02,
+        "enc_layers": stack(init_enc_layer, cfg.encoder_layers),
+        "ln_enc": torch.ones(cfg.d_model, device=device),
+        "dec_layers": stack(init_dec_layer, cfg.n_layers),
+        "ln_f": torch.ones(cfg.d_model, device=device),
+    }
+    return L.to_masters(params, cfg.param_dtype) if masters \
+        else L.to_storage(params, dt)
+
+
+# --------------------------------------------------------------------------- #
+# forward
+# --------------------------------------------------------------------------- #
+def _heads(cfg: ModelConfig) -> dict:
+    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, eps=cfg.norm_eps)
+
+
+def encode(params: dict, cfg: ModelConfig, media: torch.Tensor,
+           pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    """media: [B, F, D] frame embeddings -> the encoder's output [B, F, D]:
+    non-causal self-attention (no RoPE) and an ungated MLP a layer."""
+    single_rank(pctx.world if pctx else 1, cfg.family)
+    x = media.to(_dtype(cfg))
+    for i in range(cfg.encoder_layers):
+        lp = layer(params["enc_layers"], i)
+        x = x + L.attn_block(lp["attn"], L.rms_norm(x, lp["ln1"],
+                                                    cfg.norm_eps),
+                             cos=None, sin=None, causal=False, pctx=pctx,
+                             **_heads(cfg))
+        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                            pctx)
+    return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
+
+
+def cross_attn(p: dict, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig,
+               pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """Queries from the decoder's ``x``, keys and values from ``enc``."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    f = enc.shape[1]
+    q = col_linear(x, p["wq"], pctx).reshape(b, s, cfg.n_heads, hd)
+    k = col_linear(enc, p["wk"], pctx).reshape(b, f, cfg.n_kv_heads, hd)
+    v = col_linear(enc, p["wv"], pctx).reshape(b, f, cfg.n_kv_heads, hd)
+    o = L.attention(q, k, v, causal=False)
+    return row_linear(o.reshape(b, s, cfg.n_heads * hd), p["wo"], pctx)
+
+
+def dec_layer_fwd(lp: dict, x: torch.Tensor, enc: torch.Tensor,
+                  cfg: ModelConfig, cos, sin, pctx: Optional[ParallelCtx],
+                  kv: Optional[tuple] = None, pos=None) -> torch.Tensor:
+    """One decoder layer over the whole sequence, or with ``kv`` (the
+    layer's cache K/V) one decode step at ``pos``, written in place."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if kv is None:
+        x = x + L.attn_block(lp["attn"], h, cos=cos, sin=sin, causal=True,
+                             pctx=pctx, **_heads(cfg))
+    else:
+        y, _, _ = L.attn_block_decode(lp["attn"], h, kv[0], kv[1], pos,
+                                      cos=cos, sin=sin, pctx=pctx,
+                                      **_heads(cfg))
+        x = x + y
+    x = x + cross_attn(lp["xattn"], L.rms_norm(x, lp["lnx"], cfg.norm_eps),
+                       enc, cfg, pctx)
+    return x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+                           pctx)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict,
+            pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    tokens = batch["tokens"]
+    enc = encode(params, cfg, batch["media"], pctx)
+    s = tokens.shape[1]
+    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = x + params["pos_dec"][:s][None].to(x.dtype)
+    cos, sin = L.rope_cos_sin(torch.arange(s, device=tokens.device),
+                              cfg.resolved_head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        x = dec_layer_fwd(layer(params["dec_layers"], i), x, enc, cfg, cos,
+                          sin, pctx)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return L.logits_head(x, params["embed"].T, pctx)
+
+
+def loss(params: dict, cfg: ModelConfig, batch: dict,
+         pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    return L.xent_loss(forward(params, cfg, batch, pctx), batch["labels"])
+
+
+# --------------------------------------------------------------------------- #
+# decode
+# --------------------------------------------------------------------------- #
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
+               world: int = 1) -> dict:
+    single_rank(world, cfg.family)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {name: torch.zeros(shape, dtype=_dtype(cfg), device=device)
+            for name in ("k", "v")}
+
+
+def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
+                pctx: Optional[ParallelCtx] = None):
+    """One-token decode; ``batch["media"]`` is encoded again at every step,
+    as the reference does.  batch: {tokens: [B, 1], pos: int or [B]
+    tensor, media: [B, F, D]}; returns (logits [B, 1, V], cache), the K/V
+    written in place."""
+    tokens = batch["tokens"]
+    enc = encode(params, cfg, batch["media"], pctx)
+    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    pos, cos, sin = L.decode_positions(batch["pos"], tokens.device,
+                                       cfg.resolved_head_dim, cfg.rope_theta)
+    rows = params["pos_dec"][pos][:, None] if torch.is_tensor(pos) \
+        else params["pos_dec"][pos:pos + 1][None]
+    x = x + rows.to(x.dtype)
+    for i in range(cfg.n_layers):
+        x = dec_layer_fwd(layer(params["dec_layers"], i), x, enc, cfg, cos,
+                          sin, pctx, kv=(cache["k"][i], cache["v"][i]),
+                          pos=pos)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return L.logits_head(x, params["embed"].T, pctx), cache

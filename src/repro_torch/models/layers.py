@@ -3,9 +3,10 @@
 Plain functions on tensors and nested-dict parameters, with the JAX
 package's layouts at every public function.  Projections go through
 :mod:`repro_torch.parallel.tp`, and so through the INA matmul kernel.
-Causal attention over more than one query goes through the flash kernel;
-single-token decode attention (:func:`attn_full`) stays plain PyTorch, as it
-is plain JAX in the reference.  MLA, whose q/k and v head dims differ, runs
+Attention over more than one query goes through the flash kernel, causal
+or not; single-query attention (:func:`attn_full`: decode, and a decode
+step's cross-attention) stays plain PyTorch, as it is plain JAX in the
+reference.  MLA, whose q/k and v head dims differ, runs
 the reference's own rule (:func:`attention_by_chunk`: :func:`attn_chunked`
 or :func:`attn_full`), in plain PyTorch as it is plain JAX there.
 """
@@ -40,23 +41,30 @@ def dense_init(generator: torch.Generator, shape, in_dim: Optional[int] = None,
 # float32 at every call (the RWKV6 bonus ``u``, ``repro.models.ssm``:231), so
 # storing them in the compute dtype would round them.
 FLOAT32_LEAVES = ("u",)
+# The stacks the train step splits into per-layer leaves (the families the
+# port trains).
 STACKED = ("layers", "dense_layers")
+# Every stacked key of every family, by the leading axes it adds: a layer
+# axis, or for ``groups`` (zamba2's [G, per, ...] Mamba2 layers, the vlm's
+# [G, per - 1, ...] self layers) a group axis and a layer axis.
+STACK_AXES = {"layers": 1, "dense_layers": 1, "enc_layers": 1,
+              "dec_layers": 1, "xlayers": 1, "inv_norms": 1, "groups": 2}
 
 
 def to_storage(tree: dict, dtype: torch.dtype) -> dict:
     """The port's storage rule: each matrix (rank >= 2 per layer) in the
-    compute ``dtype``, vectors and :data:`FLOAT32_LEAVES` in float32.  The
-    reference keeps float32 masters and casts each matrix to the compute
-    dtype at every call, which gives the same numbers, so the port casts
-    once.  Leaves under :data:`STACKED` keys carry a leading layer axis."""
-    def cast(name, node, stacked):
+    compute ``dtype``, vectors, scalars and :data:`FLOAT32_LEAVES` in
+    float32.  The reference keeps float32 masters and casts each matrix to
+    the compute dtype at every call, which gives the same numbers, so the
+    port casts once.  Leaves under a :data:`STACK_AXES` key carry its
+    leading axes, which are not counted."""
+    def cast(name, node, lead):
         if isinstance(node, dict):
-            return {k: cast(k, v, stacked or k in STACKED)
+            return {k: cast(k, v, lead + STACK_AXES.get(k, 0))
                     for k, v in node.items()}
-        per_layer_ndim = node.dim() - (1 if stacked else 0)
-        keep = per_layer_ndim < 2 or name in FLOAT32_LEAVES
+        keep = node.dim() - lead < 2 or name in FLOAT32_LEAVES
         return node.float() if keep else node.to(dtype)
-    return cast("", tree, False)
+    return cast("", tree, 0)
 
 
 def to_masters(tree: dict, param_dtype: str) -> dict:
@@ -206,14 +214,14 @@ def attention_by_chunk(q, k, v, *, causal: bool, chunk: int = 0,
 
 
 def attention(q, k, v, *, causal: bool, q_offset: int = 0) -> torch.Tensor:
-    """Causal attention over several queries runs the flash kernel on the
-    model's layout: q [B, Sq, H, D] and k/v [B, Sk, KVH, D] with GQA
+    """Attention over several queries, causal or not, runs the flash kernel
+    on the model's layout: q [B, Sq, H, D] and k/v [B, Sk, KVH, D] with GQA
     unexpanded, each read in place (k/v may be a slice of the KV cache);
-    the output is a contiguous [B, Sq, H, D].  The rest is
+    the output is a contiguous [B, Sq, H, D].  One query runs
     :func:`attn_full`."""
-    if not causal or q.shape[1] == 1:
+    if q.shape[1] == 1:
         return attn_full(q, k, v, causal=causal, q_offset=q_offset)
-    return ops.attention_heads(q, k, v, causal=True, q_offset=int(q_offset))
+    return ops.attention_heads(q, k, v, causal=causal, q_offset=int(q_offset))
 
 
 # --------------------------------------------------------------------------- #

@@ -1,12 +1,14 @@
-"""RWKV6 (Finch) blocks: time-mix and channel-mix (counterpart of the RWKV6
-half of ``repro.models.ssm``; Mamba2 comes with the hybrid family).
+"""State-space blocks: Mamba2 (chunked SSD) and RWKV6 (Finch) time-mix and
+channel-mix (counterpart of ``repro.models.ssm``).
 
 Projections go through :mod:`repro_torch.parallel.tp`, and so through the
-INA matmul kernel; the decay's LoRA product stays ``torch.matmul``, as it is
-a plain ``@`` in the reference.  The multi-token time-mix runs the wkv6
+INA matmul kernel; RWKV6's decay LoRA product stays ``torch.matmul``, as it
+is a plain ``@`` in the reference.  The multi-token time-mix runs the wkv6
 kernel (:func:`repro_torch.kernels.ops.wkv`) where the reference scans
-``_wkv_chunk``; the single-step update stays plain PyTorch, as it is plain
-JAX in the reference.
+``_wkv_chunk``; the single-step updates stay plain PyTorch, as they are
+plain JAX in the reference.  Mamba2's SSD scan is plain PyTorch, a Python
+loop over the reference's chunks, as it is a ``lax.scan`` of plain JAX
+there (no Pallas kernel computes it).
 """
 from __future__ import annotations
 
@@ -21,6 +23,148 @@ from repro_torch.models import layers as L
 from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
 
 LORA = 64   # rank of the data-dependent decay's LoRA
+
+
+# =========================================================================== #
+# Mamba2
+# =========================================================================== #
+def mamba2_dims(cfg: ModelConfig):
+    """(d_inner, heads, d_state, head dim, conv kernel)."""
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    return d_inner, d_inner // s.head_dim, s.d_state, s.head_dim, \
+        s.conv_kernel
+
+
+def init_mamba2(generator, cfg: ModelConfig, device=None) -> dict:
+    """One Mamba2 block's weights in float32 (``w_in``'s columns in the
+    order z, x, B, C, dt)."""
+    d = cfg.d_model
+    d_inner, h, n, hd, ck = mamba2_dims(cfg)
+    conv_dim = d_inner + 2 * n
+
+    def dense(shape):
+        return L.dense_init(generator, shape, device=device)
+    return {
+        "w_in": dense((d, 2 * d_inner + 2 * n + h)),
+        "conv_w": dense((ck, conv_dim)) * 0.1,
+        "conv_b": torch.zeros(conv_dim, device=device),
+        "A_log": torch.zeros(h, device=device),
+        "D": torch.ones(h, device=device),
+        "dt_bias": torch.zeros(h, device=device),
+        "gate_norm": torch.ones(d_inner, device=device),
+        "w_out": dense((d_inner, d)),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None):
+    """Depthwise causal conv.  x: [B, S, C], w: [K, C]; ``prev`` the last
+    K-1 inputs before x (zeros where None).  Returns (y, the last K-1
+    inputs), the taps summed in x's dtype in the reference's order."""
+    k = w.shape[0]
+    pad = prev if prev is not None else x.new_zeros(x.shape[0], k - 1,
+                                                     x.shape[2])
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    y = xp[:, 0:s] * w[0].to(x.dtype)
+    for i in range(1, k):
+        y = y + xp[:, i:i + s] * w[i].to(x.dtype)
+    return F.silu(y + b.to(x.dtype)), xp[:, -(k - 1):]
+
+
+def _ssd_chunks(state: torch.Tensor, xs: tuple, cfg: ModelConfig):
+    """SSD over chunks side by side.  state: [B, H, hd, N] f32, entering
+    the first chunk; xs = (x [B, nc, C, H, hd], Bm/Cm [B, nc, C, N],
+    logdec/dt [B, nc, C, H]).  Each chunk's own terms (the causal
+    intra-chunk product and its state update) are computed for every chunk
+    at once; only the carried state steps from chunk to chunk, as it does
+    through the reference's scan of ``_ssd_chunk``.  The intra-chunk decay
+    matrix and scores are in ``cfg.ssm.scores_dtype``, the products in x's
+    dtype, as the reference's.  Returns (the state after the last chunk,
+    y [B, nc, C, H, hd])."""
+    x, bm, cm, logdec, dt = xs
+    sdt = getattr(torch, cfg.ssm.scores_dtype)
+    # [B, nc, C, H], scanned along the last axis (an H100 scans an inner
+    # axis serially, several times slower)
+    cum = torch.cumsum(logdec.transpose(2, 3), dim=-1).transpose(2, 3)
+    ratio = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B, nc, t, s, H]
+    tpos = torch.arange(x.shape[2], device=x.device)
+    mask = (tpos[:, None] >= tpos[None, :])[:, :, None]
+    dec = torch.where(mask, torch.exp(ratio),
+                      torch.zeros((), device=x.device)).to(sdt)
+    scores = torch.einsum("bctn,bcsn->bcts", cm, bm).to(sdt)[..., None] \
+        * dec * dt[:, :, None].to(sdt)                    # [B, nc, t, s, H]
+    y = torch.einsum("bctsh,bcshd->bcthd", scores.to(x.dtype), x)
+    tail = torch.exp(cum[:, :, -1:] - cum)                # [B, nc, C, H]
+    upd = torch.einsum("bcsh,bcshd,bcsn->bchdn", (tail * dt).to(x.dtype), x,
+                       bm)                                # [B, nc, H, hd, N]
+    decay = torch.exp(cum[:, :, -1])[..., None, None]     # [B, nc, H, 1, 1]
+    starts = []
+    for c in range(x.shape[1]):
+        starts.append(state)
+        state = state * decay[:, c] + upd[:, c]
+    # the carried state's contribution
+    y = y + torch.einsum("bctn,bchdn,bcth->bcthd", cm,
+                         torch.stack(starts, 1).to(x.dtype),
+                         torch.exp(cum).to(x.dtype))
+    return state, y
+
+
+def _ssd_chunk(state: torch.Tensor, xs: tuple, cfg: ModelConfig):
+    """One SSD chunk (the reference's ``_ssd_chunk``).  state: [B, H, hd,
+    N] f32; xs = (x [B, C, H, hd], Bm/Cm [B, C, N], logdec [B, C, H], dt
+    [B, C, H]).  Returns (new state, y [B, C, H, hd])."""
+    state, y = _ssd_chunks(state, tuple(t[:, None] for t in xs), cfg)
+    return state, y[:, 0]
+
+
+def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                 pctx: Optional[ParallelCtx] = None, state=None,
+                 conv_prev=None, single_step: bool = False):
+    """x: [B, S, D] -> (y [B, S, D], state [B, H, hd, N] f32, the conv's
+    last K-1 inputs).  ``single_step`` (S = 1) advances the decode caches
+    ``state`` and ``conv_prev``; otherwise the sequence runs in chunks of
+    ``cfg.ssm.chunk`` (:func:`_ssd_chunks`) from ``state`` (zeros where
+    None), the last one zero-padded as the reference pads it."""
+    b, s, _ = x.shape
+    d_inner, h, n, hd, _ = mamba2_dims(cfg)
+    proj = col_linear(x, p["w_in"], pctx)
+    z, xin, bm, cm, dt = torch.split(proj, [d_inner, d_inner, n, n, h],
+                                     dim=-1)
+    conv_out, conv_prev = _causal_conv(torch.cat([xin, bm, cm], dim=-1),
+                                       p["conv_w"], p["conv_b"], conv_prev)
+    xin, bm, cm = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())     # [B, S, H]
+    logdec = dt * -torch.exp(p["A_log"].float())
+    xh = xin.reshape(b, s, h, hd)
+    if state is None:
+        state = torch.zeros(b, h, hd, n, dtype=torch.float32,
+                            device=x.device)
+    if single_step:
+        upd = torch.einsum("bh,bhd,bn->bhdn", dt[:, 0], xh[:, 0].float(),
+                           bm[:, 0].float())
+        state = state * torch.exp(logdec[:, 0])[:, :, None, None] + upd
+        y = torch.einsum("bn,bhdn->bhd", cm[:, 0].float(), state)[:, None]
+    else:
+        chunk = min(cfg.ssm.chunk, s)
+        nc = -(-s // chunk)
+
+        def chunks(t):
+            pad = t.new_zeros(b, nc * chunk - s, *t.shape[2:])
+            return torch.cat([t, pad], 1).reshape(b, nc, chunk, *t.shape[2:])
+        state, y = _ssd_chunks(state, tuple(map(chunks, (xh, bm, cm, logdec,
+                                                         dt))), cfg)
+        y = y.reshape(b, nc * chunk, h, hd)[:, :s]
+    y = y.to(x.dtype) + xh * p["D"].to(x.dtype)[:, None]
+    y = y.reshape(b, s, d_inner) * F.silu(z)
+    y = L.rms_norm(y, p["gate_norm"], cfg.norm_eps)
+    return row_linear(y, p["w_out"], pctx), state, conv_prev
+
+
+# =========================================================================== #
+# RWKV6 (Finch)
+# =========================================================================== #
 
 
 def rwkv_dims(cfg: ModelConfig):

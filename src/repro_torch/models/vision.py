@@ -1,0 +1,223 @@
+"""Llama-3.2-Vision backbone: a dense decoder with gated cross-attention
+layers (counterpart of ``repro.models.vision``).
+
+The ViT frontend is a stub, as in the reference: ``batch["media"]`` holds
+precomputed patch embeddings [B, num_media_tokens, d_model].  Every
+``cross_attn_every``-th layer is a tanh-gated cross-attention block with
+qk-norm over the media; the others are the dense family's layers
+(:func:`repro_torch.models.transformer.layer_fwd`).  A Python loop over
+the groups takes the place of the reference's nested ``lax.scan``.
+
+Attention over more than one query runs the flash kernel: causal in the
+self layers, non-causal over the media in the cross-attention layers
+(1601 media rows at GQA 32:8 for llama-3.2-vision-11b).  A decode step's
+single query runs :func:`repro_torch.models.layers.attn_full`, as the
+reference's does.  Every projection runs the INA matmul.
+
+The weights follow the reference's names and layouts: ``groups`` holds the
+self layers stacked ``[G, per - 1, ...]``, ``xlayers`` the cross-attention
+layers ``[G, ...]``; the 0-d gates stay float32
+(:func:`repro_torch.models.layers.to_storage`).
+
+The decode cache holds the self layers' K/V ``k``/``v`` [G, per - 1, B, S,
+KVH, hd] and the cross-attention K/V over the media ``mk``/``mv`` [G, B,
+M, KVH, hd], computed once by :func:`prefill_media_kv`.  The serving
+engine takes no media, so this family serves through ``launch/serve.py``'s
+legacy loop, as in the reference.
+
+The family runs on one rank: a group of more than one rank raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.moe import stack_drawn
+from repro_torch.models.transformer import _dtype, layer
+from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear, \
+    single_rank
+
+CACHE_BATCH_AXES = {"k": 2, "v": 2, "mk": 1, "mv": 1}
+PAGED_CACHE_LEAVES = ("k", "v")
+
+
+def _groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, layers a group: per - 1 self layers and one cross)."""
+    per = cfg.cross_attn_every
+    if cfg.n_layers % per:
+        raise ValueError(f"{cfg.name}: {per} does not divide {cfg.n_layers} "
+                         f"layers")
+    return cfg.n_layers // per, per
+
+
+# --------------------------------------------------------------------------- #
+# params
+# --------------------------------------------------------------------------- #
+def init_xattn_layer(generator, cfg: ModelConfig, device) -> dict:
+    """One cross-attention layer's weights in float32 (gates at 0, as the
+    reference's)."""
+    return {
+        "lnx": torch.ones(cfg.d_model, device=device),
+        "xattn": L.init_attn(generator, cfg.d_model, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.resolved_head_dim,
+                             qk_norm=True, device=device),
+        "gate_attn": torch.zeros((), device=device),
+        "ln2": torch.ones(cfg.d_model, device=device),
+        "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff, device=device),
+        "gate_mlp": torch.zeros((), device=device),
+    }
+
+
+def init(cfg: ModelConfig, generator: torch.Generator, device,
+         masters: bool = False) -> dict:
+    """Random weights with the distributions of ``repro.models.vision.init``
+    (the draws themselves differ: torch and JAX generators differ), stored
+    as :func:`repro_torch.models.transformer.init` stores them."""
+    dt = _dtype(cfg)
+    g, per = _groups(cfg)
+    per_layer = (lambda t: t) if masters else (lambda t: L.to_storage(t, dt))
+    stacked = stack_drawn(lambda: per_layer(T.init_layer(generator, cfg,
+                                                         device)),
+                          cfg.n_layers - g)
+
+    def regroup(t):
+        return {k: regroup(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.view(g, per - 1, *t.shape[1:])
+    params = {
+        "embed": L.dense_init(generator, (cfg.vocab, cfg.d_model),
+                              device=device),
+        "groups": regroup(stacked),
+        "xlayers": stack_drawn(lambda: per_layer(init_xattn_layer(
+            generator, cfg, device)), g),
+        "ln_f": torch.ones(cfg.d_model, device=device),
+        "lm_head": L.dense_init(generator, (cfg.d_model, cfg.vocab),
+                                in_dim=cfg.d_model, device=device),
+    }
+    return L.to_masters(params, cfg.param_dtype) if masters \
+        else L.to_storage(params, dt)
+
+
+# --------------------------------------------------------------------------- #
+# forward
+# --------------------------------------------------------------------------- #
+def media_kv(xp: dict, media: torch.Tensor, cfg: ModelConfig,
+             pctx: Optional[ParallelCtx]):
+    """A cross-attention layer's K (k-normed) and V over the media:
+    [B, M, KVH, hd] each."""
+    b, m, _ = media.shape
+    hd = cfg.resolved_head_dim
+    k = col_linear(media, xp["xattn"]["wk"], pctx).reshape(b, m, -1, hd)
+    k = L.rms_norm(k, xp["xattn"]["k_norm"], cfg.norm_eps)
+    v = col_linear(media, xp["xattn"]["wv"], pctx).reshape(b, m, -1, hd)
+    return k, v
+
+
+def xattn_fwd(xp: dict, x: torch.Tensor, media: Optional[torch.Tensor],
+              cfg: ModelConfig, pctx: Optional[ParallelCtx],
+              kv: Optional[tuple] = None) -> torch.Tensor:
+    """Gated cross-attention + MLP over the media (``media`` [B, M, D], or
+    its K/V ``kv`` from the cache)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    h = L.rms_norm(x, xp["lnx"], cfg.norm_eps)
+    q = col_linear(h, xp["xattn"]["wq"], pctx).reshape(b, s, -1, hd)
+    q = L.rms_norm(q, xp["xattn"]["q_norm"], cfg.norm_eps)
+    k, v = media_kv(xp, media, cfg, pctx) if kv is None else kv
+    o = L.attention(q, k, v, causal=False)
+    o = row_linear(o.reshape(b, s, -1), xp["xattn"]["wo"], pctx)
+    x = x + torch.tanh(xp["gate_attn"]).to(x.dtype) * o
+    y = L.mlp_block(xp["mlp"], L.rms_norm(x, xp["ln2"], cfg.norm_eps), pctx)
+    return x + torch.tanh(xp["gate_mlp"]).to(x.dtype) * y
+
+
+def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  media: torch.Tensor,
+                  pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    single_rank(pctx.world if pctx else 1, cfg.family)
+    g, per = _groups(cfg)
+    seq = tokens.shape[1]
+    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    media = media.to(x.dtype)
+    pos = torch.arange(seq, device=tokens.device)
+    cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    for gi in range(g):
+        gp = layer(params["groups"], gi)
+        for li in range(per - 1):
+            x = T.layer_fwd(layer(gp, li), x, cfg, cos, sin, pctx, seq)
+        x = xattn_fwd(layer(params["xlayers"], gi), x, media, cfg, pctx)
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict,
+            pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    x = hidden_states(params, cfg, batch["tokens"], batch["media"], pctx)
+    return L.logits_head(x, params["lm_head"], pctx)
+
+
+def loss(params: dict, cfg: ModelConfig, batch: dict,
+         pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    return L.xent_loss(forward(params, cfg, batch, pctx), batch["labels"])
+
+
+# --------------------------------------------------------------------------- #
+# decode
+# --------------------------------------------------------------------------- #
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
+               world: int = 1) -> dict:
+    single_rank(world, cfg.family)
+    g, per = _groups(cfg)
+    hd, kvh, dt = cfg.resolved_head_dim, cfg.n_kv_heads, _dtype(cfg)
+    kv = (g, per - 1, batch, max_seq, kvh, hd)
+    mkv = (g, batch, cfg.num_media_tokens, kvh, hd)
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, shape in (("k", kv), ("v", kv), ("mk", mkv),
+                                ("mv", mkv))}
+
+
+def prefill_media_kv(params: dict, cfg: ModelConfig, media: torch.Tensor,
+                     cache: dict, pctx: Optional[ParallelCtx] = None) -> dict:
+    """Write every cross-attention layer's K/V over ``media`` [B, M, D]
+    into the cache's ``mk``/``mv`` (in place); returns the cache."""
+    single_rank(pctx.world if pctx else 1, cfg.family)
+    media = media.to(_dtype(cfg))
+    for gi in range(_groups(cfg)[0]):
+        k, v = media_kv(layer(params["xlayers"], gi), media, cfg, pctx)
+        cache["mk"][gi] = k
+        cache["mv"][gi] = v
+    return cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
+                pctx: Optional[ParallelCtx] = None):
+    """One-token decode over the cache's media K/V (:func:`
+    prefill_media_kv`).  batch: {tokens: [B, 1], pos: int or [B] tensor};
+    returns (logits [B, 1, V], cache), the self layers' K/V written in
+    place."""
+    single_rank(pctx.world if pctx else 1, cfg.family)
+    g, per = _groups(cfg)
+    tokens = batch["tokens"]
+    hd = cfg.resolved_head_dim
+    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    pos, cos, sin = L.decode_positions(batch["pos"], tokens.device, hd,
+                                       cfg.rope_theta)
+    for gi in range(g):
+        gp = layer(params["groups"], gi)
+        for li in range(per - 1):
+            lp = layer(gp, li)
+            y, _, _ = L.attn_block_decode(
+                lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
+                cache["k"][gi, li], cache["v"][gi, li], pos,
+                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
+                cos=cos, sin=sin, eps=cfg.norm_eps, pctx=pctx)
+            x = x + y
+            x = x + L.mlp_block(lp["mlp"],
+                                L.rms_norm(x, lp["ln2"], cfg.norm_eps), pctx)
+        x = xattn_fwd(layer(params["xlayers"], gi), x, None, cfg, pctx,
+                      kv=(cache["mk"][gi].to(x.dtype),
+                          cache["mv"][gi].to(x.dtype)))
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return L.logits_head(x, params["lm_head"], pctx), cache

@@ -338,7 +338,10 @@ _UNTRAINED = {
     "ssm": "the wkv6 kernel has no gradient yet (ROADMAP.md Queue 1, "
            "item 4.3)",
     "moe": "its training is not ported (ROADMAP.md Queue 1, item 5.2)",
-    "mla_moe": "its training is not ported (ROADMAP.md Queue 1, item 5.2)"}
+    "mla_moe": "its training is not ported (ROADMAP.md Queue 1, item 5.2)",
+    "hybrid": "its training is not ported (ROADMAP.md Queue 1, item 5.7)",
+    "encdec": "its training is not ported (ROADMAP.md Queue 1, item 5.7)",
+    "vlm": "its training is not ported (ROADMAP.md Queue 1, item 5.7)"}
 
 
 def check_trainable(cfg) -> None:
@@ -372,9 +375,9 @@ def build_train_step(model: Model, shape: ShapeConfig,
     the port does not cut over ``data``), as does a model world that does
     not divide the heads.  The ssm family raises: its loss is
     differentiable on the CPU through the plain wkv6 but gets no gradient
-    through the CUDA kernel, which has no backward yet.  The moe and
-    mla_moe families raise: their training is not ported.  Both are
-    ROADMAP.md Queue 1."""
+    through the CUDA kernel, which has no backward yet.  The moe, mla_moe,
+    hybrid, encdec and vlm families raise: their training is not ported.
+    Each is ROADMAP.md Queue 1 (:data:`_UNTRAINED` names the item)."""
     cfg = model.cfg
     check_trainable(cfg)
     pctx = _with_plan(pctx, plan)
@@ -418,9 +421,11 @@ def build_train_step(model: Model, shape: ShapeConfig,
 @dataclasses.dataclass
 class ServeStep:
     """``fn(params, batch, cache) -> (next_tok [B], cache, logits [B, V])``
-    with ``batch = {"tokens": [B, 1], "pos": int}``: one batch, one
-    position.  The logits of the last position are returned as well, for
-    the comparisons the legacy loop reports."""
+    with ``batch = {"tokens": [B, 1], "pos": int}``, and for the encdec and
+    vlm families ``"media"`` [B, M, D], which reaches ``decode_step`` with
+    the rest of the batch: one batch, one position.  The logits of the last
+    position are returned as well, for the comparisons the legacy loop
+    reports."""
     fn: Callable
 
 

@@ -6,7 +6,8 @@ Per iteration it
 1. admits queued requests into free cache slots (token boundary only),
 2. prefills each admitted prompt (chunked batched prefill through
    :func:`~repro_torch.parallel.steps.build_prefill_step`, or a per-token
-   decode loop for a family without a batched prefill: ssm, moe, mla_moe),
+   decode loop for a family without a batched prefill: ssm, moe, mla_moe,
+   hybrid),
    writing the prompt's cache into the paged pool and emitting the first
    token,
 3. runs one per-slot-position decode step over the whole slot batch,
@@ -19,6 +20,10 @@ row of the decode step has its own position and mask, an MoE layer routes
 each row as its own group, and the matmul kernel sums each row in the
 same order whatever the batch), so joining or leaving the batch cannot
 change a request's tokens.
+
+The encdec and vlm families take media inputs that no request carries,
+so the engine refuses them, as the reference's does; they serve through
+``launch/serve.py``'s legacy loop.
 
 The engine takes ``params`` (or a ``param_seed`` for a seeded
 ``torch.Generator``) and a ``device``; the reference builds its own
@@ -50,15 +55,13 @@ import torch.distributed as dist
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.api import cache_leaves, get_model
+from repro_torch.models.api import MEDIA_FAMILIES, cache_leaves, get_model
 from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.steps import (build_paged_serve_step,
                                         build_prefill_step, build_serve_step)
 from repro_torch.parallel.tp import ParallelCtx
 from repro_torch.serve.batching import Request, RequestState, Scheduler
 from repro_torch.serve.kvcache import PagedKVCache
-
-_NO_ENGINE_FAMILIES = ("encdec", "vlm")
 
 
 @dataclasses.dataclass
@@ -86,7 +89,7 @@ class ServingEngine:
                  decode_plan=None, batched_prefill: bool = True,
                  policy: str = "fcfs", check: bool = False,
                  group=None) -> None:
-        if cfg.family in _NO_ENGINE_FAMILIES:
+        if cfg.family in MEDIA_FAMILIES:
             raise ValueError(
                 f"family {cfg.family!r} needs per-request media plumbing; "
                 "use launch/serve.py --legacy-loop")

@@ -100,7 +100,9 @@ def _cfg(name="qwen2-1.5b"):
 @pytest.mark.parametrize("entry", ["init", "init_cache", "engine", "kvcache",
                                    "convert", "launcher", "rwkv_init",
                                    "rwkv_init_cache", "rwkv_engine",
-                                   "rwkv_launcher", "build_prefill"])
+                                   "rwkv_launcher", "build_prefill",
+                                   "hybrid_engine", "vlm_launcher",
+                                   "encdec_init"])
 def test_entry_points_default_to_cuda(no_gpu, entry):
     from repro_torch.convert import params_from_jax
     from repro_torch.launch import serve
@@ -110,6 +112,7 @@ def test_entry_points_default_to_cuda(no_gpu, entry):
     from repro_torch.serve.kvcache import PagedKVCache
 
     cfg, rwkv = _cfg(), _cfg("rwkv6-7b")
+    hybrid, encdec = _cfg("zamba2-2.7b"), _cfg("whisper-medium")
     calls = {
         "init": lambda: get_model(cfg).init(),
         "init_cache": lambda: get_model(cfg).init_cache(1, 8),
@@ -127,6 +130,11 @@ def test_entry_points_default_to_cuda(no_gpu, entry):
         # the forward pass's caller: weights and tokens on the default device
         "build_prefill": lambda: build_prefill(get_model(rwkv)).fn(
             get_model(rwkv).init(), {"tokens": torch.zeros(1, 4, dtype=torch.long)}),
+        "hybrid_engine": lambda: ServingEngine(hybrid, slots=1, max_seq=8,
+                                               block_size=4),
+        "vlm_launcher": lambda: serve.main(["--arch", "llama-3.2-vision-11b",
+                                            "--reduced"]),
+        "encdec_init": lambda: get_model(encdec).init(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

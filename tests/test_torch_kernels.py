@@ -340,6 +340,30 @@ def test_flash_attention_rectangular_matches_pallas(sq, sk):
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_160_matches_pallas(dtype):
+    """Head dim 160 (zamba2's shared attention: 2 x 2560 / 32 heads), causal,
+    against the Pallas kernel: the same tolerances as the D <= 128 cases."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(40, 2, 256, 256, 160, dtype)
+    want = jflash(jq, jk, jv, bq=128, bkv=128, interpret=True)
+    got = flash_attention(tq, tk, tv)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("sq,sk,d", [(128, 1500, 64), (100, 1601, 128)],
+                         ids=["whisper-1500", "vlm-1601"])
+def test_flash_attention_non_causal_ragged_sk_matches_pallas(sq, sk, d):
+    """Non-causal over a KV length the port's tiles do not divide (1500 and
+    1601 % 64 != 0: whisper's frames, llama-3.2-vision's media rows),
+    against the Pallas kernel on KV blocks that divide it."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(41, 2, sq, sk, d, "float32")
+    want = jflash(jq, jk, jv, bq=sq, bkv=sk // {1500: 3, 1601: 1}[sk],
+                  causal=False, interpret=True)
+    got = flash_attention(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-5, atol=2e-5)
+
+
 def _to_bshd(x, b, h):
     """[B*H, S, D] -> [B, S, H, D] (numpy)."""
     bh, s, d = x.shape
@@ -722,6 +746,32 @@ def test_flash_attention_kernel_matches_plain(cuda, sq, sk, off, d, dtype):
     want = flash_attention_plain(q, k, v, q_offset=off)
     tol = 2e-5 if dtype == "float32" else 5e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kvh,d,causal,dtype", [
+    (1, 256, 256, 32, 32, 160, True, "bfloat16"),     # zamba2 shared block
+    (1, 100, 100, 32, 32, 160, True, "float32"),
+    (1, 300, 1500, 16, 16, 64, False, "bfloat16"),    # whisper cross
+    (1, 128, 1601, 32, 8, 128, False, "bfloat16"),    # vlm cross, GQA
+    (2, 50, 1500, 16, 16, 64, False, "float32"),
+], ids=["d160-bf16", "d160-f32", "whisper-cross-bf16", "vlm-cross-bf16",
+        "whisper-cross-f32"])
+def test_flash_attention_new_shapes_kernel_matches_plain(cuda, b, sq, sk, h,
+                                                         kvh, d, causal,
+                                                         dtype):
+    """The model-layout kernel at head dim 160 and non-causal over a ragged
+    KV length against its plain version: one bf16 ulp in bf16, 1e-5 in
+    float32."""
+    dt = _TORCH[dtype]
+    q = torch.from_numpy(_normal(64, b, sq, h, d)).to(cuda, dt)
+    k, v = (torch.from_numpy(_normal(65 + i, b, sk, kvh, d)).to(cuda, dt)
+            for i in range(2))
+    got = flash_attention_heads(q, k, v, causal=causal)
+    want = flash_attention_heads_plain(q, k, v, causal=causal)
+    rtol, atol = (1e-5, 1e-5) if dtype == "float32" else (2.0 ** -7, 2.0 ** -8)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
 
 
 @pytest.mark.gpu

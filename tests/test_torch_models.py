@@ -243,12 +243,24 @@ def test_norms_match(norm):
     _close(got, want)
 
 
-def test_other_families_not_ported():
+def test_unknown_family_raises():
     from repro_torch.configs.base import ModelConfig
-    cfg = ModelConfig(name="x", family="hybrid", n_layers=1, d_model=8,
+    cfg = ModelConfig(name="x", family="mamba", n_layers=1, d_model=8,
                       n_heads=1, n_kv_heads=1, d_ff=8, vocab=8)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    with pytest.raises(KeyError, match="unknown family 'mamba'"):
         get_model(cfg)
+
+
+def test_port_registers_the_reference_families():
+    """The seven families of tests/test_models_smoke.py, each with every
+    config of the reference's registry."""
+    from repro.models.api import _FAMILIES as JFAMILIES
+
+    from repro_torch.models.api import _FAMILIES
+    fams = {"dense", "moe", "mla_moe", "ssm", "hybrid", "encdec", "vlm"}
+    assert set(_FAMILIES) == set(JFAMILIES) == fams
+    assert set(ARCHS) == set(JARCHS)
+    assert {c.family for c in ARCHS.values()} == fams
 
 
 # --------------------------------------------------------------------------- #
