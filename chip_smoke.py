@@ -18,8 +18,11 @@ Phases; any failure raises and the process exits non-zero:
    a KV cache slice; for ``wkv6`` also at decays past the model's clip
    floor, one of them held to the step-by-step ``wkv6_ref`` as well; for
    ``ina_matmul`` also the train step's products: forward at M = 4096, dX
-   with w^T read in place, dW with K = 4096), each timed beside its bound,
-   its plain version and one library call where one computes the same
+   with w^T read in place, dW with K = 4096), and at every shape one rank
+   of a 2- or 4-rank rwkv6-7b, deepseek-v2-lite or llama4-scout launches
+   (the cut products at forward and decode M, ``wkv6`` at H 32 and 16,
+   llama4's flash at 20:4 and 10:2), each timed beside its bound, its
+   plain version and one library call where one computes the same
    function;
 3. qwen2-1.5b at its published widths (bf16, seeded random weights) served
    through the port's ``ServingEngine``: 4 requests on 2 slots, prompt 128,
@@ -146,7 +149,15 @@ Phases; any failure raises and the process exits non-zero:
     every step) checked as ``[vlm]``'s.  Phases 13-16 also check that each
     shape they launched a kernel at was held against its plain version in
     phase 2, and print their peak memory;
-17. a ``kernels`` JSON line, then the device JSON line, last.
+17. ``[tp-families]``: rwkv6-7b and deepseek-v2-lite at their published
+    widths and depth and llama4-scout at ``[moe]``'s 4 layers, each served
+    (2 requests on 2 slots) without a group and then through
+    ``launch/serve.py``'s ``serve_rank`` on a one-rank NCCL group under
+    every psum mode, one process: the tensor-parallel code (expert-parallel
+    MoE combine, RWKV6 heads and MLA heads cut, at one rank all of them)
+    must give the groupless tokens bit for bit and the same kernel launches,
+    the derived counts, at shapes phase 2 checked;
+18. a ``kernels`` JSON line, then the device JSON line, last.
 
 It needs the checkout's ``src/`` beside it and exits non-zero without a GPU.
 """
@@ -194,13 +205,14 @@ from repro_torch.kernels import wkv6 as wk  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
-from repro_torch.launch.kernel_times import (Timer,  # noqa: E402
-                                             attention_cases,
+from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
+                                             Timer, attention_cases,
                                              attention_operands,
                                              family_projections,
                                              matmul_operands,
                                              matmul_projections,
                                              moe_projections,
+                                             rank_projections,
                                              train_products, wkv_cases,
                                              wkv_operands)
 from repro_torch.models import moe as moe_model  # noqa: E402
@@ -286,11 +298,11 @@ def flash_per_pass(cfg, decode: bool = False) -> int:
     attention over more than one query.  A forward: once a layer (dense,
     moe, vlm's self and cross layers), once a group's shared block
     (hybrid), the encoder's, the decoder's and its cross-attention's
-    (encdec), never for MLA.  A decode step (one query): none, but the
-    encoder's over the frames (encdec)."""
+    (encdec), never for MLA or RWKV6.  A decode step (one query): none,
+    but the encoder's over the frames (encdec)."""
     if cfg.family == "encdec":
         return cfg.encoder_layers + (0 if decode else 2 * cfg.n_layers)
-    if decode or cfg.family == "mla_moe":
+    if decode or cfg.family in ("mla_moe", "ssm"):
         return 0
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.shared_attn_every
@@ -301,6 +313,15 @@ RWKV_FWD_B, RWKV_FWD_S, RWKV_PREFIX = 2, 2048, 300
 # the MoE families' forward (B 1 x S 2048: MLA's attn_chunked runs past its
 # attn_chunk 1024); llama4-scout's depth, cut from 48 to fit one card
 MOE_FWD_S, MOE_DEPTH = 2048, 4
+# [tp-families]: each tensor-parallel family's requests, served six times
+# (without a group, then under each psum mode), so fewer than its serve
+# phase's for rwkv6-7b and deepseek-v2-lite; llama4-scout at [moe]'s depth
+TP_FAMILY_ARGV = {
+    RWKV: ["--arch", RWKV, "--batch", "2", "--slots", "2", "--prompt-len",
+           "8", "--gen", "4"],
+    MLA: ["--arch", MLA, "--batch", "2", "--slots", "2", "--prompt-len",
+          "8", "--gen", "4"],
+    MOE: SERVE_ARGV[MOE] + ["--layers", str(MOE_DEPTH)]}
 # zamba2 and llama-3.2-vision's forwards, B 1 x S 2048; whisper's at its
 # decoder context, 448 tokens, over its 1500 frames; [hybrid-f32]: 2 groups
 # (12 Mamba2 layers) over 300 tokens, past the SSD's chunk of 256
@@ -459,7 +480,24 @@ def matmul_cases():
                 for m in ms:
                     family.setdefault((m, k, n, kind, dt),
                                       f"{tag} {name} M={m}")
-    return cases + [(name, *key) for key, name in family.items()]
+    cases += [(name, *key) for key, name in family.items()]
+    # one rank's products at worlds 2 and 4, what --model-parallel 2 and 4
+    # launch on each rank (one card runs no such world): each family's
+    # forward M and its 2 decode slots, MLA's w_uk/w_uv at the forward and
+    # at the decode's 2 x cache; then [tp-families]' deepseek serve, whose
+    # w_uk/w_uv expand its shorter cache
+    fwd_m = {RWKV: RWKV_FWD_B * RWKV_FWD_S, MLA: MOE_FWD_S, MOE: MOE_FWD_S}
+    for p in TP_WORLDS:
+        for model, name, k, n, kind in rank_projections(p):
+            ms = (fwd_m[model], 2 * cache if name.startswith("w_uk") else 2)
+            cases += [(f"{model} {name} M={m}", m, k, n, kind, bf16)
+                      for m in ms]
+    tcache = serve_cache(TP_FAMILY_ARGV[MLA])
+    cases += [(f"tp-families mla {what} {name} M={m}", m, k, n, kind, bf16)
+              for what, m in (("seat", tcache), ("decode", 2 * tcache))
+              for mod, name, k, n, kind in proj
+              if mod == MLA and name == "w_uk/w_uv"]
+    return cases
 
 
 def legacy_rows(argv) -> tuple[int, int]:
@@ -787,10 +825,9 @@ WKV_REF_CASE = "steep decay -20"
 
 
 def check_wkv6(timer, gen) -> list:
-    cfg = ARCHS[RWKV]
-    h, hd = cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
+    hd = ARCHS[RWKV].ssm.head_dim
     rows = []
-    for name, b, s, decay, dt in wkv_cases():
+    for name, b, s, h, decay, dt in wkv_cases():
         r, k, v, logw, u = wkv_operands(gen, b, s, h, hd, decay, dt)
         got = wk.wkv6_heads(r, k, v, logw, u)
         torch.cuda.synchronize()
@@ -2765,6 +2802,174 @@ def phase_encdec() -> dict:
             "profile": {"forward": fwd["profile"], "decode": decode}}
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: the non-dense families through their tensor-parallel code
+# --------------------------------------------------------------------------- #
+def tp_family_forward(model, params, tokens, group, rank: int,
+                      world: int) -> dict:
+    """The forward of ``tokens`` through ``build_prefill``, without a group
+    and then under each psum mode on ``group`` over this rank's shard:
+    each run's launches, and whether its logits equal the groupless
+    run's to the bit (with their largest difference)."""
+    shard = shard_params(params, model.cfg, rank, world)
+    runs = {}
+    for mode in ("none",) + C.CLI_PSUM_MODES:
+        pctx = None if mode == "none" else \
+            ParallelCtx(group=group, psum_mode=mode)
+        reset_launches()
+        logits = build_prefill(model, pctx).fn(
+            params if pctx is None else shard, {"tokens": tokens})
+        torch.cuda.synchronize()
+        runs[mode] = {"launches": read_launches(),
+                      "by_regime": dict(im.launches_by_regime)}
+        if mode == "none":
+            base = logits
+            finite = bool(torch.isfinite(logits).all())
+        else:
+            runs[mode]["equal"] = bool(torch.equal(logits, base))
+            runs[mode]["max_diff"] = float((logits.float()
+                                            - base.float()).abs().max())
+        del logits
+    return {"runs": runs, "finite": finite}
+
+
+def tp_family_rank(rank, world, group, device) -> dict:
+    """One rank of ``[tp-families]``: each family of
+    :data:`TP_FAMILY_ARGV` on its seeded weights, served once without a
+    group (``run_engine``) and then under each psum mode through
+    ``launch/serve.py``'s ``serve_rank`` on ``group``, then its forward
+    (the family phase's tokens) likewise (:func:`tp_family_forward`), each
+    run's kernel launches counted; the launch shapes of all of them
+    recorded.  Rank 0 prints.  Returns plain data only."""
+    quiet = contextlib.nullcontext() if rank == 0 else \
+        contextlib.redirect_stdout(io.StringIO())
+    fwd_shape = {RWKV: (RWKV_FWD_B, RWKV_FWD_S), MLA: (1, MOE_FWD_S),
+                 MOE: (1, MOE_FWD_S)}
+    out = {}
+    with quiet:
+        for arch, argv in TP_FAMILY_ARGV.items():
+            args = launch_serve.build_parser().parse_args(
+                argv + ["--device", str(device)])
+            cfg = launch_serve.config(args)
+            t0 = time.perf_counter()
+            params = get_model(cfg).init(
+                torch.Generator(device=device).manual_seed(0), device=device)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            prompt = torch.randint(3, cfg.vocab, fwd_shape[arch],
+                                   generator=torch.Generator().manual_seed(16)
+                                   ).to(device)
+            runs = {}
+            with record_shapes() as seen:
+                forward = tp_family_forward(get_model(cfg), params, prompt,
+                                            group, rank, world)
+                for mode in ("none",) + C.CLI_PSUM_MODES:
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    if mode == "none":
+                        report = launch_serve.run_engine(args, cfg, params)
+                        tokens = [report.tokens()[f"req{i}"]
+                                  for i in range(args.batch)]
+                        passes = report.prefill_chunks + report.decode_steps
+                    else:
+                        tokens = launch_serve.serve_rank(
+                            rank, world, group, device,
+                            argv + ["--psum-mode", mode], params=params)
+                    torch.cuda.synchronize()
+                    runs[mode] = {"tokens": tokens,
+                                  "launches": read_launches(),
+                                  "by_regime": dict(im.launches_by_regime),
+                                  "s": time.perf_counter() - t0}
+            out[arch] = {"runs": runs, "passes": passes, "seen": seen,
+                         "forward": forward, "tokens": tuple(prompt.shape),
+                         "init_s": init_s, "n_layers": cfg.n_layers,
+                         "per_pass": matmuls_per_pass(cfg),
+                         "flash_per_pass": flash_per_pass(cfg),
+                         "peak": torch.cuda.max_memory_allocated()}
+            del params
+            fresh_phase()
+    return out
+
+
+def phase_tp_families() -> dict:
+    """The ssm, mla_moe and moe families served as ``--model-parallel``
+    serves them, on a one-rank NCCL group (one card: NCCL takes one rank a
+    device), under every psum mode: tokens bit-equal to the same requests
+    served without a group, and the kernel launches of every run (so of
+    every step: the schedule is the same) equal to the groupless run's,
+    which are the derived counts; then each family's forward (B 2 x S 2048
+    for rwkv, B 1 x S 2048 for the MoE families) likewise, logits
+    bit-equal; every launch shape held against its plain version in phase
+    2.  Returns each run's launches by path."""
+    fresh_phase()
+    log(f"[tp-families] {RWKV}, {MLA} and {MOE} ({MOE_DEPTH} layers) at "
+        f"their published widths through their tensor-parallel code on an "
+        f"NCCL group of 1 rank, one process, under every psum mode, beside "
+        f"the same requests served without a group; worlds 2 and 4 run on "
+        f"gloo on the CPU (tests/test_torch_tp_families.py), and phase 2 "
+        f"held their rank-local kernel shapes")
+    t0 = time.perf_counter()
+    out = mesh.spawn(tp_family_rank, 1, "cuda")[0]
+    paths = {}
+    for arch, res in out.items():
+        runs, passes = res["runs"], res["passes"]
+        base = runs["none"]
+        expect = {"ina_matmul": res["per_pass"] * passes,
+                  "flash_attention": 0, "wkv6": 0}
+        if base["launches"] != expect or base["by_regime"]["generic"]:
+            raise AssertionError(f"[tp-families] {arch} without a group: "
+                                 f"launches {base['launches']} (by regime "
+                                 f"{base['by_regime']}) != expected {expect}")
+        for mode, run in runs.items():
+            if run["tokens"] != base["tokens"]:
+                raise AssertionError(f"[tp-families] {arch} {mode}: tokens "
+                                     f"{run['tokens']} != without a group "
+                                     f"{base['tokens']}")
+            if (run["launches"], run["by_regime"]) != \
+                    (base["launches"], base["by_regime"]):
+                raise AssertionError(
+                    f"[tp-families] {arch} {mode}: launches {run['launches']}"
+                    f" {run['by_regime']} != without a group "
+                    f"{base['launches']} {base['by_regime']}")
+            if mode != "none":
+                paths[f"{arch} tp serve W=1 {mode}"] = run["launches"]
+        fwd = res["forward"]["runs"]
+        expect = {"ina_matmul": res["per_pass"],
+                  "flash_attention": res["flash_per_pass"],
+                  "wkv6": res["n_layers"] if arch == RWKV else 0}
+        if fwd["none"]["launches"] != expect \
+                or fwd["none"]["by_regime"]["generic"] \
+                or not res["forward"]["finite"]:
+            raise AssertionError(f"[tp-families] {arch} forward without a "
+                                 f"group: launches {fwd['none']} != expected "
+                                 f"{expect}, or logits not finite")
+        for mode, run in fwd.items():
+            if mode == "none":
+                continue
+            if not run["equal"] or (run["launches"], run["by_regime"]) != \
+                    (fwd["none"]["launches"], fwd["none"]["by_regime"]):
+                raise AssertionError(
+                    f"[tp-families] {arch} forward {mode}: {run} against "
+                    f"without a group {fwd['none']}")
+            paths[f"{arch} tp forward W=1 {mode}"] = run["launches"]
+        log(f"[tp-families] {arch} forward B={res['tokens'][0]} "
+            f"S={res['tokens'][1]}: every mode's logits equal the groupless "
+            f"forward's bit for bit, launches {fwd['none']['launches']} "
+            f"(derived {expect}; by regime {fwd['none']['by_regime']})")
+        log(f"[tp-families] {arch} ({res['n_layers']} layers; weights drawn "
+            f"in {res['init_s']:.1f} s, peak {gib(res['peak'])}): "
+            f"{len(base['tokens'])} requests, {passes} passes a serve; every "
+            f"mode's tokens equal the groupless serve's bit for bit and its "
+            f"launches {base['launches']} "
+            f"({base['launches']['ina_matmul'] // passes} ina_matmul a pass, "
+            f"derived {res['per_pass']}; by regime {base['by_regime']}); "
+            f"seconds a serve: " + ", ".join(
+                f"{mode} {run['s']:.2f}" for mode, run in runs.items()))
+        check_shapes(res["seen"], "tp-families")
+    log(f"[tp-families] {time.perf_counter() - t0:.1f} s in all")
+    return paths
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -2855,6 +3060,7 @@ def main() -> int:
     phase_hybrid_f32()
     vlm = phase_vlm()
     encdec = phase_encdec()
+    tp_families = phase_tp_families()
     launches = served["launches"]
     world = min(torch.cuda.device_count(), 4)
     paths = {"qwen2-1.5b serve": launches,
@@ -2877,7 +3083,7 @@ def main() -> int:
              f"{VLM} forward": vlm["forward"],
              f"{VLM} legacy serve": vlm["serve"],
              f"{ENCDEC} forward": encdec["forward"],
-             f"{ENCDEC} legacy serve": encdec["serve"]}
+             f"{ENCDEC} legacy serve": encdec["serve"], **tp_families}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

@@ -7,14 +7,18 @@
 :func:`family_projections` / :func:`matmul_operands` are the products it
 checks, :func:`attention_cases` / :func:`attention_operands` its flash
 attention cases in the model's layout, and :func:`wkv_cases` /
-:func:`wkv_operands` its wkv6 cases.  ``sweep`` (the default) times
+:func:`wkv_operands` its wkv6 cases.  :func:`rank_projections`, :func:`attention_cases` and :func:`wkv_cases`
+also hold the rank-local shapes of worlds 2 and 4 (:data:`TP_WORLDS`):
+what one rank of a tensor-parallel rwkv6-7b, deepseek-v2-lite-16b or
+llama4-scout-17b-16e launches.  ``sweep`` (the default) times
 ``ina_matmul`` at every cluster size the kernel takes, at the decode (M =
 1, 2, 4) and prefill-chunk (M = 64) shapes of every served model's products,
 beside the size ``plan_matmul`` picks and ``torch.matmul``'s time.
 :func:`train_products` lists the train step's products, which
 ``chip_smoke.py`` checks and times.
 ``shapes`` times ``ina_matmul`` as the model calls it, and
-``torch.matmul``, at the main-path bf16 shapes; it calls nothing but
+``torch.matmul``, at the main-path bf16 shapes, the rank-local ones
+among them; it calls nothing but
 ``ina_matmul(x, w)``, so it also times an older tree's kernel with this
 timer when the module is copied into that tree.  ``wkv6`` times
 ``wkv6_heads`` at the wkv6 cases, likewise through that front alone.
@@ -45,6 +49,11 @@ MAIN_PATH_M = {"qwen2-1.5b": (64, 2), "rwkv6-7b": (4096, 2),
                "llama4-scout-17b-16e": (2048, 2),
                "zamba2-2.7b": (2048, 2), "llama-3.2-vision-11b": (2048, 2),
                "whisper-medium": (1500, 2)}
+
+
+# the tensor-parallel worlds whose rank-local launch shapes are checked and
+# timed on one card (one H100 runs no world above 1)
+TP_WORLDS = (2, 4)
 
 
 class Timer:
@@ -119,6 +128,46 @@ def moe_projections() -> list[tuple[str, str, int, int, str]]:
             (lln, "shared w_up/w_gate", ll.d_model, llsh, "row"),
             (lln, "shared w_down", llsh, ll.d_model, "row"),
             (lln, "head", ll.d_model, ll.vocab, "row")]
+
+
+def rank_projections(world: int) -> list[tuple[str, str, int, int, str]]:
+    """(model, name, K, N, w layout) of each ``ina_matmul`` product one rank
+    of ``world`` launches for rwkv6-7b, deepseek-v2-lite-16b and
+    llama4-scout-17b-16e that the sharding cuts (``parallel/sharding.py``):
+    column-parallel on N (heads, d_ff, the vocabulary), row-parallel on K.
+    The products every rank holds whole (RWKV6's channel-mix ``wr``, MLA's
+    ``w_dkv``) keep their one-rank shapes (:func:`matmul_projections`,
+    :func:`moe_projections`)."""
+    r, ds, ll = (ARCHS[n] for n in ("rwkv6-7b", "deepseek-v2-lite-16b",
+                                    "llama4-scout-17b-16e"))
+    a, p = ds.mla, world
+    qk = a.qk_nope_head_dim + a.qk_rope_head_dim
+    dsh = ds.moe.d_ff_expert * ds.moe.num_shared // p
+    llh = ll.n_heads * ll.resolved_head_dim // p
+    llkv = ll.n_kv_heads * ll.resolved_head_dim // p
+    llsh = ll.moe.d_ff_expert * ll.moe.num_shared // p
+    out = [(r.name, "r/k/v/g", r.d_model, r.d_model // p, "row"),
+           (r.name, "o", r.d_model // p, r.d_model, "row"),
+           (r.name, "cmix wk", r.d_model, r.d_ff // p, "row"),
+           (r.name, "cmix wv", r.d_ff // p, r.d_model, "row"),
+           (r.name, "head", r.d_model, r.vocab // p, "row"),
+           (ds.name, "wq", ds.d_model, ds.n_heads * qk // p, "row"),
+           (ds.name, "w_uk/w_uv", a.kv_lora_rank,
+            ds.n_heads * a.v_head_dim // p, "row"),
+           (ds.name, "wo", ds.n_heads * a.v_head_dim // p, ds.d_model, "row"),
+           (ds.name, "shared w_up/w_gate", ds.d_model, dsh, "row"),
+           (ds.name, "shared w_down", dsh, ds.d_model, "row"),
+           (ds.name, "dense w_up/w_gate", ds.d_model, ds.d_ff // p, "row"),
+           (ds.name, "dense w_down", ds.d_ff // p, ds.d_model, "row"),
+           (ds.name, "head", ds.d_model, ds.vocab // p, "row"),
+           (ll.name, "wq", ll.d_model, llh, "row"),
+           (ll.name, "wo", llh, ll.d_model, "row"),
+           (ll.name, "wk/wv", ll.d_model, llkv, "row"),
+           (ll.name, "shared w_up/w_gate", ll.d_model, llsh, "row"),
+           (ll.name, "shared w_down", llsh, ll.d_model, "row"),
+           (ll.name, "head", ll.d_model, ll.vocab // p, "row")]
+    return [(model, f"{name} P={p}", k, n, kind)
+            for model, name, k, n, kind in out]
 
 
 def family_projections() -> list[tuple[str, str, int, int, str]]:
@@ -216,8 +265,9 @@ def time_main_shapes(seed: int = 0) -> list[dict]:
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
+    ranks = [row for p in TP_WORLDS for row in rank_projections(p)]
     for model, name, k, n, kind in (matmul_projections() + moe_projections()
-                                    + family_projections()):
+                                    + family_projections() + ranks):
         for m in MAIN_PATH_M[model]:
             x, w = matmul_operands(gen, m, k, n, kind, torch.bfloat16)
             row = {"case": f"{model} {name} M={m}",
@@ -241,8 +291,9 @@ def attention_cases() -> list[tuple]:
     llama-3.2-vision's self layers and its cross-attention over 1601 media
     rows (non-causal, GQA 32:8, a ragged Sk); whisper's encoder over 1500
     frames (non-causal, ragged), its decoder at its context of 448 and the
-    cross-attention over the frames; and each forward the vlm and encdec
-    phases hold against their legacy loops (2 prompts)."""
+    cross-attention over the frames; each forward the vlm and encdec
+    phases hold against their legacy loops (2 prompts); and llama4-scout's
+    forward at one rank's heads of worlds 2 and 4 (20:4, 10:2)."""
     bf16, f32 = torch.bfloat16, torch.float32
     q, ll, l4 = (ARCHS[n] for n in ("qwen2-1.5b", "llama3-8b",
                                     "llama4-scout-17b-16e"))
@@ -271,7 +322,10 @@ def attention_cases() -> list[tuple]:
             ("whisper decoder", 1, 448, 448, *gqa(w), bf16, 448, True),
             ("whisper cross", 1, 448, wf, *gqa(w), bf16, wf, False),
             ("whisper prompt self", 2, 8, 8, *gqa(w), bf16, 8, True),
-            ("whisper prompt cross", 2, 8, wf, *gqa(w), bf16, wf, False)]
+            ("whisper prompt cross", 2, 8, wf, *gqa(w), bf16, wf, False)] + [
+        (f"llama4 forward P={p}", 1, 2048, 2048, l4.n_heads // p,
+         l4.n_kv_heads // p, l4.resolved_head_dim, bf16, 2048, True)
+        for p in TP_WORLDS]
 
 
 def attention_operands(gen, b, sq, sk, h, kvh, d, dt, cache,
@@ -286,20 +340,25 @@ def attention_operands(gen, b, sq, sk, h, kvh, d, dt, cache,
     return q, ck[:, :sk], cv[:, :sk], sk - sq if causal else 0
 
 
-def wkv_cases() -> list[tuple[str, int, int, str, torch.dtype]]:
-    """(name, B, S, decay, dtype) of the wkv6 cases, at rwkv6-7b's H 64 and
-    hd 64 in the model's layout: the forward's B 2 x S 2048, the decode
-    check's 300-token prefix, a ragged S, the exact-f32 phase's B 1, and
-    decays at and past the model's clip floor (where the TPU kernel's
-    80-nat clamp is wrong: -20 a step is 160 nats over 8 positions)."""
+def wkv_cases() -> list[tuple[str, int, int, int, str, torch.dtype]]:
+    """(name, B, S, H, decay, dtype) of the wkv6 cases, at rwkv6-7b's hd 64
+    in the model's layout: at its H 64 the forward's B 2 x S 2048, the
+    decode check's 300-token prefix, a ragged S, the exact-f32 phase's
+    B 1, and decays at and past the model's clip floor (where the TPU
+    kernel's 80-nat clamp is wrong: -20 a step is 160 nats over 8
+    positions); then the forward at one rank's heads of worlds 2 and 4
+    (H 32, 16)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    return [("forward", 2, 2048, "init", bf16),
-            ("prefix 300", 2, 300, "test", bf16),
-            ("ragged S=1000", 2, 1000, "test", bf16),
-            ("clip-floor decay", 2, 2048, "floor", bf16),
-            ("steep decay -20", 2, 2048, "steep", bf16),
-            ("mixed decay", 2, 2048, "mixed", bf16),
-            ("exact-f32 forward", 1, 300, "test", f32)]
+    cfg = ARCHS["rwkv6-7b"]
+    h = cfg.d_model // cfg.ssm.head_dim
+    return [("forward", 2, 2048, h, "init", bf16),
+            ("prefix 300", 2, 300, h, "test", bf16),
+            ("ragged S=1000", 2, 1000, h, "test", bf16),
+            ("clip-floor decay", 2, 2048, h, "floor", bf16),
+            ("steep decay -20", 2, 2048, h, "steep", bf16),
+            ("mixed decay", 2, 2048, h, "mixed", bf16),
+            ("exact-f32 forward", 1, 300, h, "test", f32)] + [
+        (f"forward P={p}", 2, 2048, h // p, "init", bf16) for p in TP_WORLDS]
 
 
 def wkv_operands(gen, b, s, h, hd, decay, dt):
@@ -331,10 +390,9 @@ def wkv_operands(gen, b, s, h, hd, decay, dt):
 def time_wkv(seed: int = 0) -> list[dict]:
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cfg = ARCHS["rwkv6-7b"]
-    h, hd = cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
+    hd = ARCHS["rwkv6-7b"].ssm.head_dim
     rows = []
-    for name, b, s, decay, dt in wkv_cases():
+    for name, b, s, h, decay, dt in wkv_cases():
         r, k, v, logw, u = wkv_operands(gen, b, s, h, hd, decay, dt)
         row = {"case": name, "ms": timer(lambda: wkv6_heads(r, k, v, logw, u))}
         print(f"[wkv6] {name:18s} B={b} S={s} H={h} hd={hd} "

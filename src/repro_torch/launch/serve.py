@@ -33,15 +33,24 @@ Examples (one H100, at the published widths):
       --arch llama-3.2-vision-11b --batch 2 --prompt-len 16 --gen 8
 (the ssm, moe, mla_moe and hybrid families seat prompts token by token;
 encdec and vlm take media, which no engine request carries, so they run
-the legacy loop on media of ones, as the reference's launcher does), and
-on the CPU, two gloo ranks of the reduced qwen2:
+the legacy loop on media of ones, as the reference's launcher does;
+``--layers N`` cuts the depth, as llama4-scout's 48 layers need on one
+card), and on the CPU, two gloo ranks of the reduced qwen2, and of the
+reduced rwkv6-7b, llama4-scout and deepseek-v2-lite (the dense, ssm, moe
+and mla_moe families take ``--model-parallel``; hybrid, encdec and vlm run
+on one rank):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --reduced --device cpu --model-parallel 2 --psum-mode ina_ring --check
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --reduced --device cpu --batch 3 \\
+      --slots 2 --prompt-len 6 --gen 5 --block-size 4 --model-parallel 4 \\
+      --psum-mode auto --check
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import sys
 import time
@@ -55,7 +64,8 @@ from repro_torch.core.collectives import CLI_PSUM_MODES
 from repro_torch.launch import mesh
 from repro_torch.models import vision
 from repro_torch.models.api import MEDIA_FAMILIES, get_model
-from repro_torch.parallel.sharding import shard_params
+from repro_torch.parallel.sharding import (check_sharded_family,
+                                           shard_params)
 from repro_torch.parallel.steps import build_serve_step
 from repro_torch.parallel.tp import ParallelCtx
 from repro_torch.plan import add_plan_cli_args, plan_for_launch
@@ -66,6 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths as "
+                         "the config has them)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=4,
                     help="number of requests (legacy: batch rows)")
@@ -249,32 +262,38 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
             "decode_ms": dt * 1e3}
 
 
-def _config(args):
+def config(args):
+    """The model config ``args`` name: ``--arch``, ``--reduced``,
+    ``--layers``."""
     cfg = ARCHS[args.arch]
-    return cfg.reduced() if args.reduced else cfg
+    cfg = cfg.reduced() if args.reduced else cfg
+    return cfg if args.layers is None else \
+        dataclasses.replace(cfg, n_layers=args.layers)
 
 
-def _serve(args, cfg, group=None):
+def _serve(args, cfg, group=None, params=None):
     """Run the path ``args`` asks for (the legacy loop for the families
-    that take media); its tokens, one row a request."""
+    that take media) on ``params`` (the full weights; seeded random ones
+    by default); its tokens, one row a request."""
     if args.legacy_loop or cfg.family in MEDIA_FAMILIES:
         if not args.legacy_loop:
             print(f"[serve] family {cfg.family!r} needs media plumbing; "
                   "running the legacy loop")
-        return run_legacy(args, cfg, group=group)["tokens"].tolist()
-    tokens = run_engine(args, cfg, group=group).tokens()
+        return run_legacy(args, cfg, params, group)["tokens"].tolist()
+    tokens = run_engine(args, cfg, params, group).tokens()
     return [tokens[f"req{i}"] for i in range(args.batch)]
 
 
-def serve_rank(rank, world, group, device, argv):
-    """One rank of ``--model-parallel``: the same requests on its shard.
-    Rank 0 prints; the others' prints are dropped."""
+def serve_rank(rank, world, group, device, argv, params=None):
+    """One rank of ``--model-parallel``: the same requests on its shard of
+    ``params`` (the full weights; seeded random ones by default).  Rank 0
+    prints; the others' prints are dropped."""
     args = build_parser().parse_args(argv)
     args.device = str(device)
     quiet = contextlib.nullcontext() if rank == 0 else \
         contextlib.redirect_stdout(io.StringIO())
     with quiet:
-        return _serve(args, _config(args), group)
+        return _serve(args, config(args), group, params)
 
 
 def main(argv=None) -> list:
@@ -282,10 +301,11 @@ def main(argv=None) -> list:
     same on every rank)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    cfg = _config(args)
+    cfg = config(args)
     world = args.model_parallel
     if world == 1:
         return _serve(args, cfg)
+    check_sharded_family(cfg)
     dev = _device.resolve(args.device)
     if dev.type == "cuda" and world > torch.cuda.device_count():
         raise RuntimeError(f"--model-parallel {world} needs {world} CUDA "

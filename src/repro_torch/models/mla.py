@@ -17,7 +17,12 @@ cached latent is expanded through ``w_uk``/``w_uv`` at every step (M = B x
 cache length).  ``decode_step`` writes the cache in place and returns it.
 There is no ``prefill``, as in the reference.
 
-One rank only, as :mod:`repro_torch.models.moe`.
+Under tensor parallelism (:mod:`repro_torch.parallel.sharding`) a rank
+holds its H/P heads of ``wq``, ``w_uk``, ``w_uv`` and ``wo``, and the whole
+of ``w_dkv`` and ``kv_norm``: every rank computes the whole normed latent
+(its RMS norm needs all of it), caches it whole, and expands its own heads
+from it; ``wo``'s row psum sums the heads.  The FFN is expert-parallel as
+:mod:`repro_torch.models.moe`'s.
 """
 from __future__ import annotations
 
@@ -29,8 +34,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.transformer import _dtype, layer
+from repro_torch.parallel.sharding import check_heads
 from repro_torch.parallel.tp import (ParallelCtx, col_linear, row_linear,
-                                     single_rank)
+                                     whole_sequence)
 
 # Decode-cache layout (read by ``models.api``), by leaf path: ``dense/...``
 # exists where the config has leading dense layers.  Every leaf is paged by
@@ -90,11 +96,13 @@ def init(cfg: ModelConfig, generator: torch.Generator, device,
 def _project(p: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
              pctx: Optional[ParallelCtx]):
     """(q [B, S, H, qk_dim] with RoPE on its rope part, the normed latent
-    [B, S, rank], the shared rope key [B, S, rope] with RoPE)."""
+    [B, S, rank], the shared rope key [B, S, rope] with RoPE); H the heads
+    ``wq`` holds."""
     a = cfg.mla
     b, s, _ = x.shape
     nope, rank = a.qk_nope_head_dim, a.kv_lora_rank
-    q = col_linear(x, p["wq"], pctx).reshape(b, s, cfg.n_heads, -1)
+    q = col_linear(x, p["wq"], pctx).reshape(
+        b, s, -1, nope + a.qk_rope_head_dim)
     q = torch.cat([q[..., :nope], L.apply_rope(q[..., nope:], cos, sin)], -1)
     ckv = col_linear(x, p["w_dkv"], pctx)                 # [B, S, rank+rope]
     latent = L.rms_norm(ckv[..., :rank], p["kv_norm"], cfg.norm_eps)
@@ -105,10 +113,11 @@ def _project(p: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
 def _expand(p: dict, latent: torch.Tensor, k_rope: torch.Tensor,
             cfg: ModelConfig, pctx: Optional[ParallelCtx]):
     """k [B, S, H, qk_dim] and v [B, S, H, v_dim] from the latent
-    [B, S, rank] and the shared rope key [B, S, rope]."""
+    [B, S, rank] and the shared rope key [B, S, rope]; H the heads
+    ``w_uk`` holds."""
     a = cfg.mla
     b, s, _ = latent.shape
-    h = cfg.n_heads
+    h = p["w_uk"].shape[-1] // a.qk_nope_head_dim
     k_nope = col_linear(latent, p["w_uk"], pctx).reshape(
         b, s, h, a.qk_nope_head_dim)
     v = col_linear(latent, p["w_uv"], pctx).reshape(b, s, h, a.v_head_dim)
@@ -129,8 +138,7 @@ def mla_block(p: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
     b, s, _ = x.shape
     q, k, v = mla_qkv(p, x, cfg, cos, sin, pctx)
     o = L.attention_by_chunk(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    return row_linear(o.reshape(b, s, cfg.n_heads * cfg.mla.v_head_dim),
-                      p["wo"], pctx)
+    return row_linear(o.reshape(b, s, -1), p["wo"], pctx)
 
 
 def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
@@ -144,8 +152,8 @@ def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None):
     """(final normed hidden states, aux loss)."""
-    single_rank(pctx.world if pctx else 1, cfg.family)
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    whole_sequence(pctx, cfg.family)
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
     return MOE.run_layers(params, cfg, x, lambda lp, x, dense: layer_fwd(
@@ -155,13 +163,13 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     x, _ = hidden_states(params, cfg, batch["tokens"], pctx)
-    return L.logits_head(x, params["lm_head"], pctx)
+    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
          pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     x, aux = hidden_states(params, cfg, batch["tokens"], pctx)
-    return L.xent_loss(L.logits_head(x, params["lm_head"], pctx),
+    return L.xent_loss(L.logits_head(x, params["lm_head"], pctx, cfg.vocab),
                        batch["labels"]) + aux
 
 
@@ -170,7 +178,9 @@ def loss(params: dict, cfg: ModelConfig, batch: dict,
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                world: int = 1) -> dict:
-    single_rank(world, cfg.family)
+    """The latent and the rope key, whole on every rank of ``world`` (each
+    expands its own heads from the whole latent)."""
+    check_heads(cfg, world)
     a = cfg.mla
     nd = cfg.moe.first_dense_layers
 
@@ -198,21 +208,20 @@ def _decode_attn(p: dict, x: torch.Tensor, lat_c: torch.Tensor,
     k, v = _expand(p, lat_c.to(x.dtype), kr_c.to(x.dtype), cfg, pctx)
     # mask the zero-initialised cache tail (positions > pos)
     o = L.attn_full(q, k, v, causal=True, q_offset=pos)
-    return row_linear(o.reshape(b, 1, cfg.n_heads * cfg.mla.v_head_dim),
-                      p["wo"], pctx)
+    return row_linear(o.reshape(b, 1, -1), p["wo"], pctx)
 
 
 def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
                 pctx: Optional[ParallelCtx] = None):
     """One-token decode.  batch: {tokens: [B, 1], pos: int or [B] tensor};
     returns (logits [B, 1, V], cache), the cache written in place."""
-    single_rank(pctx.world if pctx else 1, cfg.family)
+    whole_sequence(pctx, cfg.family)
     tokens = batch["tokens"]
     groups = MOE.decode_groups(tokens, batch["pos"])
     pos, cos, sin = L.decode_positions(batch["pos"], tokens.device,
                                        cfg.mla.qk_rope_head_dim,
                                        cfg.rope_theta)
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     for dense, stack, n in MOE.stacks(params, cfg):
         c = cache["dense" if dense else "moe"]
         for i in range(n):
@@ -222,4 +231,4 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
                              sin, pctx)
             x, _ = MOE.ffn(lp, x + y, cfg, pctx, dense, groups)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["lm_head"], pctx), cache
+    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab), cache

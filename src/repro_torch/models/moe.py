@@ -30,8 +30,17 @@ no ``prefill``, as in the reference: the serving engine seats prompts
 through the per-token decode loop.  ``decode_step`` writes the cache in
 place and returns it.
 
-The family runs on one rank: a group of more than one rank raises.  Expert
-parallelism (``tp.combine_experts``, the MoE INA site) is ROADMAP.md.
+Under tensor parallelism the parameters are a rank's shards
+(:mod:`repro_torch.parallel.sharding`): every rank routes every token over
+all E experts with the whole router (the same capacity, slots, aux loss
+and :class:`Routing` record on each), runs its own E/P experts on the
+assignments that reach them (the rest weighted 0), and the ranks' [T, D]
+partial combines are summed under ``psum_mode``
+(:func:`repro_torch.parallel.tp.psum_partial`): the MoE INA site, one a
+layer, the paper's WS partial sum with experts in place of weight slices.
+The shared experts keep their own row-parallel psum, as in the reference.
+Attention runs the rank's heads, the cache holds its KV heads, and the
+embedding and the head are vocab-parallel.
 """
 from __future__ import annotations
 
@@ -43,8 +52,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dtype, layer
-from repro_torch.parallel.tp import ParallelCtx, single_rank
+from repro_torch.models.transformer import _dtype, _heads, layer
+from repro_torch.parallel import tp
+from repro_torch.parallel.sharding import local_heads
+from repro_torch.parallel.tp import ParallelCtx, whole_sequence
 
 # Decode-cache layout (read by ``models.api``), by leaf: ``dk``/``dv`` exist
 # where the config has leading dense layers.
@@ -189,27 +200,29 @@ def top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _expert_partial(xt, gate_idx, slot, keep, gate_vals, wg, wu, wd,
+def _expert_partial(xt, expert, slot, mine, gate_vals, wg, wu, wd,
                     slots: int) -> torch.Tensor:
-    """Dispatch -> the experts' SwiGLU -> combine: [T, D].
+    """Dispatch -> the experts' SwiGLU -> combine: [T, D], the partial sum
+    of the E experts ``wg`` holds.
 
-    ``slot`` [T, k] is each assignment's column of the ``[E, slots]``
-    dispatch; a dropped assignment (``keep`` false) writes the spare row E,
-    which no expert reads, and is weighted 0 in the combine."""
+    ``expert`` [T, k] is each assignment's expert among them and ``slot``
+    its column of the ``[E, slots]`` dispatch; an assignment that is not
+    ``mine`` (dropped, or routed to another rank's expert) writes the spare
+    row E, which no expert reads, and is weighted 0 in the combine."""
     t, d = xt.shape
-    e, k = wg.shape[0], gate_idx.shape[1]
+    e, k = wg.shape[0], expert.shape[1]
     # slot_token[e, c]: the token in slot c of expert e (t: none, a zero row)
     slot_token = torch.full((e + 1, slots), t, dtype=torch.long,
                             device=xt.device)
     tids = torch.arange(t, device=xt.device)[:, None].expand(t, k)
-    slot_token[torch.where(keep, gate_idx, e), slot] = tids
+    slot_token[torch.where(mine, expert, e), slot] = tids
     xe = torch.cat([xt, xt.new_zeros(1, d)])[slot_token[:e]]   # [E, C, D]
     with torch.profiler.record_function("moe_experts"):
         h = F.silu(torch.bmm(xe, wg.to(xt.dtype))) \
             * torch.bmm(xe, wu.to(xt.dtype))
         ye = torch.bmm(h, wd.to(xt.dtype))                      # [E, C, D]
-    contrib = ye[torch.where(keep, gate_idx, e - 1), slot]     # [T, k, D]
-    w = (gate_vals * keep).to(xt.dtype)
+    contrib = ye[torch.where(mine, expert, e - 1), slot]       # [T, k, D]
+    w = (gate_vals * mine).to(xt.dtype)
     return (contrib.float() * w.float()[..., None]).sum(1).to(xt.dtype)
 
 
@@ -217,8 +230,9 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
             pctx: Optional[ParallelCtx] = None, groups: int = 1):
     """Returns (output [B, S, D], aux loss).  The B x S tokens, flattened
     row-major, are routed as ``groups`` equal runs, each with its own
-    capacity (the module docstring says which callers pass what)."""
-    single_rank(pctx.world if pctx else 1, cfg.family)
+    capacity (the module docstring says which callers pass what).  With
+    a rank's shard of the experts, the output is the ranks' partial
+    combines summed (the module docstring)."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
@@ -243,9 +257,17 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
     keep = (pos < cap) & (gate_vals > 0)
     group0 = torch.arange(n_tok, device=x.device) // per_group * cap
     slot = torch.where(keep, pos, 0) + group0[:, None]
-    out = _expert_partial(x.reshape(n_tok, d), gate_idx, slot, keep,
+    # this rank's experts [e0, e0 + held): all E where the weights are
+    # whole (one rank, or the plan builder's meta trace)
+    expert, mine, held = gate_idx, keep, p["w_gate"].shape[0]
+    if held < e:
+        e0 = pctx.rank * held
+        expert = gate_idx - e0
+        mine = keep & (expert >= 0) & (expert < held)
+    out = _expert_partial(x.reshape(n_tok, d), expert, slot, mine,
                           gate_vals, p["w_gate"], p["w_up"], p["w_down"],
-                          groups * cap).reshape(b, s, d)
+                          groups * cap)
+    out = tp.psum_partial(out, pctx).reshape(b, s, d)
     if "shared" in p:
         out = out + L.mlp_block(p["shared"], x, pctx)
 
@@ -276,9 +298,10 @@ def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
     """One layer over the whole sequence; returns (x, aux loss).  Causal
     attention runs the flash kernel (the reference's ``attn_chunked`` /
     ``attn_full``: the same function)."""
+    hd = cfg.resolved_head_dim
+    nh, nkv = _heads(lp["attn"], hd)
     x = x + L.attn_block(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                         n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                         head_dim=cfg.resolved_head_dim, cos=cos, sin=sin,
+                         n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos, sin=sin,
                          causal=True, eps=cfg.norm_eps, pctx=pctx)
     return ffn(lp, x, cfg, pctx, dense)
 
@@ -299,8 +322,8 @@ def run_layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None):
     """(final normed hidden states, aux loss)."""
-    single_rank(pctx.world if pctx else 1, cfg.family)
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    whole_sequence(pctx, cfg.family)
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
     return run_layers(params, cfg, x, lambda lp, x, dense: layer_fwd(
@@ -310,13 +333,13 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     x, _ = hidden_states(params, cfg, batch["tokens"], pctx)
-    return L.logits_head(x, params["lm_head"], pctx)
+    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
          pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     x, aux = hidden_states(params, cfg, batch["tokens"], pctx)
-    logits = L.logits_head(x, params["lm_head"], pctx)
+    logits = L.logits_head(x, params["lm_head"], pctx, cfg.vocab)
     return L.xent_loss(logits, batch["labels"]) + aux
 
 
@@ -325,13 +348,13 @@ def loss(params: dict, cfg: ModelConfig, batch: dict,
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                world: int = 1) -> dict:
-    single_rank(world, cfg.family)
+    """K/V of the KV heads one rank of ``world`` holds."""
     nd = cfg.moe.first_dense_layers
+    kvh = local_heads(cfg, world)[1]
 
     def kv(n):
-        return torch.zeros((n, batch, max_seq, cfg.n_kv_heads,
-                            cfg.resolved_head_dim), dtype=_dtype(cfg),
-                           device=device)
+        return torch.zeros((n, batch, max_seq, kvh, cfg.resolved_head_dim),
+                           dtype=_dtype(cfg), device=device)
     cache = {"k": kv(cfg.n_layers - nd), "v": kv(cfg.n_layers - nd)}
     if nd:
         cache["dk"], cache["dv"] = kv(nd), kv(nd)
@@ -348,22 +371,23 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
                 pctx: Optional[ParallelCtx] = None):
     """One-token decode.  batch: {tokens: [B, 1], pos: int or [B] tensor};
     returns (logits [B, 1, V], cache), the cache written in place."""
-    single_rank(pctx.world if pctx else 1, cfg.family)
+    whole_sequence(pctx, cfg.family)
     tokens = batch["tokens"]
     hd = cfg.resolved_head_dim
     groups = decode_groups(tokens, batch["pos"])
     pos, cos, sin = L.decode_positions(batch["pos"], tokens.device, hd,
                                        cfg.rope_theta)
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     caches = {True: ("dk", "dv"), False: ("k", "v")}
     for dense, stack, n in stacks(params, cfg):
         ck, cv = (cache[name] for name in caches[dense])
         for i in range(n):
             lp = layer(stack, i)
+            nh, nkv = _heads(lp["attn"], hd)
             y, _, _ = L.attn_block_decode(
                 lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), ck[i],
-                cv[i], pos, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                head_dim=hd, cos=cos, sin=sin, eps=cfg.norm_eps, pctx=pctx)
+                cv[i], pos, n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos,
+                sin=sin, eps=cfg.norm_eps, pctx=pctx)
             x, _ = ffn(lp, x + y, cfg, pctx, dense, groups)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["lm_head"], pctx), cache
+    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab), cache

@@ -13,8 +13,13 @@ and the token-shift rows ``tprev``/``cprev`` ``[L, B, 1, D]`` in the compute
 dtype.  None has a sequence axis, so the serving pool stores each whole per
 request; ``decode_step`` writes them in place and returns the cache.
 
-The family runs on one rank in this port: a group of more than one rank
-raises (its heads would shard as the dense family's do, ROADMAP.md).
+Under tensor parallelism the parameters are a rank's shards
+(:mod:`repro_torch.parallel.sharding`): the time mix runs the rank's H/P
+heads (the wkv6 kernel launches at H/P), its ``wo`` and the channel mix's
+``wv`` reduce their partial sums (the two INA sites a layer), the channel
+mix's gate and both token shifts stay whole, and the embedding and the
+head are vocab-parallel.  The decode state holds the rank's heads, the
+token-shift rows stay whole.
 """
 from __future__ import annotations
 
@@ -26,7 +31,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import _dtype, _stack, layer
-from repro_torch.parallel.tp import ParallelCtx, single_rank
+from repro_torch.parallel.sharding import local_rwkv_heads
+from repro_torch.parallel.tp import ParallelCtx, whole_sequence
 
 CACHE_BATCH_AXES = {"state": 1, "tprev": 1, "cprev": 1}
 PAGED_CACHE_LEAVES = ()
@@ -86,8 +92,8 @@ def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    single_rank(pctx.world if pctx else 1, cfg.family)
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    whole_sequence(pctx, cfg.family)
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     x = L.rms_norm(x, params["ln_in"], cfg.norm_eps)
     for i in range(cfg.n_layers):
         x, _ = layer_fwd(layer(params["layers"], i), x, cfg, pctx)
@@ -97,7 +103,7 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     return L.logits_head(hidden_states(params, cfg, batch["tokens"], pctx),
-                         params["lm_head"], pctx)
+                         params["lm_head"], pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -108,21 +114,23 @@ def loss(params: dict, cfg: ModelConfig, batch: dict,
 # --------------------------------------------------------------------------- #
 # decode
 # --------------------------------------------------------------------------- #
-def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    """``max_seq`` is not used: no leaf has a sequence axis."""
-    h, hd = S.rwkv_dims(cfg)
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
+                 world: int = 1) -> dict:
+    """The state of the heads one rank of ``world`` holds; ``max_seq`` is
+    not used: no leaf has a sequence axis."""
+    hd = cfg.ssm.head_dim
     row = (cfg.n_layers, batch, 1, cfg.d_model)
-    return {"state": (cfg.n_layers, batch, h, hd, hd), "tprev": row,
-            "cprev": row}
+    return {"state": (cfg.n_layers, batch, local_rwkv_heads(cfg, world), hd,
+                      hd), "tprev": row, "cprev": row}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                world: int = 1) -> dict:
-    single_rank(world, cfg.family)
     dtypes = {"state": torch.float32, "tprev": _dtype(cfg),
               "cprev": _dtype(cfg)}
     return {name: torch.zeros(shape, dtype=dtypes[name], device=device)
-            for name, shape in cache_shapes(cfg, batch, max_seq).items()}
+            for name, shape in cache_shapes(cfg, batch, max_seq,
+                                            world).items()}
 
 
 def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
@@ -130,8 +138,9 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     """One-token decode.  batch: {tokens: [B, 1], pos: ignored (the state
     carries the position)}; returns (logits [B, 1, V], cache), the cache
     updated in place."""
-    single_rank(pctx.world if pctx else 1, cfg.family)
-    x = L.embed(params["embed"], batch["tokens"], _dtype(cfg))
+    whole_sequence(pctx, cfg.family)
+    x = L.embed(params["embed"], batch["tokens"], _dtype(cfg), pctx,
+                cfg.vocab)
     x = L.rms_norm(x, params["ln_in"], cfg.norm_eps)
     for i in range(cfg.n_layers):
         x, new = layer_fwd(layer(params["layers"], i), x, cfg, pctx,
@@ -139,4 +148,4 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
         for name, leaf in cache.items():
             leaf[i] = new[name]
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["lm_head"], pctx), cache
+    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab), cache

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
@@ -212,15 +213,35 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None):
     return torch.cat([prev, x[:, :-1, :]], dim=1), last
 
 
+def _ln_x(y: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
+          pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """The time mix's output norm: an RMS norm over the whole d_model (not
+    a per-head group norm).  Where ``y`` holds this rank's heads only, the
+    row's sum of squares is summed over the group by one native all-reduce
+    of [B, S, 1]: a norm's statistic, not a partial sum of the paper's, so
+    it is no psum site and ``auto`` records nothing for it."""
+    if y.shape[-1] == cfg.d_model:
+        return L.rms_norm(y, w, cfg.norm_eps)
+    y32 = y.float()
+    ss = C.psum_xla(y32.square().sum(-1, keepdim=True), pctx.group)
+    return (y32 * torch.rsqrt(ss / cfg.d_model + cfg.norm_eps)
+            * w.float()).to(y.dtype)
+
+
 def rwkv_tmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
               pctx: Optional[ParallelCtx] = None, state=None, prev=None,
               single_step: bool = False):
     """x: [B, S, D].  Returns (y, state, new_prev).  ``single_step`` (S = 1)
     updates the decode ``state`` [B, H, hd, hd]; otherwise the wkv6 kernel
     runs the whole sequence from a zero state and, as the TPU kernel does,
-    returns no final state (``None``: no caller reads it)."""
-    b, s, d = x.shape
-    h, hd = rwkv_dims(cfg)
+    returns no final state (``None``: no caller reads it).
+
+    ``p`` may be a rank's shard (:mod:`repro_torch.parallel.sharding`): H
+    is then the rank's heads, read from ``u`` [H, hd], the projections and
+    the decay give their columns, ``wo``'s row psum sums the heads, and the
+    output norm takes its statistic over the group (:func:`_ln_x`)."""
+    b, s, _ = x.shape
+    h, hd = p["u"].shape
     xs, new_prev = _shift(x, prev)
     mu = p["mu"].to(x.dtype)
 
@@ -253,8 +274,7 @@ def rwkv_tmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
                              "state; decode passes single_step=True")
         y = ops.wkv(r, k, v, logw, u)
 
-    y = y.to(x.dtype).reshape(b, s, d)
-    y = L.rms_norm(y, p["ln_x"], cfg.norm_eps) * g
+    y = _ln_x(y.to(x.dtype).reshape(b, s, h * hd), p["ln_x"], cfg, pctx) * g
     return row_linear(y, p["wo"], pctx), state, new_prev
 
 

@@ -3,22 +3,40 @@ reference's leaf rule, ``repro.models.api._leaf_spec``).
 
 A spec is a tuple with one entry a dim: ``None``, a mesh axis name, or a
 tuple of names, as a ``jax.sharding.PartitionSpec`` holds them.  The
-reference hands its specs to GSPMD; the port cuts each rank's slice itself
-(:func:`shard_params`), and so differs from the name rules in three places:
+reference hands its specs to GSPMD, which repairs a layout the computation
+cannot use by moving data; the port cuts each rank's slice itself
+(:func:`shard_params`), and so differs from the name rules where a rank
+could not compute with the rule's shard:
 
 * attention shards whole heads.  The name rule would cut qwen2-1.5b's
-  ``wk`` [1536, 256] into half-heads at world 4, which GSPMD repairs by
-  moving data and explicit shards cannot.  Rank ``r`` of ``world`` takes
-  query heads ``[r H/world, (r+1) H/world)`` and the KV heads they read:
-  ``K/world`` of them where ``world`` divides ``K``, else the one KV head
-  its query heads share (:func:`head_split`);
+  ``wk`` [1536, 256] into half-heads at world 4.  Rank ``r`` of ``world``
+  takes query heads ``[r H/world, (r+1) H/world)`` and the KV heads they
+  read: ``K/world`` of them where ``world`` divides ``K``, else the one KV
+  head its query heads share (:func:`head_split`).  MLA (deepseek) cuts
+  ``wq``, ``w_uk`` and ``w_uv`` on their output dim and ``wo`` on its
+  input dim by whole heads;
+* RWKV6's time mix shards whole heads too (:data:`_HEAD_CUTS`): ``wr``,
+  ``wk``, ``wv``, ``wg`` and the decay LoRA's ``w_lora_b`` on their output
+  dim, the base decay ``w0`` and the output norm ``ln_x`` on d_model, the
+  bonus ``u`` [H, hd] on H (the rule would cut hd), ``wo`` on its input
+  dim;
+* some leaves are held whole on every rank although the rule cuts them
+  (:data:`_WHOLE`): the MoE ``router`` [D, E] (every rank routes every
+  token alike), RWKV6's token-shift ``mu`` of both mixes and the decay
+  LoRA's ``w_lora_a`` (each needs the whole of x), the channel mix's
+  ``wr`` (its gate multiplies the whole summed row) and MLA's ``w_dkv``
+  (the latent's RMS norm needs the whole latent, which every rank expands
+  into its own heads);
 * the biases of column-parallel weights are cut with their output dim (the
   reference keeps every vector replicated and lets GSPMD slice the sum);
 * serving cuts the weights over the ``model`` axis only.
 
-The tied embedding follows the rule, ``model`` on V: each rank holds V/world
-rows (a vocab-parallel lookup), and the head read from it gives the rank's
-V/world logits.
+Routed experts ``w_gate``/``w_up``/``w_down`` [E, ., .] follow the rule:
+cut on E, expert parallelism.  The tied embedding follows the rule,
+``model`` on V: each rank holds V/world rows (a vocab-parallel lookup), and
+the head read from it gives the rank's V/world logits.  The dense, ssm, moe
+and mla_moe families shard; the hybrid, encdec and vlm families run on one
+rank (ROADMAP.md Queue 1, item 5.1).
 
 Training adds the ``data`` axis (FSDP).  A rank at ``(data d, model m)`` of
 ``(D, M)`` holds its model shard cut once more into D equal pieces, piece
@@ -54,6 +72,18 @@ _COL_NAMES = ("wq", "wk", "wv", "w_up", "w_gate", "w_in", "wr", "wg",
               "lm_head", "w_uk", "w_uv", "w_dkv")
 _ROW_NAMES = ("wo", "w_down", "w_out")
 _STACKED = ("layers", "dense_layers", "enc_layers", "dec_layers", "xlayers")
+# (parent, name) of the leaves every rank holds whole, although the name
+# rule cuts them (the module docstring says why)
+_WHOLE = {("mlp", "router"), ("tmix", "mu"), ("tmix", "w_lora_a"),
+          ("cmix", "mu"), ("cmix", "wr"), ("attn", "w_dkv")}
+# (parent, name) -> the dim, counted from the last, of the leaves cut by
+# whole heads outside the GQA attention: RWKV6's time mix and MLA's heads
+_HEAD_CUTS = {("tmix", "wr"): 1, ("tmix", "wk"): 1, ("tmix", "wv"): 1,
+              ("tmix", "wg"): 1, ("tmix", "w_lora_b"): 1, ("tmix", "w0"): 1,
+              ("tmix", "ln_x"): 1, ("tmix", "u"): 2, ("tmix", "wo"): 2,
+              ("attn", "w_uk"): 1, ("attn", "w_uv"): 1}
+# the families whose weights this module cuts over ``model``
+SHARDED_FAMILIES = ("dense", "ssm", "moe", "mla_moe")
 
 
 # --------------------------------------------------------------------------- #
@@ -128,9 +158,24 @@ def local_heads(cfg: ModelConfig, world: int) -> tuple[int, int]:
     return len(q), len(kv)
 
 
+def local_rwkv_heads(cfg: ModelConfig, world: int) -> int:
+    """The RWKV6 time-mix heads each rank of ``world`` holds."""
+    check_heads(cfg, world)
+    return cfg.d_model // cfg.ssm.head_dim // world
+
+
 def _kv_piece(cfg: ModelConfig, rank: int, world: int) -> tuple[int, int]:
     kv = head_split(cfg, rank, world)[1]
     return kv.start // len(kv), cfg.n_kv_heads // len(kv)
+
+
+def check_heads(cfg: ModelConfig, world: int) -> None:
+    """Raise unless ``world`` divides the heads a head cut splits."""
+    h = cfg.d_model // cfg.ssm.head_dim if cfg.family == "ssm" \
+        else cfg.n_heads
+    if h % world:
+        raise ValueError(f"{cfg.name}: {world} ranks do not divide "
+                         f"{h} heads")
 
 
 def _cut(names: tuple, ndim: int, cfg: ModelConfig, world: int):
@@ -142,9 +187,16 @@ def _cut(names: tuple, ndim: int, cfg: ModelConfig, world: int):
     if world == 1:
         return None
     name = names[-1]
+    parent = names[-2] if len(names) > 1 else ""
     own = lambda rank: (rank, world)          # noqa: E731
-    if names[-2:-1] == ("attn",):
+    if (parent, name) in _WHOLE:
+        return None
+    if (parent, name) in _HEAD_CUTS:
+        check_heads(cfg, world)
+        return ndim - _HEAD_CUTS[parent, name], own
+    if parent == "attn":
         if name in ("wq", "bq"):
+            check_heads(cfg, world)
             return ndim - 1, own
         if name in ("wk", "bk", "wv", "bv"):
             return ndim - 1, lambda rank: _kv_piece(cfg, rank, world)
@@ -166,11 +218,11 @@ def _walk(fn, tree: dict, names: tuple = ()) -> dict:
             else fn(names + (k,), v) for k, v in tree.items()}
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def check_sharded_family(cfg: ModelConfig) -> None:
+    if cfg.family not in SHARDED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} runs on one rank in this port; its "
-            f"tensor-parallel shards are ROADMAP.md Queue 1")
+            f"tensor-parallel shards are ROADMAP.md Queue 1, item 5.1")
 
 
 def _coord(rank, world) -> tuple[int, int, int, int]:
@@ -241,7 +293,7 @@ def shard_params(params: dict, cfg: ModelConfig, rank, world) -> dict:
     d, m, dd, mm = _coord(rank, world)
     if dd * mm == 1:
         return params
-    _dense_only(cfg)
+    check_sharded_family(cfg)
 
     def cut(names, leaf):
         piece = leaf
@@ -291,7 +343,7 @@ def unshard_params(shards: list, cfg: ModelConfig, world) -> dict:
         raise ValueError(f"{len(shards)} shards for {dd * mm} ranks")
     if dd * mm == 1:
         return shards[0]
-    _dense_only(cfg)
+    check_sharded_family(cfg)
     if dd > 1:
         def join_data(m):
             def join(names, leaf):

@@ -221,11 +221,20 @@ def row_linear(x: torch.Tensor, w: torch.Tensor,
                                                  scatter_axis=1,
                                                  plan=pctx.plan)
         else:
-            out = C.psum_with_mode(out, pctx.group, pctx.mode,
-                                   scatter_axis=out.dim() - 1,
-                                   plan=pctx.plan)
+            out = psum_partial(out, pctx)
     if b is not None:
         out = out + b.to(x.dtype)
+    return out
+
+
+def psum_partial(out: torch.Tensor,
+                 pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """Each rank's full-shape partial sum ``out`` accumulated over the
+    group per ``pctx.psum_mode``, scattered (by the rings) over its last
+    dim: one INA site.  Without a group, ``out`` itself."""
+    if _grouped(pctx):
+        out = C.psum_with_mode(out, pctx.group, pctx.mode,
+                               scatter_axis=out.dim() - 1, plan=pctx.plan)
     return out
 
 
@@ -235,14 +244,12 @@ def combine_experts(combine: torch.Tensor, expert_out: torch.Tensor,
 
     ``combine``: [B, S, E/P, C] combine weights; ``expert_out``: [E/P, C, D]
     this rank's experts.  The contraction over E gives per-rank partial
-    sums, accumulated per ``pctx.psum_mode`` as a row-parallel linear's.
+    sums, accumulated per ``pctx.psum_mode`` as a row-parallel linear's
+    (:func:`psum_partial`; ``models.moe.moe_mlp`` combines its experts by a
+    gather and sums the partial the same way).
     """
-    out = torch.einsum("bsec,ecd->bsd", combine,
-                       expert_out.to(combine.dtype))
-    if _grouped(pctx):
-        out = C.psum_with_mode(out, pctx.group, pctx.mode,
-                               scatter_axis=out.dim() - 1, plan=pctx.plan)
-    return out
+    return psum_partial(torch.einsum("bsec,ecd->bsd", combine,
+                                     expert_out.to(combine.dtype)), pctx)
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, vocab: int,
@@ -273,9 +280,20 @@ def vocab_gather(logits: torch.Tensor, vocab: int,
 
 
 def single_rank(world: int, family: str) -> None:
-    """Raise where a family that runs on one rank in this port is asked
-    for more."""
+    """Raise where a family that runs on one rank in this port (hybrid,
+    encdec, vlm) is asked for more."""
     if world > 1:
         raise NotImplementedError(
             f"family {family!r} runs on one rank in this port; its "
-            f"tensor-parallel path is in ROADMAP.md")
+            f"tensor-parallel path is ROADMAP.md Queue 1, item 5.1")
+
+
+def whole_sequence(pctx: Optional[ParallelCtx], family: str) -> None:
+    """Raise where ``rs_seq`` is asked of a family whose layers keep the
+    whole sequence on every rank (ssm, moe, mla_moe): their
+    sequence-sharded residual stream is not ported."""
+    if _grouped(pctx) and pctx.rs_seq and pctx.manual:
+        raise NotImplementedError(
+            f"family {family!r}: rs_seq and sp_entry keep the whole "
+            f"sequence on every rank in this port (ROADMAP.md Queue 1, "
+            f"item 5.1)")

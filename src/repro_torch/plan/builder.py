@@ -26,8 +26,14 @@ The trace runs the whole weights, not a rank's shard.  A row-parallel
 site's payload is its output, ``[..., d_model]``, whatever slice of the
 contraction a rank holds, and the port's explicit shards cut whole heads
 (``parallel/sharding.py``), which cannot cut qwen2-1.5b's 12 heads 16
-ways; the reference's GSPMD never needs to.  The families that run on one
-rank in the port (ssm, moe, mla_moe) raise at a model span over 1.
+ways; the reference's GSPMD never needs to.  The MoE combine is the same:
+with the whole experts the trace's partial is the [T, D] every rank's is,
+one site a layer beside the shared experts' own.  RWKV6's output norm
+takes its statistic over the group only where a rank holds part of the
+heads, so the trace (whole heads) runs no collective for it, and a sharded
+rank's native all-reduce there is no site either.  The families that run
+on one rank in the port (hybrid, encdec, vlm) raise at a model span over
+1.
 """
 from __future__ import annotations
 

@@ -154,8 +154,9 @@ class PagedKVCache:
 
     def __init__(self, cfg, max_seq: int, block_size: int, num_blocks: int,
                  *, device="cuda", world: int = 1) -> None:
-        """The pool of one rank of ``world``: the dense family's pages hold
-        that rank's KV heads."""
+        """The pool of one rank of ``world``: the dense and moe families'
+        pages hold that rank's KV heads, the mla_moe family's the whole
+        latent, and the ssm family's states that rank's heads."""
         from repro_torch.models.api import (cache_batch_axes, cache_leaves,
                                             get_model, paged_cache_leaves)
         if max_seq % block_size:

@@ -135,6 +135,52 @@ def tp_rank(rank, world, group, device, spec):
     return out
 
 
+def tp_family_rank(rank, world, group, device, spec):
+    """The reduced non-dense families (``spec["archs"]``: each arch's
+    params, forward tokens and decode tokens) on this rank's shard under
+    each mode of ``spec["modes"]``: the forward logits, each decode step's
+    logits from an empty cache, and the engine's greedy tokens on
+    ``spec["prompts"]``; then the ``auto`` sites (op, p, nbytes) a forward
+    and a decode step record."""
+    out = {}
+    for arch, a in spec["archs"].items():
+        cfg = ARCHS[arch].reduced()
+        model = get_model(cfg)
+        full = params_from_jax(a["params"], cfg, device="cpu")
+        params = shard_params(full, cfg, rank, world)
+        toks = torch.from_numpy(a["tokens"]).long()
+        b = toks.shape[0]
+
+        def run(pctx):
+            res = {"forward": model.forward(params, {"tokens": toks},
+                                            pctx).numpy()}
+            cache = model.init_cache(b, spec["max_seq"], device="cpu",
+                                     world=world)
+            res["decode"] = []
+            for pos, tok in enumerate(a["decode_tokens"]):
+                logits, cache = model.decode_step(
+                    params, {"tokens": torch.from_numpy(tok[:, None]).long(),
+                             "pos": pos}, cache, pctx)
+                res["decode"].append(logits.numpy())
+            return res
+        res = {mode: run(ParallelCtx(group=group, psum_mode=mode))
+               for mode in spec["modes"]}
+        with C.record_psum_sites() as sites:
+            run(ParallelCtx(group=group, psum_mode="auto"))
+        res["sites"] = [(s.op, s.p, s.nbytes) for s in sites]
+        res["engine"] = {}
+        for mode in spec["modes"]:
+            engine = ServingEngine(cfg, params=full, device="cpu", slots=2,
+                                   max_seq=spec["max_seq"], block_size=4,
+                                   psum_mode=mode, check=True, group=group)
+            report = engine.run([Request(rid=f"r{i}", prompt_len=len(p),
+                                         max_new=spec["gen"], prompt=tuple(p))
+                                 for i, p in enumerate(spec["prompts"])])
+            res["engine"][mode] = report.tokens()
+        out[arch] = res
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # tensor-parallel training (tests/test_torch_tp_train.py)
 # --------------------------------------------------------------------------- #

@@ -428,11 +428,25 @@ def test_params_keep_names_shapes_and_storage(pair):
 
 
 def test_world_above_one_raises(pair):
+    """The families are tensor-parallel (``tests/test_torch_tp_families.py``
+    holds them against the reference): at world 2 a rank's cache holds its
+    KV heads (llama4) or the whole latent (MLA) and its shard half the
+    routed experts; a world that does not divide the 4 heads raises."""
     jm, jp, m, tp = pair
-    with pytest.raises(NotImplementedError, match="one rank"):
-        m.init_cache(2, 8, device="cpu", world=2)
-    with pytest.raises(NotImplementedError, match="one rank"):
-        shard_params(tp, m.cfg, 0, 2)
+    cache = m.init_cache(2, 8, device="cpu", world=2)
+    if m.cfg.family == "moe":
+        assert cache["k"].shape[3] == m.cfg.n_kv_heads // 2
+    else:
+        assert cache["moe"]["latent"].shape[-1] == m.cfg.mla.kv_lora_rank
+    shard = shard_params(tp, m.cfg, 0, 2)
+    assert shard["layers"]["mlp"]["w_gate"].shape[1] == \
+        m.cfg.moe.num_experts // 2
+    assert torch.equal(shard["layers"]["mlp"]["router"],
+                       tp["layers"]["mlp"]["router"])
+    with pytest.raises(ValueError, match="do not divide"):
+        m.init_cache(2, 8, device="cpu", world=8)
+    with pytest.raises(ValueError, match="do not divide"):
+        shard_params(tp, m.cfg, 0, 8)
 
 
 

@@ -239,6 +239,34 @@ def test_psum_decisions_reduced_match_reference(p, phase):
                     cfg.n_layers)
 
 
+def _stack_depth(cfg) -> int:
+    """Layers a stack of the reduced config: the reference traces each
+    stack's scanned body once (deepseek's dense first layer and its MoE
+    layers are two stacks, of one layer each here), the port every
+    layer."""
+    nd = cfg.moe.first_dense_layers if cfg.moe else 0
+    depths = {n for n in (nd, cfg.n_layers - nd) if n}
+    assert len(depths) == 1, depths
+    return depths.pop()
+
+
+@pytest.mark.parametrize("phase", PHASES)
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("name", ["rwkv6-7b", "llama4-scout-17b-16e",
+                                  "deepseek-v2-lite-16b"])
+def test_psum_decisions_reduced_families_match_reference(name, p, phase):
+    """The non-dense families' sites at p 2 and 4: two row psums a RWKV6
+    layer (its output norm's all-reduce is no site), and the MoE
+    combine beside the shared experts' psum; a fused MoE sum or a
+    recorded norm would change the counts."""
+    cfg = _port_cfg(name, True)
+    plan = build_plan(cfg, (("model", p),), phase, gemm_search=False)
+    want = reference_decisions(name, True, (("model", p),), phase)
+    assert want, "the reference recorded no site"
+    _same_decisions(plan.psum, want, _stack_depth(cfg))
+    assert verify_plan(plan) == []
+
+
 @pytest.mark.parametrize("name", sorted(ARCHS))
 def test_every_config_plans_at_one_rank(name):
     """Every family traces on the meta device; at one rank there is no

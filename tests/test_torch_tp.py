@@ -200,15 +200,6 @@ def test_head_split_whole_heads():
             sharding.head_split(cfg, 0, world)
 
 
-def test_ssm_family_refuses_more_than_one_rank():
-    cfg = ARCHS["rwkv6-7b"].reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sharding.shard_params({}, cfg, 0, 2)
-    from repro_torch.models.api import get_model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg).init_cache(1, 8, device="cpu", world=2)
-
-
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3-8b", "rwkv6-7b"])
 @pytest.mark.parametrize("span", [1, 2, 4, 16])
 def test_leaf_rules_match_reference(arch, span):
