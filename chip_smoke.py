@@ -209,6 +209,7 @@ from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
                                              Timer, attention_cases,
                                              attention_operands,
                                              family_projections,
+                                             matmul_layout,
                                              matmul_operands,
                                              matmul_projections,
                                              moe_projections,
@@ -217,7 +218,7 @@ from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
                                              wkv_operands)
 from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models import vision  # noqa: E402
-from repro_torch.models.api import get_model  # noqa: E402
+from repro_torch.models.api import MEDIA_FAMILIES, get_model  # noqa: E402
 from repro_torch.optim.adamw import AdamWState, tree_leaves  # noqa: E402
 from repro_torch.parallel.sharding import (kv_groups,  # noqa: E402
                                            shard_params, shard_state,
@@ -315,13 +316,19 @@ RWKV_FWD_B, RWKV_FWD_S, RWKV_PREFIX = 2, 2048, 300
 MOE_FWD_S, MOE_DEPTH = 2048, 4
 # [tp-families]: each tensor-parallel family's requests, served six times
 # (without a group, then under each psum mode), so fewer than its serve
-# phase's for rwkv6-7b and deepseek-v2-lite; llama4-scout at [moe]'s depth
+# phase's for rwkv6-7b, deepseek-v2-lite, zamba2 (engine), vlm and whisper
+# (legacy loop, 2 rows); llama4-scout at [moe]'s depth
 TP_FAMILY_ARGV = {
     RWKV: ["--arch", RWKV, "--batch", "2", "--slots", "2", "--prompt-len",
            "8", "--gen", "4"],
     MLA: ["--arch", MLA, "--batch", "2", "--slots", "2", "--prompt-len",
           "8", "--gen", "4"],
-    MOE: SERVE_ARGV[MOE] + ["--layers", str(MOE_DEPTH)]}
+    MOE: SERVE_ARGV[MOE] + ["--layers", str(MOE_DEPTH)],
+    HYBRID: ["--arch", HYBRID, "--batch", "2", "--slots", "2",
+             "--prompt-len", "8", "--gen", "4"],
+    VLM: ["--arch", VLM, "--batch", "2", "--prompt-len", "8", "--gen", "4"],
+    ENCDEC: ["--arch", ENCDEC, "--batch", "2", "--prompt-len", "8", "--gen",
+             "4"]}
 # zamba2 and llama-3.2-vision's forwards, B 1 x S 2048; whisper's at its
 # decoder context, 448 tokens, over its 1500 frames; [hybrid-f32]: 2 groups
 # (12 Mamba2 layers) over 300 tokens, past the SSD's chunk of 256
@@ -483,13 +490,20 @@ def matmul_cases():
     cases += [(name, *key) for key, name in family.items()]
     # one rank's products at worlds 2 and 4, what --model-parallel 2 and 4
     # launch on each rank (one card runs no such world): each family's
-    # forward M and its 2 decode slots, MLA's w_uk/w_uv at the forward and
-    # at the decode's 2 x cache; then [tp-families]' deepseek serve, whose
-    # w_uk/w_uv expand its shorter cache
-    fwd_m = {RWKV: RWKV_FWD_B * RWKV_FWD_S, MLA: MOE_FWD_S, MOE: MOE_FWD_S}
+    # forward M and its 2 decode slots (or rows), MLA's w_uk/w_uv at the
+    # forward and at the decode's 2 x cache; zamba2's seating at B 1 too,
+    # vlm's wk/wv over the forward's 1601 media rows, whisper's products
+    # at the encoder's 1500 frames and the decoder's 448 tokens; then
+    # [tp-families]' deepseek serve, whose w_uk/w_uv expand its shorter
+    # cache
+    fwd_m = {RWKV: (RWKV_FWD_B * RWKV_FWD_S,), MLA: (MOE_FWD_S,),
+             MOE: (MOE_FWD_S,), HYBRID: (FAMILY_FWD_S[HYBRID], 1),
+             VLM: (FAMILY_FWD_S[VLM],), ENCDEC: (wf, FAMILY_FWD_S[ENCDEC])}
     for p in TP_WORLDS:
         for model, name, k, n, kind in rank_projections(p):
-            ms = (fwd_m[model], 2 * cache if name.startswith("w_uk") else 2)
+            ms = (*fwd_m[model], 2 * cache if name.startswith("w_uk") else 2)
+            if model == VLM and name.startswith("wk/wv"):
+                ms += (vm,)
             cases += [(f"{model} {name} M={m}", m, k, n, kind, bf16)
                       for m in ms]
     tcache = serve_cache(TP_FAMILY_ARGV[MLA])
@@ -548,8 +562,7 @@ CHECKED = {"ina_matmul": set(), "flash_attention": set()}
 
 def matmul_key(x, w) -> tuple:
     """(M, K, N, w's layout, dtype) of an ``ina_matmul`` launch."""
-    return (x.shape[0], x.shape[1], w.shape[1],
-            "row" if w.stride(1) == 1 else "tied", x.dtype)
+    return (x.shape[0], x.shape[1], w.shape[1], matmul_layout(w), x.dtype)
 
 
 def attention_key(q, k, causal, q_offset) -> tuple:
@@ -2563,31 +2576,37 @@ def profile_decode(model, params, label: str, batch: dict, cache: dict,
     return prof
 
 
+def legacy_launches(cfg, args) -> dict:
+    """The launches of one legacy-loop serve of ``args`` (the media
+    families' serve path), derived from the code: vlm's
+    ``prefill_media_kv`` (wk, wv a cross layer), then a decode step a
+    position (:func:`matmuls_per_pass` with the media's K/V cached for
+    vlm; the encoder again each step for encdec, its flash included)."""
+    steps = args.prompt_len + args.gen
+    media_kv = 2 * (cfg.n_layers // cfg.cross_attn_every) \
+        if cfg.family == "vlm" else 0
+    return {"ina_matmul": media_kv + steps
+            * matmuls_per_pass(cfg, media_cached=True),
+            "flash_attention": flash_per_pass(cfg, decode=True) * steps,
+            "wkv6": 0}
+
+
 def legacy_serve(cfg, params, phase: str, argv) -> dict:
     """The legacy loop (the only serve path of the media families) with
-    its launches held to the derived counts: vlm's ``prefill_media_kv``
-    (wk, wv a cross layer), then a decode step a position
-    (:func:`matmuls_per_pass` with the media's K/V cached for vlm; the
-    encoder again each step for encdec).  Then the forward over the same
-    prompts and media (flash attention, the cross-attention's over the
-    media included) against the loop's logits after the prompt (plain
-    attention of one query a step): within 2^-3 of the largest logit, the
-    bound of the rwkv and MoE phases (bf16 rounding in other places,
-    carried through every layer); a wrong mask, media row or cache write
-    moves logits by their own order."""
+    its launches held to the derived counts (:func:`legacy_launches`).
+    Then the forward over the same prompts and media (flash attention,
+    the cross-attention's over the media included) against the loop's
+    logits after the prompt (plain attention of one query a step): within
+    2^-3 of the largest logit, the bound of the rwkv and MoE phases (bf16
+    rounding in other places, carried through every layer); a wrong mask,
+    media row or cache write moves logits by their own order."""
     args = launch_serve.build_parser().parse_args(argv)
     model = get_model(cfg)
     reset_launches()
     legacy = launch_serve.run_legacy(args, cfg, params)
     torch.cuda.synchronize()
     launches = read_launches()
-    steps = args.prompt_len + args.gen
-    media_kv = 2 * (cfg.n_layers // cfg.cross_attn_every) \
-        if cfg.family == "vlm" else 0
-    expect = {"ina_matmul": media_kv + steps
-              * matmuls_per_pass(cfg, media_cached=True),
-              "flash_attention": flash_per_pass(cfg, decode=True) * steps,
-              "wkv6": 0}
+    expect = legacy_launches(cfg, args)
     secs = (legacy["prefill_ms"] + legacy["decode_ms"]) / 1e3
     total = legacy["tokens"].numel()
     log(f"[{phase}] legacy loop: {args.batch} rows, prompt "
@@ -2805,9 +2824,9 @@ def phase_encdec() -> dict:
 # --------------------------------------------------------------------------- #
 # phase 17: the non-dense families through their tensor-parallel code
 # --------------------------------------------------------------------------- #
-def tp_family_forward(model, params, tokens, group, rank: int,
+def tp_family_forward(model, params, batch: dict, group, rank: int,
                       world: int) -> dict:
-    """The forward of ``tokens`` through ``build_prefill``, without a group
+    """The forward of ``batch`` through ``build_prefill``, without a group
     and then under each psum mode on ``group`` over this rank's shard:
     each run's launches, and whether its logits equal the groupless
     run's to the bit (with their largest difference)."""
@@ -2818,7 +2837,7 @@ def tp_family_forward(model, params, tokens, group, rank: int,
             ParallelCtx(group=group, psum_mode=mode)
         reset_launches()
         logits = build_prefill(model, pctx).fn(
-            params if pctx is None else shard, {"tokens": tokens})
+            params if pctx is None else shard, batch)
         torch.cuda.synchronize()
         runs[mode] = {"launches": read_launches(),
                       "by_regime": dict(im.launches_by_regime)}
@@ -2835,16 +2854,21 @@ def tp_family_forward(model, params, tokens, group, rank: int,
 
 def tp_family_rank(rank, world, group, device) -> dict:
     """One rank of ``[tp-families]``: each family of
-    :data:`TP_FAMILY_ARGV` on its seeded weights, served once without a
-    group (``run_engine``) and then under each psum mode through
+    :data:`TP_FAMILY_ARGV` on its seeded weights (vlm's gates at 0.5, as
+    ``[vlm]``'s), served once without a group (``run_engine``; the legacy
+    loop on media of ones for vlm and whisper, as ``launch/serve.py``
+    serves them) and then under each psum mode through
     ``launch/serve.py``'s ``serve_rank`` on ``group``, then its forward
-    (the family phase's tokens) likewise (:func:`tp_family_forward`), each
-    run's kernel launches counted; the launch shapes of all of them
-    recorded.  Rank 0 prints.  Returns plain data only."""
+    (the family phase's tokens and media) likewise
+    (:func:`tp_family_forward`), each run's kernel launches counted; the
+    launch shapes of all of them recorded.  Rank 0 prints.  Returns plain
+    data only."""
     quiet = contextlib.nullcontext() if rank == 0 else \
         contextlib.redirect_stdout(io.StringIO())
     fwd_shape = {RWKV: (RWKV_FWD_B, RWKV_FWD_S), MLA: (1, MOE_FWD_S),
-                 MOE: (1, MOE_FWD_S)}
+                 MOE: (1, MOE_FWD_S), HYBRID: (1, FAMILY_FWD_S[HYBRID]),
+                 VLM: (1, FAMILY_FWD_S[VLM]),
+                 ENCDEC: (1, FAMILY_FWD_S[ENCDEC])}
     out = {}
     with quiet:
         for arch, argv in TP_FAMILY_ARGV.items():
@@ -2854,68 +2878,84 @@ def tp_family_rank(rank, world, group, device) -> dict:
             t0 = time.perf_counter()
             params = get_model(cfg).init(
                 torch.Generator(device=device).manual_seed(0), device=device)
+            if cfg.family == "vlm":
+                for name in ("gate_attn", "gate_mlp"):
+                    params["xlayers"][name].fill_(0.5)
             torch.cuda.synchronize()
             init_s = time.perf_counter() - t0
-            prompt = torch.randint(3, cfg.vocab, fwd_shape[arch],
-                                   generator=torch.Generator().manual_seed(16)
-                                   ).to(device)
+            batch = {"tokens": torch.randint(
+                3, cfg.vocab, fwd_shape[arch],
+                generator=torch.Generator().manual_seed(16)).to(device)}
+            if cfg.family in MEDIA_FAMILIES:
+                batch["media"] = media(cfg, 1, 21)
+                passes = args.prompt_len + args.gen   # the loop's steps
+                expect = legacy_launches(cfg, args)
             runs = {}
             with record_shapes() as seen:
-                forward = tp_family_forward(get_model(cfg), params, prompt,
+                forward = tp_family_forward(get_model(cfg), params, batch,
                                             group, rank, world)
                 for mode in ("none",) + C.CLI_PSUM_MODES:
                     reset_launches()
                     t0 = time.perf_counter()
-                    if mode == "none":
+                    if mode != "none":
+                        tokens = launch_serve.serve_rank(
+                            rank, world, group, device,
+                            argv + ["--psum-mode", mode], params=params)
+                    elif cfg.family in MEDIA_FAMILIES:
+                        tokens = launch_serve.run_legacy(
+                            args, cfg, params)["tokens"].tolist()
+                    else:
                         report = launch_serve.run_engine(args, cfg, params)
                         tokens = [report.tokens()[f"req{i}"]
                                   for i in range(args.batch)]
                         passes = report.prefill_chunks + report.decode_steps
-                    else:
-                        tokens = launch_serve.serve_rank(
-                            rank, world, group, device,
-                            argv + ["--psum-mode", mode], params=params)
+                        expect = {"ina_matmul": matmuls_per_pass(cfg)
+                                  * passes, "flash_attention": 0, "wkv6": 0}
                     torch.cuda.synchronize()
                     runs[mode] = {"tokens": tokens,
                                   "launches": read_launches(),
                                   "by_regime": dict(im.launches_by_regime),
                                   "s": time.perf_counter() - t0}
-            out[arch] = {"runs": runs, "passes": passes, "seen": seen,
-                         "forward": forward, "tokens": tuple(prompt.shape),
+            out[arch] = {"runs": runs, "passes": passes, "expect": expect,
+                         "seen": seen, "forward": forward,
+                         "tokens": tuple(batch["tokens"].shape),
                          "init_s": init_s, "n_layers": cfg.n_layers,
                          "per_pass": matmuls_per_pass(cfg),
                          "flash_per_pass": flash_per_pass(cfg),
                          "peak": torch.cuda.max_memory_allocated()}
-            del params
+            del params, batch
             fresh_phase()
     return out
 
 
 def phase_tp_families() -> dict:
-    """The ssm, mla_moe and moe families served as ``--model-parallel``
-    serves them, on a one-rank NCCL group (one card: NCCL takes one rank a
+    """The six non-dense families served as ``--model-parallel`` serves
+    them, on a one-rank NCCL group (one card: NCCL takes one rank a
     device), under every psum mode: tokens bit-equal to the same requests
-    served without a group, and the kernel launches of every run (so of
-    every step: the schedule is the same) equal to the groupless run's,
-    which are the derived counts; then each family's forward (B 2 x S 2048
-    for rwkv, B 1 x S 2048 for the MoE families) likewise, logits
-    bit-equal; every launch shape held against its plain version in phase
-    2.  Returns each run's launches by path."""
+    served without a group (the engine; vlm and whisper the legacy loop),
+    and the kernel launches of every run (so of every step: the schedule
+    is the same) equal to the groupless run's, which are the derived
+    counts; then each family's forward (B 2 x S 2048 for rwkv, B 1 x S
+    2048 for the MoE families, zamba2 and vlm, whisper's 448 tokens over
+    its 1500 frames) likewise, logits bit-equal; every launch shape held
+    against its plain version in phase 2.  Returns each run's launches by
+    path."""
     fresh_phase()
-    log(f"[tp-families] {RWKV}, {MLA} and {MOE} ({MOE_DEPTH} layers) at "
-        f"their published widths through their tensor-parallel code on an "
-        f"NCCL group of 1 rank, one process, under every psum mode, beside "
-        f"the same requests served without a group; worlds 2 and 4 run on "
-        f"gloo on the CPU (tests/test_torch_tp_families.py), and phase 2 "
-        f"held their rank-local kernel shapes")
+    log(f"[tp-families] {RWKV}, {MLA}, {MOE} ({MOE_DEPTH} layers), "
+        f"{HYBRID}, {VLM} and {ENCDEC} at their published widths through "
+        f"their tensor-parallel code on an NCCL group of 1 rank, one "
+        f"process, under every psum mode, beside the same requests served "
+        f"without a group; worlds 2 and 4 run on gloo on the CPU "
+        f"(tests/test_torch_tp_families.py, "
+        f"tests/test_torch_tp_hybrid_media.py), and phase 2 held their "
+        f"rank-local kernel shapes")
     t0 = time.perf_counter()
     out = mesh.spawn(tp_family_rank, 1, "cuda")[0]
     paths = {}
     for arch, res in out.items():
-        runs, passes = res["runs"], res["passes"]
+        runs, passes, expect = res["runs"], res["passes"], res["expect"]
         base = runs["none"]
-        expect = {"ina_matmul": res["per_pass"] * passes,
-                  "flash_attention": 0, "wkv6": 0}
+        serve = "legacy serve" if arch in (VLM, ENCDEC) else "serve"
         if base["launches"] != expect or base["by_regime"]["generic"]:
             raise AssertionError(f"[tp-families] {arch} without a group: "
                                  f"launches {base['launches']} (by regime "
@@ -2932,7 +2972,7 @@ def phase_tp_families() -> dict:
                     f" {run['by_regime']} != without a group "
                     f"{base['launches']} {base['by_regime']}")
             if mode != "none":
-                paths[f"{arch} tp serve W=1 {mode}"] = run["launches"]
+                paths[f"{arch} tp {serve} W=1 {mode}"] = run["launches"]
         fwd = res["forward"]["runs"]
         expect = {"ina_matmul": res["per_pass"],
                   "flash_attention": res["flash_per_pass"],
@@ -2958,12 +2998,11 @@ def phase_tp_families() -> dict:
             f"(derived {expect}; by regime {fwd['none']['by_regime']})")
         log(f"[tp-families] {arch} ({res['n_layers']} layers; weights drawn "
             f"in {res['init_s']:.1f} s, peak {gib(res['peak'])}): "
-            f"{len(base['tokens'])} requests, {passes} passes a serve; every "
-            f"mode's tokens equal the groupless serve's bit for bit and its "
-            f"launches {base['launches']} "
-            f"({base['launches']['ina_matmul'] // passes} ina_matmul a pass, "
-            f"derived {res['per_pass']}; by regime {base['by_regime']}); "
-            f"seconds a serve: " + ", ".join(
+            f"{len(base['tokens'])} requests, {passes} passes a {serve}; "
+            f"every mode's tokens equal the groupless {serve}'s bit for bit "
+            f"and its launches {base['launches']} (derived "
+            f"{res['expect']}; by regime {base['by_regime']}); seconds a "
+            f"serve: " + ", ".join(
                 f"{mode} {run['s']:.2f}" for mode, run in runs.items()))
         check_shapes(res["seen"], "tp-families")
     log(f"[tp-families] {time.perf_counter() - t0:.1f} s in all")

@@ -7,10 +7,10 @@
 :func:`family_projections` / :func:`matmul_operands` are the products it
 checks, :func:`attention_cases` / :func:`attention_operands` its flash
 attention cases in the model's layout, and :func:`wkv_cases` /
-:func:`wkv_operands` its wkv6 cases.  :func:`rank_projections`, :func:`attention_cases` and :func:`wkv_cases`
-also hold the rank-local shapes of worlds 2 and 4 (:data:`TP_WORLDS`):
-what one rank of a tensor-parallel rwkv6-7b, deepseek-v2-lite-16b or
-llama4-scout-17b-16e launches.  ``sweep`` (the default) times
+:func:`wkv_operands` its wkv6 cases.  :func:`rank_projections`,
+:func:`attention_cases` and :func:`wkv_cases` also hold the rank-local
+shapes of worlds 2 and 4 (:data:`TP_WORLDS`): what one rank of every
+tensor-parallel non-dense model launches.  ``sweep`` (the default) times
 ``ina_matmul`` at every cluster size the kernel takes, at the decode (M =
 1, 2, 4) and prefill-chunk (M = 64) shapes of every served model's products,
 beside the size ``plan_matmul`` picks and ``torch.matmul``'s time.
@@ -130,16 +130,32 @@ def moe_projections() -> list[tuple[str, str, int, int, str]]:
             (lln, "head", ll.d_model, ll.vocab, "row")]
 
 
+def matmul_layout(w: torch.Tensor) -> str:
+    """The layout of an ``ina_matmul`` weight [K, N]: "tied" read k-major
+    (the tied head's ``embed.T``), "padded" row-major with rows longer
+    than N (a rank's Mamba2 ``w_in``, padded to a multiple of 8 elements:
+    ``parallel/sharding.py``), else "row"."""
+    if w.stride(1) != 1:
+        return "tied"
+    return "padded" if w.stride(0) != w.shape[1] else "row"
+
+
 def rank_projections(world: int) -> list[tuple[str, str, int, int, str]]:
     """(model, name, K, N, w layout) of each ``ina_matmul`` product one rank
-    of ``world`` launches for rwkv6-7b, deepseek-v2-lite-16b and
-    llama4-scout-17b-16e that the sharding cuts (``parallel/sharding.py``):
-    column-parallel on N (heads, d_ff, the vocabulary), row-parallel on K.
-    The products every rank holds whole (RWKV6's channel-mix ``wr``, MLA's
-    ``w_dkv``) keep their one-rank shapes (:func:`matmul_projections`,
-    :func:`moe_projections`)."""
+    of ``world`` launches that the sharding cuts (``parallel/sharding.py``)
+    for rwkv6-7b, deepseek-v2-lite-16b, llama4-scout-17b-16e, zamba2-2.7b,
+    llama-3.2-vision-11b and whisper-medium: column-parallel on N (heads,
+    d_ff, the vocabulary), row-parallel on K; zamba2's ``w_in`` takes z,
+    x and dt of the rank's heads and B and C whole, stored with rows
+    padded to a multiple of 8 (:func:`matmul_layout`).  The products every
+    rank holds whole (RWKV6's channel-mix ``wr``, MLA's ``w_dkv``,
+    zamba2's ``wo_down``/``mlp_down``, whisper's head over its odd
+    vocabulary) keep their one-rank shapes (:func:`matmul_projections`,
+    :func:`moe_projections`, :func:`family_projections`)."""
     r, ds, ll = (ARCHS[n] for n in ("rwkv6-7b", "deepseek-v2-lite-16b",
                                     "llama4-scout-17b-16e"))
+    z, v, w = (ARCHS[n] for n in ("zamba2-2.7b", "llama-3.2-vision-11b",
+                                  "whisper-medium"))
     a, p = ds.mla, world
     qk = a.qk_nope_head_dim + a.qk_rope_head_dim
     dsh = ds.moe.d_ff_expert * ds.moe.num_shared // p
@@ -166,6 +182,28 @@ def rank_projections(world: int) -> list[tuple[str, str, int, int, str]]:
            (ll.name, "shared w_up/w_gate", ll.d_model, llsh, "row"),
            (ll.name, "shared w_down", llsh, ll.d_model, "row"),
            (ll.name, "head", ll.d_model, ll.vocab // p, "row")]
+    di = z.ssm.expand * z.d_model
+    n_in = 2 * di // p + 2 * z.ssm.d_state + di // z.ssm.head_dim // p
+    d2, zf = 2 * z.d_model, z.shared_attn_d_ff // p
+    out += [(z.name, "w_in", z.d_model, n_in, "padded" if n_in % 8 else "row"),
+            (z.name, "w_out", di // p, z.d_model, "row"),
+            (z.name, "shared wq/wk/wv", d2, d2 // p, "row"),
+            (z.name, "shared wo", d2 // p, d2, "row"),
+            (z.name, "shared w_up/w_gate", d2, zf, "row"),
+            (z.name, "shared w_down", zf, d2, "row"),
+            (z.name, "tied head", z.d_model, z.vocab // p, "tied")]
+    vq = v.n_heads * v.resolved_head_dim // p
+    vkv = v.n_kv_heads * v.resolved_head_dim // p
+    out += [(v.name, "wq", v.d_model, vq, "row"),
+            (v.name, "wo", vq, v.d_model, "row"),
+            (v.name, "wk/wv", v.d_model, vkv, "row"),
+            (v.name, "w_up/w_gate", v.d_model, v.d_ff // p, "row"),
+            (v.name, "w_down", v.d_ff // p, v.d_model, "row"),
+            (v.name, "head", v.d_model, v.vocab // p, "row")]
+    out += [(w.name, "wq/wk/wv", w.d_model, w.d_model // p, "row"),
+            (w.name, "wo", w.d_model // p, w.d_model, "row"),
+            (w.name, "w_up", w.d_model, w.d_ff // p, "row"),
+            (w.name, "w_down", w.d_ff // p, w.d_model, "row")]
     return [(model, f"{name} P={p}", k, n, kind)
             for model, name, k, n, kind in out]
 
@@ -202,14 +240,18 @@ def family_projections() -> list[tuple[str, str, int, int, str]]:
 
 
 def matmul_operands(gen, m, k, n, kind, dt):
-    """x ~ N(0, 1) [m, k]; w ~ N(0, 1/k) [k, n], row-major, or the
-    transposed view of an [n, k] table (the tied head's embed.T)."""
+    """x ~ N(0, 1) [m, k]; w ~ N(0, 1/k) [k, n], row-major, the first n
+    columns of a [k, n rounded up to 8] buffer ("padded", a rank's
+    ``w_in``), or the transposed view of an [n, k] table (the tied head's
+    embed.T)."""
     x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
-    w = (torch.randn(k, n, generator=gen, device="cuda")
-         / math.sqrt(k)).to(dt) if kind == "row" else \
-        (torch.randn(n, k, generator=gen, device="cuda")
-         / math.sqrt(k)).to(dt).T                  # embed.T, in place
-    return x, w
+    if kind == "tied":                             # embed.T, in place
+        return x, (torch.randn(n, k, generator=gen, device="cuda")
+                   / math.sqrt(k)).to(dt).T
+    cols = -(-n // 8) * 8 if kind == "padded" else n
+    w = (torch.randn(k, cols, generator=gen, device="cuda")
+         / math.sqrt(k)).to(dt)
+    return x, w[:, :n]
 
 
 # the train step's tokens: chip_smoke.py's [train] phase, B 4 x S 1024
@@ -292,8 +334,11 @@ def attention_cases() -> list[tuple]:
     rows (non-causal, GQA 32:8, a ragged Sk); whisper's encoder over 1500
     frames (non-causal, ragged), its decoder at its context of 448 and the
     cross-attention over the frames; each forward the vlm and encdec
-    phases hold against their legacy loops (2 prompts); and llama4-scout's
-    forward at one rank's heads of worlds 2 and 4 (20:4, 10:2)."""
+    phases hold against their legacy loops (2 prompts); and at one rank's
+    heads of worlds 2 and 4: llama4-scout's forward (20:4, 10:2),
+    zamba2's shared attention (16 and 8 heads of 160), llama-3.2-vision's
+    self layers and cross-attention (16:4, 8:2) and whisper's encoder,
+    decoder and cross-attention (8 and 4 heads)."""
     bf16, f32 = torch.bfloat16, torch.float32
     q, ll, l4 = (ARCHS[n] for n in ("qwen2-1.5b", "llama3-8b",
                                     "llama4-scout-17b-16e"))
@@ -305,7 +350,7 @@ def attention_cases() -> list[tuple]:
     zs = (z.shared_attn_heads, z.shared_attn_heads,
           2 * z.d_model // z.shared_attn_heads)
     vm, wf = v.num_media_tokens, w.num_media_tokens
-    return [("qwen2 chunk 1", 1, 64, 64, *gqa(q), bf16, 192, True),
+    cases = [("qwen2 chunk 1", 1, 64, 64, *gqa(q), bf16, 192, True),
             ("qwen2 chunk 2", 1, 64, 128, *gqa(q), bf16, 192, True),
             ("qwen2 chunk 1 f32", 1, 64, 64, *gqa(q), f32, 192, True),
             ("qwen2 chunk 2 f32", 1, 64, 128, *gqa(q), f32, 192, True),
@@ -322,10 +367,21 @@ def attention_cases() -> list[tuple]:
             ("whisper decoder", 1, 448, 448, *gqa(w), bf16, 448, True),
             ("whisper cross", 1, 448, wf, *gqa(w), bf16, wf, False),
             ("whisper prompt self", 2, 8, 8, *gqa(w), bf16, 8, True),
-            ("whisper prompt cross", 2, 8, wf, *gqa(w), bf16, wf, False)] + [
-        (f"llama4 forward P={p}", 1, 2048, 2048, l4.n_heads // p,
-         l4.n_kv_heads // p, l4.resolved_head_dim, bf16, 2048, True)
-        for p in TP_WORLDS]
+            ("whisper prompt cross", 2, 8, wf, *gqa(w), bf16, wf, False)]
+    for p in TP_WORLDS:
+        def cut(c):
+            return c.n_heads // p, c.n_kv_heads // p, c.resolved_head_dim
+        cases += [
+            (f"llama4 forward P={p}", 1, 2048, 2048, *cut(l4), bf16, 2048,
+             True),
+            (f"zamba2 D=160 P={p}", 1, 2048, 2048, zs[0] // p, zs[1] // p,
+             zs[2], bf16, 2048, True),
+            (f"vlm self P={p}", 1, 2048, 2048, *cut(v), bf16, 2048, True),
+            (f"vlm cross P={p}", 1, 2048, vm, *cut(v), bf16, vm, False),
+            (f"whisper encoder P={p}", 1, wf, wf, *cut(w), bf16, wf, False),
+            (f"whisper decoder P={p}", 1, 448, 448, *cut(w), bf16, 448, True),
+            (f"whisper cross P={p}", 1, 448, wf, *cut(w), bf16, wf, False)]
+    return cases
 
 
 def attention_operands(gen, b, sq, sk, h, kvh, d, dt, cache,

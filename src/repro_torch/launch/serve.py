@@ -36,15 +36,18 @@ encdec and vlm take media, which no engine request carries, so they run
 the legacy loop on media of ones, as the reference's launcher does;
 ``--layers N`` cuts the depth, as llama4-scout's 48 layers need on one
 card), and on the CPU, two gloo ranks of the reduced qwen2, and of the
-reduced rwkv6-7b, llama4-scout and deepseek-v2-lite (the dense, ssm, moe
-and mla_moe families take ``--model-parallel``; hybrid, encdec and vlm run
-on one rank):
+reduced rwkv6-7b, deepseek-v2-lite and whisper-medium (every family takes
+``--model-parallel``; the media families run the legacy loop on every
+rank):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
       --reduced --device cpu --model-parallel 2 --psum-mode ina_ring --check
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch deepseek-v2-lite-16b --reduced --device cpu --batch 3 \\
       --slots 2 --prompt-len 6 --gen 5 --block-size 4 --model-parallel 4 \\
       --psum-mode auto --check
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
+      --reduced --device cpu --batch 3 --prompt-len 6 --gen 5 \\
+      --model-parallel 2 --psum-mode ina_ring
 """
 from __future__ import annotations
 
@@ -64,8 +67,7 @@ from repro_torch.core.collectives import CLI_PSUM_MODES
 from repro_torch.launch import mesh
 from repro_torch.models import vision
 from repro_torch.models.api import MEDIA_FAMILIES, get_model
-from repro_torch.parallel.sharding import (check_sharded_family,
-                                           shard_params)
+from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.steps import build_serve_step
 from repro_torch.parallel.tp import ParallelCtx
 from repro_torch.plan import add_plan_cli_args, plan_for_launch
@@ -305,7 +307,6 @@ def main(argv=None) -> list:
     world = args.model_parallel
     if world == 1:
         return _serve(args, cfg)
-    check_sharded_family(cfg)
     dev = _device.resolve(args.device)
     if dev.type == "cuda" and world > torch.cuda.device_count():
         raise RuntimeError(f"--model-parallel {world} needs {world} CUDA "

@@ -61,10 +61,10 @@ class Model:
 
     def init_cache(self, batch: int, max_seq: int, *, device="cuda",
                    world: int = 1) -> dict:
-        """The decode cache of one rank of ``world``: the dense and moe
-        families' K/V hold that rank's KV heads, the ssm family's state its
-        heads; mla_moe's latent is whole on every rank.  The hybrid,
-        encdec and vlm families raise at ``world`` > 1."""
+        """The decode cache of one rank of ``world``: the K/V hold that
+        rank's KV heads (the media's too for vlm), the ssm family's state
+        and hybrid's Mamba2 states its heads, hybrid's conv tails its
+        channels; mla_moe's latent is whole on every rank."""
         return self.mod.init_cache(self.cfg, batch, max_seq,
                                    _device.resolve(device), world)
 

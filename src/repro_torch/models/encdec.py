@@ -23,7 +23,15 @@ only, ``k``/``v`` [L, B, S, KVH, hd].  The serving engine takes no media,
 so this family serves through ``launch/serve.py``'s legacy loop, as in the
 reference.
 
-The family runs on one rank: a group of more than one rank raises.
+Under tensor parallelism the parameters are a rank's shards
+(:mod:`repro_torch.parallel.sharding`): the encoder, the decoder's
+self-attention and its cross-attention run the rank's heads (the head
+counts are read from the shards), each attention's ``wo`` and each MLP's
+``w_down`` a row psum; ``pos_dec`` is whole on every rank, and the
+embedding and the tied head are vocab-parallel where the world divides
+the vocabulary (whisper-medium's 51865 it does not: the table stays
+whole).  The decode cache holds the rank's KV heads.  ``rs_seq`` raises
+(:func:`repro_torch.parallel.tp.whole_sequence`).
 """
 from __future__ import annotations
 
@@ -34,9 +42,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import stack_drawn
-from repro_torch.models.transformer import _dtype, layer
+from repro_torch.models.transformer import _dtype, _heads, layer
+from repro_torch.parallel.sharding import local_heads
 from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear, \
-    single_rank
+    whole_sequence
 
 CACHE_BATCH_AXES = {"k": 1, "v": 1}
 PAGED_CACHE_LEAVES = ("k", "v")
@@ -101,23 +110,25 @@ def init(cfg: ModelConfig, generator: torch.Generator, device,
 # --------------------------------------------------------------------------- #
 # forward
 # --------------------------------------------------------------------------- #
-def _heads(cfg: ModelConfig) -> dict:
-    return dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                head_dim=cfg.resolved_head_dim, eps=cfg.norm_eps)
+def _attn_kw(p: dict, cfg: ModelConfig) -> dict:
+    """The head counts of the attention shard ``p``, its head dim, eps."""
+    hd = cfg.resolved_head_dim
+    nh, nkv = _heads(p, hd)
+    return dict(n_heads=nh, n_kv=nkv, head_dim=hd, eps=cfg.norm_eps)
 
 
 def encode(params: dict, cfg: ModelConfig, media: torch.Tensor,
            pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """media: [B, F, D] frame embeddings -> the encoder's output [B, F, D]:
     non-causal self-attention (no RoPE) and an ungated MLP a layer."""
-    single_rank(pctx.world if pctx else 1, cfg.family)
+    whole_sequence(pctx, cfg.family)
     x = media.to(_dtype(cfg))
     for i in range(cfg.encoder_layers):
         lp = layer(params["enc_layers"], i)
         x = x + L.attn_block(lp["attn"], L.rms_norm(x, lp["ln1"],
                                                     cfg.norm_eps),
                              cos=None, sin=None, causal=False, pctx=pctx,
-                             **_heads(cfg))
+                             **_attn_kw(lp["attn"], cfg))
         x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
                             pctx)
     return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
@@ -129,11 +140,11 @@ def cross_attn(p: dict, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     f = enc.shape[1]
-    q = col_linear(x, p["wq"], pctx).reshape(b, s, cfg.n_heads, hd)
-    k = col_linear(enc, p["wk"], pctx).reshape(b, f, cfg.n_kv_heads, hd)
-    v = col_linear(enc, p["wv"], pctx).reshape(b, f, cfg.n_kv_heads, hd)
+    q = col_linear(x, p["wq"], pctx).reshape(b, s, -1, hd)
+    k = col_linear(enc, p["wk"], pctx).reshape(b, f, -1, hd)
+    v = col_linear(enc, p["wv"], pctx).reshape(b, f, -1, hd)
     o = L.attention(q, k, v, causal=False)
-    return row_linear(o.reshape(b, s, cfg.n_heads * hd), p["wo"], pctx)
+    return row_linear(o.reshape(b, s, -1), p["wo"], pctx)
 
 
 def dec_layer_fwd(lp: dict, x: torch.Tensor, enc: torch.Tensor,
@@ -144,11 +155,11 @@ def dec_layer_fwd(lp: dict, x: torch.Tensor, enc: torch.Tensor,
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if kv is None:
         x = x + L.attn_block(lp["attn"], h, cos=cos, sin=sin, causal=True,
-                             pctx=pctx, **_heads(cfg))
+                             pctx=pctx, **_attn_kw(lp["attn"], cfg))
     else:
         y, _, _ = L.attn_block_decode(lp["attn"], h, kv[0], kv[1], pos,
                                       cos=cos, sin=sin, pctx=pctx,
-                                      **_heads(cfg))
+                                      **_attn_kw(lp["attn"], cfg))
         x = x + y
     x = x + cross_attn(lp["xattn"], L.rms_norm(x, lp["lnx"], cfg.norm_eps),
                        enc, cfg, pctx)
@@ -161,7 +172,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     tokens = batch["tokens"]
     enc = encode(params, cfg, batch["media"], pctx)
     s = tokens.shape[1]
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     x = x + params["pos_dec"][:s][None].to(x.dtype)
     cos, sin = L.rope_cos_sin(torch.arange(s, device=tokens.device),
                               cfg.resolved_head_dim, cfg.rope_theta)
@@ -169,7 +180,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
         x = dec_layer_fwd(layer(params["dec_layers"], i), x, enc, cfg, cos,
                           sin, pctx)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["embed"].T, pctx)
+    return L.logits_head(x, params["embed"].T, pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -182,8 +193,9 @@ def loss(params: dict, cfg: ModelConfig, batch: dict,
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                world: int = 1) -> dict:
-    single_rank(world, cfg.family)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+    """The decoder's self-attention K/V of one rank of ``world``'s KV
+    heads."""
+    shape = (cfg.n_layers, batch, max_seq, local_heads(cfg, world)[1],
              cfg.resolved_head_dim)
     return {name: torch.zeros(shape, dtype=_dtype(cfg), device=device)
             for name in ("k", "v")}
@@ -197,7 +209,7 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     written in place."""
     tokens = batch["tokens"]
     enc = encode(params, cfg, batch["media"], pctx)
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     pos, cos, sin = L.decode_positions(batch["pos"], tokens.device,
                                        cfg.resolved_head_dim, cfg.rope_theta)
     rows = params["pos_dec"][pos][:, None] if torch.is_tensor(pos) \
@@ -208,4 +220,4 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
                           sin, pctx, kv=(cache["k"][i], cache["v"][i]),
                           pos=pos)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["embed"].T, pctx), cache
+    return L.logits_head(x, params["embed"].T, pctx, cfg.vocab), cache

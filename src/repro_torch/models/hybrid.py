@@ -25,7 +25,17 @@ the paged step's form), writes the cache in place and returns it.  There
 is no ``prefill``, as in the reference: the serving engine seats prompts
 through the per-token decode loop.
 
-The family runs on one rank: a group of more than one rank raises.
+Under tensor parallelism the parameters are a rank's shards
+(:mod:`repro_torch.parallel.sharding`): each Mamba2 layer runs the rank's
+heads (``w_in`` cut in segments: z, x and dt of those heads, B and C
+whole) and sums them in ``w_out``'s row psum, its gate norm taking its
+statistic over the group; the shared block runs the rank's heads of its
+attention and its MLP's columns, whose ``wo`` and ``w_down`` row psums
+make the 2 x d_model row whole before ``wo_down`` and ``mlp_down``, which
+every rank holds whole; the embedding and the tied head are
+vocab-parallel.  The decode cache holds the rank's Mamba2 heads, conv
+channels (its x channels, B and C whole) and shared-block KV heads.
+``rs_seq`` raises (:func:`repro_torch.parallel.tp.whole_sequence`).
 """
 from __future__ import annotations
 
@@ -38,8 +48,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.moe import stack_drawn
-from repro_torch.models.transformer import _dtype, layer
-from repro_torch.parallel.tp import ParallelCtx, single_rank
+from repro_torch.models.transformer import _dtype, _heads, layer
+from repro_torch.parallel.sharding import local_heads, local_ssm_heads
+from repro_torch.parallel.tp import ParallelCtx, whole_sequence
 
 CACHE_BATCH_AXES = {"ssm": 2, "conv": 2, "k": 1, "v": 1}
 PAGED_CACHE_LEAVES = ("k", "v")
@@ -117,10 +128,12 @@ def shared_block(sp: dict, x: torch.Tensor, x0: torch.Tensor,
                  pos=None) -> torch.Tensor:
     """x, x0: [B, S, D] -> the block's delta [B, S, D].  With ``cache``
     (this invocation's ``k``/``v`` [B, S_max, heads, hd]) one decode step at
-    ``pos``, the new K/V written in place."""
+    ``pos``, the new K/V written in place.  The heads are those of the
+    shard ``sp`` holds."""
     h2 = L.rms_norm(torch.cat([x, x0], dim=-1), inv_norm, cfg.norm_eps)
-    heads, hd = shared_dims(cfg)
-    kw = dict(n_heads=heads, n_kv=heads, head_dim=hd, cos=cos, sin=sin,
+    hd = shared_dims(cfg)[1]
+    nh, nkv = _heads(sp["attn"], hd)
+    kw = dict(n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos, sin=sin,
               eps=cfg.norm_eps, pctx=pctx)
     if cache is None:
         o = L.attn_block(sp["attn"], h2, causal=True, **kw)
@@ -135,9 +148,9 @@ def shared_block(sp: dict, x: torch.Tensor, x0: torch.Tensor,
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    single_rank(pctx.world if pctx else 1, cfg.family)
+    whole_sequence(pctx, cfg.family)
     g, per = _groups(cfg)
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     x0 = x
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, shared_dims(cfg)[1], cfg.rope_theta)
@@ -156,9 +169,10 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    """Logits [B, S, V] through the tied head (``embed.T`` read in place)."""
+    """Logits [B, S, V] through the tied head (``embed.T`` read in place),
+    the whole vocabulary's on every rank."""
     return L.logits_head(hidden_states(params, cfg, batch["tokens"], pctx),
-                         params["embed"].T, pctx)
+                         params["embed"].T, pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -171,16 +185,19 @@ def loss(params: dict, cfg: ModelConfig, batch: dict,
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                world: int = 1) -> dict:
-    single_rank(world, cfg.family)
+    """The decode cache of one rank of ``world``: its Mamba2 heads' states,
+    its conv channels' tails and its shared-block KV heads."""
     g, per = _groups(cfg)
-    d_inner, h, n, hd, ck = S.mamba2_dims(cfg)
+    _, _, n, hd, ck = S.mamba2_dims(cfg)
+    h = local_ssm_heads(cfg, world)
     heads, shd = shared_dims(cfg)
+    kvh = local_heads(cfg, world, (heads, heads))[1]
     dt = _dtype(cfg)
-    kv = torch.zeros((g, batch, max_seq, heads, shd), dtype=dt, device=device)
+    kv = torch.zeros((g, batch, max_seq, kvh, shd), dtype=dt, device=device)
     return {
         "ssm": torch.zeros((g, per, batch, h, hd, n), dtype=torch.float32,
                            device=device),
-        "conv": torch.zeros((g, per, batch, ck - 1, d_inner + 2 * n),
+        "conv": torch.zeros((g, per, batch, ck - 1, h * hd + 2 * n),
                             dtype=dt, device=device),
         "k": kv, "v": torch.zeros_like(kv),
     }
@@ -192,10 +209,10 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     returns (logits [B, 1, V], cache), the cache written in place.  The
     Mamba2 states carry their own positions; ``pos`` places the shared
     block's K/V, its RoPE angle and its mask, row by row."""
-    single_rank(pctx.world if pctx else 1, cfg.family)
+    whole_sequence(pctx, cfg.family)
     g, per = _groups(cfg)
     tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     x0 = x
     pos, cos, sin = L.decode_positions(batch["pos"], tokens.device,
                                        shared_dims(cfg)[1], cfg.rope_theta)
@@ -215,4 +232,4 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
             cache["conv"][gi, li] = conv
             x = x + y
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["embed"].T, pctx), cache
+    return L.logits_head(x, params["embed"].T, pctx, cfg.vocab), cache

@@ -31,7 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.transformer import _dtype, _stack, layer
-from repro_torch.parallel.sharding import local_rwkv_heads
+from repro_torch.parallel.sharding import local_ssm_heads
 from repro_torch.parallel.tp import ParallelCtx, whole_sequence
 
 CACHE_BATCH_AXES = {"state": 1, "tprev": 1, "cprev": 1}
@@ -120,7 +120,7 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
     not used: no leaf has a sequence axis."""
     hd = cfg.ssm.head_dim
     row = (cfg.n_layers, batch, 1, cfg.d_model)
-    return {"state": (cfg.n_layers, batch, local_rwkv_heads(cfg, world), hd,
+    return {"state": (cfg.n_layers, batch, local_ssm_heads(cfg, world), hd,
                       hd), "tprev": row, "cprev": row}
 
 

@@ -26,6 +26,23 @@ from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
 LORA = 64   # rank of the data-dependent decay's LoRA
 
 
+def group_rms_norm(y: torch.Tensor, w: torch.Tensor, width: int,
+                   cfg: ModelConfig,
+                   pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """An RMS norm over all ``width`` channels of a row (not a per-head
+    group norm): RWKV6's output norm and Mamba2's gate norm.  Where ``y``
+    holds this rank's heads only (and ``w`` their weights), the row's sum
+    of squares is summed over the group by one native all-reduce of [B, S,
+    1]: a norm's statistic, not a partial sum of the paper's, so it is no
+    psum site and ``auto`` records nothing for it."""
+    if y.shape[-1] == width:
+        return L.rms_norm(y, w, cfg.norm_eps)
+    y32 = y.float()
+    ss = C.psum_xla(y32.square().sum(-1, keepdim=True), pctx.group)
+    return (y32 * torch.rsqrt(ss / width + cfg.norm_eps)
+            * w.float()).to(y.dtype)
+
+
 # =========================================================================== #
 # Mamba2
 # =========================================================================== #
@@ -127,9 +144,16 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     last K-1 inputs).  ``single_step`` (S = 1) advances the decode caches
     ``state`` and ``conv_prev``; otherwise the sequence runs in chunks of
     ``cfg.ssm.chunk`` (:func:`_ssd_chunks`) from ``state`` (zeros where
-    None), the last one zero-padded as the reference pads it."""
+    None), the last one zero-padded as the reference pads it.
+
+    ``p`` may be a rank's shard (:mod:`repro_torch.parallel.sharding`): H
+    and d_inner are then the rank's heads and channels, read from
+    ``A_log`` and ``gate_norm``; ``w_in`` gives z, x and dt of those heads
+    and B and C whole, ``w_out``'s row psum sums the heads, and the gate
+    norm takes its statistic over the group (:func:`group_rms_norm`)."""
     b, s, _ = x.shape
-    d_inner, h, n, hd, _ = mamba2_dims(cfg)
+    h, d_inner = p["A_log"].shape[-1], p["gate_norm"].shape[-1]
+    n, hd = cfg.ssm.d_state, cfg.ssm.head_dim
     proj = col_linear(x, p["w_in"], pctx)
     z, xin, bm, cm, dt = torch.split(proj, [d_inner, d_inner, n, n, h],
                                      dim=-1)
@@ -159,7 +183,7 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         y = y.reshape(b, nc * chunk, h, hd)[:, :s]
     y = y.to(x.dtype) + xh * p["D"].to(x.dtype)[:, None]
     y = y.reshape(b, s, d_inner) * F.silu(z)
-    y = L.rms_norm(y, p["gate_norm"], cfg.norm_eps)
+    y = group_rms_norm(y, p["gate_norm"], mamba2_dims(cfg)[0], cfg, pctx)
     return row_linear(y, p["w_out"], pctx), state, conv_prev
 
 
@@ -213,21 +237,6 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None):
     return torch.cat([prev, x[:, :-1, :]], dim=1), last
 
 
-def _ln_x(y: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
-          pctx: Optional[ParallelCtx]) -> torch.Tensor:
-    """The time mix's output norm: an RMS norm over the whole d_model (not
-    a per-head group norm).  Where ``y`` holds this rank's heads only, the
-    row's sum of squares is summed over the group by one native all-reduce
-    of [B, S, 1]: a norm's statistic, not a partial sum of the paper's, so
-    it is no psum site and ``auto`` records nothing for it."""
-    if y.shape[-1] == cfg.d_model:
-        return L.rms_norm(y, w, cfg.norm_eps)
-    y32 = y.float()
-    ss = C.psum_xla(y32.square().sum(-1, keepdim=True), pctx.group)
-    return (y32 * torch.rsqrt(ss / cfg.d_model + cfg.norm_eps)
-            * w.float()).to(y.dtype)
-
-
 def rwkv_tmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
               pctx: Optional[ParallelCtx] = None, state=None, prev=None,
               single_step: bool = False):
@@ -239,7 +248,8 @@ def rwkv_tmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``p`` may be a rank's shard (:mod:`repro_torch.parallel.sharding`): H
     is then the rank's heads, read from ``u`` [H, hd], the projections and
     the decay give their columns, ``wo``'s row psum sums the heads, and the
-    output norm takes its statistic over the group (:func:`_ln_x`)."""
+    output norm takes its statistic over the group
+    (:func:`group_rms_norm`)."""
     b, s, _ = x.shape
     h, hd = p["u"].shape
     xs, new_prev = _shift(x, prev)
@@ -274,7 +284,8 @@ def rwkv_tmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
                              "state; decode passes single_step=True")
         y = ops.wkv(r, k, v, logw, u)
 
-    y = _ln_x(y.to(x.dtype).reshape(b, s, h * hd), p["ln_x"], cfg, pctx) * g
+    y = group_rms_norm(y.to(x.dtype).reshape(b, s, h * hd), p["ln_x"],
+                       cfg.d_model, cfg, pctx) * g
     return row_linear(y, p["wo"], pctx), state, new_prev
 
 

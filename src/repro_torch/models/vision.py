@@ -25,7 +25,14 @@ M, KVH, hd], computed once by :func:`prefill_media_kv`.  The serving
 engine takes no media, so this family serves through ``launch/serve.py``'s
 legacy loop, as in the reference.
 
-The family runs on one rank: a group of more than one rank raises.
+Under tensor parallelism the parameters are a rank's shards
+(:mod:`repro_torch.parallel.sharding`): the self layers shard as the dense
+family's; a cross-attention layer runs the rank's query heads and the KV
+heads they read (cut by the attention's head rule), its ``wo`` and its
+MLP's ``w_down`` two row psums, its norms and gates whole; the embedding
+and the head are vocab-parallel.  The decode cache holds the rank's KV
+heads, over the media too.  ``rs_seq`` raises
+(:func:`repro_torch.parallel.tp.whole_sequence`).
 """
 from __future__ import annotations
 
@@ -37,9 +44,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.moe import stack_drawn
-from repro_torch.models.transformer import _dtype, layer
+from repro_torch.models.transformer import _dtype, _heads, layer
+from repro_torch.parallel.sharding import local_heads
 from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear, \
-    single_rank
+    whole_sequence
 
 CACHE_BATCH_AXES = {"k": 2, "v": 2, "mk": 1, "mv": 1}
 PAGED_CACHE_LEAVES = ("k", "v")
@@ -107,7 +115,7 @@ def init(cfg: ModelConfig, generator: torch.Generator, device,
 def media_kv(xp: dict, media: torch.Tensor, cfg: ModelConfig,
              pctx: Optional[ParallelCtx]):
     """A cross-attention layer's K (k-normed) and V over the media:
-    [B, M, KVH, hd] each."""
+    [B, M, KVH, hd] each, KVH the shard's heads."""
     b, m, _ = media.shape
     hd = cfg.resolved_head_dim
     k = col_linear(media, xp["xattn"]["wk"], pctx).reshape(b, m, -1, hd)
@@ -137,10 +145,10 @@ def xattn_fwd(xp: dict, x: torch.Tensor, media: Optional[torch.Tensor],
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   media: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    single_rank(pctx.world if pctx else 1, cfg.family)
+    whole_sequence(pctx, cfg.family)
     g, per = _groups(cfg)
     seq = tokens.shape[1]
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     media = media.to(x.dtype)
     pos = torch.arange(seq, device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
@@ -155,7 +163,7 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     x = hidden_states(params, cfg, batch["tokens"], batch["media"], pctx)
-    return L.logits_head(x, params["lm_head"], pctx)
+    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -168,9 +176,11 @@ def loss(params: dict, cfg: ModelConfig, batch: dict,
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                world: int = 1) -> dict:
-    single_rank(world, cfg.family)
+    """The decode cache of one rank of ``world``: its KV heads of the self
+    layers and of the cross-attention over the media."""
     g, per = _groups(cfg)
-    hd, kvh, dt = cfg.resolved_head_dim, cfg.n_kv_heads, _dtype(cfg)
+    hd, dt = cfg.resolved_head_dim, _dtype(cfg)
+    kvh = local_heads(cfg, world)[1]
     kv = (g, per - 1, batch, max_seq, kvh, hd)
     mkv = (g, batch, cfg.num_media_tokens, kvh, hd)
     return {name: torch.zeros(shape, dtype=dt, device=device)
@@ -181,8 +191,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
 def prefill_media_kv(params: dict, cfg: ModelConfig, media: torch.Tensor,
                      cache: dict, pctx: Optional[ParallelCtx] = None) -> dict:
     """Write every cross-attention layer's K/V over ``media`` [B, M, D]
-    into the cache's ``mk``/``mv`` (in place); returns the cache."""
-    single_rank(pctx.world if pctx else 1, cfg.family)
+    into the cache's ``mk``/``mv`` (in place), the heads of the shard
+    ``params`` holds; returns the cache."""
+    whole_sequence(pctx, cfg.family)
     media = media.to(_dtype(cfg))
     for gi in range(_groups(cfg)[0]):
         k, v = media_kv(layer(params["xlayers"], gi), media, cfg, pctx)
@@ -197,21 +208,22 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     prefill_media_kv`).  batch: {tokens: [B, 1], pos: int or [B] tensor};
     returns (logits [B, 1, V], cache), the self layers' K/V written in
     place."""
-    single_rank(pctx.world if pctx else 1, cfg.family)
+    whole_sequence(pctx, cfg.family)
     g, per = _groups(cfg)
     tokens = batch["tokens"]
     hd = cfg.resolved_head_dim
-    x = L.embed(params["embed"], tokens, _dtype(cfg))
+    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     pos, cos, sin = L.decode_positions(batch["pos"], tokens.device, hd,
                                        cfg.rope_theta)
     for gi in range(g):
         gp = layer(params["groups"], gi)
         for li in range(per - 1):
             lp = layer(gp, li)
+            nh, nkv = _heads(lp["attn"], hd)
             y, _, _ = L.attn_block_decode(
                 lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
                 cache["k"][gi, li], cache["v"][gi, li], pos,
-                n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=hd,
+                n_heads=nh, n_kv=nkv, head_dim=hd,
                 cos=cos, sin=sin, eps=cfg.norm_eps, pctx=pctx)
             x = x + y
             x = x + L.mlp_block(lp["mlp"],
@@ -220,4 +232,4 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
                       kv=(cache["mk"][gi].to(x.dtype),
                           cache["mv"][gi].to(x.dtype)))
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["lm_head"], pctx), cache
+    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab), cache

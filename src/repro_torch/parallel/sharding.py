@@ -20,23 +20,43 @@ could not compute with the rule's shard:
   dim, the base decay ``w0`` and the output norm ``ln_x`` on d_model, the
   bonus ``u`` [H, hd] on H (the rule would cut hd), ``wo`` on its input
   dim;
+* zamba2's Mamba2 cuts whole heads (80 heads of 64 for zamba2-2.7b) through
+  its packed leaves, whose last dim holds segments (:func:`_segments`):
+  ``w_in`` [D, 2 d_inner + 2N + H] is z | x | B | C | dt, and rank ``r``
+  takes z, x and dt of its heads and B and C whole (ngroups is 1: every
+  head reads them); ``conv_w`` [K, d_inner + 2N] and ``conv_b`` are x |
+  B | C alike.  A rank's ``w_in`` is stored as a view of a buffer whose
+  rows are padded to a multiple of 8 elements (zamba2's at world 4 is
+  2708 wide), so that TMA can step over them and the product keeps its
+  TMA launch.  ``A_log``, ``D``, ``dt_bias`` [H] and ``gate_norm``
+  [d_inner] are cut by heads (:data:`_HEAD_CUTS`; the rule leaves vectors
+  whole), ``w_out`` on its input dim by the rule;
+* zamba2's shared block cuts its own heads (``shared_attn_heads``, the
+  same count for queries and KV), by the attention rule above; vlm's and
+  whisper's cross-attention (``xattn``) goes through the attention rule
+  too, so at 4 ranks of the reduced 4:2 heads a KV head is shared, as in
+  self-attention;
 * some leaves are held whole on every rank although the rule cuts them
   (:data:`_WHOLE`): the MoE ``router`` [D, E] (every rank routes every
   token alike), RWKV6's token-shift ``mu`` of both mixes and the decay
   LoRA's ``w_lora_a`` (each needs the whole of x), the channel mix's
-  ``wr`` (its gate multiplies the whole summed row) and MLA's ``w_dkv``
+  ``wr`` (its gate multiplies the whole summed row), MLA's ``w_dkv``
   (the latent's RMS norm needs the whole latent, which every rank expands
-  into its own heads);
+  into its own heads), zamba2's ``inv_norms`` [G, 2D] (a norm's weights,
+  which the rule reads as a 2-d column leaf) and its shared block's
+  ``wo_down`` and ``mlp_down`` [2D, D] (each multiplies a row that the
+  psum before it made whole), and whisper's ``pos_dec`` [max_seq, D] (a
+  table added to the whole residual stream);
 * the biases of column-parallel weights are cut with their output dim (the
   reference keeps every vector replicated and lets GSPMD slice the sum);
 * serving cuts the weights over the ``model`` axis only.
 
 Routed experts ``w_gate``/``w_up``/``w_down`` [E, ., .] follow the rule:
-cut on E, expert parallelism.  The tied embedding follows the rule,
-``model`` on V: each rank holds V/world rows (a vocab-parallel lookup), and
-the head read from it gives the rank's V/world logits.  The dense, ssm, moe
-and mla_moe families shard; the hybrid, encdec and vlm families run on one
-rank (ROADMAP.md Queue 1, item 5.1).
+cut on E, expert parallelism.  The embedding follows the rule, ``model``
+on V: each rank holds V/world rows (a vocab-parallel lookup), and a tied
+head read from it gives the rank's V/world logits; a vocabulary the world
+does not divide (whisper's 51865) keeps the table whole.  Every family
+shards (:data:`SHARDED_FAMILIES`).
 
 Training adds the ``data`` axis (FSDP).  A rank at ``(data d, model m)`` of
 ``(D, M)`` holds its model shard cut once more into D equal pieces, piece
@@ -75,15 +95,27 @@ _STACKED = ("layers", "dense_layers", "enc_layers", "dec_layers", "xlayers")
 # (parent, name) of the leaves every rank holds whole, although the name
 # rule cuts them (the module docstring says why)
 _WHOLE = {("mlp", "router"), ("tmix", "mu"), ("tmix", "w_lora_a"),
-          ("cmix", "mu"), ("cmix", "wr"), ("attn", "w_dkv")}
+          ("cmix", "mu"), ("cmix", "wr"), ("attn", "w_dkv"),
+          ("", "inv_norms"), ("shared", "wo_down"), ("shared", "mlp_down"),
+          ("", "pos_dec")}
 # (parent, name) -> the dim, counted from the last, of the leaves cut by
-# whole heads outside the GQA attention: RWKV6's time mix and MLA's heads
+# whole heads outside the GQA attention: RWKV6's time mix, MLA's heads and
+# Mamba2's per-head vectors
 _HEAD_CUTS = {("tmix", "wr"): 1, ("tmix", "wk"): 1, ("tmix", "wv"): 1,
               ("tmix", "wg"): 1, ("tmix", "w_lora_b"): 1, ("tmix", "w0"): 1,
               ("tmix", "ln_x"): 1, ("tmix", "u"): 2, ("tmix", "wo"): 2,
-              ("attn", "w_uk"): 1, ("attn", "w_uv"): 1}
+              ("attn", "w_uk"): 1, ("attn", "w_uv"): 1,
+              ("mamba", "A_log"): 1, ("mamba", "D"): 1,
+              ("mamba", "dt_bias"): 1, ("mamba", "gate_norm"): 1}
+# (parent, name) -> the segments of the last dim of Mamba2's packed leaves
+# (:func:`_segments`): z, x and dt cut by heads, B and C whole
+_SEGMENTED = {("mamba", "w_in"): "zxBCt", ("mamba", "conv_w"): "xBC",
+              ("mamba", "conv_b"): "xBC"}
+# the attention parents the head rule cuts
+_ATTN = ("attn", "xattn")
 # the families whose weights this module cuts over ``model``
-SHARDED_FAMILIES = ("dense", "ssm", "moe", "mla_moe")
+SHARDED_FAMILIES = ("dense", "ssm", "moe", "mla_moe", "hybrid", "encdec",
+                    "vlm")
 
 
 # --------------------------------------------------------------------------- #
@@ -132,10 +164,21 @@ def leaf_spec(names: tuple, shape: tuple, mesh_shape: dict | None) -> tuple:
 # --------------------------------------------------------------------------- #
 # explicit shards
 # --------------------------------------------------------------------------- #
-def head_split(cfg: ModelConfig, rank: int, world: int
-               ) -> tuple[range, range]:
-    """(query heads, KV heads) of ``rank``: whole heads only."""
-    h, k = cfg.n_heads, cfg.n_kv_heads
+def attn_heads(cfg: ModelConfig, names: tuple = ()) -> tuple[int, int]:
+    """(query heads, KV heads) of the attention whose leaves sit at
+    ``names``: zamba2's shared block (under ``shared``) has
+    ``shared_attn_heads`` of both, every other attention the config's."""
+    if names[:1] == ("shared",):
+        return cfg.shared_attn_heads, cfg.shared_attn_heads
+    return cfg.n_heads, cfg.n_kv_heads
+
+
+def head_split(cfg: ModelConfig, rank: int, world: int,
+               heads: tuple[int, int] | None = None) -> tuple[range, range]:
+    """(query heads, KV heads) of ``rank``: whole heads only.  ``heads``
+    is the attention's (query, KV) head count (:func:`attn_heads`), the
+    config's by default."""
+    h, k = heads or attn_heads(cfg)
     if h % world:
         raise ValueError(f"{cfg.name}: {world} ranks do not divide "
                          f"{h} query heads")
@@ -152,30 +195,88 @@ def head_split(cfg: ModelConfig, rank: int, world: int
     return q, range(first, first + 1)
 
 
-def local_heads(cfg: ModelConfig, world: int) -> tuple[int, int]:
+def local_heads(cfg: ModelConfig, world: int,
+                heads: tuple[int, int] | None = None) -> tuple[int, int]:
     """(query heads, KV heads) each rank holds."""
-    q, kv = head_split(cfg, 0, world)
+    q, kv = head_split(cfg, 0, world, heads)
     return len(q), len(kv)
 
 
-def local_rwkv_heads(cfg: ModelConfig, world: int) -> int:
-    """The RWKV6 time-mix heads each rank of ``world`` holds."""
+def _ssm_heads(cfg: ModelConfig) -> int:
+    """The recurrent heads: RWKV6's over d_model, Mamba2's over d_inner."""
+    width = cfg.ssm.expand * cfg.d_model if cfg.family == "hybrid" \
+        else cfg.d_model
+    return width // cfg.ssm.head_dim
+
+
+def local_ssm_heads(cfg: ModelConfig, world: int) -> int:
+    """The RWKV6 time-mix or Mamba2 heads each rank of ``world`` holds."""
     check_heads(cfg, world)
-    return cfg.d_model // cfg.ssm.head_dim // world
+    return _ssm_heads(cfg) // world
 
 
-def _kv_piece(cfg: ModelConfig, rank: int, world: int) -> tuple[int, int]:
-    kv = head_split(cfg, rank, world)[1]
-    return kv.start // len(kv), cfg.n_kv_heads // len(kv)
+def _kv_piece(cfg: ModelConfig, rank: int, world: int,
+              heads: tuple[int, int] | None = None) -> tuple[int, int]:
+    kv = head_split(cfg, rank, world, heads)[1]
+    return kv.start // len(kv), (heads or attn_heads(cfg))[1] // len(kv)
 
 
 def check_heads(cfg: ModelConfig, world: int) -> None:
-    """Raise unless ``world`` divides the heads a head cut splits."""
-    h = cfg.d_model // cfg.ssm.head_dim if cfg.family == "ssm" \
-        else cfg.n_heads
-    if h % world:
-        raise ValueError(f"{cfg.name}: {world} ranks do not divide "
-                         f"{h} heads")
+    """Raise unless ``world`` divides every head count a head cut splits:
+    the recurrent heads (ssm; hybrid's Mamba2) and the attention's (hybrid:
+    the shared block's)."""
+    counts = {"ssm": (_ssm_heads,),
+              "hybrid": (_ssm_heads, lambda c: c.shared_attn_heads)}.get(
+        cfg.family, (lambda c: c.n_heads,))
+    for count in counts:
+        if count(cfg) % world:
+            raise ValueError(f"{cfg.name}: {world} ranks do not divide "
+                             f"{count(cfg)} heads")
+
+
+def _segments(names: tuple, cfg: ModelConfig, world: int):
+    """``((size, cut), ...)`` along the last dim of a Mamba2 packed leaf
+    at ``names`` (z | x | B | C | dt of ``w_in``, x | B | C of the conv)
+    at more than one rank, each segment cut into ``world`` equal pieces
+    (rank r's is piece r) or held whole; ``None`` for any other leaf."""
+    order = _SEGMENTED.get(tuple(names[-2:]))
+    if world == 1 or order is None:
+        return None
+    check_heads(cfg, world)
+    d_inner = cfg.ssm.expand * cfg.d_model
+    size = {"z": (d_inner, True), "x": (d_inner, True),
+            "B": (cfg.ssm.d_state, False), "C": (cfg.ssm.d_state, False),
+            "t": (_ssm_heads(cfg), True)}
+    return tuple(size[c] for c in order)
+
+
+def _take_segments(leaf, segs: tuple, rank: int, world: int):
+    """Rank ``rank``'s shard of a segmented leaf (:func:`_segments`): its
+    piece of each cut segment and each whole one, in order, stored as a
+    view of a buffer whose rows are padded to a multiple of 8 elements."""
+    parts, at = [], 0
+    for size, cut in segs:
+        n = size // world if cut else size
+        parts.append(leaf.narrow(-1, at + (rank * n if cut else 0), n))
+        at += size
+    if at != leaf.shape[-1]:
+        raise ValueError(f"segments {segs} of a leaf {tuple(leaf.shape)}")
+    width = sum(p.shape[-1] for p in parts)
+    buf = leaf.new_empty(*leaf.shape[:-1], -(-width // 8) * 8)
+    piece = buf.narrow(-1, 0, width)
+    piece.copy_(torch.cat(parts, -1))
+    return piece
+
+
+def _join_segments(pieces: list, segs: tuple, world: int):
+    """The logical leaf from every rank's segmented shard (``pieces[r]``):
+    each cut segment's pieces in rank order, each whole one from rank 0."""
+    parts, at = [], 0
+    for size, cut in segs:
+        n = size // world if cut else size
+        parts += [p[..., at:at + n] for p in (pieces if cut else pieces[:1])]
+        at += n
+    return _concat(parts, -1)
 
 
 def _cut(names: tuple, ndim: int, cfg: ModelConfig, world: int):
@@ -183,7 +284,8 @@ def _cut(names: tuple, ndim: int, cfg: ModelConfig, world: int):
     ``None`` where each holds it whole, else ``(dim, piece)``: the leaf is
     cut on ``dim`` into ``count`` equal pieces, and ``piece(rank) ->
     (index, count)`` names the rank's.  ``count < world`` where ranks
-    share a piece (a KV head read by several ranks' query heads)."""
+    share a piece (a KV head read by several ranks' query heads).  A
+    segmented leaf (:func:`_segments`) has no such form and raises."""
     if world == 1:
         return None
     name = names[-1]
@@ -191,15 +293,19 @@ def _cut(names: tuple, ndim: int, cfg: ModelConfig, world: int):
     own = lambda rank: (rank, world)          # noqa: E731
     if (parent, name) in _WHOLE:
         return None
+    if (parent, name) in _SEGMENTED:
+        raise NotImplementedError(f"{'/'.join(names)} is cut in segments "
+                                  f"(sharding._segments)")
     if (parent, name) in _HEAD_CUTS:
         check_heads(cfg, world)
         return ndim - _HEAD_CUTS[parent, name], own
-    if parent == "attn":
+    if parent in _ATTN:
+        heads = attn_heads(cfg, names)
         if name in ("wq", "bq"):
             check_heads(cfg, world)
             return ndim - 1, own
         if name in ("wk", "bk", "wv", "bv"):
-            return ndim - 1, lambda rank: _kv_piece(cfg, rank, world)
+            return ndim - 1, lambda rank: _kv_piece(cfg, rank, world, heads)
         if name == "wo":
             return ndim - 2, own
     intent = leaf_spec(names, (1,) * ndim, None)
@@ -216,13 +322,6 @@ def _walk(fn, tree: dict, names: tuple = ()) -> dict:
     """``fn(names, leaf)`` over a nested dict of leaves."""
     return {k: _walk(fn, v, names + (k,)) if isinstance(v, dict)
             else fn(names + (k,), v) for k, v in tree.items()}
-
-
-def check_sharded_family(cfg: ModelConfig) -> None:
-    if cfg.family not in SHARDED_FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} runs on one rank in this port; its "
-            f"tensor-parallel shards are ROADMAP.md Queue 1, item 5.1")
 
 
 def _coord(rank, world) -> tuple[int, int, int, int]:
@@ -283,19 +382,25 @@ def shard_params(params: dict, cfg: ModelConfig, rank, world) -> dict:
 
     Over ``model``: column-parallel weights and their biases are cut on
     the output dim, row-parallel weights on the contraction dim, attention
-    by whole heads (:func:`head_split`), the embedding (and a tied head)
-    on V.  Over ``data``: the model shard is cut into D pieces on
-    :func:`data_cut`'s dim.  Each cut leaf is a contiguous copy, so the
-    full tree can be freed; every other leaf is the same tensor on every
-    rank.  One rank returns ``params``.  :func:`unshard_params` is the
-    inverse.
+    by whole heads (:func:`head_split`), Mamba2's packed leaves in
+    segments (:func:`_segments`), the embedding (and a tied head) on V.
+    Over ``data``: the model shard is cut into D pieces on
+    :func:`data_cut`'s dim.  Each cut leaf is a contiguous copy (a
+    segmented one a view of a copy with padded rows), so the full tree
+    can be freed; every other leaf is the same tensor on every rank.  One
+    rank returns ``params``.  :func:`unshard_params` is the inverse.
     """
     d, m, dd, mm = _coord(rank, world)
     if dd * mm == 1:
         return params
-    check_sharded_family(cfg)
 
     def cut(names, leaf):
+        segs = _segments(names, cfg, mm)
+        if segs is not None:
+            if dd > 1:
+                raise NotImplementedError(f"{'/'.join(names)}: a segmented "
+                                          f"leaf over the data axis")
+            return _take_segments(leaf, segs, m, mm)
         piece = leaf
         how = _cut(names, leaf.dim(), cfg, mm)
         if how is not None:
@@ -335,15 +440,15 @@ def unshard_params(shards: list, cfg: ModelConfig, world) -> dict:
     rank), the inverse of :func:`shard_params`: the data pieces of each
     model shard concatenated along :func:`data_cut`'s dim, then each
     model-cut leaf along its dim, a piece that several ranks share (a KV
-    head) taken from the first rank that holds it, every whole leaf from
-    rank 0.  Leaves are numpy arrays or tensors (a gather to rank 0 can
+    head) taken from the first rank that holds it, a segmented leaf's
+    segments joined (:func:`_join_segments`), every whole leaf from rank
+    0.  Leaves are numpy arrays or tensors (a gather to rank 0 can
     feed it)."""
     _, _, dd, mm = _coord(0, world)
     if len(shards) != dd * mm:
         raise ValueError(f"{len(shards)} shards for {dd * mm} ranks")
     if dd * mm == 1:
         return shards[0]
-    check_sharded_family(cfg)
     if dd > 1:
         def join_data(m):
             def join(names, leaf):
@@ -358,6 +463,9 @@ def unshard_params(shards: list, cfg: ModelConfig, world) -> dict:
         return shards[0]
 
     def join(names, leaf):
+        segs = _segments(names, cfg, mm)
+        if segs is not None:
+            return _join_segments([_at(t, names) for t in shards], segs, mm)
         how = _cut(names, leaf.ndim, cfg, mm)
         if how is None:
             return leaf

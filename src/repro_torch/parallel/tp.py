@@ -279,18 +279,9 @@ def vocab_gather(logits: torch.Tensor, vocab: int,
     return C.ring_all_gather(logits, pctx.group, gather_axis=-1)
 
 
-def single_rank(world: int, family: str) -> None:
-    """Raise where a family that runs on one rank in this port (hybrid,
-    encdec, vlm) is asked for more."""
-    if world > 1:
-        raise NotImplementedError(
-            f"family {family!r} runs on one rank in this port; its "
-            f"tensor-parallel path is ROADMAP.md Queue 1, item 5.1")
-
-
 def whole_sequence(pctx: Optional[ParallelCtx], family: str) -> None:
     """Raise where ``rs_seq`` is asked of a family whose layers keep the
-    whole sequence on every rank (ssm, moe, mla_moe): their
+    whole sequence on every rank (every family but dense): their
     sequence-sharded residual stream is not ported."""
     if _grouped(pctx) and pctx.rs_seq and pctx.manual:
         raise NotImplementedError(

@@ -31,9 +31,12 @@ with the whole experts the trace's partial is the [T, D] every rank's is,
 one site a layer beside the shared experts' own.  RWKV6's output norm
 takes its statistic over the group only where a rank holds part of the
 heads, so the trace (whole heads) runs no collective for it, and a sharded
-rank's native all-reduce there is no site either.  The families that run
-on one rank in the port (hybrid, encdec, vlm) raise at a model span over
-1.
+rank's native all-reduce there is no site either; Mamba2's gate norm is
+the same.  Every family traces at any model span: zamba2 records its
+Mamba2 layers' ``w_out`` ([..., d_model]) and its shared block's ``wo``
+and MLP ``w_down`` ([..., 2 x d_model]), vlm and whisper both
+attentions' ``wo`` and the MLPs' ``w_down`` (whisper's encoder over the
+frames), each row-parallel product one site.
 """
 from __future__ import annotations
 

@@ -39,7 +39,8 @@ reference's does.
 With a ``group`` of several ranks (tensor parallelism) every rank runs an
 engine on the same requests: it cuts the full ``params`` to its shard
 (:func:`repro_torch.parallel.sharding.shard_params`), pools its own cache
-(its KV heads; the whole MLA latent; its RWKV6 heads' state), and runs the same deterministic schedule, so every rank calls each
+(its KV heads; the whole MLA latent; its RWKV6 or Mamba2 heads' states),
+and runs the same deterministic schedule, so every rank calls each
 collective at the same point.  The logits are gathered whole on every rank,
 so every rank picks the same tokens; ``check`` asserts that at each retire.
 """

@@ -154,9 +154,10 @@ class PagedKVCache:
 
     def __init__(self, cfg, max_seq: int, block_size: int, num_blocks: int,
                  *, device="cuda", world: int = 1) -> None:
-        """The pool of one rank of ``world``: the dense and moe families'
-        pages hold that rank's KV heads, the mla_moe family's the whole
-        latent, and the ssm family's states that rank's heads."""
+        """The pool of one rank of ``world``: the dense, moe, hybrid,
+        encdec and vlm families' pages hold that rank's KV heads, the
+        mla_moe family's the whole latent, the ssm and hybrid families'
+        states that rank's heads (and hybrid's conv tails its channels)."""
         from repro_torch.models.api import (cache_batch_axes, cache_leaves,
                                             get_model, paged_cache_leaves)
         if max_seq % block_size:

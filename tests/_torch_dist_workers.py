@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs import ARCHS
 from repro_torch.convert import params_from_jax
 from repro_torch.core import collectives as C
+from repro_torch.models import vision
 from repro_torch.models.api import get_model
 from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.tp import ParallelCtx, combine_experts
@@ -137,11 +138,14 @@ def tp_rank(rank, world, group, device, spec):
 
 def tp_family_rank(rank, world, group, device, spec):
     """The reduced non-dense families (``spec["archs"]``: each arch's
-    params, forward tokens and decode tokens) on this rank's shard under
-    each mode of ``spec["modes"]``: the forward logits, each decode step's
-    logits from an empty cache, and the engine's greedy tokens on
-    ``spec["prompts"]``; then the ``auto`` sites (op, p, nbytes) a forward
-    and a decode step record."""
+    params, forward tokens, decode tokens and, for vlm and encdec, media
+    [B, M, D]) on this rank's shard under each mode of ``spec["modes"]``:
+    the forward logits, each decode step's logits from an empty cache
+    (vlm's media K/V written first by ``prefill_media_kv``, whisper's
+    media in every step's batch), and, for the families the engine serves
+    (no media), its greedy tokens on ``spec["prompts"]``; then the
+    ``auto`` sites (op, p, nbytes) a forward and the decode steps
+    record."""
     out = {}
     for arch, a in spec["archs"].items():
         cfg = ARCHS[arch].reduced()
@@ -150,17 +154,23 @@ def tp_family_rank(rank, world, group, device, spec):
         params = shard_params(full, cfg, rank, world)
         toks = torch.from_numpy(a["tokens"]).long()
         b = toks.shape[0]
+        media = {} if a.get("media") is None else \
+            {"media": torch.from_numpy(a["media"])}
 
         def run(pctx):
-            res = {"forward": model.forward(params, {"tokens": toks},
+            res = {"forward": model.forward(params, {"tokens": toks, **media},
                                             pctx).numpy()}
             cache = model.init_cache(b, spec["max_seq"], device="cpu",
                                      world=world)
+            if cfg.family == "vlm":
+                cache = vision.prefill_media_kv(params, cfg, media["media"],
+                                                cache, pctx)
+            step_media = media if cfg.family == "encdec" else {}
             res["decode"] = []
             for pos, tok in enumerate(a["decode_tokens"]):
                 logits, cache = model.decode_step(
                     params, {"tokens": torch.from_numpy(tok[:, None]).long(),
-                             "pos": pos}, cache, pctx)
+                             "pos": pos, **step_media}, cache, pctx)
                 res["decode"].append(logits.numpy())
             return res
         res = {mode: run(ParallelCtx(group=group, psum_mode=mode))
@@ -169,7 +179,7 @@ def tp_family_rank(rank, world, group, device, spec):
             run(ParallelCtx(group=group, psum_mode="auto"))
         res["sites"] = [(s.op, s.p, s.nbytes) for s in sites]
         res["engine"] = {}
-        for mode in spec["modes"]:
+        for mode in spec["modes"] if not media else ():
             engine = ServingEngine(cfg, params=full, device="cpu", slots=2,
                                    max_seq=spec["max_seq"], block_size=4,
                                    psum_mode=mode, check=True, group=group)

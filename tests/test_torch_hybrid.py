@@ -356,11 +356,27 @@ def test_no_projection_takes_the_generic_path(pair, monkeypatch):
 
 
 def test_world_above_one_raises(pair):
+    """The family is tensor-parallel (``tests/test_torch_tp_hybrid_media.py``
+    holds it against the reference): at world 2 a rank's cache holds half
+    the Mamba2 heads, its x channels of the conv tail with B and C whole,
+    and half the shared block's KV heads; its shard the same cut; a world
+    that does not divide the 4 shared heads raises."""
     jm, jp, m, tp = pair
-    with pytest.raises(NotImplementedError, match="one rank"):
-        m.init_cache(2, 8, device="cpu", world=2)
-    with pytest.raises(NotImplementedError, match="one rank"):
-        shard_params(tp, m.cfg, 0, 2)
+    cfg = m.cfg
+    d_inner, h, n, hd, _ = ssm.mamba2_dims(cfg)
+    cache = m.init_cache(2, 8, device="cpu", world=2)
+    assert cache["ssm"].shape[3] == h // 2
+    assert cache["conv"].shape[-1] == d_inner // 2 + 2 * n
+    assert cache["k"].shape[3] == cfg.shared_attn_heads // 2
+    shard = shard_params(tp, cfg, 0, 2)
+    mamba = shard["groups"]["mamba"]
+    assert mamba["w_in"].shape[-1] == d_inner + 2 * n + h // 2
+    assert mamba["A_log"].shape[-1] == h // 2
+    assert torch.equal(shard["inv_norms"], tp["inv_norms"])
+    with pytest.raises(ValueError, match="do not divide"):
+        m.init_cache(2, 8, device="cpu", world=8)
+    with pytest.raises(ValueError, match="do not divide"):
+        shard_params(tp, cfg, 0, 8)
 
 
 def test_build_train_step_names_why_it_raises():

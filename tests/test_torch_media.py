@@ -358,11 +358,26 @@ def test_whisper_head_plans_tma():
 
 
 def test_world_above_one_raises(pair):
+    """The families are tensor-parallel
+    (``tests/test_torch_tp_hybrid_media.py`` holds them against the
+    reference): at world 2 a rank's cache holds its KV heads (over the
+    media too, vlm) and its shard half the heads of the self- and the
+    cross-attention; a world that does not divide the 4 heads raises."""
     jm, jp, m, tp = pair
-    with pytest.raises(NotImplementedError, match="one rank"):
-        m.init_cache(2, 8, device="cpu", world=2)
-    with pytest.raises(NotImplementedError, match="one rank"):
-        shard_params(tp, m.cfg, 0, 2)
+    cfg = m.cfg
+    hd = cfg.resolved_head_dim
+    cache = m.init_cache(2, 8, device="cpu", world=2)
+    for leaf in cache.values():
+        assert leaf.shape[-2] == cfg.n_kv_heads // 2
+    shard = shard_params(tp, cfg, 0, 2)
+    cross = shard["xlayers" if cfg.family == "vlm" else "dec_layers"]["xattn"]
+    assert cross["wq"].shape[-1] == cfg.n_heads // 2 * hd
+    assert cross["wk"].shape[-1] == cfg.n_kv_heads // 2 * hd
+    assert cross["wo"].shape[-2] == cfg.n_heads // 2 * hd
+    with pytest.raises(ValueError, match="do not divide"):
+        m.init_cache(2, 8, device="cpu", world=8)
+    with pytest.raises(ValueError, match="do not divide"):
+        shard_params(tp, cfg, 0, 8)
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)

@@ -44,6 +44,7 @@ from repro.plan.store import default_plan_dir as jdefault_plan_dir
 
 from repro_torch.analysis import VerificationError, verify_plan
 from repro_torch.configs import ARCHS, SHAPES
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import collectives as C
 from repro_torch.core.noc import simcache
 from repro_torch.core.noc.collective import cost
@@ -264,6 +265,76 @@ def test_psum_decisions_reduced_families_match_reference(name, p, phase):
     want = reference_decisions(name, True, (("model", p),), phase)
     assert want, "the reference recorded no site"
     _same_decisions(plan.psum, want, _stack_depth(cfg))
+    assert verify_plan(plan) == []
+
+
+@functools.cache
+def _reference_decisions_at(name: str, pairs: tuple, shape: tuple):
+    """The reference's decisions for the reduced ``name`` at ``shape``
+    (seq_len, global_batch, kind)."""
+    from repro.configs.base import ShapeConfig as JShapeConfig
+    sites = jbuilder.collect_psum_sites(JARCHS[name].reduced(),
+                                        _abstract_mesh(pairs),
+                                        JShapeConfig("t", *shape))
+    return jbuilder.resolve_sites(sites)
+
+
+# whisper's reduced position table holds 128 rows: the reference cannot
+# trace PHASE_SHAPES' 4096 tokens at train and prefill (its add of the
+# table to the tokens fails), so those two phases run at 64
+WHISPER_SHAPES = {"train": (64, 2, "train"), "prefill": (64, 2, "prefill")}
+
+
+def _site_bodies(cfg, shape) -> dict:
+    """Each site payload (bytes) of the reduced hybrid, vlm or encdec
+    config at ``shape`` -> [(sites one scanned body of the reference
+    records, bodies of that kind the port's loop runs)].  zamba2: a Mamba2
+    layer's ``w_out`` (one a layer) and its shared block's ``wo`` and MLP
+    ``w_down`` over 2 x d_model (two a group); vlm: a self layer's and a
+    cross layer's ``wo`` and ``w_down`` (two each, one payload); whisper:
+    a decoder layer's self and cross ``wo`` and ``w_down`` over the tokens
+    (three), an encoder layer's ``wo`` and ``w_down`` over the frames
+    (two)."""
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    b = shape.global_batch
+    row = b * (1 if shape.kind == "decode" else shape.seq_len) \
+        * cfg.d_model * item
+    if cfg.family == "hybrid":
+        return {row: [(1, cfg.n_layers)],
+                2 * row: [(2, cfg.n_layers // cfg.shared_attn_every)]}
+    if cfg.family == "vlm":
+        g = cfg.n_layers // cfg.cross_attn_every
+        return {row: [(2, cfg.n_layers - g), (2, g)]}
+    frames = b * cfg.num_media_tokens * cfg.d_model * item
+    return {row: [(3, cfg.n_layers)], frames: [(2, cfg.encoder_layers)]}
+
+
+@pytest.mark.parametrize("phase", PHASES)
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "llama-3.2-vision-11b",
+                                  "whisper-medium"])
+def test_psum_decisions_reduced_hybrid_media_match_reference(name, p, phase):
+    """The hybrid, vlm and encdec families' sites at p 2 and 4, media in
+    the inputs: every field of each decision the reference's, the count
+    scaled site by site (:func:`_site_bodies`: the reference traces each
+    scanned body once, the port runs every layer).  Mamba2's gate norm
+    all-reduce is no site: a recorded one would add a [..., 1] payload."""
+    cfg = _port_cfg(name, True)
+    at = WHISPER_SHAPES.get(phase) if name == "whisper-medium" else None
+    shape = ShapeConfig("t", *at) if at else SHAPES[PHASE_SHAPES[phase]]
+    plan = build_plan(cfg, (("model", p),), phase, gemm_search=False,
+                      shape=shape)
+    want = _reference_decisions_at(name, (("model", p),),
+                                   (shape.seq_len, shape.global_batch,
+                                    shape.kind))
+    bodies = _site_bodies(cfg, shape)
+    assert sorted(d.nbytes for d in want) == sorted(bodies)
+    assert len(plan.psum) == len(want)
+    for g, w in zip(plan.psum, want):
+        assert (g.p, g.nbytes, g.mode, g.ops, g.costs) == \
+            (w.p, w.nbytes, w.mode, w.ops, w.costs)
+        assert w.count == sum(n for n, _ in bodies[w.nbytes])
+        assert g.count == sum(n * depth for n, depth in bodies[w.nbytes])
     assert verify_plan(plan) == []
 
 

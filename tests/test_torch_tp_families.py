@@ -15,8 +15,9 @@ records must be the ones the plan builder's trace records: two row psums a
 RWKV6 layer (the output norm's all-reduce is none), the MoE combine and the
 shared experts' psum apart.  In this process: the shards concatenate back,
 each leaf's shard at the published widths is the cut the sharding rules
-state, the launcher serves each family at two ranks with one rank's tokens,
-and the hybrid, vlm and encdec families still refuse more than one rank.
+state, and the launcher serves each family at two ranks with one rank's
+tokens.  The hybrid, vlm and encdec families' tensor parallelism is
+``tests/test_torch_tp_hybrid_media.py``'s.
 """
 import functools
 
@@ -301,18 +302,6 @@ def test_tp_family_refuses_rs_seq(arch):
         model.forward(model.init(device="meta"),
                       {"tokens": torch.zeros(1, 4, dtype=torch.long,
                                              device="meta")}, pctx)
-
-
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "llama-3.2-vision-11b",
-                                  "whisper-medium"])
-def test_unsharded_families_refuse_more_than_one_rank(arch):
-    """hybrid, vlm and encdec run on one rank: their shards and a cache of
-    more than one rank raise, naming the ROADMAP item."""
-    cfg = ARCHS[arch].reduced()
-    with pytest.raises(NotImplementedError, match="item 5.1"):
-        sharding.shard_params({}, cfg, 0, 2)
-    with pytest.raises(NotImplementedError, match="item 5.1"):
-        get_model(cfg).init_cache(1, 8, device="cpu", world=2)
 
 
 @pytest.mark.parametrize("arch", sorted(
