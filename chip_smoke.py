@@ -17,8 +17,10 @@ Phases; any failure raises and the process exits non-zero:
    ``flash_attention`` also in the model's layout, GQA read in place from
    a KV cache slice; for ``wkv6`` also at decays past the model's clip
    floor, one of them held to the step-by-step ``wkv6_ref`` as well; for
-   ``ina_matmul`` also the train step's products: forward at M = 4096, dX
-   with w^T read in place, dW with K = 4096), and at every shape one rank
+   ``ina_matmul`` also the train steps' products: qwen2-1.5b's forward at
+   M = 4096, dX with w^T read in place, dW with K = 4096, and phase 18's
+   rwkv6-7b and deepseek-v2-lite at 2048 tokens; for ``wkv6`` also the
+   train step's B 2 x S 1024), and at every shape one rank
    of a 2- or 4-rank rwkv6-7b, deepseek-v2-lite or llama4-scout launches
    (the cut products at forward and decode M, ``wkv6`` at H 32 and 16,
    llama4's flash at 20:4 and 10:2), each timed beside its bound, its
@@ -68,12 +70,13 @@ Phases; any failure raises and the process exits non-zero:
    prompts seated token by token (no wkv6), against the legacy loop;
 7. the same widths at 2 layers in float32: forward against the decode loop
    within rtol = atol = 1e-4, and engine tokens equal the legacy loop's;
-8. ``[train]``: qwen2-1.5b at its published widths and depth trained
+8. ``[train]``: qwen2-1.5b at its published widths, 14 of its 28 layers
+   (PR 27; the full depth through PR 26), trained
    through ``launch.train`` (float32 masters, bf16 compute, seeded
    weights, the port's token pipeline): 8 AdamW steps at B 4 x S 1024,
    warmup 2, a checkpoint at step 4 into a temporary directory, then a
-   second run into it.  Every step must launch the derived 787
-   ``ina_matmul`` (none generic) and 56 ``flash_attention``, every loss
+   second run into it.  Every step must launch the derived 395
+   ``ina_matmul`` (none generic) and 28 ``flash_attention``, every loss
    be finite and the last below the first, and the second run resume at
    step 5 with step 5's loss equal to the first run's; one step is
    profiled (device time by kernel, inside the attention backward and
@@ -82,8 +85,8 @@ Phases; any failure raises and the process exits non-zero:
     on a one-rank NCCL group (the card count bounds the group), under
     every ``--psum-mode``: 2 steps from ``[train]``'s seed on its first
     batches, each bit-equal to the step without a group (losses, grad
-    norms, every param leaf), with 787 ``ina_matmul`` (none generic) and
-    56 ``flash_attention`` launches a step and no collective call; then
+    norms, every param leaf), with 395 ``ina_matmul`` (none generic) and
+    28 ``flash_attention`` launches a step and no collective call; then
     ``[train]``'s step-4 checkpoint restored through ``elastic_restore``
     at world 1, bit-equal to the ``CheckpointManager`` restore, and cut
     for every rank of worlds 2 and 4, which ``unshard_state`` rejoins
@@ -93,7 +96,7 @@ Phases; any failure raises and the process exits non-zero:
     one card), a one-rank NCCL group standing for the model, data and pod
     axes: 2 steps from ``[train]``'s seed on its first batches, losses,
     grad norms and every param leaf bit-equal to the step without a group,
-    787 ``ina_matmul`` (none generic) and 56 ``flash_attention`` launches
+    395 ``ina_matmul`` (none generic) and 28 ``flash_attention`` launches
     a step, no collective call; ``compressed_psum`` of the step's whole
     gradient tree over the group under ``none``, ``int8`` and ``topk``,
     each timed with its peak memory and its largest error against the
@@ -150,14 +153,30 @@ Phases; any failure raises and the process exits non-zero:
     shape they launched a kernel at was held against its plain version in
     phase 2, and print their peak memory;
 17. ``[tp-families]``: rwkv6-7b and deepseek-v2-lite at their published
-    widths and depth and llama4-scout at ``[moe]``'s 4 layers, each served
+    widths, depth cut to ``[train-families]``' 8 and 4 layers (PR 27, to
+    keep the whole run near 900 s; phases 6 and 10 run them at full depth),
+    and llama4-scout at ``[moe]``'s 4 layers, each served
     (2 requests on 2 slots) without a group and then through
     ``launch/serve.py``'s ``serve_rank`` on a one-rank NCCL group under
     every psum mode, one process: the tensor-parallel code (expert-parallel
     MoE combine, RWKV6 heads and MLA heads cut, at one rank all of them)
     must give the groupless tokens bit for bit and the same kernel launches,
     the derived counts, at shapes phase 2 checked;
-18. a ``kernels`` JSON line, then the device JSON line, last.
+18. ``[train-families]``: rwkv6-7b (8 of 32 layers) and deepseek-v2-lite
+    (4 of 27: the dense one and 3 MoE) at their published widths, depth
+    cut so that 16 bytes a parameter fit the card, trained through
+    ``launch.train`` (float32 masters, bf16 compute, seeded weights): 4
+    AdamW steps at B 2 x S 1024, warmup 1, a checkpoint at step 2, every
+    step's launches the derived counts (``wkv6`` twice a layer, the
+    forward and its recompute, none in its backward), a falling loss, a
+    second run resuming at step 3 with run 1's loss to the bit; one step
+    profiled (inside the ``wkv6`` backward, the expert products, MLA's
+    attention and AdamW); one step under every psum mode on a one-rank
+    NCCL group, bit-equal to the groupless step, no collective call;
+19. ``[train-families-f32]``: the same two at 2 layers in float32: one
+    step's loss and every gradient leaf through the kernels against
+    their plain versions on the card, as phase 9;
+20. a ``kernels`` JSON line, then the device JSON line, last.
 
 It needs the checkout's ``src/`` beside it and exits non-zero without a GPU.
 """
@@ -206,6 +225,7 @@ from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
+                                             FAMILY_TRAIN_TOKENS,
                                              Timer, attention_cases,
                                              attention_operands,
                                              family_projections,
@@ -216,6 +236,7 @@ from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
                                              rank_projections,
                                              train_products, wkv_cases,
                                              wkv_operands)
+from repro_torch.models import mla as mla_model  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models import vision  # noqa: E402
 from repro_torch.models.api import MEDIA_FAMILIES, get_model  # noqa: E402
@@ -320,9 +341,9 @@ MOE_FWD_S, MOE_DEPTH = 2048, 4
 # (legacy loop, 2 rows); llama4-scout at [moe]'s depth
 TP_FAMILY_ARGV = {
     RWKV: ["--arch", RWKV, "--batch", "2", "--slots", "2", "--prompt-len",
-           "8", "--gen", "4"],
+           "8", "--gen", "4", "--layers", "8"],
     MLA: ["--arch", MLA, "--batch", "2", "--slots", "2", "--prompt-len",
-          "8", "--gen", "4"],
+          "8", "--gen", "4", "--layers", "4"],
     MOE: SERVE_ARGV[MOE] + ["--layers", str(MOE_DEPTH)],
     HYBRID: ["--arch", HYBRID, "--batch", "2", "--slots", "2",
              "--prompt-len", "8", "--gen", "4"],
@@ -548,10 +569,17 @@ def check_matmul_small(gen) -> None:
 
 
 def train_matmul_cases():
-    """The train step's distinct products (forward, dX with w^T read in
-    place, dW with K = the step's tokens), bf16."""
-    return [(f"train {name} M={m}", m, k, n, kind, torch.bfloat16)
-            for name, m, k, n, kind in train_products()]
+    """The train steps' distinct products (forward, dX with w^T read in
+    place, dW with K = the step's tokens), bf16: qwen2-1.5b's at B 4 x S
+    1024, then ``[train-families]``' rwkv6-7b and deepseek-v2-lite at B 2
+    x S 1024."""
+    cases = [(f"train {name} M={m}", m, k, n, kind, torch.bfloat16)
+             for name, m, k, n, kind in train_products()]
+    for model, tag in ((RWKV, "rwkv"), (MLA, "mla")):
+        cases += [(f"train {tag} {name} M={m}", m, k, n, kind,
+                   torch.bfloat16) for name, m, k, n, kind in
+                  train_products(FAMILY_TRAIN_TOKENS, model)]
+    return cases
 
 
 # What phase 2 held against the plain versions, by launch shape
@@ -1673,27 +1701,35 @@ def phase_rwkv_exact_f32() -> None:
 # --------------------------------------------------------------------------- #
 # phases 8-9: training
 # --------------------------------------------------------------------------- #
-TRAIN_ARGV = ["--arch", ARCH, "--steps", "8", "--batch", "4", "--seq", "1024",
-              "--lr", "3e-4", "--ckpt-every", "4"]
+# qwen2-1.5b at 14 of its 28 layers (PR 27, to keep the whole run near
+# 900 s: its checkpoint, written once and read three times, is 10.7 GB of
+# the 18.5 GB the full depth takes)
+TRAIN_ARGV = ["--arch", ARCH, "--layers", "14", "--steps", "8", "--batch",
+              "4", "--seq", "1024", "--lr", "3e-4", "--ckpt-every", "4"]
 TRAIN_SAVED = 4          # the newest checkpoint of 8 steps saved every 4
 TRAIN_SPANS = ("flash_attention_backward", "adamw_update")
 TRAIN_F32_B, TRAIN_F32_S = 2, 128
 
 
-def train_launches(n_layers: int) -> dict:
-    """A train step's launches, derived from the code: each of the 7 L + 1
-    products (the head outside the checkpointed layers) runs once forward
-    and twice backward (dX and dW), and the layers' 7 L once more in
-    their recompute; flash attention runs forward and recomputed, and its
-    backward launches no kernel."""
-    per_pass = MATMULS_PER_PASS["dense"] * n_layers
+def train_launches(cfg) -> dict:
+    """A train step's launches, derived from the code: each product of a
+    pass (:func:`matmuls_per_pass`: 7 L + 1 for the dense family, 8 L + 1
+    for rwkv6, the head outside the checkpointed layers) runs once forward
+    and twice backward (dX and dW), and the layers' once more in their
+    recompute, which stops only after a layer's last product; flash
+    attention and wkv6 run forward and recomputed, and their backwards
+    launch no kernel."""
+    per_pass = matmuls_per_pass(cfg) - 1
     return {"ina_matmul": 3 * (per_pass + 1) + per_pass,
-            "flash_attention": 2 * n_layers, "wkv6": 0}
+            "flash_attention": 2 * flash_per_pass(cfg),
+            "wkv6": 2 * cfg.n_layers if cfg.family == "ssm" else 0}
 
 
-def train_run(ck: str, label: str, device: str):
-    """One run of the training launcher into ``ck``; each step's launches
-    are read and the counters set to 0 after it."""
+def train_run(ck: str, label: str, device: str, argv=TRAIN_ARGV,
+              phase: str = "train"):
+    """One run of the training launcher (``argv``) into ``ck``; each step's
+    launches are read, held to :func:`train_launches` (none generic) with
+    a finite loss, and the counters set to 0 after it."""
     steps = []
 
     def on_step(step, metrics, dt):
@@ -1702,20 +1738,20 @@ def train_run(ck: str, label: str, device: str):
                       "generic": im.launches_by_regime["generic"]})
         reset_launches()
     args = launch_train.build_parser().parse_args(
-        TRAIN_ARGV + ["--ckpt-dir", ck, "--device", device])
+        argv + ["--ckpt-dir", ck, "--device", device])
     reset_launches()
     t0 = time.perf_counter()
     out = launch_train.run(args, on_step)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     in_steps = sum(s["seconds"] for s in steps)
-    log(f"[train] {label}: steps {out['steps']}, {secs:.1f} s, of which "
+    log(f"[{phase}] {label}: steps {out['steps']}, {secs:.1f} s, of which "
         f"{in_steps:.1f} s in the steps and {secs - in_steps:.1f} s outside "
         f"them (initial state, checkpoint save or restore); step seconds "
         + ", ".join(f"{s['seconds']:.3f}" for s in steps))
-    expect = train_launches(ARCHS[args.arch].n_layers)
+    expect = train_launches(launch_train._config(args))
     for s in steps:
-        log(f"[train] step {s['step']}: loss {s['loss']:.6f}, launches "
+        log(f"[{phase}] step {s['step']}: loss {s['loss']:.6f}, launches "
             f"{s['launches']}, expected {expect}, generic {s['generic']}")
         if s["launches"] != expect or s["generic"] != 0:
             raise AssertionError(f"train step {s['step']}: launches "
@@ -1727,7 +1763,8 @@ def train_run(ck: str, label: str, device: str):
 
 
 def phase_train(ck: str, device: str = "cuda") -> dict:
-    """qwen2-1.5b at full width and depth through ``launch.train``: 8 steps
+    """qwen2-1.5b at full width, 14 layers (:data:`TRAIN_ARGV`), through
+    ``launch.train``: 8 steps
     at B 4 x S 1024, warmup 2, a checkpoint at step 4 into the empty
     directory ``ck``, then a second run into it, which must resume at step
     5 with step 5's loss bit-equal to the first run's (the same restored
@@ -1735,10 +1772,11 @@ def phase_train(ck: str, device: str = "cuda") -> dict:
     step profiled.  The checkpoints stay in ``ck`` for ``[tp-train]``."""
     args = launch_train.build_parser().parse_args(TRAIN_ARGV
                                                   + ["--ckpt-dir", "-"])
-    cfg = ARCHS[args.arch]
+    cfg = launch_train._config(args)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    log(f"[train] {ARCH}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"[train] {ARCH}: {cfg.n_layers} of {ARCHS[ARCH].n_layers} layers, "
+        f"d_model {cfg.d_model}, "
         f"float32 masters, {cfg.dtype} compute, B {args.batch} x S "
         f"{args.seq}; checkpoints in a temporary directory with "
         f"{shutil.disk_usage(ck).free / 2 ** 30:.0f} GiB free")
@@ -1857,16 +1895,17 @@ def _state_leaves(tree):
 
 
 def phase_tp_train(ck: str, smi: str, device: str = "cuda") -> dict:
-    """``[tp-train]``: qwen2-1.5b at its published widths and depth trained
+    """``[tp-train]``: ``[train]``'s qwen2-1.5b (published widths, 14
+    layers) trained
     through the tensor-parallel step on a one-rank NCCL group, under every
     CLI psum mode: 2 steps at B 4 x S 1024 from ``[train]``'s seed on its
     first batches, each mode's losses, grad norms and params bit-equal to
-    the step without a group, with the derived 787 ``ina_matmul`` (none
-    generic) and 56 ``flash_attention`` launches a step and no collective
+    the step without a group, with the derived 395 ``ina_matmul`` (none
+    generic) and 28 ``flash_attention`` launches a step and no collective
     call.  Then ``[train]``'s step-4 checkpoint in ``ck`` restored through
     ``elastic_restore`` at world 1, bit-equal to the ``CheckpointManager``
     restore, and cut for every rank of world 2, then of world 4 (one world
-    at a time: the float32 state is 18.5 GB): ``unshard_state`` of each
+    at a time: the float32 state is 10.7 GB): ``unshard_state`` of each
     world's cuts gives the state back bit for bit."""
     args = launch_train.build_parser().parse_args(
         TRAIN_ARGV + ["--ckpt-dir", ck, "--device", device])
@@ -1877,7 +1916,7 @@ def phase_tp_train(ck: str, smi: str, device: str = "cuda") -> dict:
                                     global_batch=args.batch))
     batches = [{k: v.to(device) for k, v in pipe.batch(i).items()}
                for i in range(TP_TRAIN_STEPS)]
-    expect = train_launches(cfg.n_layers)
+    expect = train_launches(cfg)
     fresh_phase()
     log(f"[tp-train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"B {args.batch} x S {args.seq}, {TP_TRAIN_STEPS} steps a mode; "
@@ -2026,14 +2065,15 @@ def check_compressed_psum(grads, group, smi: str) -> dict:
 
 
 def phase_dp_train(smi: str, device: str = "cuda") -> dict:
-    """``[dp-train]``: qwen2-1.5b at its published widths and depth trained
+    """``[dp-train]``: ``[train]``'s qwen2-1.5b (published widths, 14
+    layers) trained
     through the train step on the rank mesh ``make_host_mesh(cards, 1)``
     at ``(data 1, model 1)``, a one-rank NCCL group as its model, data and
     pod groups (so every gather and reduction of the data axis takes its
     one-rank exit): 2 steps at B 4 x S 1024 from ``[train]``'s seed on its
     first batches (the step given its rows of them, ``TrainStep.rows``),
     losses, grad norms and params bit-equal to the step without a group,
-    with 787 ``ina_matmul`` (none generic) and 56 ``flash_attention``
+    with 395 ``ina_matmul`` (none generic) and 28 ``flash_attention``
     launches a step and no collective call.  Then the compressed psum of
     one step's gradient tree (:func:`check_compressed_psum`) and the
     launcher's refusal of ``--production-mesh`` on fewer than 256
@@ -2048,7 +2088,7 @@ def phase_dp_train(smi: str, device: str = "cuda") -> dict:
                                     global_batch=args.batch))
     batches = [{k: v.to(device) for k, v in pipe.batch(i).items()}
                for i in range(TP_TRAIN_STEPS)]
-    expect = train_launches(cfg.n_layers)
+    expect = train_launches(cfg)
     fresh_phase()
     log(f"[dp-train] {cfg.name}: the launcher's rank mesh on "
         f"{torch.cuda.device_count()} card(s) is {ranks.pairs}; this phase "
@@ -2111,20 +2151,23 @@ def phase_dp_train(smi: str, device: str = "cuda") -> dict:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The two kernels of the dense and MoE paths replaced by their plain
-    versions (the wrappers' CPU path) on CUDA tensors, in the forward's
-    direct calls and inside the autograd Functions, which stay."""
-    mm, omm, att = im.ina_matmul, ops.ina_matmul, fa._attention
+    """The three kernels replaced by their plain versions (the wrappers'
+    CPU path) on CUDA tensors, in the forward's direct calls and inside
+    the autograd Functions, which stay."""
+    mm, omm, att, wkv = im.ina_matmul, ops.ina_matmul, fa._attention, \
+        wk._wkv
     plain = lambda x, w, plan=None, tiles=None: \
         im.ina_matmul_plain(x, w, plan)  # noqa: E731
     im.ina_matmul = ops.ina_matmul = plain
     fa._attention = lambda q, k, v, causal, q_offset: \
         fa.flash_attention_heads_plain(q, k, v, causal=causal,
                                        q_offset=int(q_offset))
+    wk._wkv = wk.wkv6_heads_plain
     try:
         yield
     finally:
-        im.ina_matmul, ops.ina_matmul, fa._attention = mm, omm, att
+        im.ina_matmul, ops.ina_matmul, fa._attention, wk._wkv = \
+            mm, omm, att, wkv
 
 
 def phase_train_f32(device: str = "cuda") -> None:
@@ -2151,15 +2194,27 @@ def phase_train_f32(device: str = "cuda") -> None:
     loss, grads = loss_and_grads(model, params, batch)
     torch.cuda.synchronize()
     launches = read_launches()
-    check_launches(launches, train_launches(cfg.n_layers),
+    check_launches(launches, train_launches(cfg),
                    ("ina_matmul", "flash_attention"))
+    against_plain(model, params, batch, loss, grads, launches, "train-f32")
+    del params, grads
+    torch.cuda.empty_cache()
+
+
+def against_plain(model, params, batch, loss, grads, launches,
+                  phase: str) -> None:
+    """The same step's loss and gradients through the plain versions
+    (:func:`plain_kernels`), launching nothing, held to
+    :func:`phase_train_f32`'s bound: loss within 1e-5 of itself, each
+    gradient element within 1e-4 of itself plus 1e-5 of its leaf's
+    largest."""
     t0 = time.perf_counter()
     with plain_kernels():
         ploss, pgrads = loss_and_grads(model, params, batch)
         torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     if read_launches() != launches:
-        raise AssertionError("the plain step launched a kernel")
+        raise AssertionError(f"[{phase}] the plain step launched a kernel")
     worst, names = 0.0, 0
     for got, want in zip(tree_leaves(grads), tree_leaves(pgrads)):
         scale = float(want.abs().max())
@@ -2168,19 +2223,18 @@ def phase_train_f32(device: str = "cuda") -> None:
                                                                 1e-30))
         names += 1
         if not over <= 1e-5 * scale or scale == 0.0:
-            raise AssertionError(f"train-f32: a gradient leaf differs: "
+            raise AssertionError(f"{phase}: a gradient leaf differs: "
                                  f"{over} > 1e-5 x {scale}")
     dloss = abs(float(loss) - float(ploss))
-    log(f"[train-f32] 2 layers, full width, float32, B {TRAIN_F32_B} x S "
-        f"{TRAIN_F32_S}: launches {launches}; loss {float(loss):.6f}, plain "
-        f"{float(ploss):.6f} (|diff| {dloss:.3g}); {names} gradient leaves, "
-        f"largest |diff| over the leaf's largest |gradient| {worst:.3g} "
-        f"(bound 1e-5 beyond rtol 1e-4); the plain step {plain_s:.1f} s")
+    log(f"[{phase}] {model.cfg.name}: 2 layers, full width, float32, B "
+        f"{TRAIN_F32_B} x S {TRAIN_F32_S}: launches {launches}; loss "
+        f"{float(loss):.6f}, plain {float(ploss):.6f} (|diff| {dloss:.3g}); "
+        f"{names} gradient leaves, largest |diff| over the leaf's largest "
+        f"|gradient| {worst:.3g} (bound 1e-5 beyond rtol 1e-4); the plain "
+        f"step {plain_s:.1f} s")
     if not dloss <= 1e-5 * abs(float(ploss)):
-        raise AssertionError(f"train-f32 loss {float(loss)} != plain "
+        raise AssertionError(f"{phase} loss {float(loss)} != plain "
                              f"{float(ploss)}")
-    del params, grads, pgrads
-    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -2941,8 +2995,9 @@ def phase_tp_families() -> dict:
     against its plain version in phase 2.  Returns each run's launches by
     path."""
     fresh_phase()
-    log(f"[tp-families] {RWKV}, {MLA}, {MOE} ({MOE_DEPTH} layers), "
-        f"{HYBRID}, {VLM} and {ENCDEC} at their published widths through "
+    log(f"[tp-families] {RWKV} (8 layers), {MLA} (4 layers), {MOE} "
+        f"({MOE_DEPTH} layers), {HYBRID}, {VLM} and {ENCDEC} at their "
+        f"published widths through "
         f"their tensor-parallel code on an NCCL group of 1 rank, one "
         f"process, under every psum mode, beside the same requests served "
         f"without a group; worlds 2 and 4 run on gloo on the CPU "
@@ -3007,6 +3062,178 @@ def phase_tp_families() -> dict:
         check_shapes(res["seen"], "tp-families")
     log(f"[tp-families] {time.perf_counter() - t0:.1f} s in all")
     return paths
+
+
+# --------------------------------------------------------------------------- #
+# phases 18-19: training the ssm and mla_moe families
+# --------------------------------------------------------------------------- #
+#: (arch, depth) trained at the published widths, the depth cut so that 16
+#: bytes a parameter (float32 masters, AdamW's m and v, float32 gradients)
+#: fit one card: rwkv6-7b 8 of 32 layers (2.29 B parameters, 36.6 GB),
+#: deepseek-v2-lite 4 of 27, the dense one and 3 MoE (2.26 B, 36.1 GB).
+#: llama4-scout's one layer with its embeddings is 4.27 B (68.3 GB) before
+#: the gradient restack and the activations: it trains on the CPU only.
+TRAIN_FAMILIES = ((RWKV, 8), (MLA, 4))
+FAMILY_TRAIN_ARGV = ["--steps", "4", "--batch", "2", "--seq", "1024",
+                     "--lr", "3e-4", "--ckpt-every", "2"]
+FAMILY_TRAIN_SAVED = 2   # the newest checkpoint of 4 steps saved every 2
+FAMILY_TRAIN_SPANS = ("wkv6_backward", EXPERTS_SPAN,
+                      mla_model.ATTENTION_SPAN, "adamw_update")
+
+
+def family_train_argv(arch: str, layers: int) -> list:
+    return ["--arch", arch, "--layers", str(layers)] + FAMILY_TRAIN_ARGV
+
+
+def train_family(arch: str, layers: int, ck: str, smi: str,
+                 device: str) -> dict:
+    """One family of ``[train-families]`` (:func:`phase_train_families`):
+    its launches over run 1 and under each mode, and its profile."""
+    phase = "train-families"
+    argv = family_train_argv(arch, layers)
+    args = launch_train.build_parser().parse_args(
+        argv + ["--ckpt-dir", ck, "--device", device])
+    cfg = launch_train._config(args)
+    model = get_model(cfg)
+    fresh_phase()
+    log(f"[{phase}] {arch}: {layers} of {ARCHS[arch].n_layers} layers at "
+        f"the published widths (d_model {cfg.d_model}), float32 masters, "
+        f"{cfg.dtype} compute, B {args.batch} x S {args.seq}, "
+        f"{args.steps} steps, warmup 1; {smi}")
+    first, steps = train_run(ck, f"{arch} run 1", device, argv, phase)
+    peak = torch.cuda.max_memory_allocated()
+    losses = first["losses"]
+    path = {k: sum(s["launches"][k] for s in steps)
+            for k in steps[0]["launches"]}
+    log(f"[{phase}] {arch} run 1: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+        f"peak device memory {gib(peak)}; launches over the run {path}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"[{phase}] {arch}: the loss did not fall: "
+                             f"{losses}")
+    first_losses = dict(zip(first["steps"], losses))
+    del first
+    fresh_phase()
+    saved = latest_step(ck)
+    second, _ = train_run(ck, f"{arch} run 2 (resume)", device, argv,
+                          phase)
+    if saved != FAMILY_TRAIN_SAVED or second["steps"][0] != saved + 1:
+        raise AssertionError(f"[{phase}] {arch} resume: newest checkpoint "
+                             f"{saved}, resumed at {second['steps'][0]}")
+    diff = second["losses"][0] - first_losses[saved + 1]
+    log(f"[{phase}] {arch} resume: newest checkpoint at step {saved}, "
+        f"resumed at step {saved + 1} with loss {second['losses'][0]:.6f}, "
+        f"run 1's {first_losses[saved + 1]:.6f} (diff {diff:+.3g})")
+    if diff != 0.0:
+        raise AssertionError(f"[{phase}] {arch}: the resumed step's loss "
+                             f"differs from run 1's by {diff}")
+
+    params, opt = second.pop("state")
+    del second
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    ts = build_train_step(model, shape, base_lr=args.lr, warmup=1,
+                          total_steps=args.steps)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch))
+    batch = {k: v.to(device) for k, v in pipe.batch(0).items()}
+    prof = profile_step(f"train_{arch}", lambda: ts.fn(params, opt, batch),
+                        steps=1, spans=FAMILY_TRAIN_SPANS)
+    tokens = args.batch * args.seq
+    log(f"[{phase}] {arch} profiled step: wall {prof['wall_ms']:.1f} ms, "
+        f"device {prof['device_ms']:.1f} ms, busy share "
+        f"{prof['device_ms'] / prof['wall_ms']:.3f}, "
+        f"{prof['kernels_per_step']} kernels a step; ina_matmul "
+        f"{prof['ina_matmul_ms']:.1f} ms, wkv6 {prof['wkv6_ms']:.2f} ms, "
+        + ", ".join(f"inside {k} {v:.1f} ms"
+                    for k, v in prof["span_ms"].items())
+        + f", other {prof['other_ms']:.1f} ms; "
+        f"{tokens / prof['wall_ms'] * 1e3:.0f} tokens/s (host clock); peak "
+        f"device memory {gib(peak)}; {smi}")
+    del params, opt, ts
+    fresh_phase()
+
+    # one step under each mode on a one-rank NCCL group: the groupless step
+    expect = train_launches(cfg)
+    base, base_steps = _timed("groupless step", lambda: tp_train_steps(
+        model, shape, None, [batch], args), phase)
+    modes = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_group_") as tmp:
+        group, _ = mesh.init_group(1, 0, device, os.path.join(tmp, "store"))
+        try:
+            for mode in C.CLI_PSUM_MODES:
+                pctx = ParallelCtx(group=group, psum_mode=mode)
+                got, st = _timed(f"{mode} step", lambda: tp_train_steps(
+                    model, shape, pctx, [batch], args), phase)
+                s, b = st[0], base_steps[0]
+                log(f"[{phase}] {arch} {mode}: loss {s['loss']:.6f} "
+                    f"(groupless {b['loss']:.6f}), grad_norm "
+                    f"{s['grad_norm']:.6f} ({b['grad_norm']:.6f}), launches "
+                    f"{s['launches']}, generic {s['generic']}, collective "
+                    f"calls {s['calls']}")
+                if (s["loss"], s["grad_norm"]) != (b["loss"], b["grad_norm"]) \
+                        or s["launches"] != expect or s["generic"] != 0 \
+                        or s["calls"]:
+                    raise AssertionError(f"[{phase}] {arch} {mode}: the step "
+                                         f"is not the groupless one")
+                n = _same_state(got, base, f"{arch} {mode} params")
+                log(f"[{phase}] {arch} {mode}: {n} param leaves bit-equal to "
+                    f"the groupless step's")
+                modes[mode] = s["launches"]
+                del got
+        finally:
+            dist.destroy_process_group()
+    del base
+    fresh_phase()
+    return {"launches": path, "modes": modes, "profile": prof,
+            "peak_bytes": peak}
+
+
+def phase_train_families(smi: str, device: str = "cuda") -> dict:
+    """``[train-families]``: rwkv6-7b (8 layers) and deepseek-v2-lite (4
+    layers) at their published widths through ``launch.train`` (float32
+    masters, bf16 compute, seeded weights, the port's token pipeline): 4
+    AdamW steps at B 2 x S 1024, warmup 1, a checkpoint at step 2 into a
+    temporary directory, every step's launches the derived counts
+    (:func:`train_launches`: ``wkv6`` twice a layer, the forward and its
+    recompute, none in its backward; no ``ina_matmul`` generic), every
+    loss finite and the last below the first; a second run into the
+    directory resumes at step 3 with run 1's loss to the bit.  Then one
+    step profiled (device time inside the ``wkv6`` backward, the expert
+    products, MLA's attention and AdamW), and one step under every psum
+    mode on a one-rank NCCL group, bit-equal to the groupless step with
+    the same launches and no collective call."""
+    out = {}
+    for arch, layers in TRAIN_FAMILIES:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_families_") as ck:
+            out[arch] = train_family(arch, layers, ck, smi, device)
+    return out
+
+
+def phase_train_families_f32(device: str = "cuda") -> None:
+    """``[train-families-f32]``: rwkv6-7b and deepseek-v2-lite at their
+    widths, 2 layers (deepseek's dense one and an MoE one), float32: one
+    step's loss and every gradient leaf through the kernels against the
+    same step through their plain versions on the card
+    (:func:`against_plain`, :func:`phase_train_f32`'s bound).  The
+    ``wkv6`` backward is the same plain VJP on both sides, from inputs
+    that differ by the forward's f32 sum order."""
+    for arch, _ in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(ARCHS[arch], n_layers=2, dtype="float32")
+        model = get_model(cfg)
+        params = model.init(torch.Generator(device=device).manual_seed(2),
+                            device=device, masters=True)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_F32_S,
+                                        global_batch=TRAIN_F32_B, seed=3))
+        batch = {k: v.to(device) for k, v in pipe.batch(0).items()}
+        reset_launches()
+        loss, grads = loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check_launches(launches, train_launches(cfg), (
+            "ina_matmul", "wkv6") if cfg.family == "ssm" else ("ina_matmul",))
+        against_plain(model, params, batch, loss, grads, launches,
+                      "train-families-f32")
+        del params, grads
+        fresh_phase()
 
 
 def _leaves(tree):
@@ -3100,6 +3327,8 @@ def main() -> int:
     vlm = phase_vlm()
     encdec = phase_encdec()
     tp_families = phase_tp_families()
+    trained_families = phase_train_families(info["smi"])
+    phase_train_families_f32()
     launches = served["launches"]
     world = min(torch.cuda.device_count(), 4)
     paths = {"qwen2-1.5b serve": launches,
@@ -3122,7 +3351,13 @@ def main() -> int:
              f"{VLM} forward": vlm["forward"],
              f"{VLM} legacy serve": vlm["serve"],
              f"{ENCDEC} forward": encdec["forward"],
-             f"{ENCDEC} legacy serve": encdec["serve"], **tp_families}
+             f"{ENCDEC} legacy serve": encdec["serve"], **tp_families,
+             **{f"{arch} train ({layers} layers, run 1)":
+                trained_families[arch]["launches"]
+                for arch, layers in TRAIN_FAMILIES},
+             **{f"{arch} train ({layers} layers) W=1 {mode}": counts
+                for arch, layers in TRAIN_FAMILIES
+                for mode, counts in trained_families[arch]["modes"].items()}}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

@@ -325,6 +325,19 @@ def psum_xla(x: torch.Tensor, group) -> torch.Tensor:
     return collective(x, "psum", lambda t: _native_sum(t, group), WHOLE)
 
 
+def psum_stat(x: torch.Tensor, group) -> torch.Tensor:
+    """``dist.all_reduce`` into a copy, as :func:`psum_xla`, of a statistic
+    that every rank computes over its own slice (a norm's sum of squares
+    over the channels it holds) and then reads only over that slice: each
+    rank's gradient of the sum is then partial, so the backward sums them
+    with the native all-reduce (:func:`sum_back`), where
+    :func:`psum_xla`'s is the identity."""
+    if axis_size(group) == 1:
+        return x
+    return collective(x, "psum", lambda t: _native_sum(t, group),
+                      sum_back(group))
+
+
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """The native all-reduce of ``t`` in place (no autograd), counted in
     :data:`CALLS`: the gradient reductions of a sharded train step."""

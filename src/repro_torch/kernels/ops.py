@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, FlashAttention,
                                                  flash_attention_heads)
 from repro_torch.kernels.ina_matmul import InaMatmul, ina_matmul
-from repro_torch.kernels.wkv6 import wkv6_heads
+from repro_torch.kernels.wkv6 import Wkv6, wkv6_heads
 
 
 def _shape_only(x: torch.Tensor, shape) -> torch.Tensor:
@@ -84,4 +84,6 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     decay, so there is no chunk to pass."""
     if r.device.type == "meta":
         return _shape_only(r, r.shape)
+    if needs_grad(r, k, v, logw, u):
+        return Wkv6.apply(r, k, v, logw, u)
     return wkv6_heads(r, k, v, logw, u)

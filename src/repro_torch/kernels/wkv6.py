@@ -173,15 +173,23 @@ def _check(r, k, v, logw, u) -> None:
                          f"{v.stride()}, {logw.stride()}; u {u.stride()}")
 
 
+def wkv6_heads_plain(r, k, v, logw, u) -> torch.Tensor:
+    """:func:`wkv6_plain` on the model's layout: [B, S, H, hd] inputs, u
+    [B, H, hd] -> contiguous [B, S, H, hd] in ``r.dtype``."""
+    b, s, h, hd = r.shape
+
+    def bh(t):
+        return t.permute(0, 2, 1, 3).reshape(b * h, s, hd)
+    y = wkv6_plain(bh(r), bh(k), bh(v), bh(logw), u.reshape(b * h, hd))
+    return y.reshape(b, h, s, hd).permute(0, 2, 1, 3).contiguous()
+
+
 def _wkv(r, k, v, logw, u) -> torch.Tensor:
     """[B, S, H, hd] inputs, u [B, H, hd] -> contiguous [B, S, H, hd]."""
     _check(r, k, v, logw, u)
     b, s, h, hd = r.shape
     if r.device.type == "cpu":
-        def bh(t):
-            return t.permute(0, 2, 1, 3).reshape(b * h, s, hd)
-        y = wkv6_plain(bh(r), bh(k), bh(v), bh(logw), u.reshape(b * h, hd))
-        return y.reshape(b, h, s, hd).permute(0, 2, 1, 3).contiguous()
+        return wkv6_heads_plain(r, k, v, logw, u)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
     global launches
@@ -223,3 +231,29 @@ def wkv6_heads(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"wkv6_heads takes r [B, S, H, hd] and u [H, hd], "
                          f"got {tuple(r.shape)} and {tuple(u.shape)}")
     return _wkv(r, k, v, logw, u.expand(r.shape[0], *u.shape))
+
+
+class Wkv6(torch.autograd.Function):
+    """:func:`wkv6_heads` with a gradient: the forward is the kernel on
+    CUDA tensors (the plain version on CPU tensors), and saves r, k, v,
+    logw and u; the backward recomputes :func:`wkv6_plain` in float32 from
+    them and takes its VJP, each gradient in its input's dtype (u's summed
+    over the batch, which shares it).  No kernel launches in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u) -> torch.Tensor:
+        ctx.save_for_backward(r, k, v, logw, u)
+        return _wkv(r, k, v, logw, u.expand(r.shape[0], *u.shape))
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        saved = ctx.saved_tensors
+        with torch.enable_grad(), \
+                torch.profiler.record_function("wkv6_backward"):
+            r, k, v, logw, u = (t.detach().float().requires_grad_()
+                                for t in saved)
+            y = wkv6_heads_plain(r, k, v, logw,
+                                 u.expand(r.shape[0], *u.shape))
+            grads = torch.autograd.grad(y, (r, k, v, logw, u), dy.float())
+        return tuple(g.to(t.dtype) for g, t in zip(grads, saved))

@@ -256,19 +256,21 @@ def matmul_operands(gen, m, k, n, kind, dt):
 
 # the train step's tokens: chip_smoke.py's [train] phase, B 4 x S 1024
 TRAIN_TOKENS = 4 * 1024
+FAMILY_TRAIN_TOKENS = 2 * 1024
 
 
-def train_products(tokens: int = TRAIN_TOKENS
+def train_products(tokens: int = TRAIN_TOKENS, model: str = "qwen2-1.5b"
                    ) -> list[tuple[str, int, int, int, str]]:
     """(name, M, K, N, w layout) of each distinct ``ina_matmul`` product of
-    qwen2-1.5b's train step at ``tokens`` tokens: every projection's
+    ``model``'s train step at ``tokens`` tokens: every projection's
     forward ``x @ w`` (recomputed alike), its ``dX = dY @ w^T`` with
     ``w^T`` read in place (k-major for a row-major w; row-major for the
     tied head's k-major ``embed.T``), and its ``dW = x^T @ dY``, whose K
-    is the tokens."""
+    is the tokens.  qwen2-1.5b (B 4 x S 1024), and rwkv6-7b and
+    deepseek-v2-lite-16b (B 2 x S 1024, :data:`FAMILY_TRAIN_TOKENS`)."""
     out = []
-    for model, name, k, n, kind in matmul_projections():
-        if model != "qwen2-1.5b":
+    for mod, name, k, n, kind in matmul_projections() + moe_projections():
+        if mod != model:
             continue
         out += [(f"{name} fwd", tokens, k, n, kind),
                 (f"{name} dX", tokens, n, k,
@@ -399,15 +401,16 @@ def attention_operands(gen, b, sq, sk, h, kvh, d, dt, cache,
 def wkv_cases() -> list[tuple[str, int, int, int, str, torch.dtype]]:
     """(name, B, S, H, decay, dtype) of the wkv6 cases, at rwkv6-7b's hd 64
     in the model's layout: at its H 64 the forward's B 2 x S 2048, the
-    decode check's 300-token prefix, a ragged S, the exact-f32 phase's
-    B 1, and decays at and past the model's clip floor (where the TPU
-    kernel's 80-nat clamp is wrong: -20 a step is 160 nats over 8
-    positions); then the forward at one rank's heads of worlds 2 and 4
-    (H 32, 16)."""
+    train step's B 2 x S 1024, the decode check's 300-token prefix, a
+    ragged S, the exact-f32 phase's B 1, and decays at and past the
+    model's clip floor (where the TPU kernel's 80-nat clamp is wrong: -20
+    a step is 160 nats over 8 positions); then the forward at one rank's
+    heads of worlds 2 and 4 (H 32, 16)."""
     bf16, f32 = torch.bfloat16, torch.float32
     cfg = ARCHS["rwkv6-7b"]
     h = cfg.d_model // cfg.ssm.head_dim
     return [("forward", 2, 2048, h, "init", bf16),
+            ("train B=2 S=1024", 2, 1024, h, "init", bf16),
             ("prefix 300", 2, 300, h, "test", bf16),
             ("ragged S=1000", 2, 1000, h, "test", bf16),
             ("clip-floor decay", 2, 2048, h, "floor", bf16),

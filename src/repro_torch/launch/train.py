@@ -1,16 +1,19 @@
 """Training entry point (counterpart of ``repro.launch.train``).
 
-Trains a dense model: float32 masters, compute in the config's
+Trains a model of the dense, ssm (rwkv6), moe (llama4-scout) or mla_moe
+(deepseek-v2-lite) family (``parallel.steps.TRAINED``; the others raise,
+naming ROADMAP.md's item): float32 masters, compute in the config's
 dtype, every layer checkpointed, the projections and their gradients on
-the INA matmul, AdamW with a cosine schedule, the synthetic token
+the INA matmul, RWKV6's WKV on the wkv6 kernel (its gradient the VJP of
+its plain version), AdamW with a cosine schedule, the synthetic token
 pipeline, and the preemption-safe loop with retries and keep-k
-checkpoints (``runtime.fault_tolerance.run_training``).  A second run
-into the same ``--ckpt-dir`` resumes after the newest checkpoint.  Under
-``--psum-mode auto`` the step carries the train-phase
+checkpoints (``runtime.fault_tolerance.run_training``).  ``--layers N``
+cuts the depth, widths as published (a resume needs the same N).  A
+second run into the same ``--ckpt-dir`` resumes after the newest
+checkpoint.  Under ``--psum-mode auto`` the step carries the train-phase
 :class:`~repro_torch.plan.ExecutionPlan` (``--plan-dir``, ``--no-plan``),
-as the reference's does.  It
-runs on the GPU unless ``--device cpu`` is given, and exits non-zero when
-the loss did not fall.
+as the reference's does.  It runs on the GPU unless ``--device cpu`` is
+given, and exits non-zero when the loss did not fall.
 
 The ranks form the reference's host mesh, ``(ranks // mp, mp)`` over
 ``("data", "model")`` (``launch.mesh.make_host_mesh``), one process each
@@ -34,11 +37,15 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \\
       --reduced --device cpu --steps 3 --batch 4 --seq 32 --lr 1e-2 \\
       --ckpt-dir /tmp/dp --ckpt-every 2 --ranks 4 --model-parallel 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
+      --layers 8 --steps 4 --batch 2 --seq 1024 --ckpt-dir /tmp/rw \\
+      --ckpt-every 2
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 from typing import Callable, Optional
 
@@ -67,6 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true",
                     help="tiny same-family config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (widths as "
+                         "published)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
@@ -161,7 +171,9 @@ def train_rank(rank, world, group, device, args, ranks) -> dict:
 
 def _config(args):
     cfg = ARCHS[args.arch]
-    return cfg.reduced() if args.reduced else cfg
+    cfg = cfg.reduced() if args.reduced else cfg
+    return cfg if args.layers is None else \
+        dataclasses.replace(cfg, n_layers=args.layers)
 
 
 def _shape(args) -> ShapeConfig:

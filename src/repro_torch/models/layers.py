@@ -130,7 +130,12 @@ def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the cache being repeated.  ``q_offset`` is an int or a per-row [B]
     tensor (the paged decode step, where every slot has its own position).
     Scores and the PV product are sums of f32 products, rounded to q's
-    dtype where the reference's einsum rounds.
+    dtype where the reference's einsum rounds.  Outside autograd each sum
+    runs over an explicit product, so a row's bits do not depend on the
+    batch it sits in; where autograd records (training: MLA's attention
+    at a sequence its chunk does not split), each is an f32 matmul
+    instead, the same sums in another order, since the product's [.., S,
+    D] intermediate and its gradient would not fit the card at S 1024.
     """
     b, sq, h, d = q.shape
     kv = k.shape[2]
@@ -139,7 +144,12 @@ def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(d)
     qg = q.reshape(b, sq, kv, g, d).permute(0, 2, 3, 1, 4).float()  # b,k,g,q,d
     kt = k.permute(0, 2, 1, 3).float()                              # b,k,s,d
-    scores = (qg[:, :, :, :, None, :] * kt[:, :, None, None, :, :]).sum(-1)
+    train = ops.needs_grad(q, k, v)
+    if train:
+        scores = torch.einsum("bkgqd,bksd->bkgqs", qg, kt)
+    else:
+        scores = (qg[:, :, :, :, None, :]
+                  * kt[:, :, None, None, :, :]).sum(-1)
     scores = scores.to(q.dtype).float() * scale                     # b,k,g,q,s
     if causal:
         qp = torch.arange(sq, device=q.device)
@@ -152,7 +162,10 @@ def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     vt = v.permute(0, 2, 1, 3).float()                              # b,k,s,dv
-    out = (p.float()[..., None] * vt[:, :, None, None, :, :]).sum(-2)
+    if train:
+        out = torch.einsum("bkgqs,bksd->bkgqd", p.float(), vt)
+    else:
+        out = (p.float()[..., None] * vt[:, :, None, None, :, :]).sum(-2)
     out = out.to(q.dtype)                                           # b,k,g,q,dv
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, v.shape[-1])
 
@@ -356,6 +369,17 @@ def logits_head(x: torch.Tensor, w: torch.Tensor,
     """Vocab-sharded logits; with ``vocab``, gathered whole on every rank."""
     out = col_linear(x, w, pctx)
     return out if vocab is None else tp.vocab_gather(out, vocab, pctx)
+
+
+def vocab_head(x: torch.Tensor, w: torch.Tensor,
+               pctx: Optional[ParallelCtx], vocab: int) -> torch.Tensor:
+    """:func:`logits_head` of the whole vocabulary from a replicated ``x``:
+    where ``w`` holds this rank's slice of V, ``x`` enters the cut through
+    Megatron's ``f`` (:func:`repro_torch.parallel.tp.enter_cut`), so that
+    in training its gradient is the ranks' partials summed."""
+    if w.shape[-1] != vocab:
+        x = tp.enter_cut(x, pctx)
+    return logits_head(x, w, pctx, vocab)
 
 
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -34,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models.transformer import _dtype, layer
+from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import check_heads
 from repro_torch.parallel.tp import (ParallelCtx, col_linear, row_linear,
                                      whole_sequence)
@@ -44,6 +45,8 @@ from repro_torch.parallel.tp import (ParallelCtx, col_linear, row_linear,
 CACHE_BATCH_AXES = {"moe/latent": 1, "moe/k_rope": 1, "dense/latent": 1,
                     "dense/k_rope": 1}
 PAGED_CACHE_LEAVES = tuple(CACHE_BATCH_AXES)
+# the profiler range of the full-sequence attention (plain PyTorch)
+ATTENTION_SPAN = "mla_attention"
 
 
 # --------------------------------------------------------------------------- #
@@ -97,11 +100,13 @@ def _project(p: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
              pctx: Optional[ParallelCtx]):
     """(q [B, S, H, qk_dim] with RoPE on its rope part, the normed latent
     [B, S, rank], the shared rope key [B, S, rope] with RoPE); H the heads
-    ``wq`` holds."""
+    ``wq`` holds.  In training ``x`` enters the head-cut ``wq`` through
+    Megatron's ``f`` (:func:`~repro_torch.parallel.tp.enter_cut`), and
+    the whole ``w_dkv`` as it is."""
     a = cfg.mla
     b, s, _ = x.shape
     nope, rank = a.qk_nope_head_dim, a.kv_lora_rank
-    q = col_linear(x, p["wq"], pctx).reshape(
+    q = col_linear(tp.enter_cut(x, pctx), p["wq"], pctx).reshape(
         b, s, -1, nope + a.qk_rope_head_dim)
     q = torch.cat([q[..., :nope], L.apply_rope(q[..., nope:], cos, sin)], -1)
     ckv = col_linear(x, p["w_dkv"], pctx)                 # [B, S, rank+rope]
@@ -114,9 +119,11 @@ def _expand(p: dict, latent: torch.Tensor, k_rope: torch.Tensor,
             cfg: ModelConfig, pctx: Optional[ParallelCtx]):
     """k [B, S, H, qk_dim] and v [B, S, H, v_dim] from the latent
     [B, S, rank] and the shared rope key [B, S, rope]; H the heads
-    ``w_uk`` holds."""
+    ``w_uk`` holds.  In training the whole latent and rope key enter those
+    heads through Megatron's ``f``."""
     a = cfg.mla
     b, s, _ = latent.shape
+    latent, k_rope = tp.enter_cut(latent, pctx), tp.enter_cut(k_rope, pctx)
     h = p["w_uk"].shape[-1] // a.qk_nope_head_dim
     k_nope = col_linear(latent, p["w_uk"], pctx).reshape(
         b, s, h, a.qk_nope_head_dim)
@@ -137,7 +144,8 @@ def mla_block(p: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
               pctx: Optional[ParallelCtx]) -> torch.Tensor:
     b, s, _ = x.shape
     q, k, v = mla_qkv(p, x, cfg, cos, sin, pctx)
-    o = L.attention_by_chunk(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    with torch.profiler.record_function(ATTENTION_SPAN):
+        o = L.attention_by_chunk(q, k, v, causal=True, chunk=cfg.attn_chunk)
     return row_linear(o.reshape(b, s, -1), p["wo"], pctx)
 
 
@@ -163,13 +171,13 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     x, _ = hidden_states(params, cfg, batch["tokens"], pctx)
-    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab)
+    return L.vocab_head(x, params["lm_head"], pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
          pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     x, aux = hidden_states(params, cfg, batch["tokens"], pctx)
-    return L.xent_loss(L.logits_head(x, params["lm_head"], pctx, cfg.vocab),
+    return L.xent_loss(L.vocab_head(x, params["lm_head"], pctx, cfg.vocab),
                        batch["labels"]) + aux
 
 

@@ -52,7 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dtype, _heads, layer
+from repro_torch.models.transformer import _dtype, _heads, layer, remat
 from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import local_heads
 from repro_torch.parallel.tp import ParallelCtx, whole_sequence
@@ -232,13 +232,21 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
     row-major, are routed as ``groups`` equal runs, each with its own
     capacity (the module docstring says which callers pass what).  With
     a rank's shard of the experts, the output is the ranks' partial
-    combines summed (the module docstring)."""
+    combines summed (the module docstring).  On the rank mesh's data axis
+    (a train step whose hosts hold rows of one global batch), the global
+    batch is the one group, as in the reference: the capacity is the
+    global batch's, an assignment's slot counts the hosts' before it
+    (:func:`~repro_torch.parallel.tp.host_offsets`), and the aux loss
+    takes the hosts' mean load and importance
+    (:func:`~repro_torch.parallel.tp.host_mean`)."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
     n_tok = b * s
     per_group = n_tok // groups
-    cap = capacity(per_group, m)
+    # data-parallel hosts route the global batch's rows as one group
+    hosts = tp.hosts(pctx)
+    cap = capacity(per_group * hosts, m)
 
     logits32 = torch.matmul(x, p["router"].to(x.dtype)).float()
     probs = torch.softmax(logits32, dim=-1)                     # [B, S, E]
@@ -254,6 +262,9 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
     rank = onehot.reshape(groups, per_group * k, e).transpose(1, 2) \
         .contiguous().cumsum(-1).transpose(1, 2).reshape(n_tok, k, e) - 1
     pos = (rank * onehot).sum(-1)                               # [T, k]
+    if hosts > 1:
+        # after the assignments of the hosts before this one
+        pos = pos + tp.host_offsets(onehot.sum((0, 1)), pctx)[gate_idx]
     keep = (pos < cap) & (gate_vals > 0)
     group0 = torch.arange(n_tok, device=x.device) // per_group * cap
     slot = torch.where(keep, pos, 0) + group0[:, None]
@@ -264,16 +275,22 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
         e0 = pctx.rank * held
         expert = gate_idx - e0
         mine = keep & (expert >= 0) & (expert < held)
-    out = _expert_partial(x.reshape(n_tok, d), expert, slot, mine,
-                          gate_vals, p["w_gate"], p["w_up"], p["w_down"],
-                          groups * cap)
+    # in training, the whole x and gate values enter this rank's experts
+    # (and x the shared experts' cut columns) through Megatron's f: the
+    # router, its softmax and the aux loss stay outside, whole
+    xc = tp.enter_cut(x, pctx)
+    out = _expert_partial(xc.reshape(n_tok, d), expert, slot, mine,
+                          tp.enter_cut(gate_vals, pctx), p["w_gate"],
+                          p["w_up"], p["w_down"], groups * cap)
     out = tp.psum_partial(out, pctx).reshape(b, s, d)
     if "shared" in p:
-        out = out + L.mlp_block(p["shared"], x, pctx)
+        out = out + L.mlp_block(p["shared"], xc, pctx)
 
     # Switch aux losses: load balance + router z-loss
     me = probs.reshape(n_tok, e).mean(0)
     ce = (onehot.float() * keep[..., None].float()).sum(1).mean(0)
+    if hosts > 1:
+        me, ce = tp.host_mean(me, pctx), tp.host_mean(ce, pctx)
     aux = m.aux_loss_coef * e * (me * ce).sum() + m.router_z_coef \
         * torch.logsumexp(logits32, dim=-1).square().mean()
     if _ROUTING is not None:
@@ -287,7 +304,7 @@ def ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig,
     returns (x, aux loss)."""
     h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if dense:
-        return x + L.mlp_block(lp["mlp"], h, pctx), \
+        return x + L.mlp_block(lp["mlp"], tp.enter_cut(h, pctx), pctx), \
             torch.zeros((), device=x.device)
     y, aux = moe_mlp(lp["mlp"], h, cfg, pctx, groups)
     return x + y, aux
@@ -300,21 +317,25 @@ def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
     ``attn_full``: the same function)."""
     hd = cfg.resolved_head_dim
     nh, nkv = _heads(lp["attn"], hd)
-    x = x + L.attn_block(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                         n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos, sin=sin,
-                         causal=True, eps=cfg.norm_eps, pctx=pctx)
+    h = tp.enter_cut(L.rms_norm(x, lp["ln1"], cfg.norm_eps), pctx)
+    x = x + L.attn_block(lp["attn"], h, n_heads=nh, n_kv=nkv, head_dim=hd,
+                         cos=cos, sin=sin, causal=True, eps=cfg.norm_eps,
+                         pctx=pctx)
     return ffn(lp, x, cfg, pctx, dense)
 
 
 def run_layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
                layer_fwd: Callable):
     """Every layer, the dense stack first, on the residual stream ``x``
-    (``layer_fwd(layer weights, x, dense) -> (x, aux)``); returns (the
-    final normed x, the summed aux loss)."""
+    (``layer_fwd(layer weights, x, dense) -> (x, aux)``), each checkpointed
+    where autograd records it (:func:`~repro_torch.models.transformer.
+    remat`: the aux loss comes out of the checkpointed layer, as the
+    reference carries it in its scan); returns (the final normed x, the
+    summed aux loss)."""
     aux = torch.zeros((), device=x.device)
     for dense, stack, n in stacks(params, cfg):
         for i in range(n):
-            x, a = layer_fwd(layer(stack, i), x, dense)
+            x, a = remat(layer_fwd, cfg, layer(stack, i), x, dense)
             aux = aux + a
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps), aux
 
@@ -333,13 +354,13 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     x, _ = hidden_states(params, cfg, batch["tokens"], pctx)
-    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab)
+    return L.vocab_head(x, params["lm_head"], pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
          pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     x, aux = hidden_states(params, cfg, batch["tokens"], pctx)
-    logits = L.logits_head(x, params["lm_head"], pctx, cfg.vocab)
+    logits = L.vocab_head(x, params["lm_head"], pctx, cfg.vocab)
     return L.xent_loss(logits, batch["labels"]) + aux
 
 

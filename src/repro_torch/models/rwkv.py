@@ -30,7 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.transformer import _dtype, _stack, layer
+from repro_torch.models.transformer import _dtype, _stack, layer, remat
 from repro_torch.parallel.sharding import local_ssm_heads
 from repro_torch.parallel.tp import ParallelCtx, whole_sequence
 
@@ -96,14 +96,17 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     x = L.rms_norm(x, params["ln_in"], cfg.norm_eps)
     for i in range(cfg.n_layers):
-        x, _ = layer_fwd(layer(params["layers"], i), x, cfg, pctx)
+        x, _ = remat(layer_fwd, cfg, layer(params["layers"], i), x, cfg,
+                     pctx)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    return L.logits_head(hidden_states(params, cfg, batch["tokens"], pctx),
-                         params["lm_head"], pctx, cfg.vocab)
+    """Logits [B, S, V]; where autograd records the layers, each is
+    checkpointed (:func:`~repro_torch.models.transformer.remat`)."""
+    return L.vocab_head(hidden_states(params, cfg, batch["tokens"], pctx),
+                        params["lm_head"], pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,

@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.parallel import tp
 from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
 
 LORA = 64   # rank of the data-dependent decay's LoRA
@@ -34,11 +35,14 @@ def group_rms_norm(y: torch.Tensor, w: torch.Tensor, width: int,
     holds this rank's heads only (and ``w`` their weights), the row's sum
     of squares is summed over the group by one native all-reduce of [B, S,
     1]: a norm's statistic, not a partial sum of the paper's, so it is no
-    psum site and ``auto`` records nothing for it."""
+    psum site and ``auto`` records nothing for it.  Each rank reads the
+    sum over its own channels only, so in training its gradient of the sum
+    is partial, and the backward sums it over the group
+    (:func:`~repro_torch.core.collectives.psum_stat`)."""
     if y.shape[-1] == width:
         return L.rms_norm(y, w, cfg.norm_eps)
     y32 = y.float()
-    ss = C.psum_xla(y32.square().sum(-1, keepdim=True), pctx.group)
+    ss = C.psum_stat(y32.square().sum(-1, keepdim=True), pctx.group)
     return (y32 * torch.rsqrt(ss / width + cfg.norm_eps)
             * w.float()).to(y.dtype)
 
@@ -249,9 +253,15 @@ def rwkv_tmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     is then the rank's heads, read from ``u`` [H, hd], the projections and
     the decay give their columns, ``wo``'s row psum sums the heads, and the
     output norm takes its statistic over the group
-    (:func:`group_rms_norm`)."""
+    (:func:`group_rms_norm`).  In training every path from ``x`` reaches
+    the rank's heads, so one ``f`` at the entry
+    (:func:`~repro_torch.parallel.tp.enter_cut`) sums ``x``'s gradient;
+    the whole ``mu`` and ``w_lora_a`` it passes on the way get partial
+    gradients, which the train step sums
+    (:class:`~repro_torch.parallel.steps.GradSync`)."""
     b, s, _ = x.shape
     h, hd = p["u"].shape
+    x = tp.enter_cut(x, pctx)
     xs, new_prev = _shift(x, prev)
     mu = p["mu"].to(x.dtype)
 
@@ -291,9 +301,13 @@ def rwkv_tmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def rwkv_cmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
               pctx: Optional[ParallelCtx] = None, prev=None):
+    """Returns (y, new_prev).  Under tensor parallelism ``wk`` is cut on
+    d_ff and ``wv`` on its input (the INA site), while the gate's ``wr``
+    is whole: so only ``xk`` enters cut work, and in training the ``f``
+    (:func:`~repro_torch.parallel.tp.enter_cut`) sits on it alone."""
     xs, new_prev = _shift(x, prev)
     mu = p["mu"].to(x.dtype)
-    xk = x + (xs - x) * mu[0]
+    xk = tp.enter_cut(x + (xs - x) * mu[0], pctx)
     xr = x + (xs - x) * mu[1]
     k = torch.square(torch.relu(col_linear(xk, p["wk"], pctx)))
     out = row_linear(k, p["wv"], pctx)          # INA site (channel-mix)

@@ -160,25 +160,31 @@ def check_remat(cfg: ModelConfig) -> None:
             f"('dots' and 'dots_nb' are in ROADMAP.md Queue 1, item 4.6)")
 
 
+def remat(fn, cfg: ModelConfig, lp: dict, x: torch.Tensor, *args):
+    """``fn(lp, x, *args)``: one layer.  Where autograd records it, the
+    layer is checkpointed (``use_reentrant=False``): its activations are
+    dropped and recomputed in the backward, as the reference's
+    ``jax.checkpoint(body, policy=nothing_saveable)`` does, and whatever
+    it returns (an MoE layer's aux loss too) comes through.  Elsewhere, as
+    in serving, ``fn`` runs as it is."""
+    if ops.needs_grad(x, *_leaves(lp)):
+        check_remat(cfg)
+        return checkpoint(fn, lp, x, *args, use_reentrant=False)
+    return fn(lp, x, *args)
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """Logits [B, S, V].  Where autograd records the layers, each is
-    checkpointed (``use_reentrant=False``): its activations are dropped and
-    recomputed in the backward, as the reference's ``jax.checkpoint(body,
-    policy=nothing_saveable)`` does.  The head stays outside."""
+    checkpointed (:func:`remat`).  The head stays outside."""
     tokens = batch["tokens"]
     seq = tokens.shape[1]
     x = _embed(params, cfg, tokens, pctx)
     pos = torch.arange(seq, device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        lp = layer(params["layers"], i)
-        if ops.needs_grad(x, *_leaves(lp)):
-            check_remat(cfg)
-            x = checkpoint(layer_fwd, lp, x, cfg, cos, sin, pctx, seq,
-                           use_reentrant=False)
-        else:
-            x = layer_fwd(lp, x, cfg, cos, sin, pctx, seq)
+        x = remat(layer_fwd, cfg, layer(params["layers"], i), x, cfg, cos,
+                  sin, pctx, seq)
     return _logits(params, cfg, x, seq, pctx)
 
 

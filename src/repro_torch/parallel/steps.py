@@ -94,6 +94,10 @@ def _grad_leaves(params: dict) -> tuple[dict, list]:
 
 #: per-head norm weights: each rank's gradient covers its own heads only
 _HEAD_NORMS = ("q_norm", "k_norm")
+#: (parent, name) of whole leaves that every path of theirs leads into
+#: rank-local work behind one ``f``: RWKV6's time-mix token shift and the
+#: decay LoRA's first factor (``models.ssm.rwkv_tmix``)
+_PARTIAL = {("tmix", "mu"), ("tmix", "w_lora_a")}
 #: norm weights on the residual stream, sequence-sharded under rs_seq
 _STREAM_NORMS = ("ln1", "ln2", "ln_f")
 _KV = ("wk", "bk", "wv", "bv")
@@ -104,10 +108,12 @@ class GradSync:
     """The reductions a rank's gradients need after the backward, beyond
     the collectives' own backwards: a KV head that ``kv_group``'s ranks
     share gets each one's share of its gradient summed over them, and the
-    norm weights whose gradient is partial (per-head norms always, the
-    stream's under ``rs_seq``) are summed over ``group``.  Every other
-    replicated leaf's gradient comes out whole, and bit-equal, on every
-    rank."""
+    whole leaves whose gradient is partial on every path (per-head norms
+    always, the stream's norms under ``rs_seq``, and :data:`_PARTIAL`) are
+    summed over ``group``.  Every other replicated leaf's gradient comes
+    out whole, and bit-equal, on every rank: a whole leaf with both a
+    partial and a whole path (RWKV6's channel-mix ``mu``) gets its sum from
+    an ``f`` on the cut path alone, never here."""
     group: object
     kv_group: Optional[object]
 
@@ -116,7 +122,7 @@ class GradSync:
         for names, g in _named_leaves(grads):
             if names[-1] in _KV and names[-2:-1] == ("attn",):
                 kv.append(g)
-            elif names[-1] in _HEAD_NORMS or \
+            elif names[-1] in _HEAD_NORMS or names[-2:] in _PARTIAL or \
                     (seq_sharded and names[-1] in _STREAM_NORMS):
                 partial.append(g)
         for leaves, group in ((kv, self.kv_group), (partial, self.group)):
@@ -335,21 +341,21 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
 
 # why build_train_step refuses a family the port serves
 _UNTRAINED = {
-    "ssm": "the wkv6 kernel has no gradient yet (ROADMAP.md Queue 1, "
-           "item 4.3)",
-    "moe": "its training is not ported (ROADMAP.md Queue 1, item 5.2)",
-    "mla_moe": "its training is not ported (ROADMAP.md Queue 1, item 5.2)",
     "hybrid": "its training is not ported (ROADMAP.md Queue 1, item 5.7)",
     "encdec": "its training is not ported (ROADMAP.md Queue 1, item 5.7)",
     "vlm": "its training is not ported (ROADMAP.md Queue 1, item 5.7)"}
 
 
+#: the families the port trains
+TRAINED = ("dense", "ssm", "moe", "mla_moe")
+
+
 def check_trainable(cfg) -> None:
     """Raise for a family whose training the port lacks."""
-    if cfg.family != "dense":
+    if cfg.family not in TRAINED:
         raise NotImplementedError(
             f"training family {cfg.family!r}: {_UNTRAINED[cfg.family]}; "
-            f"the port trains the dense family")
+            f"the port trains {', '.join(TRAINED)}")
 
 
 def build_train_step(model: Model, shape: ShapeConfig,
@@ -358,7 +364,8 @@ def build_train_step(model: Model, shape: ShapeConfig,
                      total_steps: int = 10_000, plan=None) -> TrainStep:
     """loss -> gradients -> AdamW with the reference's cosine schedule.
 
-    The dense family, at one rank, or on the rank mesh: tensor-parallel
+    The dense, ssm, moe and mla_moe families (:data:`TRAINED`), at one
+    rank, or on the rank mesh: tensor-parallel
     over ``pctx.group`` and data-parallel with FSDP shards over
     ``pctx.data_group`` and ``pctx.pod_group`` (``params`` and ``opt`` then
     this rank's pieces, as :func:`repro_torch.parallel.sharding.
@@ -373,11 +380,9 @@ def build_train_step(model: Model, shape: ShapeConfig,
     (pod x data) do not divide raises ValueError (the reference's
     ``fit_specs`` would move the batch's data axis to the sequence, which
     the port does not cut over ``data``), as does a model world that does
-    not divide the heads.  The ssm family raises: its loss is
-    differentiable on the CPU through the plain wkv6 but gets no gradient
-    through the CUDA kernel, which has no backward yet.  The moe, mla_moe,
-    hybrid, encdec and vlm families raise: their training is not ported.
-    Each is ROADMAP.md Queue 1 (:data:`_UNTRAINED` names the item)."""
+    not divide the heads.  The hybrid, encdec and vlm families raise:
+    their training is not ported (ROADMAP.md Queue 1, item 5.7, which
+    :data:`_UNTRAINED` names)."""
     cfg = model.cfg
     check_trainable(cfg)
     pctx = _with_plan(pctx, plan)

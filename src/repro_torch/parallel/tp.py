@@ -32,7 +32,9 @@ its input: the step launches what a step without a group launches.
 In training each collective's backward runs through autograd: the row
 sites' (:func:`row_linear`), the column-parallel block's entry
 (:func:`gather_seq`, Megatron's ``f`` or, under ``rs_seq``, the
-backward's reduce-scatter), the sequence scatter's and the vocabulary's.
+backward's reduce-scatter; :func:`enter_cut`, the ``f`` alone, where the
+non-dense families' whole tensors meet their cut work), the sequence
+scatter's and the vocabulary's.
 """
 from __future__ import annotations
 
@@ -54,8 +56,10 @@ class ParallelCtx:
     :attr:`rank` are this axis's.  ``data_group`` and ``pod_group`` are the
     rank's lines along the ``data`` and ``pod`` axes
     (:meth:`repro_torch.launch.mesh.RankMesh.groups`; ``None`` at span 1),
-    which only the train step reads: it gathers the FSDP shards and
-    reduces the gradients over them (:mod:`repro_torch.parallel.steps`).
+    which the train step reads: it gathers the FSDP shards and reduces
+    the gradients over them (:mod:`repro_torch.parallel.steps`); and an
+    MoE layer routes the hosts' rows as the one group they are in the
+    reference (:func:`host_offsets`, :func:`host_mean`).
     ``rs_seq`` turns the row-parallel psum into a
     reduce-scatter over the sequence, so the residual stream between
     layers stays sequence-sharded (Megatron SP); ``sp_entry`` takes the
@@ -172,7 +176,18 @@ def gather_seq(x: torch.Tensor, pctx: Optional[ParallelCtx], seq: int,
             mode = _grad_mode(pctx, C.nbytes(x) * pctx.world)
             back = C.scatter_back(pctx.group, 1, mode)
         return C.ring_all_gather(x, pctx.group, gather_axis=1, back=back)
-    if cut and _grouped(pctx) and pctx.manual and _records(x):
+    return enter_cut(x, pctx) if cut else x
+
+
+def enter_cut(x: torch.Tensor, pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """Megatron's ``f``: a replicated ``x`` entering rank-local work (a
+    column-cut projection, this rank's heads or experts).  At more than one
+    rank and where autograd records, the identity whose backward sums the
+    ranks' partial gradients of ``x`` with the native all-reduce; else
+    ``x``.  It goes exactly where the whole tensor meets the cut work: on
+    a path every rank computes whole (a router, a whole weight) the sum
+    would count that path's gradient P times."""
+    if _grouped(pctx) and pctx.manual and _records(x):
         return C.collective(x, None, lambda t: t, C.sum_back(pctx.group))
     return x
 
@@ -277,6 +292,41 @@ def vocab_gather(logits: torch.Tensor, vocab: int,
     if logits.shape[-1] == vocab:
         return logits
     return C.ring_all_gather(logits, pctx.group, gather_axis=-1)
+
+
+def hosts(pctx: Optional[ParallelCtx]) -> int:
+    """The data-parallel hosts (pod x data) whose rows make up the global
+    batch."""
+    if pctx is None:
+        return 1
+    return C.axis_size(pctx.pod_group) * C.axis_size(pctx.data_group)
+
+
+def host_offsets(counts: torch.Tensor,
+                 pctx: ParallelCtx) -> torch.Tensor:
+    """The sum of ``counts`` over the hosts before this one (host ``p D +
+    d``, the order of their rows in the global batch), from one native
+    all-gather over ``data`` and one over ``pod`` (no gradient)."""
+    c = counts.reshape(-1)
+    for group in (pctx.data_group, pctx.pod_group):
+        n = C.axis_size(group)
+        if n > 1:
+            c = C.all_gather_into_(c.new_empty(n * c.numel()), c, group)
+    c = c.reshape(-1, *counts.shape)
+    host = C.axis_index(pctx.pod_group) * C.axis_size(pctx.data_group) \
+        + C.axis_index(pctx.data_group)
+    return c[:host].sum(0)
+
+
+def host_mean(x: torch.Tensor, pctx: ParallelCtx) -> torch.Tensor:
+    """The mean over the hosts of a statistic each computes over its own
+    rows (equal counts): native all-reduces over ``data`` and ``pod``.
+    The train step averages the hosts' gradients, and each host's reaches
+    the statistic only through its own rows, so the backward sums the
+    hosts' gradients (:func:`~repro_torch.core.collectives.psum_stat`)."""
+    for group in (pctx.data_group, pctx.pod_group):
+        x = C.psum_stat(x, group)
+    return x / hosts(pctx)
 
 
 def whole_sequence(pctx: Optional[ParallelCtx], family: str) -> None:

@@ -212,12 +212,18 @@ def tp_train_rank(rank, world, group, device, spec):
     params and AdamW moments after them.  At world 1 the case
     ``"groupless"`` runs with no group at all.  ``spec["config"]``
     replaces fields of the reduced config."""
+    cfg = dataclasses.replace(ARCHS[spec["arch"]].reduced(),
+                              **spec.get("config", {}))
+    return _train_cases(cfg, spec, rank, world, group)
+
+
+def _train_cases(cfg, spec, rank, world, group) -> dict:
+    """:func:`tp_train_rank`'s cases for the config ``cfg`` and the
+    reference's weights ``spec["params"]``."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.optim.adamw import adamw_init, tree_map
     from repro_torch.parallel.steps import (build_train_step, grad_sync,
                                             loss_and_grads)
-    cfg = dataclasses.replace(ARCHS[spec["arch"]].reduced(),
-                              **spec.get("config", {}))
     model = get_model(cfg)
     full = params_from_jax(spec["params"], cfg, device="cpu", masters=True)
     grad_batch = _batch(spec["grad_batch"])
@@ -248,6 +254,32 @@ def tp_train_rank(rank, world, group, device, spec):
         res["params"] = _numpy(params)
         res["m"], res["v"] = _numpy(opt.m), _numpy(opt.v)
         out[name] = res
+    return out
+
+
+def tp_train_families_rank(rank, world, group, device, spec):
+    """:func:`tp_train_rank`'s cases for each arch of ``spec["archs"]``
+    (its params and batches), and, where ``spec["norm"]`` holds an input
+    ``y`` [B, S, D], weights ``w`` [D] and an output gradient ``dy``, the
+    gradients of ``models.ssm.group_rms_norm`` on this rank's channels of
+    them (its heads' cut)."""
+    from repro_torch.models.ssm import group_rms_norm
+    out = {arch: _train_cases(ARCHS[arch].reduced(), {**spec, **a}, rank,
+                              world, group)
+           for arch, a in spec["archs"].items()}
+    if spec.get("norm") is not None:
+        n = spec["norm"]
+        width = n["y"].shape[-1]
+        piece = slice(rank * width // world, (rank + 1) * width // world)
+        y, w = (torch.from_numpy(np.ascontiguousarray(n[k][..., piece]))
+                .requires_grad_() for k in ("y", "w"))
+        C.CALLS.clear()
+        z = group_rms_norm(y, w, width, ARCHS["rwkv6-7b"].reduced(),
+                           ParallelCtx(group=group))
+        dy = torch.from_numpy(np.ascontiguousarray(n["dy"][..., piece]))
+        gy, gw = torch.autograd.grad(z, (y, w), dy)
+        out["norm"] = {"z": z.detach().numpy(), "dy": gy.numpy(),
+                       "dw": gw.numpy(), "calls": dict(C.CALLS)}
     return out
 
 
@@ -327,13 +359,21 @@ def dp_train_rank(rank, world, group, device, spec):
     (the step fed this rank's rows), then two AdamW steps from the same
     weights, each step's loss, grad_norm, lr and collective calls by kind,
     and the params and AdamW moments after them (this rank's pieces); and
-    the rank's mesh coordinates."""
-    from repro_torch.configs.base import ShapeConfig
+    the rank's mesh coordinates.  With ``spec["archs"]`` (each arch's
+    params and batches) it runs the cases of each arch, keyed by arch."""
     from repro_torch.launch.mesh import RankMesh
+    ranks = RankMesh(*spec["mesh"])
+    if "archs" in spec:
+        return {arch: _dp_cases(ranks, rank, {**spec, **a, "arch": arch})
+                for arch, a in spec["archs"].items()}
+    return _dp_cases(ranks, rank, spec)
+
+
+def _dp_cases(ranks, rank, spec) -> dict:
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.optim.adamw import adamw_init, tree_map
     from repro_torch.parallel.steps import (build_train_step, data_sync,
                                             loss_and_grads)
-    ranks = RankMesh(*spec["mesh"])
     groups, at = ranks.groups(rank), ranks.coords(rank)
     shards = (ranks.span("data"), ranks.span("model"))
     cfg = ARCHS[spec["arch"]].reduced()

@@ -450,13 +450,36 @@ def test_world_above_one_raises(pair):
 
 
 
-@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "llama-3.2-vision-11b",
+                                  "whisper-medium"])
 def test_build_train_step_names_why_it_raises(name):
+    """The families whose training is not ported name their item; the two
+    MoE families train (test_build_train_step_trains_the_moe_families)."""
     m = get_model(ARCHS[name].reduced())
     with pytest.raises(NotImplementedError,
                        match=r"training is not ported \(ROADMAP.md Queue 1, "
-                             r"item 5.2\)"):
+                             r"item 5.7\)"):
         build_train_step(m, ShapeConfig("t", 8, 1, "train"))
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_build_train_step_trains_the_moe_families(name):
+    """llama4-scout and deepseek-v2-lite train: one step of the reduced
+    model (float32 masters) gives a finite loss, the aux loss in it, and
+    moves the router and the routed experts (their gradients against
+    jax.grad are tests/test_torch_train_families.py's)."""
+    from repro_torch.optim.adamw import adamw_init
+    m = get_model(ARCHS[name].reduced())
+    params = m.init(device="cpu", masters=True)
+    mlp = params["layers"]["mlp"]
+    before = {k: mlp[k].clone() for k in ("router", "w_gate")}
+    ts = build_train_step(m, ShapeConfig("t", 8, 2, "train"))
+    tokens = torch.from_numpy(_tokens(4, 2, 9, m.cfg.vocab)).long()
+    params, _, st = ts.fn(params, adamw_init(params),
+                          {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]})
+    assert np.isfinite(float(st["loss"]))
+    for k, w in before.items():
+        assert not torch.equal(params["layers"]["mlp"][k], w), k
 
 
 # --------------------------------------------------------------------------- #

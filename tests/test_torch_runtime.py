@@ -391,15 +391,16 @@ def test_launch_train_twice_resumes(tmp_path, capsys):
 
 
 def test_launch_train_refuses_model_parallel(tmp_path):
-    """``--model-parallel`` trains the dense family at a world that divides
-    its heads (tests/test_torch_tp_train.py); the launcher refuses any
-    other before a rank starts: 3 ranks for the reduced qwen2's 4 query
-    heads, and the ssm family, whose training is not ported."""
+    """``--model-parallel`` trains the dense, ssm, moe and mla_moe families
+    at a world that divides their heads (tests/test_torch_tp_train.py,
+    tests/test_torch_tp_train_families.py); the launcher refuses any other
+    before a rank starts: 3 ranks for the reduced qwen2's 4 query heads,
+    and the hybrid family, whose training is not ported (item 5.7)."""
     with pytest.raises(ValueError, match="do not divide"):
         launch_train.main(ARGV + ["--steps", "2", "--ckpt-dir",
                                   str(tmp_path), "--model-parallel", "3"])
-    with pytest.raises(NotImplementedError, match="wkv6"):
-        launch_train.main(ARGV[:1] + ["rwkv6-7b"] + ARGV[2:] + [
+    with pytest.raises(NotImplementedError, match=r"item 5\.7"):
+        launch_train.main(ARGV[:1] + ["zamba2-2.7b"] + ARGV[2:] + [
             "--steps", "2", "--ckpt-dir", str(tmp_path),
             "--model-parallel", "2"])
 
