@@ -70,13 +70,13 @@ Phases; any failure raises and the process exits non-zero:
    prompts seated token by token (no wkv6), against the legacy loop;
 7. the same widths at 2 layers in float32: forward against the decode loop
    within rtol = atol = 1e-4, and engine tokens equal the legacy loop's;
-8. ``[train]``: qwen2-1.5b at its published widths, 14 of its 28 layers
-   (PR 27; the full depth through PR 26), trained
+8. ``[train]``: qwen2-1.5b at its published widths, 8 of its 28 layers
+   (to keep the whole run under 900 s), trained
    through ``launch.train`` (float32 masters, bf16 compute, seeded
    weights, the port's token pipeline): 8 AdamW steps at B 4 x S 1024,
    warmup 2, a checkpoint at step 4 into a temporary directory, then a
-   second run into it.  Every step must launch the derived 395
-   ``ina_matmul`` (none generic) and 28 ``flash_attention``, every loss
+   second run into it.  Every step must launch the derived 227
+   ``ina_matmul`` (none generic) and 16 ``flash_attention``, every loss
    be finite and the last below the first, and the second run resume at
    step 5 with step 5's loss equal to the first run's; one step is
    profiled (device time by kernel, inside the attention backward and
@@ -85,8 +85,8 @@ Phases; any failure raises and the process exits non-zero:
     on a one-rank NCCL group (the card count bounds the group), under
     every ``--psum-mode``: 2 steps from ``[train]``'s seed on its first
     batches, each bit-equal to the step without a group (losses, grad
-    norms, every param leaf), with 395 ``ina_matmul`` (none generic) and
-    28 ``flash_attention`` launches a step and no collective call; then
+    norms, every param leaf), with 227 ``ina_matmul`` (none generic) and
+    16 ``flash_attention`` launches a step and no collective call; then
     ``[train]``'s step-4 checkpoint restored through ``elastic_restore``
     at world 1, bit-equal to the ``CheckpointManager`` restore, and cut
     for every rank of worlds 2 and 4, which ``unshard_state`` rejoins
@@ -96,7 +96,7 @@ Phases; any failure raises and the process exits non-zero:
     one card), a one-rank NCCL group standing for the model, data and pod
     axes: 2 steps from ``[train]``'s seed on its first batches, losses,
     grad norms and every param leaf bit-equal to the step without a group,
-    395 ``ina_matmul`` (none generic) and 28 ``flash_attention`` launches
+    227 ``ina_matmul`` (none generic) and 16 ``flash_attention`` launches
     a step, no collective call; ``compressed_psum`` of the step's whole
     gradient tree over the group under ``none``, ``int8`` and ``topk``,
     each timed with its peak memory and its largest error against the
@@ -153,8 +153,8 @@ Phases; any failure raises and the process exits non-zero:
     shape they launched a kernel at was held against its plain version in
     phase 2, and print their peak memory;
 17. ``[tp-families]``: rwkv6-7b and deepseek-v2-lite at their published
-    widths, depth cut to ``[train-families]``' 8 and 4 layers (PR 27, to
-    keep the whole run near 900 s; phases 6 and 10 run them at full depth),
+    widths, depth cut to 4 and 2 layers (to keep the whole run under
+    900 s; phases 6 and 10 run them at full depth),
     and llama4-scout at ``[moe]``'s 4 layers, each served
     (2 requests on 2 slots) without a group and then through
     ``launch/serve.py``'s ``serve_rank`` on a one-rank NCCL group under
@@ -162,20 +162,27 @@ Phases; any failure raises and the process exits non-zero:
     MoE combine, RWKV6 heads and MLA heads cut, at one rank all of them)
     must give the groupless tokens bit for bit and the same kernel launches,
     the derived counts, at shapes phase 2 checked;
-18. ``[train-families]``: rwkv6-7b (8 of 32 layers) and deepseek-v2-lite
-    (4 of 27: the dense one and 3 MoE) at their published widths, depth
-    cut so that 16 bytes a parameter fit the card, trained through
-    ``launch.train`` (float32 masters, bf16 compute, seeded weights): 4
-    AdamW steps at B 2 x S 1024, warmup 1, a checkpoint at step 2, every
-    step's launches the derived counts (``wkv6`` twice a layer, the
-    forward and its recompute, none in its backward), a falling loss, a
-    second run resuming at step 3 with run 1's loss to the bit; one step
-    profiled (inside the ``wkv6`` backward, the expert products, MLA's
-    attention and AdamW); one step under every psum mode on a one-rank
-    NCCL group, bit-equal to the groupless step, no collective call;
-19. ``[train-families-f32]``: the same two at 2 layers in float32: one
-    step's loss and every gradient leaf through the kernels against
-    their plain versions on the card, as phase 9;
+18. ``[train-families]``: rwkv6-7b and deepseek-v2-lite (2 layers
+    each), zamba2-2.7b (12 of 54 layers: 2
+    groups), llama-3.2-vision-11b (5 of 40: one group, gates 0.5) and
+    whisper-medium (whole) at their published widths, depth cut so that
+    16 bytes a parameter fit the card (:data:`TRAIN_FAMILIES`), trained
+    through ``launch.train`` (float32 masters, bf16 compute, seeded
+    weights, media of ones for the vlm and whisper): 4 AdamW steps at B 2
+    x S 1024 (whisper B 4 x S 448 over 1500 frames), warmup 1, every
+    step's launches the derived counts (a layer's or group's products
+    once more in its recompute, ``wkv6`` and flash forward and
+    recomputed, none in their backwards), a falling loss; for rwkv6-7b,
+    deepseek and zamba2 a checkpoint at step 2 and a second run resuming
+    at step 3 with run 1's loss to the bit; one step profiled (inside the
+    ``wkv6`` and attention backwards, the expert products, MLA's
+    attention and AdamW), its launch shapes each held in phase 2; one
+    step under every psum mode on a one-rank NCCL group, bit-equal to the
+    groupless step, no collective call;
+19. ``[train-families-f32]``: the same five in float32 at the smallest
+    depth each runs (2 layers; zamba2's group of 6, the vlm's of 5,
+    whisper's 2 + 2): one step's loss and every gradient leaf through the
+    kernels against their plain versions on the card, as phase 9;
 20. a ``kernels`` JSON line, then the device JSON line, last.
 
 It needs the checkout's ``src/`` beside it and exits non-zero without a GPU.
@@ -225,13 +232,18 @@ from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
+                                             FAMILY_TRAIN_B,
+                                             FAMILY_TRAIN_S,
                                              FAMILY_TRAIN_TOKENS,
+                                             WHISPER_TRAIN_B,
+                                             WHISPER_TRAIN_S,
                                              Timer, attention_cases,
                                              attention_operands,
                                              family_projections,
                                              matmul_layout,
                                              matmul_operands,
                                              matmul_projections,
+                                             media_train_products,
                                              moe_projections,
                                              rank_projections,
                                              train_products, wkv_cases,
@@ -239,7 +251,8 @@ from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
 from repro_torch.models import mla as mla_model  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models import vision  # noqa: E402
-from repro_torch.models.api import MEDIA_FAMILIES, get_model  # noqa: E402
+from repro_torch.models.api import (MEDIA_FAMILIES,  # noqa: E402
+                                    get_model, media_ones)
 from repro_torch.optim.adamw import AdamWState, tree_leaves  # noqa: E402
 from repro_torch.parallel.sharding import (kv_groups,  # noqa: E402
                                            shard_params, shard_state,
@@ -341,9 +354,9 @@ MOE_FWD_S, MOE_DEPTH = 2048, 4
 # (legacy loop, 2 rows); llama4-scout at [moe]'s depth
 TP_FAMILY_ARGV = {
     RWKV: ["--arch", RWKV, "--batch", "2", "--slots", "2", "--prompt-len",
-           "8", "--gen", "4", "--layers", "8"],
+           "8", "--gen", "4", "--layers", "4"],
     MLA: ["--arch", MLA, "--batch", "2", "--slots", "2", "--prompt-len",
-          "8", "--gen", "4", "--layers", "4"],
+          "8", "--gen", "4", "--layers", "2"],
     MOE: SERVE_ARGV[MOE] + ["--layers", str(MOE_DEPTH)],
     HYBRID: ["--arch", HYBRID, "--batch", "2", "--slots", "2",
              "--prompt-len", "8", "--gen", "4"],
@@ -568,18 +581,32 @@ def check_matmul_small(gen) -> None:
                                          f"[{k},{n}] {kind} {plan}: {res}")
 
 
+#: each trained family's tag in phase 2's case names, and its train
+#: step's token rows in ``[train-families]``
+TRAIN_TAGS = {RWKV: ("rwkv", FAMILY_TRAIN_TOKENS),
+              MLA: ("mla", FAMILY_TRAIN_TOKENS),
+              HYBRID: ("zamba2", FAMILY_TRAIN_TOKENS),
+              VLM: ("vlm", FAMILY_TRAIN_TOKENS),
+              ENCDEC: ("whisper", WHISPER_TRAIN_B * WHISPER_TRAIN_S)}
+
+
 def train_matmul_cases():
     """The train steps' distinct products (forward, dX with w^T read in
-    place, dW with K = the step's tokens), bf16: qwen2-1.5b's at B 4 x S
-    1024, then ``[train-families]``' rwkv6-7b and deepseek-v2-lite at B 2
-    x S 1024."""
-    cases = [(f"train {name} M={m}", m, k, n, kind, torch.bfloat16)
+    place, dW with K = the step's rows), bf16: qwen2-1.5b's at B 4 x S
+    1024, then ``[train-families]``' rwkv6-7b, deepseek-v2-lite,
+    zamba2-2.7b and llama-3.2-vision-11b at B 2 x S 1024 and
+    whisper-medium's decoder at B 4 x S 448, and the products over the
+    media (the vlm's ``wk``/``wv`` over 2 x 1601 rows, whisper's encoder
+    over 4 x 1500 frames: ``media_train_products``)."""
+    bf16 = torch.bfloat16
+    cases = [(f"train {name} M={m}", m, k, n, kind, bf16)
              for name, m, k, n, kind in train_products()]
-    for model, tag in ((RWKV, "rwkv"), (MLA, "mla")):
-        cases += [(f"train {tag} {name} M={m}", m, k, n, kind,
-                   torch.bfloat16) for name, m, k, n, kind in
-                  train_products(FAMILY_TRAIN_TOKENS, model)]
-    return cases
+    for model, (tag, tokens) in TRAIN_TAGS.items():
+        cases += [(f"train {tag} {name} M={m}", m, k, n, kind, bf16)
+                  for name, m, k, n, kind in train_products(tokens, model)]
+    return cases + [(f"train {TRAIN_TAGS[model][0]} {name} M={m}", m, k, n,
+                     kind, bf16)
+                    for model, name, m, k, n, kind in media_train_products()]
 
 
 # What phase 2 held against the plain versions, by launch shape
@@ -603,23 +630,27 @@ def attention_key(q, k, causal, q_offset) -> tuple:
 @contextlib.contextmanager
 def record_shapes():
     """The launch shapes (:func:`matmul_key`, :func:`attention_key`) of the
-    two kernels' wrappers inside the context, by kernel; the launches
-    themselves go on, counted as ever."""
+    two kernels' wrappers inside the context, by kernel (``ina_matmul``
+    called by the forward's dispatch and by ``InaMatmul``, the train
+    step's forward and backward); the launches themselves go on, counted
+    as ever."""
     seen = {"ina_matmul": set(), "flash_attention": set()}
-    mm, att = ops.ina_matmul, fa._attention
+    omm, mm, att = ops.ina_matmul, im.ina_matmul, fa._attention
 
-    def mm_spy(x, w, *args, **kw):
-        seen["ina_matmul"].add(matmul_key(x, w))
-        return mm(x, w, *args, **kw)
+    def spy(real):
+        def mm_spy(x, w, *args, **kw):
+            seen["ina_matmul"].add(matmul_key(x, w))
+            return real(x, w, *args, **kw)
+        return mm_spy
 
     def att_spy(q, k, v, causal, q_offset):
         seen["flash_attention"].add(attention_key(q, k, causal, q_offset))
         return att(q, k, v, causal, q_offset)
-    ops.ina_matmul, fa._attention = mm_spy, att_spy
+    ops.ina_matmul, im.ina_matmul, fa._attention = spy(omm), spy(mm), att_spy
     try:
         yield seen
     finally:
-        ops.ina_matmul, fa._attention = mm, att
+        ops.ina_matmul, im.ina_matmul, fa._attention = omm, mm, att
 
 
 def check_shapes(seen: dict, label: str) -> None:
@@ -852,7 +883,32 @@ def check_attention(timer, gen) -> list:
         q, k, v, off = attention_operands(gen, b, s, s, cfg.n_heads,
                                           cfg.n_kv_heads, d, dt, s)
         rows.append(attention_row(timer, name, q, k, v, off))
+    for name, b, sq, sk, h, kvh, d, causal in train_attention_cases():
+        q, k, v, off = attention_operands(gen, b, sq, sk, h, kvh, d,
+                                          torch.bfloat16, sk, causal)
+        rows.append(attention_row(timer, name, q, k, v, off, causal))
     return rows
+
+
+def train_attention_cases() -> list:
+    """(name, B, Sq, Sk, H, KVH, D, causal) of ``[train-families]``' flash
+    launches in bf16 (q, k and v whole from the projections): zamba2's
+    shared attention (32 heads of 160, causal) and the vlm's self layers
+    (GQA 32:8, causal) at B 2 x S 1024, the vlm's cross-attention over 2 x
+    1601 media rows, whisper's encoder over 4 x 1500 frames, its decoder
+    at 448 tokens and its cross-attention over the frames."""
+    z, v, w = ARCHS[HYBRID], ARCHS[VLM], ARCHS[ENCDEC]
+    b, s = FAMILY_TRAIN_B, FAMILY_TRAIN_S
+    wb, ws, wf = WHISPER_TRAIN_B, WHISPER_TRAIN_S, w.num_media_tokens
+    zh = z.shared_attn_heads
+    vh = (v.n_heads, v.n_kv_heads, v.resolved_head_dim)
+    wh = (w.n_heads, w.n_kv_heads, w.resolved_head_dim)
+    return [("zamba2 train", b, s, s, zh, zh, 2 * z.d_model // zh, True),
+            ("vlm train self", b, s, s, *vh, True),
+            ("vlm train cross", b, s, v.num_media_tokens, *vh, False),
+            ("whisper train encoder", wb, wf, wf, *wh, False),
+            ("whisper train decoder", wb, ws, ws, *wh, True),
+            ("whisper train cross", wb, ws, wf, *wh, False)]
 
 
 # |kernel - plain| <= atol + rtol |plain|: float32 outputs at
@@ -1701,10 +1757,10 @@ def phase_rwkv_exact_f32() -> None:
 # --------------------------------------------------------------------------- #
 # phases 8-9: training
 # --------------------------------------------------------------------------- #
-# qwen2-1.5b at 14 of its 28 layers (PR 27, to keep the whole run near
-# 900 s: its checkpoint, written once and read three times, is 10.7 GB of
-# the 18.5 GB the full depth takes)
-TRAIN_ARGV = ["--arch", ARCH, "--layers", "14", "--steps", "8", "--batch",
+# qwen2-1.5b at 8 of its 28 layers, to keep the whole run under 900 s: its
+# checkpoint, written once and read three times, is 7.3 GB (10.7 GB at 14
+# layers, 18.5 GB at the full depth)
+TRAIN_ARGV = ["--arch", ARCH, "--layers", "8", "--steps", "8", "--batch",
               "4", "--seq", "1024", "--lr", "3e-4", "--ckpt-every", "4"]
 TRAIN_SAVED = 4          # the newest checkpoint of 8 steps saved every 4
 TRAIN_SPANS = ("flash_attention_backward", "adamw_update")
@@ -1716,11 +1772,15 @@ def train_launches(cfg) -> dict:
     pass (:func:`matmuls_per_pass`: 7 L + 1 for the dense family, 8 L + 1
     for rwkv6, the head outside the checkpointed layers) runs once forward
     and twice backward (dX and dW), and the layers' once more in their
-    recompute, which stops only after a layer's last product; flash
-    attention and wkv6 run forward and recomputed, and their backwards
-    launch no kernel."""
+    recompute, which stops only after a layer's last product (zamba2's
+    and the vlm's checkpointed unit is a group, whisper's a layer of
+    either stack); the vlm's ``wk``/``wv`` over the media take no dX, as
+    the media take no gradient; flash attention and wkv6 run forward and
+    recomputed, and their backwards launch no kernel."""
     per_pass = matmuls_per_pass(cfg) - 1
-    return {"ina_matmul": 3 * (per_pass + 1) + per_pass,
+    no_dx = 2 * (cfg.n_layers // cfg.cross_attn_every) \
+        if cfg.family == "vlm" else 0
+    return {"ina_matmul": 3 * (per_pass + 1) + per_pass - no_dx,
             "flash_attention": 2 * flash_per_pass(cfg),
             "wkv6": 2 * cfg.n_layers if cfg.family == "ssm" else 0}
 
@@ -1763,7 +1823,7 @@ def train_run(ck: str, label: str, device: str, argv=TRAIN_ARGV,
 
 
 def phase_train(ck: str, device: str = "cuda") -> dict:
-    """qwen2-1.5b at full width, 14 layers (:data:`TRAIN_ARGV`), through
+    """qwen2-1.5b at full width, 8 layers (:data:`TRAIN_ARGV`), through
     ``launch.train``: 8 steps
     at B 4 x S 1024, warmup 2, a checkpoint at step 4 into the empty
     directory ``ck``, then a second run into it, which must resume at step
@@ -1900,8 +1960,8 @@ def phase_tp_train(ck: str, smi: str, device: str = "cuda") -> dict:
     through the tensor-parallel step on a one-rank NCCL group, under every
     CLI psum mode: 2 steps at B 4 x S 1024 from ``[train]``'s seed on its
     first batches, each mode's losses, grad norms and params bit-equal to
-    the step without a group, with the derived 395 ``ina_matmul`` (none
-    generic) and 28 ``flash_attention`` launches a step and no collective
+    the step without a group, with the derived 227 ``ina_matmul`` (none
+    generic) and 16 ``flash_attention`` launches a step and no collective
     call.  Then ``[train]``'s step-4 checkpoint in ``ck`` restored through
     ``elastic_restore`` at world 1, bit-equal to the ``CheckpointManager``
     restore, and cut for every rank of world 2, then of world 4 (one world
@@ -2073,7 +2133,7 @@ def phase_dp_train(smi: str, device: str = "cuda") -> dict:
     one-rank exit): 2 steps at B 4 x S 1024 from ``[train]``'s seed on its
     first batches (the step given its rows of them, ``TrainStep.rows``),
     losses, grad norms and params bit-equal to the step without a group,
-    with 395 ``ina_matmul`` (none generic) and 28 ``flash_attention``
+    with 227 ``ina_matmul`` (none generic) and 16 ``flash_attention``
     launches a step and no collective call.  Then the compressed psum of
     one step's gradient tree (:func:`check_compressed_psum`) and the
     launcher's refusal of ``--production-mesh`` on fewer than 256
@@ -2150,18 +2210,21 @@ def phase_dp_train(smi: str, device: str = "cuda") -> dict:
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(attention=None):
     """The three kernels replaced by their plain versions (the wrappers'
     CPU path) on CUDA tensors, in the forward's direct calls and inside
-    the autograd Functions, which stay."""
+    the autograd Functions, which stay; flash attention's by
+    ``attention(q, k, v, causal, q_offset)`` where given
+    (:func:`attention_f64`)."""
     mm, omm, att, wkv = im.ina_matmul, ops.ina_matmul, fa._attention, \
         wk._wkv
     plain = lambda x, w, plan=None, tiles=None: \
         im.ina_matmul_plain(x, w, plan)  # noqa: E731
     im.ina_matmul = ops.ina_matmul = plain
-    fa._attention = lambda q, k, v, causal, q_offset: \
-        fa.flash_attention_heads_plain(q, k, v, causal=causal,
-                                       q_offset=int(q_offset))
+    fa._attention = attention or (lambda q, k, v, causal, q_offset:
+                                  fa.flash_attention_heads_plain(
+                                      q, k, v, causal=causal,
+                                      q_offset=int(q_offset)))
     wk._wkv = wk.wkv6_heads_plain
     try:
         yield
@@ -2170,15 +2233,39 @@ def plain_kernels():
             mm, omm, att, wkv
 
 
+def attention_f64(q, k, v, causal, q_offset) -> torch.Tensor:
+    """Flash attention's function, q [B, Sq, H, D] over k/v [B, Sk, KVH, D]
+    (GQA grouped, the causal mask anchored at ``q_offset``), evaluated in
+    float64 and cast to q's dtype: the exact side of the float32 train
+    checks (:func:`against_plain`).  On an H100 the kernel's float32
+    output at zamba2's head dim of 160 is within 1.9e-7 of it, relative
+    to its largest, and the plain float32 version within 3.7e-7: against
+    the plain version those checks would measure the reference's own
+    rounding more than the kernel's, and Mamba2's ``A_log`` gradient,
+    a sum that cancels to a fiftieth of its terms, carries it past their
+    bound."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.double().reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.double()) / math.sqrt(d)
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + int(q_offset)
+        s = s.masked_fill(qpos[:, None] < torch.arange(
+            sk, device=q.device)[None, :], float("-inf"))
+    return torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1),
+                        v.double()).reshape(b, sq, h, d).to(q.dtype)
+
+
 def phase_train_f32(device: str = "cuda") -> None:
     """One step's loss and gradients at the full widths, 2 layers, float32,
     through the kernels and through their plain versions on the card.
 
     Tolerance: the f32 ``ina_matmul`` repeats its plain version's
-    arithmetic (one FMA a k, in order), and the attention backward is the
-    same code on both sides, so the two differ only where the flash
-    kernel's f32 sums run in another order than its plain version's, and
-    in the embedding gradient's atomic adds; ~1e-6 relative.  Loss within
+    arithmetic (one FMA a k, in order), the attention backward is the
+    same code on both sides, and the plain side's attention forward is
+    exact (:func:`attention_f64`), so the two differ only by the flash
+    kernel's f32 rounding, and in the embedding gradient's atomic adds;
+    ~1e-6 relative.  Loss within
     1e-5 of itself; each gradient element within 1e-4 of itself plus 1e-5
     of its leaf's largest, the bound tests/test_torch_train.py holds the
     port to against jax.grad.  A wrong or missing term moves a leaf by
@@ -2204,33 +2291,40 @@ def phase_train_f32(device: str = "cuda") -> None:
 def against_plain(model, params, batch, loss, grads, launches,
                   phase: str) -> None:
     """The same step's loss and gradients through the plain versions
-    (:func:`plain_kernels`), launching nothing, held to
+    (:func:`plain_kernels`; flash attention's forward in float64,
+    :func:`attention_f64`), launching nothing, held to
     :func:`phase_train_f32`'s bound: loss within 1e-5 of itself, each
     gradient element within 1e-4 of itself plus 1e-5 of its leaf's
     largest."""
     t0 = time.perf_counter()
-    with plain_kernels():
+    with plain_kernels(attention_f64):
         ploss, pgrads = loss_and_grads(model, params, batch)
         torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     if read_launches() != launches:
         raise AssertionError(f"[{phase}] the plain step launched a kernel")
-    worst, names = 0.0, 0
-    for got, want in zip(tree_leaves(grads), tree_leaves(pgrads)):
+    worst, names = (0.0, "none"), 0
+    for (name, got), (_, want) in zip(_named_tensors(grads),
+                                      _named_tensors(pgrads)):
         scale = float(want.abs().max())
         over = float(((got - want).abs() - 1e-4 * want.abs()).max())
-        worst = max(worst, float((got - want).abs().max()) / max(scale,
-                                                                1e-30))
+        diff = float((got - want).abs().max()) / max(scale, 1e-30)
+        if diff > worst[0]:
+            worst = (diff, name)
         names += 1
         if not over <= 1e-5 * scale or scale == 0.0:
-            raise AssertionError(f"{phase}: a gradient leaf differs: "
+            raise AssertionError(f"{phase}: gradient leaf {name} differs: "
                                  f"{over} > 1e-5 x {scale}")
     dloss = abs(float(loss) - float(ploss))
-    log(f"[{phase}] {model.cfg.name}: 2 layers, full width, float32, B "
+    cfg = model.cfg
+    depth = f"{cfg.encoder_layers} + {cfg.n_layers}" \
+        if cfg.family == "encdec" else str(cfg.n_layers)
+    log(f"[{phase}] {cfg.name}: {depth} layers, full width, float32, B "
         f"{TRAIN_F32_B} x S {TRAIN_F32_S}: launches {launches}; loss "
         f"{float(loss):.6f}, plain {float(ploss):.6f} (|diff| {dloss:.3g}); "
         f"{names} gradient leaves, largest |diff| over the leaf's largest "
-        f"|gradient| {worst:.3g} (bound 1e-5 beyond rtol 1e-4); the plain "
+        f"|gradient| {worst[0]:.3g} ({worst[1]}; bound 1e-5 beyond rtol "
+        f"1e-4); the plain "
         f"step {plain_s:.1f} s")
     if not dloss <= 1e-5 * abs(float(ploss)):
         raise AssertionError(f"{phase} loss {float(loss)} != plain "
@@ -2995,7 +3089,7 @@ def phase_tp_families() -> dict:
     against its plain version in phase 2.  Returns each run's launches by
     path."""
     fresh_phase()
-    log(f"[tp-families] {RWKV} (8 layers), {MLA} (4 layers), {MOE} "
+    log(f"[tp-families] {RWKV} (4 layers), {MLA} (2 layers), {MOE} "
         f"({MOE_DEPTH} layers), {HYBRID}, {VLM} and {ENCDEC} at their "
         f"published widths through "
         f"their tensor-parallel code on an NCCL group of 1 rank, one "
@@ -3069,20 +3163,63 @@ def phase_tp_families() -> dict:
 # --------------------------------------------------------------------------- #
 #: (arch, depth) trained at the published widths, the depth cut so that 16
 #: bytes a parameter (float32 masters, AdamW's m and v, float32 gradients)
-#: fit one card: rwkv6-7b 8 of 32 layers (2.29 B parameters, 36.6 GB),
-#: deepseek-v2-lite 4 of 27, the dense one and 3 MoE (2.26 B, 36.1 GB).
-#: llama4-scout's one layer with its embeddings is 4.27 B (68.3 GB) before
-#: the gradient restack and the activations: it trains on the CPU only.
-TRAIN_FAMILIES = ((RWKV, 8), (MLA, 4))
-FAMILY_TRAIN_ARGV = ["--steps", "4", "--batch", "2", "--seq", "1024",
-                     "--lr", "3e-4", "--ckpt-every", "2"]
+#: fit one card and the whole run stays near 900 s: rwkv6-7b 2 of 32
+#: layers and deepseek-v2-lite 2 of 27, the dense one and an MoE one (at
+#: 8 and 4 layers their 27 GB checkpoints took most of the phase's time),
+#: zamba2-2.7b 12 of 54 (2 groups, 0.85 B parameters),
+#: llama-3.2-vision-11b 5 of 40 (one group: 4 self layers and a cross
+#: layer; 2.14 B), whisper-medium whole (24 + 24 layers; 1.3 B with its
+#: 524,288-row position table).  llama4-scout's one layer with its
+#: embeddings is 4.27 B (68.3 GB) before the gradient restack and the
+#: activations: it trains on the CPU only.
+TRAIN_FAMILIES = ((RWKV, 2), (MLA, 2), (HYBRID, 12), (VLM, 5), (ENCDEC, 24))
+#: the families whose run writes a checkpoint and resumes from it (the
+#: vlm's and whisper's runs skip the resume, to keep the phase short)
+FAMILY_RESUMED = (RWKV, MLA, HYBRID)
+FAMILY_TRAIN_ARGV = ["--steps", "4"]
+#: the learning rate a family trains at: 3e-4, but the vlm's 1e-4 (its
+#: loss swings from batch to batch at random init, and at 3e-4 the fourth
+#: batch's was above the first's on the H100; at 1e-4 and 5e-5 it fell)
+FAMILY_TRAIN_LR = {VLM: "1e-4"}
 FAMILY_TRAIN_SAVED = 2   # the newest checkpoint of 4 steps saved every 2
 FAMILY_TRAIN_SPANS = ("wkv6_backward", EXPERTS_SPAN,
-                      mla_model.ATTENTION_SPAN, "adamw_update")
+                      mla_model.ATTENTION_SPAN, "flash_attention_backward",
+                      "adamw_update")
+VLM_GATE = 0.5
 
 
 def family_train_argv(arch: str, layers: int) -> list:
-    return ["--arch", arch, "--layers", str(layers)] + FAMILY_TRAIN_ARGV
+    """``launch.train``'s arguments for ``[train-families]``: B 2 x S 1024
+    (whisper B 4 x S 448, its decoder's context), a checkpoint every 2
+    steps for the families that resume, none for the others."""
+    shape = [WHISPER_TRAIN_B, WHISPER_TRAIN_S] if arch == ENCDEC \
+        else [FAMILY_TRAIN_B, FAMILY_TRAIN_S]
+    every = FAMILY_TRAIN_SAVED if arch in FAMILY_RESUMED else 100
+    return ["--arch", arch, "--layers", str(layers), "--batch",
+            str(shape[0]), "--seq", str(shape[1]), "--ckpt-every",
+            str(every), "--lr", FAMILY_TRAIN_LR.get(arch, "3e-4")] \
+        + FAMILY_TRAIN_ARGV
+
+
+@contextlib.contextmanager
+def vlm_gates(arch: str):
+    """The launcher's initial state with the vlm's tanh gates at
+    :data:`VLM_GATE`, as ``[vlm]`` sets them: the reference's init puts
+    them at 0, which cuts the media off and zeroes every cross-attention
+    weight's gradient.  Other families' states as they are."""
+    real = launch_train.initial_state
+
+    def gated(model, *args, **kw):
+        params, opt = real(model, *args, **kw)
+        for gate in ("gate_attn", "gate_mlp"):
+            params["xlayers"][gate].fill_(VLM_GATE)
+        return params, opt
+    if arch == VLM:
+        launch_train.initial_state = gated
+    try:
+        yield
+    finally:
+        launch_train.initial_state = real
 
 
 def train_family(arch: str, layers: int, ck: str, smi: str,
@@ -3096,11 +3233,18 @@ def train_family(arch: str, layers: int, ck: str, smi: str,
     cfg = launch_train._config(args)
     model = get_model(cfg)
     fresh_phase()
-    log(f"[{phase}] {arch}: {layers} of {ARCHS[arch].n_layers} layers at "
-        f"the published widths (d_model {cfg.d_model}), float32 masters, "
-        f"{cfg.dtype} compute, B {args.batch} x S {args.seq}, "
-        f"{args.steps} steps, warmup 1; {smi}")
-    first, steps = train_run(ck, f"{arch} run 1", device, argv, phase)
+    what = f"{cfg.encoder_layers} encoder and {layers} decoder layers" \
+        if cfg.family == "encdec" else \
+        f"{layers} of {ARCHS[arch].n_layers} layers"
+    log(f"[{phase}] {arch}: {what} at the published widths (d_model "
+        f"{cfg.d_model}), float32 masters, {cfg.dtype} compute, B "
+        f"{args.batch} x S {args.seq}"
+        + (f" over {cfg.num_media_tokens} media rows of ones"
+           if cfg.family in MEDIA_FAMILIES else "")
+        + (f", gates {VLM_GATE}" if arch == VLM else "")
+        + f", {args.steps} steps, warmup 1; {smi}")
+    with vlm_gates(arch):
+        first, steps = train_run(ck, f"{arch} run 1", device, argv, phase)
     peak = torch.cuda.max_memory_allocated()
     losses = first["losses"]
     path = {k: sum(s["launches"][k] for s in steps)
@@ -3110,31 +3254,37 @@ def train_family(arch: str, layers: int, ck: str, smi: str,
     if not losses[-1] < losses[0]:
         raise AssertionError(f"[{phase}] {arch}: the loss did not fall: "
                              f"{losses}")
-    first_losses = dict(zip(first["steps"], losses))
-    del first
-    fresh_phase()
-    saved = latest_step(ck)
-    second, _ = train_run(ck, f"{arch} run 2 (resume)", device, argv,
-                          phase)
-    if saved != FAMILY_TRAIN_SAVED or second["steps"][0] != saved + 1:
-        raise AssertionError(f"[{phase}] {arch} resume: newest checkpoint "
-                             f"{saved}, resumed at {second['steps'][0]}")
-    diff = second["losses"][0] - first_losses[saved + 1]
-    log(f"[{phase}] {arch} resume: newest checkpoint at step {saved}, "
-        f"resumed at step {saved + 1} with loss {second['losses'][0]:.6f}, "
-        f"run 1's {first_losses[saved + 1]:.6f} (diff {diff:+.3g})")
-    if diff != 0.0:
-        raise AssertionError(f"[{phase}] {arch}: the resumed step's loss "
-                             f"differs from run 1's by {diff}")
+    if arch in FAMILY_RESUMED:
+        first_losses = dict(zip(first["steps"], losses))
+        del first
+        fresh_phase()
+        saved = latest_step(ck)
+        first, _ = train_run(ck, f"{arch} run 2 (resume)", device, argv,
+                             phase)
+        if saved != FAMILY_TRAIN_SAVED or first["steps"][0] != saved + 1:
+            raise AssertionError(f"[{phase}] {arch} resume: newest "
+                                 f"checkpoint {saved}, resumed at "
+                                 f"{first['steps'][0]}")
+        diff = first["losses"][0] - first_losses[saved + 1]
+        log(f"[{phase}] {arch} resume: newest checkpoint at step {saved}, "
+            f"resumed at step {saved + 1} with loss "
+            f"{first['losses'][0]:.6f}, run 1's "
+            f"{first_losses[saved + 1]:.6f} (diff {diff:+.3g})")
+        if diff != 0.0:
+            raise AssertionError(f"[{phase}] {arch}: the resumed step's loss "
+                                 f"differs from run 1's by {diff}")
+    elif latest_step(ck) is not None:
+        raise AssertionError(f"[{phase}] {arch}: a checkpoint was written")
 
-    params, opt = second.pop("state")
-    del second
+    params, opt = first.pop("state")
+    del first
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     ts = build_train_step(model, shape, base_lr=args.lr, warmup=1,
                           total_steps=args.steps)
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                     global_batch=args.batch))
     batch = {k: v.to(device) for k, v in pipe.batch(0).items()}
+    batch.update(media_ones(cfg, args.batch, device))
     prof = profile_step(f"train_{arch}", lambda: ts.fn(params, opt, batch),
                         steps=1, spans=FAMILY_TRAIN_SPANS)
     tokens = args.batch * args.seq
@@ -3142,7 +3292,9 @@ def train_family(arch: str, layers: int, ck: str, smi: str,
         f"device {prof['device_ms']:.1f} ms, busy share "
         f"{prof['device_ms'] / prof['wall_ms']:.3f}, "
         f"{prof['kernels_per_step']} kernels a step; ina_matmul "
-        f"{prof['ina_matmul_ms']:.1f} ms, wkv6 {prof['wkv6_ms']:.2f} ms, "
+        f"{prof['ina_matmul_ms']:.1f} ms, flash_attention "
+        f"{prof['flash_attention_ms']:.2f} ms, wkv6 {prof['wkv6_ms']:.2f} "
+        f"ms, "
         + ", ".join(f"inside {k} {v:.1f} ms"
                     for k, v in prof["span_ms"].items())
         + f", other {prof['other_ms']:.1f} ms; "
@@ -3153,10 +3305,13 @@ def train_family(arch: str, layers: int, ck: str, smi: str,
 
     # one step under each mode on a one-rank NCCL group: the groupless step
     expect = train_launches(cfg)
-    base, base_steps = _timed("groupless step", lambda: tp_train_steps(
-        model, shape, None, [batch], args), phase)
+    with vlm_gates(arch), record_shapes() as seen:
+        base, base_steps = _timed("groupless step", lambda: tp_train_steps(
+            model, shape, None, [batch], args), phase)
+    check_shapes(seen, f"{phase} {arch}")
     modes = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_group_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_group_") as tmp, \
+            vlm_gates(arch):
         group, _ = mesh.init_group(1, 0, device, os.path.join(tmp, "store"))
         try:
             for mode in C.CLI_PSUM_MODES:
@@ -3188,19 +3343,22 @@ def train_family(arch: str, layers: int, ck: str, smi: str,
 
 
 def phase_train_families(smi: str, device: str = "cuda") -> dict:
-    """``[train-families]``: rwkv6-7b (8 layers) and deepseek-v2-lite (4
-    layers) at their published widths through ``launch.train`` (float32
-    masters, bf16 compute, seeded weights, the port's token pipeline): 4
-    AdamW steps at B 2 x S 1024, warmup 1, a checkpoint at step 2 into a
-    temporary directory, every step's launches the derived counts
-    (:func:`train_launches`: ``wkv6`` twice a layer, the forward and its
-    recompute, none in its backward; no ``ina_matmul`` generic), every
-    loss finite and the last below the first; a second run into the
-    directory resumes at step 3 with run 1's loss to the bit.  Then one
-    step profiled (device time inside the ``wkv6`` backward, the expert
-    products, MLA's attention and AdamW), and one step under every psum
-    mode on a one-rank NCCL group, bit-equal to the groupless step with
-    the same launches and no collective call."""
+    """``[train-families]``: :data:`TRAIN_FAMILIES` at their published
+    widths through ``launch.train`` (float32 masters, bf16 compute, seeded
+    weights, the port's token pipeline, media of ones for the vlm and
+    whisper): 4 AdamW steps, warmup 1, every step's launches the derived
+    counts (:func:`train_launches`: a layer's or group's products once
+    more in its recompute, ``wkv6`` and flash forward and recomputed, none
+    in their backwards; no ``ina_matmul`` generic), every loss finite and
+    the last below the first; for :data:`FAMILY_RESUMED`, a checkpoint at
+    step 2 into a temporary directory and a second run that resumes at
+    step 3 with run 1's loss to the bit (zamba2's nested ``[G, per]``
+    stack through save and restore).  Then one step profiled (device time
+    inside the ``wkv6`` and attention backwards, the expert products,
+    MLA's attention and AdamW), and one step under every psum mode on a
+    one-rank NCCL group, bit-equal to the groupless step with the same
+    launches and no collective call; the groupless step's launch shapes
+    were each held against the kernel's plain version in phase 2."""
     out = {}
     for arch, layers in TRAIN_FAMILIES:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_families_") as ck:
@@ -3208,28 +3366,47 @@ def phase_train_families(smi: str, device: str = "cuda") -> dict:
     return out
 
 
+def f32_train_config(arch: str):
+    """The smallest depth of ``arch`` in float32 that runs each kind of
+    layer: 2 layers (deepseek's dense one and an MoE one; whisper's 2
+    decoder layers over 2 encoder layers), zamba2's one group of 6, the
+    vlm's one group of 5."""
+    cfg = ARCHS[arch]
+    layers = cfg.shared_attn_every or cfg.cross_attn_every or 2
+    extra = {"encoder_layers": 2} if cfg.family == "encdec" else {}
+    return dataclasses.replace(cfg, n_layers=layers, dtype="float32", **extra)
+
+
 def phase_train_families_f32(device: str = "cuda") -> None:
-    """``[train-families-f32]``: rwkv6-7b and deepseek-v2-lite at their
-    widths, 2 layers (deepseek's dense one and an MoE one), float32: one
-    step's loss and every gradient leaf through the kernels against the
-    same step through their plain versions on the card
-    (:func:`against_plain`, :func:`phase_train_f32`'s bound).  The
-    ``wkv6`` backward is the same plain VJP on both sides, from inputs
-    that differ by the forward's f32 sum order."""
-    for arch, _ in TRAIN_FAMILIES:
-        cfg = dataclasses.replace(ARCHS[arch], n_layers=2, dtype="float32")
+    """``[train-families-f32]``: each of :data:`TRAIN_FAMILIES` at its
+    widths and :func:`f32_train_config`'s depth, float32, B 2 x S 128
+    (the vlm and whisper over seeded N(0, 1) media, the vlm's gates at
+    :data:`VLM_GATE`): one step's loss and every gradient leaf through
+    the kernels against the same step through their plain versions on
+    the card (:func:`against_plain`, :func:`phase_train_f32`'s bound).
+    The ``wkv6`` and flash backwards are the same plain VJPs on both
+    sides, from inputs that differ by the forward's f32 sum order."""
+    for seed, (arch, _) in enumerate(TRAIN_FAMILIES):
+        cfg = f32_train_config(arch)
         model = get_model(cfg)
         params = model.init(torch.Generator(device=device).manual_seed(2),
                             device=device, masters=True)
+        if arch == VLM:
+            for gate in ("gate_attn", "gate_mlp"):
+                params["xlayers"][gate].fill_(VLM_GATE)
         pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_F32_S,
                                         global_batch=TRAIN_F32_B, seed=3))
         batch = {k: v.to(device) for k, v in pipe.batch(0).items()}
+        if cfg.family in MEDIA_FAMILIES:
+            batch["media"] = media(cfg, TRAIN_F32_B, 30 + seed)
         reset_launches()
         loss, grads = loss_and_grads(model, params, batch)
         torch.cuda.synchronize()
         launches = read_launches()
-        check_launches(launches, train_launches(cfg), (
-            "ina_matmul", "wkv6") if cfg.family == "ssm" else ("ina_matmul",))
+        on_path = {"ssm": ("ina_matmul", "wkv6"),
+                   "mla_moe": ("ina_matmul",)}.get(
+            cfg.family, ("ina_matmul", "flash_attention"))
+        check_launches(launches, train_launches(cfg), on_path)
         against_plain(model, params, batch, loss, grads, launches,
                       "train-families-f32")
         del params, grads
@@ -3239,6 +3416,15 @@ def phase_train_families_f32(device: str = "cuda") -> None:
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def _named_tensors(tree, names=()):
+    """(path, tensor) of each leaf of nested dicts, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_tensors(v, names + (k,))
+        else:
+            yield "/".join(names + (k,)), v
 
 
 # --------------------------------------------------------------------------- #
@@ -3280,7 +3466,22 @@ def ptxas_report(text: str, source: str) -> list:
     return out
 
 
+def phase_clock():
+    """``mark(label)``: logs the seconds since the clock was made and since
+    the last mark (the phases' share of the run's time limit)."""
+    start = last = time.perf_counter()
+
+    def mark(label: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        log(f"[time] {label}: {now - last:.1f} s (run at {now - start:.1f} "
+            f"s)")
+        last = now
+    return mark
+
+
 def main() -> int:
+    mark = phase_clock()
     info = device_check()
     t0 = time.perf_counter()
     logs = _build.build(["ina_matmul", "flash_attention", "wkv6"])
@@ -3308,27 +3509,36 @@ def main() -> int:
     at_rows = check_attention(timer, gen)
     wkv_rows = check_wkv6(timer, gen)
     del timer
+    mark("build and phase 2")
     served = phase_serve_bf16()
     tp = phase_tp(served)
     planned = phase_plan(served)
     phase_exact_f32()
+    mark("serve, tp, plan, exact-f32")
     rwkv = phase_rwkv_bf16()
     phase_rwkv_exact_f32()
+    mark("rwkv, rwkv-f32")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ck:
         trained = phase_train(ck)
         tp_trained = phase_tp_train(ck, info["smi"])
     dp_trained = phase_dp_train(info["smi"])
     phase_train_f32()
+    mark("train, tp-train, dp-train, train-f32")
     mla = phase_mla()
     phase_mla_f32()
     moe = phase_moe()
+    mark("mla, mla-f32, moe")
     hybrid = phase_hybrid()
     phase_hybrid_f32()
     vlm = phase_vlm()
     encdec = phase_encdec()
+    mark("hybrid, hybrid-f32, vlm, encdec")
     tp_families = phase_tp_families()
+    mark("tp-families")
     trained_families = phase_train_families(info["smi"])
+    mark("train-families")
     phase_train_families_f32()
+    mark("train-families-f32")
     launches = served["launches"]
     world = min(torch.cuda.device_count(), 4)
     paths = {"qwen2-1.5b serve": launches,

@@ -244,6 +244,22 @@ def ina_matmul(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [R, C] with contiguous rows whose stride is a multiple of 8
+    elements, so that TMA can step over them: a contiguous copy where C
+    is such a multiple (``t`` itself where it is contiguous), else a view
+    of the first C columns of a buffer whose rows are padded to one (the
+    gradient of whisper's head over its vocabulary of 51865, the media's
+    3202 rows transposed for the vlm's ``dW``)."""
+    c = t.shape[1]
+    if c % 8 == 0:
+        return t.contiguous()
+    buf = t.new_empty(t.shape[0], -(-c // 8) * 8)
+    piece = buf.narrow(1, 0, c)
+    piece.copy_(t)
+    return piece
+
+
 class InaMatmul(torch.autograd.Function):
     """``x @ w`` (x: [M, K], w: [K, N], and optionally the forward's
     ``plan`` and ``tiles``, as :func:`ina_matmul` takes them) with a
@@ -252,9 +268,11 @@ class InaMatmul(torch.autograd.Function):
     row-major w gives a k-major ``w^T`` and the tied head's k-major
     ``embed.T`` a row-major one), and ``dW = ina_matmul(x^T, dY)``, with
     ``x^T`` copied to row-major (a layout of x the kernel reads in place
-    is ROADMAP.md work).  On CUDA tensors every product launches the
-    kernel and is counted; on CPU tensors each runs the plain version, so
-    the CPU tests exercise this backward and not PyTorch's."""
+    is ROADMAP.md work); ``dY`` and ``x^T`` take rows on TMA's grid
+    (:func:`_aligned_rows`), so no backward product runs ``generic``.  On
+    CUDA tensors every product launches the kernel and is counted; on CPU
+    tensors each runs the plain version, so the CPU tests exercise this
+    backward and not PyTorch's."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, w: torch.Tensor,
@@ -266,8 +284,8 @@ class InaMatmul(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
         x, w = ctx.saved_tensors
-        dy = dy.contiguous()
+        dy = _aligned_rows(dy)
         dx = ina_matmul(dy, w.T) if ctx.needs_input_grad[0] else None
-        dw = ina_matmul(x.T.contiguous(), dy) \
+        dw = ina_matmul(_aligned_rows(x.T), dy) \
             if ctx.needs_input_grad[1] else None
         return dx, dw, None, None

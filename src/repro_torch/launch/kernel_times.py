@@ -240,11 +240,14 @@ def family_projections() -> list[tuple[str, str, int, int, str]]:
 
 
 def matmul_operands(gen, m, k, n, kind, dt):
-    """x ~ N(0, 1) [m, k]; w ~ N(0, 1/k) [k, n], row-major, the first n
-    columns of a [k, n rounded up to 8] buffer ("padded", a rank's
-    ``w_in``), or the transposed view of an [n, k] table (the tied head's
-    embed.T)."""
-    x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+    """x ~ N(0, 1) [m, k], its rows padded to a multiple of 8 elements where
+    k is not one (as the train step's backward pads ``dY`` and ``x^T``:
+    ``kernels.ina_matmul._aligned_rows``); w ~ N(0, 1/k) [k, n],
+    row-major, the first n columns of a [k, n rounded up to 8] buffer
+    ("padded", a rank's ``w_in``, a gradient over an odd vocabulary), or
+    the transposed view of an [n, k] table (the tied head's embed.T)."""
+    x = torch.randn(m, -(-k // 8) * 8, generator=gen,
+                    device="cuda").to(dt)[:, :k]
     if kind == "tied":                             # embed.T, in place
         return x, (torch.randn(n, k, generator=gen, device="cuda")
                    / math.sqrt(k)).to(dt).T
@@ -254,28 +257,65 @@ def matmul_operands(gen, m, k, n, kind, dt):
     return x, w[:, :n]
 
 
-# the train step's tokens: chip_smoke.py's [train] phase, B 4 x S 1024
+# the train step's tokens: chip_smoke.py's [train] phase, B 4 x S 1024;
+# [train-families]' B 2 x S 1024, and whisper's B 4 x S 448 over 4 x 1500
+# frames
 TRAIN_TOKENS = 4 * 1024
-FAMILY_TRAIN_TOKENS = 2 * 1024
+FAMILY_TRAIN_B, FAMILY_TRAIN_S = 2, 1024
+FAMILY_TRAIN_TOKENS = FAMILY_TRAIN_B * FAMILY_TRAIN_S
+WHISPER_TRAIN_B, WHISPER_TRAIN_S = 4, 448
+
+
+def _train_triple(name: str, m: int, k: int, n: int, kind: str,
+                  dx: bool = True) -> list[tuple[str, int, int, int, str]]:
+    """A product's forward ``x @ w``, its ``dX = dY @ w^T`` with ``w^T``
+    read in place (k-major for a row-major w; row-major for the tied
+    head's k-major ``embed.T``; none where x takes no gradient), and its
+    ``dW = x^T @ dY``, whose K is x's rows."""
+    out = [(f"{name} fwd", m, k, n, kind)]
+    if dx:
+        out.append((f"{name} dX", m, n, k, "row" if kind == "tied"
+                    else "tied"))
+    # dW reads dY in place: rows padded to 8 elements where N is odd
+    # (``kernels.ina_matmul._aligned_rows``: whisper's head)
+    return out + [(f"{name} dW", k, m, n, "padded" if n % 8 else "row")]
 
 
 def train_products(tokens: int = TRAIN_TOKENS, model: str = "qwen2-1.5b"
                    ) -> list[tuple[str, int, int, int, str]]:
     """(name, M, K, N, w layout) of each distinct ``ina_matmul`` product of
-    ``model``'s train step at ``tokens`` tokens: every projection's
-    forward ``x @ w`` (recomputed alike), its ``dX = dY @ w^T`` with
-    ``w^T`` read in place (k-major for a row-major w; row-major for the
-    tied head's k-major ``embed.T``), and its ``dW = x^T @ dY``, whose K
-    is the tokens.  qwen2-1.5b (B 4 x S 1024), and rwkv6-7b and
-    deepseek-v2-lite-16b (B 2 x S 1024, :data:`FAMILY_TRAIN_TOKENS`)."""
+    ``model``'s train step over ``tokens`` token rows
+    (:func:`_train_triple` of every projection).  qwen2-1.5b (B 4 x S
+    1024), and rwkv6-7b, deepseek-v2-lite-16b, zamba2-2.7b and
+    llama-3.2-vision-11b (B 2 x S 1024, :data:`FAMILY_TRAIN_TOKENS`);
+    whisper-medium's decoder (B 4 x S 448).  The rows past the tokens are
+    :func:`media_train_products`'."""
     out = []
-    for mod, name, k, n, kind in matmul_projections() + moe_projections():
-        if mod != model:
-            continue
-        out += [(f"{name} fwd", tokens, k, n, kind),
-                (f"{name} dX", tokens, n, k,
-                 "row" if kind == "tied" else "tied"),
-                (f"{name} dW", k, tokens, n, "row")]
+    for mod, name, k, n, kind in (matmul_projections() + moe_projections()
+                                  + family_projections()):
+        if mod == model:
+            out += _train_triple(name, tokens, k, n, kind)
+    return out
+
+
+def media_train_products() -> list[tuple[str, str, int, int, int, str]]:
+    """(model, name, M, K, N, w layout) of the train steps' products over
+    the media rather than the tokens: llama-3.2-vision-11b's
+    cross-attention ``wk``/``wv`` over B 2 x 1601 media rows (no dX: the
+    media take no gradient), and whisper-medium's encoder over B 4 x 1500
+    frames (its decoder's cross-attention ``wk``/``wv`` over the
+    encoder's output are the same products as its encoder's
+    ``wq/wk/wv/wo``)."""
+    v, w = ARCHS["llama-3.2-vision-11b"], ARCHS["whisper-medium"]
+    vm = FAMILY_TRAIN_B * v.num_media_tokens
+    wf = WHISPER_TRAIN_B * w.num_media_tokens
+    out = [(v.name, *row) for row in _train_triple(
+        "media wk/wv", vm, v.d_model, v.n_kv_heads * v.resolved_head_dim,
+        "row", dx=False)]
+    for mod, name, k, n, kind in family_projections():
+        if mod == w.name and kind == "row":
+            out += [(w.name, *row) for row in _train_triple(
+                f"encoder {name}", wf, k, n, kind)]
     return out
 
 

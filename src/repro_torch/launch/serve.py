@@ -66,7 +66,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.collectives import CLI_PSUM_MODES
 from repro_torch.launch import mesh
 from repro_torch.models import vision
-from repro_torch.models.api import MEDIA_FAMILIES, get_model
+from repro_torch.models.api import MEDIA_FAMILIES, get_model, media_ones
 from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.steps import build_serve_step
 from repro_torch.parallel.tp import ParallelCtx
@@ -220,11 +220,7 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     batch = prompts.shape[0]
     cache = model.init_cache(batch, max_seq or args.prompt_len + args.gen,
                              device=dev, world=pctx.world)
-    extra = {}
-    if cfg.family in MEDIA_FAMILIES and cfg.num_media_tokens:
-        extra["media"] = torch.ones(batch, cfg.num_media_tokens, cfg.d_model,
-                                    dtype=getattr(torch, cfg.dtype),
-                                    device=dev)
+    extra = media_ones(cfg, batch, dev)
     if cfg.family == "vlm":
         cache = vision.prefill_media_kv(params, cfg, extra["media"], cache,
                                         pctx)

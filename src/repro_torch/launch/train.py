@@ -1,16 +1,23 @@
 """Training entry point (counterpart of ``repro.launch.train``).
 
-Trains a model of the dense, ssm (rwkv6), moe (llama4-scout) or mla_moe
-(deepseek-v2-lite) family (``parallel.steps.TRAINED``; the others raise,
-naming ROADMAP.md's item): float32 masters, compute in the config's
-dtype, every layer checkpointed, the projections and their gradients on
-the INA matmul, RWKV6's WKV on the wkv6 kernel (its gradient the VJP of
-its plain version), AdamW with a cosine schedule, the synthetic token
+Trains a model of any family: float32 masters, compute in the config's
+dtype, every layer checkpointed (zamba2's and the vlm's by group, as the
+reference's scan bodies are), the projections and their gradients on the
+INA matmul, RWKV6's WKV on the wkv6 kernel (its gradient the VJP of its
+plain version), AdamW with a cosine schedule, the synthetic token
 pipeline, and the preemption-safe loop with retries and keep-k
-checkpoints (``runtime.fault_tolerance.run_training``).  ``--layers N``
-cuts the depth, widths as published (a resume needs the same N).  A
-second run into the same ``--ckpt-dir`` resumes after the newest
-checkpoint.  Under ``--psum-mode auto`` the step carries the train-phase
+checkpoints (``runtime.fault_tolerance.run_training``).  The encdec and
+vlm families' batches also hold ``media`` of ones [B, M, D] in the
+compute dtype, as ``launch.serve`` gives them, this host's rows of it
+(:meth:`~repro_torch.parallel.steps.TrainStep.rows`): the reference's
+``build_train_step`` takes media (``Model.batch_specs``), but its train
+launcher feeds the token pipeline alone, so its loss would fail on
+``batch["media"]`` for these families.  ``--layers N`` cuts the depth
+(whisper's decoder; its encoder keeps its own), widths as published, a
+multiple of a group for zamba2 (``shared_attn_every``) and the vlm
+(``cross_attn_every``); a resume needs the same N.  A second run into
+the same ``--ckpt-dir`` resumes after the newest checkpoint.  Under
+``--psum-mode auto`` the step carries the train-phase
 :class:`~repro_torch.plan.ExecutionPlan` (``--plan-dir``, ``--no-plan``),
 as the reference's does.  It runs on the GPU unless ``--device cpu`` is
 given, and exits non-zero when the loss did not fall.
@@ -40,6 +47,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-7b \\
       --layers 8 --steps 4 --batch 2 --seq 1024 --ckpt-dir /tmp/rw \\
       --ckpt-every 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+      --layers 12 --steps 4 --batch 2 --seq 1024 --ckpt-dir /tmp/za \\
+      --ckpt-every 2
 """
 from __future__ import annotations
 
@@ -58,10 +68,11 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.collectives import CLI_PSUM_MODES
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch import mesh
-from repro_torch.models.api import get_model
+from repro_torch.models.api import get_model, media_ones
 from repro_torch.optim.adamw import adamw_init, tree_leaves
-from repro_torch.parallel.sharding import head_split, shard_params
-from repro_torch.parallel.steps import build_train_step, check_trainable
+from repro_torch.parallel.sharding import (check_heads, head_split,
+                                            shard_params)
+from repro_torch.parallel.steps import build_train_step
 from repro_torch.parallel.tp import ParallelCtx
 from repro_torch.plan import add_plan_cli_args, plan_for_launch
 from repro_torch.runtime.fault_tolerance import (FTConfig,
@@ -113,8 +124,8 @@ def run(args, on_step: Optional[Callable] = None) -> dict:
         raise ValueError("on_step is called at one rank only: on a mesh of "
                          "more ranks the steps run in the ranks' processes")
     # refuse what the ranks would, before any starts
-    check_trainable(cfg)
     head_split(cfg, 0, ranks.span("model"))
+    check_heads(cfg, ranks.span("model"))
     hosts = ranks.span("pod") * ranks.span("data")
     if args.batch % hosts:
         raise ValueError(f"--batch {args.batch} does not divide over the "
@@ -172,8 +183,13 @@ def train_rank(rank, world, group, device, args, ranks) -> dict:
 def _config(args):
     cfg = ARCHS[args.arch]
     cfg = cfg.reduced() if args.reduced else cfg
-    return cfg if args.layers is None else \
-        dataclasses.replace(cfg, n_layers=args.layers)
+    if args.layers is None:
+        return cfg
+    group = cfg.shared_attn_every or cfg.cross_attn_every
+    if group and args.layers % group:
+        raise ValueError(f"--layers {args.layers}: {cfg.name} runs groups of "
+                         f"{group} layers")
+    return dataclasses.replace(cfg, n_layers=args.layers)
 
 
 def _shape(args) -> ShapeConfig:
@@ -207,6 +223,7 @@ def _train(args, cfg, ranks: mesh.RankMesh, groups: Optional[dict] = None,
           flush=True)
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                     global_batch=args.batch))
+    media = ts.rows(media_ones(cfg, args.batch, dev))
 
     def step_fn(state, batch):
         params, opt = state
@@ -238,7 +255,8 @@ def _train(args, cfg, ranks: mesh.RankMesh, groups: Optional[dict] = None,
     # restored one replaces it in device memory instead of joining it
     state, last, stragglers = run_training(
         step_fn, initial_state(model, dev, (at["data"], at["model"]), shards),
-        lambda step: pipe.host_batch(step, ts.host, ts.hosts), ft=ft,
+        lambda step: {**pipe.host_batch(step, ts.host, ts.hosts), **media},
+        ft=ft,
         num_steps=args.steps, on_metrics=on_metrics, mgr=mgr)
     if not losses:
         print(f"[train] nothing to do: the checkpoint under {args.ckpt_dir} "

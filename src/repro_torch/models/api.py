@@ -33,6 +33,17 @@ _FAMILIES: dict[str, ModuleType] = {"dense": transformer, "ssm": rwkv,
 MEDIA_FAMILIES = ("encdec", "vlm")
 
 
+def media_ones(cfg: ModelConfig, rows: int, device) -> dict:
+    """``{"media": ones [rows, M, D]}`` in the compute dtype, the stub
+    frontend's embeddings the launchers feed the encdec and vlm families;
+    ``{}`` for the others."""
+    if cfg.family not in MEDIA_FAMILIES or not cfg.num_media_tokens:
+        return {}
+    return {"media": torch.ones(rows, cfg.num_media_tokens, cfg.d_model,
+                                dtype=getattr(torch, cfg.dtype),
+                                device=device)}
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig

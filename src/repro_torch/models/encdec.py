@@ -32,6 +32,16 @@ embedding and the tied head are vocab-parallel where the world divides
 the vocabulary (whisper-medium's 51865 it does not: the table stays
 whole).  The decode cache holds the rank's KV heads.  ``rs_seq`` raises
 (:func:`repro_torch.parallel.tp.whole_sequence`).
+
+In training each encoder and decoder layer is checkpointed
+(:func:`~repro_torch.models.transformer.remat`), as the reference's
+scans are, and every whole tensor that enters cut work does so through
+Megatron's ``f`` (:func:`~repro_torch.parallel.tp.enter_cut`): the
+normed input of each attention and MLP, the cross-attention's query
+input, and the encoder's output, once before the decoder's loop (the
+``f`` is linear: its one sum covers the ``wk``/``wv`` of every layer).
+A head over a vocabulary the world does not divide is whole on every
+rank and takes no ``f``.
 """
 from __future__ import annotations
 
@@ -42,7 +52,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import stack_drawn
-from repro_torch.models.transformer import _dtype, _heads, layer
+from repro_torch.models.transformer import _dtype, _heads, layer, remat
+from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import local_heads
 from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear, \
     whole_sequence
@@ -117,20 +128,32 @@ def _attn_kw(p: dict, cfg: ModelConfig) -> dict:
     return dict(n_heads=nh, n_kv=nkv, head_dim=hd, eps=cfg.norm_eps)
 
 
+def _cut_norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
+              pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """A cut block's input: ``x`` normed, through Megatron's ``f``."""
+    return tp.enter_cut(L.rms_norm(x, w, cfg.norm_eps), pctx)
+
+
+def enc_layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
+                  pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """One encoder layer: non-causal self-attention (no RoPE) and an
+    ungated MLP."""
+    x = x + L.attn_block(lp["attn"], _cut_norm(x, lp["ln1"], cfg, pctx),
+                         cos=None, sin=None, causal=False, pctx=pctx,
+                         **_attn_kw(lp["attn"], cfg))
+    return x + L.mlp_block(lp["mlp"], _cut_norm(x, lp["ln2"], cfg, pctx),
+                           pctx)
+
+
 def encode(params: dict, cfg: ModelConfig, media: torch.Tensor,
            pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    """media: [B, F, D] frame embeddings -> the encoder's output [B, F, D]:
-    non-causal self-attention (no RoPE) and an ungated MLP a layer."""
+    """media: [B, F, D] frame embeddings -> the encoder's output [B, F,
+    D]; where autograd records the layers, each is checkpointed."""
     whole_sequence(pctx, cfg.family)
     x = media.to(_dtype(cfg))
     for i in range(cfg.encoder_layers):
-        lp = layer(params["enc_layers"], i)
-        x = x + L.attn_block(lp["attn"], L.rms_norm(x, lp["ln1"],
-                                                    cfg.norm_eps),
-                             cos=None, sin=None, causal=False, pctx=pctx,
-                             **_attn_kw(lp["attn"], cfg))
-        x = x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
-                            pctx)
+        x = remat(enc_layer_fwd, cfg, layer(params["enc_layers"], i), x, cfg,
+                  pctx)
     return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
 
 
@@ -152,7 +175,7 @@ def dec_layer_fwd(lp: dict, x: torch.Tensor, enc: torch.Tensor,
                   kv: Optional[tuple] = None, pos=None) -> torch.Tensor:
     """One decoder layer over the whole sequence, or with ``kv`` (the
     layer's cache K/V) one decode step at ``pos``, written in place."""
-    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    h = _cut_norm(x, lp["ln1"], cfg, pctx)
     if kv is None:
         x = x + L.attn_block(lp["attn"], h, cos=cos, sin=sin, causal=True,
                              pctx=pctx, **_attn_kw(lp["attn"], cfg))
@@ -161,26 +184,29 @@ def dec_layer_fwd(lp: dict, x: torch.Tensor, enc: torch.Tensor,
                                       cos=cos, sin=sin, pctx=pctx,
                                       **_attn_kw(lp["attn"], cfg))
         x = x + y
-    x = x + cross_attn(lp["xattn"], L.rms_norm(x, lp["lnx"], cfg.norm_eps),
+    x = x + cross_attn(lp["xattn"], _cut_norm(x, lp["lnx"], cfg, pctx),
                        enc, cfg, pctx)
-    return x + L.mlp_block(lp["mlp"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
+    return x + L.mlp_block(lp["mlp"], _cut_norm(x, lp["ln2"], cfg, pctx),
                            pctx)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    """Logits [B, S, V]; where autograd records the layers, each encoder
+    and decoder layer is checkpointed, the head outside."""
     tokens = batch["tokens"]
-    enc = encode(params, cfg, batch["media"], pctx)
+    # the f of every decoder layer's cross-attention wk/wv, summed once
+    enc = tp.enter_cut(encode(params, cfg, batch["media"], pctx), pctx)
     s = tokens.shape[1]
     x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     x = x + params["pos_dec"][:s][None].to(x.dtype)
     cos, sin = L.rope_cos_sin(torch.arange(s, device=tokens.device),
                               cfg.resolved_head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
-        x = dec_layer_fwd(layer(params["dec_layers"], i), x, enc, cfg, cos,
-                          sin, pctx)
+        x = remat(dec_layer_fwd, cfg, layer(params["dec_layers"], i), x, enc,
+                  cfg, cos, sin, pctx)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["embed"].T, pctx, cfg.vocab)
+    return L.vocab_head(x, params["embed"].T, pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,

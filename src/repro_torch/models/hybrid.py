@@ -9,7 +9,10 @@ zamba2-2.7b), and its causal attention over several queries runs the flash
 kernel.  Every projection runs the INA matmul, the reference's bare ``@
 wo_down`` and ``@ mlp_down`` too (:func:`repro_torch.kernels.ops.matmul`).
 A Python loop over the groups and their layers takes the place of the
-reference's nested ``lax.scan``.
+reference's nested ``lax.scan``; where autograd records it, each group
+(its shared-block invocation and its Mamba2 layers, the reference's
+``jax.checkpoint`` unit) is checkpointed
+(:func:`~repro_torch.models.transformer.remat`).
 
 The weights follow the reference's names and layouts: ``groups`` holds the
 Mamba2 layers stacked ``[G, per, ...]``, stored by
@@ -35,7 +38,12 @@ make the 2 x d_model row whole before ``wo_down`` and ``mlp_down``, which
 every rank holds whole; the embedding and the tied head are
 vocab-parallel.  The decode cache holds the rank's Mamba2 heads, conv
 channels (its x channels, B and C whole) and shared-block KV heads.
-``rs_seq`` raises (:func:`repro_torch.parallel.tp.whole_sequence`).
+``rs_seq`` raises (:func:`repro_torch.parallel.tp.whole_sequence`).  In
+training the shared block's normed input enters its cut heads and
+columns through one Megatron ``f``
+(:func:`~repro_torch.parallel.tp.enter_cut`), after the norm, so that
+``inv_norms``' gradient comes out whole; a Mamba2 layer's enters at the
+block (:func:`repro_torch.models.ssm.mamba2_block`).
 """
 from __future__ import annotations
 
@@ -48,7 +56,8 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.moe import stack_drawn
-from repro_torch.models.transformer import _dtype, _heads, layer
+from repro_torch.models.transformer import _dtype, _heads, layer, remat
+from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import local_heads, local_ssm_heads
 from repro_torch.parallel.tp import ParallelCtx, whole_sequence
 
@@ -129,8 +138,11 @@ def shared_block(sp: dict, x: torch.Tensor, x0: torch.Tensor,
     """x, x0: [B, S, D] -> the block's delta [B, S, D].  With ``cache``
     (this invocation's ``k``/``v`` [B, S_max, heads, hd]) one decode step at
     ``pos``, the new K/V written in place.  The heads are those of the
-    shard ``sp`` holds."""
-    h2 = L.rms_norm(torch.cat([x, x0], dim=-1), inv_norm, cfg.norm_eps)
+    shard ``sp`` holds; the normed input enters them and the MLP's cut
+    columns through one ``f`` (``wo_down`` and ``mlp_down`` are whole, on
+    rows the psums made whole)."""
+    h2 = tp.enter_cut(L.rms_norm(torch.cat([x, x0], dim=-1), inv_norm,
+                                 cfg.norm_eps), pctx)
     hd = shared_dims(cfg)[1]
     nh, nkv = _heads(sp["attn"], hd)
     kw = dict(n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos, sin=sin,
@@ -146,24 +158,36 @@ def shared_block(sp: dict, x: torch.Tensor, x0: torch.Tensor,
     return attn_out + mlp_out
 
 
+def group_fwd(gp: dict, x: torch.Tensor, x0: torch.Tensor, sp: dict,
+              cfg: ModelConfig, cos, sin,
+              pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """One group: the shared block (weights ``sp``, this group's
+    ``gp["inv_norm"]``), then the group's Mamba2 layers ``gp["layers"]``."""
+    x = x + shared_block(sp, x, x0, gp["inv_norm"], cfg, cos, sin, pctx)
+    for li in range(cfg.shared_attn_every):
+        lp = layer(gp["layers"], li)
+        y, _, _ = S.mamba2_block(lp["mamba"],
+                                 L.rms_norm(x, lp["ln"], cfg.norm_eps),
+                                 cfg, pctx)
+        x = x + y
+    return x
+
+
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    """The final normed hidden states; where autograd records them, each
+    group checkpointed (:func:`~repro_torch.models.transformer.remat`)."""
     whole_sequence(pctx, cfg.family)
-    g, per = _groups(cfg)
+    g, _ = _groups(cfg)
     x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     x0 = x
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, shared_dims(cfg)[1], cfg.rope_theta)
     for gi in range(g):
-        gp = layer(params["groups"], gi)
-        x = x + shared_block(params["shared"], x, x0, params["inv_norms"][gi],
-                             cfg, cos, sin, pctx)
-        for li in range(per):
-            lp = layer(gp, li)
-            y, _, _ = S.mamba2_block(lp["mamba"],
-                                     L.rms_norm(x, lp["ln"], cfg.norm_eps),
-                                     cfg, pctx)
-            x = x + y
+        gp = {"layers": layer(params["groups"], gi),
+              "inv_norm": params["inv_norms"][gi]}
+        x = remat(group_fwd, cfg, gp, x, x0, params["shared"], cfg, cos, sin,
+                  pctx)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
@@ -171,8 +195,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """Logits [B, S, V] through the tied head (``embed.T`` read in place),
     the whole vocabulary's on every rank."""
-    return L.logits_head(hidden_states(params, cfg, batch["tokens"], pctx),
-                         params["embed"].T, pctx, cfg.vocab)
+    return L.vocab_head(hidden_states(params, cfg, batch["tokens"], pctx),
+                        params["embed"].T, pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,

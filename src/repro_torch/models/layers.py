@@ -41,12 +41,10 @@ def dense_init(generator: torch.Generator, shape, in_dim: Optional[int] = None,
 # float32 at every call (the RWKV6 bonus ``u``, ``repro.models.ssm``:231), so
 # storing them in the compute dtype would round them.
 FLOAT32_LEAVES = ("u",)
-# The stacks the train step splits into per-layer leaves (the families the
-# port trains).
-STACKED = ("layers", "dense_layers")
 # Every stacked key of every family, by the leading axes it adds: a layer
 # axis, or for ``groups`` (zamba2's [G, per, ...] Mamba2 layers, the vlm's
-# [G, per - 1, ...] self layers) a group axis and a layer axis.
+# [G, per - 1, ...] self layers) a group axis and a layer axis.  The train
+# step splits each into per-layer leaves on all of them.
 STACK_AXES = {"layers": 1, "dense_layers": 1, "enc_layers": 1,
               "dec_layers": 1, "xlayers": 1, "inv_norms": 1, "groups": 2}
 

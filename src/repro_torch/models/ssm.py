@@ -113,8 +113,11 @@ def _ssd_chunks(state: torch.Tensor, xs: tuple, cfg: ModelConfig):
     ratio = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # [B, nc, t, s, H]
     tpos = torch.arange(x.shape[2], device=x.device)
     mask = (tpos[:, None] >= tpos[None, :])[:, :, None]
-    dec = torch.where(mask, torch.exp(ratio),
-                      torch.zeros((), device=x.device)).to(sdt)
+    # exp of the causal ratios only: above the diagonal a ratio is a decay
+    # read backwards, past exp's range at a 256-token chunk, and the
+    # backward's 0 * exp(inf) would be NaN (the same values as the
+    # reference's where(mask, exp(ratio), 0), whose gradient is NaN there)
+    dec = torch.exp(torch.where(mask, ratio, float("-inf"))).to(sdt)
     scores = torch.einsum("bctn,bcsn->bcts", cm, bm).to(sdt)[..., None] \
         * dec * dt[:, :, None].to(sdt)                    # [B, nc, t, s, H]
     y = torch.einsum("bctsh,bcshd->bcthd", scores.to(x.dtype), x)
@@ -154,11 +157,18 @@ def mamba2_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     and d_inner are then the rank's heads and channels, read from
     ``A_log`` and ``gate_norm``; ``w_in`` gives z, x and dt of those heads
     and B and C whole, ``w_out``'s row psum sums the heads, and the gate
-    norm takes its statistic over the group (:func:`group_rms_norm`)."""
+    norm takes its statistic over the group (:func:`group_rms_norm`).  In
+    training every path from ``x`` reaches the rank's heads (B and C meet
+    them in the SSD), so one ``f`` at the entry
+    (:func:`~repro_torch.parallel.tp.enter_cut`) sums ``x``'s gradient,
+    and the one packed product stays; the whole B and C segments of
+    ``w_in``, ``conv_w`` and ``conv_b`` it passes on the way get partial
+    gradients, which the train step sums
+    (:class:`~repro_torch.parallel.steps.GradSync`)."""
     b, s, _ = x.shape
     h, d_inner = p["A_log"].shape[-1], p["gate_norm"].shape[-1]
     n, hd = cfg.ssm.d_state, cfg.ssm.head_dim
-    proj = col_linear(x, p["w_in"], pctx)
+    proj = col_linear(tp.enter_cut(x, pctx), p["w_in"], pctx)
     z, xin, bm, cm, dt = torch.split(proj, [d_inner, d_inner, n, n, h],
                                      dim=-1)
     conv_out, conv_prev = _causal_conv(torch.cat([xin, bm, cm], dim=-1),

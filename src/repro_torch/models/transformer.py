@@ -145,9 +145,11 @@ def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
                            pctx)
 
 
-def _leaves(tree: dict):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+def _leaves(tree):
+    """The tensors of nested dicts and lists (a train step's per-layer
+    lists, ``steps._grad_leaves``)."""
+    for v in tree.values() if isinstance(tree, dict) else tree:
+        yield from (_leaves(v) if isinstance(v, (dict, list)) else (v,))
 
 
 def check_remat(cfg: ModelConfig) -> None:
@@ -161,8 +163,9 @@ def check_remat(cfg: ModelConfig) -> None:
 
 
 def remat(fn, cfg: ModelConfig, lp: dict, x: torch.Tensor, *args):
-    """``fn(lp, x, *args)``: one layer.  Where autograd records it, the
-    layer is checkpointed (``use_reentrant=False``): its activations are
+    """``fn(lp, x, *args)``: one layer (or a group of them: zamba2's, the
+    vlm's).  Where autograd records it, the layer is checkpointed
+    (``use_reentrant=False``): its activations are
     dropped and recomputed in the backward, as the reference's
     ``jax.checkpoint(body, policy=nothing_saveable)`` does, and whatever
     it returns (an MoE layer's aux loss too) comes through.  Elsewhere, as

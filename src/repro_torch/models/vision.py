@@ -6,7 +6,10 @@ precomputed patch embeddings [B, num_media_tokens, d_model].  Every
 ``cross_attn_every``-th layer is a tanh-gated cross-attention block with
 qk-norm over the media; the others are the dense family's layers
 (:func:`repro_torch.models.transformer.layer_fwd`).  A Python loop over
-the groups takes the place of the reference's nested ``lax.scan``.
+the groups takes the place of the reference's nested ``lax.scan``; where
+autograd records it, each group (its ``per - 1`` self layers and its
+cross layer, the reference's ``jax.checkpoint`` unit) is checkpointed
+(:func:`~repro_torch.models.transformer.remat`), the media an argument.
 
 Attention over more than one query runs the flash kernel: causal in the
 self layers, non-causal over the media in the cross-attention layers
@@ -32,7 +35,11 @@ heads they read (cut by the attention's head rule), its ``wo`` and its
 MLP's ``w_down`` two row psums, its norms and gates whole; the embedding
 and the head are vocab-parallel.  The decode cache holds the rank's KV
 heads, over the media too.  ``rs_seq`` raises
-(:func:`repro_torch.parallel.tp.whole_sequence`).
+(:func:`repro_torch.parallel.tp.whole_sequence`).  In training the cross
+layer's normed inputs enter its cut query heads and MLP columns through
+Megatron's ``f`` (:func:`~repro_torch.parallel.tp.enter_cut`); the media
+are data with no gradient, so ``wk``/``wv`` over them take none, and
+the self layers take theirs as the dense family's.
 """
 from __future__ import annotations
 
@@ -44,7 +51,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.moe import stack_drawn
-from repro_torch.models.transformer import _dtype, _heads, layer
+from repro_torch.models.transformer import _dtype, _heads, layer, remat
+from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import local_heads
 from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear, \
     whole_sequence
@@ -131,39 +139,51 @@ def xattn_fwd(xp: dict, x: torch.Tensor, media: Optional[torch.Tensor],
     its K/V ``kv`` from the cache)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h = L.rms_norm(x, xp["lnx"], cfg.norm_eps)
+    h = tp.enter_cut(L.rms_norm(x, xp["lnx"], cfg.norm_eps), pctx)
     q = col_linear(h, xp["xattn"]["wq"], pctx).reshape(b, s, -1, hd)
     q = L.rms_norm(q, xp["xattn"]["q_norm"], cfg.norm_eps)
     k, v = media_kv(xp, media, cfg, pctx) if kv is None else kv
     o = L.attention(q, k, v, causal=False)
     o = row_linear(o.reshape(b, s, -1), xp["xattn"]["wo"], pctx)
     x = x + torch.tanh(xp["gate_attn"]).to(x.dtype) * o
-    y = L.mlp_block(xp["mlp"], L.rms_norm(x, xp["ln2"], cfg.norm_eps), pctx)
+    y = L.mlp_block(xp["mlp"], tp.enter_cut(
+        L.rms_norm(x, xp["ln2"], cfg.norm_eps), pctx), pctx)
     return x + torch.tanh(xp["gate_mlp"]).to(x.dtype) * y
+
+
+def group_fwd(gp: dict, x: torch.Tensor, media: torch.Tensor,
+              cfg: ModelConfig, cos, sin, pctx: Optional[ParallelCtx],
+              seq: int) -> torch.Tensor:
+    """One group: its self layers ``gp["self"]``, then its cross layer
+    ``gp["cross"]`` over ``media``."""
+    for li in range(cfg.cross_attn_every - 1):
+        x = T.layer_fwd(layer(gp["self"], li), x, cfg, cos, sin, pctx, seq)
+    return xattn_fwd(gp["cross"], x, media, cfg, pctx)
 
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   media: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    """The final normed hidden states; where autograd records them, each
+    group checkpointed (:func:`~repro_torch.models.transformer.remat`)."""
     whole_sequence(pctx, cfg.family)
-    g, per = _groups(cfg)
+    g, _ = _groups(cfg)
     seq = tokens.shape[1]
     x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     media = media.to(x.dtype)
     pos = torch.arange(seq, device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
     for gi in range(g):
-        gp = layer(params["groups"], gi)
-        for li in range(per - 1):
-            x = T.layer_fwd(layer(gp, li), x, cfg, cos, sin, pctx, seq)
-        x = xattn_fwd(layer(params["xlayers"], gi), x, media, cfg, pctx)
+        gp = {"self": layer(params["groups"], gi),
+              "cross": layer(params["xlayers"], gi)}
+        x = remat(group_fwd, cfg, gp, x, media, cfg, cos, sin, pctx, seq)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     x = hidden_states(params, cfg, batch["tokens"], batch["media"], pctx)
-    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab)
+    return L.vocab_head(x, params["lm_head"], pctx, cfg.vocab)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,

@@ -77,7 +77,9 @@ def _clip_scale(grads: dict, max_norm: float, group=None,
     that hold distinct pieces: the rank mesh's data and model lines), a
     ``"whole"`` leaf (the same on every rank) is counted once and a
     ``"copy"`` (a piece that another rank counts) not at all, so the norm
-    is the one over the logical arrays, and the same on every rank."""
+    is the one over the logical arrays, and the same on every rank.  A
+    leaf held in runs along its last dim (Mamba2's packed ``w_in``: its
+    heads' segments cut, B and C whole) has a kind a run."""
     leaves = tree_leaves(grads)
     groups = [g for g in (group if isinstance(group, tuple) else (group,))
               if axis_size(g) > 1]
@@ -86,7 +88,12 @@ def _clip_scale(grads: dict, max_norm: float, group=None,
     else:
         squares = {"cut": [], "whole": [], "copy": []}
         for g, kind in zip(leaves, tree_leaves(holding)):
-            squares[kind].append(g.float().square().sum())
+            if isinstance(kind, str):
+                squares[kind].append(g.float().square().sum())
+                continue
+            for k, start, size in kind:
+                squares[k].append(g.narrow(-1, start, size).float().square()
+                                  .sum())
         cut = torch.stack(squares["cut"]).sum()
         for g in groups:
             all_reduce_(cut, g)

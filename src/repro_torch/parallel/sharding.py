@@ -279,6 +279,23 @@ def _join_segments(pieces: list, segs: tuple, world: int):
     return _concat(parts, -1)
 
 
+def segment_runs(names: tuple, cfg: ModelConfig, world: int):
+    """``((cut, start, size), ...)``: the runs of a rank's shard of the
+    segmented leaf at ``names`` (:func:`_segments`) along its last dim,
+    each its piece of a cut segment (``cut`` True) or a whole segment that
+    every rank holds (Mamba2's B and C); ``None`` for any other leaf or at
+    one rank."""
+    segs = _segments(names, cfg, world)
+    if segs is None:
+        return None
+    runs, at = [], 0
+    for size, cut in segs:
+        n = size // world if cut else size
+        runs.append((cut, at, n))
+        at += n
+    return tuple(runs)
+
+
 def _cut(names: tuple, ndim: int, cfg: ModelConfig, world: int):
     """How ``world`` ranks hold the leaf at ``names`` (``ndim`` dims):
     ``None`` where each holds it whole, else ``(dim, piece)``: the leaf is
@@ -369,9 +386,14 @@ def data_cut(names: tuple, cfg: ModelConfig, world) -> int | None:
     if dim is None:
         return None
     size = shape[dim]
-    how = _cut(names, len(shape), cfg, mm)
-    if how is not None and how[0] == dim:
-        size //= how[1](0)[1]
+    if _segments(names, cfg, mm) is not None:
+        if dim == len(shape) - 1:
+            raise NotImplementedError(f"{'/'.join(names)}: the data axis on "
+                                      f"the segmented dim")
+    else:
+        how = _cut(names, len(shape), cfg, mm)
+        if how is not None and how[0] == dim:
+            size //= how[1](0)[1]
     return dim if size % dd == 0 and size >= dd else None
 
 
@@ -397,9 +419,10 @@ def shard_params(params: dict, cfg: ModelConfig, rank, world) -> dict:
     def cut(names, leaf):
         segs = _segments(names, cfg, mm)
         if segs is not None:
-            if dd > 1:
-                raise NotImplementedError(f"{'/'.join(names)}: a segmented "
-                                          f"leaf over the data axis")
+            dim = data_cut(names, cfg, (dd, mm))
+            if dim is not None:
+                n = leaf.shape[dim] // dd
+                leaf = leaf.narrow(dim, d * n, n)
             return _take_segments(leaf, segs, m, mm)
         piece = leaf
         how = _cut(names, leaf.dim(), cfg, mm)
@@ -519,12 +542,22 @@ def leaf_holding(params: dict, cfg: ModelConfig, rank, world) -> dict:
     same piece) or ``"copy"`` (a piece another rank counts: a KV head
     another rank of its KV group holds, a model shard another data rank
     holds whole, a data piece of a leaf another model rank holds
-    whole)."""
+    whole).  A segmented leaf (:func:`segment_runs`) gets ``((kind,
+    start, size), ...)``, a kind for each run of its last dim: its cut
+    segments' pieces ``"cut"``, its whole ones as a leaf the model axis
+    does not cut."""
     d, m, dd, mm = _coord(rank, world)
 
     def kind(names, leaf):
-        how = _cut(names, leaf.ndim, cfg, mm)
         dim = data_cut(names, cfg, (dd, mm)) if dd > 1 else None
+        runs = segment_runs(names, cfg, mm)
+        if runs is not None:
+            # a cut run as a leaf cut over model, a whole one as a leaf not
+            piece = "cut" if dim is not None or d == 0 else "copy"
+            whole = "whole" if dim is None else "cut" if m == 0 else "copy"
+            return tuple((piece if cut else whole, start, size)
+                         for cut, start, size in runs)
+        how = _cut(names, leaf.ndim, cfg, mm)
         if how is None and dim is None:
             return "whole"
         first_m = 0
@@ -539,13 +572,15 @@ def leaf_holding(params: dict, cfg: ModelConfig, rank, world) -> dict:
 def kv_groups(cfg: ModelConfig, world) -> list:
     """The groups of flat ranks that share one KV head (each holds a copy,
     the same piece over ``data``), in order of data rank, then KV head;
-    empty where every rank holds its own KV heads."""
+    empty where every rank holds its own KV heads.  The hybrid family's one
+    attention is its shared block's, with its own head counts."""
     _, _, dd, mm = _coord(0, world)
-    if mm == 1 or cfg.n_kv_heads % mm == 0:
+    heads = attn_heads(cfg, ("shared",) if cfg.family == "hybrid" else ())
+    if mm == 1 or heads[1] % mm == 0:
         return []
     groups = {}
     for rank in range(mm):
-        groups.setdefault(_kv_piece(cfg, rank, mm)[0], []).append(rank)
+        groups.setdefault(_kv_piece(cfg, rank, mm, heads)[0], []).append(rank)
     return [[d * mm + r for r in groups[k]] for d in range(dd)
             for k in sorted(groups)]
 

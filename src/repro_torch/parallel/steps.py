@@ -31,7 +31,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import collectives as C
 from repro_torch.models.api import Model, cache_batch_axes
-from repro_torch.models.layers import STACKED
+from repro_torch.models.layers import STACK_AXES
 from repro_torch.optim.adamw import adamw_update, cosine_schedule, tree_map
 from repro_torch.parallel import sharding
 from repro_torch.parallel.tp import ParallelCtx, seq_sharded
@@ -53,7 +53,8 @@ def _with_plan(pctx: Optional[ParallelCtx], plan) -> Optional[ParallelCtx]:
 @dataclasses.dataclass
 class TrainStep:
     """``fn(params, opt, batch) -> (params, opt, stats)`` with ``batch =
-    {"tokens", "labels"}`` this rank's rows of a global batch of ``shape``
+    {"tokens", "labels"}`` (and ``"media"`` for the encdec and vlm
+    families) this rank's rows of a global batch of ``shape``
     (:meth:`rows`; all of it without a data axis) and ``stats = {"loss",
     "grad_norm", "lr"}`` (float32 scalars on the device, the loss the
     global batch's mean).  ``params`` (float32 masters,
@@ -75,19 +76,21 @@ class TrainStep:
 def _grad_leaves(params: dict) -> tuple[dict, list]:
     """(a tree the loss is differentiated through, its leaves in order).
     Each leaf is a detached alias of the master that requires a gradient;
-    a stacked ``[L, ...]`` leaf becomes its L layer slices, so autograd
-    gives each layer its own gradient, not L full-size ``select``
-    gradients summed into one."""
+    a stacked leaf (:data:`~repro_torch.models.layers.STACK_AXES`) becomes
+    its layer slices, a list over each stacked axis (``groups`` [G, per,
+    ...] a list of G lists of ``per``), so autograd gives each layer its
+    own gradient, not one full-size ``select`` gradient a layer summed into
+    the stack's."""
     leaves = []
 
     def leaf(p):
         leaves.append(p.detach().requires_grad_())
         return leaves[-1]
 
-    def per_layer(p):
-        return [leaf(p[i]) for i in range(p.shape[0])]
+    def split(p, axes):
+        return [split(q, axes - 1) for q in p] if axes else leaf(p)
 
-    work = {k: tree_map(per_layer if k in STACKED else leaf, v)
+    work = {k: tree_map(lambda p, a=STACK_AXES.get(k, 0): split(p, a), v)
             for k, v in params.items()}
     return work, leaves
 
@@ -107,20 +110,30 @@ _KV = ("wk", "bk", "wv", "bv")
 class GradSync:
     """The reductions a rank's gradients need after the backward, beyond
     the collectives' own backwards: a KV head that ``kv_group``'s ranks
-    share gets each one's share of its gradient summed over them, and the
-    whole leaves whose gradient is partial on every path (per-head norms
-    always, the stream's norms under ``rs_seq``, and :data:`_PARTIAL`) are
-    summed over ``group``.  Every other replicated leaf's gradient comes
-    out whole, and bit-equal, on every rank: a whole leaf with both a
-    partial and a whole path (RWKV6's channel-mix ``mu``) gets its sum from
-    an ``f`` on the cut path alone, never here."""
+    share (self- or cross-attention) gets each one's share of its gradient
+    summed over them, and the whole leaves whose gradient is partial on
+    every path (per-head norms always, the stream's norms under
+    ``rs_seq``, :data:`_PARTIAL`, and the whole B and C segments of
+    Mamba2's packed ``w_in``, ``conv_w`` and ``conv_b``,
+    :func:`~repro_torch.parallel.sharding.segment_runs`) are summed over
+    ``group``.  Every other replicated leaf's gradient comes out whole,
+    and bit-equal, on every rank: a whole leaf with both a partial and a
+    whole path (RWKV6's channel-mix ``mu``) gets its sum from an ``f`` on
+    the cut path alone, never here."""
     group: object
     kv_group: Optional[object]
+    cfg: object
 
     def reduce(self, grads: dict, seq_sharded: bool) -> None:
         kv, partial = [], []
+        world = C.axis_size(self.group)
         for names, g in _named_leaves(grads):
-            if names[-1] in _KV and names[-2:-1] == ("attn",):
+            runs = sharding.segment_runs(names, self.cfg, world)
+            if runs is not None:
+                partial += [g.narrow(-1, start, size)
+                            for cut, start, size in runs if not cut]
+            elif names[-1] in _KV and names[-2:-1] in (("attn",),
+                                                       ("xattn",)):
                 kv.append(g)
             elif names[-1] in _HEAD_NORMS or names[-2:] in _PARTIAL or \
                     (seq_sharded and names[-1] in _STREAM_NORMS):
@@ -170,7 +183,7 @@ def grad_sync(cfg, pctx: Optional[ParallelCtx]) -> Optional[GradSync]:
             pg = dist.new_group(members)
             if dist.get_rank() in members:
                 kv = pg
-    return GradSync(group=pctx.group, kv_group=kv)
+    return GradSync(group=pctx.group, kv_group=kv, cfg=cfg)
 
 
 @dataclasses.dataclass
@@ -323,14 +336,12 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
     grads = list(torch.autograd.grad(loss, leaves))
     grads.reverse()
 
-    def take(p):
+    def restack(node):
+        if isinstance(node, list):
+            return torch.stack([restack(q) for q in node])
         return grads.pop()
-
-    def restack(p):
-        return torch.stack([grads.pop() for _ in range(p.shape[0])])
-
-    out = {k: tree_map(restack if k in STACKED else take, v)
-           for k, v in params.items()}
+    out = tree_map(restack, work)
+    del work, leaves
     if pctx is not None and pctx.manual:
         sync = sync or grad_sync(model.cfg, pctx)
         sync.reduce(out, seq_sharded(pctx, batch["tokens"].shape[1]))
@@ -339,33 +350,13 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
     return loss.detach(), out
 
 
-# why build_train_step refuses a family the port serves
-_UNTRAINED = {
-    "hybrid": "its training is not ported (ROADMAP.md Queue 1, item 5.7)",
-    "encdec": "its training is not ported (ROADMAP.md Queue 1, item 5.7)",
-    "vlm": "its training is not ported (ROADMAP.md Queue 1, item 5.7)"}
-
-
-#: the families the port trains
-TRAINED = ("dense", "ssm", "moe", "mla_moe")
-
-
-def check_trainable(cfg) -> None:
-    """Raise for a family whose training the port lacks."""
-    if cfg.family not in TRAINED:
-        raise NotImplementedError(
-            f"training family {cfg.family!r}: {_UNTRAINED[cfg.family]}; "
-            f"the port trains {', '.join(TRAINED)}")
-
-
 def build_train_step(model: Model, shape: ShapeConfig,
                      pctx: Optional[ParallelCtx] = None,
                      base_lr: float = 3e-4, warmup: int = 200,
                      total_steps: int = 10_000, plan=None) -> TrainStep:
     """loss -> gradients -> AdamW with the reference's cosine schedule.
 
-    The dense, ssm, moe and mla_moe families (:data:`TRAINED`), at one
-    rank, or on the rank mesh: tensor-parallel
+    Every family, at one rank, or on the rank mesh: tensor-parallel
     over ``pctx.group`` and data-parallel with FSDP shards over
     ``pctx.data_group`` and ``pctx.pod_group`` (``params`` and ``opt`` then
     this rank's pieces, as :func:`repro_torch.parallel.sharding.
@@ -380,11 +371,10 @@ def build_train_step(model: Model, shape: ShapeConfig,
     (pod x data) do not divide raises ValueError (the reference's
     ``fit_specs`` would move the batch's data axis to the sequence, which
     the port does not cut over ``data``), as does a model world that does
-    not divide the heads.  The hybrid, encdec and vlm families raise:
-    their training is not ported (ROADMAP.md Queue 1, item 5.7, which
-    :data:`_UNTRAINED` names)."""
+    not divide the heads.  The encdec and vlm families' ``batch`` also
+    holds this rank's rows of ``media`` [B, M, D], as the reference's
+    ``batch_specs`` cut it."""
     cfg = model.cfg
-    check_trainable(cfg)
     pctx = _with_plan(pctx, plan)
     sync = grad_sync(cfg, pctx)
     data = data_sync(cfg, pctx)

@@ -200,8 +200,13 @@ def _numpy(tree):
 
 
 def _batch(pair):
-    return {"tokens": torch.from_numpy(pair[0]).long(),
-            "labels": torch.from_numpy(pair[1]).long()}
+    """A train batch from (tokens, labels), or (tokens, labels, media) for
+    the encdec and vlm families."""
+    out = {"tokens": torch.from_numpy(pair[0]).long(),
+           "labels": torch.from_numpy(pair[1]).long()}
+    if len(pair) > 2:
+        out["media"] = torch.from_numpy(pair[2])
+    return out
 
 
 def tp_train_rank(rank, world, group, device, spec):

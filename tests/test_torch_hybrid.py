@@ -380,11 +380,32 @@ def test_world_above_one_raises(pair):
 
 
 def test_build_train_step_names_why_it_raises():
-    with pytest.raises(NotImplementedError,
-                       match=r"training is not ported \(ROADMAP.md Queue 1, "
-                             r"item 5.7\)"):
-        build_train_step(get_model(ARCHS[NAME].reduced()),
-                         ShapeConfig("t", 8, 1, "train"))
+    """zamba2 trains (item 5.7 is ported): one step of the reduced model
+    (float32 masters) gives a finite loss and moves the packed ``w_in``,
+    the shared block and ``inv_norms`` (the gradients against jax's are
+    tests/test_torch_train_hybrid_media.py's); a depth that is not a
+    whole number of groups raises, naming the group, as ``_groups``
+    does."""
+    from repro_torch.optim.adamw import adamw_init
+    m = get_model(ARCHS[NAME].reduced())
+    params = m.init(device="cpu", masters=True)
+    before = {"w_in": params["groups"]["mamba"]["w_in"].clone(),
+              "wq": params["shared"]["attn"]["wq"].clone(),
+              "inv_norms": params["inv_norms"].clone()}
+    ts = build_train_step(m, ShapeConfig("t", 8, 1, "train"))
+    toks = torch.randint(0, m.cfg.vocab, (1, 9),
+                         generator=torch.Generator().manual_seed(0))
+    params, _, st = ts.fn(params, adamw_init(params),
+                          {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert np.isfinite(float(st["loss"]))
+    after = {"w_in": params["groups"]["mamba"]["w_in"],
+             "wq": params["shared"]["attn"]["wq"],
+             "inv_norms": params["inv_norms"]}
+    for key, was in before.items():
+        assert not torch.equal(after[key], was), key
+    odd = get_model(dataclasses.replace(m.cfg, n_layers=3))
+    with pytest.raises(ValueError, match="does not divide 3 layers"):
+        odd.init(device="cpu", masters=True)
 
 
 # --------------------------------------------------------------------------- #

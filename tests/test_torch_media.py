@@ -382,11 +382,31 @@ def test_world_above_one_raises(pair):
 
 @pytest.mark.parametrize("name", ARCH_NAMES)
 def test_build_train_step_names_why_it_raises(name):
-    with pytest.raises(NotImplementedError,
-                       match=r"training is not ported \(ROADMAP.md Queue 1, "
-                             r"item 5.7\)"):
-        build_train_step(get_model(ARCHS[name].reduced()),
-                         ShapeConfig("t", 8, 1, "train"))
+    """The vlm and encdec families train (item 5.7 is ported): one step
+    of the reduced model (float32 masters) on a batch with media of ones
+    (``models.api.media_ones``) gives a finite loss and moves the
+    cross-attention's query weights (the gradients against jax's are
+    tests/test_torch_train_hybrid_media.py's); a batch without media
+    raises."""
+    from repro_torch.models.api import media_ones
+    from repro_torch.optim.adamw import adamw_init
+    m = get_model(ARCHS[name].reduced())
+    params = m.init(device="cpu", masters=True)
+    if name == VLM:
+        for gate in ("gate_attn", "gate_mlp"):
+            params["xlayers"][gate].fill_(0.5)
+    cross = params["xlayers" if name == VLM else "dec_layers"]["xattn"]
+    before = cross["wq"].clone()
+    ts = build_train_step(m, ShapeConfig("t", 8, 1, "train"))
+    toks = torch.randint(0, m.cfg.vocab, (1, 9),
+                         generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with pytest.raises(KeyError, match="media"):
+        ts.fn(params, adamw_init(params), batch)
+    params, _, st = ts.fn(params, adamw_init(params),
+                          {**batch, **media_ones(m.cfg, 1, "cpu")})
+    assert np.isfinite(float(st["loss"]))
+    assert not torch.equal(cross["wq"], before)
 
 
 # --------------------------------------------------------------------------- #

@@ -415,7 +415,7 @@ def test_params_keep_names_shapes_and_storage(pair):
     stored = cache_leaves(params_from_jax(_numpy_tree(jp), cfg, device="cpu"))
     own = cache_leaves(get_model(cfg).init(device="cpu"))
     for path, leaf in stored.items():
-        rank = leaf.dim() - (path.split("/")[0] in layers.STACKED)
+        rank = leaf.dim() - layers.STACK_AXES.get(path.split("/")[0], 0)
         assert leaf.dtype == (torch.bfloat16 if rank >= 2 else torch.float32), path
         assert (own[path].dtype, own[path].shape) == (leaf.dtype, leaf.shape)
     jcfg = dataclasses.replace(JARCHS[m.cfg.name].reduced(), param_dtype="bfloat16")
@@ -453,13 +453,14 @@ def test_world_above_one_raises(pair):
 @pytest.mark.parametrize("name", ["zamba2-2.7b", "llama-3.2-vision-11b",
                                   "whisper-medium"])
 def test_build_train_step_names_why_it_raises(name):
-    """The families whose training is not ported name their item; the two
-    MoE families train (test_build_train_step_trains_the_moe_families)."""
+    """Every family trains now (item 5.7 is ported), the two MoE
+    families among them (test_build_train_step_trains_the_moe_families):
+    the hybrid, vlm and encdec families build a step for the shape asked,
+    with one data host."""
     m = get_model(ARCHS[name].reduced())
-    with pytest.raises(NotImplementedError,
-                       match=r"training is not ported \(ROADMAP.md Queue 1, "
-                             r"item 5.7\)"):
-        build_train_step(m, ShapeConfig("t", 8, 1, "train"))
+    ts = build_train_step(m, ShapeConfig("t", 8, 1, "train"))
+    assert (ts.shape.seq_len, ts.shape.global_batch) == (8, 1)
+    assert (ts.host, ts.hosts) == (0, 1)
 
 
 @pytest.mark.parametrize("name", ARCH_NAMES)

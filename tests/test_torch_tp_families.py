@@ -307,16 +307,16 @@ def test_tp_family_refuses_rs_seq(arch):
 @pytest.mark.parametrize("arch", sorted(
     {a for a, c in ARCHS.items() if c.family != "dense"}))
 def test_non_dense_families_still_refuse_training(arch):
-    """rwkv6-7b, llama4-scout and deepseek-v2-lite train (at one rank
-    here; tensor-parallel in tests/test_torch_tp_train_families.py); the
-    hybrid, vlm and encdec families still refuse, naming item 5.7."""
+    """Every non-dense family trains now (item 5.7 is ported): the step
+    builds at one rank here and at 2 ranks of a span-2 axis
+    (tensor-parallel in tests/test_torch_tp_train_families.py and
+    tests/test_torch_tp_train_hybrid_media.py), one data host each."""
     cfg = ARCHS[arch].reduced()
     shape = ShapeConfig("t", 8, 2, "train")
-    if arch in ARCH_NAMES:
-        assert build_train_step(get_model(cfg), shape).shape == shape
-    else:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.*item 5\.7"):
-            build_train_step(get_model(cfg), shape)
+    assert build_train_step(get_model(cfg), shape).shape == shape
+    ts = build_train_step(get_model(cfg), shape,
+                          ParallelCtx(group=AxisSpan(2)))
+    assert ts.shape == shape and ts.hosts == 1
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)

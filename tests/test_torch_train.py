@@ -239,7 +239,7 @@ def test_train_step_calls_each_kernel_as_derived(monkeypatch):
     7 L again in the checkpointed layers' recompute, and two for each of
     the 7 L + 1 in the backward; flash attention L forward plus L
     recomputed, none in its backward.  chip_smoke.py holds the card's
-    launch counters to the same count at its 14 layers (395 and 28)."""
+    launch counters to the same count at its 8 layers (227 and 16)."""
     calls = {"ina_matmul": 0, "flash_attention": 0}
     real_mm, real_fa = im.ina_matmul, fa._attention
 
@@ -405,7 +405,7 @@ def test_build_train_step_raises_for_ssm():
     builds for rwkv6-7b, and a step of the reduced model gives a finite
     loss and updates the time mix's weights (the families' gradients are
     tests/test_torch_train_families.py's).  zamba2-2.7b, whose Mamba2
-    layers are ssm blocks of the hybrid family, still raises."""
+    layers are ssm blocks of the hybrid family, builds too."""
     m = get_model(ARCHS["rwkv6-7b"].reduced())
     ts = build_train_step(m, ShapeConfig("t", 8, 1, "train"))
     params = m.init(device="cpu", masters=True)
@@ -414,16 +414,17 @@ def test_build_train_step_raises_for_ssm():
                           _torch_batch(_batch(1, m.cfg.vocab, 1, 8)))
     assert np.isfinite(float(st["loss"]))
     assert not torch.equal(params["layers"]["tmix"]["w_lora_a"], before)
-    with pytest.raises(NotImplementedError, match=r"item 5\.7"):
-        build_train_step(get_model(ARCHS["zamba2-2.7b"].reduced()),
-                         ShapeConfig("t", 8, 1, "train"))
+    shape = ShapeConfig("t", 8, 1, "train")
+    assert build_train_step(get_model(ARCHS["zamba2-2.7b"].reduced()),
+                            shape).shape == shape
 
 
 def test_build_train_step_raises_past_one_rank():
-    """Past one rank the dense family trains (tests/test_torch_tp_train.py)
-    where the world divides its heads: 3 ranks for the reduced qwen2's 4
-    query heads raise, and so do 2 for a family without training (the
-    moe family trains: tests/test_torch_tp_train_families.py)."""
+    """Past one rank every family trains (tests/test_torch_tp_train.py,
+    tests/test_torch_tp_train_families.py,
+    tests/test_torch_tp_train_hybrid_media.py) where the world divides its
+    heads: 3 ranks for the reduced qwen2's 4 query heads raise, and so do
+    3 for zamba2's shared block of 4 heads, whose step builds at 2."""
     class ThreeRanks(ParallelCtx):
         world = property(lambda self: 3)
     m = get_model(ARCHS["qwen2-1.5b"].reduced())
@@ -433,8 +434,10 @@ def test_build_train_step_raises_past_one_rank():
     class TwoRanks(ParallelCtx):
         world = property(lambda self: 2)
     hybrid = get_model(ARCHS["zamba2-2.7b"].reduced())
-    with pytest.raises(NotImplementedError, match="5.7"):
-        build_train_step(hybrid, ShapeConfig("t", 8, 1, "train"), TwoRanks())
+    shape = ShapeConfig("t", 8, 1, "train")
+    assert build_train_step(hybrid, shape, TwoRanks()).shape == shape
+    with pytest.raises(ValueError, match="do not divide"):
+        build_train_step(hybrid, shape, ThreeRanks())
 
 
 def test_train_step_rejects_other_shapes():

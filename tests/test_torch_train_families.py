@@ -60,8 +60,7 @@ from repro_torch.models import transformer
 from repro_torch.models.api import get_model
 from repro_torch.optim import adamw
 from repro_torch.parallel import sharding
-from repro_torch.parallel.steps import (TRAINED, build_train_step,
-                                        loss_and_grads)
+from repro_torch.parallel.steps import build_train_step, loss_and_grads
 
 RWKV, LLAMA4, DEEPSEEK = ("rwkv6-7b", "llama4-scout-17b-16e",
                           "deepseek-v2-lite-16b")
@@ -393,15 +392,35 @@ def test_other_remat_policies_raise(name, policy):
 
 
 def test_trained_families():
-    assert set(TRAINED) == {"dense", "ssm", "moe", "mla_moe"}
+    """Every family the reference trains, the port trains: a step builds
+    for every config (the refusal of item 5.7 is gone)."""
+    shape = ShapeConfig("t", 8, 2, "train")
+    for cfg in ARCHS.values():
+        assert build_train_step(get_model(cfg.reduced()), shape).shape \
+            == shape, cfg.name
 
 
-@pytest.mark.parametrize("name", sorted(
-    {a for a, c in ARCHS.items() if c.family not in TRAINED}))
+@pytest.mark.parametrize("name", ["llama-3.2-vision-11b", "whisper-medium",
+                                  "zamba2-2.7b"])
 def test_untrained_families_name_item_5_7(name):
-    with pytest.raises(NotImplementedError, match=r"item 5\.7"):
-        build_train_step(get_model(ARCHS[name].reduced()),
-                         ShapeConfig("t", 8, 2, "train"))
+    """The families item 5.7 ported (hybrid, vlm, encdec) train: one step
+    of the reduced model from its own seeded masters, with media of ones
+    where the family reads them, lowers nothing to NaN, and a second step
+    on the same batch has a lower loss."""
+    from repro_torch.models.api import media_ones
+    m = get_model(ARCHS[name].reduced())
+    params = m.init(torch.Generator().manual_seed(0), device="cpu",
+                    masters=True)
+    ts = build_train_step(m, ShapeConfig("t", 8, 2, "train"), base_lr=1e-2,
+                          warmup=1, total_steps=10)
+    batch = {**_torch_batch(_batch(4, m.cfg.vocab, 2, 8)),
+             **media_ones(m.cfg, 2, "cpu")}
+    opt = adamw.adamw_init(params)
+    losses = []
+    for _ in range(2):
+        params, opt, st = ts.fn(params, opt, batch)
+        losses.append(float(st["loss"]))
+    assert all(np.isfinite(losses)) and losses[1] < losses[0]
 
 
 # --------------------------------------------------------------------------- #
@@ -426,13 +445,17 @@ def _reference_data_dims(name: str) -> dict:
     return out
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", FAMILIES + (
+    "zamba2-2.7b", "llama-3.2-vision-11b", "whisper-medium"))
 def test_data_cut_is_where_the_reference_places_data(name):
     """Every leaf's ``data_cut`` at ``(data 2, model 2)`` is the dim where
     the reference places ``data``, where 2 data ranks divide that dim of
     the rank's model shard, else None (held whole over ``data``): the
     expert weights [L, E, D, F] and [L, E, F, D] on their second dim after
-    E, never L."""
+    E, never L; zamba2's ``groups`` [G, per, ...] past both stack axes
+    (Mamba2's packed ``w_in`` on D, its segments cut over ``model`` on
+    the last dim), the vlm's ``xlayers`` and whisper's ``enc_layers`` and
+    ``dec_layers`` past L, and whisper's ``pos_dec`` on its rows."""
     cfg = ARCHS[name].reduced()
     want = _reference_data_dims(name)
     shards = sharding.shard_params(
@@ -449,6 +472,15 @@ def test_data_cut_is_where_the_reference_places_data(name):
     if cfg.moe is not None:
         assert got[("layers", "mlp", "w_gate")] == 2
         assert got[("layers", "mlp", "w_down")] == 2
+    named = {"zamba2-2.7b": {("groups", "mamba", "w_in"): 2,
+                             ("groups", "mamba", "w_out"): 3},
+             "llama-3.2-vision-11b": {("xlayers", "xattn", "wq"): 1,
+                                      ("groups", "mlp", "w_down"): 3},
+             "whisper-medium": {("dec_layers", "xattn", "wk"): 1,
+                                ("enc_layers", "mlp", "w_down"): 2,
+                                ("pos_dec",): 0}}.get(name, {})
+    for names, dim in named.items():
+        assert got[names] == dim, names
 
 
 # --------------------------------------------------------------------------- #
