@@ -2972,17 +2972,33 @@ def phase_encdec() -> dict:
 # --------------------------------------------------------------------------- #
 # phase 17: the non-dense families through their tensor-parallel code
 # --------------------------------------------------------------------------- #
+#: the sequence-sharded stream's cases (``ParallelCtx`` keywords) that
+#: ``[tp-families]``' forward runs beside every psum mode; the first is
+#: ``[train-families]``' one step under it
+RS_CASES = {"ina+rs_seq": {"psum_mode": "ina", "rs_seq": True},
+            "ina+rs_seq+sp_entry": {"psum_mode": "ina", "rs_seq": True,
+                                    "sp_entry": True}}
+
+
+def tp_cases(rs: tuple = tuple(RS_CASES)) -> dict:
+    """Case name -> ``ParallelCtx`` keywords: every psum mode, then the
+    :data:`RS_CASES` named in ``rs``."""
+    return {**{m: {"psum_mode": m} for m in C.CLI_PSUM_MODES},
+            **{name: RS_CASES[name] for name in rs}}
+
+
 def tp_family_forward(model, params, batch: dict, group, rank: int,
                       world: int) -> dict:
     """The forward of ``batch`` through ``build_prefill``, without a group
-    and then under each psum mode on ``group`` over this rank's shard:
-    each run's launches, and whether its logits equal the groupless
-    run's to the bit (with their largest difference)."""
+    and then under each psum mode and each :data:`RS_CASES` case (the
+    stream sequence-sharded: at one rank the whole sequence is the rank's
+    slice) on ``group`` over this rank's shard: each run's launches, and
+    whether its logits equal the groupless run's to the bit (with their
+    largest difference)."""
     shard = shard_params(params, model.cfg, rank, world)
     runs = {}
-    for mode in ("none",) + C.CLI_PSUM_MODES:
-        pctx = None if mode == "none" else \
-            ParallelCtx(group=group, psum_mode=mode)
+    for mode, kw in {"none": None, **tp_cases()}.items():
+        pctx = None if kw is None else ParallelCtx(group=group, **kw)
         reset_launches()
         logits = build_prefill(model, pctx).fn(
             params if pctx is None else shard, batch)
@@ -3085,15 +3101,17 @@ def phase_tp_families() -> dict:
     is the same) equal to the groupless run's, which are the derived
     counts; then each family's forward (B 2 x S 2048 for rwkv, B 1 x S
     2048 for the MoE families, zamba2 and vlm, whisper's 448 tokens over
-    its 1500 frames) likewise, logits bit-equal; every launch shape held
-    against its plain version in phase 2.  Returns each run's launches by
-    path."""
+    its 1500 frames) likewise, under every mode and under the
+    sequence-sharded stream (:data:`RS_CASES`), logits bit-equal; every
+    launch shape held against its plain version in phase 2.  Returns each
+    run's launches by path."""
     fresh_phase()
     log(f"[tp-families] {RWKV} (4 layers), {MLA} (2 layers), {MOE} "
         f"({MOE_DEPTH} layers), {HYBRID}, {VLM} and {ENCDEC} at their "
         f"published widths through "
         f"their tensor-parallel code on an NCCL group of 1 rank, one "
-        f"process, under every psum mode, beside the same requests served "
+        f"process, under every psum mode (the forward also under "
+        f"{' and '.join(RS_CASES)}), beside the same requests served "
         f"without a group; worlds 2 and 4 run on gloo on the CPU "
         f"(tests/test_torch_tp_families.py, "
         f"tests/test_torch_tp_hybrid_media.py), and phase 2 held their "
@@ -3145,6 +3163,12 @@ def phase_tp_families() -> dict:
             f"S={res['tokens'][1]}: every mode's logits equal the groupless "
             f"forward's bit for bit, launches {fwd['none']['launches']} "
             f"(derived {expect}; by regime {fwd['none']['by_regime']})")
+        log(f"[tp-families] {arch} forward under "
+            + " and ".join(f"{name} (largest difference "
+                           f"{fwd[name]['max_diff']})" for name in RS_CASES)
+            + ": the stream sequence-sharded on the one-rank group, logits "
+            f"bit-equal to the groupless forward's, the same launches "
+            f"{fwd['none']['launches']}")
         log(f"[tp-families] {arch} ({res['n_layers']} layers; weights drawn "
             f"in {res['init_s']:.1f} s, peak {gib(res['peak'])}): "
             f"{len(base['tokens'])} requests, {passes} passes a {serve}; "
@@ -3182,6 +3206,8 @@ FAMILY_TRAIN_ARGV = ["--steps", "4"]
 #: batch's was above the first's on the H100; at 1e-4 and 5e-5 it fell)
 FAMILY_TRAIN_LR = {VLM: "1e-4"}
 FAMILY_TRAIN_SAVED = 2   # the newest checkpoint of 4 steps saved every 2
+#: the :data:`RS_CASES` a family's step runs under beside every psum mode
+TRAIN_RS_CASES = ("ina+rs_seq",)
 FAMILY_TRAIN_SPANS = ("wkv6_backward", EXPERTS_SPAN,
                       mla_model.ATTENTION_SPAN, "flash_attention_backward",
                       "adamw_update")
@@ -3303,7 +3329,8 @@ def train_family(arch: str, layers: int, ck: str, smi: str,
     del params, opt, ts
     fresh_phase()
 
-    # one step under each mode on a one-rank NCCL group: the groupless step
+    # one step under each mode (and TRAIN_RS_CASES) on a one-rank NCCL
+    # group: the groupless step
     expect = train_launches(cfg)
     with vlm_gates(arch), record_shapes() as seen:
         base, base_steps = _timed("groupless step", lambda: tp_train_steps(
@@ -3314,8 +3341,8 @@ def train_family(arch: str, layers: int, ck: str, smi: str,
             vlm_gates(arch):
         group, _ = mesh.init_group(1, 0, device, os.path.join(tmp, "store"))
         try:
-            for mode in C.CLI_PSUM_MODES:
-                pctx = ParallelCtx(group=group, psum_mode=mode)
+            for mode, kw in tp_cases(TRAIN_RS_CASES).items():
+                pctx = ParallelCtx(group=group, **kw)
                 got, st = _timed(f"{mode} step", lambda: tp_train_steps(
                     model, shape, pctx, [batch], args), phase)
                 s, b = st[0], base_steps[0]
@@ -3358,7 +3385,9 @@ def phase_train_families(smi: str, device: str = "cuda") -> dict:
     MLA's attention and AdamW), and one step under every psum mode on a
     one-rank NCCL group, bit-equal to the groupless step with the same
     launches and no collective call; the groupless step's launch shapes
-    were each held against the kernel's plain version in phase 2."""
+    were each held against the kernel's plain version in phase 2; and the
+    same step under the sequence-sharded stream (:data:`TRAIN_RS_CASES`),
+    bit-equal to the groupless one with its launches."""
     out = {}
     for arch, layers in TRAIN_FAMILIES:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_families_") as ck:

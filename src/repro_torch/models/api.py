@@ -161,6 +161,15 @@ def cache_batch_axes(cfg: ModelConfig) -> dict:
     return {path: mod.CACHE_BATCH_AXES[path] for path in cache_leaves(tree)}
 
 
+def stream_leaves(cfg: ModelConfig) -> dict:
+    """The whole leaves the family applies to its residual stream between
+    the blocks, by path (``"layers/ln1"``), each to the batch input whose
+    sequence (axis 1) that stream follows (``"tokens"``; whisper's
+    encoder ``"media"``), as the family states it: under rs_seq each acts
+    on a rank's slice of that sequence, so its gradient is partial."""
+    return get_model(cfg).mod.STREAM_LEAVES
+
+
 def paged_cache_leaves(cfg: ModelConfig) -> tuple:
     """The paths of the decode-cache leaves with a sequence axis, which the
     serving pool pages by position; every other leaf (a recurrent state) is

@@ -30,18 +30,25 @@ counts are read from the shards), each attention's ``wo`` and each MLP's
 ``w_down`` a row psum; ``pos_dec`` is whole on every rank, and the
 embedding and the tied head are vocab-parallel where the world divides
 the vocabulary (whisper-medium's 51865 it does not: the table stays
-whole).  The decode cache holds the rank's KV heads.  ``rs_seq`` raises
-(:func:`repro_torch.parallel.tp.whole_sequence`).
+whole).  The decode cache holds the rank's KV heads.
+
+Under ``rs_seq`` each stream is this rank's slice of its sequence between
+the layers: the encoder's over the frames (1500 for whisper-medium, cut
+from the media), the decoder's over the tokens (cut after ``pos_dec`` is
+added).  Each attention's and MLP's normed input is gathered whole at its
+entry (:func:`repro_torch.parallel.tp.gather_seq`) and each row site
+reduce-scatters over its S; ``ln_enc``'s output is gathered whole once,
+for every decoder layer's cross-attention.
 
 In training each encoder and decoder layer is checkpointed
 (:func:`~repro_torch.models.transformer.remat`), as the reference's
 scans are, and every whole tensor that enters cut work does so through
-Megatron's ``f`` (:func:`~repro_torch.parallel.tp.enter_cut`): the
-normed input of each attention and MLP, the cross-attention's query
-input, and the encoder's output, once before the decoder's loop (the
-``f`` is linear: its one sum covers the ``wk``/``wv`` of every layer).
-A head over a vocabulary the world does not divide is whole on every
-rank and takes no ``f``.
+Megatron's ``f`` (:func:`~repro_torch.parallel.tp.enter_cut`, or the
+gather's backward under rs_seq): the normed input of each attention and
+MLP, the cross-attention's query input, and the encoder's output, once
+before the decoder's loop (the ``f`` is linear: its one sum covers the
+``wk``/``wv`` of every layer).  A head over a vocabulary the world does
+not divide is whole on every rank and takes no ``f``.
 """
 from __future__ import annotations
 
@@ -52,14 +59,20 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.moe import stack_drawn
-from repro_torch.models.transformer import _dtype, _heads, layer, remat
+from repro_torch.models.transformer import (_dtype, _heads, block_input,
+                                            head_logits, layer, remat)
 from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import local_heads
-from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear, \
-    whole_sequence
+from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
 
 CACHE_BATCH_AXES = {"k": 1, "v": 1}
 PAGED_CACHE_LEAVES = ("k", "v")
+# as ``transformer.STREAM_LEAVES``: the encoder's norms and ``ln_enc`` on
+# the frames' stream, the decoder's norms and ``ln_f`` on the tokens'
+STREAM_LEAVES = {"enc_layers/ln1": "media", "enc_layers/ln2": "media",
+                 "ln_enc": "media", "dec_layers/ln1": "tokens",
+                 "dec_layers/lnx": "tokens", "dec_layers/ln2": "tokens",
+                 "ln_f": "tokens"}
 
 
 # --------------------------------------------------------------------------- #
@@ -128,33 +141,32 @@ def _attn_kw(p: dict, cfg: ModelConfig) -> dict:
     return dict(n_heads=nh, n_kv=nkv, head_dim=hd, eps=cfg.norm_eps)
 
 
-def _cut_norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
-              pctx: Optional[ParallelCtx]) -> torch.Tensor:
-    """A cut block's input: ``x`` normed, through Megatron's ``f``."""
-    return tp.enter_cut(L.rms_norm(x, w, cfg.norm_eps), pctx)
-
-
 def enc_layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-                  pctx: Optional[ParallelCtx]) -> torch.Tensor:
-    """One encoder layer: non-causal self-attention (no RoPE) and an
-    ungated MLP."""
-    x = x + L.attn_block(lp["attn"], _cut_norm(x, lp["ln1"], cfg, pctx),
+                  pctx: Optional[ParallelCtx], seq: int) -> torch.Tensor:
+    """One encoder layer over ``seq`` frames: non-causal self-attention
+    (no RoPE) and an ungated MLP."""
+    x = x + L.attn_block(lp["attn"], block_input(x, lp["ln1"], cfg, seq,
+                                                 pctx),
                          cos=None, sin=None, causal=False, pctx=pctx,
                          **_attn_kw(lp["attn"], cfg))
-    return x + L.mlp_block(lp["mlp"], _cut_norm(x, lp["ln2"], cfg, pctx),
-                           pctx)
+    return x + L.mlp_block(lp["mlp"], block_input(x, lp["ln2"], cfg, seq,
+                                                  pctx), pctx)
 
 
 def encode(params: dict, cfg: ModelConfig, media: torch.Tensor,
            pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """media: [B, F, D] frame embeddings -> the encoder's output [B, F,
-    D]; where autograd records the layers, each is checkpointed."""
-    whole_sequence(pctx, cfg.family)
-    x = media.to(_dtype(cfg))
+    D], whole on every rank; where autograd records the layers, each is
+    checkpointed.  Under rs_seq the layers run on this rank's slice of
+    the frames, and the normed output is gathered whole at the end: in
+    training it enters every decoder layer's cut ``wk``/``wv`` through
+    that gather's ``f``."""
+    f = media.shape[1]
+    x = tp.scatter_seq(media.to(_dtype(cfg)), pctx)
     for i in range(cfg.encoder_layers):
         x = remat(enc_layer_fwd, cfg, layer(params["enc_layers"], i), x, cfg,
-                  pctx)
-    return L.rms_norm(x, params["ln_enc"], cfg.norm_eps)
+                  pctx, f)
+    return block_input(x, params["ln_enc"], cfg, f, pctx)
 
 
 def cross_attn(p: dict, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig,
@@ -172,10 +184,12 @@ def cross_attn(p: dict, x: torch.Tensor, enc: torch.Tensor, cfg: ModelConfig,
 
 def dec_layer_fwd(lp: dict, x: torch.Tensor, enc: torch.Tensor,
                   cfg: ModelConfig, cos, sin, pctx: Optional[ParallelCtx],
-                  kv: Optional[tuple] = None, pos=None) -> torch.Tensor:
-    """One decoder layer over the whole sequence, or with ``kv`` (the
+                  seq: int, kv: Optional[tuple] = None,
+                  pos=None) -> torch.Tensor:
+    """One decoder layer over the whole sequence of ``seq`` positions
+    (``x`` this rank's slice of them under rs_seq), or with ``kv`` (the
     layer's cache K/V) one decode step at ``pos``, written in place."""
-    h = _cut_norm(x, lp["ln1"], cfg, pctx)
+    h = block_input(x, lp["ln1"], cfg, seq, pctx)
     if kv is None:
         x = x + L.attn_block(lp["attn"], h, cos=cos, sin=sin, causal=True,
                              pctx=pctx, **_attn_kw(lp["attn"], cfg))
@@ -184,10 +198,10 @@ def dec_layer_fwd(lp: dict, x: torch.Tensor, enc: torch.Tensor,
                                       cos=cos, sin=sin, pctx=pctx,
                                       **_attn_kw(lp["attn"], cfg))
         x = x + y
-    x = x + cross_attn(lp["xattn"], _cut_norm(x, lp["lnx"], cfg, pctx),
-                       enc, cfg, pctx)
-    return x + L.mlp_block(lp["mlp"], _cut_norm(x, lp["ln2"], cfg, pctx),
-                           pctx)
+    x = x + cross_attn(lp["xattn"], block_input(x, lp["lnx"], cfg, seq,
+                                                pctx), enc, cfg, pctx)
+    return x + L.mlp_block(lp["mlp"], block_input(x, lp["ln2"], cfg, seq,
+                                                  pctx), pctx)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
@@ -195,18 +209,16 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     """Logits [B, S, V]; where autograd records the layers, each encoder
     and decoder layer is checkpointed, the head outside."""
     tokens = batch["tokens"]
-    # the f of every decoder layer's cross-attention wk/wv, summed once
-    enc = tp.enter_cut(encode(params, cfg, batch["media"], pctx), pctx)
+    enc = encode(params, cfg, batch["media"], pctx)
     s = tokens.shape[1]
     x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
-    x = x + params["pos_dec"][:s][None].to(x.dtype)
+    x = tp.scatter_seq(x + params["pos_dec"][:s][None].to(x.dtype), pctx)
     cos, sin = L.rope_cos_sin(torch.arange(s, device=tokens.device),
                               cfg.resolved_head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
         x = remat(dec_layer_fwd, cfg, layer(params["dec_layers"], i), x, enc,
-                  cfg, cos, sin, pctx)
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.vocab_head(x, params["embed"].T, pctx, cfg.vocab)
+                  cfg, cos, sin, pctx, s)
+    return head_logits(params, cfg, x, s, pctx)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -243,7 +255,6 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     x = x + rows.to(x.dtype)
     for i in range(cfg.n_layers):
         x = dec_layer_fwd(layer(params["dec_layers"], i), x, enc, cfg, cos,
-                          sin, pctx, kv=(cache["k"][i], cache["v"][i]),
+                          sin, pctx, 1, kv=(cache["k"][i], cache["v"][i]),
                           pos=pos)
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["embed"].T, pctx, cfg.vocab), cache
+    return head_logits(params, cfg, x, 1, pctx), cache

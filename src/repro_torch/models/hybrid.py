@@ -38,12 +38,20 @@ make the 2 x d_model row whole before ``wo_down`` and ``mlp_down``, which
 every rank holds whole; the embedding and the tied head are
 vocab-parallel.  The decode cache holds the rank's Mamba2 heads, conv
 channels (its x channels, B and C whole) and shared-block KV heads.
-``rs_seq`` raises (:func:`repro_torch.parallel.tp.whole_sequence`).  In
-training the shared block's normed input enters its cut heads and
-columns through one Megatron ``f``
-(:func:`~repro_torch.parallel.tp.enter_cut`), after the norm, so that
-``inv_norms``' gradient comes out whole; a Mamba2 layer's enters at the
-block (:func:`repro_torch.models.ssm.mamba2_block`).
+
+Under ``rs_seq`` the stream between the blocks, ``x`` and the embedded
+``x0`` both, is this rank's slice of the sequence (cut once after the
+embedding): the shared block norms ``cat([x, x0])`` on the slice and
+gathers it whole (:func:`repro_torch.parallel.tp.gather_seq`), its
+``wo`` and ``w_down`` reduce-scatter over S, and the whole ``wo_down`` and
+``mlp_down`` then run on those slices; a Mamba2 layer's normed input is
+gathered whole before the conv and the SSD, which run along the whole
+sequence, and its ``w_out`` reduce-scatters.  In training the shared
+block's normed input enters its cut heads and columns through one
+Megatron ``f`` after the norm (the gather's backward under rs_seq), so
+that ``inv_norms``' gradient comes out whole; a Mamba2 layer's enters at
+the block (:func:`repro_torch.models.ssm.mamba2_block`), so its gather
+takes none.
 """
 from __future__ import annotations
 
@@ -56,12 +64,20 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.moe import stack_drawn
-from repro_torch.models.transformer import _dtype, _heads, layer, remat
-from repro_torch.parallel import tp
+from repro_torch.models.transformer import (_dtype, _heads, block_input,
+                                            embed_stream, head_logits, layer,
+                                            remat)
 from repro_torch.parallel.sharding import local_heads, local_ssm_heads
-from repro_torch.parallel.tp import ParallelCtx, whole_sequence
+from repro_torch.parallel.tp import ParallelCtx
 
 CACHE_BATCH_AXES = {"ssm": 2, "conv": 2, "k": 1, "v": 1}
+# as ``transformer.STREAM_LEAVES``: the Mamba2 layers' norms, ``ln_f``, the
+# shared block's ``inv_norms`` (``cat([x, x0])`` normed on the slice) and
+# its ``wo_down`` and ``mlp_down`` (whole products on the slices that
+# ``wo`` and ``w_down`` reduce-scatter)
+STREAM_LEAVES = {"groups/ln": "tokens", "inv_norms": "tokens",
+                 "shared/wo_down": "tokens", "shared/mlp_down": "tokens",
+                 "ln_f": "tokens"}
 PAGED_CACHE_LEAVES = ("k", "v")
 
 
@@ -133,16 +149,17 @@ def init(cfg: ModelConfig, generator: torch.Generator, device,
 # --------------------------------------------------------------------------- #
 def shared_block(sp: dict, x: torch.Tensor, x0: torch.Tensor,
                  inv_norm: torch.Tensor, cfg: ModelConfig, cos, sin,
-                 pctx: Optional[ParallelCtx], cache: Optional[dict] = None,
-                 pos=None) -> torch.Tensor:
-    """x, x0: [B, S, D] -> the block's delta [B, S, D].  With ``cache``
-    (this invocation's ``k``/``v`` [B, S_max, heads, hd]) one decode step at
+                 pctx: Optional[ParallelCtx], seq: int,
+                 cache: Optional[dict] = None, pos=None) -> torch.Tensor:
+    """x, x0: [B, S, D] (this rank's slice of the ``seq`` positions under
+    rs_seq) -> the block's delta, the same rows.  With ``cache`` (this
+    invocation's ``k``/``v`` [B, S_max, heads, hd]) one decode step at
     ``pos``, the new K/V written in place.  The heads are those of the
     shard ``sp`` holds; the normed input enters them and the MLP's cut
     columns through one ``f`` (``wo_down`` and ``mlp_down`` are whole, on
-    rows the psums made whole)."""
-    h2 = tp.enter_cut(L.rms_norm(torch.cat([x, x0], dim=-1), inv_norm,
-                                 cfg.norm_eps), pctx)
+    rows the psums made whole, or the slices the reduce-scatters
+    left)."""
+    h2 = block_input(torch.cat([x, x0], dim=-1), inv_norm, cfg, seq, pctx)
     hd = shared_dims(cfg)[1]
     nh, nkv = _heads(sp["attn"], hd)
     kw = dict(n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos, sin=sin,
@@ -159,44 +176,47 @@ def shared_block(sp: dict, x: torch.Tensor, x0: torch.Tensor,
 
 
 def group_fwd(gp: dict, x: torch.Tensor, x0: torch.Tensor, sp: dict,
-              cfg: ModelConfig, cos, sin,
-              pctx: Optional[ParallelCtx]) -> torch.Tensor:
+              cfg: ModelConfig, cos, sin, pctx: Optional[ParallelCtx],
+              seq: int) -> torch.Tensor:
     """One group: the shared block (weights ``sp``, this group's
-    ``gp["inv_norm"]``), then the group's Mamba2 layers ``gp["layers"]``."""
-    x = x + shared_block(sp, x, x0, gp["inv_norm"], cfg, cos, sin, pctx)
+    ``gp["inv_norm"]``), then the group's Mamba2 layers ``gp["layers"]``,
+    over ``seq`` positions (``x`` and ``x0`` this rank's slice of them
+    under rs_seq)."""
+    x = x + shared_block(sp, x, x0, gp["inv_norm"], cfg, cos, sin, pctx, seq)
     for li in range(cfg.shared_attn_every):
         lp = layer(gp["layers"], li)
-        y, _, _ = S.mamba2_block(lp["mamba"],
-                                 L.rms_norm(x, lp["ln"], cfg.norm_eps),
-                                 cfg, pctx)
+        # Mamba2 keeps its own ``f`` (its whole B and C): none at the gather
+        h = block_input(x, lp["ln"], cfg, seq, pctx, cut=False)
+        y, _, _ = S.mamba2_block(lp["mamba"], h, cfg, pctx)
         x = x + y
     return x
 
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    """The final normed hidden states; where autograd records them, each
-    group checkpointed (:func:`~repro_torch.models.transformer.remat`)."""
-    whole_sequence(pctx, cfg.family)
+    """The final stream, before ``ln_f`` (this rank's slice of the
+    sequence under rs_seq); where autograd records it, each group
+    checkpointed (:func:`~repro_torch.models.transformer.remat`)."""
     g, _ = _groups(cfg)
-    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
-    x0 = x
-    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    seq = tokens.shape[1]
+    x = x0 = embed_stream(params, cfg, tokens, pctx)
+    pos = torch.arange(seq, device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, shared_dims(cfg)[1], cfg.rope_theta)
     for gi in range(g):
         gp = {"layers": layer(params["groups"], gi),
               "inv_norm": params["inv_norms"][gi]}
         x = remat(group_fwd, cfg, gp, x, x0, params["shared"], cfg, cos, sin,
-                  pctx)
-    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+                  pctx, seq)
+    return x
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """Logits [B, S, V] through the tied head (``embed.T`` read in place),
     the whole vocabulary's on every rank."""
-    return L.vocab_head(hidden_states(params, cfg, batch["tokens"], pctx),
-                        params["embed"].T, pctx, cfg.vocab)
+    tokens = batch["tokens"]
+    return head_logits(params, cfg, hidden_states(params, cfg, tokens, pctx),
+                       tokens.shape[1], pctx)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -233,7 +253,6 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     returns (logits [B, 1, V], cache), the cache written in place.  The
     Mamba2 states carry their own positions; ``pos`` places the shared
     block's K/V, its RoPE angle and its mask, row by row."""
-    whole_sequence(pctx, cfg.family)
     g, per = _groups(cfg)
     tokens = batch["tokens"]
     x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
@@ -243,7 +262,7 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     for gi in range(g):
         gp = layer(params["groups"], gi)
         x = x + shared_block(params["shared"], x, x0, params["inv_norms"][gi],
-                             cfg, cos, sin, pctx,
+                             cfg, cos, sin, pctx, 1,
                              cache={"k": cache["k"][gi], "v": cache["v"][gi]},
                              pos=pos)
         for li in range(per):
@@ -255,5 +274,4 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
             cache["ssm"][gi, li] = state
             cache["conv"][gi, li] = conv
             x = x + y
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["embed"].T, pctx, cfg.vocab), cache
+    return head_logits(params, cfg, x, 1, pctx), cache

@@ -369,17 +369,6 @@ def logits_head(x: torch.Tensor, w: torch.Tensor,
     return out if vocab is None else tp.vocab_gather(out, vocab, pctx)
 
 
-def vocab_head(x: torch.Tensor, w: torch.Tensor,
-               pctx: Optional[ParallelCtx], vocab: int) -> torch.Tensor:
-    """:func:`logits_head` of the whole vocabulary from a replicated ``x``:
-    where ``w`` holds this rank's slice of V, ``x`` enters the cut through
-    Megatron's ``f`` (:func:`repro_torch.parallel.tp.enter_cut`), so that
-    in training its gradient is the ranks' partials summed."""
-    if w.shape[-1] != vocab:
-        x = tp.enter_cut(x, pctx)
-    return logits_head(x, w, pctx, vocab)
-
-
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor,
               z_coef: float = 0.0) -> torch.Tensor:
     """Mean next-token cross-entropy; logits [B,S,V], labels [B,S]."""

@@ -22,7 +22,11 @@ holds its H/P heads of ``wq``, ``w_uk``, ``w_uv`` and ``wo``, and the whole
 of ``w_dkv`` and ``kv_norm``: every rank computes the whole normed latent
 (its RMS norm needs all of it), caches it whole, and expands its own heads
 from it; ``wo``'s row psum sums the heads.  The FFN is expert-parallel as
-:mod:`repro_torch.models.moe`'s.
+:mod:`repro_torch.models.moe`'s.  Under ``rs_seq`` the stream between the
+blocks is this rank's slice of the sequence, as in
+:mod:`repro_torch.models.moe`: the attention's normed input is gathered
+whole, its ``f``s stay on ``wq``'s input and the latent (so the gather's
+backward is the rank's slice), and ``wo`` reduce-scatters over S.
 """
 from __future__ import annotations
 
@@ -33,11 +37,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-from repro_torch.models.transformer import _dtype, layer
+from repro_torch.models.transformer import (_dtype, block_input,
+                                            embed_stream, head_logits, layer)
 from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import check_heads
-from repro_torch.parallel.tp import (ParallelCtx, col_linear, row_linear,
-                                     whole_sequence)
+from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
 
 # Decode-cache layout (read by ``models.api``), by leaf path: ``dense/...``
 # exists where the config has leading dense layers.  Every leaf is paged by
@@ -45,6 +49,10 @@ from repro_torch.parallel.tp import (ParallelCtx, col_linear, row_linear,
 CACHE_BATCH_AXES = {"moe/latent": 1, "moe/k_rope": 1, "dense/latent": 1,
                     "dense/k_rope": 1}
 PAGED_CACHE_LEAVES = tuple(CACHE_BATCH_AXES)
+# as ``transformer.STREAM_LEAVES``: both stacks' block norms and ``ln_f``
+STREAM_LEAVES = {f"{stack}/{norm}": "tokens"
+                 for stack in ("dense_layers", "layers")
+                 for norm in ("ln1", "ln2")} | {"ln_f": "tokens"}
 # the profiler range of the full-sequence attention (plain PyTorch)
 ATTENTION_SPAN = "mla_attention"
 
@@ -150,34 +158,39 @@ def mla_block(p: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
 
 
 def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
-              pctx: Optional[ParallelCtx], dense: bool = False):
-    """One layer over the whole sequence; returns (x, aux loss)."""
-    x = x + mla_block(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                      cfg, cos, sin, pctx)
-    return MOE.ffn(lp, x, cfg, pctx, dense)
+              pctx: Optional[ParallelCtx], seq: int, dense: bool = False):
+    """One layer over the whole sequence of ``seq`` positions (``x`` this
+    rank's slice of them under rs_seq); returns (x, aux loss)."""
+    # MLA keeps its own ``f``s (the whole latent): no ``f`` at the gather
+    h = block_input(x, lp["ln1"], cfg, seq, pctx, cut=False)
+    x = x + mla_block(lp["attn"], h, cfg, cos, sin, pctx)
+    return MOE.ffn(lp, x, cfg, pctx, dense, seq)
 
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None):
-    """(final normed hidden states, aux loss)."""
-    whole_sequence(pctx, cfg.family)
-    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
-    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    """(the final stream, before ``ln_f``: this rank's slice of the
+    sequence under rs_seq; aux loss)."""
+    seq = tokens.shape[1]
+    x = embed_stream(params, cfg, tokens, pctx)
+    pos = torch.arange(seq, device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
     return MOE.run_layers(params, cfg, x, lambda lp, x, dense: layer_fwd(
-        lp, x, cfg, cos, sin, pctx, dense))
+        lp, x, cfg, cos, sin, pctx, seq, dense))
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    x, _ = hidden_states(params, cfg, batch["tokens"], pctx)
-    return L.vocab_head(x, params["lm_head"], pctx, cfg.vocab)
+    tokens = batch["tokens"]
+    x, _ = hidden_states(params, cfg, tokens, pctx)
+    return head_logits(params, cfg, x, tokens.shape[1], pctx)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
          pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    x, aux = hidden_states(params, cfg, batch["tokens"], pctx)
-    return L.xent_loss(L.vocab_head(x, params["lm_head"], pctx, cfg.vocab),
+    tokens = batch["tokens"]
+    x, aux = hidden_states(params, cfg, tokens, pctx)
+    return L.xent_loss(head_logits(params, cfg, x, tokens.shape[1], pctx),
                        batch["labels"]) + aux
 
 
@@ -223,7 +236,6 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
                 pctx: Optional[ParallelCtx] = None):
     """One-token decode.  batch: {tokens: [B, 1], pos: int or [B] tensor};
     returns (logits [B, 1, V], cache), the cache written in place."""
-    whole_sequence(pctx, cfg.family)
     tokens = batch["tokens"]
     groups = MOE.decode_groups(tokens, batch["pos"])
     pos, cos, sin = L.decode_positions(batch["pos"], tokens.device,
@@ -237,6 +249,5 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
             y = _decode_attn(lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
                              c["latent"][i], c["k_rope"][i], pos, cfg, cos,
                              sin, pctx)
-            x, _ = MOE.ffn(lp, x + y, cfg, pctx, dense, groups)
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab), cache
+            x, _ = MOE.ffn(lp, x + y, cfg, pctx, dense, 1, groups)
+    return head_logits(params, cfg, x, 1, pctx), cache

@@ -40,7 +40,14 @@ partial combines are summed under ``psum_mode``
 layer, the paper's WS partial sum with experts in place of weight slices.
 The shared experts keep their own row-parallel psum, as in the reference.
 Attention runs the rank's heads, the cache holds its KV heads, and the
-embedding and the head are vocab-parallel.
+embedding and the head are vocab-parallel.  Under ``rs_seq`` the stream
+between the blocks is this rank's slice of the sequence: each block's
+normed input is gathered whole (:func:`repro_torch.parallel.tp.
+gather_seq`), so the router, the capacity and the slots cover the whole
+sequence as in the reference; ``wo``, a dense layer's ``w_down`` and the
+shared experts' ``w_down`` reduce-scatter over S, the experts' combine
+psums whole and is then sliced (:func:`repro_torch.parallel.tp.
+scatter_seq`), and the aux loss stays whole and equal on every rank.
 """
 from __future__ import annotations
 
@@ -52,14 +59,19 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dtype, _heads, layer, remat
+from repro_torch.models.transformer import (_dtype, _heads, block_input,
+                                            embed_stream, head_logits, layer,
+                                            remat)
 from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import local_heads
-from repro_torch.parallel.tp import ParallelCtx, whole_sequence
+from repro_torch.parallel.tp import ParallelCtx
 
 # Decode-cache layout (read by ``models.api``), by leaf: ``dk``/``dv`` exist
 # where the config has leading dense layers.
 CACHE_BATCH_AXES = {"k": 1, "v": 1, "dk": 1, "dv": 1}
+# as ``transformer.STREAM_LEAVES``: the block norms and ``ln_f``
+STREAM_LEAVES = {"layers/ln1": "tokens", "layers/ln2": "tokens",
+                 "ln_f": "tokens"}
 PAGED_CACHE_LEAVES = ("k", "v", "dk", "dv")
 
 _ROUTING: Optional[list] = None
@@ -238,7 +250,12 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
     global batch's, an assignment's slot counts the hosts' before it
     (:func:`~repro_torch.parallel.tp.host_offsets`), and the aux loss
     takes the hosts' mean load and importance
-    (:func:`~repro_torch.parallel.tp.host_mean`)."""
+    (:func:`~repro_torch.parallel.tp.host_mean`).  Under rs_seq ``x`` is
+    the whole sequence and the output this rank's slice of it: the
+    combine's whole sum sliced, plus the shared experts' reduce-scatter.
+    In training ``x`` enters this rank's experts and the shared experts'
+    columns through one ``f``: its entry takes none
+    (:func:`~repro_torch.parallel.tp.gather_seq`'s ``cut=False``)."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
@@ -282,7 +299,7 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
     out = _expert_partial(xc.reshape(n_tok, d), expert, slot, mine,
                           tp.enter_cut(gate_vals, pctx), p["w_gate"],
                           p["w_up"], p["w_down"], groups * cap)
-    out = tp.psum_partial(out, pctx).reshape(b, s, d)
+    out = tp.scatter_seq(tp.psum_partial(out, pctx).reshape(b, s, d), pctx)
     if "shared" in p:
         out = out + L.mlp_block(p["shared"], xc, pctx)
 
@@ -299,29 +316,33 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def ffn(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-        pctx: Optional[ParallelCtx], dense: bool, groups: int = 1):
-    """``x`` plus the layer's MLP (dense) or MoE on its normed ``x``;
-    returns (x, aux loss)."""
-    h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        pctx: Optional[ParallelCtx], dense: bool, seq: int, groups: int = 1):
+    """``x`` plus the layer's MLP (dense) or MoE on its normed ``x``, the
+    whole ``seq`` positions gathered at the entry (``x`` this rank's slice
+    of them under rs_seq); returns (x, aux loss)."""
+    # the MoE keeps its own ``f``s (the router's whole work): no ``f`` at
+    # its gather
+    h = block_input(x, lp["ln2"], cfg, seq, pctx, cut=dense)
     if dense:
-        return x + L.mlp_block(lp["mlp"], tp.enter_cut(h, pctx), pctx), \
-            torch.zeros((), device=x.device)
+        return (x + L.mlp_block(lp["mlp"], h, pctx),
+                torch.zeros((), device=x.device))
     y, aux = moe_mlp(lp["mlp"], h, cfg, pctx, groups)
     return x + y, aux
 
 
 def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
-              pctx: Optional[ParallelCtx], dense: bool = False):
-    """One layer over the whole sequence; returns (x, aux loss).  Causal
+              pctx: Optional[ParallelCtx], seq: int, dense: bool = False):
+    """One layer over the whole sequence of ``seq`` positions (``x`` this
+    rank's slice of them under rs_seq); returns (x, aux loss).  Causal
     attention runs the flash kernel (the reference's ``attn_chunked`` /
     ``attn_full``: the same function)."""
     hd = cfg.resolved_head_dim
     nh, nkv = _heads(lp["attn"], hd)
-    h = tp.enter_cut(L.rms_norm(x, lp["ln1"], cfg.norm_eps), pctx)
+    h = block_input(x, lp["ln1"], cfg, seq, pctx)
     x = x + L.attn_block(lp["attn"], h, n_heads=nh, n_kv=nkv, head_dim=hd,
                          cos=cos, sin=sin, causal=True, eps=cfg.norm_eps,
                          pctx=pctx)
-    return ffn(lp, x, cfg, pctx, dense)
+    return ffn(lp, x, cfg, pctx, dense, seq)
 
 
 def run_layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -330,38 +351,41 @@ def run_layers(params: dict, cfg: ModelConfig, x: torch.Tensor,
     (``layer_fwd(layer weights, x, dense) -> (x, aux)``), each checkpointed
     where autograd records it (:func:`~repro_torch.models.transformer.
     remat`: the aux loss comes out of the checkpointed layer, as the
-    reference carries it in its scan); returns (the final normed x, the
-    summed aux loss)."""
+    reference carries it in its scan); returns (the final x, before
+    ``ln_f``, and the summed aux loss)."""
     aux = torch.zeros((), device=x.device)
     for dense, stack, n in stacks(params, cfg):
         for i in range(n):
             x, a = remat(layer_fwd, cfg, layer(stack, i), x, dense)
             aux = aux + a
-    return L.rms_norm(x, params["ln_f"], cfg.norm_eps), aux
+    return x, aux
 
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None):
-    """(final normed hidden states, aux loss)."""
-    whole_sequence(pctx, cfg.family)
-    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
-    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    """(the final stream, before ``ln_f``: this rank's slice of the
+    sequence under rs_seq; aux loss)."""
+    seq = tokens.shape[1]
+    x = embed_stream(params, cfg, tokens, pctx)
+    pos = torch.arange(seq, device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
     return run_layers(params, cfg, x, lambda lp, x, dense: layer_fwd(
-        lp, x, cfg, cos, sin, pctx, dense))
+        lp, x, cfg, cos, sin, pctx, seq, dense))
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    x, _ = hidden_states(params, cfg, batch["tokens"], pctx)
-    return L.vocab_head(x, params["lm_head"], pctx, cfg.vocab)
+    tokens = batch["tokens"]
+    x, _ = hidden_states(params, cfg, tokens, pctx)
+    return head_logits(params, cfg, x, tokens.shape[1], pctx)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
          pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    x, aux = hidden_states(params, cfg, batch["tokens"], pctx)
-    logits = L.vocab_head(x, params["lm_head"], pctx, cfg.vocab)
-    return L.xent_loss(logits, batch["labels"]) + aux
+    tokens = batch["tokens"]
+    x, aux = hidden_states(params, cfg, tokens, pctx)
+    return L.xent_loss(head_logits(params, cfg, x, tokens.shape[1], pctx),
+                       batch["labels"]) + aux
 
 
 # --------------------------------------------------------------------------- #
@@ -392,7 +416,6 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
                 pctx: Optional[ParallelCtx] = None):
     """One-token decode.  batch: {tokens: [B, 1], pos: int or [B] tensor};
     returns (logits [B, 1, V], cache), the cache written in place."""
-    whole_sequence(pctx, cfg.family)
     tokens = batch["tokens"]
     hd = cfg.resolved_head_dim
     groups = decode_groups(tokens, batch["pos"])
@@ -409,6 +432,5 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
                 lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), ck[i],
                 cv[i], pos, n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos,
                 sin=sin, eps=cfg.norm_eps, pctx=pctx)
-            x, _ = ffn(lp, x + y, cfg, pctx, dense, groups)
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab), cache
+            x, _ = ffn(lp, x + y, cfg, pctx, dense, 1, groups)
+    return head_logits(params, cfg, x, 1, pctx), cache

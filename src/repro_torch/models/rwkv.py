@@ -19,7 +19,14 @@ heads (the wkv6 kernel launches at H/P), its ``wo`` and the channel mix's
 ``wv`` reduce their partial sums (the two INA sites a layer), the channel
 mix's gate and both token shifts stay whole, and the embedding and the
 head are vocab-parallel.  The decode state holds the rank's heads, the
-token-shift rows stay whole.
+token-shift rows stay whole.  Under ``rs_seq`` the stream between the
+blocks is this rank's slice of the sequence (cut after the embedding, so
+``ln_in`` runs on the slice): each block's normed input is gathered whole
+before the token shift, which reads the position before a slice's first,
+as the wkv6 scan's state runs along the whole sequence; both mixes keep
+their own ``f``s, so the gather's backward is the rank's slice; ``wo`` and
+the channel mix's ``wv`` reduce-scatter over S, and the whole gate meets
+``wv``'s slice through :func:`repro_torch.parallel.tp.scatter_seq`.
 """
 from __future__ import annotations
 
@@ -30,12 +37,18 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
-from repro_torch.models.transformer import _dtype, _stack, layer, remat
+from repro_torch.models.transformer import (_dtype, _stack, block_input,
+                                            embed_stream, head_logits, layer,
+                                            remat)
 from repro_torch.parallel.sharding import local_ssm_heads
-from repro_torch.parallel.tp import ParallelCtx, whole_sequence
+from repro_torch.parallel.tp import ParallelCtx
 
 CACHE_BATCH_AXES = {"state": 1, "tprev": 1, "cprev": 1}
 PAGED_CACHE_LEAVES = ()
+# as ``transformer.STREAM_LEAVES``: the block norms, ``ln_f``, and ``ln_in``
+# on the embedding's slice
+STREAM_LEAVES = {"ln_in": "tokens", "layers/ln1": "tokens",
+                 "layers/ln2": "tokens", "ln_f": "tokens"}
 
 
 def init_layer(generator, cfg: ModelConfig, device) -> dict:
@@ -71,15 +84,18 @@ def init(cfg: ModelConfig, generator: torch.Generator, device,
 
 
 def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
-              pctx: Optional[ParallelCtx], caches: Optional[dict] = None):
-    """caches: None (full sequence from a zero state) or the layer's decode
-    caches; returns (x, new caches or None)."""
+              pctx: Optional[ParallelCtx], seq: int,
+              caches: Optional[dict] = None):
+    """caches: None (``seq`` positions from a zero state; ``x`` this
+    rank's slice of them under rs_seq) or the layer's decode caches;
+    returns (x, new caches or None)."""
     if caches is None:
-        y, _, _ = S.rwkv_tmix(lp["tmix"], L.rms_norm(x, lp["ln1"], cfg.norm_eps),
-                              cfg, pctx)
+        # both mixes keep their own ``f``s: no ``f`` at the gather
+        h = block_input(x, lp["ln1"], cfg, seq, pctx, cut=False)
+        y, _, _ = S.rwkv_tmix(lp["tmix"], h, cfg, pctx)
         x = x + y
-        y, _ = S.rwkv_cmix(lp["cmix"], L.rms_norm(x, lp["ln2"], cfg.norm_eps),
-                           cfg, pctx)
+        h = block_input(x, lp["ln2"], cfg, seq, pctx, cut=False)
+        y, _ = S.rwkv_cmix(lp["cmix"], h, cfg, pctx)
         return x + y, None
     y, state, tprev = S.rwkv_tmix(
         lp["tmix"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg, pctx,
@@ -92,21 +108,24 @@ def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig,
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    whole_sequence(pctx, cfg.family)
-    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
-    x = L.rms_norm(x, params["ln_in"], cfg.norm_eps)
+    """The final stream, before ``ln_f``: this rank's slice of the
+    sequence under rs_seq."""
+    seq = tokens.shape[1]
+    x = L.rms_norm(embed_stream(params, cfg, tokens, pctx), params["ln_in"],
+                   cfg.norm_eps)
     for i in range(cfg.n_layers):
         x, _ = remat(layer_fwd, cfg, layer(params["layers"], i), x, cfg,
-                     pctx)
-    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+                     pctx, seq)
+    return x
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """Logits [B, S, V]; where autograd records the layers, each is
     checkpointed (:func:`~repro_torch.models.transformer.remat`)."""
-    return L.vocab_head(hidden_states(params, cfg, batch["tokens"], pctx),
-                        params["lm_head"], pctx, cfg.vocab)
+    tokens = batch["tokens"]
+    return head_logits(params, cfg, hidden_states(params, cfg, tokens, pctx),
+                       tokens.shape[1], pctx)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -141,14 +160,12 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     """One-token decode.  batch: {tokens: [B, 1], pos: ignored (the state
     carries the position)}; returns (logits [B, 1, V], cache), the cache
     updated in place."""
-    whole_sequence(pctx, cfg.family)
     x = L.embed(params["embed"], batch["tokens"], _dtype(cfg), pctx,
                 cfg.vocab)
     x = L.rms_norm(x, params["ln_in"], cfg.norm_eps)
     for i in range(cfg.n_layers):
-        x, new = layer_fwd(layer(params["layers"], i), x, cfg, pctx,
+        x, new = layer_fwd(layer(params["layers"], i), x, cfg, pctx, 1,
                            caches={name: leaf[i] for name, leaf in cache.items()})
         for name, leaf in cache.items():
             leaf[i] = new[name]
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab), cache
+    return head_logits(params, cfg, x, 1, pctx), cache

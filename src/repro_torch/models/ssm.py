@@ -314,7 +314,12 @@ def rwkv_cmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """Returns (y, new_prev).  Under tensor parallelism ``wk`` is cut on
     d_ff and ``wv`` on its input (the INA site), while the gate's ``wr``
     is whole: so only ``xk`` enters cut work, and in training the ``f``
-    (:func:`~repro_torch.parallel.tp.enter_cut`) sits on it alone."""
+    (:func:`~repro_torch.parallel.tp.enter_cut`) sits on it alone.  Under
+    ``rs_seq`` ``wv`` reduce-scatters over S, and the gate, computed whole
+    on every rank, is sliced to the rank's rows
+    (:func:`~repro_torch.parallel.tp.scatter_seq`, whose backward gathers
+    its gradient whole, so ``wr``'s stays whole): ``y`` is the rank's
+    slice."""
     xs, new_prev = _shift(x, prev)
     mu = p["mu"].to(x.dtype)
     xk = tp.enter_cut(x + (xs - x) * mu[0], pctx)
@@ -322,4 +327,4 @@ def rwkv_cmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k = torch.square(torch.relu(col_linear(xk, p["wk"], pctx)))
     out = row_linear(k, p["wv"], pctx)          # INA site (channel-mix)
     gate = torch.sigmoid(col_linear(xr, p["wr"], pctx))
-    return out * gate, new_prev
+    return out * tp.scatter_seq(gate, pctx), new_prev

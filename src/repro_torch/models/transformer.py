@@ -38,6 +38,13 @@ from repro_torch.parallel.tp import ParallelCtx
 # the leaves with a sequence axis, which the serving pool pages by position.
 CACHE_BATCH_AXES = {"k": 1, "v": 1}
 PAGED_CACHE_LEAVES = ("k", "v")
+# The whole leaves applied to the residual stream between the blocks (read
+# by ``models.api.stream_leaves``), by path, each to the batch input whose
+# sequence (axis 1) that stream follows.  Under rs_seq they act on this
+# rank's slice of it, so each rank's gradient covers its own rows only:
+# the block norms and ``ln_f``.
+STREAM_LEAVES = {"layers/ln1": "tokens", "layers/ln2": "tokens",
+                 "ln_f": "tokens"}
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -110,39 +117,49 @@ def _heads(ap: dict, hd: int) -> tuple[int, int]:
     return ap["wq"].shape[-1] // hd, ap["wk"].shape[-1] // hd
 
 
-def _embed(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-           pctx: Optional[ParallelCtx]) -> torch.Tensor:
+def embed_stream(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 pctx: Optional[ParallelCtx]) -> torch.Tensor:
     """Embedded tokens, this rank's slice of the sequence under rs_seq."""
     x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
     return tp.scatter_seq(x, pctx)
 
 
-def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor, seq: int,
-            pctx: Optional[ParallelCtx]) -> torch.Tensor:
+def block_input(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, seq: int,
+                pctx: Optional[ParallelCtx], cut: bool = True) -> torch.Tensor:
+    """A block's input: the stream ``x`` (this rank's slice of the ``seq``
+    positions under rs_seq) normed by ``w``, then gathered whole
+    (:func:`~repro_torch.parallel.tp.gather_seq`; ``cut=False`` where the
+    block keeps its own ``f``s)."""
+    return tp.gather_seq(L.rms_norm(x, w, cfg.norm_eps), pctx, seq, cut=cut)
+
+
+def head_logits(params: dict, cfg: ModelConfig, x: torch.Tensor, seq: int,
+                pctx: Optional[ParallelCtx]) -> torch.Tensor:
+    """The whole vocabulary's logits [B, S, V] on every rank from the
+    final stream ``x`` (this rank's slice of the ``seq`` positions under
+    rs_seq): ``ln_f``, then the untied head or the tied ``embed.T``.  The
+    head's input is gathered whole (:func:`block_input`): where the head
+    holds this rank's slice of V, its gradient is the ranks' partials,
+    summed by the gather's backward (Megatron's ``f`` without rs_seq)."""
     head = _head(params)
-    x = tp.gather_seq(L.rms_norm(x, params["ln_f"], cfg.norm_eps), pctx, seq,
-                      cut=head.shape[-1] != cfg.vocab)
+    x = block_input(x, params["ln_f"], cfg, seq, pctx,
+                    cut=head.shape[-1] != cfg.vocab)
     return L.logits_head(x, head, pctx, cfg.vocab)
 
 
 # --------------------------------------------------------------------------- #
 # forward (train / prefill)
 # --------------------------------------------------------------------------- #
-def _norm(x: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, seq: int,
-          pctx: Optional[ParallelCtx]) -> torch.Tensor:
-    """A column-parallel block's input: normed, the whole sequence."""
-    return tp.gather_seq(L.rms_norm(x, w, cfg.norm_eps), pctx, seq)
-
-
 def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
               pctx: Optional[ParallelCtx], seq: int) -> torch.Tensor:
     hd = cfg.resolved_head_dim
     nh, nkv = _heads(lp["attn"], hd)
-    x = x + L.attn_block(lp["attn"], _norm(x, lp["ln1"], cfg, seq, pctx),
-                         n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos, sin=sin,
-                         causal=True, eps=cfg.norm_eps, pctx=pctx)
-    return x + L.mlp_block(lp["mlp"], _norm(x, lp["ln2"], cfg, seq, pctx),
-                           pctx)
+    h = block_input(x, lp["ln1"], cfg, seq, pctx)
+    x = x + L.attn_block(lp["attn"], h, n_heads=nh, n_kv=nkv, head_dim=hd,
+                         cos=cos, sin=sin, causal=True, eps=cfg.norm_eps,
+                         pctx=pctx)
+    return x + L.mlp_block(lp["mlp"], block_input(x, lp["ln2"], cfg, seq,
+                                                  pctx), pctx)
 
 
 def _leaves(tree):
@@ -182,13 +199,13 @@ def forward(params: dict, cfg: ModelConfig, batch: dict,
     checkpointed (:func:`remat`).  The head stays outside."""
     tokens = batch["tokens"]
     seq = tokens.shape[1]
-    x = _embed(params, cfg, tokens, pctx)
+    x = embed_stream(params, cfg, tokens, pctx)
     pos = torch.arange(seq, device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
     for i in range(cfg.n_layers):
         x = remat(layer_fwd, cfg, layer(params["layers"], i), x, cfg, cos,
                   sin, pctx, seq)
-    return _logits(params, cfg, x, seq, pctx)
+    return head_logits(params, cfg, x, seq, pctx)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -219,14 +236,14 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
         raise ValueError(f"chunk [{pos_offset}, {end}) past the cache length "
                          f"{cache['k'].shape[2]}")
     hd = cfg.resolved_head_dim
-    x = _embed(params, cfg, tokens, pctx)
+    x = embed_stream(params, cfg, tokens, pctx)
     pos = torch.arange(c, device=tokens.device) + pos_offset
     cos, sin = L.rope_cos_sin(pos, hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
         nh, nkv = _heads(lp["attn"], hd)
         ck, cv = cache["k"][i], cache["v"][i]
-        h = _norm(x, lp["ln1"], cfg, c, pctx)
+        h = block_input(x, lp["ln1"], cfg, c, pctx)
         q, k, v = L.attn_qkv(lp["attn"], h, nh, nkv, hd, cos, sin,
                              cfg.norm_eps, pctx)
         ck[:, pos_offset:end] = k.to(ck.dtype)
@@ -234,9 +251,9 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
         o = L.attention(q, ck[:, :end].to(q.dtype), cv[:, :end].to(q.dtype),
                         causal=True, q_offset=pos_offset)
         x = x + L.row_linear(o.reshape(b, c, nh * hd), lp["attn"]["wo"], pctx)
-        x = x + L.mlp_block(lp["mlp"], _norm(x, lp["ln2"], cfg, c, pctx),
-                            pctx)
-    return _logits(params, cfg, x, c, pctx), cache
+        x = x + L.mlp_block(lp["mlp"], block_input(x, lp["ln2"], cfg, c,
+                                                   pctx), pctx)
+    return head_logits(params, cfg, x, c, pctx), cache
 
 
 # --------------------------------------------------------------------------- #
@@ -268,17 +285,17 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     """
     tokens, pos = batch["tokens"], batch["pos"]
     hd = cfg.resolved_head_dim
-    x = _embed(params, cfg, tokens, pctx)
+    x = embed_stream(params, cfg, tokens, pctx)
     pos, cos, sin = L.decode_positions(pos, tokens.device, hd, cfg.rope_theta)
     seq = tokens.shape[1]
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
         nh, nkv = _heads(lp["attn"], hd)
         y, _, _ = L.attn_block_decode(
-            lp["attn"], _norm(x, lp["ln1"], cfg, seq, pctx), cache["k"][i],
-            cache["v"][i], pos, n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos,
-            sin=sin, eps=cfg.norm_eps, pctx=pctx)
+            lp["attn"], block_input(x, lp["ln1"], cfg, seq, pctx),
+            cache["k"][i], cache["v"][i], pos, n_heads=nh, n_kv=nkv,
+            head_dim=hd, cos=cos, sin=sin, eps=cfg.norm_eps, pctx=pctx)
         x = x + y
-        x = x + L.mlp_block(lp["mlp"], _norm(x, lp["ln2"], cfg, seq, pctx),
-                            pctx)
-    return _logits(params, cfg, x, seq, pctx), cache
+        x = x + L.mlp_block(lp["mlp"], block_input(x, lp["ln2"], cfg, seq,
+                                                   pctx), pctx)
+    return head_logits(params, cfg, x, seq, pctx), cache

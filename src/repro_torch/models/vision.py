@@ -34,12 +34,17 @@ family's; a cross-attention layer runs the rank's query heads and the KV
 heads they read (cut by the attention's head rule), its ``wo`` and its
 MLP's ``w_down`` two row psums, its norms and gates whole; the embedding
 and the head are vocab-parallel.  The decode cache holds the rank's KV
-heads, over the media too.  ``rs_seq`` raises
-(:func:`repro_torch.parallel.tp.whole_sequence`).  In training the cross
+heads, over the media too.  Under ``rs_seq`` the stream between the
+layers is this rank's slice of the sequence: the self layers gather and
+reduce-scatter as the dense family's, and a cross layer gathers its
+normed inputs (``lnx``'s and ``ln2``'s, on the slice) whole
+(:func:`repro_torch.parallel.tp.gather_seq`), its ``wo`` and ``w_down``
+reduce-scatter over S, and the tanh gates scale those slices.  The media
+K/V stay whole: no row site produces the media.  In training the cross
 layer's normed inputs enter its cut query heads and MLP columns through
-Megatron's ``f`` (:func:`~repro_torch.parallel.tp.enter_cut`); the media
-are data with no gradient, so ``wk``/``wv`` over them take none, and
-the self layers take theirs as the dense family's.
+Megatron's ``f`` (the gathers' backwards under rs_seq); the media are
+data with no gradient, so ``wk``/``wv`` over them take none, and the self
+layers take theirs as the dense family's.
 """
 from __future__ import annotations
 
@@ -51,13 +56,20 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.moe import stack_drawn
-from repro_torch.models.transformer import _dtype, _heads, layer, remat
-from repro_torch.parallel import tp
+from repro_torch.models.transformer import (_dtype, _heads, block_input,
+                                            embed_stream, head_logits, layer,
+                                            remat)
 from repro_torch.parallel.sharding import local_heads
-from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear, \
-    whole_sequence
+from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
 
 CACHE_BATCH_AXES = {"k": 2, "v": 2, "mk": 1, "mv": 1}
+# as ``transformer.STREAM_LEAVES``: the self and cross layers' norms,
+# ``ln_f``, and the cross layers' tanh gates (scaling the slices that
+# ``wo`` and ``w_down`` reduce-scatter); the media are no stream
+STREAM_LEAVES = {"groups/ln1": "tokens", "groups/ln2": "tokens",
+                 "xlayers/lnx": "tokens", "xlayers/ln2": "tokens",
+                 "xlayers/gate_attn": "tokens", "xlayers/gate_mlp": "tokens",
+                 "ln_f": "tokens"}
 PAGED_CACHE_LEAVES = ("k", "v")
 
 
@@ -133,21 +145,22 @@ def media_kv(xp: dict, media: torch.Tensor, cfg: ModelConfig,
 
 
 def xattn_fwd(xp: dict, x: torch.Tensor, media: Optional[torch.Tensor],
-              cfg: ModelConfig, pctx: Optional[ParallelCtx],
+              cfg: ModelConfig, pctx: Optional[ParallelCtx], seq: int,
               kv: Optional[tuple] = None) -> torch.Tensor:
     """Gated cross-attention + MLP over the media (``media`` [B, M, D], or
-    its K/V ``kv`` from the cache)."""
-    b, s, _ = x.shape
+    its K/V ``kv`` from the cache) for ``seq`` positions, ``x`` this
+    rank's slice of them under rs_seq."""
     hd = cfg.resolved_head_dim
-    h = tp.enter_cut(L.rms_norm(x, xp["lnx"], cfg.norm_eps), pctx)
+    h = block_input(x, xp["lnx"], cfg, seq, pctx)
+    b, s, _ = h.shape
     q = col_linear(h, xp["xattn"]["wq"], pctx).reshape(b, s, -1, hd)
     q = L.rms_norm(q, xp["xattn"]["q_norm"], cfg.norm_eps)
     k, v = media_kv(xp, media, cfg, pctx) if kv is None else kv
     o = L.attention(q, k, v, causal=False)
     o = row_linear(o.reshape(b, s, -1), xp["xattn"]["wo"], pctx)
     x = x + torch.tanh(xp["gate_attn"]).to(x.dtype) * o
-    y = L.mlp_block(xp["mlp"], tp.enter_cut(
-        L.rms_norm(x, xp["ln2"], cfg.norm_eps), pctx), pctx)
+    y = L.mlp_block(xp["mlp"], block_input(x, xp["ln2"], cfg, seq, pctx),
+                    pctx)
     return x + torch.tanh(xp["gate_mlp"]).to(x.dtype) * y
 
 
@@ -158,18 +171,18 @@ def group_fwd(gp: dict, x: torch.Tensor, media: torch.Tensor,
     ``gp["cross"]`` over ``media``."""
     for li in range(cfg.cross_attn_every - 1):
         x = T.layer_fwd(layer(gp["self"], li), x, cfg, cos, sin, pctx, seq)
-    return xattn_fwd(gp["cross"], x, media, cfg, pctx)
+    return xattn_fwd(gp["cross"], x, media, cfg, pctx, seq)
 
 
 def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                   media: torch.Tensor,
                   pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    """The final normed hidden states; where autograd records them, each
-    group checkpointed (:func:`~repro_torch.models.transformer.remat`)."""
-    whole_sequence(pctx, cfg.family)
+    """The final stream, before ``ln_f`` (this rank's slice of the
+    sequence under rs_seq); where autograd records it, each group
+    checkpointed (:func:`~repro_torch.models.transformer.remat`)."""
     g, _ = _groups(cfg)
     seq = tokens.shape[1]
-    x = L.embed(params["embed"], tokens, _dtype(cfg), pctx, cfg.vocab)
+    x = embed_stream(params, cfg, tokens, pctx)
     media = media.to(x.dtype)
     pos = torch.arange(seq, device=tokens.device)
     cos, sin = L.rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
@@ -177,13 +190,14 @@ def hidden_states(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
         gp = {"self": layer(params["groups"], gi),
               "cross": layer(params["xlayers"], gi)}
         x = remat(group_fwd, cfg, gp, x, media, cfg, cos, sin, pctx, seq)
-    return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    return x
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict,
             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
-    x = hidden_states(params, cfg, batch["tokens"], batch["media"], pctx)
-    return L.vocab_head(x, params["lm_head"], pctx, cfg.vocab)
+    tokens = batch["tokens"]
+    x = hidden_states(params, cfg, tokens, batch["media"], pctx)
+    return head_logits(params, cfg, x, tokens.shape[1], pctx)
 
 
 def loss(params: dict, cfg: ModelConfig, batch: dict,
@@ -213,7 +227,6 @@ def prefill_media_kv(params: dict, cfg: ModelConfig, media: torch.Tensor,
     """Write every cross-attention layer's K/V over ``media`` [B, M, D]
     into the cache's ``mk``/``mv`` (in place), the heads of the shard
     ``params`` holds; returns the cache."""
-    whole_sequence(pctx, cfg.family)
     media = media.to(_dtype(cfg))
     for gi in range(_groups(cfg)[0]):
         k, v = media_kv(layer(params["xlayers"], gi), media, cfg, pctx)
@@ -228,7 +241,6 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     prefill_media_kv`).  batch: {tokens: [B, 1], pos: int or [B] tensor};
     returns (logits [B, 1, V], cache), the self layers' K/V written in
     place."""
-    whole_sequence(pctx, cfg.family)
     g, per = _groups(cfg)
     tokens = batch["tokens"]
     hd = cfg.resolved_head_dim
@@ -248,8 +260,7 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
             x = x + y
             x = x + L.mlp_block(lp["mlp"],
                                 L.rms_norm(x, lp["ln2"], cfg.norm_eps), pctx)
-        x = xattn_fwd(layer(params["xlayers"], gi), x, None, cfg, pctx,
+        x = xattn_fwd(layer(params["xlayers"], gi), x, None, cfg, pctx, 1,
                       kv=(cache["mk"][gi].to(x.dtype),
                           cache["mv"][gi].to(x.dtype)))
-    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return L.logits_head(x, params["lm_head"], pctx, cfg.vocab), cache
+    return head_logits(params, cfg, x, 1, pctx), cache

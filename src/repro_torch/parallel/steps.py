@@ -30,7 +30,7 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import collectives as C
-from repro_torch.models.api import Model, cache_batch_axes
+from repro_torch.models.api import Model, cache_batch_axes, stream_leaves
 from repro_torch.models.layers import STACK_AXES
 from repro_torch.optim.adamw import adamw_update, cosine_schedule, tree_map
 from repro_torch.parallel import sharding
@@ -101,8 +101,6 @@ _HEAD_NORMS = ("q_norm", "k_norm")
 #: rank-local work behind one ``f``: RWKV6's time-mix token shift and the
 #: decay LoRA's first factor (``models.ssm.rwkv_tmix``)
 _PARTIAL = {("tmix", "mu"), ("tmix", "w_lora_a")}
-#: norm weights on the residual stream, sequence-sharded under rs_seq
-_STREAM_NORMS = ("ln1", "ln2", "ln_f")
 _KV = ("wk", "bk", "wv", "bv")
 
 
@@ -112,8 +110,9 @@ class GradSync:
     the collectives' own backwards: a KV head that ``kv_group``'s ranks
     share (self- or cross-attention) gets each one's share of its gradient
     summed over them, and the whole leaves whose gradient is partial on
-    every path (per-head norms always, the stream's norms under
-    ``rs_seq``, :data:`_PARTIAL`, and the whole B and C segments of
+    every path (per-head norms always, the family's stream leaves,
+    :func:`~repro_torch.models.api.stream_leaves`, where their sequence is
+    sharded, :data:`_PARTIAL`, and the whole B and C segments of
     Mamba2's packed ``w_in``, ``conv_w`` and ``conv_b``,
     :func:`~repro_torch.parallel.sharding.segment_runs`) are summed over
     ``group``.  Every other replicated leaf's gradient comes out whole,
@@ -124,7 +123,12 @@ class GradSync:
     kv_group: Optional[object]
     cfg: object
 
-    def reduce(self, grads: dict, seq_sharded: bool) -> None:
+    def reduce(self, grads: dict, stream: frozenset) -> None:
+        """Sum ``grads``' shared and partial leaves in place; ``stream``
+        holds the paths of the stream leaves whose sequence the step's
+        rs_seq cut.  No row site of the port adds a bias
+        (``layers.init_attn``'s are q's, k's and v's, column-parallel), so
+        no bias is a stream leaf."""
         kv, partial = [], []
         world = C.axis_size(self.group)
         for names, g in _named_leaves(grads):
@@ -136,7 +140,7 @@ class GradSync:
                                                        ("xattn",)):
                 kv.append(g)
             elif names[-1] in _HEAD_NORMS or names[-2:] in _PARTIAL or \
-                    (seq_sharded and names[-1] in _STREAM_NORMS):
+                    "/".join(names) in stream:
                 partial.append(g)
         for leaves, group in ((kv, self.kv_group), (partial, self.group)):
             if leaves and group is not None:
@@ -344,7 +348,9 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
     del work, leaves
     if pctx is not None and pctx.manual:
         sync = sync or grad_sync(model.cfg, pctx)
-        sync.reduce(out, seq_sharded(pctx, batch["tokens"].shape[1]))
+        sync.reduce(out, frozenset(
+            path for path, key in stream_leaves(model.cfg).items()
+            if seq_sharded(pctx, batch[key].shape[1])))
     if data is not None:
         return data.reduce(loss.detach(), out)
     return loss.detach(), out

@@ -29,12 +29,22 @@ so every projection runs the INA matmul kernel on the rank's shard and the
 reduction follows it.  With a group of one rank every collective returns
 its input: the step launches what a step without a group launches.
 
+Under ``rs_seq`` every family keeps its residual stream sequence-sharded
+between blocks, by the reference's rule (``repro.parallel.tp.row_linear``):
+a row site whose [B, S, F/P] input's S the group divides reduce-scatters
+over S, any other psums, and the MoE combine always psums whole.  The
+stream is cut after the embedding (:func:`scatter_seq`), gathered whole at
+each block's entry (:func:`gather_seq`), and a tensor a block computes
+whole on every rank meets the stream's slice through :func:`scatter_seq`
+too (an MoE layer's combined experts, RWKV6's channel-mix gate).  The
+norms, adds and gates between the blocks run on the rank's rows.
+
 In training each collective's backward runs through autograd: the row
 sites' (:func:`row_linear`), the column-parallel block's entry
 (:func:`gather_seq`, Megatron's ``f`` or, under ``rs_seq``, the
-backward's reduce-scatter; :func:`enter_cut`, the ``f`` alone, where the
-non-dense families' whole tensors meet their cut work), the sequence
-scatter's and the vocabulary's.
+backward's reduce-scatter; :func:`enter_cut`, the ``f`` alone, where a
+block's whole tensors meet its cut work), the sequence scatter's and the
+vocabulary's.
 """
 from __future__ import annotations
 
@@ -139,10 +149,12 @@ def _grad_mode(pctx: ParallelCtx, nbytes: int) -> str:
 
 def scatter_seq(x: torch.Tensor, pctx: Optional[ParallelCtx]) -> torch.Tensor:
     """This rank's slice of a replicated [B, S, D] where the residual
-    stream is sequence-sharded (no communication).  Its backward gathers
-    the slices' gradients whole, as the replicated input needs: by the ring
-    under the ring modes, natively under ``ina`` and ``xla``."""
-    if not seq_sharded(pctx, x.shape[1]):
+    stream is sequence-sharded (no communication): the embedded tokens, or
+    a tensor a block computes whole on every rank meeting the stream.  Its
+    backward gathers the slices' gradients whole, as the replicated input
+    needs: by the ring under the ring modes, natively under ``ina`` and
+    ``xla``.  At one rank the slice is ``x``."""
+    if not seq_sharded(pctx, x.shape[1]) or pctx.world == 1:
         return x
     c = x.shape[1] // pctx.world
     if not _records(x):
@@ -166,10 +178,13 @@ def gather_seq(x: torch.Tensor, pctx: Optional[ParallelCtx], seq: int,
     than one rank and where autograd records, it is Megatron's ``f``:
     the identity, whose backward sums the partial gradients with the
     native all-reduce, once for the block's projections (``col_linear``
-    leaves its input's gradient partial).  A block whose weights every
-    rank holds whole (``cut=False``: a head the world does not divide)
-    has whole input gradients: the gather's backward is then this rank's
-    slice, and there is no ``f``."""
+    leaves its input's gradient partial).  A block whose input gradient
+    comes out whole on every rank (``cut=False``: a head the world does
+    not divide, or a block that keeps its own ``f``s where its whole work
+    meets its cut work, :func:`enter_cut`: RWKV6's token-shift mixes,
+    Mamba2's whole B and C, MLA's latent, the MoE router) takes this
+    rank's slice of it in the gather's backward, and there is no ``f``
+    here: both would count the cut path's gradient P times."""
     if seq_sharded(pctx, seq):
         back = None
         if cut and _records(x):
@@ -327,14 +342,3 @@ def host_mean(x: torch.Tensor, pctx: ParallelCtx) -> torch.Tensor:
     for group in (pctx.data_group, pctx.pod_group):
         x = C.psum_stat(x, group)
     return x / hosts(pctx)
-
-
-def whole_sequence(pctx: Optional[ParallelCtx], family: str) -> None:
-    """Raise where ``rs_seq`` is asked of a family whose layers keep the
-    whole sequence on every rank (every family but dense): their
-    sequence-sharded residual stream is not ported."""
-    if _grouped(pctx) and pctx.rs_seq and pctx.manual:
-        raise NotImplementedError(
-            f"family {family!r}: rs_seq and sp_entry keep the whole "
-            f"sequence on every rank in this port (ROADMAP.md Queue 1, "
-            f"item 5.1)")

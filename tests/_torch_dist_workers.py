@@ -7,6 +7,7 @@ function returns numpy arrays and lists, never tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 from repro_torch.configs import ARCHS
 from repro_torch.convert import params_from_jax
 from repro_torch.core import collectives as C
-from repro_torch.models import vision
+from repro_torch.models import encdec, hybrid, moe, rwkv, transformer, vision
 from repro_torch.models.api import get_model
 from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.tp import ParallelCtx, combine_experts
@@ -136,16 +137,41 @@ def tp_rank(rank, world, group, device, spec):
     return out
 
 
+@contextlib.contextmanager
+def stream_shapes():
+    """The shape of the residual stream each checkpointed unit (a layer,
+    or a zamba2 or vlm group) of a family's forward receives, in order:
+    every family module's ``remat`` (MLA's layers run through
+    ``models.moe``'s) wrapped for the duration."""
+    shapes, mods = [], (transformer, rwkv, moe, hybrid, vision, encdec)
+    orig = transformer.remat
+
+    def remat(fn, cfg, lp, x, *args):
+        shapes.append(tuple(x.shape))
+        return orig(fn, cfg, lp, x, *args)
+    for mod in mods:
+        mod.remat = remat
+    try:
+        yield shapes
+    finally:
+        for mod in mods:
+            mod.remat = orig
+
+
 def tp_family_rank(rank, world, group, device, spec):
     """The reduced non-dense families (``spec["archs"]``: each arch's
     params, forward tokens, decode tokens and, for vlm and encdec, media
-    [B, M, D]) on this rank's shard under each mode of ``spec["modes"]``:
-    the forward logits, each decode step's logits from an empty cache
-    (vlm's media K/V written first by ``prefill_media_kv``, whisper's
-    media in every step's batch), and, for the families the engine serves
-    (no media), its greedy tokens on ``spec["prompts"]``; then the
-    ``auto`` sites (op, p, nbytes) a forward and the decode steps
-    record."""
+    [B, M, D]) on this rank's shard under each case of ``spec["cases"]``
+    (``ParallelCtx`` keywords): the forward logits, each decode step's
+    logits from an empty cache (vlm's media K/V written first by
+    ``prefill_media_kv``, whisper's media in every step's batch), and, for
+    the families the engine serves (no media), its greedy tokens on
+    ``spec["prompts"]`` under each psum mode of ``spec["engine"]``; under
+    ``rs_seq`` also the forward's collective
+    calls by kind, the stream's shape at each checkpointed unit
+    (:func:`stream_shapes`), and the same of a forward of the first
+    ``spec["short"]`` tokens; then the ``auto`` sites (op, p, nbytes) a
+    forward and the decode steps record."""
     out = {}
     for arch, a in spec["archs"].items():
         cfg = ARCHS[arch].reduced()
@@ -158,8 +184,19 @@ def tp_family_rank(rank, world, group, device, spec):
             {"media": torch.from_numpy(a["media"])}
 
         def run(pctx):
-            res = {"forward": model.forward(params, {"tokens": toks, **media},
-                                            pctx).numpy()}
+            res = {}
+            with stream_shapes() as shapes:
+                C.CALLS.clear()
+                res["forward"] = model.forward(
+                    params, {"tokens": toks, **media}, pctx).numpy()
+                res["calls"] = dict(C.CALLS)
+                if pctx.rs_seq:
+                    res["stream"] = list(shapes)
+                    shapes.clear()
+                    res["forward_short"] = model.forward(
+                        params, {"tokens": toks[:, :spec["short"]], **media},
+                        pctx).numpy()
+                    res["stream_short"] = list(shapes)
             cache = model.init_cache(b, spec["max_seq"], device="cpu",
                                      world=world)
             if cfg.family == "vlm":
@@ -173,13 +210,13 @@ def tp_family_rank(rank, world, group, device, spec):
                              "pos": pos, **step_media}, cache, pctx)
                 res["decode"].append(logits.numpy())
             return res
-        res = {mode: run(ParallelCtx(group=group, psum_mode=mode))
-               for mode in spec["modes"]}
+        res = {name: run(ParallelCtx(group=group, **kw))
+               for name, kw in spec["cases"].items()}
         with C.record_psum_sites() as sites:
             run(ParallelCtx(group=group, psum_mode="auto"))
         res["sites"] = [(s.op, s.p, s.nbytes) for s in sites]
         res["engine"] = {}
-        for mode in spec["modes"] if not media else ():
+        for mode in spec["engine"] if not media else ():
             engine = ServingEngine(cfg, params=full, device="cpu", slots=2,
                                    max_seq=spec["max_seq"], block_size=4,
                                    psum_mode=mode, check=True, group=group)
@@ -224,7 +261,9 @@ def tp_train_rank(rank, world, group, device, spec):
 
 def _train_cases(cfg, spec, rank, world, group) -> dict:
     """:func:`tp_train_rank`'s cases for the config ``cfg`` and the
-    reference's weights ``spec["params"]``."""
+    reference's weights ``spec["params"]``; and, for each case of
+    ``spec["grad_cases"]``, the loss, this rank's gradient shards and the
+    gradient's collective calls alone."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.optim.adamw import adamw_init, tree_map
     from repro_torch.parallel.steps import (build_train_step, grad_sync,
@@ -259,6 +298,13 @@ def _train_cases(cfg, spec, rank, world, group) -> dict:
         res["params"] = _numpy(params)
         res["m"], res["v"] = _numpy(opt.m), _numpy(opt.v)
         out[name] = res
+    for name, kw in spec.get("grad_cases", {}).items():
+        C.CALLS.clear()
+        loss, grads = loss_and_grads(model, shard_params(full, cfg, rank,
+                                                         world), grad_batch,
+                                     ParallelCtx(group=group, **kw), sync)
+        out[name] = {"loss": float(loss), "grads": _numpy(grads),
+                     "grad_calls": dict(C.CALLS)}
     return out
 
 

@@ -13,10 +13,18 @@ under every mode of ``CLI_PSUM_MODES``, the engine's greedy tokens at
 worlds 2 and 4 must equal world 1's, and the ``auto`` sites a sharded rank
 records must be the ones the plan builder's trace records: two row psums a
 RWKV6 layer (the output norm's all-reduce is none), the MoE combine and the
-shared experts' psum apart.  In this process: the shards concatenate back,
-each leaf's shard at the published widths is the cut the sharding rules
-state, and the launcher serves each family at two ranks with one rank's
-tokens.  The hybrid, vlm and encdec families' tensor parallelism is
+shared experts' psum apart.  The sequence-sharded stream (``rs_seq``) runs
+at world 2 under every mode and with ``sp_entry``, and at world 4 under
+``ina`` (:func:`rs_cases`): the same logits, those of a 6-token forward
+too (which world 4 does not divide: every row site psums), the
+forward's collective calls as the layers derive them, and a stream of
+[B, S/P, D] between the layers.  The engine seats prompts token by token
+and decodes one token a step, so it cuts no step and takes no
+``rs_seq``.  In
+this process: the shards concatenate back, each leaf's shard at the
+published widths is the cut the sharding rules state, and the launcher
+serves each family at two ranks with one rank's tokens.  The hybrid, vlm
+and encdec families' tensor parallelism is
 ``tests/test_torch_tp_hybrid_media.py``'s.
 """
 import functools
@@ -54,8 +62,30 @@ B, S, MAX_SEQ, DECODE = 2, 8, 16, 3
 PROMPTS = ((5, 9, 11, 3, 7, 2), (8, 8, 1, 4, 6, 10), (12, 3, 3, 9, 1, 5))
 GEN = 5
 WORLDS = (1, 2, 4)
+SHORT = 6       # a prompt length world 4 does not divide
 
 
+def cases(world: int) -> dict:
+    """Every CLI psum mode, and :func:`rs_cases`."""
+    return {**{m: {"psum_mode": m} for m in CLI_PSUM_MODES},
+            **rs_cases(world)}
+
+
+def rs_cases(world: int) -> dict:
+    """The sequence-sharded stream: at world 2 under every mode and with
+    ``sp_entry``'s ring, at world 4 under ``ina``."""
+    if world == 1:
+        return {}
+    out = {f"{m}+rs_seq": {"psum_mode": m, "rs_seq": True}
+           for m in (CLI_PSUM_MODES if world == 2 else ("ina",))}
+    if world == 2:
+        out["ina+rs_seq+sp_entry"] = {"psum_mode": "ina", "rs_seq": True,
+                                      "sp_entry": True}
+    return out
+
+
+RS_IDS = [(w, c, a) for w in (2, 4) for c in rs_cases(w) for a in ARCH_NAMES]
+RS_NAMES = [f"w{w}-{c}-{a}" for w, c, a in RS_IDS]
 @functools.cache
 def reference(arch: str):
     """The reference's params (numpy), inputs and unsharded logits."""
@@ -67,6 +97,8 @@ def reference(arch: str):
     dec = [rng.integers(0, vocab, (B,)).astype(np.int32)
            for _ in range(DECODE)]
     want = {"forward": np.asarray(jm.forward(jp, {"tokens": jnp.asarray(toks)})),
+            "forward_short": np.asarray(jm.forward(
+                jp, {"tokens": jnp.asarray(toks[:, :SHORT])})),
             "decode": []}
     jc = jm.init_cache(B, MAX_SEQ)
     for pos, tok in enumerate(dec):
@@ -82,8 +114,9 @@ def reference(arch: str):
 @functools.cache
 def port(world: int) -> list:
     spec = {"archs": {a: reference(a)[0] for a in ARCH_NAMES},
-            "modes": CLI_PSUM_MODES, "max_seq": MAX_SEQ, "prompts": PROMPTS,
-            "gen": GEN}
+            "cases": cases(world), "engine": CLI_PSUM_MODES,
+            "max_seq": MAX_SEQ, "prompts": PROMPTS, "gen": GEN,
+            "short": SHORT}
     return mesh.spawn(W.tp_family_rank, world, "cpu", args=(spec,))
 
 
@@ -116,6 +149,71 @@ def test_tp_family_engine_tokens_match_one_rank(world, mode, arch):
     assert len(one) == len(PROMPTS)
     for rank in port(world):
         assert rank[arch]["engine"][mode] == one
+
+
+@pytest.mark.parametrize("phase", ["forward", "forward_short", "decode"])
+@pytest.mark.parametrize("world,case,arch", RS_IDS, ids=RS_NAMES)
+def test_rs_seq_logits_match_unsharded_reference(world, case, arch, phase):
+    """Under ``rs_seq`` every rank returns the whole vocabulary's logits of
+    the forward (the stream sequence-sharded), of a 6-token forward and
+    of each decode step (one token: nothing to cut), each within the
+    model tolerance of the reference's unsharded model."""
+    _, want = reference(arch)
+    for rank in port(world):
+        got, ref = rank[arch][case][phase], want[phase]
+        if phase != "decode":
+            got, ref = [got], [ref]
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            np.testing.assert_allclose(g, r, **TOL)
+
+
+def rs_forward_calls(arch: str) -> dict:
+    """The group operations of one forward under ``rs_seq`` on a sequence
+    the world divides, by kind, derived from the layers: the embedding's
+    psum (the vocab-parallel lookup), an all-gather at each block's entry
+    (a layer's attention or time mix and its FFN or channel mix), a
+    reduce-scatter at each row site (``wo`` and ``w_down``; RWKV6's
+    ``wo`` and ``wv``; an MoE layer's shared experts' ``w_down``), a whole
+    psum at each MoE combine and at RWKV6's output-norm statistic, and
+    the head's entry and the logits' gather (two all-gathers)."""
+    cfg = ARCHS[arch].reduced()
+    n = cfg.n_layers
+    whole = n if arch == RWKV else n - cfg.moe.first_dense_layers
+    return {"psum": 1 + whole, "all_gather": 2 * n + 2,
+            "reduce_scatter": 2 * n}
+
+
+@pytest.mark.parametrize("world,case,arch", RS_IDS, ids=RS_NAMES)
+def test_rs_seq_forward_calls(world, case, arch):
+    """Every rank's forward runs the derived operations; without
+    ``rs_seq`` the same forward psums at every row site and gathers only
+    the logits."""
+    want = rs_forward_calls(arch)
+    for rank in port(world):
+        assert rank[arch][case]["calls"] == want
+        rows = want["reduce_scatter"] + want["psum"]
+        assert rank[arch][case_mode(case)]["calls"] == {"psum": rows,
+                                                        "all_gather": 1}
+
+
+def case_mode(case: str) -> str:
+    """The psum mode of a case name (``"ina_ring+rs_seq"``: ``ina_ring``)."""
+    return case.split("+")[0]
+
+
+@pytest.mark.parametrize("world,case,arch", RS_IDS, ids=RS_NAMES)
+def test_rs_seq_stream_is_sequence_sharded(world, case, arch):
+    """Between the layers the stream holds [B, S/P, D] on every rank when
+    P divides S, and the whole [B, 6, D] when it does not (6 tokens at
+    world 4); one entry a layer."""
+    cfg = ARCHS[arch].reduced()
+    short = SHORT // world if SHORT % world == 0 else SHORT
+    for rank in port(world):
+        got = rank[arch][case]
+        assert got["stream"] == [(B, S // world, cfg.d_model)] * cfg.n_layers
+        assert got["stream_short"] == [(B, short, cfg.d_model)] * cfg.n_layers
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
@@ -290,18 +388,6 @@ def test_tp_family_world_must_divide_the_heads(arch):
         sharding.shard_params(full, cfg, 0, 8)
     with pytest.raises(ValueError, match="do not divide"):
         get_model(cfg).init_cache(1, 8, device="meta", world=8)
-
-
-@pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_tp_family_refuses_rs_seq(arch):
-    """The families keep the whole sequence on every rank: ``rs_seq`` at
-    more than one rank raises, naming the ROADMAP item."""
-    model = get_model(ARCHS[arch].reduced())
-    pctx = ParallelCtx(group=AxisSpan(2), rs_seq=True)
-    with pytest.raises(NotImplementedError, match="item 5.1"):
-        model.forward(model.init(device="meta"),
-                      {"tokens": torch.zeros(1, 4, dtype=torch.long,
-                                             device="meta")}, pctx)
 
 
 @pytest.mark.parametrize("arch", sorted(

@@ -16,12 +16,17 @@ port's model tolerance (rtol = atol = 1e-4) under every mode of
 and vlm's ``prefill_media_kv`` cache.  zamba2's engine tokens at worlds 2
 and 4 must equal world 1's, and the ``auto`` sites a sharded rank records
 must be the ones the plan builder's trace records (Mamba2's gate-norm
-all-reduce is none).  In this process: the shards concatenate back, each
+all-reduce is none).  The sequence-sharded stream (``rs_seq``) runs as
+``tests/test_torch_tp_families.py``'s (``rs_cases``): the same logits,
+those of a 6-token forward too (whisper's 16 frames stay cut at world
+4), the forward's collective calls as the layers derive them, and a
+stream of [B, S/P, D] between the layers (whisper's encoder [B, F/P,
+D]).  In this process: the shards concatenate back, each
 leaf's shard at the published widths is the cut ``parallel/sharding.py``
 states (``w_in``'s segments, its padded rows and the whole leaves
 included), ``kernel_times.rank_projections`` lists the shards' products,
-a world that divides no heads raises, ``rs_seq`` raises, and the launcher
-serves each family at two ranks with one rank's tokens.
+a world that divides no heads raises, and the launcher serves each family
+at two ranks with one rank's tokens.
 """
 import functools
 
@@ -38,7 +43,7 @@ from repro.models.api import get_model as jget_model
 from repro_torch.configs import ARCHS
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.convert import params_from_jax
-from repro_torch.core.collectives import CLI_PSUM_MODES, AxisSpan
+from repro_torch.core.collectives import CLI_PSUM_MODES
 from repro_torch.kernels import ina_matmul as im
 from repro_torch.launch import mesh
 from repro_torch.launch import serve as launch_serve
@@ -46,10 +51,10 @@ from repro_torch.launch.kernel_times import (TP_WORLDS, matmul_layout,
                                              rank_projections)
 from repro_torch.models.api import get_model
 from repro_torch.parallel import sharding
-from repro_torch.parallel.tp import ParallelCtx
 from repro_torch.plan.builder import collect_psum_sites
 
 import _torch_dist_workers as W
+from test_torch_tp_families import SHORT, case_mode, cases, rs_cases
 
 HYBRID, VLM, ENCDEC = "zamba2-2.7b", "llama-3.2-vision-11b", "whisper-medium"
 ARCH_NAMES = (HYBRID, VLM, ENCDEC)
@@ -58,6 +63,8 @@ B, S, MAX_SEQ, DECODE = 2, 8, 16, 3
 PROMPTS = ((5, 9, 11, 3, 7, 2), (8, 8, 1, 4, 6, 10), (12, 3, 3, 9, 1, 5))
 GEN = 5
 WORLDS = (1, 2, 4)
+RS_IDS = [(w, c, a) for w in (2, 4) for c in rs_cases(w) for a in ARCH_NAMES]
+RS_NAMES = [f"w{w}-{c}-{a}" for w, c, a in RS_IDS]
 
 
 def _media(cfg, seed: int) -> np.ndarray:
@@ -84,7 +91,10 @@ def reference(arch: str):
     media = _media(cfg, 1) if arch != HYBRID else None
     extra = {} if media is None else {"media": jnp.asarray(media)}
     want = {"forward": np.asarray(jm.forward(
-        jp, {"tokens": jnp.asarray(toks), **extra})), "decode": []}
+        jp, {"tokens": jnp.asarray(toks), **extra})),
+        "forward_short": np.asarray(jm.forward(
+            jp, {"tokens": jnp.asarray(toks[:, :SHORT]), **extra})),
+        "decode": []}
     jc = jm.init_cache(B, MAX_SEQ)
     if arch == VLM:
         jc = jvision.prefill_media_kv(jp, cfg, extra["media"], jc)
@@ -102,8 +112,9 @@ def reference(arch: str):
 @functools.cache
 def port(world: int) -> list:
     spec = {"archs": {a: reference(a)[0] for a in ARCH_NAMES},
-            "modes": CLI_PSUM_MODES, "max_seq": MAX_SEQ, "prompts": PROMPTS,
-            "gen": GEN}
+            "cases": cases(world), "engine": CLI_PSUM_MODES,
+            "max_seq": MAX_SEQ, "prompts": PROMPTS, "gen": GEN,
+            "short": SHORT}
     return mesh.spawn(W.tp_family_rank, world, "cpu", args=(spec,))
 
 
@@ -137,6 +148,85 @@ def test_tp_hybrid_engine_tokens_match_one_rank(world, mode):
     assert len(one) == len(PROMPTS)
     for rank in port(world):
         assert rank[HYBRID]["engine"][mode] == one
+
+
+@pytest.mark.parametrize("phase", ["forward", "forward_short", "decode"])
+@pytest.mark.parametrize("world,case,arch", RS_IDS, ids=RS_NAMES)
+def test_rs_seq_hybrid_media_logits_match_unsharded_reference(world, case,
+                                                              arch, phase):
+    """Under ``rs_seq`` every rank returns the whole vocabulary's logits of
+    the forward, of a 6-token forward and of each decode step (the vlm's
+    cross-attention over the whole media K/V; whisper's decode step
+    encodes the frames sequence-sharded again), each within the model
+    tolerance of the reference's unsharded model."""
+    _, want = reference(arch)
+    for rank in port(world):
+        got, ref = rank[arch][case][phase], want[phase]
+        if phase != "decode":
+            got, ref = [got], [ref]
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            np.testing.assert_allclose(g, r, **TOL)
+
+
+def rs_forward_calls(arch: str) -> dict:
+    """The group operations of one forward under ``rs_seq`` on sequences
+    the world divides, by kind, derived from the layers: the embedding's
+    psum, an all-gather at each block's entry (zamba2: a group's shared
+    block and each Mamba2 layer; the vlm: two a layer, self or cross;
+    whisper: two an encoder layer, three a decoder layer, and the
+    encoder's output once), a reduce-scatter at each row site (zamba2:
+    the shared ``wo`` and ``w_down`` a group and ``w_out`` a Mamba2 layer;
+    the vlm: ``wo`` and ``w_down`` a layer; whisper: two an encoder
+    layer, three a decoder layer), a psum at each Mamba2 gate norm's
+    statistic, and the head's entry and the logits' gather."""
+    cfg = ARCHS[arch].reduced()
+    n = cfg.n_layers
+    if arch == HYBRID:
+        g = n // cfg.shared_attn_every
+        return {"psum": 1 + n, "all_gather": g + n + 2,
+                "reduce_scatter": 2 * g + n}
+    if arch == VLM:
+        return {"psum": 1, "all_gather": 2 * n + 2, "reduce_scatter": 2 * n}
+    e = cfg.encoder_layers
+    return {"psum": 1, "all_gather": 2 * e + 1 + 3 * n + 2,
+            "reduce_scatter": 2 * e + 3 * n}
+
+
+@pytest.mark.parametrize("world,case,arch", RS_IDS, ids=RS_NAMES)
+def test_rs_seq_hybrid_media_forward_calls(world, case, arch):
+    """Every rank's forward runs the derived operations; without
+    ``rs_seq`` the same forward psums at every row site and gathers only
+    the logits."""
+    want = rs_forward_calls(arch)
+    for rank in port(world):
+        assert rank[arch][case]["calls"] == want
+        rows = want["reduce_scatter"] + want["psum"]
+        assert rank[arch][case_mode(case)]["calls"] == {"psum": rows,
+                                                        "all_gather": 1}
+
+
+@pytest.mark.parametrize("world,case,arch", RS_IDS, ids=RS_NAMES)
+def test_rs_seq_hybrid_media_stream_is_sequence_sharded(world, case, arch):
+    """Between the checkpointed units (a zamba2 or vlm group, a whisper
+    layer) the stream holds [B, S/P, D] on every rank when P divides S,
+    and the whole [B, 6, D] when it does not (6 tokens at world 4);
+    whisper's encoder layers hold [B, F/P, D] of its 16 frames."""
+    cfg = ARCHS[arch].reduced()
+    d = cfg.d_model
+    short = SHORT // world if SHORT % world == 0 else SHORT
+    if arch == HYBRID:
+        units = cfg.n_layers // cfg.shared_attn_every
+    elif arch == VLM:
+        units = cfg.n_layers // cfg.cross_attn_every
+    else:
+        units = cfg.n_layers
+    enc = [(B, cfg.num_media_tokens // world, d)] * cfg.encoder_layers
+    for rank in port(world):
+        got = rank[arch][case]
+        assert got["stream"] == enc + [(B, S // world, d)] * units
+        assert got["stream_short"] == enc + [(B, short, d)] * units
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
@@ -334,21 +424,6 @@ def test_tp_hybrid_media_world_must_divide_the_heads(arch):
         sharding.shard_params(full, cfg, 0, 8)
     with pytest.raises(ValueError, match="do not divide"):
         get_model(cfg).init_cache(1, 8, device="meta", world=8)
-
-
-@pytest.mark.parametrize("arch", ARCH_NAMES)
-def test_tp_hybrid_media_refuses_rs_seq(arch):
-    """The families keep the whole sequence on every rank: ``rs_seq`` at
-    more than one rank raises, naming the ROADMAP item."""
-    cfg = ARCHS[arch].reduced()
-    model = get_model(cfg)
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long, device="meta")}
-    if arch != HYBRID:
-        batch["media"] = torch.zeros(1, cfg.num_media_tokens, cfg.d_model,
-                                     device="meta")
-    pctx = ParallelCtx(group=AxisSpan(2), rs_seq=True)
-    with pytest.raises(NotImplementedError, match="item 5.1"):
-        model.forward(model.init(device="meta"), batch, pctx)
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)

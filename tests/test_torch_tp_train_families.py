@@ -21,7 +21,12 @@ time mix's whole ``mu`` and ``w_lora_a`` sum theirs in ``GradSync``.  So:
 * The loss and every gradient leaf, rebuilt with ``unshard_params``,
   against ``jax.value_and_grad`` of the reference's ``loss`` on the
   unsharded weights, at worlds 1, 2 and 4 under every mode: loss rtol
-  1e-5, each leaf rtol 1e-4 plus atol 1e-5 of the leaf's largest.
+  1e-5, each leaf rtol 1e-4 plus atol 1e-5 of the leaf's largest.  The
+  same under the sequence-sharded stream (``rs_seq``: at world 2 under
+  every mode and with ``sp_entry``, at world 4 under ``ina``), where the
+  stream's norms sum their gradients in ``GradSync``, and the
+  gradient's collective calls against the count derived from the
+  layers.
 * Two AdamW steps against the groupless one-rank step
   (``tests/test_torch_tp_train.py``'s rule), the leaves every rank holds
   whole (and each shared KV head) bit-equal across ranks after them, and a
@@ -55,6 +60,7 @@ from repro_torch.models import layers as L
 from repro_torch.parallel import sharding
 
 import _torch_dist_workers as W
+from test_torch_tp_families import rs_cases
 
 RWKV, LLAMA4, DEEPSEEK = ("rwkv6-7b", "llama4-scout-17b-16e",
                           "deepseek-v2-lite-16b")
@@ -76,6 +82,8 @@ CASE_IDS = [(w, c, a) for w in WORLDS for c in cases(w) for a in FAMILIES]
 IDS = [f"w{w}-{c}-{a}" for w, c, a in CASE_IDS]
 SHARDED = [(w, c, a) for w, c, a in CASE_IDS if w > 1]
 SHARDED_IDS = [f"w{w}-{c}-{a}" for w, c, a in SHARDED]
+RS_IDS = [(w, c, a) for w in WORLDS for c in rs_cases(w) for a in FAMILIES]
+RS_NAMES = [f"w{w}-{c}-{a}" for w, c, a in RS_IDS]
 
 
 def _pair(rng, vocab, b=B):
@@ -120,7 +128,8 @@ def norm_inputs() -> dict:
 @functools.cache
 def port(world: int) -> list:
     spec = {"archs": {a: reference(a)[0] for a in FAMILIES},
-            "cases": cases(world), "schedule": SCHEDULE,
+            "cases": cases(world), "grad_cases": rs_cases(world),
+            "schedule": SCHEDULE,
             "norm": norm_inputs() if world == 2 else None}
     return mesh.spawn(W.tp_train_families_rank, world, "cpu", args=(spec,))
 
@@ -155,7 +164,8 @@ def _flat(tree, names=()):
 # --------------------------------------------------------------------------- #
 # gradients and AdamW against the unsharded step
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("world,case,arch", CASE_IDS, ids=IDS)
+@pytest.mark.parametrize("world,case,arch", CASE_IDS + RS_IDS,
+                         ids=IDS + RS_NAMES)
 def test_loss_and_grads_match_unsharded_reference(world, case, arch):
     """Every rank's loss, and the logical gradient rebuilt from the ranks'
     shards, against the reference's ``jax.value_and_grad``: a sum placed
@@ -301,6 +311,50 @@ def expected_calls(arch: str, world: int) -> dict:
     attn = 3 if arch == DEEPSEEK else 1
     return {"psum": 1 + (2 * nd + 3 * nm) + (nd + 3 * nm), "all_gather": 1,
             "all_reduce": (attn + 1) * nd + (attn + 2) * nm + 1 + kv + 1}
+
+
+def expected_rs_calls(arch: str, world: int) -> dict:
+    """The gradient's group operations under ``rs_seq`` (S 16, which 2
+    and 4 divide) on each rank, by kind, derived from the model.
+    Forward: the embedding's psum, an all-gather at each block's entry, a
+    reduce-scatter at each row site (RWKV6: ``wo`` and ``wv``; an MoE
+    layer: ``wo`` and the shared experts' ``w_down``; a dense layer:
+    ``wo`` and ``w_down``), a psum at each MoE combine and RWKV6 output
+    norm's statistic, and the head's entry and the logits' gather.  The
+    recompute (:func:`expected_calls`' rule) runs the whole RWKV6 and MoE
+    layer again, and a dense layer but for its last reduce-scatter.
+    Backward: an all-gather at each reduce-scatter and at each whole
+    tensor sliced onto the stream (the embedding, an MoE combine, RWKV6's
+    channel-mix gate); a reduce-scatter at each entry that takes the
+    ``f`` (GQA attention, a dense MLP, the head); an all-reduce at each
+    ``f`` a block keeps (RWKV6: the time-mix input and ``xk``; MLA:
+    ``wq``'s input, the latent and the rope key; an MoE layer: its tokens
+    and gate values) and at each norm statistic.  Then the gradient
+    reductions: the partial leaves' bucket (the stream's norms among
+    them) and the shared KV heads' (llama4 at world 4)."""
+    cfg = ARCHS[arch].reduced()
+    n = cfg.n_layers
+    if arch == RWKV:
+        return {"psum": 1 + 2 * n, "all_gather": 7 * n + 3,
+                "reduce_scatter": 4 * n + 1, "all_reduce": 3 * n + 1}
+    kv = 1 if arch == LLAMA4 and sharding.kv_groups(cfg, world) else 0
+    nd = cfg.moe.first_dense_layers
+    nm = n - nd
+    mla = arch == DEEPSEEK
+    return {"psum": 1 + 2 * nm,
+            "all_gather": (2 * n + 2) + (2 * n) + (2 * nd + 3 * nm) + 1,
+            "reduce_scatter": (2 * n) + (nd + 2 * nm) + nd
+            + (0 if mla else n) + 1,
+            "all_reduce": 2 * nm + (3 * n if mla else 0) + 1 + kv}
+
+
+@pytest.mark.parametrize("world,case,arch", RS_IDS, ids=RS_NAMES)
+def test_rs_seq_gradient_calls(world, case, arch):
+    """Every rank's gradient under ``rs_seq`` runs the derived
+    operations."""
+    want = expected_rs_calls(arch, world)
+    for rank in port(world):
+        assert rank[arch][case]["grad_calls"] == want
 
 
 @pytest.mark.parametrize("world,case,arch", SHARDED, ids=SHARDED_IDS)

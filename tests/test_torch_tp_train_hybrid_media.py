@@ -25,7 +25,13 @@ that hold it.  So:
 * The loss and every gradient leaf, rebuilt with ``unshard_params``,
   against ``jax.value_and_grad`` of the reference's ``loss`` on the
   unsharded weights, at worlds 1, 2 (and 4) under every mode: loss rtol
-  1e-5, each leaf rtol 1e-4 plus atol 1e-5 of the leaf's largest.
+  1e-5, each leaf rtol 1e-4 plus atol 1e-5 of the leaf's largest.  The
+  same under the sequence-sharded stream (``rs_seq``: at world 2 under
+  every mode and with ``sp_entry``, at world 4 under ``ina``), where
+  ``GradSync`` sums the leaves applied on a rank's slice (the stream's
+  norms, zamba2's ``inv_norms``, ``wo_down`` and ``mlp_down``, the vlm's
+  gates, whisper's ``ln_enc``), and the gradient's collective calls
+  against the count derived from the layers.
 * Two AdamW steps against the groupless one-rank step, the leaves every
   rank holds whole, the B and C segments and each shared KV head
   bit-equal across ranks after them, and a step's collective calls by
@@ -58,6 +64,7 @@ from repro_torch.launch import train as launch_train
 from repro_torch.parallel import sharding
 
 import _torch_dist_workers as W
+from test_torch_tp_families import rs_cases
 
 HYBRID, VLM, ENCDEC = "zamba2-2.7b", "llama-3.2-vision-11b", "whisper-medium"
 FAMILIES = (HYBRID, VLM, ENCDEC)
@@ -75,14 +82,16 @@ def cases(world: int) -> dict:
     return {m: {"psum_mode": m} for m in modes}
 
 
-def case_ids(worlds) -> tuple:
-    """(world, case, arch) of every case at ``worlds``, and their ids."""
-    ids = [(w, c, a) for w in worlds for c in cases(w) for a in FAMILIES]
+def case_ids(worlds, of=cases) -> tuple:
+    """(world, case, arch) of every case of ``of(world)`` at ``worlds``,
+    and their ids."""
+    ids = [(w, c, a) for w in worlds for c in of(w) for a in FAMILIES]
     return ids, [f"w{w}-{c}-{a}" for w, c, a in ids]
 
 
 CASE_IDS, IDS = case_ids(WORLDS)
 SHARDED, SHARDED_IDS = case_ids([w for w in WORLDS if w > 1])
+RS_IDS, RS_NAMES = case_ids(WORLDS, rs_cases)
 
 
 def _batch(rng, cfg, b=B) -> tuple:
@@ -121,7 +130,8 @@ def reference(arch: str):
 @functools.cache
 def port(world: int) -> list:
     spec = {"archs": {a: reference(a)[0] for a in FAMILIES},
-            "cases": cases(world), "schedule": SCHEDULE, "norm": None}
+            "cases": cases(world), "grad_cases": rs_cases(world),
+            "schedule": SCHEDULE, "norm": None}
     return mesh.spawn(W.tp_train_families_rank, world, "cpu", args=(spec,))
 
 
@@ -155,7 +165,8 @@ def _flat(tree, names=()):
 # --------------------------------------------------------------------------- #
 # gradients and AdamW against the unsharded step
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("world,case,arch", CASE_IDS, ids=IDS)
+@pytest.mark.parametrize("world,case,arch", CASE_IDS + RS_IDS,
+                         ids=IDS + RS_NAMES)
 def test_loss_and_grads_match_unsharded_reference(world, case, arch):
     check_loss_and_grads(world, case, arch)
 
@@ -336,6 +347,59 @@ def expected_calls(arch: str) -> dict:
     e = cfg.encoder_layers
     return {"psum": 1 + (2 * e + 3 * n) + (e + 2 * n), "all_gather": 1,
             "all_reduce": 2 * e + 3 * n + 1 + 1 + 1}
+
+
+def expected_rs_calls(arch: str, world: int) -> dict:
+    """The gradient's group operations under ``rs_seq`` (S 16 and 16 media
+    rows, which 2 and 4 divide) on each rank, by kind, derived from the
+    model.  Forward: the embedding's psum, an all-gather at each block's
+    entry (zamba2: each group's shared block and each Mamba2 layer; the
+    vlm: two a layer; whisper: two an encoder layer, three a decoder
+    layer, and the encoder's output), a reduce-scatter at each row site,
+    a psum at each Mamba2 gate norm's statistic, and the head's entry and
+    the logits' gather.  The recompute (:func:`expected_calls`' rule)
+    runs a zamba2 group and a whisper layer up to their last
+    reduce-scatter, and the vlm's group whole.  Backward: an all-gather at
+    each reduce-scatter and at the embedding's slice (whisper's frames
+    are data: their slice takes none), a reduce-scatter at each entry
+    that takes the ``f`` (all but Mamba2's, which keeps its ``f`` at the
+    block: an all-reduce, and one for its gate norm's statistic), and the
+    head's.  Then the gradient reductions: the partial leaves' bucket
+    (the stream's leaves among them) and the shared KV heads' (vlm and
+    whisper at world 4)."""
+    cfg = ARCHS[arch].reduced()
+    n = cfg.n_layers
+    kv = 1 if sharding.kv_groups(cfg, world) else 0
+    if arch == HYBRID:
+        g = n // cfg.shared_attn_every
+        return {"psum": 1 + 2 * n,
+                "all_gather": (g + n + 2) + (g + n) + (2 * g + n) + 1,
+                "reduce_scatter": (2 * g + n) + (g + n) + g + 1,
+                "all_reduce": 2 * n + 1 + kv}
+    if arch == VLM:
+        return {"psum": 1, "all_gather": (2 * n + 2) + 2 * n + 2 * n + 1,
+                "reduce_scatter": 2 * n + 2 * n + 2 * n + 1,
+                "all_reduce": 1 + kv}
+    e = cfg.encoder_layers
+    return {"psum": 1,
+            "all_gather": (2 * e + 3 * n + 3) + (2 * e + 3 * n)
+            + (2 * e + 3 * n) + 1,
+            "reduce_scatter": (2 * e + 3 * n) + (e + 2 * n)
+            + (2 * e + 1 + 3 * n) + 1,
+            "all_reduce": 1 + kv}
+
+
+@pytest.mark.parametrize("world,case,arch", RS_IDS, ids=RS_NAMES)
+def test_rs_seq_gradient_calls(world, case, arch):
+    check_rs_gradient_calls(world, case, arch)
+
+
+def check_rs_gradient_calls(world, case, arch):
+    """Every rank's gradient under ``rs_seq`` runs the derived
+    operations."""
+    want = expected_rs_calls(arch, world)
+    for rank in port(world):
+        assert rank[arch][case]["grad_calls"] == want
 
 
 @pytest.mark.parametrize("world,case,arch", SHARDED, ids=SHARDED_IDS)

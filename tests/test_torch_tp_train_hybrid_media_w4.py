@@ -13,6 +13,8 @@ a rank and Mamba2 two of its 8.
   Mamba2's B and C segments and the shared KV heads bit-equal across
   ranks after them (to AdamW's bound under ``eject_inject``), and a
   step's collective calls by kind.
+* The gradient under the sequence-sharded stream (``ina+rs_seq``) against
+  the reference's, and its collective calls.
 
 And, on a spawn of its own at world 2, whisper's head over a vocabulary
 no world divides.
@@ -34,11 +36,18 @@ import _torch_dist_workers as W
 import test_torch_tp_train_hybrid_media as base
 
 CASE_IDS, IDS = base.case_ids((4,))
+RS_IDS, RS_NAMES = base.case_ids((4,), base.rs_cases)
 
 
-@pytest.mark.parametrize("world,case,arch", CASE_IDS, ids=IDS)
+@pytest.mark.parametrize("world,case,arch", CASE_IDS + RS_IDS,
+                         ids=IDS + RS_NAMES)
 def test_loss_and_grads_match_unsharded_reference(world, case, arch):
     base.check_loss_and_grads(world, case, arch)
+
+
+@pytest.mark.parametrize("world,case,arch", RS_IDS, ids=RS_NAMES)
+def test_rs_seq_gradient_calls(world, case, arch):
+    base.check_rs_gradient_calls(world, case, arch)
 
 
 @pytest.mark.parametrize("world,case,arch", CASE_IDS, ids=IDS)
