@@ -43,7 +43,11 @@ Phases; any failure raises and the process exits non-zero:
    2, 4 and 8 ranks.  At W >= 2 every mode is profiled, every collective is
    held against the rank sum on CUDA tensors, one psum a mode is timed at
    the decode and prefill row-linear payloads beside its bytes a link, and
-   the tokens must match phase 3's within its engine-against-loop margin;
+   the tokens must match phase 3's within its engine-against-loop margin.
+   At W = 1 the launcher's serve (``serve_rank``, ``--ranks 1``) also runs
+   on the one-rank group as the model and the data group, under
+   ``serve_replicated_params`` off and on (printed as ``[serve] --ranks
+   1`` lines): its tokens and launches must be phase 3's and ``ina``'s;
 4b. ``[plan]``: qwen2-1.5b's decode and prefill ExecutionPlans for phase
     3's shapes at the mesh ``(("model", 1),)``, built cold into a fresh
     store under ``build/``, then loaded warm (no collective simulation),
@@ -80,7 +84,12 @@ Phases; any failure raises and the process exits non-zero:
    be finite and the last below the first, and the second run resume at
    step 5 with step 5's loss equal to the first run's; one step is
    profiled (device time by kernel, inside the attention backward and
-   AdamW, tokens/s, peak memory);
+   AdamW, tokens/s, peak memory).  Then one step from the resumed state
+   and batch under each remat policy, ``nothing``, ``dots_nb`` and
+   ``dots`` (:func:`policy_steps`): each policy's loss, ``grad_norm`` and
+   every param bit-equal to ``nothing``'s, its launches the derived ones
+   (171 ``ina_matmul`` under both, 16 and 8 flash), and a ``[train]
+   policy`` line a policy with its device ms, busy share and peak memory;
 8b. ``[tp-train]``: the same model through the tensor-parallel train step
     on a one-rank NCCL group (the card count bounds the group), under
     every ``--psum-mode``: 2 steps from ``[train]``'s seed on its first
@@ -178,7 +187,9 @@ Phases; any failure raises and the process exits non-zero:
     ``wkv6`` and attention backwards, the expert products, MLA's
     attention and AdamW), its launch shapes each held in phase 2; one
     step under every psum mode on a one-rank NCCL group, bit-equal to the
-    groupless step, no collective call;
+    groupless step, no collective call; and one step under each of the
+    ``dots_nb`` and ``dots`` remat policies, bit-equal to the groupless
+    step, with the policy's launches (:func:`train_launches`);
 19. ``[train-families-f32]``: the same five in float32 at the smallest
     depth each runs (2 layers; zamba2's group of 6, the vlm's of 5,
     whisper's 2 + 2): one step's loss and every gradient leaf through the
@@ -251,6 +262,7 @@ from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
 from repro_torch.models import mla as mla_model  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models import vision  # noqa: E402
+from repro_torch.models import remat  # noqa: E402
 from repro_torch.models.api import (MEDIA_FAMILIES,  # noqa: E402
                                     get_model, media_ones)
 from repro_torch.optim.adamw import AdamWState, tree_leaves  # noqa: E402
@@ -1286,6 +1298,24 @@ def tp_rank(rank, world, group, device, argv):
         return _tp_rank(rank, world, group, device, argv)
 
 
+def data_group_serves(argv, cfg, params, group, device) -> dict:
+    """The launcher's serve (``serve_rank``) with ``--ranks 1`` on the
+    one-rank group as the model and the data group, under
+    ``serve_replicated_params`` off and on: each one's tokens and
+    launches."""
+    out = {}
+    for replicated in (False, True):
+        reset_launches()
+        tokens = launch_serve.serve_rank(
+            0, 1, group, device, argv + ["--ranks", "1"]
+            + (["--serve-replicated-params"] if replicated else []),
+            params=params, groups={"pod": None, "data": group,
+                                   "model": group})
+        torch.cuda.synchronize()
+        out[replicated] = {"tokens": tokens, "launches": read_launches()}
+    return out
+
+
 def _tp_rank(rank, world, group, device, argv):
     cfg = ARCHS[ARCH]
     model = get_model(cfg)
@@ -1319,6 +1349,8 @@ def _tp_rank(rank, world, group, device, argv):
             "tok_s": total / secs,
             "first_logits": {r["rid"]: r["first_logits"].float().cpu().numpy()
                              for r in report.requests}}
+    if world == 1:
+        out["data"] = data_group_serves(argv, cfg, params, group, device)
     shard = shard_params(params, cfg, rank, world)
     del params
     # the control: this process, no group (only where the shard is whole).
@@ -1401,6 +1433,19 @@ def phase_tp(served: dict) -> dict:
     if world == 1:
         log(f"[tp] W=1: tokens of all {len(r0['modes'])} modes equal the serve "
             f"phase's bit for bit")
+        ina = r0["modes"]["ina"]
+        for replicated, run in r0["data"].items():
+            tokens = {f"req{i}": t for i, t in enumerate(run["tokens"])}
+            log(f"[serve] --ranks 1, a one-rank data group, "
+                f"serve_replicated_params {replicated}: tokens "
+                f"{'equal' if tokens == served['tokens'] else 'DIFFER FROM'}"
+                f" the groupless serve's, launches {run['launches']} (ina "
+                f"on the group: {ina['launches']})")
+            if tokens != served["tokens"] or run["launches"] != \
+                    ina["launches"]:
+                raise AssertionError(f"[serve] data group, replicated "
+                                     f"{replicated}: not the groupless "
+                                     f"serve")
     for mode, prof in r0["profile"].items():
         counts = {k: v["kernels_per_step"] for k, v in prof.items()}
         want = {k: v["kernels_per_step"] for k, v in served["profile"].items()}
@@ -1774,15 +1819,23 @@ def train_launches(cfg) -> dict:
     and twice backward (dX and dW), and the layers' once more in their
     recompute, which stops only after a layer's last product (zamba2's
     and the vlm's checkpointed unit is a group, whisper's a layer of
-    either stack); the vlm's ``wk``/``wv`` over the media take no dX, as
+    either stack), so the early stop of non-reentrant checkpointing cuts
+    no launch; the vlm's ``wk``/``wv`` over the media take no dX, as
     the media take no gradient; flash attention and wkv6 run forward and
-    recomputed, and their backwards launch no kernel."""
+    recomputed, and their backwards launch no kernel.  Under
+    ``cfg.remat_policy`` (:data:`repro_torch.models.remat.POLICIES`) the
+    recompute reuses what the policy keeps and launches none of it: every
+    projection under ``dots_nb`` and ``dots``, flash attention and wkv6
+    under ``dots``."""
+    keep = remat.POLICIES[cfg.remat_policy]
     per_pass = matmuls_per_pass(cfg) - 1
     no_dx = 2 * (cfg.n_layers // cfg.cross_attn_every) \
         if cfg.family == "vlm" else 0
-    return {"ina_matmul": 3 * (per_pass + 1) + per_pass - no_dx,
-            "flash_attention": 2 * flash_per_pass(cfg),
-            "wkv6": 2 * cfg.n_layers if cfg.family == "ssm" else 0}
+    fused = 1 if "fused" in keep else 2
+    return {"ina_matmul": 3 * (per_pass + 1) - no_dx
+            + (0 if "nb" in keep else per_pass),
+            "flash_attention": fused * flash_per_pass(cfg),
+            "wkv6": fused * cfg.n_layers if cfg.family == "ssm" else 0}
 
 
 def train_run(ck: str, label: str, device: str, argv=TRAIN_ARGV,
@@ -1889,9 +1942,104 @@ def phase_train(ck: str, device: str = "cuda") -> dict:
         f"{prof['span_ms']['adamw_update']:.1f} ms, other "
         f"{prof['other_ms']:.1f} ms; {tokens / prof['wall_ms'] * 1e3:.0f} "
         f"tokens/s (host clock); peak device memory {peak / 2 ** 30:.2f} GiB")
+    policies = policy_steps(cfg, params, opt, batch, args, prof, peak)
     del params, opt, ts, batch, second
     torch.cuda.empty_cache()
-    return {"launches": path, "profile": prof, "peak_bytes": peak}
+    return {"launches": path, "profile": prof, "peak_bytes": peak,
+            "policies": policies}
+
+
+#: the remat policies a ``[train]`` step runs under beside ``nothing``
+POLICIES = ("dots_nb", "dots")
+
+
+def _cloned(tree):
+    if isinstance(tree, dict):
+        return {k: _cloned(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        parts = [_cloned(v) for v in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else type(tree)(parts)
+    return tree.clone() if torch.is_tensor(tree) else tree
+
+
+def policy_step(cfg, policy: str, params, opt, batch, args) -> tuple:
+    """One step of ``[train]``'s schedule under ``policy`` from a copy of
+    ``(params, opt)``: (params after it, its stats, launches, generic
+    launches, the step's peak device memory above what was allocated when
+    it began, the step's function)."""
+    model = get_model(dataclasses.replace(cfg, remat_policy=policy))
+    ts = build_train_step(model, ShapeConfig("cli", args.seq, args.batch,
+                                             "train"),
+                          base_lr=args.lr, warmup=2, total_steps=args.steps)
+    p, o = _cloned(params), _cloned(opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    reset_launches()
+    p, o, st = ts.fn(p, o, batch)
+    torch.cuda.synchronize()
+    out = (p, {k: float(v) for k, v in st.items()}, read_launches(),
+           im.launches_by_regime["generic"],
+           torch.cuda.max_memory_allocated() - start)
+    reset_launches()
+    return out + (lambda: ts.fn(p, o, batch),)
+
+
+def policy_steps(cfg, params, opt, batch, args, prof: dict,
+                 peak: int) -> dict:
+    """One step under ``nothing`` and under each of :data:`POLICIES` from
+    the same state and batch: each policy's loss, ``grad_norm`` and every
+    parameter after the step bit-equal to ``nothing``'s, its launches the
+    derived counts (:func:`train_launches`) with none generic; then each
+    policy's step profiled (device ms, busy share) and its peak device
+    memory above the memory allocated when it began (the state, its copy
+    and what the comparison holds), printed beside ``nothing``'s."""
+    want, base, launches, generic, base_peak, fn = policy_step(
+        cfg, "nothing", params, opt, batch, args)
+    del fn
+    rows = {"nothing": {"device_ms": prof["device_ms"],
+                        "wall_ms": prof["wall_ms"], "peak_bytes": base_peak,
+                        "launches": launches,
+                        "ina_matmul_ms": prof["ina_matmul_ms"],
+                        "flash_attention_ms": prof["flash_attention_ms"]}}
+    if launches != train_launches(cfg) or generic:
+        raise AssertionError(f"[train] nothing: launches {launches} (generic "
+                             f"{generic}) != {train_launches(cfg)}")
+    for policy in POLICIES:
+        got, st, launches, generic, top, fn = policy_step(
+            cfg, policy, params, opt, batch, args)
+        expect = train_launches(dataclasses.replace(cfg,
+                                                    remat_policy=policy))
+        n = _same_state(got, want, f"train {policy} params")
+        log(f"[train] {policy}: loss {st['loss']:.6f} (nothing "
+            f"{base['loss']:.6f}), grad_norm {st['grad_norm']:.6f} "
+            f"({base['grad_norm']:.6f}), {n} param leaves bit-equal to "
+            f"nothing's; launches {launches}, expected {expect}, generic "
+            f"{generic}")
+        if (st["loss"], st["grad_norm"]) != (base["loss"], base["grad_norm"]) \
+                or launches != expect or generic:
+            raise AssertionError(f"[train] {policy}: the step is not "
+                                 f"nothing's, or its launches are not "
+                                 f"{expect}")
+        del got
+        p = profile_step(f"train_{policy}", fn, steps=1, spans=TRAIN_SPANS)
+        rows[policy] = {"device_ms": p["device_ms"], "wall_ms": p["wall_ms"],
+                        "peak_bytes": top, "launches": launches,
+                        "ina_matmul_ms": p["ina_matmul_ms"],
+                        "flash_attention_ms": p["flash_attention_ms"]}
+        del fn
+        torch.cuda.empty_cache()
+    for policy, r in rows.items():
+        log(f"[train] policy {policy}: device {r['device_ms']:.2f} ms a step "
+            f"(ina_matmul {r['ina_matmul_ms']:.2f}, flash_attention "
+            f"{r['flash_attention_ms']:.2f}), wall {r['wall_ms']:.1f} ms, "
+            f"busy share "
+            f"{r['device_ms'] / r['wall_ms']:.3f}, peak device memory "
+            f"{gib(r['peak_bytes'])} above the step's start (one step from "
+            f"the resumed state; the run's peak {gib(peak)}), launches "
+            f"{r['launches']}")
+    return rows
 
 
 # --------------------------------------------------------------------------- #
@@ -3363,10 +3511,34 @@ def train_family(arch: str, layers: int, ck: str, smi: str,
                 del got
         finally:
             dist.destroy_process_group()
+    # one step under each remat policy: the groupless step to the bit, with
+    # the policy's launches
+    policies = {}
+    for policy in POLICIES:
+        pm = get_model(dataclasses.replace(cfg, remat_policy=policy))
+        expect = train_launches(pm.cfg)
+        with vlm_gates(arch):
+            got, st = _timed(f"{policy} step", lambda: tp_train_steps(
+                pm, shape, None, [batch], args), phase)
+        s, b = st[0], base_steps[0]
+        log(f"[{phase}] {arch} {policy}: loss {s['loss']:.6f} (nothing "
+            f"{b['loss']:.6f}), grad_norm {s['grad_norm']:.6f} "
+            f"({b['grad_norm']:.6f}), launches {s['launches']} (nothing "
+            f"{b['launches']}), expected {expect}, generic {s['generic']}")
+        if (s["loss"], s["grad_norm"]) != (b["loss"], b["grad_norm"]) \
+                or s["launches"] != expect or s["generic"] != 0:
+            raise AssertionError(f"[{phase}] {arch} {policy}: the step is "
+                                 f"not nothing's, or its launches are not "
+                                 f"{expect}")
+        n = _same_state(got, base, f"{arch} {policy} params")
+        log(f"[{phase}] {arch} {policy}: {n} param leaves bit-equal to "
+            f"nothing's")
+        policies[policy] = s["launches"]
+        del got
     del base
     fresh_phase()
     return {"launches": path, "modes": modes, "profile": prof,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "policies": policies}
 
 
 def phase_train_families(smi: str, device: str = "cuda") -> dict:
@@ -3596,7 +3768,12 @@ def main() -> int:
                 for arch, layers in TRAIN_FAMILIES},
              **{f"{arch} train ({layers} layers) W=1 {mode}": counts
                 for arch, layers in TRAIN_FAMILIES
-                for mode, counts in trained_families[arch]["modes"].items()}}
+                for mode, counts in trained_families[arch]["modes"].items()},
+             **{f"qwen2-1.5b train step {policy}": row["launches"]
+                for policy, row in trained["policies"].items()},
+             **{f"{arch} train step ({layers} layers) {policy}": counts
+                for arch, layers in TRAIN_FAMILIES for policy, counts
+                in trained_families[arch]["policies"].items()}}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

@@ -241,12 +241,17 @@ class FlashAttention(torch.autograd.Function):
     kernel on CUDA tensors (the plain version on CPU tensors), and saves q,
     k and v; the backward recomputes :func:`gqa_attention_f32` from them
     and takes its VJP, cast to the inputs' dtype.  No kernel launches in
-    the backward."""
+    the backward.  ``kept`` (a 1-tuple): the recorded output a
+    checkpointed layer's recompute returns without a launch
+    (:func:`repro_torch.core.remat.kernel`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
+    def forward(ctx, q, k, v, causal: bool, q_offset: int,
+                kept: tuple | None = None) -> torch.Tensor:
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.q_offset = causal, int(q_offset)
+        if kept is not None:
+            return kept[0].detach()
         return _attention(q, k, v, causal, q_offset)
 
     @staticmethod
@@ -258,7 +263,8 @@ class FlashAttention(torch.autograd.Function):
                           for t in (q, k, v))
             o = gqa_attention_f32(qf, kf, vf, ctx.causal, ctx.q_offset)
             dq, dk, dv = torch.autograd.grad(o, (qf, kf, vf), do.float())
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, \
+            None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -272,12 +272,17 @@ class InaMatmul(torch.autograd.Function):
     (:func:`_aligned_rows`), so no backward product runs ``generic``.  On
     CUDA tensors every product launches the kernel and is counted; on CPU
     tensors each runs the plain version, so the CPU tests exercise this
-    backward and not PyTorch's."""
+    backward and not PyTorch's.  ``kept`` (a 1-tuple) is the output a
+    checkpointed layer's first forward recorded: the recompute returns it
+    and launches nothing (:func:`repro_torch.core.remat.kernel`)."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, w: torch.Tensor,
-                plan: MatmulPlan | None = None, tiles=None) -> torch.Tensor:
+                plan: MatmulPlan | None = None, tiles=None,
+                kept: tuple | None = None) -> torch.Tensor:
         ctx.save_for_backward(x, w)
+        if kept is not None:
+            return kept[0].detach()
         return ina_matmul(x, w, plan) if tiles is None \
             else ina_matmul(x, w, plan, tiles)
 
@@ -288,4 +293,4 @@ class InaMatmul(torch.autograd.Function):
         dx = ina_matmul(dy, w.T) if ctx.needs_input_grad[0] else None
         dw = ina_matmul(_aligned_rows(x.T), dy) \
             if ctx.needs_input_grad[1] else None
-        return dx, dw, None, None
+        return dx, dw, None, None, None

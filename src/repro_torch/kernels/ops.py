@@ -4,7 +4,9 @@ The device of the tensor decides: a CUDA tensor goes to the hand-written
 kernel, a CPU tensor to its plain PyTorch version.  There is no switch and
 no fallback from one to the other.  Where autograd needs a gradient, the
 call goes through the kernel's ``autograd.Function`` (the same forward
-launch); elsewhere, as in serving, straight to the wrapper.
+launch, or, in the recompute of a checkpointed layer whose remat policy
+keeps it, the recorded output: :func:`repro_torch.core.remat.kernel`);
+elsewhere, as in serving, straight to the wrapper.
 
 A ``meta`` tensor computes nothing: the plan builder runs the model on the
 ``meta`` device to record its psum sites (:mod:`repro_torch.plan.builder`),
@@ -20,6 +22,7 @@ from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, FlashAttention,
                                                  flash_attention_heads)
 from repro_torch.kernels.ina_matmul import InaMatmul, ina_matmul
 from repro_torch.kernels.wkv6 import Wkv6, wkv6_heads
+from repro_torch.core import remat
 
 
 def _shape_only(x: torch.Tensor, shape) -> torch.Tensor:
@@ -41,7 +44,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor, plan=None) -> torch.Tensor:
         return _shape_only(x, (*lead, w.shape[1]))
     x2 = x.reshape(-1, x.shape[-1])
     if needs_grad(x2, w):
-        y = InaMatmul.apply(x2, w, None, plan)
+        y = remat.kernel("ina", "nb", lambda kept: InaMatmul.apply(
+            x2, w, None, plan, kept))
     else:
         y = ina_matmul(x2, w) if plan is None \
             else ina_matmul(x2, w, tiles=plan)
@@ -69,7 +73,8 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "meta":
         return _shape_only(q, q.shape)
     if needs_grad(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, q_offset)
+        return remat.kernel("flash", "fused", lambda kept: FlashAttention
+                            .apply(q, k, v, causal, q_offset, kept))
     return flash_attention_heads(q, k, v, causal=causal, q_offset=q_offset)
 
 
@@ -85,5 +90,6 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     if r.device.type == "meta":
         return _shape_only(r, r.shape)
     if needs_grad(r, k, v, logw, u):
-        return Wkv6.apply(r, k, v, logw, u)
+        return remat.kernel("wkv6", "fused",
+                            lambda kept: Wkv6.apply(r, k, v, logw, u, kept))
     return wkv6_heads(r, k, v, logw, u)

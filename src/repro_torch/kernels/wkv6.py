@@ -239,11 +239,16 @@ class Wkv6(torch.autograd.Function):
     logw and u; the backward recomputes :func:`wkv6_plain` in float32 from
     them and takes its VJP, each gradient in its input's dtype (u's summed
     over the batch, which shares it).  No kernel launches in the
-    backward."""
+    backward.  ``kept`` (a 1-tuple): the recorded output a checkpointed
+    layer's recompute returns without a launch
+    (:func:`repro_torch.core.remat.kernel`)."""
 
     @staticmethod
-    def forward(ctx, r, k, v, logw, u) -> torch.Tensor:
+    def forward(ctx, r, k, v, logw, u, kept: tuple | None = None
+                ) -> torch.Tensor:
         ctx.save_for_backward(r, k, v, logw, u)
+        if kept is not None:
+            return kept[0].detach()
         return _wkv(r, k, v, logw, u.expand(r.shape[0], *u.shape))
 
     @staticmethod
@@ -256,4 +261,4 @@ class Wkv6(torch.autograd.Function):
             y = wkv6_heads_plain(r, k, v, logw,
                                  u.expand(r.shape[0], *u.shape))
             grads = torch.autograd.grad(y, (r, k, v, logw, u), dy.float())
-        return tuple(g.to(t.dtype) for g, t in zip(grads, saved))
+        return tuple(g.to(t.dtype) for g, t in zip(grads, saved)) + (None,)

@@ -9,6 +9,12 @@ held against.  Both run on the GPU unless ``--device cpu`` is given.
 ``--model-parallel N`` serves through tensor parallelism over N ranks, one
 process each (NCCL on N cards, or gloo with ``--device cpu``); every rank
 runs the same schedule on its shard and rank 0 prints the report.
+``--ranks R`` (default ``--model-parallel``) serves on the reference's
+``make_host_mesh(R, model_parallel)``, ``(data R/M, model M)``: each data
+rank holds its share of the slots (the legacy loop: of the batch rows) and
+its FSDP pieces of the weights, gathered layer by layer each step, or,
+with ``--serve-replicated-params``, its model shard gathered once
+(:mod:`repro_torch.serve.engine`); the tokens are gathered over ``data``.
 ``--psum-mode`` picks how the row-parallel partial sums are accumulated
 (:data:`repro_torch.core.collectives.CLI_PSUM_MODES`).  Under ``auto`` the
 engine carries one :class:`~repro_torch.plan.ExecutionPlan` a phase
@@ -48,6 +54,10 @@ rank):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \\
       --reduced --device cpu --batch 3 --prompt-len 6 --gen 5 \\
       --model-parallel 2 --psum-mode ina_ring
+and four gloo ranks as ``(data 2, model 2)``:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \\
+      --reduced --device cpu --ranks 4 --model-parallel 2 --slots 4 \\
+      --batch 6 --prompt-len 6 --gen 5 --block-size 4 --check
 """
 from __future__ import annotations
 
@@ -67,9 +77,10 @@ from repro_torch.core.collectives import CLI_PSUM_MODES
 from repro_torch.launch import mesh
 from repro_torch.models import vision
 from repro_torch.models.api import MEDIA_FAMILIES, get_model, media_ones
-from repro_torch.parallel.sharding import shard_params
+from repro_torch.parallel import fsdp
+from repro_torch.parallel.fsdp import serving_params
 from repro_torch.parallel.steps import build_serve_step
-from repro_torch.parallel.tp import ParallelCtx
+from repro_torch.parallel.tp import Hosts, ParallelCtx
 from repro_torch.plan import add_plan_cli_args, plan_for_launch
 from repro_torch.plan.builder import MODEL_AXIS
 
@@ -91,6 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
     add_plan_cli_args(ap)
     ap.add_argument("--model-parallel", type=int, default=1,
                     help="tensor-parallel ranks, one process each")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks of the (data, model) mesh, one process "
+                         "each (default: --model-parallel)")
+    ap.add_argument("--serve-replicated-params", action="store_true",
+                    help="each data rank holds its model shard whole, "
+                         "gathered once, not its FSDP pieces")
     # engine path
     ap.add_argument("--slots", type=int, default=None,
                     help="continuous-batching slots (default: --batch)")
@@ -140,9 +157,11 @@ def launch_plans(args, cfg, world: int = 1) -> dict:
             for kind in ("decode", "prefill")}
 
 
-def run_engine(args, cfg, params=None, group=None):
-    """Serve ``--batch`` requests through the engine on this rank of
-    ``group`` (``None``: one rank); returns its report."""
+def run_engine(args, cfg, params=None, group=None, data_group=None,
+               pod_group=None):
+    """Serve ``--batch`` requests through the engine on this rank of the
+    model ``group`` and of ``data_group`` and ``pod_group`` (``None``:
+    span 1); returns its report."""
     from repro_torch.serve.batching import Request
     from repro_torch.serve.engine import ServingEngine
 
@@ -161,7 +180,8 @@ def run_engine(args, cfg, params=None, group=None):
         prefill_chunk=args.prefill_chunk, psum_mode=args.psum_mode,
         prefill_plan=plans["prefill"][0], decode_plan=plans["decode"][0],
         batched_prefill=not args.no_batched_prefill, check=args.check,
-        group=group)
+        group=group, data_group=data_group, pod_group=pod_group,
+        serve_replicated_params=args.serve_replicated_params)
 
     prompts = make_prompts(cfg, args.batch, args.prompt_len)
     requests = [
@@ -187,11 +207,18 @@ def run_engine(args, cfg, params=None, group=None):
 
 
 def run_legacy(args, cfg, params=None, group=None, *, rows=None,
-               max_seq=None) -> dict:
+               max_seq=None, data_group=None, pod_group=None) -> dict:
     """The pre-engine loop: one fixed batch, per-token prefill steps, on
-    this rank of ``group`` (``None``: one rank).  ``rows`` picks the
-    requests (rows of the prompt block) that form the batch, all of them by
-    default; ``max_seq`` the cache's positions, prompt + gen by default.
+    this rank of the model ``group`` (``None``: one rank).  ``rows`` picks
+    the requests (rows of the prompt block) that form the batch, all of
+    them by default; ``max_seq`` the cache's positions, prompt + gen by
+    default.  On the data axis (``data_group``, ``pod_group``) host ``h``
+    of ``H`` runs rows ``[h B/H, (h+1) B/H)`` of the batch (and of the
+    media) on its FSDP pieces (:func:`~repro_torch.parallel.fsdp.
+    serving_params`), and the hosts' tokens, margins and first-token
+    logits are gathered back in row order.  An MoE layer routes the
+    hosts' rows as the one group of the batch, as the reference's serve
+    step does over its global batch.
 
     The encdec and vlm families get media of ones [B, M, D] in the compute
     dtype, as the reference's launcher gives them, in every step's batch;
@@ -206,24 +233,39 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     prompts = make_prompts(cfg, args.batch, args.prompt_len)
     if rows is not None:
         prompts = prompts[list(rows)]
+    hosts = Hosts(data_group, pod_group)
+    if prompts.shape[0] % hosts.count:
+        raise ValueError(f"{prompts.shape[0]} rows do not divide over the "
+                         f"{hosts.count} data-parallel ranks (pod x data)")
+    n = prompts.shape[0] // hosts.count
+    prompts = prompts[hosts.index * n:(hosts.index + 1) * n]
     world = ParallelCtx(group=group).world
     plan, _ = plan_for_launch(
         cfg, ((MODEL_AXIS, world),),
         ShapeConfig("cli", max_seq or args.prompt_len + args.gen,
                     prompts.shape[0], "decode"),
         args.psum_mode, plan_dir=args.plan_dir, enabled=not args.no_plan)
-    pctx = ParallelCtx(group=group, psum_mode=args.psum_mode, plan=plan)
-    params = shard_params(_params(args, cfg, params), cfg, pctx.rank,
-                          pctx.world)
+    # the rows are the hosts' cut of one batch: an MoE layer routes them
+    # as one group over the data and pod groups
+    pctx = ParallelCtx(group=group, psum_mode=args.psum_mode, plan=plan,
+                       data_group=data_group, pod_group=pod_group,
+                       serve_replicated_params=args.serve_replicated_params)
+    params, dims = serving_params(_params(args, cfg, params), cfg, pctx,
+                                  data_group)
     step = build_serve_step(model, pctx)
+
+    def run(batch, cache):
+        with fsdp.serving(params, dims, data_group) as held:
+            return step.fn(held, batch, cache)
     prompts = prompts.to(dev)
     batch = prompts.shape[0]
     cache = model.init_cache(batch, max_seq or args.prompt_len + args.gen,
                              device=dev, world=pctx.world)
     extra = media_ones(cfg, batch, dev)
     if cfg.family == "vlm":
-        cache = vision.prefill_media_kv(params, cfg, extra["media"], cache,
-                                        pctx)
+        with fsdp.serving(params, dims, data_group) as held:
+            cache = vision.prefill_media_kv(held, cfg, extra["media"], cache,
+                                            pctx)
 
     def margin(logits):
         top2 = torch.topk(logits.float(), 2, dim=-1).values
@@ -232,9 +274,8 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     # prefill token-by-token through the serve step (keeps one artifact)
     t0 = time.perf_counter()
     for pos in range(args.prompt_len):
-        nxt, cache, logits = step.fn(
-            params, {"tokens": prompts[:, pos:pos + 1], "pos": pos, **extra},
-            cache)
+        nxt, cache, logits = run(
+            {"tokens": prompts[:, pos:pos + 1], "pos": pos, **extra}, cache)
     tokens, margins, first_logits = [nxt], [margin(logits)], logits
     nxt.tolist()
     prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -242,12 +283,15 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
 
     t0 = time.perf_counter()
     for i in range(args.gen):
-        nxt, cache, logits = step.fn(
-            params, {"tokens": nxt[:, None], "pos": args.prompt_len + i,
-                     **extra}, cache)
+        nxt, cache, logits = run(
+            {"tokens": nxt[:, None], "pos": args.prompt_len + i, **extra},
+            cache)
         tokens.append(nxt)
         margins.append(margin(logits))
-    out = torch.stack(tokens, dim=1).cpu()
+    out = hosts.all_gather(torch.stack(tokens, dim=1)).cpu()
+    margins = hosts.all_gather(torch.stack(margins, dim=1))
+    first_logits = hosts.all_gather(first_logits)
+    batch = out.shape[0]
     dt = time.perf_counter() - t0
     print(f"[serve] generated {args.gen} x {batch} tokens in "
           f"{dt * 1e3:.1f} ms ({args.gen * batch / dt:.1f} tok/s)")
@@ -255,7 +299,7 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     if out.shape != (batch, args.gen + 1) or not (
             bool((out >= 0).all()) and bool((out < cfg.vocab).all())):
         raise RuntimeError(f"bad legacy output {tuple(out.shape)}")
-    return {"tokens": out, "margins": torch.stack(margins, dim=1).cpu(),
+    return {"tokens": out, "margins": margins.cpu(),
             "first_logits": first_logits, "prefill_ms": prefill_ms,
             "decode_ms": dt * 1e3}
 
@@ -269,29 +313,45 @@ def config(args):
         dataclasses.replace(cfg, n_layers=args.layers)
 
 
-def _serve(args, cfg, group=None, params=None):
+def _legacy(args, cfg) -> bool:
+    return args.legacy_loop or cfg.family in MEDIA_FAMILIES
+
+
+def _serve(args, cfg, group=None, params=None, data_group=None,
+           pod_group=None):
     """Run the path ``args`` asks for (the legacy loop for the families
     that take media) on ``params`` (the full weights; seeded random ones
     by default); its tokens, one row a request."""
-    if args.legacy_loop or cfg.family in MEDIA_FAMILIES:
+    if _legacy(args, cfg):
         if not args.legacy_loop:
             print(f"[serve] family {cfg.family!r} needs media plumbing; "
                   "running the legacy loop")
-        return run_legacy(args, cfg, params, group)["tokens"].tolist()
-    tokens = run_engine(args, cfg, params, group).tokens()
+        return run_legacy(args, cfg, params, group, data_group=data_group,
+                          pod_group=pod_group)["tokens"].tolist()
+    tokens = run_engine(args, cfg, params, group, data_group,
+                        pod_group).tokens()
     return [tokens[f"req{i}"] for i in range(args.batch)]
 
 
-def serve_rank(rank, world, group, device, argv, params=None):
-    """One rank of ``--model-parallel``: the same requests on its shard of
-    ``params`` (the full weights; seeded random ones by default).  Rank 0
-    prints; the others' prints are dropped."""
+def serve_rank(rank, world, group, device, argv, params=None, groups=None):
+    """One rank of the launch's mesh: the same requests on its shard of
+    ``params`` (the full weights; seeded random ones by default).
+    ``groups`` (``{"pod", "data", "model"}``, as
+    :meth:`~repro_torch.launch.mesh.RankMesh.groups` gives them) default to
+    those of ``make_host_mesh(world, --model-parallel)``, the model line a
+    whole world of ``group`` where ``data`` has span 1.  Rank 0 prints; the
+    others' prints are dropped."""
     args = build_parser().parse_args(argv)
     args.device = str(device)
+    if groups is None:
+        ranks = mesh.make_host_mesh(world, args.model_parallel)
+        groups = ranks.groups(rank) if ranks.span("data") > 1 else \
+            {"pod": None, "data": None, "model": group}
     quiet = contextlib.nullcontext() if rank == 0 else \
         contextlib.redirect_stdout(io.StringIO())
     with quiet:
-        return _serve(args, config(args), group, params)
+        return _serve(args, config(args), groups["model"], params,
+                      groups["data"], groups["pod"])
 
 
 def main(argv=None) -> list:
@@ -300,19 +360,31 @@ def main(argv=None) -> list:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     cfg = config(args)
-    world = args.model_parallel
+    if args.ranks is not None and args.ranks < args.model_parallel:
+        raise ValueError(f"--ranks {args.ranks} is fewer than "
+                         f"--model-parallel {args.model_parallel}")
+    ranks = mesh.make_host_mesh(args.ranks or args.model_parallel,
+                                args.model_parallel)
+    world, hosts = ranks.size, ranks.span("data")
+    # refuse what the ranks would, before any starts
+    rows = args.batch if _legacy(args, cfg) else (args.slots or args.batch)
+    if rows % hosts:
+        raise ValueError(f"{rows} {'rows' if _legacy(args, cfg) else 'slots'}"
+                         f" do not divide over the {hosts} data-parallel "
+                         f"ranks of {ranks.pairs}")
     if world == 1:
         return _serve(args, cfg)
     dev = _device.resolve(args.device)
     if dev.type == "cuda" and world > torch.cuda.device_count():
-        raise RuntimeError(f"--model-parallel {world} needs {world} CUDA "
-                           f"devices; {torch.cuda.device_count()} present")
+        raise RuntimeError(f"{world} ranks need {world} CUDA devices; "
+                           f"{torch.cuda.device_count()} present")
     # build the plans once, so that every rank loads them warm
-    launch_plans(args, cfg, world)
+    launch_plans(args, cfg, args.model_parallel)
     tokens = mesh.spawn(serve_rank, world, dev.type, args=(argv,))
     if any(t != tokens[0] for t in tokens):
         raise AssertionError(f"ranks disagree on the tokens: {tokens}")
-    print(f"[serve] {world} ranks ({args.psum_mode}) agree on every token")
+    print(f"[serve] {world} ranks {ranks.pairs} ({args.psum_mode}) agree on "
+          f"every token")
     return tokens[0]
 
 

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.core.remat import product
 from repro_torch.parallel import tp
 from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
 
@@ -120,6 +121,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # --------------------------------------------------------------------------- #
 # attention cores
 # --------------------------------------------------------------------------- #
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A plain attention product (MLA's scores or PV), batched over B and
+    the heads (:func:`repro_torch.core.remat.product`)."""
+    return product("mla_attn", "batched", torch.einsum, eq, a, b)
+
+
 def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, q_offset=0) -> torch.Tensor:
     """Exact attention. q: [B,Sq,H,D], k/v: [B,Sk,K,D] -> [B,Sq,H,D].
@@ -144,7 +151,7 @@ def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kt = k.permute(0, 2, 1, 3).float()                              # b,k,s,d
     train = ops.needs_grad(q, k, v)
     if train:
-        scores = torch.einsum("bkgqd,bksd->bkgqs", qg, kt)
+        scores = _einsum("bkgqd,bksd->bkgqs", qg, kt)
     else:
         scores = (qg[:, :, :, :, None, :]
                   * kt[:, :, None, None, :, :]).sum(-1)
@@ -161,7 +168,7 @@ def attn_full(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     vt = v.permute(0, 2, 1, 3).float()                              # b,k,s,dv
     if train:
-        out = torch.einsum("bkgqs,bksd->bkgqd", p.float(), vt)
+        out = _einsum("bkgqs,bksd->bkgqd", p.float(), vt)
     else:
         out = (p.float()[..., None] * vt[:, :, None, None, :, :]).sum(-2)
     out = out.to(q.dtype)                                           # b,k,g,q,dv
@@ -196,7 +203,7 @@ def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
     for k0 in range(0, sk, chunk):
         kb, vb = k[:, k0:k0 + chunk], v[:, k0:k0 + chunk]
-        s = torch.einsum("bqhd,bkhd->bhqk", q, kb).float() * scale
+        s = _einsum("bqhd,bkhd->bhqk", q, kb).float() * scale
         if causal:
             kp = torch.arange(k0, k0 + chunk, device=q.device)
             s = torch.where((qp[:, None] >= kp[None, :])[None, None], s,
@@ -205,7 +212,7 @@ def attn_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new[..., None])
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + _einsum(
             "bhqk,bkhd->bhqd", p.to(q.dtype), vb).float()
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]

@@ -59,6 +59,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers as L
+from repro_torch.core.remat import product
 from repro_torch.models.transformer import (_dtype, _heads, block_input,
                                             embed_stream, head_logits, layer,
                                             remat)
@@ -230,12 +231,22 @@ def _expert_partial(xt, expert, slot, mine, gate_vals, wg, wu, wd,
     slot_token[torch.where(mine, expert, e), slot] = tids
     xe = torch.cat([xt, xt.new_zeros(1, d)])[slot_token[:e]]   # [E, C, D]
     with torch.profiler.record_function("moe_experts"):
-        h = F.silu(torch.bmm(xe, wg.to(xt.dtype))) \
-            * torch.bmm(xe, wu.to(xt.dtype))
-        ye = torch.bmm(h, wd.to(xt.dtype))                      # [E, C, D]
+        h = F.silu(product("experts", "batched", torch.bmm, xe,
+                                 wg.to(xt.dtype))) \
+            * product("experts", "batched", torch.bmm, xe,
+                            wu.to(xt.dtype))
+        ye = product("experts", "batched", torch.bmm, h,
+                           wd.to(xt.dtype))                     # [E, C, D]
     contrib = ye[torch.where(mine, expert, e - 1), slot]       # [T, k, D]
     w = (gate_vals * mine).to(xt.dtype)
-    return (contrib.float() * w.float()[..., None]).sum(1).to(xt.dtype)
+    return product("combine", "batched", _combine, contrib, w,
+                         reduction=True).to(xt.dtype)
+
+
+def _combine(contrib: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The reference's ``tkd,tk->td``: each token's k expert outputs
+    weighted by their gates and summed, in float32."""
+    return (contrib.float() * w.float()[..., None]).sum(1)
 
 
 def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -262,10 +273,11 @@ def moe_mlp(p: dict, x: torch.Tensor, cfg: ModelConfig,
     n_tok = b * s
     per_group = n_tok // groups
     # data-parallel hosts route the global batch's rows as one group
-    hosts = tp.hosts(pctx)
+    hosts = tp.hosts(pctx).count
     cap = capacity(per_group * hosts, m)
 
-    logits32 = torch.matmul(x, p["router"].to(x.dtype)).float()
+    logits32 = product("router", "nb", torch.matmul, x,
+                             p["router"].to(x.dtype)).float()
     probs = torch.softmax(logits32, dim=-1)                     # [B, S, E]
     gate_vals, gate_idx = top_k(probs, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)

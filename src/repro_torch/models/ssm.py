@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import collectives as C
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.core.remat import product
 from repro_torch.parallel import tp
 from repro_torch.parallel.tp import ParallelCtx, col_linear, row_linear
 
@@ -95,6 +96,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y + b.to(x.dtype)), xp[:, -(k - 1):]
 
 
+def _ssd(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """One of the SSD's einsums, batched over B and the chunks
+    (:func:`repro_torch.core.remat.product`)."""
+    return product("ssd", "batched", torch.einsum, eq, *operands)
+
+
 def _ssd_chunks(state: torch.Tensor, xs: tuple, cfg: ModelConfig):
     """SSD over chunks side by side.  state: [B, H, hd, N] f32, entering
     the first chunk; xs = (x [B, nc, C, H, hd], Bm/Cm [B, nc, C, N],
@@ -118,21 +125,21 @@ def _ssd_chunks(state: torch.Tensor, xs: tuple, cfg: ModelConfig):
     # backward's 0 * exp(inf) would be NaN (the same values as the
     # reference's where(mask, exp(ratio), 0), whose gradient is NaN there)
     dec = torch.exp(torch.where(mask, ratio, float("-inf"))).to(sdt)
-    scores = torch.einsum("bctn,bcsn->bcts", cm, bm).to(sdt)[..., None] \
+    scores = _ssd("bctn,bcsn->bcts", cm, bm).to(sdt)[..., None] \
         * dec * dt[:, :, None].to(sdt)                    # [B, nc, t, s, H]
-    y = torch.einsum("bctsh,bcshd->bcthd", scores.to(x.dtype), x)
+    y = _ssd("bctsh,bcshd->bcthd", scores.to(x.dtype), x)
     tail = torch.exp(cum[:, :, -1:] - cum)                # [B, nc, C, H]
-    upd = torch.einsum("bcsh,bcshd,bcsn->bchdn", (tail * dt).to(x.dtype), x,
-                       bm)                                # [B, nc, H, hd, N]
+    upd = _ssd("bcsh,bcshd,bcsn->bchdn", (tail * dt).to(x.dtype), x,
+               bm)                                        # [B, nc, H, hd, N]
     decay = torch.exp(cum[:, :, -1])[..., None, None]     # [B, nc, H, 1, 1]
     starts = []
     for c in range(x.shape[1]):
         starts.append(state)
         state = state * decay[:, c] + upd[:, c]
     # the carried state's contribution
-    y = y + torch.einsum("bctn,bchdn,bcth->bcthd", cm,
-                         torch.stack(starts, 1).to(x.dtype),
-                         torch.exp(cum).to(x.dtype))
+    y = y + _ssd("bctn,bchdn,bcth->bcthd", cm,
+                 torch.stack(starts, 1).to(x.dtype),
+                 torch.exp(cum).to(x.dtype))
     return state, y
 
 
@@ -282,8 +289,9 @@ def rwkv_tmix(p: dict, x: torch.Tensor, cfg: ModelConfig,
     v = col_linear(lerp(2), p["wv"], pctx).reshape(b, s, h, hd)
     g = F.silu(col_linear(lerp(4), p["wg"], pctx))
     # data-dependent decay (LoRA)
-    wx = torch.tanh(lerp(3) @ p["w_lora_a"].to(x.dtype)) \
-        @ p["w_lora_b"].to(x.dtype)
+    wx = product("lora", "nb", torch.matmul, torch.tanh(
+        product("lora", "nb", torch.matmul, lerp(3),
+                      p["w_lora_a"].to(x.dtype))), p["w_lora_b"].to(x.dtype))
     logw = -torch.exp(torch.clamp(p["w0"].float() + wx.float(), -10.0, 2.0))
     logw = logw.reshape(b, s, h, hd)
     u = p["u"].float()

@@ -27,8 +27,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.remat import Tape
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models.remat import remat_policy
+from repro_torch.parallel import fsdp
 from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import local_heads
 from repro_torch.parallel.tp import ParallelCtx
@@ -54,8 +57,14 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def layer(stacked: dict, i: int) -> dict:
     """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` tree
     (or item ``i`` of each leaf's list of per-layer tensors, the form the
-    train step differentiates)."""
-    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+    train step differentiates and an FSDP serving rank holds).  Under a
+    serving step's FSDP pieces they come gathered whole
+    (:func:`~repro_torch.parallel.fsdp.at_slice`)."""
+    return fsdp.at_slice(_slice(stacked, i))
+
+
+def _slice(stacked: dict, i: int) -> dict:
+    return {k: _slice(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
 
 
@@ -169,27 +178,23 @@ def _leaves(tree):
         yield from (_leaves(v) if isinstance(v, (dict, list)) else (v,))
 
 
-def check_remat(cfg: ModelConfig) -> None:
-    """The reference's ``remat_policy``: the port checkpoints each layer
-    whole (``nothing_saveable``); the policies that keep the products'
-    outputs are ROADMAP.md Queue 1, item 4.6."""
-    if cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: the port has 'nothing' only "
-            f"('dots' and 'dots_nb' are in ROADMAP.md Queue 1, item 4.6)")
-
-
 def remat(fn, cfg: ModelConfig, lp: dict, x: torch.Tensor, *args):
     """``fn(lp, x, *args)``: one layer (or a group of them: zamba2's, the
     vlm's).  Where autograd records it, the layer is checkpointed
-    (``use_reentrant=False``): its activations are
+    (``use_reentrant=False``) under ``cfg.remat_policy``
+    (:func:`~repro_torch.models.remat.remat_policy`): the activations are
     dropped and recomputed in the backward, as the reference's
-    ``jax.checkpoint(body, policy=nothing_saveable)`` does, and whatever
-    it returns (an MoE layer's aux loss too) comes through.  Elsewhere, as
-    in serving, ``fn`` runs as it is."""
+    ``jax.checkpoint(body, policy=remat_policy(cfg))`` does, except the
+    outputs of the products the policy keeps, which the recompute reuses
+    (:class:`~repro_torch.core.remat.Tape`); whatever ``fn`` returns (an
+    MoE layer's aux loss too) comes through.  Under an FSDP step the
+    layer's pieces are gathered inside the checkpointed body
+    (:func:`~repro_torch.parallel.fsdp.in_layer`), so its recompute
+    gathers them again.  Elsewhere, as in serving, ``fn`` runs as it is."""
     if ops.needs_grad(x, *_leaves(lp)):
-        check_remat(cfg)
-        return checkpoint(fn, lp, x, *args, use_reentrant=False)
+        tape = Tape(remat_policy(cfg))
+        return checkpoint(fsdp.in_layer(fn), lp, x, *args,
+                          use_reentrant=False, context_fn=tape.contexts)
     return fn(lp, x, *args)
 
 

@@ -31,10 +31,9 @@ import torch.distributed as dist
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import collectives as C
 from repro_torch.models.api import Model, cache_batch_axes, stream_leaves
-from repro_torch.models.layers import STACK_AXES
 from repro_torch.optim.adamw import adamw_update, cosine_schedule, tree_map
-from repro_torch.parallel import sharding
-from repro_torch.parallel.tp import ParallelCtx, seq_sharded
+from repro_torch.parallel import fsdp, sharding
+from repro_torch.parallel.tp import Hosts, ParallelCtx, seq_sharded
 
 
 def _with_plan(pctx: Optional[ParallelCtx], plan) -> Optional[ParallelCtx]:
@@ -73,25 +72,26 @@ class TrainStep:
                 for k, v in batch.items()}
 
 
-def _grad_leaves(params: dict) -> tuple[dict, list]:
-    """(a tree the loss is differentiated through, its leaves in order).
-    Each leaf is a detached alias of the master that requires a gradient;
-    a stacked leaf (:data:`~repro_torch.models.layers.STACK_AXES`) becomes
-    its layer slices, a list over each stacked axis (``groups`` [G, per,
-    ...] a list of G lists of ``per``), so autograd gives each layer its
-    own gradient, not one full-size ``select`` gradient a layer summed into
-    the stack's."""
+def _grad_leaves(params: dict, cfg=None, world=(1, 1),
+                 dims: Optional[dict] = None) -> tuple[dict, list]:
+    """(a tree the loss is differentiated through, its leaves in order);
+    ``dims`` (where given) gets the data dims of the FSDP pieces among
+    them (:func:`~repro_torch.parallel.fsdp.layer_pieces`).  Each leaf is
+    a detached alias of the master (this rank's piece of ``world = (D,
+    M)``) that requires a gradient; a stacked leaf
+    (:data:`~repro_torch.models.layers.STACK_AXES`) becomes its layer
+    slices, a list over each stacked axis (``groups`` [G, per, ...] a list
+    of G lists of ``per``; :func:`~repro_torch.parallel.fsdp.
+    layer_pieces`), so autograd gives each layer its own gradient, not one
+    full-size ``select`` gradient a layer summed into the stack's."""
     leaves = []
 
     def leaf(p):
         leaves.append(p.detach().requires_grad_())
         return leaves[-1]
-
-    def split(p, axes):
-        return [split(q, axes - 1) for q in p] if axes else leaf(p)
-
-    work = {k: tree_map(lambda p, a=STACK_AXES.get(k, 0): split(p, a), v)
-            for k, v in params.items()}
+    work, cut = fsdp.layer_pieces(params, cfg, world, leaf)
+    if dims is not None:
+        dims.update(cut)
     return work, leaves
 
 
@@ -197,15 +197,15 @@ class DataSync:
     d)`` of ``(P, D)`` trains on host ``p * D + d``'s rows of the global
     batch and holds its model shard cut into D pieces
     (:func:`~repro_torch.parallel.sharding.shard_params` at ``(d, m)`` of
-    ``world = (D, M)``).  :meth:`gather` rebuilds the model shard with one
-    native all-gather over ``data`` (GSPMD's data-axis collectives are
-    native in the reference too: the psum modes are the model axis's);
-    :meth:`reduce` gives each rank its piece of the gradient of the global
-    batch's mean loss, and that loss: a reduce-scatter over ``data`` of the
-    cut leaves, an all-reduce over ``data`` of the leaves held whole there
-    (and of the loss), an all-reduce over ``pod`` of all of them, then a
-    division by ``P * D``.  Each collective runs once for each dtype
-    among the leaves (one bucket each); at span 1 an axis runs none."""
+    ``world = (D, M)``).  The pieces are gathered layer by layer inside
+    the forward, and each cut leaf's gradient comes out of the backward
+    reduce-scattered over ``data`` (:mod:`repro_torch.parallel.fsdp`);
+    :meth:`reduce` finishes the gradient of the global batch's mean loss,
+    and that loss: an all-reduce over ``data`` of the leaves held whole
+    there (and of the loss), an all-reduce over ``pod`` of all of them,
+    then a division by ``P * D``.  Each collective runs once for each
+    dtype among the leaves (one bucket each); at span 1 an axis runs
+    none."""
     cfg: object
     data_group: Optional[object]
     pod_group: Optional[object]
@@ -218,73 +218,32 @@ class DataSync:
 
     @property
     def hosts(self) -> int:
-        return C.axis_size(self.pod_group) * C.axis_size(self.data_group)
+        return Hosts(self.data_group, self.pod_group).count
 
     @property
     def host(self) -> int:
-        return (C.axis_index(self.pod_group) * C.axis_size(self.data_group)
-                + C.axis_index(self.data_group))
-
-    def _cuts(self, tree: dict) -> list:
-        """(names, leaf, data dim or None) of every leaf."""
-        return [(names, g, sharding.data_cut(names, self.cfg, self.world))
-                for names, g in _named_leaves(tree)]
-
-    def gather(self, params: dict) -> dict:
-        """The model shard (a new tree) from this rank's pieces."""
-        dd = self.world[0]
-        cut = [(n, p, dim) for n, p, dim in self._cuts(params)
-               if dim is not None]
-        if not cut:                     # span 1: data_cut cuts nothing
-            return params
-        whole = {}
-        for bucket in _by_dtype(cut):
-            flat = torch.cat([p.reshape(-1) for _, p, _ in bucket])
-            rows = C.all_gather_into_(flat.new_empty(dd * flat.numel()), flat,
-                                      self.data_group).view(dd, -1)
-            for (names, p, dim), part in zip(bucket, rows.split(
-                    [p.numel() for _, p, _ in bucket], dim=1)):
-                shape = list(p.shape)
-                shape[dim] *= dd
-                whole[names] = part.reshape(dd, *p.shape).movedim(0, dim) \
-                    .reshape(shape)
-        return _replaced(params, whole)
+        return Hosts(self.data_group, self.pod_group).index
 
     def reduce(self, loss: torch.Tensor, grads: dict) -> tuple:
         """(the global batch's mean loss, this rank's pieces of its
-        gradient) from this rank's loss and model-shard gradients."""
+        gradient) from this rank's loss and its pieces' gradients (the cut
+        leaves' already summed over ``data`` by the gather's backward)."""
         dd, pp = self.world[0], C.axis_size(self.pod_group)
         if dd * pp == 1:
             return loss, grads
-        leaves = self._cuts(grads) + [((), loss, None)]
-        if dd == 1:
-            out = {names: g for names, g, _ in leaves}
-        else:
-            out = {}
-            for bucket in _by_dtype([x for x in leaves if x[2] is not None]):
-                rows = torch.cat([_rows(g, dim, dd) for _, g, dim in bucket],
-                                 dim=1)
-                mine = C.reduce_scatter_(rows.new_empty(rows.shape[1]),
-                                         rows.reshape(-1), self.data_group)
-                for (names, g, dim), part in zip(bucket, mine.split(
-                        [g.numel() // dd for _, g, _ in bucket])):
-                    shape = list(g.shape)
-                    shape[dim] //= dd
-                    out[names] = part.view(shape)
-            for bucket in _by_dtype([(names, g) for names, g, dim in leaves
-                                     if dim is None]):
-                out.update(_reduced(bucket, self.data_group))
+        out = {}
+        whole = [((), loss)]
+        for names, g in _named_leaves(grads):
+            if sharding.data_cut(names, self.cfg, self.world) is None:
+                whole.append((names, g))
+            else:
+                out[names] = g
+        for bucket in _by_dtype(whole):
+            out.update(_reduced(bucket, self.data_group))
         for bucket in _by_dtype(list(out.items())) if pp > 1 else []:
             out.update(_reduced(bucket, self.pod_group))
         out = {names: g / (dd * pp) for names, g in out.items()}
         return out.pop(()), _replaced(grads, out)
-
-
-def _rows(g: torch.Tensor, dim: int, dd: int) -> torch.Tensor:
-    """``g`` cut into ``dd`` pieces on ``dim``, piece i flattened in row
-    i: the input of a reduce-scatter that gives rank i piece i."""
-    shape = (*g.shape[:dim], dd, g.shape[dim] // dd, *g.shape[dim + 1:])
-    return g.reshape(shape).movedim(dim, 0).reshape(dd, -1)
 
 
 def data_sync(cfg, pctx: Optional[ParallelCtx]) -> DataSync:
@@ -331,12 +290,16 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
     the gradients, after ``sync``'s reductions (:func:`grad_sync`'s where
     none is given), are the shards of the logical gradient.  With
     ``data`` (:func:`data_sync`) ``params`` are this rank's pieces and
-    ``batch`` its rows: the model shard is gathered first, and the loss
-    and the gradient's pieces are those of the global batch's mean."""
-    whole = params if data is None else data.gather(params)
-    work, leaves = _grad_leaves(whole)
-    del whole
-    loss = model.loss(work, batch, pctx)
+    ``batch`` its rows: the leaves outside the layers are gathered whole
+    first, each layer's pieces inside its checkpointed body
+    (:mod:`repro_torch.parallel.fsdp`), and the loss and the gradient's
+    pieces are those of the global batch's mean."""
+    world = (1, 1) if data is None else data.world
+    dims = {}
+    work, leaves = _grad_leaves(params, model.cfg, world, dims)
+    group = None if data is None else data.data_group
+    with fsdp.gathering(fsdp.Gatherer(group, dims)):
+        loss = model.loss(fsdp.gather_tree(work, dims, group), batch, pctx)
     grads = list(torch.autograd.grad(loss, leaves))
     grads.reverse()
 
@@ -368,10 +331,11 @@ def build_train_step(model: Model, shape: ShapeConfig,
     this rank's pieces, as :func:`repro_torch.parallel.sharding.
     shard_params` cuts them at ``(data rank, model rank)``, and ``batch``
     its rows of the global batch, :meth:`TrainStep.rows`).  The step
-    gathers the model shard over ``data`` (:class:`DataSync`), runs the
-    loss and its gradient as the tensor-parallel step does (the
-    collectives' backwards, :class:`GradSync`), reduces the gradients to
-    this rank's pieces of the global batch's mean, and AdamW updates the
+    gathers each layer's pieces over ``data`` inside its checkpointed body
+    (:mod:`repro_torch.parallel.fsdp`), runs the loss and its gradient as
+    the tensor-parallel step does (the collectives' backwards,
+    :class:`GradSync`), reduces the gradients to this rank's pieces of the
+    global batch's mean (:class:`DataSync`), and AdamW updates the
     pieces, its norm over the logical arrays: every rank gets its piece of
     the unsharded step's update.  A global batch that the data ranks
     (pod x data) do not divide raises ValueError (the reference's

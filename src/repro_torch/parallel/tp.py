@@ -78,7 +78,16 @@ class ParallelCtx:
     its table and gives every projection its planned ``ina_matmul`` launch
     (:func:`repro_torch.kernels.ops.matmul`).  The reference's
     ``seq_shard`` (a GSPMD constraint; eager PyTorch has none to set) is not
-    carried.
+    carried.  ``serve_replicated_params`` (the reference's, default
+    ``False``): a serving rank on the data axis holds its model shard
+    whole, gathered once, instead of its FSDP pieces gathered layer by
+    layer each step (:func:`repro_torch.parallel.fsdp.serving_params`);
+    a serving step carries the data and pod groups where its rows are
+    the hosts' cut of one global batch (the legacy loop's step: an MoE
+    layer routes that batch as one group, as the reference's jitted serve
+    step does), and none where each row is its own group (the engine's
+    paged step, a ``vmap`` of a B=1 decode in the reference) or where
+    every host runs the same rows (the engine's B=1 prefill).
     """
     group: Optional[object] = None
     psum_mode: str = "ina"
@@ -87,6 +96,7 @@ class ParallelCtx:
     plan: Optional[object] = None
     data_group: Optional[object] = None
     pod_group: Optional[object] = None
+    serve_replicated_params: bool = False
 
     def __post_init__(self):
         if self.psum_mode not in C.CLI_PSUM_MODES:
@@ -309,28 +319,52 @@ def vocab_gather(logits: torch.Tensor, vocab: int,
     return C.ring_all_gather(logits, pctx.group, gather_axis=-1)
 
 
-def hosts(pctx: Optional[ParallelCtx]) -> int:
-    """The data-parallel hosts (pod x data) whose rows make up the global
-    batch."""
+@dataclass(frozen=True)
+class Hosts:
+    """The data-parallel hosts (pod x data) of a rank on the mesh: host
+    ``index = p D + d`` of ``count``, the order of their rows in the
+    global batch."""
+    data_group: Optional[object] = None
+    pod_group: Optional[object] = None
+
+    @property
+    def count(self) -> int:
+        return C.axis_size(self.pod_group) * C.axis_size(self.data_group)
+
+    @property
+    def index(self) -> int:
+        return (C.axis_index(self.pod_group) * C.axis_size(self.data_group)
+                + C.axis_index(self.data_group))
+
+    def all_gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """Every host's ``rows`` [n, ...], in host order [count n, ...]:
+        one native all-gather over ``data``, then one over ``pod`` (no
+        gradient)."""
+        out = rows.contiguous()
+        for group in (self.data_group, self.pod_group):
+            n = C.axis_size(group)
+            if n > 1:
+                flat = out.reshape(-1)
+                out = C.all_gather_into_(flat.new_empty(n * flat.numel()),
+                                         flat, group)
+                out = out.view(-1, *rows.shape[1:])
+        return out
+
+
+def hosts(pctx: Optional[ParallelCtx]) -> Hosts:
+    """The hosts whose rows make up the global batch ``pctx`` runs on."""
     if pctx is None:
-        return 1
-    return C.axis_size(pctx.pod_group) * C.axis_size(pctx.data_group)
+        return Hosts()
+    return Hosts(pctx.data_group, pctx.pod_group)
 
 
 def host_offsets(counts: torch.Tensor,
                  pctx: ParallelCtx) -> torch.Tensor:
-    """The sum of ``counts`` over the hosts before this one (host ``p D +
-    d``, the order of their rows in the global batch), from one native
-    all-gather over ``data`` and one over ``pod`` (no gradient)."""
-    c = counts.reshape(-1)
-    for group in (pctx.data_group, pctx.pod_group):
-        n = C.axis_size(group)
-        if n > 1:
-            c = C.all_gather_into_(c.new_empty(n * c.numel()), c, group)
-    c = c.reshape(-1, *counts.shape)
-    host = C.axis_index(pctx.pod_group) * C.axis_size(pctx.data_group) \
-        + C.axis_index(pctx.data_group)
-    return c[:host].sum(0)
+    """The sum of ``counts`` over the hosts before this one
+    (:class:`Hosts`' order)."""
+    h = hosts(pctx)
+    every = h.all_gather(counts.reshape(1, -1))
+    return every[:h.index].sum(0).reshape(counts.shape)
 
 
 def host_mean(x: torch.Tensor, pctx: ParallelCtx) -> torch.Tensor:
@@ -341,4 +375,4 @@ def host_mean(x: torch.Tensor, pctx: ParallelCtx) -> torch.Tensor:
     hosts' gradients (:func:`~repro_torch.core.collectives.psum_stat`)."""
     for group in (pctx.data_group, pctx.pod_group):
         x = C.psum_stat(x, group)
-    return x / hosts(pctx)
+    return x / hosts(pctx).count

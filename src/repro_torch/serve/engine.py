@@ -43,6 +43,24 @@ engine on the same requests: it cuts the full ``params`` to its shard
 and runs the same deterministic schedule, so every rank calls each
 collective at the same point.  The logits are gathered whole on every rank,
 so every rank picks the same tokens; ``check`` asserts that at each retire.
+
+On the rank mesh (``data_group``, ``pod_group``: the reference's engine
+serves on ``make_host_mesh(model_parallel)``, every device the model axis
+does not take on ``data``) data rank ``h`` of the ``H`` hosts (pod x data)
+holds slots ``[h S/H, (h+1) S/H)`` of the working cache, the reference's
+``cache_specs`` cut of its batch axis, and writes and reads the pooled
+rows of the requests seated there.  Every rank runs the one scheduler on
+every slot: a decode step computes the rank's slot rows, and their next
+tokens are all-gathered over ``data`` and ``pod``, so every rank admits,
+seats and retires alike.  The steps' ``ParallelCtx`` carries no data or
+pod group: an MoE layer routes each slot of the paged step as its own
+group (the reference's is a ``vmap`` of a B=1 decode), so no host's rows
+meet another's.  A prompt's prefill (B 1) runs on every rank,
+whose per-layer gathers every rank must join; only the slot's owner keeps
+the rows it wrote.  The rank holds its FSDP pieces of the weights and
+gathers each layer's whole as a step takes it
+(:mod:`repro_torch.parallel.fsdp`), or, under
+``serve_replicated_params``, the whole model shard gathered once here.
 """
 from __future__ import annotations
 
@@ -57,10 +75,11 @@ import torch.distributed as dist
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.api import MEDIA_FAMILIES, cache_leaves, get_model
-from repro_torch.parallel.sharding import shard_params
+from repro_torch.parallel import fsdp
+from repro_torch.parallel.fsdp import serving_params
 from repro_torch.parallel.steps import (build_paged_serve_step,
                                         build_prefill_step, build_serve_step)
-from repro_torch.parallel.tp import ParallelCtx
+from repro_torch.parallel.tp import Hosts, ParallelCtx
 from repro_torch.serve.batching import Request, RequestState, Scheduler
 from repro_torch.serve.kvcache import PagedKVCache
 
@@ -89,13 +108,22 @@ class ServingEngine:
                  psum_mode: str = "ina", prefill_plan=None,
                  decode_plan=None, batched_prefill: bool = True,
                  policy: str = "fcfs", check: bool = False,
-                 group=None) -> None:
+                 group=None, data_group=None, pod_group=None,
+                 serve_replicated_params: bool = False) -> None:
         if cfg.family in MEDIA_FAMILIES:
             raise ValueError(
                 f"family {cfg.family!r} needs per-request media plumbing; "
                 "use launch/serve.py --legacy-loop")
-        pctx = ParallelCtx(group=group, psum_mode=psum_mode)
+        pctx = ParallelCtx(group=group, psum_mode=psum_mode,
+                           serve_replicated_params=serve_replicated_params)
         self.pctx = pctx
+        self.hosts = hosts = Hosts(data_group, pod_group)
+        if slots % hosts.count or slots < hosts.count:
+            raise ValueError(f"{slots} slots do not divide over the "
+                             f"{hosts.count} data-parallel ranks (pod x "
+                             f"data)")
+        self.local = slots // hosts.count     # this rank's slots
+        self.lo = hosts.index * self.local
         self.device = _device.resolve(device)
         self.cfg = cfg
         self.model = get_model(cfg)
@@ -127,8 +155,9 @@ class ServingEngine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(param_seed)
             params = self.model.init(gen, device=self.device)
-        self.params = shard_params(params, cfg, pctx.rank, pctx.world)
-        self.working = self._cache(slots, self.max_seq)
+        self.params, self.dims = serving_params(params, cfg, pctx,
+                                                data_group)
+        self.working = self._cache(self.local, self.max_seq)
 
     def _cache(self, batch: int, max_seq: int) -> dict:
         return self.model.init_cache(batch, max_seq, device=self.device,
@@ -140,12 +169,27 @@ class ServingEngine:
         return {name: leaf.select(self.baxis[name], slot)
                 for name, leaf in cache_leaves(cache).items()}
 
+    def _owns(self, slot: int) -> bool:
+        """Whether ``slot`` is one of this rank's working-cache rows."""
+        return self.lo <= slot < self.lo + self.local
+
+    def _run(self, step, batch: dict, cache: dict):
+        """``step.fn`` on this rank's weights: under FSDP pieces the
+        leaves outside the layers gathered for the step, each layer's as
+        the step takes it."""
+        with fsdp.serving(self.params, self.dims,
+                          self.hosts.data_group) as params:
+            return step.fn(params, batch, cache)
+
     def _seat(self, st: RequestState) -> None:
-        """Copy the request's pooled row into its working-cache slot: paged
-        leaves with zeros past its length (masked by decode attention),
-        unpaged leaves (recurrent state) whole."""
+        """Copy the request's pooled row into its working-cache slot (on
+        the slot's owner): paged leaves with zeros past its length (masked
+        by decode attention), unpaged leaves (recurrent state) whole."""
+        if not self._owns(st.slot):
+            return
         row = self.kv.gather_row(st.req.rid, st.req.prompt_len)
-        for name, dst in self._row(self.working, st.slot).items():
+        for name, dst in self._row(self.working,
+                                   st.slot - self.lo).items():
             dst.copy_(row[name])
 
     def _prefill(self, st: RequestState):
@@ -161,8 +205,9 @@ class ServingEngine:
                 part = prompt[c0:c0 + chunk]
                 toks = torch.zeros((1, chunk), dtype=torch.long)
                 toks[0, :len(part)] = part     # pad tail: causally masked
-                logits, self._pcache = self.prefill_step.fn(
-                    self.params, {"tokens": toks.to(self.device), "pos0": c0},
+                logits, self._pcache = self._run(
+                    self.prefill_step,
+                    {"tokens": toks.to(self.device), "pos0": c0},
                     self._pcache)
                 steps += 1
             last = logits[0, (plen - 1) % chunk]
@@ -170,14 +215,15 @@ class ServingEngine:
         else:
             cache = self._cache(1, self.max_seq)
             for pos in range(plen):
-                _, cache, lg = self._loop_step.fn(
-                    self.params,
+                _, cache, lg = self._run(
+                    self._loop_step,
                     {"tokens": prompt[None, pos:pos + 1].to(self.device),
                      "pos": pos}, cache)
                 steps += 1
             last = lg[0]
             row = self._row(cache, 0)
-        self.kv.write_range(req.rid, 0, row, plen)
+        if self._owns(st.slot):
+            self.kv.write_range(req.rid, 0, row, plen)
         return int(torch.argmax(last)), steps, last
 
     # ------------------------------------------------------------------ #
@@ -226,14 +272,17 @@ class ServingEngine:
             for slot, st in self.sched.active.items():
                 toks[slot, 0] = st.generated[-1]
                 pos[slot] = st.pos - 1           # feed token at its position
-            nxt, self.working = self.step.fn(
-                self.params, {"tokens": toks.to(self.device),
-                              "pos": pos.to(self.device)}, self.working)
-            nxt = nxt.tolist()
+            mine = slice(self.lo, self.lo + self.local)
+            nxt, self.working = self._run(
+                self.step, {"tokens": toks[mine].to(self.device),
+                            "pos": pos[mine].to(self.device)}, self.working)
+            nxt = self.hosts.all_gather(nxt).tolist()
             dsteps += 1
             for slot, st in list(self.sched.active.items()):
-                self.kv.write_range(st.req.rid, st.pos - 1,
-                                    self._row(self.working, slot), 1)
+                if self._owns(slot):
+                    self.kv.write_range(
+                        st.req.rid, st.pos - 1,
+                        self._row(self.working, slot - self.lo), 1)
                 st.generated.append(nxt[slot])
             decode_s += time.perf_counter() - t0
             it += 1
@@ -266,9 +315,10 @@ class ServingEngine:
             if self.check:
                 # every position actually fed is pooled bit-identically
                 covered = st.req.prompt_len + len(st.generated) - 1
-                self.kv.assert_matches(st.req.rid,
-                                       self._row(self.working, slot),
-                                       min(covered, self.max_seq))
+                if self._owns(slot):
+                    self.kv.assert_matches(
+                        st.req.rid, self._row(self.working, slot - self.lo),
+                        min(covered, self.max_seq))
                 self.kv.check()
                 self._assert_ranks_agree(st)
                 checks += 1

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 
 import numpy as np
 import torch
@@ -420,6 +421,28 @@ def dp_train_rank(rank, world, group, device, spec):
     return _dp_cases(ranks, rank, spec)
 
 
+@contextlib.contextmanager
+def _gathers():
+    """``{"calls": [bytes each FSDP all-gather made whole, in order],
+    "peak": the most gathered bytes alive at once}`` over the block."""
+    from repro_torch.parallel import fsdp
+    out, real = {"calls": []}, fsdp._all_gather
+
+    def logged(pieces, dims, group):
+        whole = real(pieces, dims, group)
+        out["calls"].append(sum(t.numel() * t.element_size() for t in whole))
+        return whole
+    gc.collect()
+    fsdp.reset_gathered()
+    base = fsdp.GATHERED["live"]
+    fsdp._all_gather = logged
+    try:
+        yield out
+    finally:
+        fsdp._all_gather = real
+        out["peak"] = fsdp.GATHERED["peak"] - base
+
+
 def _dp_cases(ranks, rank, spec) -> dict:
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.optim.adamw import adamw_init, tree_map
@@ -442,11 +465,12 @@ def _dp_cases(ranks, rank, spec) -> dict:
             full, cfg, (at["data"], at["model"]), shards))
         ts = build_train_step(model, shape, pctx, **spec["schedule"])
         C.CALLS.clear()
-        loss, grads = loss_and_grads(model, params, ts.rows(grad_batch), pctx,
-                                     data=data_sync(cfg, pctx))
+        with _gathers() as gathered:
+            loss, grads = loss_and_grads(model, params, ts.rows(grad_batch),
+                                         pctx, data=data_sync(cfg, pctx))
         res = {"loss": float(loss), "grads": _numpy(grads),
                "grad_calls": dict(C.CALLS), "steps": [],
-               "host": (ts.host, ts.hosts)}
+               "host": (ts.host, ts.hosts), "gathered": gathered}
         opt = adamw_init(params)
         for pair in spec["step_batches"]:
             C.CALLS.clear()
@@ -458,4 +482,36 @@ def _dp_cases(ranks, rank, spec) -> dict:
         res["params"] = _numpy(params)
         res["m"], res["v"] = _numpy(opt.m), _numpy(opt.v)
         out[name] = res
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# serving on the data axis (tests/test_torch_serve_data_*.py)
+# --------------------------------------------------------------------------- #
+def serve_data_rank(rank, world, group, device, spec):
+    """Each arch of ``spec["archs"]`` served through
+    ``launch.serve.serve_rank`` on this rank of the mesh ``spec["mesh"]``
+    (shape, axes), with ``serve_replicated_params`` off and on: the
+    tokens, one row a request, keyed by ``(arch, replicated)``.  An arch's
+    ``"params"`` (the reference's, numpy) are its weights, else the
+    launcher's seeded ones.  Each ``spec["bound"]`` run (key -> argv) is
+    served once more on the seeded weights, keyed by its key."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch.mesh import RankMesh
+    groups = RankMesh(*spec["mesh"]).groups(rank)
+    out = {}
+    for arch, a in spec["archs"].items():
+        params = a.get("params")
+        if params is not None:
+            params = params_from_jax(params, ARCHS[arch].reduced(),
+                                     device="cpu")
+        for replicated in (False, True):
+            argv = a["argv"] + (["--serve-replicated-params"]
+                                if replicated else [])
+            out[arch, replicated] = launch_serve.serve_rank(
+                rank, world, group, device, argv, params=params,
+                groups=groups)
+    for key, argv in spec.get("bound", {}).items():
+        out[key] = launch_serve.serve_rank(rank, world, group, device, argv,
+                                           groups=groups)
     return out

@@ -254,21 +254,49 @@ def expected_calls(name: str) -> tuple:
     kind, derived from the mesh.  The model axis at M > 1 runs the
     tensor-parallel step's (``tests/test_torch_tp_train.py``:
     ``expected_calls``, no KV head shared at M 2).  The data axis at D > 1
-    runs one all-gather of the pieces, one reduce-scatter of the cut
-    gradients and one all-reduce of the whole ones with the loss (one
-    float32 bucket each); the pod axis at P > 1 one all-reduce.  AdamW's
-    norm all-reduces over data and over model, where each spans more than
-    one rank."""
+    gathers the leaves outside the layers once (one all-gather) and each
+    layer's pieces inside its checkpointed body, in its forward and again
+    in its recompute (2 L all-gathers), and reduce-scatters each of those
+    L + 1 gradients in the backward; one all-reduce sums the whole leaves'
+    gradients with the loss (one float32 bucket each); the pod axis at
+    P > 1 one all-reduce.  AdamW's norm all-reduces over data and over
+    model, where each spans more than one rank."""
     pp, dd, mm = _spans(name)
     grad = collections.Counter()
     if mm > 1:
         grad.update(psum=1 + 3 * L, all_gather=1, all_reduce=2 * L + 1)
     if dd > 1:
-        grad.update(all_gather=1, reduce_scatter=1, all_reduce=1)
+        grad.update(all_gather=1 + 2 * L, reduce_scatter=1 + L,
+                    all_reduce=1)
     if pp > 1:
         grad.update(all_reduce=1)
     step = grad + collections.Counter(all_reduce=(dd > 1) + (mm > 1))
     return dict(grad), dict(step)
+
+
+@pytest.mark.parametrize("name,case", CASE_IDS, ids=IDS)
+def test_gathered_bytes_stay_within_two_layers(name, case):
+    """At D > 1 the FSDP gathers of one gradient are the leaves outside
+    the layers once, then each layer's pieces in its forward and again in
+    its recompute (1 + 2 L all-gathers, each the whole of what it
+    gathers), and the most gathered bytes alive at once on a rank is at
+    most the outside leaves plus two layers' whole weights (float32
+    masters; together the leaves of the model shard at M that ``data``
+    cuts), at least the outside leaves plus one layer."""
+    _, dd, mm = _spans(name)
+    cut = sum(v.numel() * 4 for n, v in _flat(sharding.shard_params(
+        _masters(), CFG, 0, mm)) if sharding.data_cut(n, CFG, (dd, mm))
+        is not None)
+    for rank in port(name):
+        g = rank[case]["gathered"]
+        if dd == 1:
+            assert g == {"calls": [], "peak": 0}
+            continue
+        outside, layers = g["calls"][0], g["calls"][1:]
+        assert len(layers) == 2 * L and layers[:L] == layers[L:]
+        assert outside + sum(layers[:L]) == cut
+        assert outside + max(layers) <= g["peak"] \
+            <= outside + 2 * max(layers)
 
 
 @pytest.mark.parametrize("name,case", CASE_IDS, ids=IDS)

@@ -273,17 +273,6 @@ def test_forward_without_grad_takes_no_function(monkeypatch):
     assert logits.shape == (1, 8, m.cfg.vocab)
 
 
-@pytest.mark.parametrize("policy", ["dots", "dots_nb"])
-def test_other_remat_policies_raise(policy):
-    cfg = dataclasses.replace(ARCHS["qwen2-1.5b"].reduced(),
-                              remat_policy=policy)
-    m = get_model(cfg)
-    params = m.init(device="cpu", masters=True)
-    batch = _torch_batch(_batch(1, cfg.vocab, 1, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_and_grads(m, params, batch)
-
-
 # --------------------------------------------------------------------------- #
 # AdamW against the reference on equal inputs
 # --------------------------------------------------------------------------- #

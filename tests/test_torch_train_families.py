@@ -21,9 +21,10 @@ the VJP of the plain chunked wkv6 in float32.
   ``repro.kernels.ref.wkv6_ref``, at sequences the chunk does not divide
   and decays past the model's clip floor.
 * A step's kernel calls against ``chip_smoke.train_launches``, serving
-  untouched (no Function, no checkpoint), the other remat policies and the
-  untrained families refused, and ``sharding.data_cut`` against the
-  reference's ``param_specs`` fitted to the ``(data 2, model 2)`` mesh.
+  untouched (no Function, no checkpoint), the untrained families
+  refused (the remat policies: ``tests/test_torch_remat_*.py``), and
+  ``sharding.data_cut`` against the reference's ``param_specs`` fitted to
+  the ``(data 2, model 2)`` mesh.
 """
 import dataclasses
 import functools
@@ -378,17 +379,6 @@ def test_forward_without_grad_takes_no_function(name, monkeypatch):
         monkeypatch.setattr(fn, "apply", None)
     monkeypatch.setattr(transformer, "checkpoint", None)
     assert torch.equal(m.forward(params, {"tokens": tokens}), want)
-
-
-@pytest.mark.parametrize("policy", ["dots", "dots_nb"])
-@pytest.mark.parametrize("name", FAMILIES)
-def test_other_remat_policies_raise(name, policy):
-    cfg = dataclasses.replace(ARCHS[name].reduced(), remat_policy=policy)
-    m = get_model(cfg)
-    params = m.init(device="cpu", masters=True)
-    batch = _torch_batch(_batch(1, cfg.vocab, 1, 8))
-    with pytest.raises(NotImplementedError, match="item 4.6"):
-        loss_and_grads(m, params, batch)
 
 
 def test_trained_families():

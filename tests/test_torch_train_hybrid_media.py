@@ -21,9 +21,9 @@ runs.
 * No stacked leaf reaches autograd whole: zamba2's ``groups`` is split on
   both of its stack axes and restacked to ``[G, per, ...]``.
 * A step's kernel calls against ``chip_smoke.train_launches``, serving
-  untouched (no Function, no checkpoint), the other remat policies
-  refused, and the launcher on ``--device cpu``: a run that checkpoints,
-  and a second that resumes to the bit.
+  untouched (no Function, no checkpoint; the remat policies:
+  ``tests/test_torch_remat_*.py``), and the launcher on ``--device
+  cpu``: a run that checkpoints, and a second that resumes to the bit.
 """
 import dataclasses
 import functools
@@ -330,16 +330,6 @@ def test_forward_without_grad_takes_no_function(name, monkeypatch):
         monkeypatch.setattr(fn, "apply", None)
     monkeypatch.setattr(transformer, "checkpoint", None)
     assert torch.equal(m.forward(params, batch), want)
-
-
-@pytest.mark.parametrize("policy", ["dots", "dots_nb"])
-@pytest.mark.parametrize("name", FAMILIES)
-def test_other_remat_policies_raise(name, policy):
-    cfg = dataclasses.replace(ARCHS[name].reduced(), remat_policy=policy)
-    m = get_model(cfg)
-    params = m.init(device="cpu", masters=True)
-    with pytest.raises(NotImplementedError, match="item 4.6"):
-        loss_and_grads(m, params, _torch_batch(_batch(1, cfg, 1, 8)))
 
 
 @pytest.mark.parametrize("name", FAMILIES)
