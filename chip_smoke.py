@@ -66,9 +66,10 @@ Phases; any failure raises and the process exits non-zero:
     ``tests/test_torch_plan.py``);
 5. phase 3's serve at 2 layers in float32: the engine's tokens must equal
    the legacy loop's, token for token;
-6. rwkv6-7b at its published widths and depth (bf16, seeded random
-   weights): one forward pass through ``build_prefill`` at B 2, S 2048
-   (32 wkv6 and 257 ina_matmul launches), profiled; the forward against the
+6. rwkv6-7b at its published widths, depth cut to 24 of 32 layers
+   (:data:`RWKV_DEPTH`, to keep the run under 1000 s) (bf16, seeded
+   random weights): one forward pass through ``build_prefill`` at B 2, S
+   2048 (24 wkv6 and 193 ina_matmul launches), profiled; the forward against the
    decode loop (which runs no wkv6) on a 300-token prefix; then served
    through the engine, 4 requests on 2 slots, prompt 64, 16 generated, with
    prompts seated token by token (no wkv6), against the legacy loop;
@@ -90,6 +91,18 @@ Phases; any failure raises and the process exits non-zero:
    every param bit-equal to ``nothing``'s, its launches the derived ones
    (171 ``ina_matmul`` under both, 16 and 8 flash), and a ``[train]
    policy`` line a policy with its device ms, busy share and peak memory;
+8a. ``[dryrun]``: ``[train]``'s step (8 layers, B 4 x S 1024, one rank,
+    ``nothing``), a prefill (B 4 x S 1024) and a decode step (B 4, a
+    cache of 1024) of the same model traced on ``meta`` by the dry-run
+    (``launch.dryrun.trace_step``) and then run on the card: the predicted
+    launches by kernel equal the card's counters exactly; the predicted
+    argument bytes are within 0.5% of the device memory the step's state
+    takes (``memory_allocated`` after the state is built, less before);
+    the train step's and the prefill's predicted temp bytes within 10% of
+    the card's peak above the step's start (the ratios are printed); the
+    decode step's predicted bytes at least its weights'; the
+    step's predicted FLOPs over ``[train]``'s profiled device ms against
+    989 TFLOP/s bf16, with the card's name and power limit;
 8b. ``[tp-train]``: the same model through the tensor-parallel train step
     on a one-rank NCCL group (the card count bounds the group), under
     every ``--psum-mode``: 2 steps from ``[train]``'s seed on its first
@@ -114,15 +127,16 @@ Phases; any failure raises and the process exits non-zero:
 9. ``[train-f32]``: the same widths at 2 layers in float32, one step's
    loss and every gradient leaf through the kernels against the same step
    through their plain versions on the card;
-10. ``[mla]``: deepseek-v2-lite-16b as published (27 layers, MLA, 64
+10. ``[mla]``: deepseek-v2-lite-16b at its published widths (MLA, 64
     routed top-6 + 2 shared experts, one dense layer; bf16, seeded random
-    weights, nothing cut) served through the engine, 4 requests on 2
+    weights), depth cut to 18 of 27 layers (:data:`MLA_DEPTH`, to keep
+    the run under 1000 s), served through the engine, 4 requests on 2
     slots, prompt 64, 16 generated, prompts seated token by token, against
     the legacy loop of 4 rows within 2^-3 of the largest logit, then
     against the loop run alone, one request at B 1 on the engine's cache
     length: first-token logits and every token equal to the bit, with the
     (position, layer) pairs whose top-6 experts differ at 4 rows counted;
-    launches equal the derived 217 ``ina_matmul`` a pass
+    launches equal the derived 145 ``ina_matmul`` a pass
     (none generic); one paged decode step profiled beside its bound (the
     weights it reads), with the expert products' device time; one B 1 x S
     2048 forward through ``build_prefill`` (MLA's ``attn_chunked`` past its
@@ -163,7 +177,7 @@ Phases; any failure raises and the process exits non-zero:
     phase 2, and print their peak memory;
 17. ``[tp-families]``: rwkv6-7b and deepseek-v2-lite at their published
     widths, depth cut to 4 and 2 layers (to keep the whole run under
-    900 s; phases 6 and 10 run them at full depth),
+    900 s; phases 6 and 10 run them at 16 and 9),
     and llama4-scout at ``[moe]``'s 4 layers, each served
     (2 requests on 2 slots) without a group and then through
     ``launch/serve.py``'s ``serve_rank`` on a one-rank NCCL group under
@@ -239,6 +253,7 @@ from repro_torch.kernels import ina_matmul as im  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import wkv6 as wk  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
@@ -265,7 +280,8 @@ from repro_torch.models import vision  # noqa: E402
 from repro_torch.models import remat  # noqa: E402
 from repro_torch.models.api import (MEDIA_FAMILIES,  # noqa: E402
                                     get_model, media_ones)
-from repro_torch.optim.adamw import AdamWState, tree_leaves  # noqa: E402
+from repro_torch.optim.adamw import (AdamWState, adamw_init,  # noqa: E402
+                                     tree_leaves)
 from repro_torch.parallel.sharding import (kv_groups,  # noqa: E402
                                            shard_params, shard_state,
                                            unshard_state)
@@ -360,6 +376,11 @@ RWKV_FWD_B, RWKV_FWD_S, RWKV_PREFIX = 2, 2048, 300
 # the MoE families' forward (B 1 x S 2048: MLA's attn_chunked runs past its
 # attn_chunk 1024); llama4-scout's depth, cut from 48 to fit one card
 MOE_FWD_S, MOE_DEPTH = 2048, 4
+# [rwkv]'s and [mla]'s depths: 24 of rwkv6-7b's 32 layers and 18 of
+# deepseek-v2-lite's 27 (its dense layer and 17 MoE layers), cut to keep
+# the whole run under 1000 s (it took 1082.5 s at 32 and 27 on an H100);
+# the widths, and so every kernel shape, are the published ones
+RWKV_DEPTH, MLA_DEPTH = 24, 18
 # [tp-families]: each tensor-parallel family's requests, served six times
 # (without a group, then under each psum mode), so fewer than its serve
 # phase's for rwkv6-7b, deepseek-v2-lite, zamba2 (engine), vlm and whisper
@@ -645,18 +666,22 @@ def record_shapes():
     two kernels' wrappers inside the context, by kernel (``ina_matmul``
     called by the forward's dispatch and by ``InaMatmul``, the train
     step's forward and backward); the launches themselves go on, counted
-    as ever."""
+    as ever.  A ``meta`` call (a plan's trace) launches nothing and is
+    not recorded."""
     seen = {"ina_matmul": set(), "flash_attention": set()}
     omm, mm, att = ops.ina_matmul, im.ina_matmul, fa._attention
 
     def spy(real):
         def mm_spy(x, w, *args, **kw):
-            seen["ina_matmul"].add(matmul_key(x, w))
+            if x.device.type != "meta":
+                seen["ina_matmul"].add(matmul_key(x, w))
             return real(x, w, *args, **kw)
         return mm_spy
 
     def att_spy(q, k, v, causal, q_offset):
-        seen["flash_attention"].add(attention_key(q, k, causal, q_offset))
+        if q.device.type != "meta":
+            seen["flash_attention"].add(attention_key(q, k, causal,
+                                                      q_offset))
         return att(q, k, v, causal, q_offset)
     ops.ina_matmul, im.ina_matmul, fa._attention = spy(omm), spy(mm), att_spy
     try:
@@ -691,9 +716,8 @@ def check_matmul(timer, gen, cases) -> list:
                "regime": plan.regime, "tile": f"{plan.tile_m}x{plan.tile_n}",
                "cluster": plan.cluster,
                **compare(got, im.ina_matmul_plain(x, w), dt)}
-        elt = x.element_size()
-        row["bound_ms"], row["bound_by"] = bound(
-            (m * k + k * n + m * n) * elt, 2.0 * m * n * k, dt)
+        flops, nbytes = im.cost(m, n, k, x.element_size())
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
         row["ms"] = timer(lambda: im.ina_matmul(x, w))
         row["plain_ms"] = timer(lambda: im.ina_matmul_plain(x, w))
         row["library_ms"] = timer(lambda: torch.matmul(x, w))
@@ -814,11 +838,9 @@ def attention_row(timer, name, q, k, v, off, causal: bool = True) -> dict:
            "ctas": plan.ctas,
            "strides_kv": list(k.stride()),
            **compare(got, fa.flash_attention_heads_plain(q, k, v, **kw), dt)}
-    pairs = sum(min(sk, off + i + 1) for i in range(sq)) if causal \
-        else sq * sk
-    row["bound_ms"], row["bound_by"] = bound(
-        (2 * b * sq * h + 2 * b * sk * kvh) * d * q.element_size(),
-        4.0 * b * h * d * pairs, dt)
+    flops, nbytes = fa.cost(b, sq, sk, h, kvh, d, q.element_size(), causal,
+                            off)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dt)
     row["ms"] = timer(lambda: fa.flash_attention_heads(q, k, v, **kw))
     row["plain_ms"] = timer(
         lambda: fa.flash_attention_heads_plain(q, k, v, **kw))
@@ -957,10 +979,8 @@ def check_wkv6(timer, gen) -> list:
         if name == WKV_REF_CASE:
             row["vs_ref"] = compare(got, heads(ref.wkv6_ref(*flat, ub)), dt,
                                     WKV_TOL[dt])
-        elt = r.element_size()
-        row["bound_ms"], row["bound_by"] = bound(
-            b * s * h * hd * (3 * elt + 4 + elt), 4.0 * b * s * h * hd * hd,
-            torch.float32)
+        flops, nbytes = wk.cost(b, s, h, hd, r.element_size())
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, torch.float32)
         row["ms"] = timer(lambda: wk.wkv6_heads(r, k, v, logw, u))
         row["plain_ms"] = timer(lambda: wk.wkv6_plain(*flat, ub), iters=3)
         row["library_ms"] = None      # no single PyTorch call computes WKV6
@@ -1687,12 +1707,13 @@ def forward_against_decode(model, params, tokens, label: str,
 
 
 def phase_rwkv_bf16() -> dict:
-    cfg = ARCHS[RWKV]
+    cfg = dataclasses.replace(ARCHS[RWKV], n_layers=RWKV_DEPTH)
     model = get_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = model.init(gen, device="cuda")
     nparams = sum(t.numel() for t in _leaves(params))
-    log(f"[rwkv] {RWKV}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+    log(f"[rwkv] {RWKV}: {cfg.n_layers} of {ARCHS[RWKV].n_layers} layers "
+        f"(cut for the run's time), d_model {cfg.d_model}, "
         f"{nparams / 1e9:.3f} B parameters in {cfg.dtype}; peak device "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     tokens = torch.randint(3, cfg.vocab, (RWKV_FWD_B, RWKV_FWD_S),
@@ -1737,7 +1758,7 @@ def phase_rwkv_bf16() -> dict:
     # against per-step sums) and in the LoRA product's cuBLAS kernel
     # (M = 600 against M = 2), so a few bf16 values round to a neighbour.
     # The recurrent state carries each such difference to every later
-    # position and 32 residual layers amplify it, so at a few hundred
+    # position and the residual layers amplify it, so at a few hundred
     # positions the logits part by a few hundredths of their largest value.
     # The bound is 2^-3 of the largest logit, 32 bf16 ulps of it.  The
     # exact-f32 phase below holds the same two paths to 1e-4, so what is
@@ -1757,7 +1778,7 @@ def phase_rwkv_bf16() -> dict:
     # Both sides decode (the engine seats each prompt at B 1 and decodes 2
     # slots, the loop decodes 4 rows), so they differ only where the LoRA
     # product's cuBLAS kernel or a reduction depends on the batch; the
-    # state carries each difference through the 64-token prompt and 32
+    # state carries each difference through the 64-token prompt and the
     # layers, as in the forward check above: the same 2^-3 bound.
     compare_with_legacy(report, legacy, "rwkv-serve", cfg.n_layers, bits=3)
     del params
@@ -2040,6 +2061,181 @@ def policy_steps(cfg, params, opt, batch, args, prof: dict,
             f"the resumed state; the run's peak {gib(peak)}), launches "
             f"{r['launches']}")
     return rows
+
+
+# --------------------------------------------------------------------------- #
+# phase 8a: the dry-run's prediction against the card
+# --------------------------------------------------------------------------- #
+#: the dry-run's tolerances on the card: argument bytes (the allocator
+#: rounds each block up to 512 bytes) and temp bytes (the peak above the
+#: step's start)
+DRYRUN_ARG_TOL, DRYRUN_TEMP_TOL = 0.005, 0.10
+
+
+def _state_on_card(fn) -> tuple:
+    """(``fn()``, the device memory it left allocated)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_allocated() - before
+
+
+def phase_dryrun(train_prof: dict, smi: str) -> dict:
+    """``[train]``'s step (8 layers, B 4 x S 1024, one rank, ``nothing``)
+    and a decode step of the same model (B 4, a cache of 1024), each
+    traced on ``meta`` by the dry-run (:func:`repro_torch.launch.dryrun.
+    trace_step`, one rank) and then run once on the card from a fresh
+    state: the predicted launches equal the card's counters, the
+    predicted argument bytes lie within :data:`DRYRUN_ARG_TOL` of the
+    memory the state takes, the train step's and a prefill's (B 4 x S
+    1024, whose peak holds the head's logits, a kernel's output) predicted
+    temp within :data:`DRYRUN_TEMP_TOL` of the card's peak above the
+    step's start, and the decode step's predicted bytes are at least its
+    weights'.  The
+    step's predicted FLOPs over ``[train]``'s profiled device ms
+    (``train_prof``) give its share of 989 TFLOP/s bf16."""
+    fresh_phase()
+    args = launch_train.build_parser().parse_args(TRAIN_ARGV
+                                                  + ["--ckpt-dir", "-"])
+    cfg = launch_train._config(args)
+    model = get_model(cfg)
+    one = mesh.RankMesh((1, 1), ("data", "model"))
+    shape = ShapeConfig("cli", args.seq, args.batch, "train")
+    t0 = time.perf_counter()
+    pred = dryrun.trace_step(cfg, shape, one)
+    trace_s = time.perf_counter() - t0
+
+    def state():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = model.init(gen, device="cuda", masters=True)
+        pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                        global_batch=args.batch))
+        return params, adamw_init(params), \
+            {k: v.to("cuda") for k, v in pipe.batch(0).items()}
+    (params, opt, batch), held = _state_on_card(state)
+    ts = build_train_step(model, shape, base_lr=args.lr, warmup=2,
+                          total_steps=args.steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    reset_launches()
+    params, opt, stats = ts.fn(params, opt, batch)
+    torch.cuda.synchronize()
+    top = torch.cuda.max_memory_allocated() - start
+    path = read_launches()
+    card = {k: v for k, v in path.items() if v}
+    reset_launches()
+    if not math.isfinite(float(stats["loss"])):
+        raise AssertionError(f"[dryrun] train step loss {stats['loss']}")
+    del params, opt, batch, stats, ts
+    arg_err = abs(pred.argument_bytes - held) / held
+    temp_ratio = pred.temp_bytes / top
+    device_ms = train_prof["device_ms"]
+    tflops = pred.flops / device_ms / 1e9
+    log(f"[dryrun] train step traced on meta in {trace_s:.1f} s: launches "
+        f"{pred.launches}, card {card}; argument bytes {pred.argument_bytes}"
+        f" predicted, {held} allocated for the state ({arg_err:.3%} apart, "
+        f"tolerance {DRYRUN_ARG_TOL:.1%}); temp {gib(pred.temp_bytes)} "
+        f"predicted, the card's peak above the step's start {gib(top)}: "
+        f"ratio {temp_ratio:.4f} (tolerance {DRYRUN_TEMP_TOL:.0%}); "
+        f"{pred.flops:.4e} FLOPs ({pred.products:.4e} in products and "
+        f"kernels, {pred.other_flops:.4e} elementwise), "
+        f"{pred.bytes:.4e} bytes")
+    log(f"[dryrun] train step: {pred.flops:.4e} FLOPs over [train]'s "
+        f"{device_ms:.2f} device ms = {tflops:.1f} TFLOP/s, "
+        f"{tflops / (PEAK_OPS[torch.bfloat16] / 1e12):.2%} of 989 TFLOP/s "
+        f"bf16 (products and kernels alone "
+        f"{pred.products / device_ms / 1e9:.1f} TFLOP/s) on {smi}")
+    if pred.launches != card:
+        raise AssertionError(f"[dryrun] predicted launches {pred.launches} "
+                             f"!= the card's {card}")
+    if arg_err > DRYRUN_ARG_TOL:
+        raise AssertionError(f"[dryrun] argument bytes {pred.argument_bytes}"
+                             f" against {held} allocated")
+    if abs(temp_ratio - 1) > DRYRUN_TEMP_TOL:
+        raise AssertionError(f"[dryrun] temp {pred.temp_bytes} against the "
+                             f"card's peak above the start {top}")
+    fresh_phase()
+
+    pshape = ShapeConfig("cli", args.seq, args.batch, "prefill")
+    ppred = dryrun.trace_step(cfg, pshape, one)
+
+    def prefill_state():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        weights = model.init(gen, device="cuda")
+        tokens = torch.randint(0, cfg.vocab, (args.batch, args.seq),
+                               generator=gen, dtype=torch.int32,
+                               device="cuda")
+        return weights, {"tokens": tokens}
+    (weights, pbatch), pheld = _state_on_card(prefill_state)
+    fn = build_prefill(model).fn
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    reset_launches()
+    logits = fn(weights, pbatch)
+    torch.cuda.synchronize()
+    ptop = torch.cuda.max_memory_allocated() - start
+    pcard = {k: v for k, v in read_launches().items() if v}
+    reset_launches()
+    parg_err = abs(ppred.argument_bytes - pheld) / pheld
+    ptemp_ratio = ppred.temp_bytes / ptop
+    log(f"[dryrun] prefill (B {args.batch} x S {args.seq}): launches "
+        f"{ppred.launches}, card {pcard}; argument bytes "
+        f"{ppred.argument_bytes} predicted, {pheld} allocated "
+        f"({parg_err:.3%} apart); temp {gib(ppred.temp_bytes)} predicted, "
+        f"the card's peak above the step's start {gib(ptop)}: ratio "
+        f"{ptemp_ratio:.4f} (tolerance {DRYRUN_TEMP_TOL:.0%}; the logits "
+        f"{gib(logits.numel() * logits.element_size())})")
+    if ppred.launches != pcard or parg_err > DRYRUN_ARG_TOL \
+            or abs(ptemp_ratio - 1) > DRYRUN_TEMP_TOL:
+        raise AssertionError("[dryrun] the prefill's prediction disagrees "
+                             "with the card")
+    if tuple(logits.shape) != (args.batch, args.seq, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[dryrun] prefill logits {tuple(logits.shape)}")
+    del weights, pbatch, logits
+    fresh_phase()
+
+    dshape = ShapeConfig("cli", args.seq, args.batch, "decode")
+    dpred = dryrun.trace_step(cfg, dshape, one)
+
+    def serve_state():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        weights = model.init(gen, device="cuda")
+        cache = model.init_cache(args.batch, args.seq, device="cuda")
+        step = {"tokens": torch.zeros(args.batch, 1, dtype=torch.int32,
+                                      device="cuda"),
+                "pos": torch.full((args.batch,), args.seq // 2,
+                                  dtype=torch.int32, device="cuda")}
+        return weights, cache, step
+    (weights, cache, step), dheld = _state_on_card(serve_state)
+    fn = build_serve_step(model).fn
+    reset_launches()
+    tok, _, logits = fn(weights, step, cache)
+    torch.cuda.synchronize()
+    dcard = {k: v for k, v in read_launches().items() if v}
+    reset_launches()
+    wbytes = weight_bytes(weights, tied=cfg.tie_embeddings)
+    darg_err = abs(dpred.argument_bytes - dheld) / dheld
+    log(f"[dryrun] decode step (B {args.batch}, cache {args.seq}): launches "
+        f"{dpred.launches}, card {dcard}; {dpred.bytes:.4e} bytes predicted "
+        f"against {wbytes:.4e} of weights read; argument bytes "
+        f"{dpred.argument_bytes} predicted, {dheld} allocated "
+        f"({darg_err:.3%} apart); {dpred.flops:.4e} FLOPs")
+    if dpred.launches != dcard or dpred.bytes < wbytes \
+            or darg_err > DRYRUN_ARG_TOL:
+        raise AssertionError("[dryrun] the decode step's prediction "
+                             "disagrees with the card")
+    if tuple(logits.shape) != (args.batch, cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"[dryrun] decode logits {tuple(logits.shape)}")
+    del weights, cache, step, tok, logits
+    fresh_phase()
+    return {"launches": path, "decode_launches": dcard,
+            "argument_error": arg_err, "temp_ratio": temp_ratio,
+            "prefill_temp_ratio": ptemp_ratio, "tflops": tflops}
 
 
 # --------------------------------------------------------------------------- #
@@ -2630,20 +2826,22 @@ def batch_witness(cfg, params, report, argv, label: str) -> None:
 
 
 def phase_mla() -> dict:
-    """deepseek-v2-lite-16b as published (see the module docstring)."""
+    """deepseek-v2-lite-16b at its published widths, :data:`MLA_DEPTH`
+    layers (see the module docstring)."""
     fresh_phase()
-    cfg = ARCHS[MLA]
+    cfg = dataclasses.replace(ARCHS[MLA], n_layers=MLA_DEPTH)
     model = get_model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
     nparams = sum(t.numel() for t in _leaves(params))
-    log(f"[mla] {MLA}: {cfg.n_layers} layers ({cfg.moe.first_dense_layers} "
-        f"dense), d_model {cfg.d_model}, {cfg.n_heads} heads (q/k "
+    log(f"[mla] {MLA}: {cfg.n_layers} of {ARCHS[MLA].n_layers} layers "
+        f"({cfg.moe.first_dense_layers} dense; cut for the run's time), "
+        f"d_model {cfg.d_model}, {cfg.n_heads} heads (q/k "
         f"{cfg.mla.qk_nope_head_dim}+{cfg.mla.qk_rope_head_dim}, v "
         f"{cfg.mla.v_head_dim}), {cfg.moe.num_experts} routed top-"
         f"{cfg.moe.top_k} + {cfg.moe.num_shared} shared experts, vocab "
-        f"{cfg.vocab}; {nparams / 1e9:.3f} B parameters in {cfg.dtype}, "
-        f"nothing cut; {matmuls_per_pass(cfg)} ina_matmul a pass (derived); "
+        f"{cfg.vocab}; {nparams / 1e9:.3f} B parameters in {cfg.dtype}; "
+        f"{matmuls_per_pass(cfg)} ina_matmul a pass (derived); "
         f"peak {gib(torch.cuda.max_memory_allocated())}")
     report, legacy, serve_launches, _ = serve(cfg, params, "mla-serve",
                                            SERVE_ARGV[MLA])
@@ -2656,7 +2854,7 @@ def phase_mla() -> dict:
     # experts' bf16 products otherwise at 4 rows, and random router
     # weights leave the 6th and 7th experts' probabilities within that
     # rounding.  Each swap trades one 1/6-weighted expert output for
-    # another's, and the latent cache carries it through 27 layers: the
+    # another's, and the latent cache carries it through the layers: the
     # rwkv phase's 2^-3 of the largest logit.
     compare_with_legacy(report, legacy, "mla-serve", cfg.n_layers, bits=3)
     batch_witness(cfg, params, report, SERVE_ARGV[MLA], "mla-serve")
@@ -3722,9 +3920,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ck:
         trained = phase_train(ck)
         tp_trained = phase_tp_train(ck, info["smi"])
+    dry = phase_dryrun(trained["profile"], info["smi"])
     dp_trained = phase_dp_train(info["smi"])
     phase_train_f32()
-    mark("train, tp-train, dp-train, train-f32")
+    mark("train, tp-train, dryrun, dp-train, train-f32")
     mla = phase_mla()
     phase_mla_f32()
     moe = phase_moe()
@@ -3749,6 +3948,7 @@ def main() -> int:
              "rwkv6-7b forward": rwkv["forward"],
              "rwkv6-7b serve": rwkv["serve"],
              "qwen2-1.5b train": trained["launches"],
+             "qwen2-1.5b dryrun's train step on the card": dry["launches"],
              **{f"qwen2-1.5b tp train W=1 {mode} ({TP_TRAIN_STEPS} steps)":
                 counts for mode, counts in tp_trained.items()},
              f"qwen2-1.5b dp train (data 1, model 1) ({TP_TRAIN_STEPS} "

@@ -155,3 +155,40 @@ def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
     if shape.name == "long_500k":
         return cfg.sub_quadratic
     return True
+
+
+import dataclasses as _dc
+
+
+def depth_scaled(cfg: ModelConfig, units: int) -> ModelConfig:
+    """A structurally-identical config with ``units`` repeating units
+    (layers or groups) and fully-unrolled scans — used by the roofline
+    analysis to measure exact per-unit HLO cost marginals (XLA's
+    cost_analysis counts while-loop bodies once, so full-depth scanned
+    programs cannot be costed directly)."""
+    ch: dict = {"scan_unroll": True}
+    if cfg.family == "hybrid":
+        ch["n_layers"] = cfg.shared_attn_every * units
+    elif cfg.family == "vlm":
+        ch["n_layers"] = cfg.cross_attn_every * units
+    elif cfg.family == "encdec":
+        ch["n_layers"] = units
+        ch["encoder_layers"] = units
+    elif cfg.moe is not None and cfg.moe.first_dense_layers:
+        ch["n_layers"] = cfg.moe.first_dense_layers + units
+    else:
+        ch["n_layers"] = units
+    return _dc.replace(cfg, **ch)
+
+
+def depth_units(cfg: ModelConfig) -> int:
+    """Number of repeating units at full depth (for extrapolation)."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "vlm":
+        return cfg.n_layers // cfg.cross_attn_every
+    if cfg.family == "encdec":
+        return cfg.n_layers
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        return cfg.n_layers - cfg.moe.first_dense_layers
+    return cfg.n_layers

@@ -19,7 +19,8 @@ process group:
 reference's are XLA's ``psum`` and ``psum_scatter``.
 
 Where the reference binds an ``axis_name`` inside ``shard_map``, these take
-a ``group``: a ``ProcessGroup``, or ``None`` for one rank without a group.
+a ``group``: a ``ProcessGroup``, ``None`` for one rank without a group, or
+an :class:`AxisSpan` (``p`` ranks without processes, on ``meta`` tensors).
 ``jax.lax.ppermute`` to the ring successor becomes one
 ``batch_isend_irecv``: send to ``(i+1) % p``, receive from ``(i-1) % p``.
 The ring functions add in the reference's order, so float32 results match
@@ -43,6 +44,8 @@ from typing import Callable, Literal, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.cost import record_collective
+
 PsumMode = Literal["ina", "ina_ring", "eject_inject", "xla", "auto"]
 
 #: The ``--psum-mode`` choices every launch CLI offers.
@@ -55,11 +58,13 @@ RING_MODES = ("eject_inject", "ina_ring")
 @dataclass(frozen=True)
 class AxisSpan:
     """A group of ``p`` ranks that has no processes: what the plan builder
-    traces a ``p``-way model axis with (the reference's ``AbstractMesh``).
-    It stands at rank 0; :func:`psum_with_mode` and
-    :func:`reduce_scatter_with_mode` record the site and return a ``meta``
-    tensor of the result's shape without communicating, and a tensor on
-    any other device raises (:func:`_span_only`)."""
+    and the dry-run trace a ``p``-way mesh axis with (the reference's
+    ``AbstractMesh``).  It stands at rank 0.  Every collective below runs
+    its strategy's code on it up to the communication itself, which is
+    recorded instead (:func:`repro_torch.core.cost.record_collective`:
+    the kind and the output's bytes, one ``collective-permute`` a ring
+    hop) and answered with a ``meta`` tensor of the result's shape; a
+    tensor on any other device raises (:func:`_span_only`)."""
     p: int
 
 
@@ -67,6 +72,18 @@ def _span_only(x: torch.Tensor, group: AxisSpan, op: str) -> None:
     if x.device.type != "meta":
         raise ValueError(f"{op} over {group}: a span without processes "
                          f"carries meta tensors only, not {x.device}")
+
+
+def _on_span(group, kind: str, out: torch.Tensor, *inputs) -> bool:
+    """Whether ``group`` is an :class:`AxisSpan`; if so the collective of
+    ``kind`` with output ``out`` is recorded, not run (``inputs`` and
+    ``out`` must be ``meta``)."""
+    if not isinstance(group, AxisSpan):
+        return False
+    for t in (out, *inputs):
+        _span_only(t, group, kind)
+    record_collective(kind, nbytes(out))
+    return True
 
 
 def axis_size(group) -> int:
@@ -91,6 +108,8 @@ def ppermute_next(x: torch.Tensor, group) -> torch.Tensor:
     p, i = axis_size(group), axis_index(group)
     send = x.contiguous()
     recv = torch.empty_like(send)
+    if _on_span(group, "collective-permute", recv, send):
+        return recv
     ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (i + 1) % p),
                       group),
            dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (i - 1) % p),
@@ -202,7 +221,8 @@ def _native_gather(x: torch.Tensor, group, gather_axis: int) -> torch.Tensor:
     front = x.movedim(gather_axis, 0).contiguous()
     out = torch.empty((front.shape[0] * p,) + tuple(front.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, front, group=group)
+    if not _on_span(group, "all-gather", out, front):
+        dist.all_gather_into_tensor(out, front, group=group)
     return out.movedim(0, gather_axis)
 
 
@@ -211,13 +231,15 @@ def _native_scatter(x: torch.Tensor, group, scatter_axis: int) -> torch.Tensor:
     front = x.movedim(scatter_axis, 0).contiguous()
     out = torch.empty((front.shape[0] // p,) + tuple(front.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, front, group=group)
+    if not _on_span(group, "reduce-scatter", out, front):
+        dist.reduce_scatter_tensor(out, front, group=group)
     return out.movedim(0, scatter_axis)
 
 
 def _native_sum(x: torch.Tensor, group) -> torch.Tensor:
     out = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=group)
+    if not _on_span(group, "all-reduce", out):
+        dist.all_reduce(out, group=group)
     return out
 
 
@@ -342,7 +364,8 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """The native all-reduce of ``t`` in place (no autograd), counted in
     :data:`CALLS`: the gradient reductions of a sharded train step."""
     CALLS["all_reduce"] += 1
-    dist.all_reduce(t, group=group)
+    if not _on_span(group, "all-reduce", t):
+        dist.all_reduce(t, group=group)
     return t
 
 
@@ -352,7 +375,8 @@ def all_gather_into_(out: torch.Tensor, x: torch.Tensor,
     after rank (no autograd), counted in :data:`CALLS`: the FSDP gather of
     a train step on the rank mesh."""
     CALLS["all_gather"] += 1
-    dist.all_gather_into_tensor(out, x, group=group)
+    if not _on_span(group, "all-gather", out, x):
+        dist.all_gather_into_tensor(out, x, group=group)
     return out
 
 
@@ -362,7 +386,8 @@ def reduce_scatter_(out: torch.Tensor, x: torch.Tensor,
     ranks' summed ``x`` (no autograd), counted in :data:`CALLS`: the FSDP
     gradient reduction of a train step on the rank mesh."""
     CALLS["reduce_scatter"] += 1
-    dist.reduce_scatter_tensor(out, x, group=group)
+    if not _on_span(group, "reduce-scatter", out, x):
+        dist.reduce_scatter_tensor(out, x, group=group)
     return out
 
 
@@ -478,9 +503,6 @@ def psum_with_mode(x: torch.Tensor, group, mode: PsumMode,
             # The chunked ring needs the scatter axis to divide; fall back
             # to the native in-network reduce, which does not.
             mode = "ina"
-    if isinstance(group, AxisSpan):
-        _span_only(x, group, "psum")
-        return x
     if mode == "eject_inject":
         return ring_psum_eject_inject(x, group)
     if mode == "ina_ring":
@@ -517,9 +539,6 @@ def reduce_scatter_with_mode(x: torch.Tensor, group, mode: PsumMode,
     p = axis_size(group)
     if mode == "auto":
         mode = resolve_auto_mode("reduce_scatter", p, nbytes(x), plan)
-    if isinstance(group, AxisSpan):
-        _span_only(x, group, "reduce_scatter")
-        return x.narrow(scatter_axis % x.dim(), 0, x.shape[scatter_axis] // p)
     if mode not in ("eject_inject", "ina_ring", "ina", "xla"):
         raise ValueError(f"unknown psum mode: {mode}")
     if p == 1:

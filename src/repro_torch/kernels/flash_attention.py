@@ -21,7 +21,8 @@ position ``i``), so each K/V tile is read once for the whole group.
 :func:`plan_attention` gives the launch's tiles and CTAs, and the plain
 versions run the kernel's online softmax over the same KV tiles.  Each
 front launches the kernel for CUDA tensors and runs the plain version only
-for CPU tensors.
+for CPU tensors; on ``meta`` tensors it checks what the launch would and
+records :func:`cost` instead (:func:`repro_torch.core.cost.record_kernel`).
 
 :class:`FlashAttention` gives the model-layout front a gradient.  The JAX
 package has no attention backward kernel (its models differentiate plain
@@ -40,6 +41,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.cost import record_kernel
 from repro_torch.kernels import _build
 
 MAX_HEAD_DIM = 160   # zamba2's shared attention: 2 x 2560 / 32 heads
@@ -181,20 +183,43 @@ def kernel_strides(t: torch.Tensor) -> tuple[int, int, int]:
     return strides
 
 
+def causal_pairs(sq: int, sk: int, q_offset: int = 0) -> int:
+    """The (query, key) pairs causal attention scores: query i (at
+    position ``q_offset + i``) sees ``min(sk, q_offset + i + 1)`` keys."""
+    a = q_offset + 1                    # the first query's keys
+    n1 = max(0, min(sq, sk - a + 1))    # queries that see fewer than sk
+    return n1 * a + n1 * (n1 - 1) // 2 + (sq - n1) * sk
+
+
+def cost(b: int, sq: int, sk: int, h: int, kvh: int, d: int, elt: int,
+         causal: bool = True, q_offset: int = 0) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch: 4 B H D a scored pair (QK^T and PV,
+    2 each), over :func:`causal_pairs` (every pair without ``causal``);
+    q, k and v read once and o written once, ``elt`` bytes an element:
+    the work the bound and the dry-run count."""
+    pairs = causal_pairs(sq, sk, q_offset) if causal else sq * sk
+    return 4 * b * h * d * pairs, (2 * b * sq * h + 2 * b * sk * kvh) * d * elt
+
+
 def _attention(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     q_offset = int(q_offset)
     _check(q, k, v, q_offset)
     if q.device.type == "cpu":
         return flash_attention_heads_plain(q, k, v, causal=causal,
                                            q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
+                         f"{q.device}")
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     plan = plan_attention(b, sq, h, kvh, q.dtype)
     strides = kernel_strides(q) + kernel_strides(k) + kernel_strides(v)
     if b > 65535 or kvh > 65535:
         raise ValueError(f"batch {b} or KV heads {kvh} > 65535 grid rows")
+    if q.device.type == "meta":
+        record_kernel("flash_attention", *cost(
+            b, sq, sk, h, kvh, d, q.element_size(), causal, q_offset))
+        return torch.empty(b, sq, h, d, dtype=q.dtype, device="meta")
     global launches
     lib = _build.load("flash_attention", _SIGNATURES)
     o = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)

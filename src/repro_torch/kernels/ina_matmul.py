@@ -19,7 +19,9 @@ and no second pass, and every run gives the same bits.
 :func:`ina_matmul_plain` is the same blocked function in plain PyTorch:
 per K slice an f32 sum over K tiles in order, then the slices in rank
 order, cast once.  :func:`ina_matmul` launches a kernel for a CUDA tensor
-and runs the plain version only for a CPU tensor.  ``w`` may be a strided
+and runs the plain version only for a CPU tensor; a ``meta`` tensor gets a
+shape-only output and :func:`cost` recorded
+(:func:`repro_torch.core.cost.record_kernel`).  ``w`` may be a strided
 view whose rows or columns are contiguous, so the tied head reads
 ``embed.T`` in place.
 
@@ -38,6 +40,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.cost import record_kernel
 from repro_torch.kernels import _build
 
 BK = 64            # K tile of the TMA regimes (64 bf16: one 128-byte row)
@@ -206,6 +209,13 @@ def ina_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return total.to(x.dtype)
 
 
+def cost(m: int, n: int, k: int, elt: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one ``[m, k] @ [k, n]``: 2 m n k, and x and w
+    read once and y written once, ``elt`` bytes an element: the work the
+    bound and the dry-run count."""
+    return 2 * m * n * k, (m * k + k * n + m * n) * elt
+
+
 def ina_matmul(x: torch.Tensor, w: torch.Tensor,
                plan: MatmulPlan | None = None, tiles=None) -> torch.Tensor:
     """``x @ w`` with ``x``: [M, K], ``w``: [K, N], output in ``x.dtype``.
@@ -228,8 +238,12 @@ def ina_matmul(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"plan {plan} does not fit {x.dtype}")
     if x.device.type == "cpu":
         return ina_matmul_plain(x, w, plan)
+    if x.device.type == "meta":
+        record_kernel("ina_matmul", *cost(m, n, k, x.element_size()))
+        return torch.empty(m, n, dtype=x.dtype, device="meta")
     if x.device.type != "cuda":
-        raise ValueError(f"ina_matmul runs on cuda or cpu, not {x.device}")
+        raise ValueError(f"ina_matmul runs on cuda, cpu or meta, not "
+                         f"{x.device}")
     global launches
     lib = _build.load("ina_matmul", _SIGNATURES)
     y = torch.empty(m, n, dtype=x.dtype, device=x.device)

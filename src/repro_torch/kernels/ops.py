@@ -8,11 +8,13 @@ launch, or, in the recompute of a checkpointed layer whose remat policy
 keeps it, the recorded output: :func:`repro_torch.core.remat.kernel`);
 elsewhere, as in serving, straight to the wrapper.
 
-A ``meta`` tensor computes nothing: the plan builder runs the model on the
-``meta`` device to record its psum sites (:mod:`repro_torch.plan.builder`),
-and each dispatcher here answers it with an empty tensor of the output's
-shape and dtype (:func:`_shape_only`).  No CUDA or CPU tensor reaches that
-path, and the kernel wrappers still raise on any device but those two.
+A ``meta`` tensor takes the path a CUDA tensor takes, through
+:func:`repro_torch.core.remat.kernel` and the kernel's ``autograd.Function``
+where autograd records; only the launch is replaced, by a shape-only output
+and the kernel's work recorded (:func:`repro_torch.core.cost.record_kernel`),
+so a backward on ``meta`` runs the code the card runs.  The plan builder
+and the dry-run trace the models there (:mod:`repro_torch.plan.builder`,
+:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -25,11 +27,6 @@ from repro_torch.kernels.wkv6 import Wkv6, wkv6_heads
 from repro_torch.core import remat
 
 
-def _shape_only(x: torch.Tensor, shape) -> torch.Tensor:
-    """The output of a ``meta`` call: its shape and dtype, no data."""
-    return torch.empty(shape, dtype=x.dtype, device="meta")
-
-
 def matmul(x: torch.Tensor, w: torch.Tensor, plan=None) -> torch.Tensor:
     """``x``: [..., K] @ ``w``: [K, N] -> [..., N] through the INA matmul.
 
@@ -40,8 +37,6 @@ def matmul(x: torch.Tensor, w: torch.Tensor, plan=None) -> torch.Tensor:
     so a planned launch is the one the planless call makes, and the output
     the same bits (:func:`~repro_torch.kernels.ina_matmul.ina_matmul`)."""
     lead = x.shape[:-1]
-    if x.device.type == "meta":
-        return _shape_only(x, (*lead, w.shape[1]))
     x2 = x.reshape(-1, x.shape[-1])
     if needs_grad(x2, w):
         y = remat.kernel("ina", "nb", lambda kept: InaMatmul.apply(
@@ -70,8 +65,6 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"flash_attention takes one head dim <= {MAX_HEAD_DIM} for q, k "
             f"and v, got q {q.shape[-1]}, k {k.shape[-1]}, v {v.shape[-1]} "
             f"(MLA runs models.layers.attention_by_chunk)")
-    if q.device.type == "meta":
-        return _shape_only(q, q.shape)
     if needs_grad(q, k, v):
         return remat.kernel("flash", "fused", lambda kept: FlashAttention
                             .apply(q, k, v, causal, q_offset, kept))
@@ -87,8 +80,6 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     sets where its factorised decay is clamped; the port's chunk is fixed by
     the kernel and anchors every decay at or below zero, exact at any
     decay, so there is no chunk to pass."""
-    if r.device.type == "meta":
-        return _shape_only(r, r.shape)
     if needs_grad(r, k, v, logw, u):
         return remat.kernel("wkv6", "fused",
                             lambda kept: Wkv6.apply(r, k, v, logw, u, kept))

@@ -24,7 +24,9 @@ Two fronts over one launch: :func:`wkv6` takes the JAX kernel's
 ``[BH, S, hd]`` with ``u`` ``[BH, hd]``; :func:`wkv6_heads` takes the
 model's ``[B, S, H, hd]`` with ``u`` ``[H, hd]`` and reads it in place
 through strides.  Each launches the kernel for CUDA tensors and runs the
-plain version only for CPU tensors.
+plain version only for CPU tensors; on ``meta`` tensors it checks what the
+launch would and records :func:`cost` instead
+(:func:`repro_torch.core.cost.record_kernel`).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.cost import record_kernel
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel_strides
 
@@ -184,20 +187,31 @@ def wkv6_heads_plain(r, k, v, logw, u) -> torch.Tensor:
     return y.reshape(b, h, s, hd).permute(0, 2, 1, 3).contiguous()
 
 
+def cost(b: int, s: int, h: int, hd: int, elt: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch: 4 B S H hd^2 (the state's read and
+    its step, 2 each a position); r, k, v read and y written at ``elt``
+    bytes an element and logw at 4 (float32): the work the bound and the
+    dry-run count."""
+    return 4 * b * s * h * hd * hd, b * s * h * hd * (4 * elt + 4)
+
+
 def _wkv(r, k, v, logw, u) -> torch.Tensor:
     """[B, S, H, hd] inputs, u [B, H, hd] -> contiguous [B, S, H, hd]."""
     _check(r, k, v, logw, u)
     b, s, h, hd = r.shape
     if r.device.type == "cpu":
         return wkv6_heads_plain(r, k, v, logw, u)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"wkv6 runs on cuda, cpu or meta, not {r.device}")
     global launches
     # the kernel's 16-byte copies: each base and stepped stride on the grid
     sb, st, sh = kernel_strides(r)
     for x in (k, v, logw):
         kernel_strides(x)
     plan = plan_wkv6(b, h, hd)
+    if r.device.type == "meta":
+        record_kernel("wkv6", *cost(b, s, h, hd, r.element_size()))
+        return torch.empty(b, s, h, hd, dtype=r.dtype, device="meta")
     lib = _build.load("wkv6", _SIGNATURES)
     y = torch.empty(b, s, h, hd, dtype=r.dtype, device=r.device)
     err = lib.wkv6(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),

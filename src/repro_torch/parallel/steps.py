@@ -177,10 +177,16 @@ def grad_sync(cfg, pctx: Optional[ParallelCtx]) -> Optional[GradSync]:
     """The :class:`GradSync` of a rank of ``pctx.group`` (``None`` at one
     rank).  Where ranks share a KV head it makes one ``dist.new_group``
     for each KV head of each model line, line after line, in KV-head
-    order, which every rank of the default group must call alike."""
+    order, which every rank of the default group must call alike.  On
+    an :class:`~repro_torch.core.collectives.AxisSpan` (the dry-run's
+    rank 0) the KV group is a span of the ranks sharing rank 0's KV head,
+    and no group is made."""
     if pctx is None or not pctx.manual:
         return None
     kv, shared = None, sharding.kv_groups(cfg, pctx.world)
+    if isinstance(pctx.group, C.AxisSpan):
+        kv = C.AxisSpan(len(shared[0])) if shared else None
+        return GradSync(group=pctx.group, kv_group=kv, cfg=cfg)
     for line in _model_lines(pctx) if shared else []:
         for ranks in shared:
             members = [line[r] for r in ranks]

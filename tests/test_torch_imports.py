@@ -64,6 +64,18 @@ def test_no_jax_or_repro_import(path):
 
 
 @pytest.mark.parametrize("module", [
+    "repro_torch.launch.dryrun", "repro_torch.core.cost",
+    "repro_torch.serve.metrics", "repro_torch.serve"])
+def test_dryrun_and_metrics_are_covered(module):
+    """The dry-run, its work counter and the serving metrics are among the
+    modules imported with JAX blocked and scanned for banned imports."""
+    assert module in MODULES
+    path = ROOT / "src" / Path(*module.split("."))
+    assert (path / "__init__.py" if path.is_dir()
+            else path.with_suffix(".py")) in FILES
+
+
+@pytest.mark.parametrize("module", [
     "repro_torch.plan", "repro_torch.plan.builder", "repro_torch.plan.plan",
     "repro_torch.plan.store", "repro_torch.plan.tiles", "repro_torch.mapper",
     "repro_torch.mapper.search", "repro_torch.mapper.space",

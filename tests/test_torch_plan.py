@@ -631,16 +631,31 @@ def test_ops_matmul_keeps_unaligned_operands_off_the_plan():
 
 
 def test_meta_path_computes_nothing():
+    """A meta call takes the CUDA path up to the launch: a shape-only
+    output, the kernel's work recorded where a count is open, and no
+    launch counted."""
+    from repro_torch.core import cost as work
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import wkv6 as wk
     x = torch.empty(3, 4, 64, device="meta", dtype=torch.bfloat16)
     w = torch.empty(64, 32, device="meta", dtype=torch.bfloat16)
-    y = ops.matmul(x, w, _planned(12, 64, 32, "bfloat16"))
-    assert y.device.type == "meta" and tuple(y.shape) == (3, 4, 32)
     q = torch.empty(1, 5, 4, 16, device="meta")
-    assert ops.attention_heads(q, q[:, :, :2], q[:, :, :2]).shape == q.shape
-    assert ops.wkv(q, q, q, q, torch.empty(4, 16, device="meta")).shape \
-        == q.shape
-    with pytest.raises(ValueError, match="runs on cuda or cpu"):
-        im.ina_matmul(x[0], w)
+    launches = (im.launches, fa.launches, wk.launches)
+    with work.counting() as c:
+        y = ops.matmul(x, w, _planned(12, 64, 32, "bfloat16"))
+        assert y.device.type == "meta" and tuple(y.shape) == (3, 4, 32)
+        assert ops.attention_heads(q, q[:, :, :2], q[:, :, :2]).shape \
+            == q.shape
+        assert ops.wkv(q, q, q, q, torch.empty(4, 16, device="meta")).shape \
+            == q.shape
+    assert (im.launches, fa.launches, wk.launches) == launches
+    assert c.launches == {"ina_matmul": 1, "flash_attention": 1, "wkv6": 1}
+    assert c.kernels["ina_matmul"]["flops"] == im.cost(12, 32, 64, 2)[0]
+    assert c.kernels["flash_attention"]["flops"] == \
+        fa.cost(1, 5, 5, 4, 2, 16, 4)[0]
+    assert c.kernels["wkv6"]["bytes"] == wk.cost(1, 5, 4, 16, 4)[1]
+    assert im.ina_matmul(x[0], w).shape == (4, 32)
+    assert c.launches["ina_matmul"] == 1        # the count is closed
 
 
 def _serve_argv(*extra):
