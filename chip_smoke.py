@@ -63,7 +63,16 @@ Phases; any failure raises and the process exits non-zero:
     three phase plans at the reference's ``(("data", 16), ("model", 16))``
     mesh on the host, cold and warm, their psum decisions equal to
     :data:`PLAN_16X16` (the reference's, held on the CPU by
-    ``tests/test_torch_plan.py``);
+    ``tests/test_torch_plan.py``); the same three plans with the model
+    axis over 4 chips of the NoC model's package hierarchy, under the
+    ``mesh`` and the ``express`` package (keys ``__c4`` and ``__c4e``),
+    cold and warm, equal to :data:`PLAN_16X16_C4`; the mapper over
+    qwen2-1.5b's decoder GEMMs at 2 tokens with chips 1, 2 and 4 under
+    each package, its winner verified (``debug=True``) and equal to
+    :data:`MAPPER_CHIPS`; each psum mode's lowering of the decode site
+    through ``run_program(verify=True)``, its cycles the plan's; and
+    ``verify_hier_schedule`` clean over the 32 hierarchical schedules of
+    :data:`HIER_GRIDS`;
 5. phase 3's serve at 2 layers in float32: the engine's tokens must equal
    the legacy loop's, token for token;
 6. rwkv6-7b at its published widths, depth cut to 24 of 32 layers
@@ -242,10 +251,16 @@ from repro_torch.checkpoint.ckpt import (CheckpointManager,  # noqa: E402
                                          latest_step)
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
-from repro_torch.analysis import verify_plan  # noqa: E402
+from repro_torch.analysis import (verify_collective,  # noqa: E402
+                                  verify_hier_schedule, verify_plan)
 from repro_torch.core import collectives as C  # noqa: E402
 from repro_torch.core.noc import SIM_CACHE, fresh_sim_cache  # noqa: E402
+from repro_torch.core.noc import NocConfig  # noqa: E402
+from repro_torch.core.noc import hierarchy as noc_hier  # noqa: E402
 from repro_torch.core.noc.collective import cost as noc_cost  # noqa: E402
+from repro_torch.core.noc.collective import schedule as noc_sched  # noqa: E402
+from repro_torch.core.noc.collective.engine import run_program  # noqa: E402
+from repro_torch.core.noc.collective.trees import mesh_row  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -257,6 +272,7 @@ from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.mapper import QUICK_MAPPER, search_network  # noqa: E402
 from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
                                              FAMILY_TRAIN_B,
                                              FAMILY_TRAIN_S,
@@ -417,6 +433,41 @@ PLAN_16X16 = {
     "decode": ((16, 393216, "ina_ring", ("psum",), 56,
                 (("ina", 49318, 7068309.2), ("ina_ring", 46192, 7339214.4),
                  ("eject_inject", 737587, 24036687.0))),)}
+# The same plans with the model axis split over 4 chips (the NoC model's
+# package hierarchy), keyed (package, phase): the reference's
+# resolve_sites(..., chips=4, package=...), held by tests/test_torch_plan.py.
+PLAN_CHIPS = 4
+_C4_COSTS = {
+    "mesh": (("ina", 805306478, 72074920354.0),
+             ("ina_ring", 704643169, 73323145544.0),
+             ("eject_inject", 2415919256, 109924320140.99998)),
+    "express": (("ina", 1409286224, 76504105444.0),
+                ("ina_ring", 1409286224, 76504105444.0),
+                ("eject_inject", 2415919208, 107025217201.19998))}
+_C4_MODE = {"mesh": "ina_ring", "express": "ina"}
+PLAN_16X16_C4 = {
+    **{(pk, phase): ((16, 3221225472, _C4_MODE[pk], ("psum",), 56,
+                      _C4_COSTS[pk]),)
+       for pk in _C4_COSTS for phase in ("train", "prefill")},
+    ("mesh", "decode"): ((16, 393216, "ina_ring", ("psum",), 56,
+                          (("ina", 98414, 8798626.0),
+                           ("ina_ring", 86113, 8951316.8),
+                           ("eject_inject", 295064, 13419405.0))),),
+    ("express", "decode"): ((16, 393216, "ina", ("psum",), 56,
+                             (("ina", 172112, 9339364.0),
+                              ("ina_ring", 172112, 9339364.0),
+                              ("eject_inject", 295016,
+                               13065495.600000001))),)}
+# The mapper over qwen2-1.5b's decoder GEMMs at 2 tokens with the package
+# axis (chips 1, 2 and 4), under each package, debug=True: the winner's
+# hardware, latency cycles and energy pJ (the reference's search_network,
+# held by tests/test_torch_hierarchy.py).
+MAPPER_CHIPS_LIST = (1, 2, 4)
+MAPPER_CHIPS = {"mesh": ((8, 4, 2, 2), 5780.0, 3746739.2),
+                "express": ((8, 4, 2, 2), 5780.0, 3746739.2)}
+# The package grids of the hierarchy corpus [plan] verifies (each x both
+# packages x every op, semantics and allreduce algorithm: 32 schedules).
+HIER_GRIDS = ((2, 1), (2, 2))
 
 
 def log(msg: str) -> None:
@@ -1664,7 +1715,136 @@ def phase_plan(served: dict) -> dict:
                                  f"builds {built}")
     log(f"[plan] the {len(PHASES)} phase plans at {MESH_16} equal the "
         f"reference's decisions")
+    plans_across_chips(store)
+    mapper_across_chips()
+    verified_psum_programs()
+    verified_hier_corpus()
     return launches
+
+
+def plans_across_chips(store: Path) -> None:
+    """The three phase plans at :data:`MESH_16` with the model axis over
+    :data:`PLAN_CHIPS` chips, under each package: cold, then warm from the
+    store with no collective simulation, each free of ``verify_plan``
+    findings and equal to :data:`PLAN_16X16_C4`."""
+    cfg = ARCHS[ARCH]
+    for package in noc_hier.PACKAGE_VARIANTS:
+        tag = f"__c{PLAN_CHIPS}" + ("e" if package == "express" else "")
+        for phase in PHASES:
+            built = []
+            for _ in range(2):
+                runs = noc_cost.COST_STATS["engine_runs"]
+                t0 = time.perf_counter()
+                plan, cold_build = PlanStore(store).get_or_build(
+                    cfg, MESH_16, phase, chips=PLAN_CHIPS, package=package)
+                built.append((cold_build, time.perf_counter() - t0,
+                              noc_cost.COST_STATS["engine_runs"] - runs))
+            got = tuple((d.p, d.nbytes, d.mode, d.ops, d.count, d.costs)
+                        for d in plan.psum)
+            log(f"[plan] {plan.key}: cold {built[0][1]:.4f} s (host clock),"
+                f" {built[0][2]} collective simulations; warm "
+                f"{built[1][1]:.4f} s, {built[1][2]}; psum {got}")
+            if got != PLAN_16X16_C4[package, phase] or not built[0][0] \
+                    or built[1][0] or built[1][2] != 0 or verify_plan(plan) \
+                    or f"{tag}__" not in plan.key \
+                    or (plan.chips, plan.package) != (PLAN_CHIPS, package):
+                raise AssertionError(f"[plan] {phase} at {MESH_16} over "
+                                     f"{PLAN_CHIPS} chips ({package}): "
+                                     f"{plan.key} {got}, builds {built}")
+    log(f"[plan] the {len(PHASES)} phase plans at {MESH_16} over "
+        f"{PLAN_CHIPS} chips equal the reference's decisions under both "
+        f"packages")
+
+
+def mapper_across_chips() -> None:
+    """The mapper over qwen2-1.5b's decoder GEMMs at 2 tokens with the
+    package axis, under each package, its winner verified
+    (``debug=True``): hardware, latency and energy equal
+    :data:`MAPPER_CHIPS`."""
+    layers = get_model(ARCHS[ARCH]).gemm_layers(2)
+    for package, want in MAPPER_CHIPS.items():
+        mcfg = dataclasses.replace(QUICK_MAPPER, chips_list=MAPPER_CHIPS_LIST,
+                                   package=package)
+        t0 = time.perf_counter()
+        out = search_network(f"{ARCH}:gemm", layers, mcfg, debug=True)
+        dt = time.perf_counter() - t0
+        best = out.best
+        got = (best.hardware, best.latency_cycles, best.total_energy_pj)
+        labels = ", ".join(sorted({a.mapping.label()
+                                   for a in best.assignments}))
+        log(f"[plan] mapper, {len(layers)} GEMMs at 2 tokens, chips "
+            f"{MAPPER_CHIPS_LIST}, package {package}, debug=True: winner "
+            f"{best.hardware} ({labels}),"
+            f" {best.latency_cycles} cycles, {best.total_energy_pj} pJ "
+            f"(paper's mapping {out.baseline.latency_cycles} cycles, "
+            f"{out.baseline.total_energy_pj} pJ); "
+            f"{out.stats['hardware_evaluated']} hardware points in "
+            f"{dt:.4f} s (host clock)")
+        if got != want:
+            raise AssertionError(f"[plan] mapper ({package}): {got} != "
+                                 f"{want}")
+
+
+def verified_psum_programs() -> None:
+    """Each psum mode's lowering of the decode site (p 16, the
+    :data:`PLAN_16X16` payload) run through ``run_program(verify=True)``:
+    clean of program and collective findings, its latency the plan's
+    recorded cost."""
+    (p, nbytes, _, _, _, costs), = PLAN_16X16["decode"]
+    latency = {m: lat for m, lat, _ in costs}
+    rcfg = noc_cost._row_cfg(p, NocConfig())
+    parts = mesh_row(p, 0)[:p]
+    for mode, (algorithm, semantics) in noc_cost.PSUM_MODE_LOWERING.items():
+        prog = noc_sched.plan_collective("allreduce", parts, nbytes * 8,
+                                         rcfg, algorithm=algorithm,
+                                         semantics=semantics)
+        findings = verify_collective(prog, op="allreduce",
+                                     participants=parts,
+                                     algorithm=algorithm,
+                                     semantics=semantics)
+        t0 = time.perf_counter()
+        res = run_program(prog, rcfg, verify=True)
+        dt = time.perf_counter() - t0
+        want = latency[mode if mode != "xla" else "ina"]
+        log(f"[plan] run_program(verify=True) {mode} ({algorithm}, "
+            f"{semantics}) at p {p}, {nbytes} B: {len(prog)} ops, "
+            f"{res.latency_cycles} cycles (plan {want}), verified and run "
+            f"in {dt:.4f} s (host clock)")
+        if findings or res.latency_cycles != want:
+            raise AssertionError(f"[plan] {mode}: {findings}, "
+                                 f"{res.latency_cycles} != {want}")
+
+
+def verified_hier_corpus() -> None:
+    """``verify_hier_schedule`` clean over the hierarchy corpus: the grids
+    of :data:`HIER_GRIDS` x both packages x every op, semantics and
+    allreduce algorithm (4096-bit operands on 8 x 8 chips)."""
+    t0 = time.perf_counter()
+    n = 0
+    for grid in HIER_GRIDS:
+        for package in noc_hier.PACKAGE_VARIANTS:
+            hmesh = noc_hier.HierarchicalMesh(chips_x=grid[0],
+                                              chips_y=grid[1],
+                                              package=package)
+            for op in noc_hier.HIER_OPS:
+                for semantics in noc_sched.SEMANTICS:
+                    for algorithm in (noc_sched.ALLREDUCE_ALGORITHMS
+                                      if op == "allreduce"
+                                      else ("reduce_bcast",)):
+                        sched = noc_hier.plan_hier_collective(
+                            op, hmesh, 4096.0, NocConfig(n=4),
+                            algorithm=algorithm, semantics=semantics)
+                        findings = verify_hier_schedule(sched)
+                        if findings:
+                            raise AssertionError(
+                                f"[plan] {grid} {package} {op} {semantics} "
+                                f"{algorithm}: {findings}")
+                        n += 1
+    if n != 32:
+        raise AssertionError(f"[plan] {n} hierarchical schedules, not 32")
+    log(f"[plan] verify_hier_schedule: {n} hierarchical schedules (grids "
+        f"{HIER_GRIDS}, both packages, every op, semantics and algorithm) "
+        f"clean in {time.perf_counter() - t0:.4f} s (host clock)")
 
 
 def phase_exact_f32() -> None:

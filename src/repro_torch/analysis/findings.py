@@ -1,4 +1,4 @@
-"""Machine-readable findings of the plan verifier (a copy of
+"""Machine-readable findings of the static verifier (a copy of
 ``repro.analysis.findings``)."""
 from __future__ import annotations
 
@@ -9,9 +9,10 @@ import dataclasses
 class Finding:
     """One defect located by a named check.
 
-    ``check`` is the check's id ("plan-schema", "plan-mode", "plan-tile",
-    "plan-gemm"); ``where`` locates the defect (a plan key and site, tile
-    or GEMM); ``message`` says what is wrong in one sentence.
+    ``check`` is the check's id ("dep-dag", "route", "cdg-deadlock",
+    "collective-fold", "hier-route", "plan-mode", "kvcache", ...);
+    ``where`` locates the defect (an op index, a lane, a plan key and
+    site); ``message`` says what is wrong in one sentence.
     """
 
     check: str

@@ -11,9 +11,10 @@ energy model, the topology, the heap simulator, the result store
 traffic (``traffic``) and ``collective/`` (trees, schedule, engine, cost).
 The logic is the reference's; the differences are stated where they are:
 one executor, the heap engine (``collective.engine``, ``traffic``), and no
-fault layer or static verifier (``collective.schedule``, ``.cost``,
-``.engine``).  The reference's compiled and vectorized executors, power
-model, faults and hierarchy are not copied (``ROADMAP.md``).
+fault layer (``collective.schedule``, ``.cost``).  The package hierarchy
+(``hierarchy/``: chips of meshes on a package network) prices psum sites
+and mappings across chips.  The reference's compiled and vectorized
+executors, power model and faults are not copied (``ROADMAP.md``).
 """
 from .router import EnergyLedger, NocConfig
 from .simcache import SIM_CACHE, SimCache, fresh_sim_cache

@@ -17,7 +17,8 @@ kernel, bit-identical to it.  The port keeps the heap engine only: the
 other two exist for speed, and ``mode="auto"`` resolves a handful of
 collective signatures a process, each once (``chip_smoke.py``'s ``[tp]``
 phase times a cold ``choose_psum_mode`` at p 2, 4 and 8: a few ms on the
-heap engine alone).
+heap engine alone).  ``run_program(verify=True)`` runs the static checks
+of :mod:`repro_torch.analysis.verify` first, as the reference's does.
 """
 from __future__ import annotations
 
@@ -45,14 +46,21 @@ class ProgramResult:
 
 
 def run_program(prog: Sequence[PacketOp], cfg: Optional[NocConfig] = None,
-                *, sim: Optional[NocSim] = None, t0: int = 0) -> ProgramResult:
+                *, sim: Optional[NocSim] = None, t0: int = 0,
+                verify: bool = False) -> ProgramResult:
     """Execute ``prog`` on ``sim`` (or a fresh simulator) and return the
     makespan, per-op completion times, and the energy ledger.
 
-    A caller supplied ``sim`` keeps its ledger and resource state.  The
-    reference's ``engine=`` (its executor choice) and ``verify=True`` (its
-    static verifier, ``repro.analysis``) are not copied into the port.
+    A caller supplied ``sim`` keeps its ledger and resource state.
+    ``verify=True`` runs the static checks (DAG, routes, CDG:
+    :func:`repro_torch.analysis.verify.check_program`) first and raises
+    ``VerificationError`` instead of simulating a broken program.  The
+    reference's ``engine=`` (its executor choice) is not copied: the port
+    has the heap engine only.
     """
+    if verify:
+        from repro_torch.analysis.verify import check_program
+        check_program(prog, cfg)
     if sim is None:
         sim = NocSim(cfg if cfg is not None else NocConfig())
     n = len(prog)

@@ -161,6 +161,11 @@ class EnergyLedger:
                 + self.stream_flit_segments * cfg.e_stream_bus
                 + self.macs * cfg.e_mac)
 
+    def add(self, other: "EnergyLedger") -> None:
+        """Add ``other``'s counts into this ledger."""
+        for f in self.__dataclass_fields__:
+            setattr(self, f, getattr(self, f) + getattr(other, f))
+
     def copy(self) -> "EnergyLedger":
         """Cheap exact copy."""
         return EnergyLedger(**self.__dict__)

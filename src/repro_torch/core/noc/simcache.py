@@ -1,10 +1,12 @@
 """Keyed store of simulated NoC results, in memory and on disk (a copy of
 ``repro.core.noc.simcache``).
 
-Two kinds of entry share it: the collective cost facade
+Three kinds of entry share it: the collective cost facade
 (:func:`repro_torch.core.noc.collective.cost._simulate`) keys each
 collective signature (op, participants, payload, config, algorithm,
-semantics, order) under a ``"collective"`` tag, and the WS/OS window
+semantics, order) under a ``"collective"`` tag, the package hierarchy's
+express lanes (:func:`repro_torch.core.noc.hierarchy.cost.
+_simulate_express`) under ``"hier-express"``, and the WS/OS window
 simulator (:func:`repro_torch.core.noc.traffic._sim_rounds_window`) keys
 each window of accumulation rounds by its plan shape ``(cfg, mode, window,
 g, p, gather_flits, unicast_flits, e_pes)``.  Invalidation is structural:

@@ -354,6 +354,19 @@ def serve_rank(rank, world, group, device, argv, params=None, groups=None):
                       groups["data"], groups["pod"])
 
 
+def spawn_ranks(fn, world: int, device: str, launches, *args) -> list:
+    """Each rank's ``fn(rank, world, group, device, *args)`` over ``world``
+    spawned ranks, the plans of every ``(args, cfg)`` of ``launches`` built
+    first in this process, so that every rank loads them warm.  Raises
+    unless every rank returns the same."""
+    for launch_args, cfg in launches:
+        launch_plans(launch_args, cfg, launch_args.model_parallel)
+    results = mesh.spawn(fn, world, device, args=args)
+    if any(r != results[0] for r in results):
+        raise AssertionError(f"ranks disagree on the tokens: {results}")
+    return results
+
+
 def main(argv=None) -> list:
     """Serve as ``argv`` asks; returns the tokens, one row a request (the
     same on every rank)."""
@@ -378,11 +391,7 @@ def main(argv=None) -> list:
     if dev.type == "cuda" and world > torch.cuda.device_count():
         raise RuntimeError(f"{world} ranks need {world} CUDA devices; "
                            f"{torch.cuda.device_count()} present")
-    # build the plans once, so that every rank loads them warm
-    launch_plans(args, cfg, args.model_parallel)
-    tokens = mesh.spawn(serve_rank, world, dev.type, args=(argv,))
-    if any(t != tokens[0] for t in tokens):
-        raise AssertionError(f"ranks disagree on the tokens: {tokens}")
+    tokens = spawn_ranks(serve_rank, world, dev.type, [(args, cfg)], argv)
     print(f"[serve] {world} ranks {ranks.pairs} ({args.psum_mode}) agree on "
           f"every token")
     return tokens[0]

@@ -2,16 +2,22 @@
 ``repro.mapper.schedule``).
 
 A :class:`NetworkSchedule` fixes one hardware point and one per-layer
-:class:`~.space.Mapping` each, with the exact simulated cost attached.  The
-reference's schedule also serializes itself and re-emits its per-layer
-packet programs for the static verifier; the port's plan builder reads only
-the assignments, so neither is copied.
+:class:`~.space.Mapping` each, with the exact simulated cost attached.  It
+round-trips through JSON (:meth:`~NetworkSchedule.to_dict` /
+:meth:`~NetworkSchedule.from_dict`, the reference's layout) and re-emits,
+on demand, the per-layer packet programs
+(:func:`~repro_torch.core.noc.collective.schedule.ws_round_program`) that
+the static schedule verifier checks and the collective engine replays.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Iterator, Optional, Sequence
 
 from repro_torch.core.noc import NocConfig
+from repro_torch.core.noc.collective.schedule import (PacketOp,
+                                                      ws_round_program)
 from repro_torch.core.noc.traffic import LayerResult, layer_plan
 from repro_torch.core.ops import LayerShape
 
@@ -105,3 +111,67 @@ class NetworkSchedule:
             return 0.0
         return sum(a.utilization * a.latency_cycles
                    for a in self.assignments) / total
+
+    # ------------------------------------------------------------------ #
+    def to_dict(self) -> dict:
+        return {
+            "workload": self.workload,
+            "hardware": list(self.hardware),
+            "latency_cycles": self.latency_cycles,
+            "total_energy_pj": self.total_energy_pj,
+            "noc_energy_pj": self.noc_energy_pj,
+            "pe_utilization": self.pe_utilization,
+            "layers": [{
+                "layer": a.layer,
+                "mapping": dataclasses.asdict(a.mapping),
+                "rounds": a.rounds,
+                "fills": a.fills,
+                "latency_cycles": a.latency_cycles,
+                "noc_energy_pj": a.noc_energy_pj,
+                "stream_energy_pj": a.stream_energy_pj,
+                "macs": a.macs,
+                "utilization": a.utilization,
+            } for a in self.assignments],
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "NetworkSchedule":
+        return cls(
+            workload=d["workload"], hardware=tuple(d["hardware"]),
+            assignments=tuple(
+                LayerAssignment(
+                    layer=row["layer"], mapping=Mapping(**row["mapping"]),
+                    rounds=row["rounds"], fills=row["fills"],
+                    latency_cycles=row["latency_cycles"],
+                    noc_energy_pj=row["noc_energy_pj"],
+                    stream_energy_pj=row["stream_energy_pj"],
+                    macs=row["macs"], utilization=row["utilization"])
+                for row in d["layers"]))
+
+    # ------------------------------------------------------------------ #
+    def programs(self, layers: Sequence[LayerShape],
+                 base_cfg: NocConfig = NocConfig(),
+                 window: Optional[int] = None,
+                 ) -> Iterator[tuple[str, NocConfig, list[PacketOp]]]:
+        """Re-emit each layer's accumulation-round packet program.
+
+        Yields ``(layer_name, cfg, program)`` replayable through
+        :func:`~repro_torch.core.noc.collective.engine.run_program`.
+        ``window`` caps the rounds emitted per layer (None = one round, the
+        homogeneous unit the simulator extrapolates from).
+        """
+        by_name = {l.name: l for l in layers}
+        for a in self.assignments:
+            layer = by_name[a.layer]
+            m = a.mapping
+            cfg = m.cfg(base_cfg)
+            # A multi-chip assignment re-emits one chip's shard program:
+            # every chip runs the same rounds, so one lane is the replay unit.
+            layer = shard_layer(layer, m.chips)
+            plan = layer_plan(layer, cfg, m.e_pes, m.mode, m.q_bits, m.groups)
+            rounds = max(1, min(plan.rounds, window or 1))
+            prog = ws_round_program(cfg, m.mode, rounds, g=plan.g, p=plan.p,
+                                    gather_flits=plan.gather_flits,
+                                    unicast_flits=plan.unicast_flits,
+                                    e_pes=m.e_pes)
+            yield a.layer, cfg, prog

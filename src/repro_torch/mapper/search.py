@@ -18,12 +18,14 @@ schedule is never worse than the paper's on either axis — equality when the
 paper mapping is already optimal).  Everything is deterministic: no RNG,
 total sort keys, cache hits bit-identical to ground truth.
 
-What the port leaves out: the reference's engine switches and its batched
-window prefetch (the compiled and vectorized executors, out of scope in
-``ROADMAP.md``), so every window runs on the heap engine, which the
-reference's prefetch only warms the store ahead of; ``chips`` > 1 (the
-package hierarchy, ``core/noc/hierarchy/``) and ``debug=True`` (the static
-schedule verifier) raise, each naming its ``ROADMAP.md`` item.
+A mapping with ``chips`` > 1 is priced as its per-chip shard plus a
+package broadcast of each weight fill (:mod:`repro_torch.core.noc.
+hierarchy`), and ``debug=True`` statically verifies the winning schedule
+(:func:`repro_torch.analysis.verify.verify_schedule`), as the reference
+does.  What the port leaves out: the reference's engine switches and its
+batched window prefetch (the compiled and vectorized executors, out of
+scope in ``ROADMAP.md``), so every window runs on the heap engine, which
+the reference's prefetch only warms the store ahead of.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ from repro_torch.exec import parallel_map
 from .schedule import LayerAssignment, NetworkSchedule
 from .space import (Mapping, MapperConfig, PAPER_MAPPING, analytic_latency,
                     hardware_candidates, hardware_mapping_fields,
-                    layer_candidates)
+                    layer_candidates, shard_layer)
 
 
 @dataclass
@@ -102,12 +104,33 @@ def _eval_key(layer: LayerShape, mapping: Mapping, base_cfg: NocConfig,
 def _evaluate_multichip(layer: LayerShape, mapping: Mapping,
                         base_cfg: NocConfig, sim_rounds: int,
                         package: str) -> LayerResult:
-    """The reference prices ``chips`` > 1 as a per-chip shard plus a
-    package broadcast of each fill (``repro.core.noc.hierarchy``), which the
-    port has not copied."""
-    raise NotImplementedError(
-        f"mapping {mapping.label()}: chips > 1 needs the package hierarchy "
-        f"(core/noc/hierarchy/), ROADMAP.md Queue 1, item 3.1")
+    """Multi-chip cost: the per-chip shard's simulation plus a package
+    broadcast surcharge.
+
+    Every chip runs the identical shard concurrently (latency is one
+    chip's; NoC and stream energy multiply by the chip count), and each
+    weight fill first broadcasts the mesh's fill payload over the package
+    network (:func:`~repro_torch.core.noc.hierarchy.chip_round_cost`,
+    riding the same sim store).
+    """
+    from repro_torch.core.noc.hierarchy import chip_round_cost
+    from repro_torch.core.noc.traffic import layer_plan
+    flat = dataclasses.replace(mapping, chips=1)
+    shard = shard_layer(layer, mapping.chips)
+    r = evaluate_mapping(shard, flat, base_cfg, sim_rounds)
+    cfg = mapping.cfg(base_cfg)
+    plan = layer_plan(shard, cfg, mapping.e_pes, mapping.mode,
+                      mapping.q_bits, mapping.groups)
+    fill_bits = plan.weight_bits_per_router * cfg.width * cfg.height
+    pkg_lat, pkg_en = chip_round_cost(fill_bits, mapping.chips, cfg,
+                                      package=package,
+                                      semantics=mapping.semantics)
+    c = mapping.chips
+    return dataclasses.replace(
+        r, name=layer.name,
+        latency_cycles=r.latency_cycles + pkg_lat * r.fills,
+        noc_energy_pj=r.noc_energy_pj * c + pkg_en * r.fills,
+        stream_energy_pj=r.stream_energy_pj * c)
 
 
 def _evaluate_cached(layer: LayerShape, mapping: Mapping,
@@ -244,15 +267,11 @@ def search_network(workload: str, layers: Sequence[LayerShape],
     pool (:mod:`repro_torch.exec.pool`) and merged back in candidate order, and
     every scored cost is a pure function of the plan shape.
 
-    ``debug=True`` is the reference's static check of the winning
-    schedule's packet programs (``repro.analysis.verify_schedule``: routes,
-    DAG, CDG deadlock freedom); the port has not copied that verifier, so it
-    raises before any search runs.
+    ``debug=True`` statically verifies the winning schedule's re-emitted
+    packet programs (:func:`repro_torch.analysis.verify.verify_schedule`:
+    routes, DAG, CDG deadlock freedom) and raises ``VerificationError`` on
+    any finding before the outcome escapes.
     """
-    if debug:
-        raise NotImplementedError(
-            "search_network(debug=True) needs the schedule verifier "
-            "(repro.analysis.verify_schedule), ROADMAP.md Queue 1, item 3.2")
     cache_before = SIM_CACHE.stats()
     stats = {"candidates": 0, "simulated": 0, "hardware_evaluated": 0}
 
@@ -294,6 +313,12 @@ def search_network(workload: str, layers: Sequence[LayerShape],
     cache_after = SIM_CACHE.stats()
     stats["sim_misses"] = cache_after["misses"] - cache_before["misses"]
     stats["sim_hits"] = cache_after["hits"] - cache_before["hits"]
+    if debug:
+        from repro_torch.analysis.findings import VerificationError
+        from repro_torch.analysis.verify import verify_schedule
+        findings = verify_schedule(best, layers, base_cfg)
+        if findings:
+            raise VerificationError(findings)
     return SearchOutcome(workload=workload, baseline=baseline, best=best,
                          pareto=tuple(_pareto(schedules + [baseline])),
                          stats=stats)

@@ -116,17 +116,32 @@ def resolve_sites(sites: Sequence, objective: str = "latency",
 
     Resolution calls the same ``choose_psum_mode`` the planless path uses
     (same defaults, same tie-breaks), so a plan-driven run picks the
-    strategies the per-call-site auto path picks.  ``chips`` > 1 (a TP
-    axis split across chips, priced through the reference's package
-    hierarchy) is not ported and raises."""
-    from repro_torch.core.noc.collective.cost import (AUTO_CANDIDATES,
-                                                      choose_psum_mode,
-                                                      psum_mode_costs)
+    strategies the per-call-site auto path picks.  With ``chips`` > 1 the
+    TP axis spans chips and every site is priced through the package
+    hierarchy (:mod:`repro_torch.core.noc.hierarchy`): intra-chip rows plus
+    a package-level allreduce, the same candidates and tie-breaks."""
+    from repro_torch.core.noc.collective.cost import AUTO_CANDIDATES
     if chips > 1:
-        raise NotImplementedError(
-            f"chips={chips} ({package}): pricing psum sites across chips "
-            f"needs the package hierarchy (core/noc/hierarchy/), ROADMAP.md "
-            f"Queue 1, item 3.1")
+        from repro_torch.core.noc.hierarchy import (choose_hier_psum_mode,
+                                                    hier_psum_mode_costs)
+
+        def _costs(p, nbytes):
+            return hier_psum_mode_costs(p, nbytes, noc_cfg, chips=chips,
+                                        package=package)
+
+        def _choose(p, nbytes):
+            return choose_hier_psum_mode(p, nbytes, noc_cfg, chips=chips,
+                                         package=package,
+                                         objective=objective)
+    else:
+        from repro_torch.core.noc.collective.cost import (choose_psum_mode,
+                                                          psum_mode_costs)
+
+        def _costs(p, nbytes):
+            return psum_mode_costs(p, nbytes, noc_cfg)
+
+        def _choose(p, nbytes):
+            return choose_psum_mode(p, nbytes, noc_cfg, objective=objective)
 
     groups: dict[tuple[int, int], dict] = {}
     for s in sites:
@@ -135,8 +150,8 @@ def resolve_sites(sites: Sequence, objective: str = "latency",
         g["ops"].add(s.op)
     out = []
     for (p, nbytes), g in sorted(groups.items()):
-        costs = psum_mode_costs(p, nbytes, noc_cfg)
-        mode = choose_psum_mode(p, nbytes, noc_cfg, objective=objective)
+        costs = _costs(p, nbytes)
+        mode = _choose(p, nbytes)
         out.append(PsumDecision(
             p=p, nbytes=nbytes, mode=mode,
             ops=tuple(sorted(g["ops"])), count=g["count"],
@@ -216,7 +231,9 @@ def build_plan(cfg: ModelConfig, mesh_shape, phase: str, *,
     the mapper's 256-token M tile for train/prefill and the batch width
     for decode (a decode GEMM runs one token per sequence).
     ``gemm_search=False`` skips the mapper verdicts (tile and psum planning
-    keep working).  ``chips`` > 1 raises (:func:`resolve_sites`).
+    keep working).  ``chips`` > 1 prices the psum sites as a TP axis split
+    across that many chips joined by a ``package`` network
+    (:func:`resolve_sites`); the GEMM verdicts and tiles are one chip's.
     """
     shape = phase_shape(phase, shape)
     mesh = normalize_mesh(mesh_shape)

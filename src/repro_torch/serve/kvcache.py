@@ -32,11 +32,19 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from collections import Counter
 
 import torch
 
 from repro_torch import _device
+
+
+def _raise_findings(findings) -> None:
+    """Raise ``AssertionError`` naming every ``kvcache`` finding: its
+    message, led by the table or request it names."""
+    if findings:
+        raise AssertionError("; ".join(
+            f.message if f.where in ("free-list", "length", "state")
+            else f"{f.where}: {f.message}" for f in findings))
 
 
 class BlockAllocator:
@@ -95,39 +103,13 @@ class BlockAllocator:
         self._free.sort(reverse=True)    # keep pop() order deterministic
         return len(blocks)
 
-    def findings(self) -> list[str]:
-        """Every no-alias / no-leak violation, as text."""
-        out = []
-        nb = self.num_blocks
-        out += [f"free block id {b!r} out of range 0..{nb - 1}"
-                for b in self._free if not (isinstance(b, int) and 0 <= b < nb)]
-        out += [f"block {b} appears {k} times in the free list"
-                for b, k in sorted(Counter(self._free).items()) if k > 1]
-        owner: dict[int, object] = {}
-        n_live = 0
-        for rid in sorted(self.tables, key=repr):
-            for b in self.tables[rid]:
-                n_live += 1
-                if not (isinstance(b, int) and 0 <= b < nb):
-                    out.append(f"table {rid!r}: block id {b!r} out of range")
-                    continue
-                if b in owner:
-                    out.append(f"table {rid!r}: block {b} aliased (also "
-                               f"owned by {owner[b]!r})")
-                owner[b] = rid
-        out += [f"block {b} is both free and mapped to {owner[b]!r}"
-                for b in sorted(set(self._free) & set(owner))]
-        if n_live + len(self._free) != nb:
-            out.append(f"leak: {n_live} live + {len(self._free)} free != "
-                       f"{nb} total")
-        return out
-
     def check(self) -> None:
-        """Raise ``AssertionError`` on any violation (explicitly, so the
-        check survives ``python -O``)."""
-        findings = self.findings()
-        if findings:
-            raise AssertionError("; ".join(findings))
+        """Raise ``AssertionError`` on any no-alias / no-leak violation
+        (explicitly, so the check survives ``python -O``).  The invariants
+        are the static verifier's (:func:`repro_torch.analysis.verify.
+        verify_allocator`)."""
+        from repro_torch.analysis.verify import verify_allocator
+        _raise_findings(verify_allocator(self))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,31 +255,9 @@ class PagedKVCache:
                     f"paged/monolithic mismatch on leaf {meta.name} "
                     f"for request {rid!r}")
 
-    def findings(self) -> list[str]:
+    def check(self) -> None:
         """Allocator invariants plus the paged bookkeeping: length and
         state keys match block tables, and every length is covered by
-        blocks."""
-        out = self.allocator.findings()
-        tables = set(self.allocator.tables)
-        for what, keys in (("length", set(self._length)),
-                           ("state", set(self._state))):
-            if keys != tables:
-                out.append(f"{what} keys disagree with block tables "
-                           f"(difference: {sorted(keys ^ tables, key=repr)})")
-        for rid in sorted(self._length, key=repr):
-            length = self._length[rid]
-            if length < 0 or length > self.max_seq:
-                out.append(f"request {rid!r}: length {length} outside "
-                           f"0..{self.max_seq}")
-                continue
-            table = self.allocator.tables.get(rid, ())
-            need = self.blocks_for(length)
-            if need > len(table):
-                out.append(f"request {rid!r}: length {length} needs {need} "
-                           f"blocks but the table holds {len(table)}")
-        return out
-
-    def check(self) -> None:
-        findings = self.findings()
-        if findings:
-            raise AssertionError("; ".join(findings))
+        blocks (:func:`repro_torch.analysis.verify.verify_kvcache`)."""
+        from repro_torch.analysis.verify import verify_kvcache
+        _raise_findings(verify_kvcache(self))

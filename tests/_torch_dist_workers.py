@@ -515,3 +515,69 @@ def serve_data_rank(rank, world, group, device, spec):
         out[key] = launch_serve.serve_rank(rank, world, group, device, argv,
                                            groups=groups)
     return out
+
+
+#: The three functions ``core.collectives.psum_with_mode`` runs a psum
+#: through, by the mode each runs.
+PSUM_BY_MODE = {"ring_psum_eject_inject": "eject_inject",
+                "psum_ina": "ina_ring", "psum_xla": "ina"}
+
+
+def plans_across(across: dict):
+    """``plan.plan_for_launch`` as a launcher calls it, but building over
+    chips where its ``plan_dir`` is a key of ``across`` (directory ->
+    ``build_plan`` keywords, ``{"chips", "package"}``)."""
+    from repro_torch.plan import plan_for_launch
+
+    def planned(*args, plan_dir=None, **kw):
+        return plan_for_launch(*args, plan_dir=plan_dir, **kw,
+                               **across.get(str(plan_dir), {}))
+    return planned
+
+
+def planned_serve_rank(rank, world, group, device, spec):
+    """Each case of ``spec["cases"]`` (label -> argv) served through
+    ``launch.serve.serve_rank`` on this rank, with the plans of
+    ``spec["across"]``'s directories built over chips
+    (:func:`plans_across`): its tokens, ``core.collectives.CALLS``, and its
+    psums counted by ``(phase, nbytes, resolved, ran)``: the phase of the
+    plan the ``auto`` site resolved through (None: no plan), the payload,
+    the mode ``resolve_auto_mode`` gave (None: no ``auto`` resolution) and
+    the mode the psum ran (:data:`PSUM_BY_MODE`)."""
+    from repro_torch.launch import serve as launch_serve
+    out = {}
+    saved = {name: getattr(C, name)
+             for name in (*PSUM_BY_MODE, "resolve_auto_mode")}
+    launch_serve.plan_for_launch = plans_across(spec["across"])
+    for label, argv in spec["cases"].items():
+        pending, ran = [], {}
+
+        def resolving(op, p, nbytes, plan=None):
+            mode = saved["resolve_auto_mode"](op, p, nbytes, plan)
+            if op == "psum":
+                phase = plan.phase.split("-")[0] if plan is not None \
+                    else None
+                pending.append((phase, int(nbytes), mode))
+            return mode
+
+        def counted(name):
+            def fn(x, *args, **kw):
+                site = pending.pop() if pending else (None, C.nbytes(x),
+                                                      None)
+                key = (*site, PSUM_BY_MODE[name])
+                ran[key] = ran.get(key, 0) + 1
+                return saved[name](x, *args, **kw)
+            return fn
+        C.CALLS.clear()
+        try:
+            C.resolve_auto_mode = resolving
+            for name in PSUM_BY_MODE:
+                setattr(C, name, counted(name))
+            tokens = launch_serve.serve_rank(rank, world, group, device,
+                                             argv)
+        finally:
+            for name, fn in saved.items():
+                setattr(C, name, fn)
+        out[label] = {"tokens": tokens, "psums": ran,
+                      "calls": dict(C.CALLS)}
+    return out

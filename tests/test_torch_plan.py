@@ -81,11 +81,29 @@ def _abstract_mesh(pairs):
 
 
 @functools.cache
-def reference_decisions(name: str, reduced: bool, pairs: tuple, phase: str):
+def reference_sites(name: str, reduced: bool, pairs: tuple, phase: str):
     cfg = JARCHS[name].reduced() if reduced else JARCHS[name]
-    sites = jbuilder.collect_psum_sites(cfg, _abstract_mesh(pairs),
-                                        JSHAPES[PHASE_SHAPES[phase]])
-    return jbuilder.resolve_sites(sites)
+    return jbuilder.collect_psum_sites(cfg, _abstract_mesh(pairs),
+                                       JSHAPES[PHASE_SHAPES[phase]])
+
+
+@functools.cache
+def reference_decisions(name: str, reduced: bool, pairs: tuple, phase: str,
+                        chips: int = 1, package: str = "mesh"):
+    return jbuilder.resolve_sites(reference_sites(name, reduced, pairs,
+                                                  phase),
+                                  chips=chips, package=package)
+
+
+@functools.cache
+def chip_smoke():
+    """``chip_smoke.py`` as a module (its constants)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
 
 
 def _port_cfg(name: str, reduced: bool):
@@ -182,17 +200,6 @@ def test_gemm_verdicts_do_not_depend_on_jobs():
     assert verdicts[1] == verdicts[0] and sizes[1] == sizes[0]
 
 
-def test_mapper_raises_for_what_is_not_ported():
-    layers = transformer_gemms(ARCHS[QWEN2], 2)[:1]
-    with pytest.raises(NotImplementedError, match="item 3.2"):
-        search_network("x", layers, QUICK_MAPPER, debug=True)
-    from repro_torch.mapper import evaluate_mapping
-    with pytest.raises(NotImplementedError, match="item 3.1"):
-        evaluate_mapping(layers[0], Mapping(chips=2))
-    with pytest.raises(NotImplementedError, match="item 3.1"):
-        resolve_sites([], chips=2)
-
-
 # --------------------------------------------------------------------------- #
 # psum decisions
 # --------------------------------------------------------------------------- #
@@ -218,16 +225,95 @@ def test_psum_decisions_at_16x16_match_reference(name, phase):
 def test_chip_smoke_holds_the_reference_decisions(phase):
     """``chip_smoke.py`` checks the card's 16 x 16 plans against
     ``PLAN_16X16``: the reference's decisions, count times the depth."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    cs = chip_smoke()
     layers = ARCHS[QWEN2].n_layers
     assert cs.MESH_16 == MESH_16
     assert cs.PLAN_16X16[phase] == tuple(
         (d.p, d.nbytes, d.mode, d.ops, d.count * layers, d.costs)
         for d in reference_decisions(QWEN2, False, MESH_16, phase))
+
+
+@pytest.mark.parametrize("package", ["mesh", "express"])
+@pytest.mark.parametrize("phase", PHASES)
+def test_chip_smoke_holds_the_reference_decisions_across_chips(phase,
+                                                               package):
+    """``chip_smoke.py`` checks the card's 16 x 16 plans at 4 chips
+    against ``PLAN_16X16_C4``: the reference's ``resolve_sites(...,
+    chips=4, package=...)``, count times the depth, which the port's
+    ``build_plan`` gives too."""
+    want = chip_smoke().PLAN_16X16_C4[package, phase]
+    layers = ARCHS[QWEN2].n_layers
+    assert want == tuple(
+        (d.p, d.nbytes, d.mode, d.ops, d.count * layers, d.costs)
+        for d in reference_decisions(QWEN2, False, MESH_16, phase, 4,
+                                     package))
+    plan = build_plan(ARCHS[QWEN2], MESH_16, phase, gemm_search=False,
+                      chips=4, package=package)
+    assert tuple((d.p, d.nbytes, d.mode, d.ops, d.count, d.costs)
+                 for d in plan.psum) == want
+    assert plan.key.endswith("__c4" + ("e" if package == "express" else "")
+                             + "__torch")
+    assert verify_plan(plan) == []
+
+
+@pytest.mark.parametrize("package", ["mesh", "express"])
+@pytest.mark.parametrize("name", [QWEN2, "rwkv6-7b",
+                                  "llama4-scout-17b-16e"])
+def test_psum_decisions_across_chips_match_reference(name, package):
+    """The reduced dense, ssm and moe configs at ``(data 2, model 4)``
+    with the model axis over 2 and 4 chips: every decision of every phase
+    is the reference's ``resolve_sites(..., chips, package)``."""
+    cfg = _port_cfg(name, True)
+    pairs = (("data", 2), ("model", 4))
+    for phase in PHASES:
+        for chips in (2, 4):
+            plan = build_plan(cfg, pairs, phase, gemm_search=False,
+                              chips=chips, package=package)
+            want = reference_decisions(name, True, pairs, phase, chips,
+                                       package)
+            assert want, "the reference recorded no site"
+            _same_decisions(plan.psum, want, _stack_depth(cfg))
+            assert verify_plan(plan) == []
+
+
+def test_resolve_sites_at_one_chip_is_the_flat_resolution():
+    sites = [C.PsumSite("psum", 4, 4096), C.PsumSite("psum", 4, 4096),
+             C.PsumSite("reduce_scatter", 8, 65536)]
+    flat = resolve_sites(sites)
+    assert resolve_sites(sites, chips=1, package="express") == flat
+    assert [d.count for d in flat] == [2, 1]
+    across = resolve_sites(sites, chips=2, package="express")
+    assert [(d.p, d.nbytes, d.count) for d in across] == \
+        [(d.p, d.nbytes, d.count) for d in flat]
+    assert across != flat
+
+
+def test_multichip_plan_store_warm_roundtrip(plan_env):
+    """The reference's ``test_hierarchy.py`` round trip (which fails on the
+    installed jax): a multi-chip plan keys under ``__c2``, re-plans warm
+    with 0 collective simulations, is never read by a flat request, and
+    the express package keys apart under ``__c2e``."""
+    from repro_torch.plan import plan_for_launch
+    cfg, shape = ARCHS[QWEN2], SHAPES["decode_32k"]
+    kw = {"plan_dir": plan_env / "s", "verbose": False,
+          "gemm_search": False}
+    plan, info = plan_for_launch(cfg, MESH_16, shape, "auto", chips=2, **kw)
+    assert plan.chips == 2 and "__c2__" in plan.key
+    assert not info["from_store"] and info["collective_sims"] > 0
+    _cold()
+    again, info2 = plan_for_launch(cfg, MESH_16, shape, "auto", chips=2,
+                                   **kw)
+    assert again == plan
+    assert info2["from_store"] and info2["collective_sims"] == 0
+    flat, finfo = plan_for_launch(cfg, MESH_16, shape, "auto", **kw)
+    assert flat.chips == 1 and flat.key != plan.key
+    assert not finfo["from_store"]
+    exp, einfo = plan_for_launch(cfg, MESH_16, shape, "auto", chips=2,
+                                 package="express", **kw)
+    assert "__c2e__" in exp.key and exp.key != plan.key
+    assert not einfo["from_store"] and exp.package == "express"
+    assert {p.name for p in (plan_env / "s").glob("*.json")} == \
+        {f"{p.key}.json" for p in (plan, flat, exp)}
 
 
 @pytest.mark.parametrize("phase", PHASES)
@@ -688,20 +774,95 @@ def test_planned_serve_equals_planless_at_world_1(plan_env):
         launch_serve.main(_serve_argv("--legacy-loop"))
 
 
-def test_planned_serve_equals_planless_at_world_2(plan_env):
-    planless = launch_serve.main(_serve_argv("--psum-mode", "auto",
-                                             "--no-plan",
-                                             "--model-parallel", "2"))
-    planned = launch_serve.main(_serve_argv("--psum-mode", "auto",
-                                            "--plan-dir", str(plan_env / "p"),
-                                            "--model-parallel", "2"))
-    assert planned == planless
-    plans = [ExecutionPlan.from_json(p.read_text())
-             for p in sorted((plan_env / "p").glob("*.json"))]
+#: The cases of the one world-2 spawn of planned serving, each on
+#: ``_serve_argv`` and the seeded weights: label -> its ``--plan-dir``
+#: (None: ``--no-plan``), where a ``c-<package>`` one holds plans over 2
+#: chips of that package (``_torch_dist_workers.plans_across``).
+WORLD_2_CASES = {"planless": None, "planned": "p", "chips-mesh": "c-mesh",
+                 "chips-express": "c-express"}
+
+
+@pytest.fixture(scope="module")
+def planned_world_2(tmp_path_factory):
+    """One gloo spawn of 2 ranks serving every :data:`WORLD_2_CASES` case
+    under ``--psum-mode auto`` (``_torch_dist_workers.planned_serve_rank``)
+    through ``launch.serve.spawn_ranks``, as ``launch.serve.main`` spawns
+    them (the ranks return the same tokens, psums and calls); returns (the
+    directory, each rank's results)."""
+    import _torch_dist_workers as W
+    root = tmp_path_factory.mktemp("planned_world_2")
+    cases = {label: _serve_argv(
+        "--model-parallel", "2", "--psum-mode", "auto",
+        *(("--no-plan",) if d is None else ("--plan-dir", str(root / d))))
+        for label, d in WORLD_2_CASES.items()}
+    launches = [(args, launch_serve.config(args)) for args in
+                map(launch_serve.build_parser().parse_args, cases.values())]
+    across = {str(root / f"c-{pk}"): {"chips": 2, "package": pk}
+              for pk in ("mesh", "express")}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TORCH_PLAN_DIR", str(root / "default"))
+        mp.setenv("REPRO_TORCH_SIMCACHE_DIR", str(root / "sims"))
+        mp.setattr(simcache.SIM_CACHE, "_persist_dir", None)
+        mp.setattr(launch_serve, "plan_for_launch", W.plans_across(across))
+        ranks = launch_serve.spawn_ranks(
+            W.planned_serve_rank, 2, "cpu", launches,
+            {"cases": cases, "across": across})
+    return root, ranks
+
+
+def _plans(path: Path) -> list:
+    return [ExecutionPlan.from_json(p.read_text())
+            for p in sorted(path.glob("*.json"))]
+
+
+def test_planned_serve_equals_planless_at_world_2(planned_world_2):
+    root, ranks = planned_world_2
+    assert ranks[0]["planned"]["tokens"] == ranks[0]["planless"]["tokens"]
+    plans = _plans(root / "p")
     assert [p.phase.split("-")[0] for p in plans] == ["decode", "prefill"]
     for p in plans:
-        assert p.mesh == (("model", 2),) and p.psum
+        assert p.mesh == (("model", 2),) and p.psum and p.chips == 1
         assert all(d.p == 2 for d in p.psum)
+
+
+@pytest.mark.parametrize("package", ["mesh", "express"])
+def test_serving_across_chips_at_world_2(planned_world_2, package):
+    """The reduced qwen2 served at 2 ranks through plans over 2 chips:
+    every ``auto`` psum resolved through the decode plan runs the plan's
+    mode (the hierarchy's choice: ``ina_ring`` under the mesh package,
+    ``ina`` under express, where the flat cost model takes ``ina_ring``),
+    every other runs the mode it resolved to (or ``ina`` where the ring's
+    scatter axis does not divide: a prefill chunk of one slot), the
+    vocab-parallel embedding's sum is no ``auto`` site, every psum is one
+    ``CALLS`` counts, and the tokens are the planless run's."""
+    from repro_torch.core.noc.collective.cost import choose_psum_mode
+    from repro_torch.core.noc.hierarchy import choose_hier_psum_mode
+    root, ranks = planned_world_2
+    suffix = "__c2" + ("e" if package == "express" else "") + "__"
+    plans = _plans(root / f"c-{package}")
+    assert all(suffix in p.key for p in plans)
+    (decode,) = [p for p in plans if p.phase.startswith("decode")]
+    assert (decode.chips, decode.package) == (2, package)
+    planned = {d.nbytes: d.mode for d in decode.psum}
+    for nbytes, mode in planned.items():
+        assert mode == choose_hier_psum_mode(2, nbytes, chips=2,
+                                             package=package)
+        assert (mode == choose_psum_mode(2, nbytes)) == (package == "mesh")
+    for rank in ranks:
+        run = rank[f"chips-{package}"]
+        assert run["tokens"] == rank["planless"]["tokens"]
+        hits = 0
+        for (phase, nbytes, resolved, mode), n in run["psums"].items():
+            if resolved is None:        # the embedding's native sum
+                assert (phase, mode) == (None, "ina")
+            elif phase == "decode":
+                assert resolved == mode == planned[nbytes]
+                hits += n
+            else:
+                assert mode == resolved or (resolved, mode) == \
+                    ("ina_ring", "ina")
+        assert hits > 0
+        assert sum(run["psums"].values()) == run["calls"]["psum"]
 
 
 def test_train_launcher_plans_under_auto(plan_env):
