@@ -73,6 +73,26 @@ Phases; any failure raises and the process exits non-zero:
     through ``run_program(verify=True)``, its cycles the plan's; and
     ``verify_hier_schedule`` clean over the 32 hierarchical schedules of
     :data:`HIER_GRIDS`;
+4c. ``[capacity]``: the capacity planner, ``python -m repro_torch.serve``
+    (``main``), for qwen2-1.5b at full width, one replica an 8 x 8 mesh,
+    200 requests at 0.1 qps, ``--search-fleet`` for p99 admission queueing
+    at most 30 s, its plans in phase 4b's store, once under ``--semantics
+    ina`` and once under ``eject_inject``, each fleet answer printed (in
+    the NoC model's seconds); each run's engine demo (the reduced config
+    on the card, 6 requests, 2 slots, block 8, prefill chunk 4,
+    ``check=True``) launches ``ina_matmul`` and ``flash_attention`` as
+    often as the code gives (:func:`demo_launches`), its tokens equal
+    between the two runs and each new launch shape held against its plain
+    version; the calibration ``PlanCostModel`` is for (phase 3's measured
+    decode step of 2 slots and prefill chunk of 64, each over the same
+    plans' modeled one), and the planner once more with ``--calibration``
+    the decode ratio, its answer in the card's seconds; then ``python -m
+    repro_torch.experiments --quick`` over every section the port has
+    (Tables I-II, Figs 7-12, mesh scaling, hierarchy, mapper, plan,
+    serve), no failed plan or serve row, and Figs 7-12 at E 1 and 16
+    rounds for AlexNet, VGG-16 and ResNet-50 held to the reference's pins
+    (:data:`FIG7_9_PINS`, :data:`FIG10_12_PINS`), their averages printed
+    beside the paper's 1.22x latency and 2.16x power;
 5. phase 3's serve at 2 layers in float32: the engine's tokens must equal
    the legacy loop's, token for token;
 6. rwkv6-7b at its published widths, depth cut to 24 of 32 layers
@@ -256,12 +276,15 @@ from repro_torch.analysis import (verify_collective,  # noqa: E402
 from repro_torch.core import collectives as C  # noqa: E402
 from repro_torch.core.noc import SIM_CACHE, fresh_sim_cache  # noqa: E402
 from repro_torch.core.noc import NocConfig  # noqa: E402
+from repro_torch.core.noc import power as noc_power  # noqa: E402
 from repro_torch.core.noc import hierarchy as noc_hier  # noqa: E402
 from repro_torch.core.noc.collective import cost as noc_cost  # noqa: E402
 from repro_torch.core.noc.collective import schedule as noc_sched  # noqa: E402
 from repro_torch.core.noc.collective.engine import run_program  # noqa: E402
 from repro_torch.core.noc.collective.trees import mesh_row  # noqa: E402
+from repro_torch.core.workloads import WORKLOADS  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
+from repro_torch.experiments import __main__ as experiments  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ina_matmul as im  # noqa: E402
@@ -308,6 +331,9 @@ from repro_torch.runtime import compression  # noqa: E402
 from repro_torch.parallel.tp import ParallelCtx  # noqa: E402
 from repro_torch.plan import PHASES, PlanStore, tile_choices  # noqa: E402
 from repro_torch.runtime.fault_tolerance import elastic_restore  # noqa: E402
+from repro_torch.serve import __main__ as planner  # noqa: E402
+from repro_torch.serve.costs import (SEMANTICS,  # noqa: E402
+                                     PlanCostModel, serve_plans)
 
 # H100 SXM, dense, at the full 700 W (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -468,6 +494,28 @@ MAPPER_CHIPS = {"mesh": ((8, 4, 2, 2), 5780.0, 3746739.2),
 # The package grids of the hierarchy corpus [plan] verifies (each x both
 # packages x every op, semantics and allreduce algorithm: 32 schedules).
 HIER_GRIDS = ((2, 1), (2, 2))
+# [capacity]: the capacity planner (python -m repro_torch.serve) for
+# qwen2-1.5b at full width on an 8 x 8 mesh a replica, 200 requests at 0.1
+# qps, the fewest replicas whose p99 admission queueing is at most 30 s
+CAPACITY_ARGV = ["--arch", ARCH, "--mesh", "8x8", "--requests", "200",
+                 "--qps", "0.1", "--search-fleet", "--slo-metric",
+                 "queueing_s", "--slo-p99-ms", "30000"]
+# the paper's evaluation, as python -m repro_torch.experiments --quick runs
+# it (every section the port has)
+EXPERIMENT_SECTIONS = ("tables,fig7_9,fig10_12,mesh_scaling,hierarchy,"
+                       "mapper,plan,serve")
+# Figs 7-9 (WS+INA over WS) and 10-12 (WS+INA over OS) at E 1, 16 rounds:
+# (latency_x, power_x, energy_x) a network, the pins of the reference's
+# tests/test_experiments.py (held to rel 1e-9), and the paper's headline
+FIG7_9_PINS = {
+    "alexnet": (1.3174422192115254, 1.5607175433789333, 2.056155183911502),
+    "vgg16": (1.7419385086187669, 1.1141116323217497, 1.9407139552413686),
+    "resnet50": (1.1205548873901459, 1.095398960338809, 1.227454658649737)}
+FIG10_12_PINS = {
+    "alexnet": (1.092087802270031, 1.718684924481257, 1.876954841971371),
+    "vgg16": (1.445953875070858, 1.111861273869205, 1.607700117492398),
+    "resnet50": (0.7179804315656954, 1.853857557221294, 1.33103344899507)}
+PAPER_HEADLINE = {"fig7_9": (1.22, 2.16), "fig10_12": (1.19, 2.16)}
 
 
 def log(msg: str) -> None:
@@ -741,17 +789,17 @@ def record_shapes():
         ops.ina_matmul, im.ina_matmul, fa._attention = omm, mm, att
 
 
-def check_shapes(seen: dict, label: str) -> None:
+def check_shapes(seen: dict, label: str, where: str = "phase 2") -> None:
     """Every shape ``seen`` (:func:`record_shapes`) was held against the
-    kernel's plain version in phase 2."""
+    kernel's plain version (in phase 2, or ``where`` says where)."""
     missing = {name: sorted(map(str, keys - CHECKED[name]))
                for name, keys in seen.items() if keys - CHECKED[name]}
     if missing:
-        raise AssertionError(f"[{label}] launched at shapes phase 2 did not "
+        raise AssertionError(f"[{label}] launched at shapes {where} did not "
                              f"check: {missing}")
     log(f"[{label}] each of the {len(seen['ina_matmul'])} ina_matmul and "
         f"{len(seen['flash_attention'])} flash_attention launch shapes of "
-        f"the phase was held against its plain version in phase 2")
+        f"the phase was held against its plain version in {where}")
 
 
 def check_matmul(timer, gen, cases) -> list:
@@ -1845,6 +1893,196 @@ def verified_hier_corpus() -> None:
     log(f"[plan] verify_hier_schedule: {n} hierarchical schedules (grids "
         f"{HIER_GRIDS}, both packages, every op, semantics and algorithm) "
         f"clean in {time.perf_counter() - t0:.4f} s (host clock)")
+
+
+# --------------------------------------------------------------------------- #
+# phase 4c: the capacity planner and the paper's evaluation
+# --------------------------------------------------------------------------- #
+def demo_launches(doc: dict) -> dict:
+    """The engine demo's launches, derived from the code: a pass of the
+    reduced model (:func:`matmuls_per_pass`) a prefill chunk and a decode
+    step, flash attention once a layer a prefill chunk, no wkv6."""
+    rc = ARCHS[ARCH].reduced()
+    passes = doc["prefill_chunks"] + doc["decode_steps"]
+    return {"ina_matmul": matmuls_per_pass(rc) * passes,
+            "flash_attention": rc.n_layers * doc["prefill_chunks"],
+            "wkv6": 0}
+
+
+def capacity_run(argv: list, out: Path, label: str):
+    """``python -m repro_torch.serve`` with ``argv``, its JSON in ``out``:
+    (the document, launches by kernel, the launch shapes)."""
+    reset_launches()
+    with record_shapes() as seen:
+        t0 = time.perf_counter()
+        if planner.main(argv + ["--out", str(out)]) != 0:
+            raise AssertionError(f"[capacity] {label}: the planner failed")
+        torch.cuda.synchronize()
+    launches = read_launches()
+    doc = json.loads(out.read_text())
+    ans = doc["fleet_answer"]
+    log(f"[capacity] {label}: fleet answer {ans['fleet']} replica(s) of an "
+        f"8 x 8 mesh for p99 {ans['metric']} <= {ans['slo_s']} s ("
+        + ", ".join(f"fleet {r['fleet']}: p99 {r['p99_s']:.4f} s"
+                    for r in ans["searched"])
+        + f"); plans {[(k, v['collective_sims']) for k, v in
+                       sorted(doc['plan'].items())]} (phase, collective "
+        f"simulations); {time.perf_counter() - t0:.2f} s (host clock)")
+    return doc, launches, seen
+
+
+def check_demo_shapes(timer, gen, seen: dict) -> tuple[list, list]:
+    """Each launch shape of the engine demo that phase 2 did not check,
+    held against its plain version and timed as phase 2 times its cases:
+    (``ina_matmul`` rows, ``flash_attention`` rows)."""
+    cases = [(f"capacity demo [{m},{k}]x[{k},{n}]", m, k, n, layout, dt)
+             for m, k, n, layout, dt in sorted(
+                 seen["ina_matmul"] - CHECKED["ina_matmul"], key=str)]
+    mm = check_matmul(timer, gen, cases)
+    at = []
+    for key in sorted(seen["flash_attention"] - CHECKED["flash_attention"],
+                      key=str):
+        b, sq, h, sk, kvh, d, causal, off, dt = key
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((b, sq, h, d), (b, sk, kvh, d),
+                                 (b, sk, kvh, d)))
+        at.append(attention_row(timer, f"capacity demo Sk={sk}", q, k, v,
+                                off, causal))
+    check_shapes(seen, "capacity", "phase 2 or this phase")
+    return mm, at
+
+
+def phase_capacity(served: dict, smi: str) -> dict:
+    """Phase 4c (see the module docstring).  Returns the engine demo's
+    launch counts a run and its kernel rows, for the kernels line."""
+    t_phase = time.perf_counter()
+    cfg = ARCHS[ARCH]
+    root = _build.BUILD_DIR.parent
+    store, out = root / "plans", root / "capacity"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    base = CAPACITY_ARGV + ["--plan-dir", str(store)]
+    docs, runs, tokens = {}, {}, None
+    timer, gen = Timer(), torch.Generator(device="cuda").manual_seed(5)
+    mm_rows, at_rows = [], []
+    for sem in SEMANTICS:
+        doc, launches, seen = capacity_run(
+            base + ["--semantics", sem], out / f"{sem}.json", sem)
+        eng = doc["engine"]
+        expect = demo_launches(eng)
+        log(f"[capacity] {sem}: engine demo on the card ({eng['arch_reduced']}"
+            f", {eng['requests']} requests, {eng['slots']} slots, block "
+            f"{eng['block_size']}, prefill chunk {eng['prefill_chunk']}): "
+            f"{eng['iterations']} iterations, {eng['prefill_chunks']} prefill "
+            f"chunks, {eng['decode_steps']} decode steps, "
+            f"{eng['paged_monolithic_checks']} paged==monolithic checks; "
+            f"launches {launches}, derived {expect}; {smi}")
+        check_launches(launches, expect, ("ina_matmul", "flash_attention"))
+        if eng["paged_monolithic_checks"] != eng["requests"]:
+            raise AssertionError(f"[capacity] {sem}: {eng}")
+        if tokens is not None and eng["tokens"] != tokens:
+            raise AssertionError("[capacity] the engine demo's tokens differ "
+                                 "between the two runs")
+        tokens = eng["tokens"]
+        mm, at = check_demo_shapes(timer, gen, seen)
+        mm_rows += mm
+        at_rows += at
+        docs[sem], runs[sem] = doc, launches
+    del timer
+    for sem, doc in docs.items():
+        log(f"[capacity] fleet answer under {sem}: "
+            f"{doc['fleet_answer']['fleet']} (modeled seconds, 1 GHz mesh)")
+    # the calibration PlanCostModel exists for: [serve]'s measured
+    # full-width decode step (2 slots) and prefill chunk (64 tokens) over
+    # the same plans' modeled ones
+    plans = serve_plans(cfg, planner.parse_mesh("8x8"), plan_dir=store,
+                        verbose=False)
+    cost = PlanCostModel.from_plans(cfg, plans["prefill"][0],
+                                    plans["decode"][0], prefill_chunk=64)
+    prof = served["profile"]
+    ratio = {"decode": prof["decode"]["wall_ms"] / 1e3
+             / cost.decode_iter_seconds(2),
+             "prefill": prof["prefill"]["wall_ms"] / 1e3
+             / cost.prefill_chunk_seconds()}
+    log(f"[capacity] calibration, measured over modeled: decode step of 2 "
+        f"slots {prof['decode']['wall_ms']:.4f} ms (host clock) over "
+        f"{cost.decode_iter_seconds(2) * 1e3:.4f} ms modeled = "
+        f"{ratio['decode']:.6g}; prefill chunk of 64 "
+        f"{prof['prefill']['wall_ms']:.4f} ms over "
+        f"{cost.prefill_chunk_seconds() * 1e3:.4f} ms = "
+        f"{ratio['prefill']:.6g}; {smi}")
+    doc, launches, _ = capacity_run(
+        base + ["--semantics", "ina", "--no-execute", "--calibration",
+                repr(ratio["decode"])], out / "calibrated.json",
+        "ina, calibrated to the card's decode step")
+    if any(launches.values()):
+        raise AssertionError(f"[capacity] --no-execute launched {launches}")
+    metrics = doc["fleet_answer"]["metrics"] or {}
+    log(f"[capacity] fleet answer in the card's seconds (calibration "
+        f"{ratio['decode']:.6g}): {doc['fleet_answer']['fleet']} replica(s)"
+        + (f"; p99 queueing {metrics['queueing_s']['p99']:.4f} s, ttft "
+           f"{metrics['ttft_s']['p99']:.4f} s, e2e "
+           f"{metrics['e2e_s']['p99']:.4f} s, "
+           f"{metrics['throughput_tok_s']:.1f} tok/s" if metrics else "")
+        + f"; {smi}")
+    evaluation()
+    log(f"[capacity] phase {time.perf_counter() - t_phase:.1f} s (host "
+        f"clock)")
+    return {"launches": runs, "mm_rows": mm_rows, "at_rows": at_rows,
+            "calibration": ratio}
+
+
+def evaluation() -> None:
+    """The paper's evaluation through ``python -m repro_torch.experiments
+    --quick`` (no failed plan or serve row), and Figs 7-12 at E 1 and 16
+    rounds held to :data:`FIG7_9_PINS` and :data:`FIG10_12_PINS`."""
+    root = _build.BUILD_DIR.parent
+    out = root / "experiments"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rc = experiments.main(["--quick", "--sections", EXPERIMENT_SECTIONS,
+                               "--out", str(out), "--plan-dir",
+                               str(root / "plans"), "--cache-dir",
+                               str(root / "plan_sims")])
+    for line in text.getvalue().splitlines():
+        log(f"[capacity] experiments: {line}")
+    if rc != 0:
+        raise AssertionError(f"[capacity] experiments exited {rc}")
+    figs = {s: json.loads((out / f"{s}.json").read_text())
+            for s in EXPERIMENT_SECTIONS.split(",")}
+    bad = [r for s in ("plan", "serve") for r in figs[s]["rows"]
+           if f"{s}_error" in r]
+    if bad:
+        raise AssertionError(f"[capacity] failed rows: {bad}")
+    for a in figs["serve"]["answers"]:
+        log(f"[capacity] experiments serve (16 x 16 mesh): {a}")
+    log(f"[capacity] experiments --quick: {len(figs['plan']['rows'])} plans"
+        f", {len(figs['serve']['rows'])} serve rows, no error, in "
+        f"{time.perf_counter() - t0:.2f} s (host clock)")
+    for fig, improve, pins in (("fig7_9", noc_power.ws_ina_improvement,
+                                FIG7_9_PINS),
+                               ("fig10_12", noc_power.ws_vs_os_improvement,
+                                FIG10_12_PINS)):
+        got = {}
+        for name, want in pins.items():
+            imp = improve(name, WORKLOADS[name], 1, NocConfig(), 16)
+            got[name] = (imp.latency_x, imp.power_x, imp.energy_x)
+            if not all(math.isclose(g, w, rel_tol=1e-9)
+                       for g, w in zip(got[name], want)):
+                raise AssertionError(f"[capacity] {fig} {name}: {got[name]}"
+                                     f" != the pins {want}")
+        mean = [sum(v[i] for v in got.values()) / len(got) for i in range(3)]
+        quick = figs[fig]["average"]
+        lat, pwr = PAPER_HEADLINE[fig]
+        log(f"[capacity] {fig} at E 1, 16 rounds: "
+            + ", ".join(f"{n} latency_x {v[0]:.4f} power_x {v[1]:.4f} "
+                        f"energy_x {v[2]:.4f}" for n, v in got.items())
+            + f" (the pins, rel 1e-9); mean latency_x {mean[0]:.4f}, "
+            f"power_x {mean[1]:.4f}; --quick average latency_x "
+            f"{quick['latency_x']:.4f}, power_x {quick['power_x']:.4f}; the "
+            f"paper: up to {lat}x latency, {pwr}x power (modeled NoC "
+            f"cycles and pJ, the same on any host)")
 
 
 def phase_exact_f32() -> None:
@@ -4092,8 +4330,13 @@ def main() -> int:
     served = phase_serve_bf16()
     tp = phase_tp(served)
     planned = phase_plan(served)
+    mark("serve, tp, plan")
+    capacity = phase_capacity(served, info["smi"])
+    mm_rows += capacity["mm_rows"]
+    at_rows += capacity["at_rows"]
+    mark("capacity")
     phase_exact_f32()
-    mark("serve, tp, plan, exact-f32")
+    mark("exact-f32")
     rwkv = phase_rwkv_bf16()
     phase_rwkv_exact_f32()
     mark("rwkv, rwkv-f32")
@@ -4125,6 +4368,9 @@ def main() -> int:
              **{f"qwen2-1.5b tp serve W={world} {mode}": counts
                 for mode, counts in tp.items()},
              "qwen2-1.5b planned serve (auto)": planned,
+             **{f"qwen2-1.5b (reduced) capacity planner's engine demo "
+                f"({sem})": counts
+                for sem, counts in capacity["launches"].items()},
              "rwkv6-7b forward": rwkv["forward"],
              "rwkv6-7b serve": rwkv["serve"],
              "qwen2-1.5b train": trained["launches"],

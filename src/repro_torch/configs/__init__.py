@@ -14,10 +14,12 @@ from repro_torch.configs.rwkv6_7b import CONFIG as rwkv6_7b
 from repro_torch.configs.whisper_medium import CONFIG as whisper_medium
 from repro_torch.configs.zamba2_2_7b import CONFIG as zamba2_2_7b
 
+#: In the reference's registry order, which its sweeps and the dry-run's
+#: ``--all`` follow.
 ARCHS: dict[str, ModelConfig] = {c.name: c for c in
-                                 [deepseek_v2_lite_16b, llama3_8b,
-                                  llama4_scout_17b_16e, llama_3_2_vision_11b,
-                                  phi3_mini_3_8b, qwen2_1_5b, qwen3_14b,
-                                  rwkv6_7b, whisper_medium, zamba2_2_7b]}
+                                 [phi3_mini_3_8b, llama3_8b, qwen3_14b,
+                                  qwen2_1_5b, deepseek_v2_lite_16b,
+                                  llama4_scout_17b_16e, zamba2_2_7b, rwkv6_7b,
+                                  whisper_medium, llama_3_2_vision_11b]}
 
 __all__ = ["ARCHS", "SHAPES", "ModelConfig", "ShapeConfig", "shape_applicable"]

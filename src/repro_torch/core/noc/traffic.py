@@ -287,3 +287,23 @@ def simulate_layer(layer: ConvLayer, mode: str, cfg: NocConfig = NocConfig(),
         noc_energy_pj=noc_ledger.network_energy_pj(cfg),
         stream_energy_pj=stream_ledger.energy_pj(cfg),
     )
+
+
+def simulate_network(layers: list[ConvLayer], mode: str,
+                     cfg: NocConfig = NocConfig(), e_pes: int = 1,
+                     sim_rounds: int = 32,
+                     q_bits: int = DEFAULT_Q_BITS) -> dict:
+    """Whole-network totals (layers execute back-to-back, as in the paper)."""
+    results = [simulate_layer(l, mode, cfg, e_pes, sim_rounds, q_bits)
+               for l in layers]
+    latency = sum(r.latency_cycles for r in results)
+    noc_e = sum(r.noc_energy_pj for r in results)
+    stream_e = sum(r.stream_energy_pj for r in results)
+    return {
+        "mode": mode, "e_pes": e_pes, "layers": results,
+        "latency_cycles": latency,
+        "noc_energy_pj": noc_e,
+        "stream_energy_pj": stream_e,
+        "total_energy_pj": noc_e + stream_e,
+        "network_power": (noc_e + stream_e) / max(latency, 1.0),
+    }

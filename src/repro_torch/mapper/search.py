@@ -95,6 +95,31 @@ def _rank_store() -> dict:
     return _memo_store(_RANK_MEMO)
 
 
+def memo_sizes() -> tuple[int, int]:
+    """(eval, rank) memo lengths — pair with :func:`memo_export`."""
+    return len(_eval_store()), len(_rank_store())
+
+
+def memo_export(sizes: tuple[int, int]) -> tuple[dict, dict]:
+    """Entries appended since ``sizes`` (insertion-ordered tails).
+
+    Lets a pool worker ship the layer/ranking memo growth of a whole
+    search back to the parent (:func:`repro_torch.experiments.sweeps.
+    run_mapper` fans out at workload grain), mirroring what
+    ``_score_hardware``'s delta does per hardware point.
+    """
+    ev, rk = _eval_store(), _rank_store()
+    return ({k: ev[k] for k in islice(iter(ev), sizes[0], None)},
+            {k: rk[k] for k in islice(iter(rk), sizes[1], None)})
+
+
+def memo_merge(deltas: tuple[dict, dict]) -> None:
+    """Merge :func:`memo_export` deltas (pure values; order-free)."""
+    ev, rk = deltas
+    _eval_store().update(ev)
+    _rank_store().update(rk)
+
+
 def _eval_key(layer: LayerShape, mapping: Mapping, base_cfg: NocConfig,
               sim_rounds: int) -> tuple:
     return ((layer.R, layer.C, layer.F, layer.outputs), mapping, base_cfg,

@@ -160,30 +160,29 @@ def resolve_sites(sites: Sequence, objective: str = "latency",
     return tuple(out)
 
 
-#: (cfg, tokens) -> gemm_verdicts result.  Verdicts are a pure function of
-#: the two (deterministic search; ``jobs`` only parallelizes), and
-#: train/prefill phases share tokens=256: without the memo every full plan
-#: sweep would run the same search once per phase.
+#: (cfg, tokens, mapper_space) -> gemm_verdicts result.  Verdicts are a
+#: pure function of those three (deterministic search; ``jobs`` only
+#: parallelizes), and train/prefill phases share tokens=256: without the
+#: memo every full plan sweep would run the same search once per phase.
 _GEMM_MEMO: dict = {}
 
-#: The mapper space every plan searches (``ExecutionPlan.mapper_space``):
-#: the reference's default, the quick mapper.
-MAPPER_SPACE = "quick"
 
-
-def gemm_verdicts(cfg: ModelConfig, tokens: int, jobs: int = 1,
+def gemm_verdicts(cfg: ModelConfig, tokens: int, mapper_space: str = "quick",
+                  jobs: int = 1,
                   ) -> tuple[tuple[GemmVerdict, ...],
                              Optional[tuple[int, int, int]]]:
-    """Quick-mapper search over the config's decoder-block GEMMs."""
-    from repro_torch.mapper import QUICK_MAPPER, search_network
+    """Mapper search over the config's decoder-block GEMMs: the quick
+    mapper (``mapper_space="quick"``, the default) or the full space."""
+    from repro_torch.mapper import MapperConfig, QUICK_MAPPER, search_network
     from repro_torch.models.api import get_model
 
-    memo_key = (cfg, tokens)
+    memo_key = (cfg, tokens, mapper_space)
     hit = _GEMM_MEMO.get(memo_key)
     if hit is not None:
         return hit
     layers = get_model(cfg).gemm_layers(tokens)
-    out = search_network(f"{cfg.name}:gemm", layers, QUICK_MAPPER, jobs=jobs)
+    mcfg = QUICK_MAPPER if mapper_space == "quick" else MapperConfig()
+    out = search_network(f"{cfg.name}:gemm", layers, mcfg, jobs=jobs)
     by_name = {l.name: l for l in layers}
     verdicts = []
     for a, b in zip(out.best.assignments, out.baseline.assignments):
@@ -219,6 +218,7 @@ def tile_choices(cfg: ModelConfig, tokens: int,
 
 def build_plan(cfg: ModelConfig, mesh_shape, phase: str, *,
                objective: str = "latency",
+               mapper_space: str = "quick",
                gemm_search: bool = True,
                tokens: Optional[int] = None,
                shape: Optional[ShapeConfig] = None,
@@ -230,7 +230,8 @@ def build_plan(cfg: ModelConfig, mesh_shape, phase: str, *,
     ``mesh_shape`` is a dict or (axis, span) pairs; ``tokens`` defaults to
     the mapper's 256-token M tile for train/prefill and the batch width
     for decode (a decode GEMM runs one token per sequence).
-    ``gemm_search=False`` skips the mapper verdicts (tile and psum planning
+    ``mapper_space`` picks the quick mapper or the full space for the
+    verdicts; ``gemm_search=False`` skips them (tile and psum planning
     keep working).  ``chips`` > 1 prices the psum sites as a TP axis split
     across that many chips joined by a ``package`` network
     (:func:`resolve_sites`); the GEMM verdicts and tiles are one chip's.
@@ -245,7 +246,7 @@ def build_plan(cfg: ModelConfig, mesh_shape, phase: str, *,
     psum = resolve_sites(sites, objective=objective, noc_cfg=noc_cfg,
                          chips=chips, package=package)
     if gemm_search:
-        gemms, hardware = gemm_verdicts(cfg, tokens)
+        gemms, hardware = gemm_verdicts(cfg, tokens, mapper_space)
     else:
         gemms, hardware = (), None
     tiles = tile_choices(cfg, tokens, dtype)
@@ -254,6 +255,6 @@ def build_plan(cfg: ModelConfig, mesh_shape, phase: str, *,
         model=cfg.name, mesh=mesh, phase=phase, dtype=dtype,
         schema=plan_schema_hash(), objective=objective,
         psum=psum, gemms=gemms, tiles=tiles,
-        mapper_hardware=hardware, mapper_space=MAPPER_SPACE, tokens=tokens,
+        mapper_hardware=hardware, mapper_space=mapper_space, tokens=tokens,
         noc=repr(noc_cfg), config=config_digest(cfg),
         chips=chips, package=package)

@@ -155,18 +155,20 @@ class PlanStore:
 
         The key covers only (model, mesh, phase, dtype); the config's
         content (a registry edit keeps the name) and the build parameters
-        that change a plan's content (objective, an explicit token tile,
-        gemm search on or off, a non-default NocConfig) are recorded in the
-        plan and checked here: a mismatch is cold, and the plan is
-        rebuilt."""
+        that change a plan's content (objective, mapper space, an explicit
+        token tile, gemm search on or off, a non-default NocConfig) are
+        recorded in the plan and checked here: a mismatch is cold, and the
+        plan is rebuilt."""
         from repro_torch.core.noc import NocConfig
 
         from .plan import config_digest
         if plan.config != config_digest(cfg):
             return False
         checks = {"objective": plan.objective, "tokens": plan.tokens}
-        if build_kwargs.get("gemm_search", True) and not plan.gemms:
-            return False
+        if build_kwargs.get("gemm_search", True):
+            if not plan.gemms:
+                return False
+            checks["mapper_space"] = plan.mapper_space
         for key, have in checks.items():
             # None means "the builder's derived default": matches any
             req = build_kwargs.get(key)

@@ -92,6 +92,21 @@ def test_plan_layer_is_covered(module):
             else path.with_suffix(".py")) in FILES
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.experiments", "repro_torch.experiments.__main__",
+    "repro_torch.experiments.sweeps", "repro_torch.experiments.report",
+    "repro_torch.core.workloads", "repro_torch.core.noc.power",
+    "repro_torch.serve.traffic", "repro_torch.serve.costs",
+    "repro_torch.serve.cluster", "repro_torch.serve.__main__"])
+def test_evaluation_and_capacity_planner_are_covered(module):
+    """The paper's evaluation and the capacity planner are among the
+    modules imported with JAX blocked and scanned for banned imports."""
+    assert module in MODULES
+    path = ROOT / "src" / Path(*module.split("."))
+    assert (path / "__init__.py" if path.is_dir()
+            else path.with_suffix(".py")) in FILES
+
+
 def test_scan_catches_banned_imports():
     src = ("import jax.numpy as jnp\nfrom repro.configs import ARCHS\n"
            "import repro\nfrom repro_torch import convert\nimport torch\n")
@@ -114,12 +129,13 @@ def _cfg(name="qwen2-1.5b"):
                                    "rwkv_init_cache", "rwkv_engine",
                                    "rwkv_launcher", "build_prefill",
                                    "hybrid_engine", "vlm_launcher",
-                                   "encdec_init"])
+                                   "encdec_init", "capacity_planner"])
 def test_entry_points_default_to_cuda(no_gpu, entry):
     from repro_torch.convert import params_from_jax
     from repro_torch.launch import serve
     from repro_torch.models.api import get_model
     from repro_torch.parallel.steps import build_prefill
+    from repro_torch.serve import __main__ as planner
     from repro_torch.serve.engine import ServingEngine
     from repro_torch.serve.kvcache import PagedKVCache
 
@@ -147,6 +163,8 @@ def test_entry_points_default_to_cuda(no_gpu, entry):
         "vlm_launcher": lambda: serve.main(["--arch", "llama-3.2-vision-11b",
                                             "--reduced"]),
         "encdec_init": lambda: get_model(encdec).init(),
+        # the engine demo's device is checked before any plan or simulation
+        "capacity_planner": lambda: planner.main(["--no-plan"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

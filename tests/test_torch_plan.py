@@ -193,7 +193,7 @@ def test_gemm_verdicts_do_not_depend_on_jobs():
     cfg = ARCHS[LLAMA3]
     sizes, verdicts = [], []
     for jobs in (1, 2):
-        builder._GEMM_MEMO.pop((cfg, 2), None)
+        builder._GEMM_MEMO.pop((cfg, 2, "quick"), None)
         with simcache.fresh_sim_cache():
             verdicts.append(gemm_verdicts(cfg, 2, jobs=jobs))
             sizes.append((len(simcache.SIM_CACHE), len(search._eval_store())))
