@@ -89,10 +89,24 @@ Phases; any failure raises and the process exits non-zero:
     the decode ratio, its answer in the card's seconds; then ``python -m
     repro_torch.experiments --quick`` over every section the port has
     (Tables I-II, Figs 7-12, mesh scaling, hierarchy, mapper, plan,
-    serve), no failed plan or serve row, and Figs 7-12 at E 1 and 16
+    serve, faults), no failed plan or serve row, and Figs 7-12 at E 1 and 16
     rounds for AlexNet, VGG-16 and ResNet-50 held to the reference's pins
     (:data:`FIG7_9_PINS`, :data:`FIG10_12_PINS`), their averages printed
     beside the paper's 1.22x latency and 2.16x power;
+4d. ``[noc]``: the NoC fault layer and the three executors.  ``python -m
+    repro_torch.experiments --quick`` over :data:`NOC_SECTIONS` once under
+    each ``--engine`` (heap, compiled, vectorized, auto), each into a fresh
+    output directory and window store, every section's JSON equal across
+    the four (less :data:`NOC_HOST_FIELDS`), no ``faults_error`` row, the
+    faults table and each run's vectorized counters and seconds printed;
+    the batched window pass with ``set_array_backend("torch")`` (int64 and
+    float64 tensors on the card) over the window keys of one quick AlexNet
+    mapper search, every store entry it writes bit for bit the numpy
+    backend's and the heap engine's, with both backends' seconds; and every
+    program of the quick faulted corpora (``analysis.corpus``) clean under
+    ``verify_faulted`` and equal (latency, ledger, ``done``,
+    ``delivered``) under the heap, compiled and vectorized engines where
+    the program allows each;
 5. phase 3's serve at 2 layers in float32: the engine's tokens must equal
    the legacy loop's, token for token;
 6. rwkv6-7b at its published widths, depth cut to 24 of 32 layers
@@ -272,19 +286,26 @@ from repro_torch.checkpoint.ckpt import (CheckpointManager,  # noqa: E402
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.analysis import (verify_collective,  # noqa: E402
-                                  verify_hier_schedule, verify_plan)
+                                  verify_faulted, verify_hier_schedule,
+                                  verify_plan)
+from repro_torch.analysis import corpus as noc_corpus  # noqa: E402
 from repro_torch.core import collectives as C  # noqa: E402
 from repro_torch.core.noc import SIM_CACHE, fresh_sim_cache  # noqa: E402
 from repro_torch.core.noc import NocConfig  # noqa: E402
 from repro_torch.core.noc import power as noc_power  # noqa: E402
 from repro_torch.core.noc import hierarchy as noc_hier  # noqa: E402
+from repro_torch.core.noc import traffic as noc_traffic  # noqa: E402
+from repro_torch.core.noc import vectorized as noc_vec  # noqa: E402
+from repro_torch.core.noc.compiled import UncompilableProgram  # noqa: E402
 from repro_torch.core.noc.collective import cost as noc_cost  # noqa: E402
 from repro_torch.core.noc.collective import schedule as noc_sched  # noqa: E402
 from repro_torch.core.noc.collective.engine import run_program  # noqa: E402
 from repro_torch.core.noc.collective.trees import mesh_row  # noqa: E402
 from repro_torch.core.workloads import WORKLOADS  # noqa: E402
+from repro_torch.core.workloads import mapper_workloads  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, TokenPipeline  # noqa: E402
 from repro_torch.experiments import __main__ as experiments  # noqa: E402
+from repro_torch.experiments import report as noc_report  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ina_matmul as im  # noqa: E402
@@ -296,6 +317,7 @@ from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.mapper import QUICK_MAPPER, search_network  # noqa: E402
+from repro_torch.mapper import search as mapper_search  # noqa: E402
 from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
                                              FAMILY_TRAIN_B,
                                              FAMILY_TRAIN_S,
@@ -503,7 +525,19 @@ CAPACITY_ARGV = ["--arch", ARCH, "--mesh", "8x8", "--requests", "200",
 # the paper's evaluation, as python -m repro_torch.experiments --quick runs
 # it (every section the port has)
 EXPERIMENT_SECTIONS = ("tables,fig7_9,fig10_12,mesh_scaling,hierarchy,"
-                       "mapper,plan,serve")
+                       "mapper,plan,serve,faults")
+# [noc]: the sections each --engine runs (every one but plan and serve,
+# whose model traces and cluster runs no executor changes), the engines, and
+# the JSON fields left out of their comparison: wall clock, and the
+# mapper's window-store lookups, which the batched prefetch and the heap
+# engine's bypass of the layer memo change by design (the reference's
+# engines differ in them too)
+NOC_SECTIONS = "tables,fig7_9,fig10_12,mesh_scaling,hierarchy,mapper,faults"
+NOC_ENGINES = ("heap", "compiled", "vectorized", "auto")
+NOC_HOST_FIELDS = ("elapsed_us", "sim_hits", "sim_misses")
+# [noc]: the mapper search whose window keys the batched pass on the card
+# prices (the quick space, as the experiments' mapper section searches it)
+NOC_MAPPER_WORKLOAD = "alexnet"
 # Figs 7-9 (WS+INA over WS) and 10-12 (WS+INA over OS) at E 1, 16 rounds:
 # (latency_x, power_x, energy_x) a network, the pins of the reference's
 # tests/test_experiments.py (held to rel 1e-9), and the paper's headline
@@ -2083,6 +2117,235 @@ def evaluation() -> None:
             f"{quick['latency_x']:.4f}, power_x {quick['power_x']:.4f}; the "
             f"paper: up to {lat}x latency, {pwr}x power (modeled NoC "
             f"cycles and pJ, the same on any host)")
+
+
+# --------------------------------------------------------------------------- #
+# [noc]: the NoC fault layer and the compiled and vectorized executors
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def noc_fresh():
+    """An empty, non-persistent window store, cold collective memos,
+    executor programs and vectorized counters (each engine starts cold)."""
+    with fresh_sim_cache():
+        noc_cost._simulate.cache_clear()
+        noc_cost._simulate_faulted.cache_clear()
+        noc_hier.cost._simulate_express.cache_clear()
+        noc_traffic.clear_compiled_caches()
+        noc_vec.reset_vector_stats()
+        yield
+
+
+def noc_results(x):
+    """A section's JSON without :data:`NOC_HOST_FIELDS`."""
+    if isinstance(x, dict):
+        return {k: noc_results(v) for k, v in x.items()
+                if k not in NOC_HOST_FIELDS}
+    if isinstance(x, list):
+        return [noc_results(v) for v in x]
+    return x
+
+
+def noc_sweeps(root: Path) -> dict:
+    """``python -m repro_torch.experiments --quick`` over
+    :data:`NOC_SECTIONS` once under each of :data:`NOC_ENGINES`, each into
+    a fresh output directory and window store: every section's JSON equal
+    across the engines (less :data:`NOC_HOST_FIELDS`), no ``faults_error``
+    row.  Returns ``{engine: seconds}``."""
+    figs, seconds = {}, {}
+    for engine in NOC_ENGINES:
+        out = root / engine
+        shutil.rmtree(out, ignore_errors=True)
+        with noc_fresh(), \
+                contextlib.redirect_stdout(io.StringIO()) as text:
+            t0 = time.perf_counter()
+            rc = experiments.main(["--quick", "--sections", NOC_SECTIONS,
+                                   "--engine", engine, "--out", str(out),
+                                   "--cache-dir", str(root / f"sims_{engine}")])
+            seconds[engine] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"[noc] --engine {engine} exited {rc}")
+        vec = text.getvalue().splitlines()[-1]
+        log(f"[noc] --engine {engine}: {seconds[engine]:.3f} s (host "
+            f"clock); {vec}")
+        figs[engine] = {s: json.loads((out / f"{s}.json").read_text())
+                        for s in NOC_SECTIONS.split(",")}
+    for engine, got in figs.items():
+        for section, fig in got.items():
+            if noc_results(fig) != noc_results(figs["heap"][section]):
+                raise AssertionError(f"[noc] --engine {engine}: {section} "
+                                     f"differs from the heap engine's")
+    faults = figs["auto"]["faults"]
+    bad = [r for r in faults["rows"] + faults["cluster_rows"]
+           if "faults_error" in r]
+    if bad:
+        raise AssertionError(f"[noc] faults_error rows: {bad}")
+    log(f"[noc] {len(NOC_SECTIONS.split(','))} sections equal under "
+        f"{', '.join(NOC_ENGINES)} (less {', '.join(NOC_HOST_FIELDS)}); the "
+        f"faults section on the {faults['mesh_n']} x {faults['mesh_n']} mesh,"
+        f" seed {faults['seed']} (modeled NoC cycles and pJ):")
+    for line in noc_report._faults_table(faults).splitlines():
+        log(f"[noc]   {line}")
+    return seconds
+
+
+def noc_window_keys() -> list:
+    """The window keys one quick mapper search of
+    :data:`NOC_MAPPER_WORKLOAD` hands the batched pass, in order (recorded
+    from ``_prefetch_hardware``'s calls, on a cold store)."""
+    keys: list = []
+    real = mapper_search.prefetch_windows
+
+    def record(batch):
+        batch = list(batch)
+        keys.extend(batch)
+        return real(batch)
+    mapper_search.prefetch_windows = record
+    try:
+        with noc_fresh():
+            search_network(NOC_MAPPER_WORKLOAD,
+                           mapper_workloads()[NOC_MAPPER_WORKLOAD],
+                           QUICK_MAPPER)
+    finally:
+        mapper_search.prefetch_windows = real
+    return keys
+
+
+def _bits(latency: float, ledger) -> tuple:
+    return (latency.hex(), tuple(float(c).hex() for c in ledger.as_tuple()))
+
+
+def noc_batched_pass(keys: list, backend: str, device=None) -> tuple:
+    """``prefetch_windows(keys)`` on a cold store under ``backend``:
+    ``({key: bits}, windows batched, seconds)``; the backend goes back to
+    numpy after."""
+    noc_vec.set_array_backend(backend, device)
+    try:
+        with noc_fresh():
+            t0 = time.perf_counter()
+            noc_vec.prefetch_windows(keys)
+            dt = time.perf_counter() - t0
+            batched = noc_vec.VECTOR_STATS["windows_batched"]
+            entries = {k: _bits(lat, led)
+                       for k, (lat, led) in SIM_CACHE.export().items()}
+    finally:
+        noc_vec.set_array_backend("numpy")
+    return entries, batched, dt
+
+
+def noc_torch_backend(device: str, smi: str) -> dict:
+    """The batched window pass in PyTorch on ``device`` over
+    :func:`noc_window_keys`: every store entry it writes bit for bit the
+    numpy backend's and the heap engine's; the tensors' device, the
+    batched windows and both backends' seconds (host clock, the second of
+    two passes each) printed."""
+    keys = noc_window_keys()
+    on_card = torch.device(device).type == "cuda"
+    allocs = (lambda: torch.cuda.memory_stats(device).get(
+        "allocation.all.allocated", 0)) if on_card else (lambda: 0)
+    noc_batched_pass(keys, "torch", device)             # warm-up
+    before = allocs()
+    got, batched, t_torch = noc_batched_pass(keys, "torch", device)
+    card_allocs = allocs() - before
+    noc_batched_pass(keys, "numpy")
+    want, np_batched, t_numpy = noc_batched_pass(keys, "numpy")
+    if got != want or batched != np_batched or not batched:
+        raise AssertionError(f"[noc] torch on {device}: {len(got)} entries, "
+                             f"{batched} batched; numpy {len(want)}, "
+                             f"{np_batched}; equal {got == want}")
+    if on_card and not card_allocs:
+        raise AssertionError("[noc] the torch pass allocated nothing on "
+                             "the card")
+    for key, bits in got.items():
+        cfg, mode, window, g, p, gather_flits, unicast_flits, e_pes = key
+        prog = noc_sched.ws_round_program(
+            cfg, mode, window, g=g, p=p, gather_flits=gather_flits,
+            unicast_flits=unicast_flits, e_pes=e_pes)
+        res = run_program(prog, cfg, engine="heap")
+        if _bits(float(res.latency_cycles), res.ledger) != bits:
+            raise AssertionError(f"[noc] window {key[1:]}: the batched pass "
+                                 f"gives {bits}, the heap engine "
+                                 f"{_bits(float(res.latency_cycles), res.ledger)}")
+    log(f"[noc] batched window pass, torch on {device} (int64/float64, "
+        f"{card_allocs} CUDA allocations): {len(keys)} window keys of a "
+        f"quick {NOC_MAPPER_WORKLOAD} mapper search, {len(got)} entries "
+        f"({batched} batched windows), bit-equal to numpy's and the heap "
+        f"engine's; {t_torch * 1e3:.3f} ms torch, {t_numpy * 1e3:.3f} ms "
+        f"numpy (host clock, whole call); {smi}")
+    return {"keys": len(keys), "entries": len(got), "batched": batched,
+            "torch_s": t_torch, "numpy_s": t_numpy}
+
+
+def _run(prog, cfg, engine: str):
+    res = run_program(prog, cfg, engine=engine)
+    return (res.latency_cycles, res.ledger.as_tuple(), res.done,
+            res.delivered)
+
+
+def noc_faulted_corpus() -> dict:
+    """Every program of ``faulted_collective_programs(quick=True)`` and
+    every lane of ``faulted_hier_schedules(quick=True)``: ``verify_faulted``
+    finds nothing, and the heap, compiled and vectorized engines (where the
+    program allows each) give the same latency, ledger, ``done`` and
+    ``delivered``.  Returns the counts."""
+    t0 = time.perf_counter()
+    progs = []
+    for case, cfg, faults, prog in noc_corpus.faulted_collective_programs(
+            quick=True):
+        findings = verify_faulted(
+            prog, faults, cfg, op=case["op"],
+            participants=case["participants"], algorithm=case["algorithm"],
+            semantics=case["semantics"])
+        progs.append((f"{case['fault']} {case['label']} {case['op']} "
+                      f"{case['semantics']} {case['algorithm']}", cfg,
+                      prog, findings))
+    n_sched = 0
+    for case, faults, sched in noc_corpus.faulted_hier_schedules(quick=True):
+        n_sched += 1
+        findings = verify_hier_schedule(sched)
+        for level, lane in sched.all_lanes():
+            lane_findings = (verify_faulted(list(lane.prog), faults, lane.cfg)
+                             if lane.scope == "chip" else [])
+            progs.append((f"hier {case['grid']} {case['op']} "
+                          f"{case['semantics']} {level.name} {lane.label}",
+                          lane.cfg, list(lane.prog),
+                          findings + lane_findings))
+    ran = {"heap": 0, "compiled": 0, "vectorized": 0}
+    for label, cfg, prog, findings in progs:
+        if findings:
+            raise AssertionError(f"[noc] {label}: {findings}")
+        want = _run(prog, cfg, "heap")
+        ran["heap"] += 1
+        for engine, refusal in (("compiled", UncompilableProgram),
+                                ("vectorized",
+                                 noc_vec.UnvectorizableProgram)):
+            try:
+                got = _run(prog, cfg, engine)
+            except refusal:
+                continue
+            ran[engine] += 1
+            if got != want:
+                raise AssertionError(f"[noc] {label}: {engine} differs from "
+                                     f"the heap engine")
+    log(f"[noc] faulted corpus (quick): {len(progs)} programs "
+        f"({n_sched} hierarchical schedules' lanes among them), "
+        f"verify_faulted clean; heap {ran['heap']}, compiled "
+        f"{ran['compiled']}, vectorized {ran['vectorized']} runs, equal "
+        f"latency, ledger, done and delivered; "
+        f"{time.perf_counter() - t0:.3f} s (host clock)")
+    return ran
+
+
+def phase_noc(smi: str) -> dict:
+    """Phase 4d (see the module docstring)."""
+    t_phase = time.perf_counter()
+    root = _build.BUILD_DIR.parent / "noc"
+    shutil.rmtree(root, ignore_errors=True)
+    sweeps = noc_sweeps(root)
+    backend = noc_torch_backend("cuda", smi)
+    ran = noc_faulted_corpus()
+    log(f"[noc] phase {time.perf_counter() - t_phase:.1f} s (host clock); "
+        f"{smi}")
+    return {"sweeps": sweeps, "backend": backend, "corpus": ran}
 
 
 def phase_exact_f32() -> None:
@@ -4335,6 +4598,8 @@ def main() -> int:
     mm_rows += capacity["mm_rows"]
     at_rows += capacity["at_rows"]
     mark("capacity")
+    phase_noc(info["smi"])
+    mark("noc")
     phase_exact_f32()
     mark("exact-f32")
     rwkv = phase_rwkv_bf16()

@@ -26,6 +26,12 @@ The checks (ids are the ``Finding.check`` vocabulary):
     reduce phases deliver only the chunk root, multicast phases deliver
     every destination exactly once; the union of delivered contributions
     matches the op's semantics end to end.
+``ledger``
+    Static-ledger conservation for a CompiledProgram
+    (:func:`verify_compiled`): each op's energy tuple equals the
+    path-determined counts recomputed from its route (flits x links, hops,
+    NI crossings, adds), against the source PacketOps when available; its
+    ``children``/``dep_count`` agree with the dep edges.
 ``hier-route`` / ``hier-fold``
     The package hierarchy's schedules (:func:`verify_hier_schedule`):
     chip-boundary legality, express channels, and fold exactly once per
@@ -41,13 +47,18 @@ The checks (ids are the ``Finding.check`` vocabulary):
     Paged-KV free-list invariants: no block both free and mapped, no
     aliasing across tables, free + live == total, every request's length
     covered by its block table.
+``fault-route`` / ``fault-turn`` / ``fault-remap``
+    Fault-repaired programs (:func:`verify_faulted`): no route crosses a
+    failed link or router; every detour path is legal under a *single*
+    turn rule for the whole program (west-first or up*/down*: mixing
+    rules voids the per-rule deadlock argument); no dead or
+    fabric-stranded PE appears in the contribution algebra, and the
+    repaired collective folds/delivers exactly once over the usable
+    participant set.
 
-The reference's ``ledger`` check (``verify_compiled``) goes with its
-compiled executor and ``verify_faulted`` with its fault layer, neither of
-which the port has (``ROADMAP.md``, out of scope).  The port's
-``route_link_ids`` / ``path_link_ids`` return ``(link_ids, links)``, each
-id a flat int or an overflow key; a route is strict (in the mesh, unit
-steps) when every id is an int.
+The port's ``route_link_ids`` / ``path_link_ids`` return ``(link_ids,
+links)``, each id a flat int or an overflow key; a route is strict (in the
+mesh, unit steps) when every id is an int.
 """
 from __future__ import annotations
 
@@ -61,9 +72,10 @@ from repro_torch.core.noc.simulator import (effective_vcs, path_link_ids,
 from .findings import Finding, VerificationError
 
 __all__ = [
-    "verify_program", "verify_collective", "verify_schedule",
-    "verify_hier_schedule", "verify_plan", "verify_allocator",
-    "verify_kvcache", "check_program",
+    "verify_program", "verify_collective", "verify_compiled",
+    "verify_schedule", "verify_hier_schedule", "verify_plan",
+    "verify_allocator", "verify_kvcache", "verify_faulted",
+    "check_program",
 ]
 
 
@@ -343,6 +355,107 @@ def verify_collective(prog: Sequence, *, op: str,
         for c in chunks:
             for p in parts:
                 want(p, c, pset, "participant")
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Compiled programs: static-ledger conservation
+# --------------------------------------------------------------------------- #
+def verify_compiled(cp, prog: Optional[Sequence] = None,
+                    cfg: Optional[NocConfig] = None) -> list[Finding]:
+    """Check a CompiledProgram's flat encoding against itself and, when
+    the source PacketOps are given, against a fresh route derivation."""
+    out: list[Finding] = []
+    n = cp.n
+    if not (len(cp.ops) == len(cp.children) == len(cp.dep_count) == n):
+        out.append(Finding(
+            "ledger", "compiled",
+            f"array lengths disagree: n={n}, ops={len(cp.ops)}, "
+            f"children={len(cp.children)}, dep_count={len(cp.dep_count)}"))
+        return out
+    derived_children: list[list[int]] = [[] for _ in range(n)]
+    for i, top in enumerate(cp.ops):
+        deps = top[2]
+        if cp.dep_count[i] != len(deps):
+            out.append(Finding("dep-dag", f"op {i}",
+                               f"dep_count {cp.dep_count[i]} != "
+                               f"{len(deps)} encoded deps"))
+        for d in deps:
+            if not (isinstance(d, int) and 0 <= d < i):
+                out.append(Finding("dep-dag", f"op {i}",
+                                   f"dep {d!r} is not a prior op index"))
+            else:
+                derived_children[d].append(i)
+    for i in range(n):
+        if tuple(derived_children[i]) != tuple(cp.children[i]):
+            out.append(Finding(
+                "dep-dag", f"op {i}",
+                f"children {tuple(cp.children[i])} != "
+                f"{tuple(derived_children[i])} derived from dep edges"))
+    for i, top in enumerate(cp.ops):
+        flits, inject, eject = top[4], top[5], top[6]
+        n_links = len(top[7])
+        e = tuple(top[12])
+        # energy = (pe_adds, ni_flits, flit_routers, flit_links,
+        #           packet_hops, router_adds, packets_built)
+        shape = (e[0], e[1], flits * (n_links + 1), flits * n_links,
+                 n_links, e[5], int(inject) + int(eject))
+        if e != shape:
+            out.append(Finding(
+                "ledger", f"op {i}",
+                f"energy tuple {e} inconsistent with its own route "
+                f"({n_links} links, {flits} flits): expected {shape}"))
+        if e[1] < flits * (int(inject) + int(eject)) - 1e-9:
+            out.append(Finding(
+                "ledger", f"op {i}",
+                f"NI flits {e[1]} below the inject/eject floor "
+                f"{flits * (int(inject) + int(eject))}"))
+    if prog is None:
+        return out
+    if len(prog) != n:
+        out.append(Finding("ledger", "compiled",
+                           f"{n} compiled ops for {len(prog)} source ops"))
+        return out
+    cfg = NocConfig() if cfg is None else cfg
+    for i, (op, top) in enumerate(zip(prog, cp.ops)):
+        where = f"op {i}" + (f" [{op.tag}]" if op.tag else "")
+        if tuple(top[2]) != tuple(op.deps):
+            out.append(Finding("dep-dag", where,
+                               f"compiled deps {top[2]} != source "
+                               f"{tuple(op.deps)}"))
+        virtual = _is_virtual(op)
+        if top[3] != virtual:
+            out.append(Finding("ledger", where,
+                               f"virtual flag {top[3]} != {virtual}"))
+        want_links: tuple = ()
+        if not virtual:
+            strict, _ = _op_route(op, cfg.width, cfg.height)
+            if strict is None:
+                out.append(Finding(
+                    "route", where,
+                    f"source route {op.src}->{op.dst} is not encodable in "
+                    f"the {cfg.width}x{cfg.height} mesh, yet it compiled"))
+                continue
+            want_links = strict
+        if tuple(top[7]) != tuple(want_links):
+            out.append(Finding(
+                "ledger", where,
+                f"compiled link ids {top[7]} != {tuple(want_links)} "
+                f"re-derived from the route"))
+        nl = len(want_links)
+        want_e = (op.pe_adds,
+                  op.extra_ni_flits
+                  + op.flits * (int(op.inject) + int(op.eject)),
+                  op.flits * (nl + 1) if not virtual else 0,
+                  op.flits * nl,
+                  nl,
+                  op.reduce_words,
+                  int(op.inject) + int(op.eject))
+        if tuple(top[12]) != want_e:
+            out.append(Finding(
+                "ledger", where,
+                f"energy tuple {tuple(top[12])} != {want_e} recomputed "
+                f"from the source op's path-determined counts"))
     return out
 
 
@@ -689,6 +802,97 @@ def _plan_layer_findings(plan) -> list[Finding]:
                 "plan-tile", f"{where} gemm {layer.name}",
                 f"no tile choice covers GEMM shape "
                 f"{(layer.M, layer.K, layer.N)} at dtype {plan.dtype}"))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# Fault-repaired programs (core/noc/faults.py)
+# --------------------------------------------------------------------------- #
+def verify_faulted(prog: Sequence, faults, cfg: Optional[NocConfig] = None,
+                   *, op: Optional[str] = None,
+                   participants: Optional[Iterable] = None,
+                   root=None, algorithm: str = "reduce_bcast",
+                   semantics: str = "ina") -> list[Finding]:
+    """Check a fault-repaired program against its FaultModel.
+
+    Runs the structural pass (:func:`verify_program`, including the CDG
+    deadlock check over the actual detour paths) and adds the fault
+    classes: ``fault-route`` (no failed link/router on any route — an op
+    without a path override is checked on the XY route the engines would
+    derive), ``fault-turn`` (one turn rule covers every path), and, when
+    collective metadata is supplied, ``fault-remap`` (the algebra closes
+    over the usable participant set: dead or stranded PEs appear nowhere)
+    plus the full fold/deliver-exactly-once pass over that set.
+    """
+    from repro_torch.core.noc.faults import (path_is_updown,
+                                             path_is_west_first,
+                                             remap_participants, remap_root)
+    from repro_torch.core.noc.topology import xy_route_tuple
+    cfg = NocConfig() if cfg is None else cfg
+    width, height = cfg.width, cfg.height
+    out = verify_program(prog, cfg)
+    if faults.transient:
+        out.append(Finding(
+            "fault-route", "model",
+            "FaultModel still carries transient faults — resolve a window "
+            "with at_window() before planning/verifying"))
+    routed: list[tuple[str, tuple]] = []
+    for i, o in enumerate(prog):
+        if _is_virtual(o):
+            continue
+        where = f"op {i}" + (f" [{o.tag}]" if o.tag else "")
+        if o.path is not None:
+            path = tuple(tuple(n) for n in o.path)
+        else:
+            path = xy_route_tuple(tuple(o.src), tuple(o.dst))
+        for node in path:
+            if not faults.router_ok(node):
+                out.append(Finding("fault-route", where,
+                                   f"route visits failed router {node}"))
+        for a, b in zip(path, path[1:]):
+            if not faults.link_ok(a, b):
+                out.append(Finding("fault-route", where,
+                                   f"route crosses failed link {a}<->{b}"))
+        if len(path) > 2:            # 1-hop paths are legal under any rule
+            routed.append((where, path))
+    wf = {w for w, p in routed if path_is_west_first(p)}
+    ud = {w for w, p in routed
+          if path_is_updown(p, faults, width, height)}
+    every = {w for w, _ in routed}
+    if not (wf >= every or ud >= every):
+        for where, _ in routed:
+            if where not in wf and where not in ud:
+                out.append(Finding(
+                    "fault-turn", where,
+                    "detour path is legal under neither the west-first "
+                    "nor the up*/down* turn rule"))
+        if every - wf and every - ud and not (every - wf - ud):
+            out.append(Finding(
+                "fault-turn", "program",
+                "paths mix west-first-only and updown-only detours — no "
+                "single turn rule covers the program, so the per-rule "
+                "deadlock argument does not apply"))
+    if op is None or participants is None:
+        return out
+    healthy, _ = remap_participants(participants, faults, width, height)
+    usable = frozenset(healthy)
+    for i, o in enumerate(prog):
+        where = f"op {i}" + (f" [{o.tag}]" if o.tag else "")
+        for p in sorted(frozenset(o.contribs) - usable):
+            out.append(Finding(
+                "fault-remap", where,
+                f"dead/stranded PE {p} still contributes — its operand "
+                f"was not remapped to a healthy neighbor"))
+        for p in sorted(frozenset(o.delivers) - usable):
+            out.append(Finding(
+                "fault-remap", where,
+                f"delivery targets dead/stranded PE {p}"))
+    parts0 = sorted(set(tuple(p) for p in participants))
+    r = remap_root(parts0[0] if root is None else tuple(root),
+                   healthy, faults)
+    out.extend(verify_collective(prog, op=op, participants=healthy,
+                                 root=r, algorithm=algorithm,
+                                 semantics=semantics))
     return out
 
 

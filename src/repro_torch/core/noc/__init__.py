@@ -11,21 +11,29 @@ so it keeps its own copy of what those questions reach: the router and
 energy model, the topology, the heap simulator, the result store
 (``simcache``, persisted under the port's own directory), the WS/OS
 traffic (``traffic``) and ``collective/`` (trees, schedule, engine, cost).
-The logic is the reference's; the differences are stated where they are:
-one executor, the heap engine (``collective.engine``, ``traffic``), and no
-fault layer (``collective.schedule``, ``.cost``).  The package hierarchy
+The logic is the reference's, with its three bit-identical executors (the
+heap engine, the compiled replay of :mod:`.compiled` and the vectorized
+kernels of :mod:`.vectorized`, whose batched window pass also runs in
+PyTorch on a device) and its fault layer (:mod:`.faults`: seeded faults,
+detour routing, repaired collectives).  The package hierarchy
 (``hierarchy/``: chips of meshes on a package network) prices psum sites
-and mappings across chips.  The reference's compiled and vectorized
-executors and faults are not copied yet (``ROADMAP.md``).
+and mappings across chips.
 """
+from .compiled import CompiledProgram, compile_program, compiled_disabled
 from .router import EnergyLedger, NocConfig
-from .simcache import SIM_CACHE, SimCache, fresh_sim_cache
+from .simcache import (SIM_CACHE, SimCache, fresh_sim_cache,
+                       sim_cache_disabled)
 from .simulator import NocSim
 from .topology import Mesh, route, xy_route, yx_route
-from .traffic import (LayerResult, layer_plan, simulate_layer,
-                      simulate_network)
+from .traffic import (CompiledWindow, LayerResult, layer_plan,
+                      simulate_layer, simulate_network)
+from .vectorized import (VectorProgram, lower_program, run_vectorized,
+                         vector_stats, vectorized_disabled)
 
 __all__ = ["NocConfig", "EnergyLedger", "Mesh", "route", "xy_route",
-           "yx_route", "NocSim", "SIM_CACHE", "SimCache", "fresh_sim_cache",
-           "LayerResult", "layer_plan", "simulate_layer",
-           "simulate_network"]
+           "yx_route", "NocSim", "LayerResult", "layer_plan",
+           "simulate_layer", "simulate_network", "SIM_CACHE", "SimCache",
+           "sim_cache_disabled", "fresh_sim_cache", "CompiledProgram",
+           "CompiledWindow", "compile_program", "compiled_disabled",
+           "VectorProgram", "lower_program", "run_vectorized",
+           "vector_stats", "vectorized_disabled"]

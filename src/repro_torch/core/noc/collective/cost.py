@@ -115,26 +115,66 @@ def _simulate(op: str, parts: tuple[Coord, ...], payload_bits: float,
             packets, res.ledger.copy())
 
 
+@lru_cache(maxsize=2048)
+def _simulate_faulted(op: str, parts: tuple[Coord, ...], payload_bits: float,
+                      cfg: NocConfig, root: Optional[Coord], algorithm: str,
+                      semantics: str, order: str, faults,
+                      ) -> tuple[int, float, int, EnergyLedger]:
+    """Fault-repaired twin of :func:`_simulate` under a distinct store tag.
+
+    The FaultModel is frozen/hashable so it rides the lru key directly, and
+    its normalized ``key()`` joins the SIM_CACHE signature — one fault set
+    can never replay another's (or the clean mesh's) stored runs.
+    """
+    prog = plan_collective(op, parts, payload_bits, cfg, root=root,
+                           algorithm=algorithm, semantics=semantics,
+                           order=order, faults=faults)
+    packets = sum(1 for o in prog if o.flits)
+    key = ("collective-faulted", op, parts, payload_bits, cfg, root,
+           algorithm, semantics, order, faults.key())
+    hit = SIM_CACHE.get(key)
+    if hit is not None:
+        COST_STATS["store_hits"] += 1
+        latency, ledger = hit
+        return (int(latency), ledger.network_energy_pj(cfg), packets, ledger)
+    COST_STATS["engine_runs"] += 1
+    res = run_program(prog, cfg)
+    SIM_CACHE.put(key, float(res.latency_cycles), res.ledger)
+    return (res.latency_cycles, res.network_energy_pj(cfg),
+            packets, res.ledger.copy())
+
+
 def collective_cost(op: str, payload_bits: float,
                     cfg: NocConfig = NocConfig(), *,
                     participants: Optional[Iterable[Coord]] = None,
                     root: Optional[Coord] = None,
                     algorithm: str = "reduce_bcast",
                     semantics: str = "ina",
-                    order: str = "xy") -> CollectiveCost:
+                    order: str = "xy", faults=None) -> CollectiveCost:
     """Plan + simulate one collective; ``participants`` defaults to the
     full ``cfg.n`` x ``cfg.n`` mesh.  ``payload_bits`` is per participant.
-    The reference's ``faults=`` (a fault-repaired program) is not copied
-    into the port.
+
+    ``faults`` (an optional :class:`~repro_torch.core.noc.faults.
+    FaultModel`) prices the fault-repaired program instead; ``None`` or an
+    empty model takes the exact unfaulted path: same memo, same store keys.
     """
     parts = tuple(sorted(participants)) if participants is not None \
         else tuple(full_mesh(cfg.n))
-    memo_before = _simulate.cache_info().hits
-    lat, energy, packets, ledger = _simulate(op, parts, float(payload_bits),
-                                             cfg, root, algorithm, semantics,
-                                             order)
-    if _simulate.cache_info().hits > memo_before:
-        COST_STATS["memo_hits"] += 1
+    if faults is not None and not faults.empty:
+        memo_before = _simulate_faulted.cache_info().hits
+        lat, energy, packets, ledger = _simulate_faulted(
+            op, parts, float(payload_bits), cfg, root, algorithm,
+            semantics, order, faults)
+        if _simulate_faulted.cache_info().hits > memo_before:
+            COST_STATS["memo_hits"] += 1
+    else:
+        memo_before = _simulate.cache_info().hits
+        lat, energy, packets, ledger = _simulate(op, parts,
+                                                 float(payload_bits),
+                                                 cfg, root, algorithm,
+                                                 semantics, order)
+        if _simulate.cache_info().hits > memo_before:
+            COST_STATS["memo_hits"] += 1
     return CollectiveCost(op=op, algorithm=algorithm, semantics=semantics,
                           n=cfg.n, participants=len(parts),
                           payload_bits=float(payload_bits),

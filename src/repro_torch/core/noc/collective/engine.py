@@ -11,23 +11,33 @@ traffic generator cycle-for-cycle.
 Virtual ops (``flits == 0``, no inject/eject) are synchronisation points:
 they complete at their issue time without touching the network.
 
-The reference has three executors of these semantics: this heap engine
-(its ground truth), a compiled flat-array replay and a vectorized wavefront
-kernel, bit-identical to it.  The port keeps the heap engine only: the
-other two exist for speed, and ``mode="auto"`` resolves a handful of
-collective signatures a process, each once (``chip_smoke.py``'s ``[tp]``
-phase times a cold ``choose_psum_mode`` at p 2, 4 and 8: a few ms on the
-heap engine alone).  ``run_program(verify=True)`` runs the static checks
-of :mod:`repro_torch.analysis.verify` first, as the reference's does.
+Three executors share these semantics, as in the reference: the
+closure-based heap engine below (the ground truth, fully general), the
+compiled flat-array replay of :mod:`repro_torch.core.noc.compiled`, and
+the vectorized wavefront kernel of :mod:`repro_torch.core.noc.vectorized`
+(contention-free DAG programs only).  ``run_program`` dispatches
+vectorized -> compiled -> heap when the program is encodable and no
+external simulator was supplied; results are bit-identical (latency, done
+times, deliveries and the full ledger; ``tests/test_torch_executors.py``).
+``run_program(verify=True)`` runs the static checks of
+:mod:`repro_torch.analysis.verify` first, as the reference's does.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
+from ..compiled import (UncompilableProgram, compile_program,
+                        compiled_enabled)
 from ..router import EnergyLedger, NocConfig
 from ..simulator import NocSim
+from ..vectorized import (UnvectorizableProgram, run_vectorized,
+                          vectorized_enabled)
 from .schedule import PacketOp
+
+#: ``run_program``'s executors: ``auto`` picks the fastest that takes the
+#: program, the others force one.
+ENGINES = ("auto", "vectorized", "compiled", "heap")
 
 
 @dataclass
@@ -47,20 +57,49 @@ class ProgramResult:
 
 def run_program(prog: Sequence[PacketOp], cfg: Optional[NocConfig] = None,
                 *, sim: Optional[NocSim] = None, t0: int = 0,
-                verify: bool = False) -> ProgramResult:
+                engine: str = "auto", verify: bool = False) -> ProgramResult:
     """Execute ``prog`` on ``sim`` (or a fresh simulator) and return the
     makespan, per-op completion times, and the energy ledger.
 
-    A caller supplied ``sim`` keeps its ledger and resource state.
-    ``verify=True`` runs the static checks (DAG, routes, CDG:
+    ``engine`` selects the executor: ``"auto"`` tries the vectorized
+    wavefront kernel, then the compiled flat-array path (both
+    bit-identical, no per-op closures; the switches
+    :func:`~repro_torch.core.noc.vectorized.vectorized_disabled` and
+    :func:`~repro_torch.core.noc.compiled.compiled_disabled` turn them
+    off), then the heap engine below.  ``"vectorized"`` and ``"compiled"``
+    force theirs and raise ``UnvectorizableProgram`` /
+    ``UncompilableProgram`` on a program it cannot take; ``"heap"`` forces
+    the ground-truth engine.  A caller supplied ``sim`` always uses the
+    heap engine (the caller owns the simulator's ledger and resource
+    state).  ``verify=True`` runs the static checks (DAG, routes, CDG:
     :func:`repro_torch.analysis.verify.check_program`) first and raises
-    ``VerificationError`` instead of simulating a broken program.  The
-    reference's ``engine=`` (its executor choice) is not copied: the port
-    has the heap engine only.
+    ``VerificationError`` instead of simulating a broken program.
     """
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r} is not one of {ENGINES}")
+    if sim is not None and engine in ("vectorized", "compiled"):
+        raise ValueError(f"engine {engine!r} takes no simulator: a supplied "
+                         "sim runs on the heap engine")
     if verify:
         from repro_torch.analysis.verify import check_program
         check_program(prog, cfg)
+    flat_cfg = cfg if cfg is not None else NocConfig()
+    if engine == "vectorized":
+        return ProgramResult(*run_vectorized(prog, flat_cfg, t0))
+    if engine == "compiled":
+        return ProgramResult(*compile_program(prog, flat_cfg).run(t0))
+    if sim is None and engine == "auto" and compiled_enabled():
+        if vectorized_enabled():
+            try:
+                return ProgramResult(*run_vectorized(prog, flat_cfg, t0))
+            except UnvectorizableProgram:
+                pass                    # attributed in VECTOR_STATS
+        try:
+            cp = compile_program(prog, flat_cfg)
+        except UncompilableProgram:
+            cp = None
+        if cp is not None:
+            return ProgramResult(*cp.run(t0))
     if sim is None:
         sim = NocSim(cfg if cfg is not None else NocConfig())
     n = len(prog)

@@ -192,7 +192,7 @@ def _plan_reduce_eject_inject(prog: list[PacketOp], tree: CollectiveTree,
     is ejected, added at the PE, and re-injected toward the next hop.
 
     ``path_of(src, dst)`` (optional) supplies an explicit route override
-    per logical edge — the reference's fault-repaired planner routes every packet
+    per logical edge — the fault-repaired planner routes every packet
     along the repaired tree instead of the default XY derivation.
     """
     flits = _payload_flits(cfg, payload_bits)
@@ -410,18 +410,28 @@ def plan_collective(op: str, participants: Iterable[Coord],
                     root: Optional[Coord] = None,
                     algorithm: str = "reduce_bcast",
                     semantics: str = "ina",
-                    order: str = "xy", vc: int = 0) -> list[PacketOp]:
+                    order: str = "xy", vc: int = 0,
+                    faults=None) -> list[PacketOp]:
     """Lower a collective into a packet program.
 
     ``payload_bits`` is the per-participant operand size (reduce/broadcast/
     allreduce) or per-participant result size (gather).  ``root`` defaults
     to the first participant.  ``algorithm`` selects the allreduce lowering;
     ``semantics`` selects router capability (see module docstring).
-    The reference's ``faults=`` (its fault-repaired planner) is not copied
-    into the port: the psum-mode cost model plans clean meshes only.
+
+    ``faults`` (an optional :class:`~repro_torch.core.noc.faults.
+    FaultModel`) switches to the fault-repaired planner: trees rebuilt over
+    the healthy fabric, dead participants remapped to healthy neighbors,
+    and every packet carrying an explicit turn-rule-legal route override.
+    ``None`` or an empty model takes this exact code path: bit-identical
+    programs.
     """
     assert op in COLLECTIVE_OPS, op
     assert semantics in SEMANTICS, semantics
+    if faults is not None and not faults.empty:
+        return _plan_faulted(op, participants, payload_bits, cfg, root=root,
+                             algorithm=algorithm, semantics=semantics,
+                             vc=vc, faults=faults)
     parts = sorted(set(participants))
     assert parts, "empty participant set"
     root = parts[0] if root is None else root
@@ -486,6 +496,158 @@ def plan_collective(op: str, participants: Iterable[Coord],
             else _plan_multicast_unicast
         plan(prog, btree, chunk_bits, cfg, vc=vc, chunk=c, tag=f"ag[{c}]",
              contribs=frozenset(parts), deps=(final,))
+    return prog
+
+
+# --------------------------------------------------------------------------- #
+# Fault-repaired planning (core/noc/faults.py)
+# --------------------------------------------------------------------------- #
+def _tree_path(tree: CollectiveTree, child: Coord,
+               ancestor: Coord) -> list[Coord]:
+    """Nodes from ``child`` up the repaired tree to ``ancestor``
+    (inclusive) — the explicit route override for a logical edge."""
+    path = [child]
+    v = child
+    while v != ancestor:
+        v = tree.parent[v]
+        path.append(v)
+    return path
+
+
+def _plan_faulted(op: str, participants: Iterable[Coord],
+                  payload_bits: float, cfg: NocConfig, *,
+                  root: Optional[Coord], algorithm: str, semantics: str,
+                  vc: int, faults) -> list[PacketOp]:
+    """The fault-repaired lowering: same op/semantics/algorithm matrix as
+    the clean planner, but trees come from a turn-restricted repair BFS,
+    dead participants are remapped to healthy neighbors, and *every* packet
+    (including the eject-inject unicasts that normally ride implicit XY)
+    carries an explicit tree-path override — the simulator never derives a
+    route that could cross a failed link.
+
+    The whole program plans under one detour rule: west-first preferred
+    (XY-compatible, minimal perturbation), falling back to up*/down* —
+    which routes any connected fault pattern — when west-first's partial
+    adaptivity leaves some participant unreachable.  Rules never mix
+    within a program (mixing would break the per-rule deadlock argument).
+    """
+    from ..faults import UnroutableError
+    try:
+        return _plan_faulted_rule(op, participants, payload_bits, cfg,
+                                  root=root, algorithm=algorithm,
+                                  semantics=semantics, vc=vc, faults=faults,
+                                  rule="west_first")
+    except UnroutableError:
+        return _plan_faulted_rule(op, participants, payload_bits, cfg,
+                                  root=root, algorithm=algorithm,
+                                  semantics=semantics, vc=vc, faults=faults,
+                                  rule="updown")
+
+
+def _plan_faulted_rule(op: str, participants: Iterable[Coord],
+                       payload_bits: float, cfg: NocConfig, *,
+                       root: Optional[Coord], algorithm: str,
+                       semantics: str, vc: int, faults,
+                       rule: str) -> list[PacketOp]:
+    from ..faults import (remap_participants, remap_root,
+                          repair_multicast_tree, repair_reduction_tree)
+    assert not faults.transient, ("resolve transient faults with "
+                                  "FaultModel.at_window() before planning")
+    parts_all = sorted(set(participants))
+    assert parts_all, "empty participant set"
+    w, h = cfg.width, cfg.height
+    healthy, _ = remap_participants(parts_all, faults, w, h)
+    root = remap_root(parts_all[0] if root is None else root,
+                      healthy, faults)
+    prog: list[PacketOp] = []
+
+    def up_path(tree):                    # leaf -> ancestor (reduce/gather)
+        return lambda a, b: _tree_path(tree, a, b)
+
+    def down_path(tree):                  # root -> leaf (multicast)
+        return lambda a, b: list(reversed(_tree_path(tree, b, a)))
+
+    if op == "reduce":
+        tree = repair_reduction_tree(root, healthy, faults, w, h, rule)
+        if semantics == "ina":
+            _plan_reduce_ina(prog, tree, payload_bits, cfg, vc=vc, chunk=0,
+                             tag="reduce")
+        else:
+            _plan_reduce_eject_inject(prog, tree, payload_bits, cfg, vc=vc,
+                                      chunk=0, tag="reduce",
+                                      path_of=up_path(tree))
+        return prog
+
+    if op == "broadcast":
+        tree = repair_multicast_tree(root, healthy, faults, w, h, rule)
+        if semantics == "ina":
+            _plan_multicast_ina(prog, tree, payload_bits, cfg, vc=vc,
+                                chunk=0, tag="bcast",
+                                contribs=frozenset({root}), deps=())
+        else:
+            _plan_multicast_unicast(prog, tree, payload_bits, cfg, vc=vc,
+                                    chunk=0, tag="bcast",
+                                    contribs=frozenset({root}), deps=(),
+                                    path_of=down_path(tree))
+        return prog
+
+    if op == "gather":
+        tree = repair_reduction_tree(root, healthy, faults, w, h, rule)
+        if semantics == "ina":
+            _plan_gather_ina(prog, tree, payload_bits, cfg, vc=vc, chunk=0,
+                             tag="gather")
+        else:
+            _plan_gather_unicast(prog, tree, payload_bits, cfg, vc=vc,
+                                 chunk=0, tag="gather",
+                                 path_of=up_path(tree))
+        return prog
+
+    # allreduce
+    assert algorithm in ALLREDUCE_ALGORITHMS, algorithm
+    if algorithm == "reduce_bcast":
+        rtree = repair_reduction_tree(root, healthy, faults, w, h, rule)
+        if semantics == "ina":
+            final = _plan_reduce_ina(prog, rtree, payload_bits, cfg, vc=vc,
+                                     chunk=0, tag="ar:reduce")
+        else:
+            final = _plan_reduce_eject_inject(prog, rtree, payload_bits,
+                                              cfg, vc=vc, chunk=0,
+                                              tag="ar:reduce",
+                                              path_of=up_path(rtree))
+        btree = repair_multicast_tree(root, healthy, faults, w, h, rule)
+        if semantics == "ina":
+            _plan_multicast_ina(prog, btree, payload_bits, cfg, vc=vc,
+                                chunk=0, tag="ar:bcast",
+                                contribs=frozenset(healthy), deps=(final,))
+        else:
+            _plan_multicast_unicast(prog, btree, payload_bits, cfg, vc=vc,
+                                    chunk=0, tag="ar:bcast",
+                                    contribs=frozenset(healthy),
+                                    deps=(final,), path_of=down_path(btree))
+        return prog
+
+    # rs_ag over the *healthy* set: chunk c reduces on a repaired tree
+    # rooted at healthy participant c, then all-gathers from that root.
+    chunk_bits = payload_bits / len(healthy)
+    for c, r in enumerate(healthy):
+        rtree = repair_reduction_tree(r, healthy, faults, w, h, rule)
+        if semantics == "ina":
+            final = _plan_reduce_ina(prog, rtree, chunk_bits, cfg, vc=vc,
+                                     chunk=c, tag=f"rs[{c}]")
+        else:
+            final = _plan_reduce_eject_inject(prog, rtree, chunk_bits, cfg,
+                                              vc=vc, chunk=c, tag=f"rs[{c}]",
+                                              path_of=up_path(rtree))
+        btree = repair_multicast_tree(r, healthy, faults, w, h, rule)
+        if semantics == "ina":
+            _plan_multicast_ina(prog, btree, chunk_bits, cfg, vc=vc,
+                                chunk=c, tag=f"ag[{c}]",
+                                contribs=frozenset(healthy), deps=(final,))
+        else:
+            _plan_multicast_unicast(prog, btree, chunk_bits, cfg, vc=vc,
+                                    chunk=c, tag=f"ag[{c}]",
+                                    contribs=frozenset(healthy),
+                                    deps=(final,), path_of=down_path(btree))
     return prog
 
 

@@ -6,14 +6,15 @@ copy of ``repro.core.noc.hierarchy``).  Public surface:
   package variants;
 * :func:`~.collective.plan_hier_collective` /
   :func:`~.collective.run_hier_schedule`: per-level lowering onto the
-  flat collective machinery, replayed by the heap engine unchanged;
+  flat collective machinery, replayed by every engine unchanged;
 * :func:`~.cost.hier_collective_cost` /
   :func:`~.cost.hier_psum_mode_costs`: the SIM_CACHE-riding cost facade
   the plan builder (``resolve_sites(chips > 1)``) and the mapper
   (``Mapping.chips > 1``) price multi-chip placements with.
 
-The reference's fault arguments (``faults=``, ``failed_chips=``) are not
-copied: the port has no fault layer.
+``plan_hier_collective(faults=, failed_chips=)`` repairs each chip's lanes
+over its own faulted fabric and drops failed chips, as the reference's
+does.
 """
 from .collective import (HIER_OPS, HierarchicalSchedule, HierLane,
                          HierLevel, HierResult, flat_hier_schedule,

@@ -5,7 +5,7 @@ A hierarchical collective is a *sequence of levels*; each level is a set of
 *lanes* that run concurrently on disjoint networks (one lane per chip, or
 one package-level lane).  Every lane is an ordinary flat
 :class:`~repro_torch.core.noc.collective.schedule.PacketOp` program under
-its own :class:`~repro_torch.core.noc.router.NocConfig`, which the engine
+its own :class:`~repro_torch.core.noc.router.NocConfig`, which every engine
 replays unchanged: that is the whole point of the lowering.
 
 * ``reduce``    -> [intra-chip reduce to each chip root] ; [package reduce
@@ -29,10 +29,10 @@ heap engine resolves to per-channel overflow resources); eject-inject
 semantics emit the star's unicasts explicitly with the same path
 overrides.
 
-The reference's ``faults=`` and ``failed_chips=`` (on-die faults and
-whole-chip loss) go with its fault layer, which the port does not have
-(``ROADMAP.md``, out of scope); the port has one executor, so
-:func:`run_hier_schedule` takes no ``engine=``.
+``faults=`` injects on-die faults into the chip lanes and
+``failed_chips=`` drops whole chips (:func:`plan_hier_collective`);
+:func:`run_hier_schedule` replays each lane on ``run_program``'s
+``engine=``.
 """
 from __future__ import annotations
 
@@ -191,6 +191,17 @@ def _package_program(op: str, chips: list[Coord], payload_bits: float,
 # --------------------------------------------------------------------------- #
 # the hierarchical planner
 # --------------------------------------------------------------------------- #
+def _chip_faults(faults, chip: int):
+    """Resolve the on-die fault model for one chip: ``faults`` is either a
+    single FaultModel every chip shares or a ``{chip: FaultModel}``
+    mapping (missing chips are clean)."""
+    if faults is None:
+        return None
+    if hasattr(faults, "get"):
+        return faults.get(chip)
+    return faults
+
+
 def plan_hier_collective(op: str, hmesh: HierarchicalMesh,
                          payload_bits: float,
                          cfg: NocConfig = NocConfig(), *,
@@ -198,6 +209,8 @@ def plan_hier_collective(op: str, hmesh: HierarchicalMesh,
                          root: Optional[HierCoord] = None,
                          algorithm: str = "reduce_bcast",
                          semantics: str = "ina",
+                         faults=None,
+                         failed_chips: Iterable[int] = (),
                          ) -> HierarchicalSchedule:
     """Lower a collective over ``(chip, x, y)`` participants into levels.
 
@@ -205,12 +218,26 @@ def plan_hier_collective(op: str, hmesh: HierarchicalMesh,
     defaults to the first participant.  With all participants on one chip
     the result is a single ``"flat"`` level carrying exactly the flat
     ``plan_collective`` program.
+
+    ``faults`` injects *on-die* faults into every chip-scope lane (a
+    shared FaultModel or a per-chip mapping; see :func:`_chip_faults`):
+    each chip's trees are repaired on its own fabric while the package
+    lane, whose express/mesh channels are a separate network, stays
+    clean.  ``failed_chips`` models whole-chip loss: their PEs drop out
+    of the participant set (and the package lane, since it only spans
+    populated chips); a root on a failed chip remaps to the first
+    surviving participant.
     """
     assert op in HIER_OPS, op
     assert semantics in SEMANTICS, semantics
     assert algorithm in ALLREDUCE_ALGORITHMS, algorithm
     parts = sorted(set(participants)) if participants is not None \
         else sorted(hmesh.nodes())
+    failed = frozenset(failed_chips)
+    if failed:
+        parts = [p for p in parts if p[0] not in failed]
+        if root is not None and root[0] in failed:
+            root = None
     assert parts, "empty participant set"
     root = parts[0] if root is None else root
     assert root in parts, f"root {root} is not a participant"
@@ -227,7 +254,8 @@ def plan_hier_collective(op: str, hmesh: HierarchicalMesh,
         chip, xy = next(iter(by_chip.items()))
         prog = plan_collective(op, xy, payload_bits, chip_cfg,
                                root=(root[1], root[2]),
-                               algorithm=algorithm, semantics=semantics)
+                               algorithm=algorithm, semantics=semantics,
+                               faults=_chip_faults(faults, chip))
         lane = HierLane(label=f"chip{chip}", scope="chip", cfg=chip_cfg,
                         prog=tuple(prog), chip=chip)
         return sched([HierLevel(name="flat", lanes=(lane,))])
@@ -242,7 +270,8 @@ def plan_hier_collective(op: str, hmesh: HierarchicalMesh,
         lanes = []
         for chip in tag_chips:
             prog = plan_collective(cop, by_chip[chip], payload_bits,
-                                   chip_cfg, root=rxy, semantics=semantics)
+                                   chip_cfg, root=rxy, semantics=semantics,
+                                   faults=_chip_faults(faults, chip))
             lanes.append(HierLane(label=f"chip{chip}", scope="chip",
                                   cfg=chip_cfg, prog=tuple(prog), chip=chip))
         return tuple(lanes)
@@ -288,7 +317,8 @@ def flat_hier_schedule(hmesh: HierarchicalMesh, prog: Iterable[PacketOp],
 # --------------------------------------------------------------------------- #
 # replay
 # --------------------------------------------------------------------------- #
-def run_hier_schedule(sched: HierarchicalSchedule) -> HierResult:
+def run_hier_schedule(sched: HierarchicalSchedule, *,
+                      engine: str = "auto") -> HierResult:
     """Replay every lane on its own simulator; levels serialize, lanes
     within a level overlap (disjoint networks).  Energy is priced per lane
     under that lane's config: package links may cost differently than
@@ -300,7 +330,7 @@ def run_hier_schedule(sched: HierarchicalSchedule) -> HierResult:
     for level in sched.levels:
         worst = 0
         for lane in level.lanes:
-            res = run_program(list(lane.prog), lane.cfg)
+            res = run_program(list(lane.prog), lane.cfg, engine=engine)
             worst = max(worst, res.latency_cycles)
             energy += res.ledger.network_energy_pj(lane.cfg)
             combined.add(res.ledger)

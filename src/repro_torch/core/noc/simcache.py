@@ -29,9 +29,10 @@ reads a store the JAX package wrote.  Saves re-read the file and merge
 under a file lock before an atomic replace, so concurrent processes union
 their entries.
 
-The reference's switch that turns the store off (``enabled``,
-``configure``, ``sim_cache_disabled``) is not copied: the port's mapper and
-cost facade always consult it.
+The store can be switched off (:func:`configure`, the experiments CLI's
+``--no-cache``; :func:`sim_cache_disabled` for a ground-truth run): then
+``get`` answers nothing and ``put`` keeps nothing, the mapper scores every
+layer afresh and the batched window prefetch stands down.
 """
 from __future__ import annotations
 
@@ -92,7 +93,8 @@ def schema_hash() -> str:
 class SimCache:
     """Keyed store of ``(latency_cycles, EnergyLedger)`` results."""
 
-    def __init__(self) -> None:
+    def __init__(self, enabled: bool = True) -> None:
+        self.enabled = enabled
         self.hits = 0
         self.misses = 0
         self.disk_hits = 0
@@ -106,6 +108,8 @@ class SimCache:
         self._saved_size: Optional[int] = None   # len(_store) at last save
 
     def get(self, key: Hashable) -> Optional[tuple[float, EnergyLedger]]:
+        if not self.enabled:
+            return None
         hit = self._store.get(key)
         if hit is None and self._disk:
             row = self._disk.pop(repr(key), None)
@@ -121,7 +125,8 @@ class SimCache:
         return t, ledger.copy()
 
     def put(self, key: Hashable, latency: float, ledger: EnergyLedger) -> None:
-        self._store[key] = (latency, ledger.copy())
+        if self.enabled:
+            self._store[key] = (latency, ledger.copy())
 
     def merge(self, entries: dict) -> int:
         """Adopt entries computed elsewhere (a pool worker's delta); keys
@@ -146,13 +151,16 @@ class SimCache:
         self._store.clear()
         self._disk.clear()
 
+    def __contains__(self, key: Hashable) -> bool:
+        return key in self._store
+
     def __len__(self) -> int:
         return len(self._store)
 
     def stats(self) -> dict:
         looked = self.hits + self.misses
-        return {"entries": len(self._store), "hits": self.hits,
-                "misses": self.misses,
+        return {"enabled": self.enabled, "entries": len(self._store),
+                "hits": self.hits, "misses": self.misses,
                 "hit_rate": self.hits / looked if looked else 0.0,
                 "disk_hits": self.disk_hits,
                 "persist_dir": str(self._persist_dir)
@@ -239,6 +247,24 @@ class SimCache:
 
 #: Process-wide store consulted by the cost facade and the window simulator.
 SIM_CACHE = SimCache()
+
+
+def configure(enabled: bool) -> None:
+    """Globally enable/disable the store (clears it when disabling)."""
+    SIM_CACHE.enabled = enabled
+    if not enabled:
+        SIM_CACHE.clear()
+
+
+@contextmanager
+def sim_cache_disabled():
+    """Temporarily bypass the store (ground-truth runs in tests)."""
+    prev = SIM_CACHE.enabled
+    SIM_CACHE.enabled = False
+    try:
+        yield
+    finally:
+        SIM_CACHE.enabled = prev
 
 
 @contextmanager

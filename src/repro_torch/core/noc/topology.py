@@ -53,9 +53,11 @@ def _trim(cache: dict) -> None:
 def memo_route(key, derive) -> tuple:
     """Memoize an arbitrary derived route in the bounded route cache.
 
-    The reference's fault layer (``repro.core.noc.faults``, not copied into
-    the port) keys detour routes as ``(src, dst, fault_key)``, disjoint
-    from the plain ``(src, dst)`` XY keys.
+    The fault layer (:mod:`~repro_torch.core.noc.faults`) keys detour
+    routes as ``(src, dst, rule, fault_key)``: disjoint from the plain
+    ``(src, dst)`` XY keys, so one fault set can never serve another's (or
+    the clean mesh's) entries, while sharing the same FIFO bound and
+    eviction stats.
     """
     hit = _ROUTE_CACHE.get(key)
     if hit is None:
@@ -93,6 +95,14 @@ class Mesh:
     @property
     def num_nodes(self) -> int:
         return self.width * self.height
+
+    def seeded_faults(self, **rates):
+        """A deterministic :class:`~repro_torch.core.noc.faults.FaultModel`
+        for this mesh's shape (see :func:`~repro_torch.core.noc.faults.
+        seeded_faults` for the rate/seed knobs).  Lazy import: ``faults``
+        depends on this module."""
+        from .faults import seeded_faults
+        return seeded_faults(self.width, self.height, **rates)
 
 
 def xy_route_uncached(src: tuple[int, int],

@@ -1,5 +1,5 @@
 """WS(+/-INA) and OS dataflow traffic generation + per-layer simulation (a
-copy of ``repro.core.noc.traffic``, heap engine only).
+copy of ``repro.core.noc.traffic``).
 
 Mapping (paper Fig. 3): filters are split into P# parts distributed among P#
 vertically-adjacent PEs of one column ("chains"); G = floor(N/P#) chains per
@@ -29,13 +29,11 @@ Latency: accumulation rounds are simulated back-to-back in a window of
 measured marginal round period (rounds are homogeneous); energy is exact
 (event counts scale linearly in rounds).
 
-The reference replays a window through its vectorized or compiled executor
-when they are on, and through the heap engine otherwise; all three give the
-same bits.  The port keeps the heap engine only (``ROADMAP.md``: the other
-two executors are out of scope), so a window runs
-:func:`~repro_torch.core.noc.collective.engine.run_program` on a
-:class:`NocSim` once, and the store (:data:`~repro_torch.core.noc.simcache.
-SIM_CACHE`) answers every later ask.
+A window is replayed by the vectorized closed form
+(:func:`~repro_torch.core.noc.vectorized.window_result`) when it is on, by
+a :class:`CompiledWindow` when the compiled executor is on, and by the
+heap engine otherwise; all three give the same bits.  The store
+(:data:`~repro_torch.core.noc.simcache.SIM_CACHE`) answers every later ask.
 """
 from __future__ import annotations
 
@@ -45,9 +43,12 @@ from functools import lru_cache
 from typing import Optional
 
 from ..ina_model import DEFAULT_Q_BITS, ConvLayer, p_num
+from .compiled import (CompiledProgram, UncompilableProgram, compile_program,
+                       compiled_enabled)
 from .router import EnergyLedger, NocConfig
 from .simcache import SIM_CACHE
 from .simulator import NocSim
+from .vectorized import vectorized_enabled, window_result
 
 MODES = ("ws_ina", "ws_noina", "os_gather")
 
@@ -182,6 +183,79 @@ def _os_weight_stream_round(plan: _Plan, cfg: NocConfig,
 # --------------------------------------------------------------------------- #
 # Accumulation + gather rounds (planner-emitted schedule, event-driven replay)
 # --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class CompiledWindow:
+    """One window's packet program, recorded once and replayed flat.
+
+    The program (sources, destinations, flit counts, VCs, dependency
+    edges) of a WS/OS window depends only on the plan-shape key, so it is
+    compiled on first miss and replayed via
+    :class:`~repro_torch.core.noc.compiled.CompiledProgram` without rebuilding
+    the PacketOps or the engine's per-op closures (DESIGN.md S10).
+    """
+
+    key: tuple
+    program: CompiledProgram
+
+    def replay(self) -> tuple[float, EnergyLedger]:
+        latency, ledger, _, _ = self.program.run()
+        return float(latency), ledger
+
+
+#: Plan-shape key -> CompiledWindow.  Populated only while the result
+#: cache is disabled (``--no-cache`` replays the same window repeatedly);
+#: with the cache on, a window's first replay lands in SIM_CACHE and the
+#: replicated program would be dead weight.
+_WINDOW_PROGRAMS: dict = {}
+
+#: Window-length-free key -> one compiled round; windows of any length
+#: replicate it (rounds are dependency-disjoint by construction).
+_ROUND_PROGRAMS: dict = {}
+
+
+def clear_compiled_caches() -> None:
+    """Forget every recorded program/plan (cold-start measurement aid).
+
+    Never needed for correctness (programs are pure functions of their
+    keys): only to measure genuinely cold runs or to bound memory.
+    """
+    from . import simulator, topology, vectorized
+
+    _WINDOW_PROGRAMS.clear()
+    _ROUND_PROGRAMS.clear()
+    _plan.cache_clear()
+    simulator.clear_link_caches()
+    topology.clear_route_caches()
+    vectorized.clear_vector_caches()
+
+
+def _compiled_window(key: tuple, cfg: NocConfig, mode: str, window: int,
+                     plan: _Plan, e_pes: int) -> Optional[CompiledWindow]:
+    """Build (or fetch) the CompiledWindow for a plan-shape key."""
+    from .collective.schedule import ws_round_program
+
+    cw = _WINDOW_PROGRAMS.get(key)
+    if cw is not None:
+        return cw
+    round_key = (cfg, mode, plan.g, plan.p, plan.gather_flits,
+                 plan.unicast_flits, e_pes)
+    base = _ROUND_PROGRAMS.get(round_key)
+    if base is None:
+        prog = ws_round_program(cfg, mode, 1, g=plan.g, p=plan.p,
+                                gather_flits=plan.gather_flits,
+                                unicast_flits=plan.unicast_flits,
+                                e_pes=e_pes)
+        try:
+            base = compile_program(prog, cfg)
+        except UncompilableProgram:     # exotic config: heap fallback
+            return None
+        _ROUND_PROGRAMS[round_key] = base
+    cw = CompiledWindow(key, base.replicate(window))
+    if not SIM_CACHE.enabled:
+        _WINDOW_PROGRAMS[key] = cw
+    return cw
+
+
 def _sim_rounds_window(plan: _Plan, cfg: NocConfig, mode: str, window: int,
                        e_pes: int = 1) -> tuple[float, EnergyLedger]:
     """Simulate ``window`` back-to-back rounds; return (makespan, ledger).
@@ -190,7 +264,10 @@ def _sim_rounds_window(plan: _Plan, cfg: NocConfig, mode: str, window: int,
     accumulation (``ws_ina``/``os_gather``) or Fig. 4(a) relay chains gated
     before the collection (``ws_noina``) — is emitted by the collective
     planner (:func:`~repro_torch.core.noc.collective.schedule.ws_round_program`)
-    and replayed on the event-driven heap simulator.
+    and replayed on the event-driven simulator: by the vectorized closed
+    form or through a :class:`CompiledWindow` normally, or through the
+    closure-based heap engine under :func:`~repro_torch.core.noc.compiled.
+    compiled_disabled` (ground truth; all are bit-identical).
 
     Results are memoized per plan shape in :data:`~repro_torch.core.noc.
     simcache.SIM_CACHE`: the window program depends on the key below and not
@@ -205,6 +282,19 @@ def _sim_rounds_window(plan: _Plan, cfg: NocConfig, mode: str, window: int,
     hit = SIM_CACHE.get(key)
     if hit is not None:
         return hit
+    if compiled_enabled():
+        if vectorized_enabled():
+            vec = window_result(cfg, mode, window, plan.g, plan.p,
+                                plan.gather_flits, plan.unicast_flits, e_pes)
+            if vec is not None:
+                latency, ledger = vec
+                SIM_CACHE.put(key, latency, ledger)
+                return latency, ledger
+        cw = _compiled_window(key, cfg, mode, window, plan, e_pes)
+        if cw is not None:
+            latency, ledger = cw.replay()
+            SIM_CACHE.put(key, latency, ledger)
+            return latency, ledger
     sim = NocSim(cfg)
     prog = ws_round_program(cfg, mode, window, g=plan.g, p=plan.p,
                             gather_flits=plan.gather_flits,

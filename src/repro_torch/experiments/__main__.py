@@ -8,10 +8,13 @@ Usage (see EXPERIMENTS.md):
     PYTHONPATH=src python -m repro_torch.experiments --sections fig7_9,fig10_12
     PYTHONPATH=src python -m repro_torch.experiments --section mapper
 
-The port has one simulation engine, the heap engine, and its window store
-is always on, so the reference's ``--engine`` and ``--no-cache`` flags are
-not copied.  The window store and the plan store default to the port's own
-directories (``$REPRO_TORCH_SIMCACHE_DIR``, ``$REPRO_TORCH_PLAN_DIR``).
+    PYTHONPATH=src python -m repro_torch.experiments --quick --sections faults \
+        --engine heap                                   # ground-truth engine
+
+``--engine`` picks the simulation executor (all bit-identical) and
+``--no-cache`` turns the window store off, as in the reference.  The window
+store and the plan store default to the port's own directories
+(``$REPRO_TORCH_SIMCACHE_DIR``, ``$REPRO_TORCH_PLAN_DIR``).
 """
 from __future__ import annotations
 
@@ -58,6 +61,14 @@ def main(argv: list[str] | None = None) -> int:
                     metavar="C1,C2,..",
                     help="mapper section: package-replication axis, e.g. "
                          "1,2,4 (default 1 = flat mesh; DESIGN.md S14)")
+    ap.add_argument("--engine", default="auto",
+                    choices=("auto", "vectorized", "compiled", "heap"),
+                    help="simulation backend: auto/vectorized = array "
+                         "kernels with compiled fallback (default), "
+                         "compiled = flat replay only, heap = "
+                         "ground-truth event loop (all bit-identical)")
+    ap.add_argument("--no-cache", action="store_true",
+                    help="bypass the plan-keyed window cache (ground truth)")
     ap.add_argument("--jobs", type=int, default=None, metavar="N",
                     help="fan sweeps/mapper search over N processes "
                          "(0 = all cores; default 1)")
@@ -112,14 +123,28 @@ def main(argv: list[str] | None = None) -> int:
         sweep = dataclasses.replace(sweep, **overrides)
 
     loaded = 0
-    if not args.no_persist:
+    if args.no_cache:
+        simcache.configure(False)
+    elif not args.no_persist:
         cache_dir = args.cache_dir or simcache.SIM_CACHE.persist_default_dir()
         loaded = simcache.SIM_CACHE.persist(cache_dir)
     sections = tuple(s for s in args.sections.split(",") if s)
     unknown = [s for s in sections if s not in SECTIONS]
     if unknown:
         ap.error(f"unknown sections {unknown}; pick from {SECTIONS}")
-    results = run_all(sweep, out_dir=args.out, sections=sections)
+    from contextlib import ExitStack
+
+    from repro_torch.core.noc.compiled import compiled_disabled
+    from repro_torch.core.noc.vectorized import (vector_stats,
+                                                 vectorized_disabled)
+    with ExitStack() as stack:
+        # All three backends are bit-identical; the flag exists to measure
+        # them against each other and to pin down a backend when debugging.
+        if args.engine == "compiled":
+            stack.enter_context(vectorized_disabled())
+        elif args.engine == "heap":
+            stack.enter_context(compiled_disabled())
+        results = run_all(sweep, out_dir=args.out, sections=sections)
     meta = results["_meta"]
     for section in sections:
         fig = results[section]
@@ -132,7 +157,7 @@ def main(argv: list[str] | None = None) -> int:
         print(line)
     cache = meta["cache"]
     persisted = ""
-    if not args.no_persist:
+    if not args.no_cache and not args.no_persist:
         saved = simcache.SIM_CACHE.save()
         persisted = (f"; persistent store: {loaded} rows loaded, "
                      f"{saved} saved ({simcache.SIM_CACHE.stats()['persist_dir']})")
@@ -141,6 +166,14 @@ def main(argv: list[str] | None = None) -> int:
           f"{cache['hits']} hits / {cache['misses']} misses "
           f"({cache['hit_rate']:.1%} hit rate)"
           f"{persisted}")
+    v = vector_stats()
+    state = "on" if v["enabled"] else "off"
+    print(f"vectorized backend [{state}]: "
+          f"{v['windows_closed_form']} closed-form windows "
+          f"({v['windows_batched']} batched), "
+          f"{v['columns_replayed']} column replays, "
+          f"{v['programs_lowered']} DAG programs, "
+          f"{v['fallbacks']} fallbacks")
     return 0
 
 

@@ -1,6 +1,5 @@
 """Markdown summary for a sweep run (written as ``results/summary.md``; a
-copy of ``repro.experiments.report`` without the faults table, which waits
-for the port's fault layer)."""
+copy of ``repro.experiments.report``)."""
 from __future__ import annotations
 
 
@@ -95,6 +94,44 @@ def _serve_table(fig: dict) -> str:
     return "\n".join(lines)
 
 
+def _faults_table(fig: dict) -> str:
+    head = ("| workload | fault | links/routers/PEs down | latency_x | "
+            "energy_x | INA degraded_x |")
+    rule = "|---|---|---|---|---|---|"
+    body = []
+    for r in fig["rows"]:
+        if "faults_error" in r:
+            from .sweeps import sanitize_error
+            msg = sanitize_error(r["faults_error"], "|")
+            body.append(f"| {r['workload']} | {r['fault']} | "
+                        f"ERROR: {msg} | | | |")
+            continue
+        deg = (f"{r['ina_degraded_x']:.3f}"
+               if r["ina_degraded_x"] is not None else "NA")
+        body.append(
+            f"| {r['workload']} | {r['fault']} | "
+            f"{r['failed_links']}/{r['failed_routers']}/{r['failed_pes']} | "
+            f"{r['latency_x']:.3f} | {r['energy_x']:.3f} | {deg} |")
+    lines = [head, rule] + body
+    cluster = fig.get("cluster_rows") or []
+    if cluster:
+        lines += ["", "**Cluster degradation (seeded replica-failure "
+                      "trace + fault-priced slowdown):**"]
+        for r in cluster:
+            if "faults_error" in r:
+                from .sweeps import sanitize_error
+                lines.append(f"- {r['fault']}: ERROR "
+                             f"{sanitize_error(r['faults_error'], '|')}")
+                continue
+            lines.append(
+                f"- {r['fault']}: slowdown {r['slowdown']:.3f}x, "
+                f"goodput {r['goodput']:.3f}, p99 e2e "
+                f"{r['p99_e2e_ms'] / 1e3:.2f} s, {r['retries']} retries, "
+                f"{r['failed_requests']} failed, "
+                f"{r['downtime_events']} downtime event(s)")
+    return "\n".join(lines)
+
+
 def _tables_table(rows: list[dict]) -> str:
     head = "| network | N | layer | P# | INA# |"
     rule = "|---|---|---|---|---|"
@@ -163,6 +200,15 @@ def summary_markdown(results: dict) -> str:
                   "the software-baseline ones, so a smaller fleet under "
                   "`ina` is the in-network-accumulation advantage stated "
                   "as capacity (see DESIGN.md S12).", ""]
+    fig = results.get("faults")
+    if fig:
+        parts += [f"## faults — {fig['paper_reference']}", "",
+                  _faults_table(fig), "",
+                  "Collectives replan over repaired (turn-model-safe) "
+                  "trees on the seeded faulted mesh; ratios are "
+                  "eject/inject over INA on the *same* faulted fabric, "
+                  "and `INA degraded_x` is faulted-INA over clean-INA "
+                  "(see DESIGN.md S15).", ""]
     fig = results.get("tables")
     if fig:
         parts += [f"## Tables I & II — {fig['paper_reference']}", "",

@@ -12,14 +12,13 @@ Every figure/table of the source paper is a function from a
 All simulation goes through
 :func:`repro_torch.core.noc.traffic.simulate_network` and therefore through
 the plan-keyed window cache (:mod:`repro_torch.core.noc.simcache`): a
-whole-network sweep replays each distinct window program once, on the heap
-engine (the port's one executor), so ResNet-50's ~53 layers cost a handful
-of event-driven runs.  :func:`run_all` writes per-figure JSON + a markdown
+whole-network sweep replays each distinct window program once, through the
+vectorized, compiled or heap executor (bit-identical), so ResNet-50's ~53
+layers cost a handful of event-driven runs.  :func:`run_all` writes per-figure JSON + a markdown
 summary into ``results/`` (see EXPERIMENTS.md).
 
 The ``*_csv_lines`` helpers emit the legacy ``name,us_per_call,derived``
-benchmark rows.  The reference's ``faults`` section (and its
-``SweepConfig`` fields) waits for the port's fault layer (``ROADMAP.md``).
+benchmark rows.
 """
 from __future__ import annotations
 
@@ -51,10 +50,13 @@ PAPER_REFERENCE = {
             "(config, mesh, phase, dtype) (DESIGN.md S11)",
     "serve": "beyond the paper: request-level serving capacity — the INA "
              "advantage as meshes-per-SLO (DESIGN.md S12)",
+    "faults": "beyond the paper: the INA advantage under seeded NoC faults "
+              "— repaired collectives vs fault density, plus cluster "
+              "degradation (DESIGN.md S15)",
 }
 
 SECTIONS = ("tables", "fig7_9", "fig10_12", "mesh_scaling", "hierarchy",
-            "mapper", "plan", "serve")
+            "mapper", "plan", "serve", "faults")
 
 
 @dataclass(frozen=True)
@@ -107,6 +109,19 @@ class SweepConfig:
     serve_chunk: int = 64                       # prefill chunk (tokens)
     serve_prompt_dist: str = "lognormal:128:0.5:512"
     serve_gen_dist: str = "uniform:32:128"
+    # ---- faults section (DESIGN.md S15) ----------------------------------
+    #: (label, link_rate, router_rate, pe_rate) fault densities; the
+    #: zero-rate level is the clean baseline the degradation ratios use.
+    fault_levels: tuple[tuple[str, float, float, float], ...] = (
+        ("none", 0.0, 0.0, 0.0),
+        ("light", 0.04, 0.0, 0.0),
+        ("medium", 0.08, 0.02, 0.05),
+        ("heavy", 0.15, 0.05, 0.08),
+    )
+    fault_mesh_n: int = 8                       # faulted-chip mesh size
+    fault_seed: int = 3                         # FaultModel RNG seed
+    fault_cluster_fleet: int = 2                # replicas in degraded sim
+
     def cfg(self, n: Optional[int] = None) -> NocConfig:
         return NocConfig() if n is None else NocConfig(n=n)
 
@@ -119,7 +134,10 @@ QUICK_SWEEP = SweepConfig(e_list=(1, 4), n_list=(4, 8), sim_rounds=4,
                           hier_pkg_widths=(4,),
                           mapper_space="quick", plan_phases=("decode",),
                           serve_archs=("qwen2-1.5b",), serve_qps=(0.1,),
-                          serve_fleets=(1, 2), serve_requests=60)
+                          serve_fleets=(1, 2), serve_requests=60,
+                          fault_levels=(("none", 0.0, 0.0, 0.0),
+                                        ("medium", 0.08, 0.02, 0.05)),
+                          fault_mesh_n=6)
 
 
 def _imp_row(imp: Improvement, **extra) -> dict:
@@ -271,8 +289,9 @@ def _search_one_workload(payload):
 
     Inside a worker the nested hardware-point fan-out serializes
     (``repro_torch.exec.pool`` guards against nested pools), so each worker
-    runs its search alone and ships the outcome + wall time + memo growth
-    back; in the serial fallback the inner fan-out still applies.
+    runs its search with the vectorized batched window prefetch and ships
+    the outcome + wall time + memo growth back; in the serial fallback the
+    inner fan-out still applies.
     """
     name, layers, mcfg, jobs = payload
     from repro_torch.mapper import search_network
@@ -507,11 +526,132 @@ def run_serve(sweep: SweepConfig = DEFAULT_SWEEP) -> dict:
             "rows": rows, "answers": answers}
 
 
+def run_faults(sweep: SweepConfig = DEFAULT_SWEEP) -> dict:
+    """Faults section: how much of the INA advantage survives a damaged
+    chip (DESIGN.md S15).
+
+    For every ``sweep.fault_levels`` density, seeds a
+    :class:`~repro_torch.core.noc.faults.FaultModel` on the
+    ``sweep.fault_mesh_n`` mesh and prices each CNN workload's per-layer
+    psum allreduces (payloads from the fig7-12 WS plan shapes) under
+    both collective semantics over the **repaired** trees —
+    ``latency_x``/``energy_x`` are eject/inject over INA on the same
+    faulted fabric, and ``ina_degraded_x`` is faulted-INA over clean-INA
+    (how much the detours cost).  The zero-rate level runs the exact
+    clean code path, so its rows double as the degenerate-equivalence
+    baseline.  A second row set runs the request-level cluster simulator
+    with a seeded replica-failure trace and a
+    :class:`~repro_torch.serve.costs.DegradedCostModel` priced from the same
+    faulted mesh — p99/goodput under degradation.  Failures become
+    attributable ``faults_error`` rows (CI fails on those).
+    """
+    from repro_torch.core.noc.collective.cost import collective_cost
+    from repro_torch.core.noc.faults import seeded_faults
+    from repro_torch.core.noc.traffic import layer_plan
+    from repro_torch.serve.cluster import ClusterSimulator, replica_failure_trace
+    from repro_torch.serve.costs import (DegradedCostModel, SyntheticCostModel,
+                                   fault_slowdown)
+    from repro_torch.serve.traffic import make_workload
+
+    n = sweep.fault_mesh_n
+    cfg = sweep.cfg(n)
+    rows = []
+    clean: dict[str, tuple[float, float]] = {}   # workload -> (lat, en)
+    for label, link_rate, router_rate, pe_rate in sweep.fault_levels:
+        faults = seeded_faults(n, n, link_rate=link_rate,
+                               router_rate=router_rate, pe_rate=pe_rate,
+                               seed=sweep.fault_seed)
+        fkw = {} if faults.empty else {"faults": faults}
+        for name in sweep.workloads:
+            t0 = time.time()
+            try:
+                tot = {sem: [0.0, 0.0] for sem in ("ina", "eject_inject")}
+                for layer in WORKLOADS[name]:
+                    plan = layer_plan(layer, cfg, 1, "ws_ina")
+                    payload = float(plan.unicast_flits * cfg.flit_bits)
+                    for sem in ("ina", "eject_inject"):
+                        c = collective_cost("allreduce", payload, cfg,
+                                            semantics=sem, **fkw)
+                        tot[sem][0] += c.latency_cycles
+                        tot[sem][1] += c.energy_pj
+            except Exception as e:               # noqa: BLE001
+                rows.append({"workload": name, "fault": label,
+                             "faults_error": f"{type(e).__name__}: {e}",
+                             "elapsed_us": (time.time() - t0) * 1e6})
+                continue
+            ina, ej = tot["ina"], tot["eject_inject"]
+            if faults.empty:
+                clean[name] = (ina[0], ina[1])
+            base = clean.get(name)
+            rows.append({
+                "workload": name, "fault": label,
+                "link_rate": link_rate, "router_rate": router_rate,
+                "pe_rate": pe_rate,
+                "failed_links": len(faults.links),
+                "failed_routers": len(faults.routers),
+                "failed_pes": len(faults.pes),
+                "ina_latency_cycles": ina[0],
+                "ej_latency_cycles": ej[0],
+                "latency_x": ej[0] / ina[0] if ina[0] else 1.0,
+                "ina_energy_pj": ina[1], "ej_energy_pj": ej[1],
+                "energy_x": ej[1] / ina[1] if ina[1] else 1.0,
+                "ina_degraded_x": ina[0] / base[0] if base else None,
+                "ina_energy_degraded_x": ina[1] / base[1] if base else None,
+                "elapsed_us": (time.time() - t0) * 1e6,
+            })
+    # Degraded serving: seeded replica failures + fault-priced slowdown.
+    qps = sweep.serve_qps[-1]
+    reqs = make_workload(sweep.serve_requests, qps,
+                         sweep.serve_prompt_dist, sweep.serve_gen_dist,
+                         sweep.serve_seed)
+    horizon = max(r.arrival for r in reqs)
+    cluster_rows = []
+    for label, link_rate, router_rate, pe_rate in sweep.fault_levels:
+        t0 = time.time()
+        try:
+            faults = seeded_faults(n, n, link_rate=link_rate,
+                                   router_rate=router_rate,
+                                   pe_rate=pe_rate, seed=sweep.fault_seed)
+            slowdown = fault_slowdown(faults, cfg)
+            cost = DegradedCostModel(SyntheticCostModel(), slowdown)
+            trace = () if faults.empty else tuple(replica_failure_trace(
+                sweep.fault_cluster_fleet, horizon,
+                mtbf_s=horizon * 0.3, mttr_s=horizon * 0.08,
+                seed=sweep.serve_seed))
+            m = ClusterSimulator(
+                sweep.fault_cluster_fleet, slots=sweep.serve_slots,
+                block_size=sweep.serve_block, max_seq=sweep.serve_max_seq,
+                prefill_chunk=sweep.serve_chunk, cost=cost,
+                failures=list(trace)).run(reqs)
+        except Exception as e:                   # noqa: BLE001
+            cluster_rows.append({
+                "fault": label,
+                "faults_error": f"{type(e).__name__}: {e}",
+                "elapsed_us": (time.time() - t0) * 1e6})
+            continue
+        cluster_rows.append({
+            "fault": label, "slowdown": slowdown,
+            "fleet": sweep.fault_cluster_fleet, "qps": qps,
+            "failure_events": len(trace),
+            "p99_e2e_ms": m["e2e_s"]["p99"] * 1e3,
+            "p99_queueing_ms": m["queueing_s"]["p99"] * 1e3,
+            "goodput": m["goodput"], "retries": m["retries"],
+            "failed_requests": m["failed_requests"],
+            "downtime_events": m["downtime_events"],
+            "elapsed_us": (time.time() - t0) * 1e6,
+        })
+    return {"figure": "faults",
+            "paper_reference": PAPER_REFERENCE["faults"],
+            "mesh_n": n, "seed": sweep.fault_seed,
+            "levels": [list(level) for level in sweep.fault_levels],
+            "rows": rows, "cluster_rows": cluster_rows}
+
+
 _RUNNERS: dict[str, Callable[[SweepConfig], dict]] = {
     "tables": run_tables, "fig7_9": run_fig7_9,
     "fig10_12": run_fig10_12, "mesh_scaling": run_mesh_scaling,
     "hierarchy": run_hierarchy, "mapper": run_mapper, "plan": run_plan,
-    "serve": run_serve,
+    "serve": run_serve, "faults": run_faults,
 }
 
 
@@ -637,6 +777,39 @@ def serve_csv_lines(sweep: SweepConfig = DEFAULT_SWEEP) -> list[str]:
     return _serve_csv(run_serve(sweep))
 
 
+def _faults_csv(fig: dict) -> list[str]:
+    """CSV rows for the faults section; failures keep the ``faults_error``
+    prefix CI greps for."""
+    lines = []
+    for r in fig["rows"]:
+        if "faults_error" in r:
+            msg = sanitize_error(r["faults_error"], ",")
+            lines.append(
+                f"faults_error_{r['workload']}_{r['fault']},0,{msg}")
+            continue
+        deg = (f"{r['ina_degraded_x']:.3f}"
+               if r["ina_degraded_x"] is not None else "NA")
+        lines.append(
+            f"faults_{r['workload']}_{r['fault']},"
+            f"{r['elapsed_us']:.0f},"
+            f"latency_x={r['latency_x']:.3f};energy_x={r['energy_x']:.3f};"
+            f"ina_degraded_x={deg};links_down={r['failed_links']}")
+    for r in fig["cluster_rows"]:
+        if "faults_error" in r:
+            msg = sanitize_error(r["faults_error"], ",")
+            lines.append(f"faults_error_cluster_{r['fault']},0,{msg}")
+            continue
+        lines.append(
+            f"faults_cluster_{r['fault']},{r['elapsed_us']:.0f},"
+            f"goodput={r['goodput']:.3f};p99_e2e_ms={r['p99_e2e_ms']:.1f};"
+            f"retries={r['retries']};slowdown={r['slowdown']:.3f}")
+    return lines
+
+
+def faults_csv_lines(sweep: SweepConfig = DEFAULT_SWEEP) -> list[str]:
+    return _faults_csv(run_faults(sweep))
+
+
 # --------------------------------------------------------------------------- #
 # Full run: JSON per figure + markdown summary + benchmark CSV
 # --------------------------------------------------------------------------- #
@@ -672,7 +845,8 @@ def run_all(sweep: SweepConfig = DEFAULT_SWEEP,
     delta = {k: cache_after[k] - cache_before[k]
              for k in ("hits", "misses", "disk_hits")}
     looked = delta["hits"] + delta["misses"]
-    cache = {"entries": cache_after["entries"],
+    cache = {"enabled": cache_after["enabled"],
+             "entries": cache_after["entries"],
              "hit_rate": delta["hits"] / looked if looked else 0.0,
              "persist_dir": cache_after["persist_dir"], **delta}
     results["_meta"] = {"sweep": asdict(sweep), "elapsed_s": timings,
@@ -696,5 +870,7 @@ def run_all(sweep: SweepConfig = DEFAULT_SWEEP,
             csv += _plan_csv(results["plan"])
         if "serve" in sections:
             csv += _serve_csv(results["serve"])
+        if "faults" in sections:
+            csv += _faults_csv(results["faults"])
         (out / "benchmarks.csv").write_text("\n".join(csv) + "\n")
     return results

@@ -1,5 +1,5 @@
 """Mapping search: analytic pruning + exact scoring through the sim cache
-(a copy of ``repro.mapper.search``, heap engine only).
+(a copy of ``repro.mapper.search``).
 
 Per hardware point, each layer's candidate mappings are ranked by the
 analytical model and only the best few reach the event-driven simulator —
@@ -22,10 +22,10 @@ A mapping with ``chips`` > 1 is priced as its per-chip shard plus a
 package broadcast of each weight fill (:mod:`repro_torch.core.noc.
 hierarchy`), and ``debug=True`` statically verifies the winning schedule
 (:func:`repro_torch.analysis.verify.verify_schedule`), as the reference
-does.  What the port leaves out: the reference's engine switches and its
-batched window prefetch (the compiled and vectorized executors, out of
-scope in ``ROADMAP.md``), so every window runs on the heap engine, which
-the reference's prefetch only warms the store ahead of.
+does.  Before a hardware point is scored, its windows are priced in one
+batched array pass (:func:`_prefetch_hardware`, on the array backend
+:func:`repro_torch.core.noc.vectorized.set_array_backend` selects); with
+the store or the compiled executor off, every layer is scored afresh.
 """
 from __future__ import annotations
 
@@ -35,7 +35,10 @@ from itertools import islice
 from typing import Sequence
 
 from repro_torch.core.noc import SIM_CACHE, NocConfig
+from repro_torch.core.noc.compiled import compiled_enabled
 from repro_torch.core.noc.traffic import LayerResult, simulate_layer
+from repro_torch.core.noc.vectorized import (prefetch_windows,
+                                             vectorized_enabled)
 from repro_torch.core.ops import LayerShape
 from repro_torch.exec import parallel_map
 
@@ -70,13 +73,16 @@ class SearchOutcome:
 # shape (R, C, F, outputs) and the mapping, never of the layer identity —
 # ResNet-50 repeats the same bottleneck shapes dozens of times, and every
 # hardware point re-scores the baseline anchor.  Keyed off
-# ``SIM_CACHE.generation`` so ``SIM_CACHE.clear()`` invalidates it too.
+# ``SIM_CACHE.generation`` so ``SIM_CACHE.clear()`` invalidates it too, and
+# bypassed entirely when the window cache is disabled (ground-truth mode).
 # --------------------------------------------------------------------------- #
 _EVAL_MEMO: dict = {"gen": -1, "store": {}}
 
 #: Ranked keep-list memo, same lifecycle: the candidate enumeration +
 #: analytic ranking of one (layer shape, hardware, space) cell is pure and
-#: repeats across identically-shaped layers and warm re-searches.
+#: repeats across identically-shaped layers and warm re-searches, and with
+#: the vectorized window kernels it, not the simulator, is the scoring
+#: loop's dominant cost.
 _RANK_MEMO: dict = {"gen": -1, "store": {}}
 
 
@@ -170,6 +176,10 @@ def _evaluate_cached(layer: LayerShape, mapping: Mapping,
     if mapping.chips > 1:
         return _evaluate_multichip(layer, mapping, base_cfg, sim_rounds,
                                    package)
+    if not SIM_CACHE.enabled or not compiled_enabled():
+        return simulate_layer(layer, mapping.mode, mapping.cfg(base_cfg),
+                              mapping.e_pes, sim_rounds,
+                              q_bits=mapping.q_bits, groups=mapping.groups)
     store = _eval_store()
     key = _eval_key(layer, mapping, base_cfg, sim_rounds)
     hit = store.get(key)
@@ -223,6 +233,67 @@ def _pareto(schedules: list[NetworkSchedule]) -> list[NetworkSchedule]:
     return front
 
 
+def _window_keys(layer: LayerShape, mapping: Mapping, base_cfg: NocConfig,
+                 sim_rounds: int) -> tuple:
+    """SIM_CACHE window keys that scoring ``mapping`` will ask for.
+
+    Mirrors :func:`evaluate_mapping` → ``simulate_layer`` → ``_accum_phase``
+    window selection exactly (big window + optional half window; multichip
+    mappings score their per-chip shard with ``chips=1``), so a batched
+    prefetch over these keys leaves the scalar scoring path on warm,
+    bit-identical cache hits.
+    """
+    from repro_torch.core.noc.traffic import layer_plan
+    if mapping.chips > 1:
+        layer = shard_layer(layer, mapping.chips)
+        mapping = dataclasses.replace(mapping, chips=1)
+    cfg = mapping.cfg(base_cfg)
+    plan = layer_plan(layer, cfg, mapping.e_pes, mapping.mode,
+                      mapping.q_bits, mapping.groups)
+    if plan.rounds <= 0:
+        return ()
+    w_big = min(plan.rounds, max(1, sim_rounds))
+    keys = [(cfg, mapping.mode, w_big, plan.g, plan.p, plan.gather_flits,
+             plan.unicast_flits, mapping.e_pes)]
+    if plan.rounds > w_big:
+        w_small = max(1, w_big // 2)
+        if w_small != w_big:
+            keys.append((cfg, mapping.mode, w_small, plan.g, plan.p,
+                         plan.gather_flits, plan.unicast_flits,
+                         mapping.e_pes))
+    return tuple(keys)
+
+
+def _prefetch_hardware(per_layer, base_cfg: NocConfig,
+                       sim_rounds: int) -> None:
+    """Batch-prefetch the window sims a hardware point is about to score.
+
+    Collects the union of window-cache keys across every surviving
+    candidate of every layer and hands them to
+    :func:`repro_torch.core.noc.vectorized.prefetch_windows` as one
+    stacked array pass, amortizing the candidate-mapping axis the scalar
+    scoring loop walks one key at a time.  Purely a cache warmer: scoring
+    results are bit-identical with it disabled.
+    """
+    if not (vectorized_enabled() and compiled_enabled()
+            and SIM_CACHE.enabled):
+        return
+    store = _eval_store()
+    keys: list = []
+    seen_shapes: set = set()
+    for layer, _base_r, keep in per_layer:
+        # Identically-shaped layers share keys (and eval-memo entries).
+        shape = (layer.R, layer.C, layer.F, layer.outputs)
+        if shape in seen_shapes:
+            continue
+        seen_shapes.add(shape)
+        for m in keep:
+            if _eval_key(layer, m, base_cfg, sim_rounds) not in store:
+                keys.extend(_window_keys(layer, m, base_cfg, sim_rounds))
+    if keys:
+        prefetch_windows(keys)
+
+
 def _score_hardware(payload) -> tuple[NetworkSchedule, int, int, dict]:
     """Score every layer on one hardware point (a pool-fanout unit).
 
@@ -258,6 +329,7 @@ def _score_hardware(payload) -> tuple[NetworkSchedule, int, int, dict]:
             _rank_store()[rkey] = hit
         n_cands += hit[1]
         per_layer.append((layer, base_r, hit[0]))
+    _prefetch_hardware(per_layer, base_cfg, mcfg.sim_rounds)
     assignments = []
     for layer, base_r, keep in per_layer:
         results = [(m, _evaluate_cached(layer, m, base_cfg,

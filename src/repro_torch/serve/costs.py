@@ -20,9 +20,9 @@ iteration time; the default 1.0 keeps results in model-relative units).
 A port plan's psum decision counts the call sites of every layer (the
 port's layer loop runs each one, where the reference's ``lax.scan`` traces a
 stacked body once), so :func:`_psum_cycles` prices the whole model's
-collectives: the reference's count times the depth.  The reference's fault-slowed model
-(``DegradedCostModel``, ``fault_slowdown``) waits for the port's fault
-layer (``ROADMAP.md``).
+collectives: the reference's count times the depth.
+:class:`DegradedCostModel` scales any of these by :func:`fault_slowdown`,
+the faulted over clean collective latency on the same mesh.
 """
 from __future__ import annotations
 
@@ -118,6 +118,45 @@ class PlanCostModel:
                                  / (self.dec_tokens * self.chips)))
         return self._seconds(
             self.depth * self.dec_gemm_cycles * tiles + self.dec_psum_cycles)
+
+
+@dataclasses.dataclass(frozen=True)
+class DegradedCostModel:
+    """A cost model slowed by on-die faults (:mod:`repro_torch.core.noc.
+    faults`).
+
+    Wraps any step-cost model and scales every latency by ``slowdown`` —
+    the faulted/clean collective latency ratio from the same simulated
+    mesh (see :func:`fault_slowdown`), so the cluster simulator prices a
+    degraded replica without replanning."""
+
+    base: object
+    slowdown: float = 1.0
+
+    def prefill_chunk_seconds(self) -> float:
+        return self.base.prefill_chunk_seconds() * self.slowdown
+
+    def decode_iter_seconds(self, n_active: int) -> float:
+        return self.base.decode_iter_seconds(n_active) * self.slowdown
+
+
+def fault_slowdown(faults, cfg=None, *, payload_bits: float = 4096.0,
+                   semantics: str = "ina") -> float:
+    """Faulted/clean allreduce latency ratio on ``cfg``'s mesh — the
+    single scalar :class:`DegradedCostModel` scales a replica's step
+    costs by.  An empty model returns exactly 1.0; the ratio is clamped
+    at 1.0 from below (the repair BFS can emit a *shallower* tree than
+    the clean XY embedding, but a degraded replica never speeds up)."""
+    from repro_torch.core.noc.collective.cost import collective_cost
+    from repro_torch.core.noc.router import NocConfig
+    cfg = NocConfig() if cfg is None else cfg
+    if faults is None or faults.empty:
+        return 1.0
+    clean = collective_cost("allreduce", payload_bits, cfg,
+                            semantics=semantics)
+    faulted = collective_cost("allreduce", payload_bits, cfg,
+                              semantics=semantics, faults=faults)
+    return max(1.0, faulted.latency_cycles / max(1, clean.latency_cycles))
 
 
 @dataclasses.dataclass(frozen=True)

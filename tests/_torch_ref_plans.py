@@ -20,8 +20,9 @@ only:
   trace of the port's sites runs once in the process and both packages'
   builds read it (``tests/test_torch_plan.py`` holds the trace itself).
 
-:func:`fresh_state` starts both packages from empty simulation stores and
-memos, so that cache counters and collective engine runs can be compared.
+:func:`fresh_state` starts both packages from empty simulation stores,
+memos and executor programs, so that cache counters and collective engine
+runs can be compared.
 """
 from __future__ import annotations
 
@@ -94,14 +95,20 @@ def store_env(monkeypatch, tmp_path) -> None:
 
 @contextlib.contextmanager
 def fresh_state():
-    """Empty, non-persistent simulation stores and cold collective and GEMM
-    memos in both packages; the previous stores come back on exit."""
+    """Empty, non-persistent simulation stores, cold collective and GEMM
+    memos and cold executor programs in both packages; the previous stores
+    come back on exit."""
     from repro.core.noc import fresh_sim_cache as jfresh
+    from repro.core.noc import traffic as jtraffic
     from repro.core.noc.collective import cost as jcost
     from repro_torch.core.noc import fresh_sim_cache as tfresh
+    from repro_torch.core.noc import traffic as ttraffic
     from repro_torch.core.noc.collective import cost as tcost
     for mod in (jcost, tcost):
         mod._simulate.cache_clear()
+        mod._simulate_faulted.cache_clear()
+    for mod in (jtraffic, ttraffic):
+        mod.clear_compiled_caches()
     jbuilder._GEMM_MEMO.clear()
     tbuilder._GEMM_MEMO.clear()
     with jfresh(), tfresh():

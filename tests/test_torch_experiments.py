@@ -7,13 +7,12 @@ reference's, on the CPU.
   layer's every field and the totals, exactly;
 * ``ws_ina_improvement`` / ``ws_vs_os_improvement`` (Figs 7-9, 10-12)
   equal the reference's and the pins of ``tests/test_experiments.py``;
-* each of the eight ported sections of ``run_all(QUICK_SWEEP)`` equals the
+* each of the nine sections of ``run_all(QUICK_SWEEP)`` equals the
   reference's dict, and ``summary.md`` and ``benchmarks.csv`` equal the
   reference's; what is left out of each comparison is named at the test.
 
-The reference runs its heap engine with its layer memo on, the port's one
-configuration (its vectorized prefetch and compiled replay give the same
-results but other window-store counters), and builds its plans on the
+Both packages run their default executors (vectorized, then compiled, then
+heap) with the layer memo on, and the reference builds its plans on the
 port's psum sites (``tests/_torch_ref_plans.py``).
 """
 import dataclasses
@@ -22,14 +21,11 @@ import json
 import pytest
 
 import _torch_ref_plans as R
-from repro.core.noc.compiled import compiled_disabled
 from repro.core.noc.power import ws_ina_improvement as jws_ina
 from repro.core.noc.power import ws_vs_os_improvement as jws_vs_os
 from repro.core.noc.traffic import simulate_network as jsimulate_network
-from repro.core.noc.vectorized import vectorized_disabled
 from repro.core.workloads import WORKLOADS as JWORKLOADS
 from repro.experiments import sweeps as jsweeps
-from repro.mapper import search as jsearch
 
 from repro_torch.core import workloads
 from repro_torch.core.noc import NocConfig
@@ -43,7 +39,7 @@ from test_experiments import FIG7_9_PINS, FIG10_12_PINS
 
 NETWORKS = ("alexnet", "vgg16", "resnet50")
 SECTIONS = ("tables", "fig7_9", "fig10_12", "mesh_scaling", "hierarchy",
-            "mapper", "plan", "serve")
+            "mapper", "plan", "serve", "faults")
 
 
 # --------------------------------------------------------------------------- #
@@ -104,10 +100,7 @@ def quick_runs(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         R.store_env(mp, tmp)
         R.patch_reference_plans(mp)
-        # the reference's heap engine with its layer memo on: the port's
-        # one configuration
-        mp.setattr(jsearch, "compiled_enabled", lambda: True)
-        with R.fresh_state(), compiled_disabled(), vectorized_disabled():
+        with R.fresh_state():
             ref = jsweeps.run_all(
                 dataclasses.replace(jsweeps.QUICK_SWEEP,
                                     plan_dir=str(tmp / "ref_store")),
@@ -136,7 +129,7 @@ def _port_key(key: str) -> str:
 
 @pytest.mark.parametrize("section", ["tables", "fig7_9", "fig10_12",
                                      "mesh_scaling", "hierarchy", "mapper",
-                                     "serve"])
+                                     "serve", "faults"])
 def test_quick_section_matches_reference(quick_runs, section):
     """Every field but the wall-clock ``elapsed_us`` of each row."""
     _, ref, port = quick_runs
@@ -169,7 +162,7 @@ def test_quick_plan_section_matches_reference(quick_runs):
 
 
 def test_quick_artifacts_match_reference(quick_runs):
-    """``summary.md`` and ``benchmarks.csv`` over the eight sections.
+    """``summary.md`` and ``benchmarks.csv`` over the nine sections.
     Left out: the summary's run stats (wall-clock section timings, the
     store's path) and the CSV's ``us_per_call`` column (wall clock)."""
     tmp, _, _ = quick_runs
@@ -177,12 +170,14 @@ def test_quick_artifacts_match_reference(quick_runs):
                .split("## Run stats")[0] for pkg in ("ref", "port")}
     assert summary["port"] == summary["ref"]
     assert "## plan" in summary["port"] and "## serve" in summary["port"]
+    assert "## faults" in summary["port"]
     csv = {pkg: [line.split(",", 2) for line in
                  (tmp / pkg / "benchmarks.csv").read_text().splitlines()]
            for pkg in ("ref", "port")}
     assert [(r[0], r[2]) for r in csv["port"]] == \
         [(r[0], r[2]) for r in csv["ref"]]
-    assert not any(r[0].startswith(("plan_error", "serve_error"))
+    assert not any(r[0].startswith(("plan_error", "serve_error",
+                                    "faults_error"))
                    for r in csv["port"])
     for section in SECTIONS:
         assert json.loads((tmp / "port" / f"{section}.json").read_text())[
@@ -216,21 +211,16 @@ def test_full_mapper_space_verdicts_match_reference(tmp_path):
 
 
 def test_quick_sweep_keeps_the_reference_shape():
-    """The port's sweep config is the reference's, less the faults
-    section's fields (the port has no fault layer yet)."""
-    faults = {f.name for f in dataclasses.fields(jsweeps.SweepConfig)
-              if f.name.startswith("fault_")}
-    assert faults
+    """The port's sweep config, sections and paper references are the
+    reference's, the faults section's ``fault_*`` fields included."""
+    assert any(f.name.startswith("fault_")
+               for f in dataclasses.fields(sweeps.SweepConfig))
     for name in ("DEFAULT_SWEEP", "QUICK_SWEEP"):
         want = dataclasses.asdict(getattr(jsweeps, name))
-        for f in faults:
-            want.pop(f)
         want["plan_dir"] = None
         assert dataclasses.asdict(getattr(sweeps, name)) == want
-    assert sweeps.SECTIONS == tuple(s for s in jsweeps.SECTIONS
-                                    if s != "faults")
-    assert {k: v for k, v in jsweeps.PAPER_REFERENCE.items()
-            if k != "faults"} == sweeps.PAPER_REFERENCE
+    assert sweeps.SECTIONS == jsweeps.SECTIONS
+    assert jsweeps.PAPER_REFERENCE == sweeps.PAPER_REFERENCE
 
 
 def test_cli_writes_the_artifacts(tmp_path, monkeypatch, capsys):

@@ -107,6 +107,18 @@ def test_evaluation_and_capacity_planner_are_covered(module):
             else path.with_suffix(".py")) in FILES
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.noc.faults", "repro_torch.core.noc.compiled",
+    "repro_torch.core.noc.vectorized", "repro_torch.analysis.corpus"])
+def test_fault_layer_and_executors_are_covered(module):
+    """The NoC fault layer, the compiled and vectorized executors and the
+    artifact corpora are among the modules imported with JAX blocked and
+    scanned for banned imports."""
+    assert module in MODULES
+    path = ROOT / "src" / Path(*module.split("."))
+    assert path.with_suffix(".py") in FILES
+
+
 def test_scan_catches_banned_imports():
     src = ("import jax.numpy as jnp\nfrom repro.configs import ARCHS\n"
            "import repro\nfrom repro_torch import convert\nimport torch\n")
