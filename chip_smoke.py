@@ -23,7 +23,11 @@ Phases; any failure raises and the process exits non-zero:
    train step's B 2 x S 1024), and at every shape one rank
    of a 2- or 4-rank rwkv6-7b, deepseek-v2-lite or llama4-scout launches
    (the cut products at forward and decode M, ``wkv6`` at H 32 and 16,
-   llama4's flash at 20:4 and 10:2), each timed beside its bound, its
+   llama4's flash at 20:4 and 10:2), and at the uneven head cut's
+   rank-local shapes at a model span of 16 (``kernel_times.
+   uneven_projections`` at decode M 2 and a prefill chunk's M 64, and that
+   chunk's flash at qwen2's 1:1, qwen3-14b's rank 0 3:1 and its
+   straddling rank 1 3:3), each timed beside its bound, its
    plain version and one library call where one computes the same
    function;
 3. qwen2-1.5b at its published widths (bf16, seeded random weights) served
@@ -145,7 +149,15 @@ Phases; any failure raises and the process exits non-zero:
     the card's peak above the step's start (the ratios are printed); the
     decode step's predicted bytes at least its weights'; the
     step's predicted FLOPs over ``[train]``'s profiled device ms against
-    989 TFLOP/s bf16, with the card's name and power limit;
+    989 TFLOP/s bf16, with the card's name and power limit; then two cells
+    of the production mesh the uneven cuts run (:data:`DRYRUN_UNEVEN`):
+    qwen2-1.5b's ``decode_32k`` at 16 x 16 (one query and one KV head a
+    rank) and zamba2-2.7b's ``long_500k`` at 2 x 16 x 16 (its one row
+    replicated over the 32 hosts), each trace's launches the derived
+    counts, with rank 0's and the largest rank's cache bytes (and, for the
+    replicated row, the reference's layout's: ``fit_specs`` moves the
+    hosts' axes onto the cache's sequence) and qwen3-14b's per-rank cache
+    bytes at 16 (rank 0 against a straddling rank);
 8b. ``[tp-train]``: the same model through the tensor-parallel train step
     on a one-rank NCCL group (the card count bounds the group), under
     every ``--psum-mode``: 2 steps from ``[train]``'s seed on its first
@@ -251,7 +263,13 @@ Phases; any failure raises and the process exits non-zero:
     depth each runs (2 layers; zamba2's group of 6, the vlm's of 5,
     whisper's 2 + 2): one step's loss and every gradient leaf through the
     kernels against their plain versions on the card, as phase 9;
-20. a ``kernels`` JSON line, then the device JSON line, last.
+20. ``[analysis]``, on the host, started as a subprocess after the device
+    check and read here: ``python -m repro_torch.analysis lint
+    src/repro_torch`` with 0 findings and its pragma count, and ``verify
+    --quick --build-plans`` into a temporary store over all seven
+    sections, section by section through the CLI's ``main``, 0 findings,
+    each section's artifact count and seconds printed;
+21. a ``kernels`` JSON line, then the device JSON line, last.
 
 It needs the checkout's ``src/`` beside it and exits non-zero without a GPU.
 """
@@ -284,7 +302,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.checkpoint.ckpt import (CheckpointManager,  # noqa: E402
                                          latest_step)
 from repro_torch.configs import ARCHS  # noqa: E402
-from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.configs.base import SHAPES, ShapeConfig  # noqa: E402
 from repro_torch.analysis import (verify_collective,  # noqa: E402
                                   verify_faulted, verify_hier_schedule,
                                   verify_plan)
@@ -319,6 +337,7 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.mapper import QUICK_MAPPER, search_network  # noqa: E402
 from repro_torch.mapper import search as mapper_search  # noqa: E402
 from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
+                                             UNEVEN_WORLD,
                                              FAMILY_TRAIN_B,
                                              FAMILY_TRAIN_S,
                                              FAMILY_TRAIN_TOKENS,
@@ -333,7 +352,8 @@ from repro_torch.launch.kernel_times import (TP_WORLDS,  # noqa: E402
                                              media_train_products,
                                              moe_projections,
                                              rank_projections,
-                                             train_products, wkv_cases,
+                                             train_products,
+                                             uneven_projections, wkv_cases,
                                              wkv_operands)
 from repro_torch.models import mla as mla_model  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
@@ -343,7 +363,8 @@ from repro_torch.models.api import (MEDIA_FAMILIES,  # noqa: E402
                                     get_model, media_ones)
 from repro_torch.optim.adamw import (AdamWState, adamw_init,  # noqa: E402
                                      tree_leaves)
-from repro_torch.parallel.sharding import (kv_groups,  # noqa: E402
+from repro_torch.parallel.sharding import (cache_heads,  # noqa: E402
+                                           fit_spec, kv_groups,
                                            shard_params, shard_state,
                                            unshard_state)
 from repro_torch.parallel.steps import (build_paged_serve_step,  # noqa: E402
@@ -711,6 +732,12 @@ def matmul_cases():
               for what, m in (("seat", tcache), ("decode", 2 * tcache))
               for mod, name, k, n, kind in proj
               if mod == MLA and name == "w_uk/w_uv"]
+    # the uneven head cut's ranks at a model span of 16 (qwen2's rank 0,
+    # qwen3-14b's rank 0 and straddling rank 1): the decode's 2 slots and
+    # a prefill chunk of 64
+    cases += [(f"{model} {name} M={m}", m, k, n, kind, bf16)
+              for model, name, k, n, kind in uneven_projections()
+              for m in (2, 64)]
     return cases
 
 
@@ -2762,6 +2789,109 @@ def _state_on_card(fn) -> tuple:
     return out, torch.cuda.memory_allocated() - before
 
 
+#: (arch, shape, multi-pod) of the production-mesh cells the uneven cuts
+#: run, traced in ``[dryrun]``: the head cut at 16 x 16 (qwen2-1.5b's 12
+#: query heads) and the row replicated over 2 x 16 hosts (one row)
+DRYRUN_UNEVEN = ((ARCH, "decode_32k", False), (HYBRID, "long_500k", True))
+#: the reference's cache spec intents of the families with a replicated
+#: row cell (``repro.models.api.cache_specs``: the hosts' axes on the
+#: batch axis)
+_HOSTS = ("pod", "data")
+REF_CACHE_SPECS = {
+    "ssm": {"state": (None, _HOSTS, "model", None, None),
+            "tprev": (None, _HOSTS, None, "model"),
+            "cprev": (None, _HOSTS, None, "model")},
+    "hybrid": {"ssm": (None, None, _HOSTS, "model", None, None),
+               "conv": (None, None, _HOSTS, None, "model"),
+               "k": (None, _HOSTS, None, "model", None),
+               "v": (None, _HOSTS, None, "model", None)}}
+
+
+def reference_cache_bytes(cfg, shape, ranks) -> int:
+    """A rank's cache bytes in the reference's layout: each leaf's spec
+    fitted to its logical shape on the mesh (``fit_spec``, as the
+    reference's serve step fits ``cache_specs``), so the hosts' axes,
+    which a batch of one row cannot take, move to the largest free dim
+    they divide (the K/V's sequence)."""
+    sizes = dict(ranks.pairs)
+    cache = get_model(cfg).init_cache(shape.global_batch, shape.seq_len,
+                                      device="meta")
+    total = 0
+    for name, leaf in cache.items():
+        spec = fit_spec(REF_CACHE_SPECS[cfg.family][name], tuple(leaf.shape),
+                        sizes)
+        cut = math.prod(sizes[a] for e in spec if e is not None
+                        for a in (e if isinstance(e, tuple) else (e,)))
+        total += leaf.numel() // cut * leaf.element_size()
+    return total
+
+
+def cache_bytes(cfg, rows: int, seq: int, world: int, rank: int) -> int:
+    return sum(t.numel() * t.element_size() for t in get_model(cfg)
+               .init_cache(rows, seq, device="meta", world=world,
+                           rank=rank).values())
+
+
+def dryrun_uneven() -> dict:
+    """The :data:`DRYRUN_UNEVEN` cells through ``dryrun.run_cell`` (rank
+    0's step on ``meta``): each completes, its launches the derived count
+    of one decode pass (:func:`matmuls_per_pass`), with rank 0's and the
+    largest rank's cache bytes, and for the replicated row the
+    reference's layout's; then qwen3-14b's ``decode_32k`` caches at 16
+    (rank 0's one KV head, a straddling rank's three)."""
+    out = {}
+    for arch, sname, multi in DRYRUN_UNEVEN:
+        cfg, shape = ARCHS[arch], SHAPES[sname]
+        ranks = mesh.make_production_mesh(multi_pod=multi)
+        t0 = time.perf_counter()
+        r = dryrun.run_cell(arch, sname, ranks, roofline=False,
+                            verbose=False)
+        took = time.perf_counter() - t0
+        got = {k: v["launches"] for k, v in r["kernels"].items()}
+        want = {"ina_matmul": matmuls_per_pass(cfg)}
+        hosts = ranks.span("pod") * ranks.span("data")
+        rows = shape.global_batch // hosts or shape.global_batch
+        m = ranks.span("model")
+        per_rank = [cache_bytes(cfg, rows, shape.seq_len, m, rank)
+                    for rank in range(m)]
+        how = " (replicated over the hosts)" \
+            if shape.global_batch % hosts else ""
+        line = (f"[dryrun] {arch} x {sname} x {ranks.size} ranks "
+                f"{dict(ranks.pairs)}: traced in {took:.1f} s, launches "
+                f"{got} (derived {want}); {rows} rows a host{how}; cache a "
+                f"rank {per_rank[0]} B rank 0, {max(per_rank)} B the "
+                f"largest")
+        if cfg.family in REF_CACHE_SPECS:
+            line += (f"; the reference's layout (fit_specs: the hosts' axes "
+                     f"on the sequence) "
+                     f"{reference_cache_bytes(cfg, shape, ranks)} B")
+        log(line)
+        if got != want:
+            raise AssertionError(f"[dryrun] {arch} x {sname}: launches {got}"
+                                 f" != derived {want}")
+        out[arch] = {"launches": got, "cache_bytes": per_rank}
+    shape = SHAPES["long_500k"]
+    for arch in (RWKV, HYBRID):
+        for multi in (False, True):
+            ranks = mesh.make_production_mesh(multi_pod=multi)
+            mine = cache_bytes(ARCHS[arch], shape.global_batch,
+                               shape.seq_len, ranks.span("model"), 0)
+            ref = reference_cache_bytes(ARCHS[arch], shape, ranks)
+            log(f"[dryrun] {arch} x long_500k x {ranks.size} ranks: cache "
+                f"a rank {mine} B (the row replicated), the reference's "
+                f"layout {ref} B ({mine / ref:.2f}x)")
+    q3, shape = ARCHS["qwen3-14b"], SHAPES["decode_32k"]
+    rows = shape.global_batch // 16
+    per_rank = [cache_bytes(q3, rows, shape.seq_len, UNEVEN_WORLD, rank)
+                for rank in range(UNEVEN_WORLD)]
+    heads = [cache_heads(q3, rank, UNEVEN_WORLD)
+             for rank in range(UNEVEN_WORLD)]
+    log(f"[dryrun] qwen3-14b x decode_32k at a model span of 16: cache "
+        f"heads a rank {heads}; {per_rank[0]} B rank 0, {max(per_rank)} B "
+        f"the largest (a straddling rank, its K/V expanded)")
+    return out
+
+
 def phase_dryrun(train_prof: dict, smi: str) -> dict:
     """``[train]``'s step (8 layers, B 4 x S 1024, one rank, ``nothing``)
     and a decode step of the same model (B 4, a cache of 1024), each
@@ -2914,9 +3044,11 @@ def phase_dryrun(train_prof: dict, smi: str) -> dict:
         raise AssertionError(f"[dryrun] decode logits {tuple(logits.shape)}")
     del weights, cache, step, tok, logits
     fresh_phase()
+    uneven = dryrun_uneven()
     return {"launches": path, "decode_launches": dcard,
             "argument_error": arg_err, "temp_ratio": temp_ratio,
-            "prefill_temp_ratio": ptemp_ratio, "tflops": tflops}
+            "prefill_temp_ratio": ptemp_ratio, "tflops": tflops,
+            "uneven": uneven}
 
 
 # --------------------------------------------------------------------------- #
@@ -4560,9 +4692,89 @@ def phase_clock():
     return mark
 
 
+#: the static-analysis CLI's verify sections, run one by one by
+#: ``[analysis]`` (``python -m repro_torch.analysis verify --sections``)
+ANALYSIS_SECTIONS = ("collectives", "ws", "hierarchy", "schedules", "plans",
+                     "faults", "kvcache")
+# ``[analysis]``'s job, run by a host process beside the card's phases:
+# the CLI's ``main`` on the lint, then on each verify section, each timed
+_ANALYSIS_JOB = """
+import contextlib, io, json, sys, time
+from repro_torch.analysis.__main__ import main
+port, store, sections = sys.argv[1], sys.argv[2], sys.argv[3].split(",")
+runs = [("lint", ["lint", port])] + [
+    (name, ["verify", "--quick", "--build-plans", "--plan-dir", store,
+            "--sections", name]) for name in sections]
+for name, argv in runs:
+    text, t0 = io.StringIO(), time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc = main(argv)
+    print(json.dumps({"run": name, "rc": rc, "s": time.perf_counter() - t0,
+                      "out": text.getvalue()}), flush=True)
+"""
+
+
+def start_analysis(tmp: str) -> subprocess.Popen:
+    """``[analysis]``'s host process (:data:`_ANALYSIS_JOB`), started
+    beside the card's phases; its plans and sim store in ``tmp``, no
+    CUDA device visible to it."""
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": "",
+           "REPRO_TORCH_SIMCACHE_DIR": str(Path(tmp) / "simcache")}
+    return subprocess.Popen(
+        [sys.executable, "-c", _ANALYSIS_JOB, str(SRC / "repro_torch"),
+         str(Path(tmp) / "plans"), ",".join(ANALYSIS_SECTIONS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=tmp)
+
+
+def phase_analysis(proc: subprocess.Popen) -> dict:
+    """``[analysis]``: the determinism lint of ``src/repro_torch`` with no
+    finding (its pragmas counted), and ``verify --quick --build-plans``
+    over the seven sections with no finding, each section's artifact
+    count and seconds (on the host, while the card's phases ran)."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"[analysis] the host process exited "
+                             f"{proc.returncode}: {err[-2000:]}")
+    runs = {r["run"]: r for r in map(json.loads, out.splitlines())}
+    lint = runs.pop("lint")
+    found = re.search(r"lint: (\d+) finding\(s\), (\d+) pragma", lint["out"])
+    log(f"[analysis] lint src/repro_torch: {found.group(1)} finding(s), "
+        f"{found.group(2)} pragma(s), {lint['s']:.2f} s")
+    if lint["rc"] != 0 or found.group(1) != "0":
+        raise AssertionError(f"[analysis] lint: {lint['out']}")
+    counts = {}
+    for name in ANALYSIS_SECTIONS:
+        r = runs[name]
+        got = re.search(rf"verify {name}: (\d+) artifact\(s\), (.*)",
+                        r["out"])
+        counts[name] = int(got.group(1))
+        log(f"[analysis] verify --quick {name}: {got.group(1)} artifact(s), "
+            f"{got.group(2)}, {r['s']:.2f} s")
+        if r["rc"] != 0 or got.group(2) != "ok":
+            raise AssertionError(f"[analysis] verify {name}: {r['out']}")
+    log(f"[analysis] verify --quick --build-plans: 0 findings over "
+        f"{sum(counts.values())} artifacts in "
+        f"{sum(r['s'] for r in runs.values()):.2f} s")
+    return counts
+
+
 def main() -> int:
     mark = phase_clock()
     info = device_check()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_analysis_") as tmp:
+        analysis = start_analysis(tmp)
+        try:
+            return run_phases(mark, info, analysis)
+        finally:
+            if analysis.poll() is None:
+                analysis.kill()
+                analysis.wait()
+
+
+def run_phases(mark, info: dict, analysis: subprocess.Popen) -> int:
+    """Phases 2-21 (``main`` has run the device check and started
+    ``[analysis]``'s host process)."""
     t0 = time.perf_counter()
     logs = _build.build(["ina_matmul", "flash_attention", "wkv6"])
     log(f"[build] {len(logs)} sources built in parallel in "
@@ -4682,6 +4894,8 @@ def main() -> int:
                      "src/repro/kernels/wkv6.py:70", wkv_rows, "forward",
                      rwkv["forward"]["wkv6"], info["smi"], by_path("wkv6")),
     ]
+    phase_analysis(analysis)
+    mark("analysis")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": info["device"]}), flush=True)
     return 0

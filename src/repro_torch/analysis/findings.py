@@ -1,8 +1,9 @@
-"""Machine-readable findings of the static verifier (a copy of
-``repro.analysis.findings``)."""
+"""Machine-readable findings shared by the verifier and the linter (a
+copy of ``repro.analysis.findings``)."""
 from __future__ import annotations
 
 import dataclasses
+import json
 
 
 @dataclasses.dataclass(frozen=True)
@@ -10,9 +11,10 @@ class Finding:
     """One defect located by a named check.
 
     ``check`` is the check's id ("dep-dag", "route", "cdg-deadlock",
-    "collective-fold", "hier-route", "plan-mode", "kvcache", ...);
-    ``where`` locates the defect (an op index, a lane, a plan key and
-    site); ``message`` says what is wrong in one sentence.
+    "collective-fold", "hier-route", "plan-mode", "kvcache", ... or a lint
+    rule name); ``where`` locates the defect (an op index, a lane, a plan
+    key and site, a ``file:line``); ``message`` says what is wrong in one
+    sentence.
     """
 
     check: str
@@ -37,3 +39,22 @@ class VerificationError(Exception):
         if extra > 0:
             head += f" (+{extra} more)"
         super().__init__(head or "verification failed")
+
+
+def findings_doc(findings, **meta) -> dict:
+    """A deterministic JSON-serializable findings artifact."""
+    doc = dict(sorted(meta.items()))
+    doc["count"] = len(findings)
+    doc["findings"] = [f.to_dict() for f in findings]
+    return doc
+
+
+def dump_findings(path, findings, **meta) -> None:
+    from pathlib import Path
+
+    from repro_torch.core.noc.simcache import atomic_write_text
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    atomic_write_text(
+        p, json.dumps(findings_doc(findings, **meta), indent=1,
+                      sort_keys=True) + "\n")

@@ -192,8 +192,10 @@ class SimCache:
         target.mkdir(parents=True, exist_ok=True)
         if fcntl is None:                        # pragma: no cover
             return self._merge_and_replace(target)
-        # the lock file is a rendezvous, not an artifact: it stays empty
-        with open(target / (_CACHE_FILE + ".lock"), "w") as lock:
+        # Lock files are advisory rendezvous points, not artifacts: torn
+        # content is irrelevant (flock works on the inode, the file stays
+        # empty) and atomic replace would defeat the rendezvous.
+        with open(target / (_CACHE_FILE + ".lock"), "w") as lock:  # lint: allow(non-atomic-write)
             fcntl.flock(lock, fcntl.LOCK_EX)
             try:
                 return self._merge_and_replace(target)

@@ -37,10 +37,16 @@ cells skip it, as the reference's do.  The result has ``trace_s`` where
 the reference has ``lower_s`` and ``compile_s``, and ``kernels``:
 launches, FLOPs and bytes by kernel.
 
-A cell the port cannot cut (a model span that does not divide the heads,
-data ranks that do not divide the batch) raises with the port's own
-message and goes to ``failures``, as a failed cell does in the reference;
-the exit code is 1 if any cell failed.  Nothing is allocated on any
+Where the reference's ``fit_specs`` would drop or move a mesh axis, the
+port cuts unevenly: a model span that does not divide the heads takes
+the uneven head cut of the dense and moe families
+(:func:`~repro_torch.parallel.sharding.head_split`; rank 0's piece is
+traced), and a serve or prefill batch that the hosts (pod x data) do not
+divide is replicated over them (:func:`_rows`).  A cell the port still
+cannot cut (a train batch the hosts do not divide, a family without the
+uneven head cut) raises with the port's own message and goes to
+``failures``, as a failed cell does in the reference; the exit code is 1
+if any cell failed.  Nothing is allocated on any
 device, so the dry-run needs no GPU.
 
 Usage:
@@ -51,6 +57,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -83,15 +90,15 @@ def rank_ctx(mesh: RankMesh, psum_mode: str = "xla_spmd",
                        data_group=span("data"), pod_group=span("pod"))
 
 
-def _rows(shape: ShapeConfig, hosts: int) -> int:
-    """The rows of a ``shape`` batch each data-parallel host takes; raises
-    where the hosts do not divide it, as the launchers do."""
-    if shape.global_batch % hosts or shape.global_batch < hosts:
-        raise ValueError(
-            f"a global batch of {shape.global_batch} rows does not divide "
-            f"over {hosts} data-parallel ranks (pod x data): the port cuts "
-            f"whole rows over data")
-    return shape.global_batch // hosts
+def _rows(shape: ShapeConfig, hosts: int) -> tuple[int, bool]:
+    """(the rows of a serve or prefill ``shape`` batch each data-parallel
+    host takes, whether they are the hosts' cut of it): where the hosts
+    do not divide the batch (``long_500k``'s one row), every host takes
+    all of it, replicated over ``(pod, data)``, as the reference's
+    ``fit_specs`` drops the tokens' data axis."""
+    if shape.global_batch % hosts:
+        return shape.global_batch, False
+    return shape.global_batch // hosts, True
 
 
 def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: RankMesh,
@@ -114,10 +121,14 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: RankMesh,
             cost.arguments(params, opt, batch)
             cost.outputs(ts.fn(params, opt, batch))
         return cost
-    n = _rows(shape, hosts)
+    n, cut = _rows(shape, hosts)
     batch = {k: v[:n].clone() for k, v in specs.items()}
     weights, dims = fsdp.serving_params(model.init(device="meta"), cfg, pctx,
                                         pctx.data_group)
+    data_group = pctx.data_group
+    if not cut:
+        # replicated rows are routed as one host's (an MoE layer's group)
+        pctx = dataclasses.replace(pctx, data_group=None, pod_group=None)
     if shape.kind == "prefill":
         fn, extra = build_prefill(model, pctx).fn, ()
     else:
@@ -126,7 +137,7 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh: RankMesh,
                                   world=world[1]),)
     with counting() as cost:
         cost.arguments(weights, batch, *extra)
-        with fsdp.serving(weights, dims, pctx.data_group) as w:
+        with fsdp.serving(weights, dims, data_group) as w:
             cost.outputs(fn(w, batch, *extra))
     return cost
 
@@ -268,6 +279,7 @@ def main(argv=None) -> int:
                 json.dump({"results": results, "failures": failures}, f,
                           indent=1)
 
+    t0 = time.perf_counter()
     for mesh in meshes:
         for arch, sname in cells:
             key = (arch, sname, tuple(sorted(dict(mesh.pairs).items())))
@@ -292,7 +304,8 @@ def main(argv=None) -> int:
 
     if args.out:
         print(f"wrote {args.out}")
-    print(f"\n{len(results)} cells OK, {len(failures)} failed")
+    print(f"\n{len(results)} cells OK, {len(failures)} failed in "
+          f"{time.perf_counter() - t0:.1f} s")
     for f in failures:
         print(f"  FAIL {f['arch']} x {f['shape']} x {f['mesh']}: "
               f"{f['error'][:200]}")

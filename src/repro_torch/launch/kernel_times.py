@@ -10,7 +10,9 @@ attention cases in the model's layout, and :func:`wkv_cases` /
 :func:`wkv_operands` its wkv6 cases.  :func:`rank_projections`,
 :func:`attention_cases` and :func:`wkv_cases` also hold the rank-local
 shapes of worlds 2 and 4 (:data:`TP_WORLDS`): what one rank of every
-tensor-parallel non-dense model launches.  ``sweep`` (the default) times
+tensor-parallel non-dense model launches; :func:`uneven_projections` and
+:func:`attention_cases` those of the uneven head cut at a model span of 16
+(:data:`UNEVEN_WORLD`).  ``sweep`` (the default) times
 ``ina_matmul`` at every cluster size the kernel takes, at the decode (M =
 1, 2, 4) and prefill-chunk (M = 64) shapes of every served model's products,
 beside the size ``plan_matmul`` picks and ``torch.matmul``'s time.
@@ -54,6 +56,14 @@ MAIN_PATH_M = {"qwen2-1.5b": (64, 2), "rwkv6-7b": (4096, 2),
 # the tensor-parallel worlds whose rank-local launch shapes are checked and
 # timed on one card (one H100 runs no world above 1)
 TP_WORLDS = (2, 4)
+# the model span of the uneven head cut's rank-local shapes: the dry-run's
+# 16 x 16 cells, which 12 (qwen2-1.5b) and 40 (qwen3-14b) query heads do
+# not divide (``parallel/sharding.head_split``)
+UNEVEN_WORLD = 16
+# (arch, rank) of the uneven head cut's ranks whose shapes are checked:
+# qwen2-1.5b's rank 0 (one query head, one KV head), qwen3-14b's rank 0
+# (3:1) and rank 1 (heads 3-5 straddle KV heads 0 and 1: K/V expanded 3:3)
+UNEVEN_RANKS = (("qwen2-1.5b", 0), ("qwen3-14b", 0), ("qwen3-14b", 1))
 
 
 class Timer:
@@ -206,6 +216,34 @@ def rank_projections(world: int) -> list[tuple[str, str, int, int, str]]:
             (w.name, "w_down", w.d_ff // p, w.d_model, "row")]
     return [(model, f"{name} P={p}", k, n, kind)
             for model, name, k, n, kind in out]
+
+
+def uneven_projections() -> list[tuple[str, str, int, int, str]]:
+    """(model, name, K, N, w layout) of each distinct ``ina_matmul``
+    product of the :data:`UNEVEN_RANKS` at a model span of
+    :data:`UNEVEN_WORLD`, read from the rank's shard
+    (``sharding.shard_params`` on ``meta``): the attention of its real
+    heads (a straddling rank's ``wk``/``wv`` its two KV heads), the MLP
+    at d_ff / 16, the head at V / 16 (tied: ``embed.T``)."""
+    from repro_torch.models.api import get_model
+    from repro_torch.parallel.sharding import shard_params
+    out, seen = [], set()
+    for arch, rank in UNEVEN_RANKS:
+        cfg = ARCHS[arch]
+        shard = shard_params(get_model(cfg).init(device="meta"), cfg, rank,
+                             UNEVEN_WORLD)
+        layer = {**shard["layers"]["attn"], **shard["layers"]["mlp"]}
+        rows = [(name, *layer[name].shape[-2:], "row")
+                for name in ("wq", "wk", "wo", "w_up", "w_down")]
+        head = shard.get("lm_head")
+        rows.append(("head", *head.shape, "row") if head is not None else
+                    ("tied head", *shard["embed"].shape[::-1], "tied"))
+        for name, k, n, kind in rows:
+            if (arch, k, n, kind) not in seen:
+                seen.add((arch, k, n, kind))
+                out.append((arch, f"{name} P={UNEVEN_WORLD} r{rank}", k, n,
+                            kind))
+    return out
 
 
 def family_projections() -> list[tuple[str, str, int, int, str]]:
@@ -380,7 +418,9 @@ def attention_cases() -> list[tuple]:
     heads of worlds 2 and 4: llama4-scout's forward (20:4, 10:2),
     zamba2's shared attention (16 and 8 heads of 160), llama-3.2-vision's
     self layers and cross-attention (16:4, 8:2) and whisper's encoder,
-    decoder and cross-attention (8 and 4 heads)."""
+    decoder and cross-attention (8 and 4 heads); and the dense prefill's
+    chunk at the uneven head cut's ranks (:data:`UNEVEN_RANKS`): qwen2's
+    1:1, qwen3-14b's 3:1 (rank 0) and 3:3 (rank 1, its K/V expanded)."""
     bf16, f32 = torch.bfloat16, torch.float32
     q, ll, l4 = (ARCHS[n] for n in ("qwen2-1.5b", "llama3-8b",
                                     "llama4-scout-17b-16e"))
@@ -423,6 +463,14 @@ def attention_cases() -> list[tuple]:
             (f"whisper encoder P={p}", 1, wf, wf, *cut(w), bf16, wf, False),
             (f"whisper decoder P={p}", 1, 448, 448, *cut(w), bf16, 448, True),
             (f"whisper cross P={p}", 1, 448, wf, *cut(w), bf16, wf, False)]
+    from repro_torch.parallel.sharding import head_split, kv_index
+    for arch, rank in UNEVEN_RANKS:
+        c = ARCHS[arch]
+        h, kvh = (len(r) for r in head_split(c, rank, UNEVEN_WORLD))
+        if kv_index(c, rank, UNEVEN_WORLD) is not None:
+            kvh = h                      # expanded to one a query head
+        cases.append((f"{arch} chunk 2 P={UNEVEN_WORLD} r{rank}", 1, 64, 128,
+                      h, kvh, c.resolved_head_dim, bf16, 192, True))
     return cases
 
 

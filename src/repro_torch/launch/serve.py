@@ -234,11 +234,14 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     if rows is not None:
         prompts = prompts[list(rows)]
     hosts = Hosts(data_group, pod_group)
-    if prompts.shape[0] % hosts.count:
-        raise ValueError(f"{prompts.shape[0]} rows do not divide over the "
-                         f"{hosts.count} data-parallel ranks (pod x data)")
-    n = prompts.shape[0] // hosts.count
-    prompts = prompts[hosts.index * n:(hosts.index + 1) * n]
+    # rows the hosts do not divide are replicated over them (the
+    # reference's fit_specs drops the batch's data axis): every host runs
+    # every row, routes them as one host, and gathers nothing
+    cut = prompts.shape[0] % hosts.count == 0
+    if cut:
+        n = prompts.shape[0] // hosts.count
+        prompts = prompts[hosts.index * n:(hosts.index + 1) * n]
+    gather = hosts.all_gather if cut else (lambda t: t)
     world = ParallelCtx(group=group).world
     plan, _ = plan_for_launch(
         cfg, ((MODEL_AXIS, world),),
@@ -246,9 +249,11 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
                     prompts.shape[0], "decode"),
         args.psum_mode, plan_dir=args.plan_dir, enabled=not args.no_plan)
     # the rows are the hosts' cut of one batch: an MoE layer routes them
-    # as one group over the data and pod groups
+    # as one group over the data and pod groups (replicated rows: as one
+    # host's)
     pctx = ParallelCtx(group=group, psum_mode=args.psum_mode, plan=plan,
-                       data_group=data_group, pod_group=pod_group,
+                       data_group=data_group if cut else None,
+                       pod_group=pod_group if cut else None,
                        serve_replicated_params=args.serve_replicated_params)
     params, dims = serving_params(_params(args, cfg, params), cfg, pctx,
                                   data_group)
@@ -260,7 +265,7 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
     prompts = prompts.to(dev)
     batch = prompts.shape[0]
     cache = model.init_cache(batch, max_seq or args.prompt_len + args.gen,
-                             device=dev, world=pctx.world)
+                             device=dev, world=pctx.world, rank=pctx.rank)
     extra = media_ones(cfg, batch, dev)
     if cfg.family == "vlm":
         with fsdp.serving(params, dims, data_group) as held:
@@ -288,9 +293,9 @@ def run_legacy(args, cfg, params=None, group=None, *, rows=None,
             cache)
         tokens.append(nxt)
         margins.append(margin(logits))
-    out = hosts.all_gather(torch.stack(tokens, dim=1)).cpu()
-    margins = hosts.all_gather(torch.stack(margins, dim=1))
-    first_logits = hosts.all_gather(first_logits)
+    out = gather(torch.stack(tokens, dim=1)).cpu()
+    margins = gather(torch.stack(margins, dim=1))
+    first_logits = gather(first_logits)
     batch = out.shape[0]
     dt = time.perf_counter() - t0
     print(f"[serve] generated {args.gen} x {batch} tokens in "

@@ -70,8 +70,7 @@ from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.launch import mesh
 from repro_torch.models.api import get_model, media_ones
 from repro_torch.optim.adamw import adamw_init, tree_leaves
-from repro_torch.parallel.sharding import (check_heads, head_split,
-                                            shard_params)
+from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.steps import build_train_step
 from repro_torch.parallel.tp import ParallelCtx
 from repro_torch.plan import add_plan_cli_args, plan_for_launch
@@ -123,9 +122,13 @@ def run(args, on_step: Optional[Callable] = None) -> dict:
     if on_step is not None:
         raise ValueError("on_step is called at one rank only: on a mesh of "
                          "more ranks the steps run in the ranks' processes")
-    # refuse what the ranks would, before any starts
-    head_split(cfg, 0, ranks.span("model"))
-    check_heads(cfg, ranks.span("model"))
+    # refuse what the ranks would, before any starts: every model rank's
+    # cut of the parameters (on ``meta``: the head cut of each rank, even
+    # or not, and every dim the model axis must divide)
+    world = (ranks.span("data"), ranks.span("model"))
+    meta = get_model(cfg).init(device="meta", masters=True)
+    for m in range(world[1]):
+        shard_params(meta, cfg, (0, m), world)
     hosts = ranks.span("pod") * ranks.span("data")
     if args.batch % hosts:
         raise ValueError(f"--batch {args.batch} does not divide over the "

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.parallel.sharding import UNEVEN_HEAD_FAMILIES
 from repro_torch.models import (encdec, hybrid, mla, moe, rwkv, transformer,
                                 vision)
 
@@ -71,13 +72,19 @@ class Model:
         return self.mod.loss(params, self.cfg, batch, pctx)
 
     def init_cache(self, batch: int, max_seq: int, *, device="cuda",
-                   world: int = 1) -> dict:
-        """The decode cache of one rank of ``world``: the K/V hold that
-        rank's KV heads (the media's too for vlm), the ssm family's state
-        and hybrid's Mamba2 states its heads, hybrid's conv tails its
-        channels; mla_moe's latent is whole on every rank."""
+                   world: int = 1, rank: int = 0) -> dict:
+        """The decode cache of rank ``rank`` of ``world``: the K/V hold
+        that rank's KV heads (the media's too for vlm), the ssm family's
+        state and hybrid's Mamba2 states its heads, hybrid's conv tails its
+        channels; mla_moe's latent is whole on every rank.  Only the
+        families of the uneven head cut
+        (:data:`~repro_torch.parallel.sharding.UNEVEN_HEAD_FAMILIES`) size
+        a rank's cache by its rank; every other family's cut is even, the
+        same on every rank."""
+        extra = {"rank": rank} \
+            if self.cfg.family in UNEVEN_HEAD_FAMILIES else {}
         return self.mod.init_cache(self.cfg, batch, max_seq,
-                                   _device.resolve(device), world)
+                                   _device.resolve(device), world, **extra)
 
     def decode_step(self, params, batch, cache, pctx=None):
         return self.mod.decode_step(params, self.cfg, batch, cache, pctx)

@@ -265,8 +265,14 @@ def init_attn(generator, d_model: int, n_heads: int, n_kv: int, head_dim: int,
 
 
 def attn_qkv(p: dict, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
-             cos, sin, eps: float, pctx: Optional[ParallelCtx] = None):
-    """Project to q/k/v heads (+qk-norm, +rope). Returns q,k,v [B,S,H,D]."""
+             cos, sin, eps: float, pctx: Optional[ParallelCtx] = None,
+             kv_index: Optional[tuple] = None):
+    """Project to q/k/v heads (+qk-norm, +rope). Returns q,k,v [B,S,H,D].
+
+    ``kv_index`` (:func:`~repro_torch.parallel.sharding.kv_index`: a rank
+    of the uneven head cut whose query heads straddle its KV heads) gives
+    the KV head of each query head: k and v come out expanded to one head
+    a query head, as the rank's cache holds them."""
     b, s, _ = x.shape
     q = col_linear(x, p["wq"], pctx, p.get("bq")).reshape(b, s, n_heads, head_dim)
     k = col_linear(x, p["wk"], pctx, p.get("bk")).reshape(b, s, n_kv, head_dim)
@@ -277,14 +283,29 @@ def attn_qkv(p: dict, x: torch.Tensor, n_heads: int, n_kv: int, head_dim: int,
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    if kv_index is not None:
+        sel = torch.tensor(kv_index, device=k.device)
+        k, v = k.index_select(2, sel), v.index_select(2, sel)
     return q, k, v
+
+
+def no_heads(x: torch.Tensor, p: dict,
+             pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+    """The attention output of a rank of the uneven head cut that holds no
+    query head: no projection and no attention, a zero partial into the
+    row psum (:func:`~repro_torch.parallel.tp.row_linear` of no rows)."""
+    return row_linear(x[..., :0], p["wo"], pctx)
 
 
 def attn_block(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                head_dim: int, cos, sin, causal: bool = True, eps: float = 1e-5,
-               pctx: Optional[ParallelCtx] = None) -> torch.Tensor:
+               pctx: Optional[ParallelCtx] = None,
+               kv_index: Optional[tuple] = None) -> torch.Tensor:
     b, s, _ = x.shape
-    q, k, v = attn_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, eps, pctx)
+    if n_heads == 0:
+        return no_heads(x, p, pctx)
+    q, k, v = attn_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, eps, pctx,
+                       kv_index)
     o = attention(q, k, v, causal=causal)
     return row_linear(o.reshape(b, s, n_heads * head_dim), p["wo"], pctx)
 
@@ -316,7 +337,8 @@ def write_at(cache: torch.Tensor, pos, value: torch.Tensor) -> None:
 def attn_block_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
                       cache_v: torch.Tensor, pos, *, n_heads: int, n_kv: int,
                       head_dim: int, cos, sin, eps: float = 1e-5,
-                      pctx: Optional[ParallelCtx] = None):
+                      pctx: Optional[ParallelCtx] = None,
+                      kv_index: Optional[tuple] = None):
     """Single-token decode with a KV cache [B, S, K, D]; returns (y, k, v).
 
     The new K/V column is written into ``cache_k``/``cache_v`` in place (at
@@ -324,7 +346,10 @@ def attn_block_decode(p: dict, x: torch.Tensor, cache_k: torch.Tensor,
     cache positions ``<= pos``.
     """
     b = x.shape[0]
-    q, k, v = attn_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, eps, pctx)
+    if n_heads == 0:
+        return no_heads(x, p, pctx), cache_k, cache_v
+    q, k, v = attn_qkv(p, x, n_heads, n_kv, head_dim, cos, sin, eps, pctx,
+                       kv_index)
     write_at(cache_k, pos, k[:, 0])
     write_at(cache_v, pos, v[:, 0])
     o = attn_full(q, cache_k.to(q.dtype), cache_v.to(q.dtype), causal=True,

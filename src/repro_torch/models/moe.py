@@ -60,9 +60,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import layers as L
 from repro_torch.core.remat import product
-from repro_torch.models.transformer import (_dtype, _heads, block_input,
-                                            embed_stream, head_logits, layer,
-                                            remat)
+from repro_torch.models.transformer import (_dtype, block_input,
+                                            embed_stream, head_layout,
+                                            head_logits, layer, remat)
 from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import local_heads
 from repro_torch.parallel.tp import ParallelCtx
@@ -349,11 +349,11 @@ def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
     attention runs the flash kernel (the reference's ``attn_chunked`` /
     ``attn_full``: the same function)."""
     hd = cfg.resolved_head_dim
-    nh, nkv = _heads(lp["attn"], hd)
+    nh, nkv, idx = head_layout(lp["attn"], cfg, pctx)
     h = block_input(x, lp["ln1"], cfg, seq, pctx)
     x = x + L.attn_block(lp["attn"], h, n_heads=nh, n_kv=nkv, head_dim=hd,
                          cos=cos, sin=sin, causal=True, eps=cfg.norm_eps,
-                         pctx=pctx)
+                         pctx=pctx, kv_index=idx)
     return ffn(lp, x, cfg, pctx, dense, seq)
 
 
@@ -404,10 +404,10 @@ def loss(params: dict, cfg: ModelConfig, batch: dict,
 # decode
 # --------------------------------------------------------------------------- #
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
-               world: int = 1) -> dict:
-    """K/V of the KV heads one rank of ``world`` holds."""
+               world: int = 1, rank: int = 0) -> dict:
+    """K/V of the KV heads rank ``rank`` of ``world`` holds."""
     nd = cfg.moe.first_dense_layers
-    kvh = local_heads(cfg, world)[1]
+    kvh = local_heads(cfg, world, rank=rank)[1]
 
     def kv(n):
         return torch.zeros((n, batch, max_seq, kvh, cfg.resolved_head_dim),
@@ -439,10 +439,10 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
         ck, cv = (cache[name] for name in caches[dense])
         for i in range(n):
             lp = layer(stack, i)
-            nh, nkv = _heads(lp["attn"], hd)
+            nh, nkv, idx = head_layout(lp["attn"], cfg, pctx)
             y, _, _ = L.attn_block_decode(
                 lp["attn"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), ck[i],
                 cv[i], pos, n_heads=nh, n_kv=nkv, head_dim=hd, cos=cos,
-                sin=sin, eps=cfg.norm_eps, pctx=pctx)
+                sin=sin, eps=cfg.norm_eps, pctx=pctx, kv_index=idx)
             x, _ = ffn(lp, x + y, cfg, pctx, dense, 1, groups)
     return head_logits(params, cfg, x, 1, pctx), cache

@@ -13,7 +13,9 @@ and return it.
 
 Under tensor parallelism the parameters are a rank's shards
 (:func:`repro_torch.parallel.sharding.shard_params`): the head counts are
-read from the shards, the cache holds the rank's KV heads, the embedding
+read from the shards (under the uneven head cut a rank may hold none, or
+expand its K/V to one head a query head, :func:`head_layout`), the cache
+holds the rank's KV heads, the embedding
 and the head are vocab-parallel, and under ``pctx.rs_seq`` the residual
 stream between layers holds the rank's slice of the sequence, gathered back
 before each column-parallel projection (:func:`repro_torch.parallel.tp.
@@ -33,7 +35,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.remat import remat_policy
 from repro_torch.parallel import fsdp
 from repro_torch.parallel import tp
-from repro_torch.parallel.sharding import local_heads
+from repro_torch.parallel.sharding import kv_index, local_heads
 from repro_torch.parallel.tp import ParallelCtx
 
 
@@ -126,6 +128,22 @@ def _heads(ap: dict, hd: int) -> tuple[int, int]:
     return ap["wq"].shape[-1] // hd, ap["wk"].shape[-1] // hd
 
 
+def head_layout(ap: dict, cfg: ModelConfig,
+                pctx: Optional[ParallelCtx]) -> tuple:
+    """(query heads, KV heads, the KV index of
+    :func:`~repro_torch.parallel.sharding.kv_index`) of this rank's
+    attention shard: the index where the rank's query heads straddle its
+    KV heads under the uneven head cut, else ``None``.  The plan
+    builder's trace runs the unsharded model under a span
+    (``plan.builder.collect_psum_sites``), whose heads are no rank's: it
+    takes no index."""
+    nh, nkv = _heads(ap, cfg.resolved_head_dim)
+    if pctx is None or not pctx.manual or not nh:
+        return nh, nkv, None
+    idx = kv_index(cfg, pctx.rank, pctx.world)
+    return nh, nkv, idx if idx is not None and len(idx) == nh else None
+
+
 def embed_stream(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                  pctx: Optional[ParallelCtx]) -> torch.Tensor:
     """Embedded tokens, this rank's slice of the sequence under rs_seq."""
@@ -162,11 +180,11 @@ def head_logits(params: dict, cfg: ModelConfig, x: torch.Tensor, seq: int,
 def layer_fwd(lp: dict, x: torch.Tensor, cfg: ModelConfig, cos, sin,
               pctx: Optional[ParallelCtx], seq: int) -> torch.Tensor:
     hd = cfg.resolved_head_dim
-    nh, nkv = _heads(lp["attn"], hd)
+    nh, nkv, idx = head_layout(lp["attn"], cfg, pctx)
     h = block_input(x, lp["ln1"], cfg, seq, pctx)
     x = x + L.attn_block(lp["attn"], h, n_heads=nh, n_kv=nkv, head_dim=hd,
                          cos=cos, sin=sin, causal=True, eps=cfg.norm_eps,
-                         pctx=pctx)
+                         pctx=pctx, kv_index=idx)
     return x + L.mlp_block(lp["mlp"], block_input(x, lp["ln2"], cfg, seq,
                                                   pctx), pctx)
 
@@ -246,16 +264,21 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     cos, sin = L.rope_cos_sin(pos, hd, cfg.rope_theta)
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
-        nh, nkv = _heads(lp["attn"], hd)
+        nh, nkv, idx = head_layout(lp["attn"], cfg, pctx)
         ck, cv = cache["k"][i], cache["v"][i]
         h = block_input(x, lp["ln1"], cfg, c, pctx)
-        q, k, v = L.attn_qkv(lp["attn"], h, nh, nkv, hd, cos, sin,
-                             cfg.norm_eps, pctx)
-        ck[:, pos_offset:end] = k.to(ck.dtype)
-        cv[:, pos_offset:end] = v.to(cv.dtype)
-        o = L.attention(q, ck[:, :end].to(q.dtype), cv[:, :end].to(q.dtype),
-                        causal=True, q_offset=pos_offset)
-        x = x + L.row_linear(o.reshape(b, c, nh * hd), lp["attn"]["wo"], pctx)
+        if nh == 0:
+            x = x + L.no_heads(h, lp["attn"], pctx)
+        else:
+            q, k, v = L.attn_qkv(lp["attn"], h, nh, nkv, hd, cos, sin,
+                                 cfg.norm_eps, pctx, idx)
+            ck[:, pos_offset:end] = k.to(ck.dtype)
+            cv[:, pos_offset:end] = v.to(cv.dtype)
+            o = L.attention(q, ck[:, :end].to(q.dtype),
+                            cv[:, :end].to(q.dtype), causal=True,
+                            q_offset=pos_offset)
+            x = x + L.row_linear(o.reshape(b, c, nh * hd), lp["attn"]["wo"],
+                                 pctx)
         x = x + L.mlp_block(lp["mlp"], block_input(x, lp["ln2"], cfg, c,
                                                    pctx), pctx)
     return head_logits(params, cfg, x, c, pctx), cache
@@ -265,18 +288,20 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
 # decode
 # --------------------------------------------------------------------------- #
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int,
-                 world: int = 1) -> dict:
-    """K/V of the KV heads one rank of ``world`` holds."""
-    shape = (cfg.n_layers, batch, max_seq, local_heads(cfg, world)[1],
-             cfg.resolved_head_dim)
+                 world: int = 1, rank: int = 0) -> dict:
+    """K/V of the KV heads rank ``rank`` of ``world`` holds (under the
+    uneven head cut each rank's own count,
+    :func:`~repro_torch.parallel.sharding.cache_heads`)."""
+    shape = (cfg.n_layers, batch, max_seq,
+             local_heads(cfg, world, rank=rank)[1], cfg.resolved_head_dim)
     return {"k": shape, "v": shape}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
-               world: int = 1) -> dict:
+               world: int = 1, rank: int = 0) -> dict:
     return {name: torch.zeros(shape, dtype=_dtype(cfg), device=device)
             for name, shape in cache_shapes(cfg, batch, max_seq,
-                                            world).items()}
+                                            world, rank).items()}
 
 
 def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
@@ -295,11 +320,12 @@ def decode_step(params: dict, cfg: ModelConfig, batch: dict, cache: dict,
     seq = tokens.shape[1]
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
-        nh, nkv = _heads(lp["attn"], hd)
+        nh, nkv, idx = head_layout(lp["attn"], cfg, pctx)
         y, _, _ = L.attn_block_decode(
             lp["attn"], block_input(x, lp["ln1"], cfg, seq, pctx),
             cache["k"][i], cache["v"][i], pos, n_heads=nh, n_kv=nkv,
-            head_dim=hd, cos=cos, sin=sin, eps=cfg.norm_eps, pctx=pctx)
+            head_dim=hd, cos=cos, sin=sin, eps=cfg.norm_eps, pctx=pctx,
+            kv_index=idx)
         x = x + y
         x = x + L.mlp_block(lp["mlp"], block_input(x, lp["ln2"], cfg, seq,
                                                    pctx), pctx)

@@ -12,7 +12,18 @@ could not compute with the rule's shard:
   ``wk`` [1536, 256] into half-heads at world 4.  Rank ``r`` of ``world``
   takes query heads ``[r H/world, (r+1) H/world)`` and the KV heads they
   read: ``K/world`` of them where ``world`` divides ``K``, else the one KV
-  head its query heads share (:func:`head_split`).  MLA (deepseek) cuts
+  head its query heads share (:func:`head_split`).  The dense and moe
+  families (:data:`UNEVEN_HEAD_FAMILIES`) also take a world that does not
+  divide the query heads, or whose ranks' query heads straddle KV heads,
+  where the reference's ``fit_specs`` would drop or move the ``model``
+  axis: each rank gets ``ceil(H/world)`` query-head slots and holds the
+  real heads ``[r hl, min(H, (r+1) hl))`` of them (the last ranks may hold
+  none) and every KV head they read, its parameters those heads only.  A
+  rank whose query heads read their KV heads in other than the even GQA
+  map expands its K/V to one head a query head after the projection
+  (:func:`kv_index`), so its cache holds that many (:func:`cache_heads`);
+  a rank with no head launches no attention and adds zero to the row
+  psum.  Any other family raises ValueError naming it.  MLA (deepseek) cuts
   ``wq``, ``w_uk`` and ``w_uv`` on their output dim and ``wo`` on its
   input dim by whole heads;
 * RWKV6's time mix shards whole heads too (:data:`_HEAD_CUTS`): ``wr``,
@@ -116,6 +127,9 @@ _ATTN = ("attn", "xattn")
 # the families whose weights this module cuts over ``model``
 SHARDED_FAMILIES = ("dense", "ssm", "moe", "mla_moe", "hybrid", "encdec",
                     "vlm")
+# the families whose attention takes the uneven head cut (the module
+# docstring); every other raises where the cut is not even
+UNEVEN_HEAD_FAMILIES = ("dense", "moe")
 
 
 # --------------------------------------------------------------------------- #
@@ -173,33 +187,80 @@ def attn_heads(cfg: ModelConfig, names: tuple = ()) -> tuple[int, int]:
     return cfg.n_heads, cfg.n_kv_heads
 
 
+def _uneven_refused(cfg: ModelConfig, why: str) -> ValueError:
+    return ValueError(f"{cfg.name}: {why}; the {cfg.family} family takes "
+                      f"no uneven head cut (sharding.UNEVEN_HEAD_FAMILIES)")
+
+
 def head_split(cfg: ModelConfig, rank: int, world: int,
                heads: tuple[int, int] | None = None) -> tuple[range, range]:
     """(query heads, KV heads) of ``rank``: whole heads only.  ``heads``
     is the attention's (query, KV) head count (:func:`attn_heads`), the
-    config's by default."""
+    config's by default.  Where ``world`` divides the query heads and
+    each rank's read one KV head (or ``K/world`` of them), the ranks' cuts
+    are equal; otherwise, in :data:`UNEVEN_HEAD_FAMILIES`, rank ``r``
+    holds the query heads ``[r hl, min(H, (r+1) hl))`` of ``hl =
+    ceil(H/world)`` slots (none past the last head) and every KV head they
+    read, and any other family raises."""
     h, k = heads or attn_heads(cfg)
-    if h % world:
-        raise ValueError(f"{cfg.name}: {world} ranks do not divide "
-                         f"{h} query heads")
-    hl = h // world
-    q = range(rank * hl, (rank + 1) * hl)
-    if k % world == 0:
-        kl = k // world
-        return q, range(rank * kl, (rank + 1) * kl)
+    if h % world == 0 and k % world == 0:
+        hl, kl = h // world, k // world
+        return (range(rank * hl, (rank + 1) * hl),
+                range(rank * kl, (rank + 1) * kl))
+    hl = -(-h // world)
+    q = range(min(h, rank * hl), min(h, (rank + 1) * hl))
     group = h // k                          # query heads a KV head serves
-    if group % hl:
-        raise ValueError(f"{cfg.name}: at {world} ranks a rank's {hl} query "
-                         f"heads read more than one of {k} KV heads")
-    first = q.start // group
-    return q, range(first, first + 1)
+    uneven = cfg.family in UNEVEN_HEAD_FAMILIES
+    if h % world and not uneven:
+        raise _uneven_refused(cfg, f"{world} ranks do not divide {h} query "
+                                   f"heads")
+    if h % world == 0 and group % hl and not uneven:
+        raise _uneven_refused(cfg, f"at {world} ranks a rank's {hl} query "
+                                   f"heads read more than one of {k} KV "
+                                   f"heads")
+    if not q:
+        return q, range(0)
+    return q, range(q.start // group, (q.stop - 1) // group + 1)
+
+
+def kv_index(cfg: ModelConfig, rank: int, world: int,
+             heads: tuple[int, int] | None = None) -> tuple | None:
+    """The local KV head each of ``rank``'s query heads reads, where the
+    rank's query heads read its KV heads in other than the even GQA map
+    (``len(q) / len(kv)`` consecutive query heads a KV head): a rank of
+    the uneven cut whose query heads straddle KV heads unevenly
+    (qwen3-14b's rank 1 at 16 reads KV heads 0, 0 and 1).  Its K/V are
+    expanded to one head a query head through this index.  ``None``
+    where the even map holds."""
+    h, k = heads or attn_heads(cfg)
+    q, kv = head_split(cfg, rank, world, heads)
+    if not q:
+        return None
+    group = h // k
+    idx = tuple(i // group - kv.start for i in q)
+    n, rest = divmod(len(q), len(kv))
+    if rest == 0 and idx == tuple(j // n for j in range(len(q))):
+        return None
+    return idx
+
+
+def cache_heads(cfg: ModelConfig, rank: int, world: int,
+                heads: tuple[int, int] | None = None) -> int:
+    """The KV heads ``rank``'s decode cache holds: its KV heads, or one a
+    query head where they are expanded (:func:`kv_index`); none on a rank
+    with no head."""
+    q, kv = head_split(cfg, rank, world, heads)
+    return len(q) if kv_index(cfg, rank, world, heads) is not None \
+        else len(kv)
 
 
 def local_heads(cfg: ModelConfig, world: int,
-                heads: tuple[int, int] | None = None) -> tuple[int, int]:
-    """(query heads, KV heads) each rank holds."""
-    q, kv = head_split(cfg, 0, world, heads)
-    return len(q), len(kv)
+                heads: tuple[int, int] | None = None,
+                rank: int = 0) -> tuple[int, int]:
+    """(query heads, the KV heads of its cache, :func:`cache_heads`) that
+    ``rank`` holds; under an even cut every rank's are rank 0's."""
+    q, _ = head_split(cfg, rank, world, heads)
+    return len(q), cache_heads(cfg, rank, world, heads)
 
 
 def _ssm_heads(cfg: ModelConfig) -> int:
@@ -215,23 +276,34 @@ def local_ssm_heads(cfg: ModelConfig, world: int) -> int:
     return _ssm_heads(cfg) // world
 
 
+def _q_piece(cfg: ModelConfig, rank: int, world: int,
+             heads: tuple[int, int] | None = None) -> tuple[int, int, int]:
+    """``(start, stop, units)``: ``rank``'s query heads of all of them."""
+    q = head_split(cfg, rank, world, heads)[0]
+    return q.start, q.stop, (heads or attn_heads(cfg))[0]
+
+
 def _kv_piece(cfg: ModelConfig, rank: int, world: int,
-              heads: tuple[int, int] | None = None) -> tuple[int, int]:
+              heads: tuple[int, int] | None = None) -> tuple[int, int, int]:
+    """``(start, stop, units)``: ``rank``'s KV heads of all of them."""
     kv = head_split(cfg, rank, world, heads)[1]
-    return kv.start // len(kv), (heads or attn_heads(cfg))[1] // len(kv)
+    return kv.start, kv.stop, (heads or attn_heads(cfg))[1]
 
 
 def check_heads(cfg: ModelConfig, world: int) -> None:
     """Raise unless ``world`` divides every head count a head cut splits:
     the recurrent heads (ssm; hybrid's Mamba2) and the attention's (hybrid:
-    the shared block's)."""
+    the shared block's).  The attention of :data:`UNEVEN_HEAD_FAMILIES`
+    takes any world (:func:`head_split`)."""
+    if cfg.family in UNEVEN_HEAD_FAMILIES:
+        return
     counts = {"ssm": (_ssm_heads,),
               "hybrid": (_ssm_heads, lambda c: c.shared_attn_heads)}.get(
         cfg.family, (lambda c: c.n_heads,))
     for count in counts:
         if count(cfg) % world:
-            raise ValueError(f"{cfg.name}: {world} ranks do not divide "
-                             f"{count(cfg)} heads")
+            raise _uneven_refused(cfg, f"{world} ranks do not divide "
+                                       f"{count(cfg)} heads")
 
 
 def _segments(names: tuple, cfg: ModelConfig, world: int):
@@ -299,15 +371,16 @@ def segment_runs(names: tuple, cfg: ModelConfig, world: int):
 def _cut(names: tuple, ndim: int, cfg: ModelConfig, world: int):
     """How ``world`` ranks hold the leaf at ``names`` (``ndim`` dims):
     ``None`` where each holds it whole, else ``(dim, piece)``: the leaf is
-    cut on ``dim`` into ``count`` equal pieces, and ``piece(rank) ->
-    (index, count)`` names the rank's.  ``count < world`` where ranks
-    share a piece (a KV head read by several ranks' query heads).  A
-    segmented leaf (:func:`_segments`) has no such form and raises."""
+    cut on ``dim`` into ``units`` equal units, and ``piece(rank) ->
+    (start, stop, units)`` names the rank's run of them.  Ranks share a
+    unit where several read one KV head; under the uneven head cut the
+    runs differ in length (a rank's KV heads, or none).  A segmented leaf
+    (:func:`_segments`) has no such form and raises."""
     if world == 1:
         return None
     name = names[-1]
     parent = names[-2] if len(names) > 1 else ""
-    own = lambda rank: (rank, world)          # noqa: E731
+    own = lambda rank: (rank, rank + 1, world)          # noqa: E731
     if (parent, name) in _WHOLE:
         return None
     if (parent, name) in _SEGMENTED:
@@ -318,13 +391,15 @@ def _cut(names: tuple, ndim: int, cfg: ModelConfig, world: int):
         return ndim - _HEAD_CUTS[parent, name], own
     if parent in _ATTN:
         heads = attn_heads(cfg, names)
-        if name in ("wq", "bq"):
-            check_heads(cfg, world)
-            return ndim - 1, own
+        if name in ("wq", "bq", "wo"):
+            dim = ndim - 2 if name == "wo" else ndim - 1
+            if cfg.family in UNEVEN_HEAD_FAMILIES:
+                return dim, lambda rank: _q_piece(cfg, rank, world, heads)
+            if name != "wo":
+                check_heads(cfg, world)
+            return dim, own
         if name in ("wk", "bk", "wv", "bv"):
             return ndim - 1, lambda rank: _kv_piece(cfg, rank, world, heads)
-        if name == "wo":
-            return ndim - 2, own
     intent = leaf_spec(names, (1,) * ndim, None)
     if "model" not in intent:
         return None
@@ -393,7 +468,13 @@ def data_cut(names: tuple, cfg: ModelConfig, world) -> int | None:
     else:
         how = _cut(names, len(shape), cfg, mm)
         if how is not None and how[0] == dim:
-            size //= how[1](0)[1]
+            runs = {stop - start for start, stop, _ in
+                    map(how[1], range(mm))}
+            if len(runs) > 1:
+                raise NotImplementedError(f"{'/'.join(names)}: the data axis "
+                                          f"on a dim the model axis cuts "
+                                          f"unevenly")
+            size = size // how[1](0)[2] * runs.pop()
     return dim if size % dd == 0 and size >= dd else None
 
 
@@ -428,14 +509,14 @@ def shard_params(params: dict, cfg: ModelConfig, rank, world) -> dict:
         how = _cut(names, leaf.dim(), cfg, mm)
         if how is not None:
             dim, at = how
-            index, count = at(m)
-            if leaf.shape[dim] % count or leaf.shape[dim] < count:
+            start, stop, units = at(m)
+            if leaf.shape[dim] % units or leaf.shape[dim] < units:
                 # any weight the rule cuts must be cut, or the row psum
                 # would sum ``world`` copies
                 raise ValueError(f"{cfg.name}: {mm} ranks do not divide "
                                  f"{'/'.join(names)} {tuple(leaf.shape)}")
-            n = leaf.shape[dim] // count
-            piece = piece.narrow(dim, index * n, n)
+            n = leaf.shape[dim] // units
+            piece = piece.narrow(dim, start * n, (stop - start) * n)
         dim = data_cut(names, cfg, (dd, mm))
         if dim is not None:
             n = piece.shape[dim] // dd
@@ -456,6 +537,22 @@ def _at(tree: dict, names: tuple):
     for k in names:
         tree = tree[k]
     return tree
+
+
+def _narrow(x, dim: int, start: int, size: int):
+    if isinstance(x, np.ndarray):
+        return x[(slice(None),) * dim + (slice(start, start + size),)]
+    return x.narrow(dim, start, size)
+
+
+def _first_holders(at, world: int) -> dict:
+    """``{unit: the first rank whose run holds it}`` of a cut's pieces."""
+    first = {}
+    for rank in range(world):
+        start, stop, _ = at(rank)
+        for u in range(start, stop):
+            first.setdefault(u, rank)
+    return first
 
 
 def unshard_params(shards: list, cfg: ModelConfig, world) -> dict:
@@ -495,10 +592,13 @@ def unshard_params(shards: list, cfg: ModelConfig, world) -> dict:
         dim, at = how
         parts = {}
         for rank, tree in enumerate(shards):
-            index, count = at(rank)
-            if index not in parts:
-                parts[index] = _at(tree, names)
-        return _concat([parts[i] for i in range(count)], dim)
+            start, stop, units = at(rank)
+            piece = _at(tree, names)
+            n = piece.shape[dim] // max(stop - start, 1)
+            for u in range(start, stop):
+                if u not in parts:
+                    parts[u] = _narrow(piece, dim, (u - start) * n, n)
+        return _concat([parts[u] for u in range(units)], dim)
     return _walk(join, shards[0])
 
 
@@ -545,7 +645,9 @@ def leaf_holding(params: dict, cfg: ModelConfig, rank, world) -> dict:
     whole).  A segmented leaf (:func:`segment_runs`) gets ``((kind,
     start, size), ...)``, a kind for each run of its last dim: its cut
     segments' pieces ``"cut"``, its whole ones as a leaf the model axis
-    does not cut."""
+    does not cut; so does a KV leaf of the uneven head cut whose heads
+    some other rank counts and some this one (a rank straddling two KV
+    heads), a kind a head."""
     d, m, dd, mm = _coord(rank, world)
 
     def kind(names, leaf):
@@ -560,29 +662,49 @@ def leaf_holding(params: dict, cfg: ModelConfig, rank, world) -> dict:
         how = _cut(names, leaf.ndim, cfg, mm)
         if how is None and dim is None:
             return "whole"
-        first_m = 0
-        if how is not None:
-            index = how[1](m)[0]
-            first_m = next(r for r in range(mm) if how[1](r)[0] == index)
         first_d = d if dim is not None else 0
-        return "cut" if (first_d, first_m) == (d, m) else "copy"
+        if how is None:
+            return "cut" if (first_d, 0) == (d, m) else "copy"
+        start, stop, _ = how[1](m)
+        first = _first_holders(how[1], mm)
+        kinds = ["cut" if (first_d, first[u]) == (d, m) else "copy"
+                 for u in range(start, stop)]
+        if len(set(kinds)) < 2:
+            return kinds[0] if kinds else "copy"
+        if how[0] != leaf.ndim - 1:
+            raise NotImplementedError(f"{'/'.join(names)}: mixed holding "
+                                      f"off the last dim")
+        n = leaf.shape[-1] // len(kinds)
+        return tuple((k, j * n, n) for j, k in enumerate(kinds))
     return _walk(kind, params)
+
+
+def kv_holders(cfg: ModelConfig, world: int) -> list:
+    """``[(KV head, the model ranks that hold it), ...]`` of the KV heads
+    that more than one rank of the model axis of ``world`` holds, in KV
+    head order.  Under the uneven head cut a rank can be in two of them
+    (qwen3-14b at 16: KV head 0 on ranks 0 and 1, head 1 on ranks 1, 2
+    and 3).  The hybrid family's one attention is its shared block's,
+    with its own head counts."""
+    heads = attn_heads(cfg, ("shared",) if cfg.family == "hybrid" else ())
+    if world == 1 or heads[1] % world == 0:
+        return []
+    holders = {}
+    for rank in range(world):
+        start, stop, _ = _kv_piece(cfg, rank, world, heads)
+        for u in range(start, stop):
+            holders.setdefault(u, []).append(rank)
+    return [(u, holders[u]) for u in sorted(holders) if len(holders[u]) > 1]
 
 
 def kv_groups(cfg: ModelConfig, world) -> list:
     """The groups of flat ranks that share one KV head (each holds a copy,
-    the same piece over ``data``), in order of data rank, then KV head;
-    empty where every rank holds its own KV heads.  The hybrid family's one
-    attention is its shared block's, with its own head counts."""
+    the same piece over ``data``), in order of data rank, then KV head
+    (:func:`kv_holders` on each model line); empty where every rank holds
+    its own KV heads."""
     _, _, dd, mm = _coord(0, world)
-    heads = attn_heads(cfg, ("shared",) if cfg.family == "hybrid" else ())
-    if mm == 1 or heads[1] % mm == 0:
-        return []
-    groups = {}
-    for rank in range(mm):
-        groups.setdefault(_kv_piece(cfg, rank, mm, heads)[0], []).append(rank)
-    return [[d * mm + r for r in groups[k]] for d in range(dd)
-            for k in sorted(groups)]
+    return [[d * mm + r for r in ranks] for d in range(dd)
+            for _, ranks in kv_holders(cfg, mm)]
 
 
 # --------------------------------------------------------------------------- #

@@ -107,9 +107,12 @@ _KV = ("wk", "bk", "wv", "bv")
 @dataclasses.dataclass
 class GradSync:
     """The reductions a rank's gradients need after the backward, beyond
-    the collectives' own backwards: a KV head that ``kv_group``'s ranks
-    share (self- or cross-attention) gets each one's share of its gradient
-    summed over them, and the whole leaves whose gradient is partial on
+    the collectives' own backwards: each KV head that other ranks share
+    with this one (self- or cross-attention) gets each one's share of its
+    gradient summed over them (``kv_groups``: ``(group, j, n)``, head
+    ``j`` of the rank's ``n``, one entry a shared head; under the uneven
+    head cut a rank straddling two KV heads sums each over its own
+    group, in KV-head order), and the whole leaves whose gradient is partial on
     every path (per-head norms always, the family's stream leaves,
     :func:`~repro_torch.models.api.stream_leaves`, where their sequence is
     sharded, :data:`_PARTIAL`, and the whole B and C segments of
@@ -120,7 +123,7 @@ class GradSync:
     whole path (RWKV6's channel-mix ``mu``) gets its sum from an ``f`` on
     the cut path alone, never here."""
     group: object
-    kv_group: Optional[object]
+    kv_groups: tuple
     cfg: object
 
     def reduce(self, grads: dict, stream: frozenset) -> None:
@@ -142,7 +145,9 @@ class GradSync:
             elif names[-1] in _HEAD_NORMS or names[-2:] in _PARTIAL or \
                     "/".join(names) in stream:
                 partial.append(g)
-        for leaves, group in ((kv, self.kv_group), (partial, self.group)):
+        buckets = [([g.narrow(-1, j * (g.shape[-1] // n), g.shape[-1] // n)
+                     for g in kv], group) for group, j, n in self.kv_groups]
+        for leaves, group in buckets + [(partial, self.group)]:
             if leaves and group is not None:
                 flat = C.all_reduce_(torch.cat([g.reshape(-1)
                                                 for g in leaves]), group)
@@ -176,24 +181,31 @@ def _model_lines(pctx: ParallelCtx) -> list:
 def grad_sync(cfg, pctx: Optional[ParallelCtx]) -> Optional[GradSync]:
     """The :class:`GradSync` of a rank of ``pctx.group`` (``None`` at one
     rank).  Where ranks share a KV head it makes one ``dist.new_group``
-    for each KV head of each model line, line after line, in KV-head
-    order, which every rank of the default group must call alike.  On
-    an :class:`~repro_torch.core.collectives.AxisSpan` (the dry-run's
-    rank 0) the KV group is a span of the ranks sharing rank 0's KV head,
-    and no group is made."""
+    for each shared KV head of each model line
+    (:func:`~repro_torch.parallel.sharding.kv_holders`), line after line,
+    in KV-head order, which every rank of the default group must call
+    alike.  On an :class:`~repro_torch.core.collectives.AxisSpan` (the
+    dry-run's rank 0) each KV group is a span of the ranks sharing one
+    of rank 0's KV heads, and no group is made."""
     if pctx is None or not pctx.manual:
         return None
-    kv, shared = None, sharding.kv_groups(cfg, pctx.world)
+    holders = sharding.kv_holders(cfg, pctx.world)
+    heads = sharding.attn_heads(cfg, ("shared",) if cfg.family == "hybrid"
+                                else ())
+    mine = sharding.head_split(cfg, pctx.rank, pctx.world, heads)[1] \
+        if holders else range(0)
+    kv = []
     if isinstance(pctx.group, C.AxisSpan):
-        kv = C.AxisSpan(len(shared[0])) if shared else None
-        return GradSync(group=pctx.group, kv_group=kv, cfg=cfg)
-    for line in _model_lines(pctx) if shared else []:
-        for ranks in shared:
+        kv = [(C.AxisSpan(len(ranks)), u - mine.start, len(mine))
+              for u, ranks in holders if pctx.rank in ranks]
+        return GradSync(group=pctx.group, kv_groups=tuple(kv), cfg=cfg)
+    for line in _model_lines(pctx) if holders else []:
+        for u, ranks in holders:
             members = [line[r] for r in ranks]
             pg = dist.new_group(members)
             if dist.get_rank() in members:
-                kv = pg
-    return GradSync(group=pctx.group, kv_group=kv, cfg=cfg)
+                kv.append((pg, u - mine.start, len(mine)))
+    return GradSync(group=pctx.group, kv_groups=tuple(kv), cfg=cfg)
 
 
 @dataclasses.dataclass
@@ -306,7 +318,10 @@ def loss_and_grads(model: Model, params: dict, batch: dict,
     group = None if data is None else data.data_group
     with fsdp.gathering(fsdp.Gatherer(group, dims)):
         loss = model.loss(fsdp.gather_tree(work, dims, group), batch, pctx)
-    grads = list(torch.autograd.grad(loss, leaves))
+    # a rank of the uneven head cut with no head leaves its (empty)
+    # attention pieces and its whole per-head norms unused: zero gradients
+    grads = list(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                     materialize_grads=True))
     grads.reverse()
 
     def restack(node):
@@ -347,9 +362,10 @@ def build_train_step(model: Model, shape: ShapeConfig,
     (pod x data) do not divide raises ValueError (the reference's
     ``fit_specs`` would move the batch's data axis to the sequence, which
     the port does not cut over ``data``), as does a model world that does
-    not divide the heads.  The encdec and vlm families' ``batch`` also
-    holds this rank's rows of ``media`` [B, M, D], as the reference's
-    ``batch_specs`` cut it."""
+    not divide the heads outside the uneven head cut's families
+    (:data:`~repro_torch.parallel.sharding.UNEVEN_HEAD_FAMILIES`).  The
+    encdec and vlm families' ``batch`` also holds this rank's rows of
+    ``media`` [B, M, D], as the reference's ``batch_specs`` cut it."""
     cfg = model.cfg
     pctx = _with_plan(pctx, plan)
     sync = grad_sync(cfg, pctx)

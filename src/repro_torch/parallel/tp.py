@@ -249,8 +249,17 @@ def row_linear(x: torch.Tensor, w: torch.Tensor,
     backward gathers the dOut shards whole: by ``ring_all_gather`` under
     the ring modes (and ``sp_entry``), natively under ``ina`` and ``xla``.
     Each backward runs the strategy its forward resolved.
+
+    A rank of the uneven head cut with no head has ``F/P = 0``: its
+    partial is zero, launched by no kernel, and tied to ``x`` so that the
+    block entry's backward collective (:func:`gather_seq`) runs on it as
+    on every other rank.
     """
-    out = ops.matmul(x, w.to(x.dtype), _plan(pctx))
+    if x.shape[-1] == 0:
+        out = x.new_zeros(*x.shape[:-1], w.shape[1]) + \
+            x.sum(-1, keepdim=True)
+    else:
+        out = ops.matmul(x, w.to(x.dtype), _plan(pctx))
     if _grouped(pctx):
         if x.dim() == 3 and seq_sharded(pctx, x.shape[1]):
             if pctx.sp_entry:

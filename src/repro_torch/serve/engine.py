@@ -57,7 +57,10 @@ pod group: an MoE layer routes each slot of the paged step as its own
 group (the reference's is a ``vmap`` of a B=1 decode), so no host's rows
 meet another's.  A prompt's prefill (B 1) runs on every rank,
 whose per-layer gathers every rank must join; only the slot's owner keeps
-the rows it wrote.  The rank holds its FSDP pieces of the weights and
+the rows it wrote.  Slots the hosts do not divide are replicated over
+them (the reference's ``fit_specs`` drops the ``data`` axis of such a
+batch): every host holds and computes every slot, and nothing is
+gathered.  The rank holds its FSDP pieces of the weights and
 gathers each layer's whole as a step takes it
 (:mod:`repro_torch.parallel.fsdp`), or, under
 ``serve_replicated_params``, the whole model shard gathered once here.
@@ -66,7 +69,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Optional
 
 import torch
@@ -74,6 +76,7 @@ import torch.distributed as dist
 
 from repro_torch import _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.exec.timing import Stopwatch
 from repro_torch.models.api import MEDIA_FAMILIES, cache_leaves, get_model
 from repro_torch.parallel import fsdp
 from repro_torch.parallel.fsdp import serving_params
@@ -118,12 +121,11 @@ class ServingEngine:
                            serve_replicated_params=serve_replicated_params)
         self.pctx = pctx
         self.hosts = hosts = Hosts(data_group, pod_group)
-        if slots % hosts.count or slots < hosts.count:
-            raise ValueError(f"{slots} slots do not divide over the "
-                             f"{hosts.count} data-parallel ranks (pod x "
-                             f"data)")
-        self.local = slots // hosts.count     # this rank's slots
-        self.lo = hosts.index * self.local
+        # this rank's slots: its cut of them, or all where the hosts do
+        # not divide them (replicated rows)
+        self.replicated = slots % hosts.count != 0
+        self.local = slots if self.replicated else slots // hosts.count
+        self.lo = 0 if self.replicated else hosts.index * self.local
         self.device = _device.resolve(device)
         self.cfg = cfg
         self.model = get_model(cfg)
@@ -135,7 +137,8 @@ class ServingEngine:
             # enough for every slot to hold a full-length request
             num_blocks = slots * math.ceil(self.max_seq / block_size)
         self.kv = PagedKVCache(cfg, self.max_seq, block_size, num_blocks,
-                               device=self.device, world=pctx.world)
+                               device=self.device, world=pctx.world,
+                               rank=pctx.rank)
         self.sched = Scheduler(slots, self.kv, policy)
 
         self.step = build_paged_serve_step(self.model, pctx, plan=decode_plan)
@@ -161,7 +164,8 @@ class ServingEngine:
 
     def _cache(self, batch: int, max_seq: int) -> dict:
         return self.model.init_cache(batch, max_seq, device=self.device,
-                                     world=self.pctx.world)
+                                     world=self.pctx.world,
+                                     rank=self.pctx.rank)
 
     # ------------------------------------------------------------------ #
     def _row(self, cache: dict, slot: int) -> dict:
@@ -246,10 +250,10 @@ class ServingEngine:
                 raise RuntimeError(f"engine exceeded {max_iters} iterations")
             admitted = self.sched.admit(now=it)
             for st in admitted:
-                t0 = time.perf_counter()
+                watch = Stopwatch()
                 first, steps, first_logits[st.req.rid] = self._prefill(st)
                 self._seat(st)
-                prefill_s += time.perf_counter() - t0
+                prefill_s += watch.seconds
                 pf_chunks += steps
                 st.generated.append(first)
                 st.first_token_time = it
@@ -266,7 +270,7 @@ class ServingEngine:
                 it += 1
                 continue
 
-            t0 = time.perf_counter()
+            watch = Stopwatch()
             toks = torch.zeros((self.slots, 1), dtype=torch.long)
             pos = torch.zeros((self.slots,), dtype=torch.long)
             for slot, st in self.sched.active.items():
@@ -276,7 +280,9 @@ class ServingEngine:
             nxt, self.working = self._run(
                 self.step, {"tokens": toks[mine].to(self.device),
                             "pos": pos[mine].to(self.device)}, self.working)
-            nxt = self.hosts.all_gather(nxt).tolist()
+            if not self.replicated:
+                nxt = self.hosts.all_gather(nxt)
+            nxt = nxt.tolist()
             dsteps += 1
             for slot, st in list(self.sched.active.items()):
                 if self._owns(slot):
@@ -284,7 +290,7 @@ class ServingEngine:
                         st.req.rid, st.pos - 1,
                         self._row(self.working, slot - self.lo), 1)
                 st.generated.append(nxt[slot])
-            decode_s += time.perf_counter() - t0
+            decode_s += watch.seconds
             it += 1
             checks += self._retire(it, finished, first_logits)
         self.kv.check()

@@ -135,8 +135,8 @@ class PagedKVCache:
     """
 
     def __init__(self, cfg, max_seq: int, block_size: int, num_blocks: int,
-                 *, device="cuda", world: int = 1) -> None:
-        """The pool of one rank of ``world``: the dense, moe, hybrid,
+                 *, device="cuda", world: int = 1, rank: int = 0) -> None:
+        """The pool of rank ``rank`` of ``world``: the dense, moe, hybrid,
         encdec and vlm families' pages hold that rank's KV heads, the
         mla_moe family's the whole latent, the ssm and hybrid families'
         states that rank's heads (and hybrid's conv tails its channels)."""
@@ -153,7 +153,7 @@ class PagedKVCache:
 
         # shapes and dtypes without allocating (``jax.eval_shape`` there)
         proto = cache_leaves(get_model(cfg).init_cache(
-            1, max_seq, device="meta", world=world))
+            1, max_seq, device="meta", world=world, rank=rank))
         baxes = cache_batch_axes(cfg)
         paged = paged_cache_leaves(cfg)
         self.leaves: list[_LeafMeta] = []

@@ -126,6 +126,8 @@ def tp_rank(rank, world, group, device, spec):
                                      max_new=spec["gen"], prompt=tuple(p))
                              for i, p in enumerate(spec["prompts"])])
         out["engine"][mode] = report.tokens()
+    if "uneven" in spec:
+        out["uneven"] = uneven_rank(spec["uneven"], rank, world, group)
     if "combine" in spec:
         comb, experts = (torch.from_numpy(a) for a in spec["combine"])
         e = experts.shape[0] // world
@@ -157,6 +159,57 @@ def stream_shapes():
     finally:
         for mod in mods:
             mod.remat = orig
+
+
+def uneven_rank(cases: dict, rank, world, group) -> dict:
+    """The uneven head cut (``tests/_torch_uneven_cases.py``): for each
+    case (label -> the arch, its reduced config's replaced fields, the
+    reference's params, tokens and labels, decode tokens), on this rank's
+    shard under ``ina``: the forward logits, each decode step's logits
+    from an empty cache of this rank's size, the loss and this rank's
+    gradient shards, this rank's params and AdamW moments after one
+    train step, and the engine's greedy tokens on ``u["prompts"]``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.adamw import adamw_init, tree_map
+    from repro_torch.parallel.steps import build_train_step, loss_and_grads
+    out = {}
+    for label, u in cases.items():
+        cfg = dataclasses.replace(ARCHS[u["arch"]].reduced(), **u["config"])
+        model = get_model(cfg)
+        pctx = ParallelCtx(group=group, psum_mode="ina")
+        full = params_from_jax(u["params"], cfg, device="cpu", masters=True)
+        params = tree_map(torch.clone, shard_params(full, cfg, rank, world))
+        toks = torch.from_numpy(u["tokens"]).long()
+        res = {"forward": model.forward(params, {"tokens": toks},
+                                        pctx).detach().numpy(),
+               "decode": []}
+        cache = model.init_cache(toks.shape[0], u["max_seq"], device="cpu",
+                                 world=world, rank=rank)
+        res["cache_heads"] = int(cache["k"].shape[3])
+        for pos, tok in enumerate(u["decode_tokens"]):
+            logits, cache = model.decode_step(
+                params, {"tokens": torch.from_numpy(tok[:, None]).long(),
+                         "pos": pos}, cache, pctx)
+            res["decode"].append(logits.detach().numpy())
+        batch = {"tokens": toks,
+                 "labels": torch.from_numpy(u["labels"]).long()}
+        loss, grads = loss_and_grads(model, params, batch, pctx)
+        res["loss"], res["grads"] = float(loss), _numpy(grads)
+        shape = ShapeConfig("t", toks.shape[1], toks.shape[0], "train")
+        ts = build_train_step(model, shape, pctx, **u["schedule"])
+        params, opt, _ = ts.fn(params, adamw_init(params), batch)
+        res["params"], res["m"], res["v"] = (_numpy(t) for t in
+                                             (params, opt.m, opt.v))
+        engine = ServingEngine(cfg, params=params_from_jax(
+            u["params"], cfg, device="cpu"), device="cpu", slots=2,
+            max_seq=u["max_seq"], block_size=4, prefill_chunk=4,
+            psum_mode="ina", check=True, group=group)
+        report = engine.run([Request(rid=f"r{i}", prompt_len=len(p),
+                                     max_new=u["gen"], prompt=tuple(p))
+                             for i, p in enumerate(u["prompts"])])
+        res["engine"] = report.tokens()
+        out[label] = res
+    return out
 
 
 def tp_family_rank(rank, world, group, device, spec):
@@ -226,6 +279,8 @@ def tp_family_rank(rank, world, group, device, spec):
                                  for i, p in enumerate(spec["prompts"])])
             res["engine"][mode] = report.tokens()
         out[arch] = res
+    if "uneven" in spec:
+        out["uneven"] = uneven_rank(spec["uneven"], rank, world, group)
     return out
 
 

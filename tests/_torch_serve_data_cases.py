@@ -20,6 +20,10 @@ routes the global batch as one group, as the reference's serve step does
 The engine's paged step routes each slot as its own group, as the
 reference's (a ``vmap`` of a B=1 decode), so nothing is dropped there.
 Both must give the one-rank launcher's tokens.
+
+At ``(data 2, model 1)`` a decode of one row (one slot), which the hosts
+do not divide, is replicated over them (the reference's ``fit_specs``
+drops the batch's data axis): each rank's tokens equal one rank's.
 """
 import functools
 
@@ -49,6 +53,8 @@ BATCH, PROMPT, GEN = 4, 6, 5
 BIND = ("llama4-scout-17b-16e", "deepseek-v2-lite-16b")
 LOOPS = {"engine": [], "legacy": ["--legacy-loop"]}
 BIND_ROWS = {"engine": 16, "legacy": 32}
+#: a batch (slots) that data 2 does not divide: replicated over the hosts
+REPLICATED_ROWS = 1
 
 
 def argv(arch: str, name: str = None, rows: int = BATCH,
@@ -119,12 +125,25 @@ def one_rank_bound(arch: str, loop: str) -> tuple:
 
 
 @functools.cache
+def one_rank_rows(loop: str) -> list:
+    """The one-rank launcher's tokens of the dense family at
+    :data:`REPLICATED_ROWS` requests."""
+    args = launch_serve.build_parser().parse_args(
+        argv(DENSE, rows=REPLICATED_ROWS, loop=loop))
+    return launch_serve._serve(args, ARCHS[DENSE].reduced())
+
+
+@functools.cache
 def port(name: str) -> list:
     spec = {"mesh": MESHES[name],
             "archs": {a: {"argv": argv(a, name), "params": _params(a)}
                       for a in FAMILIES},
             "bound": {(a, loop): argv(a, name, BIND_ROWS[loop], loop)
                       for a in BIND for loop in LOOPS}}
+    if name == "d2":
+        spec["bound"].update({
+            ("replicated", loop): argv(DENSE, name, REPLICATED_ROWS, loop)
+            for loop in LOOPS})
     return mesh.spawn(W.serve_data_rank, mesh.RankMesh(*MESHES[name]).size,
                       "cpu", args=(spec,))
 
@@ -147,3 +166,13 @@ def check_bound(name: str, arch: str, loop: str) -> None:
     assert (dropped > 0) == (loop == "legacy")
     for rank in port(name):
         assert rank[arch, loop] == want
+
+
+def check_replicated(name: str, loop: str) -> None:
+    """A batch of :data:`REPLICATED_ROWS` (one row, one slot), which the
+    hosts do not divide, is replicated over them: every rank decodes the
+    whole batch, routed as one host's, and its tokens equal one rank's."""
+    want = one_rank_rows(loop)
+    assert len(want) == REPLICATED_ROWS
+    for rank in port(name):
+        assert rank["replicated", loop] == want

@@ -21,8 +21,13 @@ derived here.
   rank's parameters, AdamW state, batch and cache, exactly;
 * at 16 x 16: llama3-8b's train and decode cells complete (the train
   cell's launches the derived ones, its collectives the FSDP gathers and
-  the gradient reductions), qwen2-1.5b's cells fail with the port's
-  head-cut ValueError; the CLI writes both;
+  the gradient reductions); qwen2-1.5b's cells (12 query heads at a model
+  span of 16) complete under the uneven head cut, rank 0's launches and
+  argument bytes those of one query and one KV head a rank; qwen3-14b's
+  decode (rank 0: 3 query heads, 1 KV head) and zamba2-2.7b's
+  ``long_500k`` at 2 x 16 x 16 (its one row replicated over the 32
+  hosts) complete; the CLI writes results and a failure (a train batch
+  the hosts do not divide, which the port still refuses);
 * memory: each kernel's output (an ``empty`` buffer on ``meta``) is live
   from its creation, and a prefill's peak holds its logits;
 * a trace leaves nothing behind: a CPU train step after it equals one
@@ -46,7 +51,8 @@ from repro.configs.base import depth_units as jdepth_units
 from repro.parallel.tp import ParallelCtx as JParallelCtx
 
 from repro_torch.configs import ARCHS
-from repro_torch.configs.base import ShapeConfig, depth_scaled, depth_units
+from repro_torch.configs.base import (SHAPES, ShapeConfig, depth_scaled,
+                                      depth_units)
 from repro_torch.core import collectives as C
 from repro_torch.core import cost, remat
 from repro_torch.kernels import flash_attention as fa
@@ -398,14 +404,85 @@ def test_llama3_cells_complete_at_16x16():
     assert decode["mesh"] == {"data": 16, "model": 16}
 
 
+def _arguments(cfg, shape: ShapeConfig, mesh: RankMesh, rows: int) -> int:
+    """Rank 0's argument bytes: its pieces of the parameters (with
+    AdamW's m, v and step for train) and its rows of the batch (int32
+    tokens; labels for train), and for decode its cache."""
+    model = get_model(cfg)
+    world = (mesh.span("data"), mesh.span("model"))
+    train = shape.kind == "train"
+    pieces = sharding.shard_params(model.init(device="meta", masters=train),
+                                   cfg, (0, 0), world)
+    # a storage a leaf: a piece of zamba2's w_in is a view of rows padded
+    # to a multiple of 8 elements (sharding._take_segments)
+    stored = sum(t.untyped_storage().nbytes()
+                 for t in torch.utils._pytree.tree_leaves(pieces))
+    if train:
+        return 3 * stored + 4 + 2 * rows * shape.seq_len * 4
+    want = stored + rows * (shape.seq_len if shape.kind ==
+                                     "prefill" else 2) * 4
+    if shape.kind == "decode":
+        want += _nbytes(model.init_cache(rows, shape.seq_len, device="meta",
+                                         world=world[1]))
+    return want
+
+
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 def test_qwen2_cells_fail_with_the_head_cut(shape):
-    with pytest.raises(ValueError, match="16 ranks do not divide 12"):
-        dryrun.run_cell(QWEN2, shape, make_production_mesh(),
-                        roofline=False, verbose=False)
+    """qwen2-1.5b's 12 query and 2 KV heads at a model span of 16 used to
+    refuse the cut; under the uneven head cut rank 0 holds one query head
+    and the KV head it reads (ranks 12-15 none), and the cell completes:
+    its launches are one step's of the derived count (7 products a layer
+    and the head; flash once a layer, twice in training) and its argument
+    bytes its pieces, AdamW state of real heads only."""
+    cfg, mesh = ARCHS[QWEN2], make_production_mesh()
+    assert sharding.local_heads(cfg, 16) == (1, 1)
+    assert [sharding.local_heads(cfg, 16, rank=r)[0] for r in range(16)] \
+        == [1] * 12 + [0] * 4
+    r = dryrun.run_cell(QWEN2, shape, mesh, roofline=False, verbose=False)
+    layers, kind = cfg.n_layers, SHAPES[shape].kind
+    launches = {k: v["launches"] for k, v in r["kernels"].items()}
+    products = 7 * layers + 1
+    want = {"train": {"ina_matmul": 3 * products + 7 * layers,
+                      "flash_attention": 2 * layers},
+            "prefill": {"ina_matmul": products, "flash_attention": layers},
+            "decode": {"ina_matmul": products}}[kind]
+    assert launches == want
+    rows = SHAPES[shape].global_batch // 16
+    assert r["memory"]["argument_bytes"] == \
+        _arguments(cfg, SHAPES[shape], mesh, rows)
+    pieces = sharding.shard_params(get_model(cfg).init(device="meta"), cfg,
+                                   (0, 0), (16, 16))
+    hd = cfg.resolved_head_dim
+    attn = pieces["layers"]["attn"]
+    assert attn["wq"].shape[-1] == attn["wk"].shape[-1] == hd
+    assert attn["wo"].shape[-2] == hd
 
 
-def test_cli_writes_results_and_failures(tmp_path):
+@pytest.mark.parametrize("arch,shape,multi", [
+    ("qwen3-14b", "decode_32k", False), ("zamba2-2.7b", "long_500k", True)])
+def test_uneven_cells_complete(arch, shape, multi):
+    """qwen3-14b's decode at 16 x 16: rank 0 holds query heads 0-2 and
+    the one KV head they read (3:1), its cache that KV head; zamba2-2.7b's
+    ``long_500k`` (one row) at 2 x 16 x 16: the row replicated over the
+    32 hosts, rank 0's arguments its FSDP pieces, the whole row and a
+    cache of that row."""
+    cfg, mesh = ARCHS[arch], make_production_mesh(multi_pod=multi)
+    r = dryrun.run_cell(arch, shape, mesh, roofline=False, verbose=False)
+    assert r["flops_per_device"] > 0
+    assert r["memory"]["argument_bytes"] == \
+        _arguments(cfg, SHAPES[shape], mesh, 1 if multi else 8)
+    launches = {k: v["launches"] for k, v in r["kernels"].items()}
+    if arch == "qwen3-14b":
+        assert sharding.head_split(cfg, 0, 16) == (range(3), range(1))
+        assert sharding.kv_index(cfg, 1, 16) == (0, 0, 1)
+        assert sharding.cache_heads(cfg, 1, 16) == 3
+        assert launches == {"ina_matmul": 7 * cfg.n_layers + 1}
+    else:
+        assert r["devices"] == 512
+
+
+def test_cli_writes_results_and_failures(tmp_path, monkeypatch):
     out = tmp_path / "dry.json"
     assert dryrun.main(["--arch", "llama3-8b", "--shape", "decode_32k",
                         "--no-roofline", "--out", str(out)]) == 0
@@ -417,10 +494,15 @@ def test_cli_writes_results_and_failures(tmp_path):
                 "collective_bytes_per_device", "memory", "kernels"):
         assert key in r, key
     bad = tmp_path / "bad.json"
-    assert dryrun.main(["--arch", QWEN2, "--shape", "decode_32k",
+    # a train batch the 16 hosts do not divide: the train step still
+    # refuses it (the reference's fit_specs would move data to the
+    # sequence)
+    monkeypatch.setitem(SHAPES, "train_8", ShapeConfig("train_8", 4096, 8,
+                                                       "train"))
+    assert dryrun.main(["--arch", QWEN2, "--shape", "train_8",
                         "--no-roofline", "--out", str(bad)]) == 1
     fail = json.loads(bad.read_text())["failures"]
-    assert len(fail) == 1 and "do not divide 12" in fail[0]["error"]
+    assert len(fail) == 1 and "does not divide over 16" in fail[0]["error"]
 
 
 # --------------------------------------------------------------------------- #

@@ -119,6 +119,17 @@ def test_fault_layer_and_executors_are_covered(module):
     assert path.with_suffix(".py") in FILES
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.analysis.lint", "repro_torch.analysis.__main__"])
+def test_linter_and_analysis_cli_are_covered(module):
+    """The determinism linter and the ``python -m repro_torch.analysis``
+    CLI are among the modules imported with JAX blocked and scanned for
+    banned imports."""
+    assert module in MODULES
+    path = ROOT / "src" / Path(*module.split("."))
+    assert path.with_suffix(".py") in FILES
+
+
 def test_scan_catches_banned_imports():
     src = ("import jax.numpy as jnp\nfrom repro.configs import ARCHS\n"
            "import repro\nfrom repro_torch import convert\nimport torch\n")

@@ -431,7 +431,10 @@ def test_world_above_one_raises(pair):
     """The families are tensor-parallel (``tests/test_torch_tp_families.py``
     holds them against the reference): at world 2 a rank's cache holds its
     KV heads (llama4) or the whole latent (MLA) and its shard half the
-    routed experts; a world that does not divide the 4 heads raises."""
+    routed experts.  At world 8, which does not divide the 4 heads, the
+    moe family takes the uneven head cut (rank 0's cache one KV head, rank
+    4's none) and its shard raises on the 4 experts; MLA raises on the
+    heads."""
     jm, jp, m, tp = pair
     cache = m.init_cache(2, 8, device="cpu", world=2)
     if m.cfg.family == "moe":
@@ -443,6 +446,13 @@ def test_world_above_one_raises(pair):
         m.cfg.moe.num_experts // 2
     assert torch.equal(shard["layers"]["mlp"]["router"],
                        tp["layers"]["mlp"]["router"])
+    if m.cfg.family == "moe":
+        for rank, kvh in ((0, 1), (4, 0)):
+            cache = m.init_cache(2, 8, device="cpu", world=8, rank=rank)
+            assert cache["k"].shape[3] == kvh
+        with pytest.raises(ValueError, match="do not divide layers/mlp/w_"):
+            shard_params(tp, m.cfg, 0, 8)
+        return
     with pytest.raises(ValueError, match="do not divide"):
         m.init_cache(2, 8, device="cpu", world=8)
     with pytest.raises(ValueError, match="do not divide"):

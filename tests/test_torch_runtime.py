@@ -395,9 +395,10 @@ def test_launch_train_refuses_model_parallel(tmp_path):
     its heads (tests/test_torch_tp_train.py,
     tests/test_torch_tp_train_families.py,
     tests/test_torch_tp_train_hybrid_media.py); the launcher refuses any
-    other before a rank starts: 3 ranks for the reduced qwen2's 4 query
-    heads.  zamba2, whose training is ported (item 5.7), trains at 2: its
-    loss falls over 3 steps of gloo ranks."""
+    world a rank's cut would refuse, before a rank starts: 3 ranks for the
+    reduced qwen2 (its 4 query heads take the uneven head cut, but 3 do
+    not divide its d_ff of 128).  zamba2, whose training is ported (item
+    5.7), trains at 2: its loss falls over 3 steps of gloo ranks."""
     with pytest.raises(ValueError, match="do not divide"):
         launch_train.main(ARGV + ["--steps", "2", "--ckpt-dir",
                                   str(tmp_path), "--model-parallel", "3"])

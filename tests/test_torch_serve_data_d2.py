@@ -2,7 +2,8 @@
 (``tests/_torch_serve_data_cases.py``): each rank's tokens equal the
 one-rank launcher's under ``serve_replicated_params`` off and on, and
 the dense family's the reference's greedy loop; the MoE families' at
-enough requests that capacity binds."""
+enough requests that capacity binds; a batch of one row, which data 2
+does not divide, replicated over the hosts, one rank's tokens."""
 import pytest
 
 import _torch_serve_data_cases as D
@@ -20,6 +21,14 @@ def test_tokens_equal_one_rank(arch, replicated):
 @pytest.mark.parametrize("arch", D.BIND)
 def test_moe_routing_where_capacity_binds_equals_one_rank(arch, loop):
     D.check_bound("d2", arch, loop)
+
+
+@pytest.mark.parametrize("loop", list(D.LOOPS))
+def test_a_batch_the_data_ranks_do_not_divide_is_replicated(loop):
+    """A decode at batch 1 over data 2 (the ranks' ``serve_rank``, below
+    the launcher's refusal): every rank runs the row, and its tokens equal
+    one rank's, on the engine and on the legacy loop."""
+    D.check_replicated("d2", loop)
 
 
 @pytest.mark.parametrize("legacy", [False, True])

@@ -9,7 +9,10 @@ each psum mode, and at world 2 also ``rs_seq`` under each mode and
 the reference's unsharded ``forward``, ``prefill`` and ``decode_step``
 within the port's model tolerance (rtol = atol = 1e-4,
 ``tests/test_torch_models.py``), and the engine's greedy tokens at worlds 2
-and 4 must equal world 1's.
+and 4 must equal world 1's.  The world-4 spawn also runs the uneven head
+cut (``tests/_torch_uneven_cases.py``): the reduced config at 6 and 10
+query heads, whose forward, decode and gradient must match the
+reference's, and whose AdamW state holds each rank's real heads only.
 """
 import functools
 
@@ -32,6 +35,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.parallel import sharding
 
 import _torch_dist_workers as W
+import _torch_uneven_cases as U
 
 ARCH = "qwen2-1.5b"
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -98,6 +102,8 @@ def port(world: int) -> list:
     spec = {**spec, "cases": cases(world)}
     if world != 2:
         del spec["combine"]
+    if world == U.WORLD:
+        spec["uneven"] = U.specs(ARCH)
     return mesh.spawn(W.tp_rank, world, "cpu", args=(spec,))
 
 
@@ -118,6 +124,23 @@ def test_tp_logits_match_unsharded_reference(world, case, phase):
         for g, r in zip(got, ref):
             assert g.shape == r.shape
             np.testing.assert_allclose(g, r, **TOL)
+
+
+@pytest.mark.parametrize("phase", U.PHASES)
+@pytest.mark.parametrize("label", list(U.HEADS))
+def test_uneven_head_cut_matches_unsharded_reference(label, phase):
+    """The reduced qwen2 set to 6 (and 10) query heads and 2 KV heads at
+    world 4, in the world-4 spawn: ranks with two heads, one straddling
+    both KV heads, one with none (at 10: three slots, rank 1's K/V
+    expanded to one head a query head); forward, decode and the
+    gradient against the reference's unsharded model, the engine's
+    tokens against one rank's (``tests/_torch_uneven_cases.py``)."""
+    U.check(ARCH, label, phase, port(U.WORLD))
+
+
+@pytest.mark.parametrize("label", list(U.HEADS))
+def test_uneven_head_cut_adamw_holds_real_heads(label):
+    U.check_adamw(ARCH, label, port(U.WORLD))
 
 
 @pytest.mark.parametrize("mode", CLI_PSUM_MODES)
@@ -187,17 +210,29 @@ def test_shards_concatenate_to_the_params(arch, world):
 
 def test_head_split_whole_heads():
     """qwen2-1.5b (12 query heads, 2 KV heads) at world 4: 3 query heads a
-    rank and KV head rank // 2; world 2: one KV head each; a world that
-    does not divide the query heads raises."""
+    rank and KV head rank // 2; world 2: one KV head each.  A world that
+    does not divide the query heads takes the uneven head cut (the dense
+    family): ``ceil(12/world)`` query-head slots a rank, the real heads
+    only, the KV heads they read (at 5: rank 2's heads 6-8 read KV heads
+    1 only, at 8 rank 2's 4 and 5 read KV head 0); a family without it (the
+    vlm's 32 heads at 5 and 6) raises, naming the family."""
     cfg = ARCHS["qwen2-1.5b"]
     for r in range(4):
         q, kv = sharding.head_split(cfg, r, 4)
         assert (list(q), list(kv)) == ([3 * r, 3 * r + 1, 3 * r + 2], [r // 2])
     assert [list(sharding.head_split(cfg, r, 2)[1]) for r in (0, 1)] == [[0], [1]]
     assert sharding.local_heads(ARCHS["llama3-8b"], 4) == (8, 2)
-    for world in (5, 8):
-        with pytest.raises(ValueError, match="do not divide"):
-            sharding.head_split(cfg, 0, world)
+    five = [tuple(map(list, sharding.head_split(cfg, r, 5)))
+            for r in range(5)]
+    assert five == [([0, 1, 2], [0]), ([3, 4, 5], [0]), ([6, 7, 8], [1]),
+                    ([9, 10, 11], [1]), ([], [])]
+    eight = [tuple(map(list, sharding.head_split(cfg, r, 8)))
+             for r in range(8)]
+    assert eight == [([2 * r, 2 * r + 1], [r // 3]) for r in range(6)] + \
+        [([], [])] * 2
+    for world in (5, 6):
+        with pytest.raises(ValueError, match="do not divide.*vlm family"):
+            sharding.head_split(ARCHS["llama-3.2-vision-11b"], 0, world)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "llama3-8b", "rwkv6-7b"])

@@ -20,7 +20,9 @@ too (which world 4 does not divide: every row site psums), the
 forward's collective calls as the layers derive them, and a stream of
 [B, S/P, D] between the layers.  The engine seats prompts token by token
 and decodes one token a step, so it cuts no step and takes no
-``rs_seq``.  In
+``rs_seq``.  The world-4 spawn also runs the moe family's uneven head cut
+(``tests/_torch_uneven_cases.py``: 6 and 10 query heads, 2 KV heads),
+forward, decode and gradient against the reference's.  In
 this process: the shards concatenate back, each leaf's shard at the
 published widths is the cut the sharding rules state, and the launcher
 serves each family at two ranks with one rank's tokens.  The hybrid, vlm
@@ -53,6 +55,7 @@ from repro_torch.parallel.tp import ParallelCtx
 from repro_torch.plan.builder import collect_psum_sites
 
 import _torch_dist_workers as W
+import _torch_uneven_cases as U
 
 RWKV, LLAMA4, DEEPSEEK = ("rwkv6-7b", "llama4-scout-17b-16e",
                           "deepseek-v2-lite-16b")
@@ -117,7 +120,25 @@ def port(world: int) -> list:
             "cases": cases(world), "engine": CLI_PSUM_MODES,
             "max_seq": MAX_SEQ, "prompts": PROMPTS, "gen": GEN,
             "short": SHORT}
+    if world == U.WORLD:
+        spec["uneven"] = U.specs(LLAMA4)
     return mesh.spawn(W.tp_family_rank, world, "cpu", args=(spec,))
+
+
+@pytest.mark.parametrize("phase", U.PHASES)
+@pytest.mark.parametrize("label", list(U.HEADS))
+def test_uneven_head_cut_moe_matches_unsharded_reference(label, phase):
+    """The reduced llama4 (moe) set to 6 (and 10) query heads and 2 KV
+    heads at world 4, in the world-4 spawn (its 4 experts one a rank):
+    forward, decode and the gradient against the reference's unsharded
+    model, the engine's tokens against one rank's
+    (``tests/_torch_uneven_cases.py``)."""
+    U.check(LLAMA4, label, phase, port(U.WORLD))
+
+
+@pytest.mark.parametrize("label", list(U.HEADS))
+def test_uneven_head_cut_moe_adamw_holds_real_heads(label):
+    U.check_adamw(LLAMA4, label, port(U.WORLD))
 
 
 @pytest.mark.parametrize("phase", ["forward", "decode"])
@@ -381,11 +402,17 @@ def test_rank_projections_are_the_shards_products(arch, world):
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_tp_family_world_must_divide_the_heads(arch):
     """A world that does not divide the heads raises, rather than hand a
-    rank part of a head."""
+    rank part of a head.  The moe family's attention takes the uneven
+    head cut instead (rank 0's cache one KV head), and its shard raises on
+    the 4 experts."""
     cfg = ARCHS[arch].reduced()
     full = get_model(cfg).init(device="meta")
     with pytest.raises(ValueError, match="do not divide"):
         sharding.shard_params(full, cfg, 0, 8)
+    if cfg.family in sharding.UNEVEN_HEAD_FAMILIES:
+        cache = get_model(cfg).init_cache(1, 8, device="meta", world=8)
+        assert cache["k"].shape[3] == 1
+        return
     with pytest.raises(ValueError, match="do not divide"):
         get_model(cfg).init_cache(1, 8, device="meta", world=8)
 

@@ -36,6 +36,7 @@ from repro_torch.kernels.ina_matmul import (InaMatmul, ina_matmul,
                                             ina_matmul_plain)
 from repro_torch.models.api import get_model
 from repro_torch.optim import adamw
+from repro_torch.parallel.sharding import shard_params
 from repro_torch.parallel.steps import build_train_step, loss_and_grads
 from repro_torch.parallel.tp import ParallelCtx
 
@@ -412,20 +413,25 @@ def test_build_train_step_raises_past_one_rank():
     """Past one rank every family trains (tests/test_torch_tp_train.py,
     tests/test_torch_tp_train_families.py,
     tests/test_torch_tp_train_hybrid_media.py) where the world divides its
-    heads: 3 ranks for the reduced qwen2's 4 query heads raise, and so do
-    3 for zamba2's shared block of 4 heads, whose step builds at 2."""
+    heads, and the dense and moe families also where it does not (the
+    uneven head cut): the step builds at 3 ranks for the reduced qwen2's
+    4 query heads, whose parameters' cut then refuses its d_ff of 128;
+    3 ranks for zamba2's shared block of 4 heads raise, naming the
+    family, whose step builds at 2."""
     class ThreeRanks(ParallelCtx):
         world = property(lambda self: 3)
     m = get_model(ARCHS["qwen2-1.5b"].reduced())
-    with pytest.raises(ValueError, match="do not divide"):
-        build_train_step(m, ShapeConfig("t", 8, 1, "train"), ThreeRanks())
+    shape = ShapeConfig("t", 8, 1, "train")
+    assert build_train_step(m, shape, ThreeRanks()).shape == shape
+    with pytest.raises(ValueError, match="do not divide layers/mlp/w_up"):
+        shard_params(m.init(device="meta", masters=True), m.cfg, 0, 3)
 
     class TwoRanks(ParallelCtx):
         world = property(lambda self: 2)
     hybrid = get_model(ARCHS["zamba2-2.7b"].reduced())
     shape = ShapeConfig("t", 8, 1, "train")
     assert build_train_step(hybrid, shape, TwoRanks()).shape == shape
-    with pytest.raises(ValueError, match="do not divide"):
+    with pytest.raises(ValueError, match="do not divide.*hybrid family"):
         build_train_step(hybrid, shape, ThreeRanks())
 
 
